@@ -1,0 +1,109 @@
+"""The port's CUDA kernels on the card: shapes the render path's smoke run
+does not reach (ragged last tiles, odd samples per ray), the launch
+counters, the alignment check, and a small render on both devices.
+
+Needs a CUDA card and nvcc; skipped without them.  This file imports no
+jax, so it also runs on a machine without it:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from rsn.configs import ModelConfig, PipelineConfig, TrainerConfig
+from rsn_torch.data.synthetic import make_synthetic_cameras
+from rsn_torch.engine.trainer import render_image
+from rsn_torch.kernels import field_forward as ff
+from rsn_torch.models.field import Field
+
+pytestmark = pytest.mark.cuda
+ATOL = 2e-2  # bf16 outputs: two ulps near 1
+
+
+@pytest.fixture(scope="module")
+def field():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return Field(torch.Generator().manual_seed(3)).cuda().eval()
+
+
+def _inputs(R: int, S: int, seed: int = 0):
+    g = torch.Generator().manual_seed(seed)
+    n = R * S
+    mc = torch.zeros(n, 16)
+    mc[:, :3] = torch.rand(n, 3, generator=g) * 3.6 - 1.8
+    mc[:, 3:6] = torch.rand(n, 3, generator=g) * 3e-3
+    mc[: min(n, 8), 3:6] = 0.0  # undamped top octaves
+    dirs = torch.nn.functional.normalize(torch.randn(R, 3, generator=g), dim=-1)
+    return mc.cuda(), dirs.cuda()
+
+
+@pytest.mark.parametrize("R,S", [(1, 1), (3, 29), (5, 64), (7, 200),
+                                 (130, 128)])
+def test_kernels_match_plain_versions(field, R, S):
+    mc, dirs = _inputs(R, S)
+    g = ff.mid_g_bands(field, dirs)
+    p3, pd = ff.pack_params_v3f(field), ff.pack_params_density(field)
+    k1 = ff.field_forward_v3(p3, mc, g, S)
+    k2 = ff.field_forward_density(pd, mc)
+    torch.cuda.synchronize()
+    r1 = ff.field_forward_v3_plain(p3, mc, g, S)
+    r2 = ff.field_forward_density_plain(pd, mc)
+    assert k1.shape == (R * S, 16) and k2.shape == (R * S, 8)
+    assert torch.isfinite(k1.float()).all()
+    assert float((k1[:, :14].float() - r1[:, :14].float()).abs().max()) <= ATOL
+    assert torch.all(k1[:, 14:] == 0)
+    assert float((k2.float() - r2.float()).abs().max()) <= ATOL
+    assert torch.equal(k2[:, 0], k1[:, ff.V3_DENSITY])
+
+
+def test_launch_counts_follow_kernel_launches(field):
+    mc, dirs = _inputs(4, 16)
+    g = ff.mid_g_bands(field, dirs)
+    ff.reset_launch_counts()
+    ff.field_forward_v3(ff.pack_params_v3f(field), mc, g, 16)
+    ff.field_forward_density(ff.pack_params_density(field), mc)
+    ff.field_forward_density(ff.pack_params_density(field), mc)
+    ff.field_forward_density_plain(ff.pack_params_density(field), mc)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES == {"field_forward_v3": 1,
+                           "field_forward_density": 2}
+
+
+def test_misaligned_operand_raises(field):
+    mc, _ = _inputs(2, 32)
+    packed = list(ff.pack_params_density(field))
+    shifted = torch.empty(packed[16].numel() + 1, dtype=torch.bfloat16,
+                          device="cuda")[1:].view_as(packed[16])
+    shifted.copy_(packed[16])
+    packed[16] = shifted
+    with pytest.raises(ValueError, match="aligned"):
+        ff.field_forward_density(packed, mc)
+
+
+def test_small_render_cpu_matches_gpu(field):
+    mcfg = ModelConfig(num_coarse_samples=16, num_importance_samples=16,
+                       num_reflect_coarse_samples=16,
+                       num_reflect_importance_samples=16,
+                       compute_dtype="bfloat16")
+    config = TrainerConfig(pipeline=PipelineConfig(model=mcfg))
+    cams = make_synthetic_cameras(num_cameras=2, H=12, W=12)
+    field_cpu = Field()
+    field_cpu.load_state_dict({k: v.cpu() for k, v in
+                               field.state_dict().items()})
+    outs = [render_image(f, cams.to(dev), 1, config, product_only=po)
+            for po in (True, False)
+            for f, dev in ((field_cpu, "cpu"), (field, "cuda"))]
+    for cpu, gpu in (outs[0:2], outs[2:4]):
+        agree = cpu["mask"] == gpu["mask"]
+        assert agree.mean() >= 0.99
+        for k in set(cpu) - {"mask"}:
+            diff = np.abs(cpu[k] - gpu[k])[agree[..., 0]]
+            if k.startswith("depth"):
+                # a median depth is a bin midpoint: bf16 noise can move it
+                # by a whole bin on a few rays
+                assert np.mean(diff <= 0.05) >= 0.9, k
+            else:
+                assert diff.max() <= 0.05, k
