@@ -5,7 +5,8 @@ around the scene from a run dir to PNG frames.
         --num-frames N [--max-images M] [--downscale-factor F] \
         [--output-dir DIR]
 
-Renders on the CUDA card when torch sees one, on the CPU otherwise.
+Renders on the CUDA card, and raises when torch sees none; a Python
+caller may ask for the CPU with main(argv, device="cpu").
 
 Ported: the orbit mode on runs whose dataparser is `synthetic`.  The
 split-panel mode, the path / interpolate / spiral modes and the other
@@ -68,10 +69,11 @@ def orbit_cameras(reference_cameras: Cameras, num_frames: int = 60,
                    cy=full(ref.cy), width=ref.width, height=ref.height)
 
 
-def main(argv=None) -> int:
+def main(argv=None, device=None) -> int:
+    """The CLI; device: the caller's choice of device (default the card)."""
     import argparse
 
-    from rsn_torch.cli.run_io import load_run_full
+    from rsn_torch.cli.run_io import entry_device, load_run_full
     from rsn_torch.data.cameras import rescale_cameras
     from rsn_torch.data.synthetic import load_cameras
     from rsn_torch.engine.trainer import preferred_eval_chunk, render_image
@@ -93,7 +95,7 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             f"--mode {ns.mode}: ROADMAP Queue 1 step 12 (render modes with "
             "dataset panels) is not ported yet; use --mode orbit")
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = entry_device(device)
 
     field, config, _, _ = load_run_full(ns.load_dir, device)
     dm = config.pipeline.datamanager

@@ -10,7 +10,7 @@ import math
 import numpy as np
 import torch
 
-from rsn.core import _sh_table
+from rsn_torch.core import _sh_table
 
 NUM_FREQUENCIES = 16
 MIN_FREQ_EXP = 0.0

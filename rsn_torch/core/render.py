@@ -1,9 +1,9 @@
-"""Volumetric compositing renderers (port of rsn.core.render, eval use).
+"""Volumetric compositing renderers (port of rsn.core.render).
 
 Same semantics as the JAX module: nerfstudio's RGB / accumulation /
-median-depth / normals renderers plus the (R, S) plane-layout variants
-the kernel branch composites with.  `safe_sqrt` is the forward only; its
-clamped backward comes with the training slice.
+median-depth / normals renderers, the (R, S) plane-layout variants the
+kernel branch composites with, the loss-side background blend, and
+`safe_sqrt` with its clamped backward.
 """
 from __future__ import annotations
 
@@ -121,13 +121,45 @@ def render_depth_median_planes(weights: torch.Tensor, starts: torch.Tensor,
     return torch.minimum(depth, steps[..., -1:])
 
 
+def blend_background_for_loss_computation(pred_image: torch.Tensor,
+                                          pred_accumulation: torch.Tensor,
+                                          gt_image: torch.Tensor,
+                                          background_color=None):
+    """RGBRenderer.blend_background_for_loss_computation for a fixed
+    background (white by default): an RGBA ground truth is blended
+    against it; the prediction is returned unchanged."""
+    if gt_image.shape[-1] == 4:
+        bg = (white(gt_image.device) if background_color is None
+              else background_color)
+        rgb, alpha = gt_image[..., :3], gt_image[..., 3:]
+        gt_image = rgb * alpha + bg * (1.0 - alpha)
+    return pred_image, gt_image
+
+
+class SafeSqrt(torch.autograd.Function):
+    """sqrt with an exact forward and the backward clamped at
+    1 / (2 max(sqrt(x), 1e-6)): a live zero (a collapsed roughness makes
+    the reflected cone's pixel area 0) would otherwise send an infinite
+    cotangent into every parameter (rsn.core.render.safe_sqrt)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.sqrt(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, t):
+        (y,) = ctx.saved_tensors
+        return t / (2.0 * y.clamp_min(1e-6))
+
+
 def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
-    """sqrt (forward of rsn's safe_sqrt; its clamped backward is not
-    needed at eval)."""
-    return torch.sqrt(x)
+    return SafeSqrt.apply(x)
 
 
 def normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    """x / max(||x||, eps) along the last axis."""
+    """x / max(||x||, eps) along the last axis; the norm goes through
+    safe_sqrt, so the gradient stays finite at v = 0."""
     n = safe_sqrt((v * v).sum(dim=-1, keepdim=True))
     return v / n.clamp_min(eps)

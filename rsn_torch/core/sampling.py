@@ -1,8 +1,8 @@
 """Inverse-CDF (PDF) importance resampling (port of rsn.core.sampling).
 
 nerfstudio PDFSampler semantics: histogram padding 0.01, zero-weight eps
-guard 1e-5, midpoint u's (eval; the stratified training u's come with the
-training slice), searchsorted(side="right") into the
+guard 1e-5, stratified u's drawn from an explicit torch.Generator during
+training / midpoint u's at eval, searchsorted(side="right") into the
 CDF with the index clamps to [0, S], linear re-interpolation inside the
 existing spacing-domain bins.  The JAX package's TPU "reduce" form
 builds an (R, U, S+1) compare matrix (about 1 GB per temporary at a
@@ -10,6 +10,8 @@ builds an (R, U, S+1) compare matrix (about 1 GB per temporary at a
 which selects the same bins.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -21,9 +23,10 @@ EPS = 1e-5
 
 
 def pdf_sample(ray_bundle: RayBundle, ray_samples: RaySamples,
-               weights: torch.Tensor, spacing: Spacing,
-               num_samples: int) -> RaySamples:
-    """Resample `num_samples` bins per ray from (R, S, 1) `weights`."""
+               weights: torch.Tensor, spacing: Spacing, num_samples: int,
+               generator: Optional[torch.Generator] = None) -> RaySamples:
+    """Resample `num_samples` bins per ray from (R, S, 1) `weights`;
+    generator: the stratified jitter (training), None for the midpoints."""
     num_bins = num_samples + 1
     w = weights[..., 0] + HISTOGRAM_PADDING  # (R, S)
     w_sum = w.sum(dim=-1, keepdim=True)
@@ -38,8 +41,13 @@ def pdf_sample(ray_bundle: RayBundle, ray_samples: RaySamples,
 
     u = torch.linspace(0.0, 1.0 - 1.0 / num_bins, num_bins,
                        device=cdf.device)
-    u = (u.expand(*cdf.shape[:-1], num_bins)
-         + 1.0 / (2 * num_bins)).contiguous()
+    u = u.expand(*cdf.shape[:-1], num_bins)
+    if generator is not None:
+        u = u + torch.rand(u.shape, generator=generator, device=cdf.device,
+                           dtype=cdf.dtype) / num_bins
+    else:
+        u = u + 1.0 / (2 * num_bins)
+    u = u.contiguous()
 
     existing_bins = torch.cat([ray_samples.spacing_starts[..., 0],
                                ray_samples.spacing_ends[..., -1:, 0]],

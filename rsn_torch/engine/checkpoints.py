@@ -2,8 +2,11 @@
 rsn.engine.checkpoints).
 
 A checkpoint is `checkpoints/step-XXXXXXXXX.pt` (torch.save of
-{"step", "field"}); the run's config sits beside it as config.json,
-readable by rsn.cli.run_io.load_config.  `params_from_rsn` maps rsn's
+{"step", "field"}, and from a trainer also "optimizer", "scheduler" and
+"trainer": the optimizer and schedule state and the host-side trainer
+state, such as the adaptive reflect-fraction controller); the run's
+config sits beside it as config.json, readable by both packages'
+load_config.  `params_from_rsn` maps rsn's
 params pytree (numpy, (in, out) weights) to the port's Field state dict
 ((out, in) weights) and `params_to_rsn` maps it back.
 """
@@ -73,12 +76,25 @@ def params_to_rsn(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return tree
 
 
-def save_checkpoint(ckpt_dir: str, step: int,
-                    field: torch.nn.Module) -> str:
+def save_checkpoint(ckpt_dir: str, step: int, field: torch.nn.Module,
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    scheduler=None,
+                    trainer_state: Optional[Dict[str, Any]] = None) -> str:
+    """Write step-XXXXXXXXX.pt (atomically: a temporary file, then a
+    rename) and return its path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"step-{step:09d}.pt")
-    state = {k: v.detach().cpu() for k, v in field.state_dict().items()}
-    torch.save({"step": step, "field": state}, path)
+    state: Dict[str, Any] = {
+        "step": step,
+        "field": {k: v.detach().cpu() for k, v in field.state_dict().items()}}
+    if optimizer is not None:
+        state["optimizer"] = optimizer.state_dict()
+    if scheduler is not None:
+        state["scheduler"] = scheduler.state_dict()
+    if trainer_state is not None:
+        state["trainer"] = trainer_state
+    torch.save(state, path + ".tmp")
+    os.replace(path + ".tmp", path)
     return path
 
 
@@ -91,12 +107,13 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """-> {"step": int, "field": state dict on the CPU}."""
+    """-> {"step": int, "field": state dict on the CPU, and what the
+    writer added ("optimizer", "scheduler", "trainer")}."""
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def dump_config(run_dir: str, config) -> None:
-    """config.json of a run (the layout rsn.cli.run_io.load_config reads)."""
+    """config.json of a run (the layout both packages' load_config read)."""
     def to_dict(obj):
         if dataclasses.is_dataclass(obj):
             return {f.name: to_dict(getattr(obj, f.name))

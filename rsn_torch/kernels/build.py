@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-The sources under rsn_torch/csrc/ have a plain C interface; nvcc
-compiles them for sm_90a into one shared library, which is loaded with
-ctypes.  The build runs at first use, on the machine with the card, into
-rsn_torch/_build/ (git-ignored); the library's name carries a hash of
-the sources, so an edited source is rebuilt and a stale library is never
-loaded.  Nothing here runs at import time: the CPU test suite imports
-every module on a machine without nvcc.
+Each source under rsn_torch/csrc/ has a plain C interface; nvcc compiles
+it for sm_90a into its own shared library, which is loaded with ctypes.
+The sources are compiled in parallel (one nvcc per source, all started
+together).  The build runs at first use, on the machine with the card,
+into rsn_torch/_build/ (git-ignored); a library's name carries a hash of
+its source, the shared header and the flags, so an edited source is
+rebuilt and a stale library is never loaded.  Nothing here runs at
+import time: the CPU test suite imports every module on a machine
+without nvcc.
 """
 from __future__ import annotations
 
@@ -17,12 +19,13 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Tuple
+from typing import Dict, Tuple
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("field_forward.cu",)
+SOURCES = ("field_forward.cu", "field_train.cu")
+HEADERS = ("field_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,47 +39,76 @@ def find_nvcc() -> str:
                        "are built from source at first use")
 
 
-def _sources_digest() -> str:
+def _library_path(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in (source,) + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(f.read())
-    return h.hexdigest()[:16]
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
 
 
-def build_library() -> Tuple[str, str]:
-    """Compile the sources unless a library of the same digest exists.
-    -> (path to the .so, nvcc's log; empty when nothing was built)."""
-    path = os.path.join(BUILD_DIR, f"rsn_kernels-{_sources_digest()}.so")
-    if os.path.isfile(path):
-        return path, ""
+def build_library() -> Tuple[Dict[str, str], str]:
+    """Compile every source whose library is missing, all at once.
+    -> ({source: path to its .so}, nvcc's logs; empty when nothing was
+    built)."""
+    paths = {s: _library_path(s) for s in SOURCES}
+    todo = [s for s in SOURCES if not os.path.isfile(paths[s])]
+    if not todo:
+        return paths, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
-    return path, proc.stdout + proc.stderr
+    nvcc = find_nvcc()
+    jobs = []
+    for s in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, s)]
+        jobs.append((s, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for s, tmp, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"--- {s}\n{out}")
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, paths[s])  # atomic: no half-written library
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths, "\n".join(logs)
 
 
-@functools.lru_cache(maxsize=1)
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, with every entry
-    point's argtypes / restype declared."""
-    path, _ = build_library()
-    lib = ctypes.CDLL(path)
+def _declare(lib: ctypes.CDLL, source: str) -> None:
     vp, ptrs = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
-    lib.rsn_field_forward_v3.argtypes = [vp, vp, vp, ptrs, vp,
-                                         ctypes.c_longlong, ctypes.c_int, vp]
-    lib.rsn_field_forward_v3.restype = ctypes.c_int
-    lib.rsn_field_forward_density.argtypes = [vp, vp, ptrs, vp,
-                                              ctypes.c_longlong, vp]
-    lib.rsn_field_forward_density.restype = ctypes.c_int
+    ll, i32 = ctypes.c_longlong, ctypes.c_int
+    if source == "field_forward.cu":
+        lib.rsn_field_forward_v3.argtypes = [vp, vp, vp, ptrs, vp, ll, i32,
+                                             vp]
+        lib.rsn_field_forward_density.argtypes = [vp, vp, ptrs, vp, ll, vp]
+        fns = (lib.rsn_field_forward_v3, lib.rsn_field_forward_density)
+    else:
+        lib.rsn_field_forward_v6.argtypes = [vp, vp, vp, ptrs, vp, vp, ll,
+                                             i32, i32, i32, vp]
+        lib.rsn_field_backward_v5.argtypes = [vp, vp, vp, vp, vp, vp, ptrs,
+                                              vp, vp, vp, ll, i32, i32, vp]
+        lib.rsn_field_backward_v6.argtypes = [vp, vp, vp, vp, ptrs, vp, vp,
+                                              ll, i32, i32, vp]
+        fns = (lib.rsn_field_forward_v6, lib.rsn_field_backward_v5,
+               lib.rsn_field_backward_v6)
+    for fn in fns:
+        fn.restype = ctypes.c_int
     lib.rsn_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rsn_cuda_error_string.restype = ctypes.c_char_p
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(source: str = "field_forward.cu") -> ctypes.CDLL:
+    """Build (if needed) and load the library of one source, with every
+    entry point's argtypes / restype declared."""
+    paths, _ = build_library()
+    lib = ctypes.CDLL(paths[source])
+    _declare(lib, source)
     return lib

@@ -16,7 +16,7 @@ kernels share the device routines that produce it).
 Each wrapper checks its inputs, runs the plain version for CPU tensors
 and launches the CUDA kernel (rsn_torch/csrc/field_forward.cu) for CUDA
 tensors; it never falls back from one to the other.  `LAUNCHES` counts
-kernel launches per wrapper.
+kernel launches per wrapper (of this module and of field_train.py).
 """
 from __future__ import annotations
 
@@ -66,7 +66,11 @@ _HALF_PI = float(np.float32(np.pi / 2.0))
 _INV_2PI = 0.15915494309189535
 _HALF_LOG2E = 0.7213475204444817  # 0.5 / ln 2
 
-LAUNCHES = {"field_forward_v3": 0, "field_forward_density": 0}
+# launches per kernel wrapper, for every kernel of the port (the training
+# kernels' wrappers live in field_train.py)
+LAUNCHES = {"field_forward_v3": 0, "field_forward_density": 0,
+            "field_forward_v6": 0, "field_backward_v5": 0,
+            "field_backward_v6": 0}
 
 
 def reset_launch_counts() -> None:
@@ -77,12 +81,13 @@ def reset_launch_counts() -> None:
 # ---- packed operands ------------------------------------------------------
 
 def _w_in_out(layer: torch.nn.Linear) -> torch.Tensor:
-    return layer.weight.detach().t().float()
+    return layer.weight.t().float()
 
 
 def _trunk_operands(field: Field):
-    """bf16 trunk weights (in, out) with the IPE rows zero-padded 99 ->
-    128 (layer 4: [enc(128) | h(256)] rows), fp32 (1, 256) biases."""
+    """fp32 trunk weights (in, out) with the IPE rows zero-padded 99 ->
+    128 (layer 4: [enc(128) | h(256)] rows), fp32 (1, 256) biases;
+    differentiable in the Field's parameters."""
     ws, bs = [], []
     for i, layer in enumerate(field.mlp_base.layers):
         w = _w_in_out(layer)
@@ -90,9 +95,47 @@ def _trunk_operands(field: Field):
             w = torch.cat([F.pad(w[:IPE_OUT_DIM],
                                  (0, 0, 0, ENC_PAD - IPE_OUT_DIM)),
                            w[IPE_OUT_DIM:]], dim=0)
-        ws.append(w.to(BF16).contiguous())
-        bs.append(layer.bias.detach().float().reshape(1, -1).contiguous())
+        ws.append(w)
+        bs.append(layer.bias.float().reshape(1, -1))
     return ws, bs
+
+
+# the bf16 operands of the packings (the rest are fp32 biases and rows)
+V3F_BF16 = tuple(range(8)) + (16, 18)
+
+
+def pack_params_v3f_f32(field: Field) -> Tuple[torch.Tensor, ...]:
+    """pack_params_v3f's operands before their bf16 cast, all fp32 and
+    differentiable in the Field's parameters: the training path packs
+    under autograd, so the chain rule through the padding and through
+    w_comb = W_bneck @ W_emb (rsn's _unpack_grads) comes from autograd."""
+    ws, bs = _trunk_operands(field)
+    heads = (field.field_output_density, field.field_output_diff,
+             field.field_output_tint, field.field_output_roughness,
+             field.field_output_normals)
+    whs = torch.cat([_w_in_out(h.net) for h in heads], dim=1)  # (256, 11)
+    bhs = torch.cat([h.net.bias.float() for h in heads])
+    whs = F.pad(whs, (0, 128 - FH_COLS))
+    bhs = F.pad(bhs, (0, 128 - FH_COLS)).reshape(1, -1)
+    wb = _w_in_out(field.field_output_bottleneck.net)            # (256, 256)
+    bb = field.field_output_bottleneck.net.bias.float()
+    _, w_emb, b_mid = field.mid_weights()
+    w_emb, b_mid = w_emb.float(), b_mid.float()
+    w_comb = wb @ w_emb
+    b_comb = (bb @ w_emb + b_mid).reshape(1, -1)
+    w_hc = torch.cat([whs, w_comb], dim=1)
+    b_hc = torch.cat([bhs, b_comb], dim=1)
+    w_out = F.pad(_w_in_out(field.field_output_mid.net), (0, 125))
+    b_out = F.pad(field.field_output_mid.net.bias.float(),
+                  (0, 125)).reshape(1, -1)
+    return tuple(ws) + tuple(bs) + (w_hc, b_hc, w_out, b_out)
+
+
+def cast_packed(packed_f32) -> Tuple[torch.Tensor, ...]:
+    """The kernels' operands from pack_params_v3f_f32's: weights bf16,
+    biases fp32, all contiguous and detached."""
+    return tuple((t.detach().to(BF16) if i in V3F_BF16 else t.detach())
+                 .contiguous() for i, t in enumerate(packed_f32))
 
 
 @torch.no_grad()
@@ -101,27 +144,7 @@ def pack_params_v3f(field: Field) -> Tuple[torch.Tensor, ...]:
     (w_hc, b_hc, w_out, b_out).  The bottleneck head is folded into the
     mid-MLP's embedding half in fp32 (w_comb = W_bneck @ W_emb, then
     bf16); w_hc = [heads (FH_* columns, padded to 128) | w_comb]."""
-    ws, bs = _trunk_operands(field)
-    heads = (field.field_output_density, field.field_output_diff,
-             field.field_output_tint, field.field_output_roughness,
-             field.field_output_normals)
-    whs = torch.cat([_w_in_out(h.net) for h in heads], dim=1)  # (256, 11)
-    bhs = torch.cat([h.net.bias.detach().float() for h in heads])
-    whs = F.pad(whs, (0, 128 - FH_COLS)).to(BF16)
-    bhs = F.pad(bhs, (0, 128 - FH_COLS)).reshape(1, -1)
-    wb = _w_in_out(field.field_output_bottleneck.net)            # (256, 256)
-    bb = field.field_output_bottleneck.net.bias.detach().float()
-    _, w_emb, b_mid = field.mid_weights()
-    w_emb, b_mid = w_emb.detach().float(), b_mid.detach().float()
-    w_comb = (wb @ w_emb).to(BF16)
-    b_comb = (bb @ w_emb + b_mid).reshape(1, -1)
-    w_hc = torch.cat([whs, w_comb], dim=1).contiguous()
-    b_hc = torch.cat([bhs, b_comb], dim=1).contiguous()
-    w_out = F.pad(_w_in_out(field.field_output_mid.net),
-                  (0, 125)).to(BF16).contiguous()
-    b_out = F.pad(field.field_output_mid.net.bias.detach().float(),
-                  (0, 125)).reshape(1, -1).contiguous()
-    return tuple(ws) + tuple(bs) + (w_hc, b_hc, w_out, b_out)
+    return cast_packed(pack_params_v3f_f32(field))
 
 
 @torch.no_grad()
@@ -131,19 +154,28 @@ def pack_params_density(field: Field) -> Tuple[torch.Tensor, ...]:
     ws, bs = _trunk_operands(field)
     head = field.field_output_density.net
     wd = F.pad(_w_in_out(head), (0, DENS_COLS - 1)).to(BF16).contiguous()
-    bd = F.pad(head.bias.detach().float(),
+    bd = F.pad(head.bias.float(),
                (0, DENS_COLS - 1)).reshape(1, -1).contiguous()
-    return tuple(ws) + tuple(bs) + (wd, bd)
+    return (tuple(w.to(BF16).contiguous() for w in ws)
+            + tuple(b.detach().contiguous() for b in bs) + (wd, bd))
+
+
+def mid_g_bands_f32(field: Field, ray_dirs: torch.Tensor,
+                    sh_l8_m7_2x: bool = True) -> torch.Tensor:
+    """Per-ray SH band partials basis_b @ W_enc_b: (R, 3) -> (R, 512) f32,
+    differentiable in the mid-MLP's encoder rows (the directions are
+    detached, as in sh_basis)."""
+    basis = sh_basis(ray_dirs, sh_l8_m7_2x)
+    w_enc = field.mid_weights()[0].float()
+    parts = [basis[..., lo:hi] @ w_enc[lo:hi] for lo, hi, _ in _BAND_SLICES]
+    return torch.cat(parts, dim=-1).float().contiguous()
 
 
 @torch.no_grad()
 def mid_g_bands(field: Field, ray_dirs: torch.Tensor,
                 sh_l8_m7_2x: bool = True) -> torch.Tensor:
-    """Per-ray SH band partials basis_b @ W_enc_b: (R, 3) -> (R, 512) f32."""
-    basis = sh_basis(ray_dirs, sh_l8_m7_2x)
-    w_enc = field.mid_weights()[0].detach().float()
-    parts = [basis[..., lo:hi] @ w_enc[lo:hi] for lo, hi, _ in _BAND_SLICES]
-    return torch.cat(parts, dim=-1).float().contiguous()
+    """mid_g_bands_f32 without autograd (the render path)."""
+    return mid_g_bands_f32(field, ray_dirs, sh_l8_m7_2x)
 
 
 # ---- plain versions --------------------------------------------------------
@@ -157,10 +189,11 @@ def _sin2pi(u: torch.Tensor) -> torch.Tensor:
     return p * u
 
 
-def ipe_x(mean_cov: torch.Tensor) -> torch.Tensor:
-    """The kernels' IPE: (N, 16) f32 -> (N, 128) bf16
-    [damp*sin (48) | damp*cos (48) | mean (3) | 0 (29)], with the phase
-    wrapped as u = pre / 2pi - rint(pre / 2pi) and the polynomial sine."""
+def ipe_phase(mean_cov: torch.Tensor):
+    """The IPE's damping and wrapped phase of columns [0, 96):
+    (N, 16) f32 -> (damp, u), each (N, 96) f32, with
+    damp = exp(-f_k^2 var_d / 2) and u = pre / 2pi - rint(pre / 2pi) for
+    pre = 2 pi f_k mean_d (+ pi/2 on the cos half [48, 96))."""
     n = mean_cov.shape[0]
     mean, cov = mean_cov[:, 0:3], mean_cov[:, 3:6]
     scale = torch.as_tensor(IPE_SCALE, device=mean_cov.device)
@@ -170,9 +203,18 @@ def ipe_x(mean_cov: torch.Tensor) -> torch.Tensor:
     var = (cov[:, :, None] * var_k).reshape(n, 48)
     damp = torch.exp2(-_HALF_LOG2E * torch.cat([var, var], dim=1))
     u = pre * _INV_2PI
-    u = u - torch.round(u)
+    return damp, u - torch.round(u)
+
+
+def ipe_x(mean_cov: torch.Tensor) -> torch.Tensor:
+    """The kernels' IPE: (N, 16) f32 -> (N, 128) bf16
+    [damp*sin (48) | damp*cos (48) | mean (3) | 0 (29)], with the phase
+    wrapped as u = pre / 2pi - rint(pre / 2pi) and the polynomial sine."""
+    n = mean_cov.shape[0]
+    damp, u = ipe_phase(mean_cov)
     zeros = torch.zeros(n, ENC_PAD - IPE_OUT_DIM, device=mean_cov.device)
-    return torch.cat([damp * _sin2pi(u), mean, zeros], dim=1).to(BF16)
+    return torch.cat([damp * _sin2pi(u), mean_cov[:, 0:3], zeros],
+                     dim=1).to(BF16)
 
 
 def _trunk_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
@@ -302,7 +344,7 @@ def field_forward_v3(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
         raise ValueError(f"field_forward_v3: unsupported device {device}")
     from rsn_torch.kernels.build import load_library
 
-    lib = load_library()
+    lib = load_library("field_forward.cu")
     out = torch.empty((n, V3_EVAL_COLS), dtype=BF16, device=device)
     with torch.cuda.device(device):
         rc = lib.rsn_field_forward_v3(
@@ -329,7 +371,7 @@ def field_forward_density(packed, mean_cov: torch.Tensor) -> torch.Tensor:
             f"field_forward_density: unsupported device {device}")
     from rsn_torch.kernels.build import load_library
 
-    lib = load_library()
+    lib = load_library("field_forward.cu")
     out = torch.empty((n, DENS_COLS), dtype=BF16, device=device)
     with torch.cuda.device(device):
         rc = lib.rsn_field_forward_density(

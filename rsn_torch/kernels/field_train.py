@@ -1,0 +1,472 @@
+"""The training path's field kernels, their plain PyTorch versions and the
+autograd Function around them (port of rsn/kernels/field_train.py and of
+field_forward_v6 in rsn/kernels/field_pallas.py).
+
+K3 `field_forward_v6` (replaces field_pallas.py::field_forward_v6): K1's
+forward at the train width, (N, 24) bf16 — the V3_* columns, d
+density_preact / d mean in V4_DPDM (14:17) when want_normals, the mid
+value in V3_MIDVAL (17:20) — plus the spill of the 8 post-ReLU trunk
+activations, (N, 2048) bf16, with the IPE x appended ((N, 2176)) under
+spill_x.
+
+K4 `field_backward_v5` (replaces field_train.py::field_backward_v5): the
+backward from the spill and the forward's stored output -> dmc (N, 16),
+dg (R, 512) and the 20 fp32 gradients of the packed operands.
+
+K5 `field_backward_v6` (replaces field_train.py::field_backward_v6): K4
+without dmc (the caller's promise that the mean/cov cotangent is dead),
+x read from the spill.
+
+K6 `FusedFieldTrain` (replaces field_train.py::fused_field_train, a
+custom VJP with no kernel of its own): the autograd Function that runs K3
+forward and K4 or K5 backward on fp32 packed operands.
+
+Each wrapper checks its inputs, runs the plain version for CPU tensors
+and launches the CUDA kernel (rsn_torch/csrc/field_train.cu) for CUDA
+tensors; it never falls back from one to the other.  The launches count
+in field_forward.LAUNCHES.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Sequence, Tuple
+
+import torch
+
+from rsn_torch.kernels import field_forward as ff
+from rsn_torch.kernels.field_forward import (BF16, F32, ENC_PAD, FH_COLS,
+                                             IN_COLS, IPE_SCALE, IPE_VAR,
+                                             LAUNCHES, _BAND_KS, _V3_DTYPES,
+                                             _check, _check_packed,
+                                             _ipe_consts, _ptr_array,
+                                             _raise_on_error, _sin2pi)
+from rsn_torch.models.field import SKIP_AT, TRUNK_LAYERS, TRUNK_WIDTH
+
+# K3 train-width output columns (field_pallas.V4_DPDM / V3_MIDVAL)
+OUT_TRAIN = 24
+V4_DPDM = slice(14, 17)
+V3_MIDVAL = slice(17, 20)
+ACTS_COLS = TRUNK_LAYERS * TRUNK_WIDTH  # 2048
+XACTS_COLS = ACTS_COLS + ENC_PAD        # 2176
+N_PACKED = 20
+# one block's fp32 slice of the backward's weight gradients: the packed
+# operands in order (field_train.cu PACK_FLOATS)
+PACKED_SHAPES = tuple(ff.V3_SHAPES)
+PACK_FLOATS = sum(r * c for r, c in PACKED_SHAPES)
+
+
+def density_row(field) -> torch.Tensor:
+    """The density head's weights as K3's (1, 256) fp32 operand: the seed
+    of the normals dgrad (no gradient flows through it)."""
+    return field.field_output_density.net.weight.detach().float().reshape(
+        1, TRUNK_WIDTH).contiguous()
+
+
+def pack_params_v4f(packed_v3f: Sequence[torch.Tensor], field
+                    ) -> Tuple[torch.Tensor, ...]:
+    """K3's operands with the normals (field_pallas.pack_params_v4f): the
+    v3f operands + density_row(field)."""
+    return tuple(packed_v3f) + (density_row(field),)
+
+
+# ---- plain versions --------------------------------------------------------
+
+def _cos2pi(u: torch.Tensor) -> torch.Tensor:
+    """cos(2 pi u) for wrapped u in [-1/2, 1/2] (field_pallas._cos2pi)."""
+    w = u * u
+    p = torch.full_like(w, 6.52864918)
+    for c in (-25.9675931, 60.1676294, -85.4501393, 64.9391175,
+              -19.7392045, 0.999999989):
+        p = p * w + c
+    return p
+
+
+def _trunk_acts(ws, bs, x: torch.Tensor):
+    """The 8 post-ReLU bf16 trunk activations (field_forward's trunk)."""
+    hs, h = [], x
+    for i in range(TRUNK_LAYERS):
+        if i == SKIP_AT:
+            h = torch.cat([x, h], dim=1)
+        h = torch.relu(h.float() @ ws[i].float() + bs[i]).to(BF16)
+        hs.append(h)
+    return hs
+
+
+def _dmean_dvar(dx: torch.Tensor, mean_cov: torch.Tensor, want_var: bool):
+    """The IPE backward: dx (N, 128) f32 -> (N, 3) d mean [, (N, 3) d cov
+    diagonal] (rsn _bwd_half: dpre_enc @ A^T and dvar @ V^T, written out
+    per frequency)."""
+    n = dx.shape[0]
+    damp, u = ff.ipe_phase(mean_cov)
+    scale = torch.as_tensor(IPE_SCALE, device=dx.device)
+    d96 = dx[:, :96]
+    dpre = (d96 * (damp * _cos2pi(u))).reshape(n, 2, 3, 16)
+    dmean = (dpre * scale).sum(dim=(1, 3)) + dx[:, 96:99]
+    if not want_var:
+        return dmean, None
+    var_k = torch.as_tensor(IPE_VAR, device=dx.device)
+    dvar = (d96 * -0.5 * damp * _sin2pi(u)).reshape(n, 2, 3, 16)
+    return dmean, (dvar * var_k).sum(dim=(1, 3))
+
+
+def normals_dgrad_plain(packed, hs, mean_cov: torch.Tensor) -> torch.Tensor:
+    """K3's normals dgrad on given post-ReLU activations hs (8 x (N, 256)
+    bf16): dh = wd_row (packed[20]), dpre = bf16(dh * relu mask),
+    dinp = dpre @ W^T through the 8 layers, then the IPE backward
+    -> (N, 3) d density_preact / d mean."""
+    ws = packed[:8]
+    dh = packed[20].expand(mean_cov.shape[0], TRUNK_WIDTH)
+    dx_extra = None
+    for i in range(TRUNK_LAYERS - 1, -1, -1):
+        dpre = (dh * (hs[i].float() > 0)).to(BF16)
+        dinp = dpre.float() @ ws[i].float().t()
+        if i == SKIP_AT:
+            dx_extra, dh = dinp[:, :ENC_PAD], dinp[:, ENC_PAD:]
+        else:
+            dh = dinp
+    return _dmean_dvar(dh + dx_extra, mean_cov, want_var=False)[0]
+
+
+def field_forward_v6_plain(packed, mean_cov: torch.Tensor,
+                           g_bands: torch.Tensor, samples_per_ray: int,
+                           want_normals: bool = False, spill_x: bool = False):
+    """Plain PyTorch K3 on the same packed operands -> (out (N, 24) bf16,
+    acts (N, 2048 | 2176) bf16)."""
+    ws, bs = packed[:8], packed[8:16]
+    w_hc, b_hc, w_out, b_out = packed[16:20]
+    n, S = mean_cov.shape[0], samples_per_ray
+    R = n // S
+    x = ff.ipe_x(mean_cov)
+    hs = _trunk_acts(ws, bs, x)
+    h = hs[-1]
+    hc = h.float() @ w_hc.float() + b_hc
+    density = ff._density_head(h, w_hc[:, 0:ff.DENS_COLS].contiguous(),
+                               b_hc[:, 0:ff.DENS_COLS])[:, 0:1]
+    diff = torch.sigmoid(hc[:, ff.FH_DIFF])
+    tint = torch.sigmoid(hc[:, ff.FH_TINT])
+    rough_raw = hc[:, ff.FH_ROUGH:ff.FH_ROUGH + 1]
+    normals_raw = hc[:, ff.FH_NORMALS]
+    rough_sp = torch.logaddexp(rough_raw, torch.zeros_like(rough_raw))
+    mid_pre = hc[:, 128:256].reshape(R, S, 128)
+    for bi, k in enumerate(_BAND_KS):
+        band = g_bands[:, None, bi * 128:(bi + 1) * 128]
+        mid_pre = mid_pre + torch.exp(-rough_sp * k).reshape(R, S, 1) * band
+    hmid = torch.relu(mid_pre).reshape(n, 128).to(BF16)
+    mid = torch.sigmoid(hmid.float() @ w_out.float() + b_out)[:, 0:3]
+    mid_out = diff + tint * mid
+    dpdm = torch.zeros(n, 3, device=mean_cov.device)
+    if want_normals:
+        dpdm = normals_dgrad_plain(packed, hs, mean_cov)
+    zeros = torch.zeros(n, OUT_TRAIN - 20, device=mean_cov.device)
+    out = torch.cat([mid_out, diff, tint, normals_raw, density, rough_raw,
+                     dpdm, mid, zeros], dim=1).to(BF16)
+    acts = torch.cat(hs + [x] if spill_x else hs, dim=1)
+    return out, acts
+
+
+def _backward_plain(packed, g_bands, hs, x, d_out, f_out, S, mean_cov):
+    """rsn's _bwd_half written out: -> (dmc or None, dg, dpacked).
+    mean_cov None: no IPE backward and no layer-0 dgrad (K5)."""
+    ws, bs = packed[:8], packed[8:16]
+    w_hc, b_hc, w_out, b_out = packed[16:20]
+    n = d_out.shape[0]
+    R = n // S
+    dev = d_out.device
+    dpk = [None] * N_PACKED
+
+    fout = f_out.float()
+    diff, tint = fout[:, 3:6], fout[:, 6:9]
+    rough_raw, mid = fout[:, 13:14], fout[:, V3_MIDVAL]
+    rough_sp = torch.logaddexp(rough_raw, torch.zeros_like(rough_raw))
+    g_rep = g_bands.float().repeat_interleave(S, dim=0)
+    h = hs[-1]
+    mid_pre = h.float() @ w_hc[:, 128:256].float() + b_hc[:, 128:256]
+    attens = []
+    for bi, k in enumerate(_BAND_KS):
+        a = torch.exp(-rough_sp * k)
+        attens.append(a)
+        mid_pre = mid_pre + a * g_rep[:, bi * 128:(bi + 1) * 128]
+    hmid = torch.relu(mid_pre).to(BF16)
+
+    dout = d_out.float()
+    dmid_out = dout[:, 0:3]
+    ddiff = dmid_out + dout[:, 3:6]
+    dtint = dmid_out * mid + dout[:, 6:9]
+    dmid = dmid_out * tint
+    dz3 = dmid * mid * (1.0 - mid)
+    dz_b = dz3.to(BF16).float()
+    dpk[18] = torch.zeros(128, 128, device=dev)
+    dpk[18][:, 0:3] = hmid.float().t() @ dz_b
+    dpk[19] = torch.zeros(1, 128, device=dev)
+    dpk[19][0, 0:3] = dz3.sum(dim=0)
+    dhmid = dz_b @ w_out[:, 0:3].float().t()
+    dmid_pre = dhmid * (mid_pre > 0)
+    # the roughness -> attenuation edge carries no gradient
+    dg_all = torch.cat([a * dmid_pre for a in attens], dim=1)
+    dg = dg_all.reshape(R, S, 512).sum(dim=1)
+
+    d_heads = torch.cat([dout[:, 12:13], ddiff * diff * (1.0 - diff),
+                         dtint * tint * (1.0 - tint), dout[:, 13:14],
+                         dout[:, 9:12],
+                         torch.zeros(n, 128 - FH_COLS, device=dev)], dim=1)
+    d_hc = torch.cat([d_heads, dmid_pre], dim=1)
+    d_hc_b = d_hc.to(BF16).float()
+    dpk[16] = h.float().t() @ d_hc_b
+    dpk[17] = d_hc.sum(dim=0, keepdim=True)
+    dh = d_hc_b @ w_hc.float().t()
+    dx_extra = None
+    for i in range(TRUNK_LAYERS - 1, -1, -1):
+        inp = hs[i - 1] if i > 0 else x
+        if i == SKIP_AT:
+            inp = torch.cat([x, hs[i - 1]], dim=1)
+        dpre_f = dh * (hs[i].float() > 0)
+        dpre = dpre_f.to(BF16).float()
+        dpk[i] = inp.float().t() @ dpre
+        dpk[8 + i] = dpre_f.sum(dim=0, keepdim=True)
+        if i == 0 and mean_cov is None:
+            break  # layer 0's dgrad only feeds the (dead) IPE backward
+        dinp = dpre @ ws[i].float().t()
+        if i == SKIP_AT:
+            dx_extra, dh = dinp[:, :ENC_PAD], dinp[:, ENC_PAD:]
+        else:
+            dh = dinp
+    if mean_cov is None:
+        return None, dg, tuple(dpk)
+    dmean, dvar = _dmean_dvar(dh + dx_extra, mean_cov, want_var=True)
+    dmc = torch.cat([dmean, dvar, torch.zeros(n, IN_COLS - 6, device=dev)],
+                    dim=1)
+    return dmc, dg, tuple(dpk)
+
+
+def _split_acts(acts: torch.Tensor):
+    return [acts[:, i * TRUNK_WIDTH:(i + 1) * TRUNK_WIDTH]
+            for i in range(TRUNK_LAYERS)]
+
+
+def field_backward_v5_plain(packed, mean_cov, g_bands, acts, d_out, f_out,
+                            samples_per_ray):
+    """Plain PyTorch K4 -> (dmc (N, 16), dg (R, 512), dpacked (20))."""
+    return _backward_plain(packed[:N_PACKED], g_bands, _split_acts(acts),
+                           ff.ipe_x(mean_cov), d_out, f_out,
+                           samples_per_ray, mean_cov)
+
+
+def field_backward_v6_plain(packed, g_bands, xacts, d_out, f_out,
+                            samples_per_ray):
+    """Plain PyTorch K5 -> (dg (R, 512), dpacked (20))."""
+    _, dg, dpk = _backward_plain(packed[:N_PACKED], g_bands,
+                                 _split_acts(xacts), xacts[:, ACTS_COLS:],
+                                 d_out, f_out, samples_per_ray, None)
+    return dg, dpk
+
+
+# ---- wrappers --------------------------------------------------------------
+
+def _rows(n: int, S: int, name: str) -> int:
+    if S <= 0 or n == 0 or n % S:
+        raise ValueError(f"{name}: {n} rows is not a positive multiple of "
+                         f"S={S}")
+    return n // S
+
+
+def _check_train_packed(packed, want_normals: bool, device) -> None:
+    shapes = list(PACKED_SHAPES) + ([(1, TRUNK_WIDTH)] if want_normals
+                                    else [])
+    dtypes = _V3_DTYPES + ([F32] if want_normals else [])
+    _check_packed(packed, shapes, dtypes, device)
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _rays_per_block(rays: int, device, blocks_per_sm: int) -> int:
+    """Whole rays per backward block: about blocks_per_sm blocks per SM."""
+    target = _sm_count(device) * blocks_per_sm
+    return max(1, -(-rays // target))
+
+
+def _unpack_slices(buf: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(blocks, PACK_FLOATS) per-block gradients -> the 20 packed-operand
+    gradients, summed over the blocks (rsn sums its per-group
+    accumulators with jnp.sum outside the kernel)."""
+    total = buf.sum(dim=0)
+    out, off = [], 0
+    for r, c in PACKED_SHAPES:
+        out.append(total[off:off + r * c].view(r, c))
+        off += r * c
+    return tuple(out)
+
+
+def field_forward_v6(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
+                     samples_per_ray: int, want_normals: bool = False,
+                     spill_x: bool = False):
+    """K3: (N, 16) f32 mean_cov + (R, 512) f32 g_bands, N = R * S;
+    packed = pack_params_v3f [+ wd_row with want_normals]
+    -> (out (N, 24) bf16, acts (N, 2048 | 2176) bf16)."""
+    device = mean_cov.device
+    n = mean_cov.shape[0]
+    S = int(samples_per_ray)
+    R = _rows(n, S, "field_forward_v6")
+    _check("mean_cov", mean_cov, (n, IN_COLS), F32, device)
+    _check("g_bands", g_bands, (R, 512), F32, device)
+    _check_train_packed(packed, want_normals, device)
+    if device.type == "cpu":
+        return field_forward_v6_plain(packed, mean_cov, g_bands, S,
+                                      want_normals, spill_x)
+    if device.type != "cuda":
+        raise ValueError(f"field_forward_v6: unsupported device {device}")
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_train.cu")
+    out = torch.empty((n, OUT_TRAIN), dtype=BF16, device=device)
+    acts = torch.empty((n, XACTS_COLS if spill_x else ACTS_COLS),
+                       dtype=BF16, device=device)
+    with torch.cuda.device(device):
+        rc = lib.rsn_field_forward_v6(
+            mean_cov.data_ptr(), g_bands.data_ptr(),
+            _ipe_consts(device).data_ptr(), _ptr_array(packed),
+            out.data_ptr(), acts.data_ptr(), n, S, int(want_normals),
+            int(spill_x), torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, rc, "field_forward_v6")
+    LAUNCHES["field_forward_v6"] += 1
+    return out, acts
+
+
+def _check_bwd(d_out, f_out, n, device):
+    _check("d_out", d_out, (n, OUT_TRAIN), BF16, device)
+    _check("f_out", f_out, (n, OUT_TRAIN), BF16, device)
+
+
+def field_backward_v5(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
+                      acts: torch.Tensor, d_out: torch.Tensor,
+                      f_out: torch.Tensor, samples_per_ray: int):
+    """K4 -> (dmc (N, 16) f32, dg (R, 512) f32, dpacked: 20 fp32 tensors
+    shaped like the packed operands)."""
+    device = mean_cov.device
+    n = mean_cov.shape[0]
+    S = int(samples_per_ray)
+    R = _rows(n, S, "field_backward_v5")
+    _check("mean_cov", mean_cov, (n, IN_COLS), F32, device)
+    _check("g_bands", g_bands, (R, 512), F32, device)
+    _check("acts", acts, (n, ACTS_COLS), BF16, device)
+    _check_bwd(d_out, f_out, n, device)
+    _check_train_packed(packed, False, device)
+    if device.type == "cpu":
+        return field_backward_v5_plain(packed, mean_cov, g_bands, acts,
+                                       d_out, f_out, S)
+    if device.type != "cuda":
+        raise ValueError(f"field_backward_v5: unsupported device {device}")
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_train.cu")
+    rpb = _rays_per_block(R, device, 1)
+    blocks = -(-R // rpb)
+    dmc = torch.empty((n, IN_COLS), dtype=F32, device=device)
+    dg = torch.zeros((R, 512), dtype=F32, device=device)
+    buf = torch.zeros((blocks, PACK_FLOATS), dtype=F32, device=device)
+    with torch.cuda.device(device):
+        rc = lib.rsn_field_backward_v5(
+            mean_cov.data_ptr(), g_bands.data_ptr(),
+            _ipe_consts(device).data_ptr(), acts.data_ptr(),
+            d_out.data_ptr(), f_out.data_ptr(), _ptr_array(packed),
+            dmc.data_ptr(), dg.data_ptr(), buf.data_ptr(), R, S, rpb,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, rc, "field_backward_v5")
+    LAUNCHES["field_backward_v5"] += 1
+    return dmc, dg, _unpack_slices(buf)
+
+
+def field_backward_v6(packed, g_bands: torch.Tensor, xacts: torch.Tensor,
+                      d_out: torch.Tensor, f_out: torch.Tensor,
+                      samples_per_ray: int):
+    """K5 -> (dg (R, 512) f32, dpacked: 20 fp32 tensors)."""
+    device = xacts.device
+    n = xacts.shape[0]
+    S = int(samples_per_ray)
+    R = _rows(n, S, "field_backward_v6")
+    _check("g_bands", g_bands, (R, 512), F32, device)
+    _check("xacts", xacts, (n, XACTS_COLS), BF16, device)
+    _check_bwd(d_out, f_out, n, device)
+    _check_train_packed(packed, False, device)
+    if device.type == "cpu":
+        return field_backward_v6_plain(packed, g_bands, xacts, d_out,
+                                       f_out, S)
+    if device.type != "cuda":
+        raise ValueError(f"field_backward_v6: unsupported device {device}")
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_train.cu")
+    rpb = _rays_per_block(R, device, 2)
+    blocks = -(-R // rpb)
+    dg = torch.zeros((R, 512), dtype=F32, device=device)
+    buf = torch.zeros((blocks, PACK_FLOATS), dtype=F32, device=device)
+    with torch.cuda.device(device):
+        rc = lib.rsn_field_backward_v6(
+            g_bands.data_ptr(), xacts.data_ptr(), d_out.data_ptr(),
+            f_out.data_ptr(), _ptr_array(packed), dg.data_ptr(),
+            buf.data_ptr(), R, S, rpb,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, rc, "field_backward_v6")
+    LAUNCHES["field_backward_v6"] += 1
+    return dg, _unpack_slices(buf)
+
+
+# ---- K6: the autograd Function ---------------------------------------------
+
+class FusedFieldTrain(torch.autograd.Function):
+    """The fused training field (rsn fused_field_train with save_acts):
+    K3 forward, K4 (want_dmc) or K5 backward.
+
+    Differentiable inputs: mean_cov (N, 16) f32, g_bands (R, 512) f32 and
+    the 20 fp32 operands of pack_params_v3f_f32.  The bf16 casts happen
+    here, so the weight gradients come back fp32.  The output is K3's
+    (N, 24) bf16; the cotangents of its columns 14:20 (V4_DPDM,
+    V3_MIDVAL) are ignored, and the one of V3_DENSITY..V3_ROUGH enters
+    the backward bf16-rounded.  want_dmc=False promises that mean_cov's
+    cotangent is dead (rays that are autograd leaves): K5 runs and the
+    mean_cov gradient is zero."""
+
+    @staticmethod
+    def forward(ctx, samples_per_ray: int, want_normals: bool,
+                want_dmc: bool, wd_row, mean_cov, g_bands, *packed_f32):
+        packed = ff.cast_packed(packed_f32)
+        mean_cov = mean_cov.detach().contiguous()
+        g_bands = g_bands.detach().float().contiguous()
+        ops = packed + ((wd_row.detach().contiguous(),) if want_normals
+                        else ())
+        out, acts = field_forward_v6(ops, mean_cov, g_bands,
+                                     samples_per_ray, want_normals,
+                                     spill_x=not want_dmc)
+        ctx.save_for_backward(mean_cov, g_bands, acts, out, *packed)
+        ctx.samples_per_ray = samples_per_ray
+        ctx.want_dmc = want_dmc
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        mean_cov, g_bands, acts, out, *packed = ctx.saved_tensors
+        S = ctx.samples_per_ray
+        d_out = d_out.to(BF16).contiguous()
+        if ctx.want_dmc:
+            dmc, dg, dpk = field_backward_v5(packed, mean_cov, g_bands, acts,
+                                             d_out, out, S)
+        else:
+            dg, dpk = field_backward_v6(packed, g_bands, acts, d_out, out, S)
+            dmc = torch.zeros_like(mean_cov)  # dead by the caller's promise
+        return (None, None, None, None, dmc, dg) + tuple(dpk)
+
+
+def fused_field_train(packed_f32, mean_cov: torch.Tensor,
+                      g_bands: torch.Tensor, samples_per_ray: int,
+                      want_normals: bool = False, want_dmc: bool = True,
+                      wd_row: torch.Tensor = None) -> torch.Tensor:
+    """FusedFieldTrain.apply with rsn's argument order.  packed_f32 =
+    pack_params_v3f_f32(field); wd_row = the density head's (1, 256)
+    weight row, needed with want_normals."""
+    if want_normals and wd_row is None:
+        raise ValueError("want_normals needs the density head row wd_row")
+    return FusedFieldTrain.apply(int(samples_per_ray), bool(want_normals),
+                                 bool(want_dmc), wd_row, mean_cov, g_bands,
+                                 *packed_f32)

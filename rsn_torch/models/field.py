@@ -12,8 +12,10 @@ drawn from an explicit torch.Generator.
 rounded to bf16 with fp32 accumulation, activations between trunk
 layers stored in bf16, everything else fp32.  torch's `bf16 @ bf16`
 returns bf16 (an extra rounding JAX's preferred_element_type does not
-have), so `_dense` rounds the operands, upcasts them and multiplies in
-fp32 — exact products, fp32 sums, like rsn's `_matmul_bf16` forward.
+have), so `MatmulBF16` rounds the operands, upcasts them and multiplies
+in fp32 — exact products, fp32 sums — and its backward is rsn's
+`_matmul_bf16`'s: the cotangent rounded to bf16 before the dgrad and the
+wgrad, dx returned bf16, dW fp32.
 """
 from __future__ import annotations
 
@@ -58,6 +60,27 @@ class _Head(nn.Module):
         self.net = _linear(in_dim, out_dim, generator)
 
 
+class MatmulBF16(torch.autograd.Function):
+    """xb @ weight.T with bf16 operands and fp32 accumulation, and a bf16
+    backward (rsn.models.field._matmul_bf16).  xb must already be bf16;
+    weight is the fp32 (out, in) parameter, whose gradient stays fp32."""
+
+    @staticmethod
+    def forward(ctx, xb, weight):
+        wb = weight.to(BF16)
+        ctx.save_for_backward(xb, wb)
+        return F.linear(xb.float(), wb.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        gb = g.to(BF16).float()
+        dx = (gb @ wb.float()).to(BF16)
+        dw = gb.reshape(-1, gb.shape[-1]).t() @ xb.reshape(
+            -1, xb.shape[-1]).float()
+        return dx, dw
+
+
 def _dense(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
            dtype: Optional[torch.dtype] = None,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -66,7 +89,7 @@ def _dense(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
     if dtype is None and x.dtype in (torch.bfloat16, torch.float16):
         dtype = x.dtype
     if dtype is not None and dtype != torch.float32:
-        y = F.linear(x.to(BF16).float(), weight.to(BF16).float()) + bias
+        y = MatmulBF16.apply(x.to(BF16), weight) + bias
     else:
         y = F.linear(x, weight) + bias
     return y.to(out_dtype) if out_dtype is not None else y
@@ -121,6 +144,19 @@ class Field(nn.Module):
         emb = self.trunk(ipe_encode(mean, cov_diag), dtype)
         preact = _apply(self.field_output_density.net, emb)
         return F.softplus(preact + DENSITY_BIAS), emb, preact
+
+    def get_analytic_normals(self, mean: torch.Tensor, cov_diag: torch.Tensor,
+                             dtype: torch.dtype = torch.float32
+                             ) -> torch.Tensor:
+        """-normalize(d density_preact / d mean), cov held fixed, on
+        (N, 3) rows; a detached regularization target
+        (rsn.models.field.get_analytic_normals).  The parameters' .grad
+        are not touched."""
+        with torch.enable_grad():
+            m = mean.detach().requires_grad_(True)
+            _, _, preact = self.get_density(m, cov_diag.detach(), dtype)
+            (g,) = torch.autograd.grad(preact.sum(), m)
+        return (-normalize(g)).detach()
 
     def get_field_outputs(self, mean: torch.Tensor, cov_diag: torch.Tensor,
                           dtype: torch.dtype = torch.float32

@@ -1,5 +1,5 @@
-"""The 4-pass reflect-sampling NeRF renderer, eval mode (port of the eval
-path of rsn.models.model.get_outputs).
+"""The 4-pass reflect-sampling NeRF renderer and its losses (port of
+rsn.models.model).
 
   pass 1 coarse:          128 uniform samples in [near=2, far=6]
   pass 2 fine:            128 PDF samples from the coarse weights
@@ -8,13 +8,21 @@ path of rsn.models.model.get_outputs).
   pass 4 reflect fine:    64 PDF samples from the pass-3 weights
 
 With compute_dtype "bfloat16" and cfg.use_pallas, every full field
-evaluation goes through K1 and every density-only one through K2
-(rsn_torch.kernels.field_forward); the wrappers launch the CUDA kernels
-for CUDA tensors and run their plain versions for CPU tensors.  Other
-configs run the plain field (rsn_torch.models.field).
+evaluation of a render goes through K1 and every density-only one through
+K2 (rsn_torch.kernels.field_forward); a training forward with
+cfg.use_pallas_train goes through the FusedFieldTrain autograd Function
+(K3 forward, K4 or K5 backward; rsn_torch.kernels.field_train).  The
+wrappers launch the CUDA kernels for CUDA tensors and run their plain
+versions for CPU tensors.  Other configs run the plain field
+(rsn_torch.models.field), under autograd when training.
 
-Training, the proposal sampler and meshes are later steps of the port
-(ROADMAP.md): asking for them raises NotImplementedError.
+The .detach() pattern is rsn's stop_gradient pattern (the reference's):
+ray-level diff / tint / pred-normals / n.d, the reflected weights, the
+roughness into the directional encoding, the reflected rays' origins and
+directions, the PDF bins.
+
+The proposal sampler and meshes are later steps of the port (ROADMAP.md):
+asking for them raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -24,10 +32,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from rsn.configs import ModelConfig
+from rsn_torch.configs import ModelConfig
 from rsn_torch.core.contract import contract_blob, packed_contract_planes
 from rsn_torch.core.rays import RayBundle, RaySamples, get_gaussian_blob
-from rsn_torch.core.render import (composite_planes, normalize,
+from rsn_torch.core.render import (blend_background_for_loss_computation,
+                                   composite_planes, normalize,
                                    render_accumulation, render_depth_median,
                                    render_depth_median_planes, render_normals,
                                    render_rgb, render_rgb_planes,
@@ -37,6 +46,7 @@ from rsn_torch.core.sampling import pdf_sample
 from rsn_torch.core.spacing import (identity_spacing, reciprocal_spacing,
                                     spaced_sample)
 from rsn_torch.kernels import field_forward as ff
+from rsn_torch.kernels import field_train as ft
 from rsn_torch.models.field import DENSITY_BIAS, Field, get_reflection
 
 
@@ -44,7 +54,8 @@ from rsn_torch.models.field import DENSITY_BIAS, Field, get_reflection
 class FieldConfig:
     compute_dtype: torch.dtype
     sh_l8_m7_2x: bool
-    use_kernels: bool  # K1/K2 for every field evaluation (bf16 only)
+    use_kernels: bool        # K1/K2 for every render field evaluation
+    use_train_kernels: bool  # FusedFieldTrain (K3-K5) when training
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,11 +65,21 @@ class KernelOperands:
     density: Tuple[torch.Tensor, ...]
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainOperands:
+    """FusedFieldTrain's operands: the fp32 packing under autograd and the
+    density head row (the normals' seed)."""
+    packed_f32: Tuple[torch.Tensor, ...]
+    wd_row: torch.Tensor
+
+
 def _field_cfg(cfg: ModelConfig) -> FieldConfig:
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    use_kernels = cfg.use_pallas and dtype == torch.bfloat16
     return FieldConfig(compute_dtype=dtype,
                        sh_l8_m7_2x=cfg.bug_compat.sh_l8_m7_2x,
-                       use_kernels=cfg.use_pallas and dtype == torch.bfloat16)
+                       use_kernels=use_kernels,
+                       use_train_kernels=use_kernels and cfg.use_pallas_train)
 
 
 def pack_kernel_operands(field: Field, cfg: ModelConfig
@@ -72,6 +93,10 @@ def pack_kernel_operands(field: Field, cfg: ModelConfig
                           ff.pack_params_density(field))
 
 
+def pack_train_operands(field: Field) -> TrainOperands:
+    return TrainOperands(ff.pack_params_v3f_f32(field), ft.density_row(field))
+
+
 def apply_collider(ray_bundle: RayBundle, cfg: ModelConfig) -> RayBundle:
     """NearFarCollider: constant near / far planes."""
     ones = torch.ones_like(ray_bundle.origins[..., :1])
@@ -81,19 +106,31 @@ def apply_collider(ray_bundle: RayBundle, cfg: ModelConfig) -> RayBundle:
 
 
 def _eval_field(field: Field, ray_samples: RaySamples, fcfg: FieldConfig,
-                packed: Optional[KernelOperands]) -> Dict[str, torch.Tensor]:
+                packed, training: bool = False, want_normals: bool = False,
+                want_dmc: bool = True):
     """One field evaluation of a pass: contraction + trunk + heads +
-    factored mid branch.  The kernel branch also returns the raw
-    (R, S, 16) K1 output as "_out", which the eval composites read as
-    (R, S) column planes."""
+    factored mid branch -> (f, mean, cov_diag).  The kernel branches
+    return the (R, S, C) kernel output as f["_out"] and no mean /
+    cov_diag; the eval composites read it as (R, S) column planes.  The
+    training kernel branch also returns the analytic normals of K3's
+    V4_DPDM columns (want_normals).  want_dmc=False promises that this
+    pass's mean/cov cotangent is dead (rays that are autograd leaves)."""
     ray_dirs = ray_samples.directions[..., 0, :]
-    if fcfg.use_kernels:
+    train_kernels = training and fcfg.use_train_kernels
+    if (fcfg.use_kernels and not training) or train_kernels:
         R, S = ray_samples.starts.shape[:2]
         mc = packed_contract_planes(ray_samples, ff.IN_COLS)
-        g = ff.mid_g_bands(field, ray_dirs, fcfg.sh_l8_m7_2x)
-        out = ff.field_forward_v3(packed.v3f, mc, g, S).reshape(R, S, -1)
+        if train_kernels:
+            g = ff.mid_g_bands_f32(field, ray_dirs, fcfg.sh_l8_m7_2x)
+            out = ft.fused_field_train(packed.packed_f32, mc, g, S,
+                                       want_normals, want_dmc,
+                                       packed.wd_row)
+        else:
+            g = ff.mid_g_bands(field, ray_dirs, fcfg.sh_l8_m7_2x)
+            out = ff.field_forward_v3(packed.v3f, mc, g, S)
+        out = out.reshape(R, S, -1)
         preact = out[..., ff.V3_DENSITY:ff.V3_DENSITY + 1].float()
-        return {
+        f = {
             "density": F.softplus(preact + DENSITY_BIAS),
             "diff": out[..., ff.V3_DIFF].float(),
             "tint": out[..., ff.V3_TINT].float(),
@@ -102,13 +139,16 @@ def _eval_field(field: Field, ray_samples: RaySamples, fcfg: FieldConfig,
             "mid_out": out[..., ff.V3_MID].float(),
             "_out": out,
         }
+        if train_kernels and want_normals:
+            f["normals"] = (-normalize(out[..., ft.V4_DPDM].float())).detach()
+        return f, None, None
     mean, cov_diag = contract_blob(get_gaussian_blob(ray_samples))
     f = field.get_field_outputs(mean, cov_diag, fcfg.compute_dtype)
-    rough_sp = F.softplus(f["rough_raw"])
+    rough_sp = F.softplus(f["rough_raw"]).detach()
     mid = field.get_mid_factored(ray_dirs, rough_sp, f["bottleneck"],
                                  fcfg.sh_l8_m7_2x, fcfg.compute_dtype)
     f["mid_out"] = f["diff"] + f["tint"] * mid
-    return f
+    return f, mean, cov_diag
 
 
 def _weights_from_planes(out_planes: torch.Tensor,
@@ -142,71 +182,107 @@ def _density_pass(field: Field, ray_samples: RaySamples, fcfg: FieldConfig,
 
 
 def _primary_pass(field: Field, ray_samples: RaySamples, fcfg: FieldConfig,
-                  packed: Optional[KernelOperands]):
-    """Passes 1 and 2: field evaluation + per-sample heads."""
-    f = _eval_field(field, ray_samples, fcfg, packed)
-    out_planes = f.get("_out")
+                  packed, training: bool = False, rays_live: bool = True):
+    """Passes 1 and 2: field evaluation + per-sample heads.  Training
+    adds the analytic-normals target (K3's in-kernel dgrad, or autograd
+    on the plain branch)."""
+    f, mean, cov_diag = _eval_field(field, ray_samples, fcfg, packed,
+                                    training, want_normals=training,
+                                    want_dmc=rays_live)
+    out_planes = f.get("_out") if not training else None
     if out_planes is not None:
         weights = _weights_from_planes(out_planes, ray_samples)[..., None]
     else:
         weights = ray_samples.get_weights(f["density"])
     pred_normals = f["pred_normals"]
-    _, n_dot_d = get_reflection(ray_samples.directions, pred_normals)
+    if training:
+        normals = f.get("normals")
+        if normals is None:
+            normals = field.get_analytic_normals(mean, cov_diag,
+                                                 fcfg.compute_dtype)
+    else:
+        normals = pred_normals.detach()
+    # the ray directions are leaves: the orientation loss trains the
+    # normals head only
+    _, n_dot_d = get_reflection(ray_samples.directions.detach(),
+                                pred_normals)
     return dict(weights=weights, rough_raw=f["rough_raw"],
-                pred_normals=pred_normals, normals=pred_normals,
+                pred_normals=pred_normals, normals=normals,
                 n_dot_d=n_dot_d, diff=f["diff"],
                 tint=f["tint"], mid=f["mid_out"], out_planes=out_planes)
 
 
 def _reflect_pass(field: Field, ray_samples: RaySamples, bg_color,
-                  fcfg: FieldConfig, packed: Optional[KernelOperands]):
-    """Passes 3 and 4: reflected radiance -> (weights, composite)."""
-    f = _eval_field(field, ray_samples, fcfg, packed)
-    out = f.get("_out")
+                  fcfg: FieldConfig, packed, training: bool = False):
+    """Passes 3 and 4: reflected radiance -> (weights, composite); the
+    weights are detached."""
+    f, _, _ = _eval_field(field, ray_samples, fcfg, packed, training)
+    out = f.get("_out") if not training else None
     if out is not None:
         wS = _weights_from_planes(out, ray_samples)
         composited = render_rgb_planes(
             wS, [out[..., c].float() for c in range(3)],
             background_color=bg_color, training=False)
         return wS[..., None], composited
-    weights = ray_samples.get_weights(f["density"])
+    weights = ray_samples.get_weights(f["density"]).detach()
     return weights, render_rgb(f["mid_out"], weights,
-                               background_color=bg_color, training=False)
+                               background_color=bg_color, training=training)
 
 
-@torch.no_grad()
 def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
                 training: bool = False, need_coarse_rgb: bool = True,
                 generator: Optional[torch.Generator] = None,
-                packed: Optional[KernelOperands] = None
-                ) -> Dict[str, torch.Tensor]:
-    """The eval-mode 4-pass render; ray_bundle must already be collided.
+                packed: Optional[KernelOperands] = None,
+                rays_live: bool = True) -> Dict[str, torch.Tensor]:
+    """The 4-pass render; ray_bundle must already be collided.
 
+    training=False: the eval render, under torch.no_grad().
     need_coarse_rgb=False (product renders: only final_rgb, accumulation
     and depth are consumed) runs passes 1 and 3 density-only; every
     downstream output is unchanged, mid_rgb_coarse becomes the
     background fill and mid_reflect_coarse is omitted.
 
-    generator: draws the per-ray background of the tint composite when
-    cfg.bug_compat.tint_random_background is set (off by default).
+    training=True: the training forward under autograd, with stratified
+    draws from `generator` (None: the eval midpoints) and the
+    reflect_ray_fraction compaction cap.  rays_live: whether the rays'
+    geometry carries live gradients; the trainer passes False when the
+    camera optimizer is off, which lets the primary passes' backward
+    skip the dead IPE backward (K5 instead of K4).
+
+    generator: also draws the per-ray background of the tint composite
+    when cfg.bug_compat.tint_random_background is set (off by default).
     packed: pack_kernel_operands(field, cfg), when the caller already
-    holds it; packed here otherwise."""
-    if training:
-        raise NotImplementedError(
-            "training forward: ROADMAP Queue 1 steps 6-7 (train kernels "
-            "K3-K6 and the trainer) are not ported yet")
+    holds it (eval only); packed here otherwise."""
     if cfg.use_proposal:
         raise NotImplementedError(
             "proposal sampling: ROADMAP Queue 1 step 14 (preset slice) is "
             "not ported yet")
     fcfg = _field_cfg(cfg)
-    if packed is None:
-        packed = pack_kernel_operands(field, cfg)
+    if training:
+        if fcfg.use_train_kernels and not cfg.use_pallas_acts:
+            raise NotImplementedError(
+                "use_pallas_acts=False (the recompute backward, kernels "
+                "K7/K8): ROADMAP Queue 1 step 8 is not ported yet")
+        train_ops = (pack_train_operands(field) if fcfg.use_train_kernels
+                     else None)
+        return _get_outputs(field, ray_bundle, cfg, fcfg, True, True,
+                            generator, train_ops, rays_live)
+    with torch.no_grad():
+        if packed is None:
+            packed = pack_kernel_operands(field, cfg)
+        return _get_outputs(field, ray_bundle, cfg, fcfg, False,
+                            need_coarse_rgb, generator, packed, True)
+
+
+def _get_outputs(field, ray_bundle, cfg, fcfg, training, need_coarse_rgb,
+                 generator, packed, rays_live):
     uniform = identity_spacing()
     wht = white(ray_bundle.origins.device)
+    strat = generator if training else None
 
     # ---- pass 1: coarse ----
-    rs_uniform = spaced_sample(ray_bundle, uniform, cfg.num_coarse_samples)
+    rs_uniform = spaced_sample(ray_bundle, uniform, cfg.num_coarse_samples,
+                               generator=strat)
     c = None
     if not need_coarse_rgb:
         wS = _density_pass(field, rs_uniform, fcfg, packed)
@@ -216,7 +292,8 @@ def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
             wS, rs_uniform.starts[..., 0], rs_uniform.ends[..., 0])
         mid_rgb_coarse = wht * (1.0 - accumulation_coarse)
     else:
-        c = _primary_pass(field, rs_uniform, fcfg, packed)
+        c = _primary_pass(field, rs_uniform, fcfg, packed, training,
+                          rays_live)
         coarse_weights = c["weights"]
         if c["out_planes"] is not None:
             wS = coarse_weights[..., 0]
@@ -231,12 +308,12 @@ def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
             depth_coarse = render_depth_median(
                 coarse_weights, rs_uniform.starts, rs_uniform.ends)
             mid_rgb_coarse = render_rgb(c["mid"], coarse_weights, wht,
-                                        training=False).clamp(0.0, 1.0)
+                                        training=training).clamp(0.0, 1.0)
 
     # ---- pass 2: fine ----
     rs_pdf = pdf_sample(ray_bundle, rs_uniform, coarse_weights, uniform,
-                        cfg.num_importance_samples)
-    f = _primary_pass(field, rs_pdf, fcfg, packed)
+                        cfg.num_importance_samples, generator=strat)
+    f = _primary_pass(field, rs_pdf, fcfg, packed, training, rays_live)
     tint_bg = "random" if cfg.bug_compat.tint_random_background else None
     if f["out_planes"] is not None:
         out = f["out_planes"]
@@ -266,15 +343,19 @@ def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
         depth_fine = render_depth_median(f["weights"], rs_pdf.starts,
                                          rs_pdf.ends)
         mid_rgb_fine = render_rgb(f["mid"], f["weights"], wht,
-                                  training=False).clamp(0.0, 1.0)
-        diff_fine = render_rgb(f["diff"], f["weights"], wht, training=False)
+                                  training=training).clamp(0.0, 1.0)
+        diff_fine = render_rgb(f["diff"], f["weights"], wht,
+                               training=training)
         tint_fine = render_rgb(f["tint"], f["weights"], tint_bg,
-                               generator=generator, training=False)
+                               generator=generator, training=training)
         pred_normals_fine = render_normals(f["pred_normals"], f["weights"])
         roughness = render_scalar(torch.sigmoid(f["rough_raw"]),
-                                  f["weights"])
+                                  f["weights"])  # live gradient
+    diff_fine = diff_fine.detach()
+    tint_fine = tint_fine.detach()
+    pred_normals_fine = pred_normals_fine.detach()
     n_dot_d = (pred_normals_fine * ray_bundle.directions).sum(
-        dim=-1, keepdim=True)
+        dim=-1, keepdim=True).detach()
     mask = ((accumulation_fine > cfg.mask_accumulation_threshold)
             & (n_dot_d < 0)).reshape(-1)
 
@@ -282,14 +363,14 @@ def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
     outputs = {
         "mid_rgb_coarse": mid_rgb_coarse,
         "mid_rgb_fine": mid_rgb_fine,
-        "accumulation_coarse": accumulation_coarse,
-        "accumulation_fine": accumulation_fine,
-        "depth_coarse": depth_coarse,
-        "depth_fine": depth_fine,
-        "weights_coarse": coarse_weights,
-        "weights_fine": f["weights"],
+        "accumulation_coarse": accumulation_coarse.detach(),
+        "accumulation_fine": accumulation_fine.detach(),
+        "depth_coarse": depth_coarse.detach(),
+        "depth_fine": depth_fine.detach(),
+        "weights_coarse": coarse_weights.detach(),
+        "weights_fine": f["weights"].detach(),
         "pred_normals_fine": f["pred_normals"],
-        "normals_fine": f["normals"],
+        "normals_fine": f["normals"].detach(),
         "n_dot_d_fine": f["n_dot_d"],
         "diff": diff_fine,
         "tint": tint_fine,
@@ -300,16 +381,17 @@ def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
     }
     if c is not None:
         outputs.update({"pred_normals_coarse": c["pred_normals"],
-                        "normals_coarse": c["normals"],
+                        "normals_coarse": c["normals"].detach(),
                         "n_dot_d_coarse": c["n_dot_d"]})
     if not cfg.use_reflection:
         return outputs
 
     # ---- reflected ray bundle ----
-    origins = ray_bundle.origins + depth_fine * ray_bundle.directions
+    origins = (ray_bundle.origins + depth_fine * ray_bundle.directions
+               ).detach()
     reflections = normalize(ray_bundle.directions
-                            - 2.0 * n_dot_d * pred_normals_fine)
-    sqradius = 2.0 * n_dot_d.abs() * roughness ** 2
+                            - 2.0 * n_dot_d * pred_normals_fine).detach()
+    sqradius = 2.0 * n_dot_d.abs() * roughness ** 2  # live via roughness
     near = 0.0 if cfg.bug_compat.reflect_near_zero else cfg.reflect_near
     ones = torch.ones_like(depth_fine)
     reflect_bundle = RayBundle(origins=origins, directions=reflections,
@@ -317,12 +399,14 @@ def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
                                nears=ones * near,
                                fars=ones * cfg.reflect_far)
 
-    # Fixed-shape compaction: with eval_reflect_ray_fraction < 1, passes
-    # 3 and 4 run on K rays picked by a stable descending sort of the
-    # mask (lower indices first among ties, like jax.lax.top_k); exact
+    # Fixed-shape compaction: with a fraction < 1 (training's
+    # reflect_ray_fraction, eval's eval_reflect_ray_fraction), passes 3
+    # and 4 run on K rays picked by a stable descending sort of the mask
+    # (lower indices first among ties, like jax.lax.top_k); exact
     # whenever #masked <= K, the rest report "reflect_overflow".
     R = mask.shape[0]
-    frac = cfg.eval_reflect_ray_fraction
+    frac = (cfg.reflect_ray_fraction if training
+            else cfg.eval_reflect_ray_fraction)
     K = R if frac >= 1.0 else min(R, max(8, int(R * frac)))
     sel = None
     mask_col = mask[:, None]
@@ -341,15 +425,17 @@ def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
     # ---- pass 3: reflected coarse ----
     recip = reciprocal_spacing(cfg.reciprocal_tan)
     rs_recip = spaced_sample(reflect_bundle, recip,
-                             cfg.num_reflect_coarse_samples)
-    bg_fill = wht * (1.0 - accumulation_fine)
+                             cfg.num_reflect_coarse_samples, generator=strat)
+    bg_fill = wht * (1.0 - accumulation_fine)  # live accumulation
+
+    def scatter(sub: torch.Tensor, width: int) -> torch.Tensor:
+        if sel is None:
+            return sub
+        full = torch.zeros((R, width), dtype=sub.dtype, device=sub.device)
+        return full.index_put((sel,), sub)
 
     def scatter_reflect(composited_sub: torch.Tensor) -> torch.Tensor:
-        inner = composited_sub
-        if sel is not None:
-            inner = torch.zeros((R, 3), dtype=composited_sub.dtype,
-                                device=composited_sub.device)
-            inner[sel] = composited_sub
+        inner = scatter(composited_sub, 3)
         return torch.where(
             mask_col, (diff_fine + tint_fine * inner).clamp(0.0, 1.0),
             bg_fill)
@@ -358,24 +444,20 @@ def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
         w_refl_coarse = _density_pass(field, rs_recip, fcfg, packed)[..., None]
     else:
         w_refl_coarse, mid_reflect_coarse_in = _reflect_pass(
-            field, rs_recip, background_color, fcfg, packed)
+            field, rs_recip, background_color, fcfg, packed, training)
         outputs["mid_reflect_coarse"] = scatter_reflect(mid_reflect_coarse_in)
 
     # ---- pass 4: reflected fine ----
     rs_refl_pdf = pdf_sample(reflect_bundle, rs_recip, w_refl_coarse, recip,
-                             cfg.num_reflect_importance_samples)
+                             cfg.num_reflect_importance_samples,
+                             generator=strat)
     w_refl_fine, mid_reflect_fine_in = _reflect_pass(
-        field, rs_refl_pdf, background_color, fcfg, packed)
+        field, rs_refl_pdf, background_color, fcfg, packed, training)
     depth_sub = render_depth_median(w_refl_fine, rs_refl_pdf.starts,
                                     rs_refl_pdf.ends)
-    depth_reflect_fine = depth_sub
-    if sel is not None:
-        depth_reflect_fine = torch.zeros((R, 1), dtype=depth_sub.dtype,
-                                         device=depth_sub.device)
-        depth_reflect_fine[sel] = depth_sub
     outputs["mid_reflect_fine"] = scatter_reflect(mid_reflect_fine_in)
     # valid only where mask (SURVEY B#10)
-    outputs["depth_reflect_fine"] = depth_reflect_fine
+    outputs["depth_reflect_fine"] = scatter(depth_sub, 1)
     return outputs
 
 
@@ -383,3 +465,55 @@ def final_rgb(outputs):
     """The product image: the reflection-composited fine rgb, or the
     plain fine rgb in primary-only (use_reflection=False) mode."""
     return outputs.get("mid_reflect_fine", outputs["mid_rgb_fine"])
+
+
+# Loss keys by gradient route (rsn.models.model): pose gradients would
+# flow only from the photometric losses; every key get_loss_dict emits
+# is in exactly one set.
+PHOTOMETRIC_LOSS_KEYS = frozenset({
+    "loss_mid_coarse", "loss_mid_fine",
+    "loss_reflect_mid_coarse", "loss_reflect_mid_fine",
+})
+NON_PHOTOMETRIC_LOSS_KEYS = frozenset({
+    "predicted_normal_loss_coarse", "predicted_normal_loss_fine",
+    "orientation_loss_coarse", "orientation_loss_fine",
+    "interlevel_loss", "distortion_loss",
+})
+
+
+def get_loss_dict(outputs: Dict[str, torch.Tensor], gt_image: torch.Tensor,
+                  coefficients: Dict[str, float]) -> Dict[str, torch.Tensor]:
+    """The 8 active losses of the reference model, scaled by
+    `coefficients` (rsn.models.model.get_loss_dict).  gt_image: (R, 3)
+    or (R, 4); RGBA is blended against white."""
+    def mse(a, b):
+        return ((a - b) ** 2).mean()
+
+    pred_mid_coarse, gt_rgb = blend_background_for_loss_computation(
+        outputs["mid_rgb_coarse"], outputs["accumulation_coarse"], gt_image)
+    losses = {
+        "loss_mid_fine": mse(gt_rgb, outputs["mid_rgb_fine"]),
+        # sums, not means; weights and normals detached, pred_normals and
+        # n_dot_d live
+        "predicted_normal_loss_fine": (outputs["weights_fine"] * (
+            (outputs["normals_fine"] - outputs["pred_normals_fine"]) ** 2
+        ).sum(dim=-1, keepdim=True)).sum(),
+        "orientation_loss_fine": (outputs["weights_fine"] * torch.relu(
+            outputs["n_dot_d_fine"]) ** 2).sum(),
+    }
+    if "mid_reflect_fine" in outputs:  # absent in primary-only mode
+        losses["loss_reflect_mid_fine"] = mse(gt_rgb,
+                                              outputs["mid_reflect_fine"])
+        if "mid_reflect_coarse" in outputs:
+            losses["loss_reflect_mid_coarse"] = mse(
+                gt_rgb, outputs["mid_reflect_coarse"])
+    losses.update({
+        "loss_mid_coarse": mse(gt_rgb, pred_mid_coarse),
+        "predicted_normal_loss_coarse": (outputs["weights_coarse"] * (
+            (outputs["normals_coarse"] - outputs["pred_normals_coarse"]) ** 2
+        ).sum(dim=-1, keepdim=True)).sum(),
+        "orientation_loss_coarse": (outputs["weights_coarse"] * torch.relu(
+            outputs["n_dot_d_coarse"]) ** 2).sum(),
+    })
+    # strict lookup: a missing coefficient is an error, not a default
+    return {k: v * coefficients[k] for k, v in losses.items()}

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card: shapes the render path's smoke run
-does not reach (ragged last tiles, odd samples per ray), the launch
-counters, the alignment check, and a small render on both devices.
+"""The port's CUDA kernels on the card: shapes the smoke run does not
+reach (ragged last tiles, odd samples per ray, every flag pair of the
+training forward), the launch counters, the alignment checks, and a small
+render on both devices.
 
 Needs a CUDA card and nvcc; skipped without them.  This file imports no
 jax, so it also runs on a machine without it:
@@ -11,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from rsn.configs import ModelConfig, PipelineConfig, TrainerConfig
+from rsn_torch.configs import ModelConfig, PipelineConfig, TrainerConfig
 from rsn_torch.data.synthetic import make_synthetic_cameras
 from rsn_torch.engine.trainer import render_image
 from rsn_torch.kernels import field_forward as ff
+from rsn_torch.kernels import field_train as tft
 from rsn_torch.models.field import Field
 
 pytestmark = pytest.mark.cuda
@@ -68,8 +70,9 @@ def test_launch_counts_follow_kernel_launches(field):
     ff.field_forward_density(ff.pack_params_density(field), mc)
     ff.field_forward_density_plain(ff.pack_params_density(field), mc)
     torch.cuda.synchronize()
-    assert ff.LAUNCHES == {"field_forward_v3": 1,
-                           "field_forward_density": 2}
+    assert {k: ff.LAUNCHES[k] for k in ("field_forward_v3",
+                                        "field_forward_density")} == {
+        "field_forward_v3": 1, "field_forward_density": 2}
 
 
 def test_misaligned_operand_raises(field):
@@ -81,6 +84,106 @@ def test_misaligned_operand_raises(field):
     packed[16] = shifted
     with pytest.raises(ValueError, match="aligned"):
         ff.field_forward_density(packed, mc)
+
+
+def _bf16_ulp_share(got, ref):
+    """Share of entries within one bf16 ulp of the reference."""
+    got, ref = got.float(), ref.float()
+    ulp = ref.abs().clamp_min(1e-30) * 2.0 ** -7
+    return float(((got - ref).abs() <= ulp).float().mean())
+
+
+def _rel_err(got, ref):
+    scale = max(float(ref.float().abs().max()), 1e-6)
+    return float((got.float() - ref.float()).abs().max()) / scale
+
+
+@pytest.mark.parametrize("R,S", [(1, 1), (3, 29), (5, 64), (33, 128)])
+@pytest.mark.parametrize("normals,spill_x", [(False, False), (False, True),
+                                             (True, False), (True, True)])
+def test_train_kernels_match_plain_versions(field, R, S, normals, spill_x):
+    """K3 with every flag pair, then K4 (acts) or K5 (xacts) on K3's
+    output, against the plain versions on the same inputs."""
+    mc, dirs = _inputs(R, S, seed=R)
+    g = ff.mid_g_bands(field, dirs)
+    p3 = ff.pack_params_v3f(field)
+    packed = tft.pack_params_v4f(p3, field) if normals else p3
+    out, acts = tft.field_forward_v6(packed, mc, g, S, normals, spill_x)
+    torch.cuda.synchronize()
+    ref_out, ref_acts = tft.field_forward_v6_plain(packed, mc, g, S, normals,
+                                                   spill_x)
+    cols = list(range(14)) + list(range(17, 20))
+    assert torch.isfinite(out.float()).all()
+    assert float((out[:, cols].float() - ref_out[:, cols].float()).abs()
+                 .max()) <= ATOL
+    assert torch.equal(out[:, 12], ff.field_forward_v3(p3, mc, g, S)[:, 12])
+    if normals:
+        # against the plain dgrad on the kernel's own activations (the
+        # whole plain forward may round a row's activations otherwise)
+        chain = tft.normals_dgrad_plain(packed, tft._split_acts(acts), mc)
+        unit = lambda v: -torch.nn.functional.normalize(v.float(), dim=-1)
+        live = chain.norm(dim=-1) > 1e-3
+        cos = (unit(out[:, 14:17]) * unit(chain)).sum(-1)[live]
+        assert float(cos.min()) >= 0.999
+    else:
+        assert torch.all(out[:, 14:17] == 0)
+    assert torch.all(out[:, 20:] == 0)
+    assert acts.shape == ref_acts.shape
+    assert _bf16_ulp_share(acts, ref_acts) >= 0.999
+
+    gen = torch.Generator().manual_seed(S)
+    d_out = torch.randn(R * S, tft.OUT_TRAIN, generator=gen)
+    d_out[:, 14:] = 0.0
+    d_out = d_out.to(torch.bfloat16).cuda()
+    if spill_x:
+        dg, dpk = tft.field_backward_v6(p3, g, acts, d_out, out, S)
+        ref_dg, ref_dpk = tft.field_backward_v6_plain(p3, g, acts, d_out,
+                                                      out, S)
+    else:
+        dmc, dg, dpk = tft.field_backward_v5(p3, mc, g, acts, d_out, out, S)
+        _, ref_dg, ref_dpk = ref = tft.field_backward_v5_plain(
+            p3, mc, g, acts, d_out, out, S)
+        assert _rel_err(dmc, ref[0]) <= ATOL
+    torch.cuda.synchronize()
+    assert _rel_err(dg, ref_dg) <= ATOL
+    for i, (a, b) in enumerate(zip(dpk, ref_dpk)):
+        assert a.shape == b.shape, i
+        assert _rel_err(a, b) <= ATOL, i
+
+
+def test_train_launch_counts_and_determinism(field):
+    mc, dirs = _inputs(6, 64)
+    g = ff.mid_g_bands(field, dirs)
+    p3 = ff.pack_params_v3f(field)
+    ff.reset_launch_counts()
+    out, xacts = tft.field_forward_v6(tft.pack_params_v4f(p3, field), mc, g,
+                                      64, True, True)
+    _, acts = tft.field_forward_v6(p3, mc, g, 64)
+    d_out = out.clone()
+    runs = [tft.field_backward_v6(p3, g, xacts, d_out, out, 64)
+            for _ in range(2)]
+    tft.field_backward_v5(p3, mc, g, acts, d_out, out, 64)
+    tft.field_backward_v6_plain(p3, g, xacts, d_out, out, 64)
+    torch.cuda.synchronize()
+    assert {k: ff.LAUNCHES[k] for k in ("field_forward_v6",
+                                        "field_backward_v5",
+                                        "field_backward_v6")} == {
+        "field_forward_v6": 2, "field_backward_v5": 1,
+        "field_backward_v6": 2}
+    for a, b in zip(runs[0][1], runs[1][1]):  # no float atomics
+        assert torch.equal(a, b)
+
+
+def test_train_misaligned_operand_raises(field):
+    mc, dirs = _inputs(2, 32)
+    g = ff.mid_g_bands(field, dirs)
+    packed = list(tft.pack_params_v4f(ff.pack_params_v3f(field), field))
+    shifted = torch.empty(packed[20].numel() + 1, dtype=torch.float32,
+                          device="cuda")[1:].view_as(packed[20])
+    shifted.copy_(packed[20])
+    packed[20] = shifted
+    with pytest.raises(ValueError, match="aligned"):
+        tft.field_forward_v6(packed, mc, g, 32, True)
 
 
 def test_small_render_cpu_matches_gpu(field):

@@ -121,8 +121,8 @@ def test_cpu_tensors_take_the_plain_version(setup):
     out = ff.field_forward_v3(packed, t(mc), g, S)
     assert torch.equal(out, ff.field_forward_v3_plain(packed, t(mc), g, S))
     ff.field_forward_density(ff.pack_params_density(field), t(mc))
-    assert ff.LAUNCHES == {"field_forward_v3": 0,
-                           "field_forward_density": 0}
+    assert {"field_forward_v3", "field_forward_density"} <= set(ff.LAUNCHES)
+    assert set(ff.LAUNCHES.values()) == {0}
 
 
 def test_wrappers_reject_bad_inputs(setup):

@@ -128,7 +128,9 @@ def test_compaction_selection_matches_jax_top_k():
 def test_unported_modes_raise(setup):
     mcfg, _, field, _, tb = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.get_outputs(field, tb, mcfg, training=True)
+        tmodel.get_outputs(field, tb, dataclasses.replace(
+            mcfg, compute_dtype="bfloat16", use_pallas_acts=False),
+            training=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodel.get_outputs(field, tb, dataclasses.replace(
             mcfg, use_proposal=True))

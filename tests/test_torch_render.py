@@ -149,7 +149,8 @@ def test_render_cli_orbit_end_to_end(tmp_path, capsys):
                           Field(torch.Generator().manual_seed(0)))
     out = tmp_path / "frames"
     rc = trender_cli.main(["--load-dir", str(run), "--mode", "orbit",
-                           "--num-frames", "2", "--output-dir", str(out)])
+                           "--num-frames", "2", "--output-dir", str(out)],
+                          device="cpu")
     assert rc == 0
     frames = sorted(os.listdir(out))
     assert frames == ["frame_00000.png", "frame_00001.png"]
@@ -163,7 +164,8 @@ def test_render_cli_orbit_end_to_end(tmp_path, capsys):
     for lo, hi in ranges:  # [0, 1] up to fp32 rounding of 1 - accumulation
         assert -1e-4 <= float(lo) <= float(hi) <= 1.0 + 1e-4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trender_cli.main(["--load-dir", str(run), "--mode", "split"])
+        trender_cli.main(["--load-dir", str(run), "--mode", "split"],
+                         device="cpu")
 
 
 def test_port_imports_no_jax():
