@@ -34,7 +34,23 @@ Phases, each announced on its own line:
                 launches per step, finite and falling losses, the
                 checkpoint; then one orbit frame of the trained run at
                 downscale 4 through the render CLI.
-  9. result   — the kernels' JSON line, then {"ok": true, "device": ...}.
+  The proposal preset (reflect-sampling-nerf-proposal, bf16, with
+  use_pallas_proposal set by its config flag):
+  9. K9       — K9 (prop_forward) against its plain version on the card,
+                on the real pass-1 and pass-3 inputs of the middle chunk of
+                the first 800x800 preset orbit frame; CUDA-event times.
+  10. cpu/gpu — one 32x32 preset frame on the CPU (plain versions) and on
+                the card (kernels); one 64-ray preset train step on both:
+                losses, and every gradient of field and proposal.
+  11. preset train and render — `python -m rsn_torch.cli.train
+                reflect-sampling-nerf-proposal` for 60 steps at full width
+                (launches per step, finite and falling losses, the
+                interlevel and distortion losses reported), then `python -m rsn_torch.cli.render --mode
+                orbit` of that run at 800x800 (K9 and K1 launches, frames
+                2-3 in rays/s); then the run's frames 2-3 with
+                use_pallas_proposal on and off, both timed through
+                render_image, for comparison.
+  12. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
 
 Any failed check raises: the script then exits non-zero and prints no
 result.  It imports neither jax nor PIL, nor anything of the JAX package.
@@ -64,6 +80,9 @@ RGB_SLACK = 1e-4    # fp32 rounding of 1 - accumulation, the unmasked fill
 TRAIN_STEPS = 60
 GRAD_TOL = 5e-2     # bf16 chains of 8 layers: share of each tensor's max
 LOSS_TOL = 2e-2     # relative, with an absolute floor of 1e-6 (zero losses)
+PROP_TOL = 1e-2     # K9: share of max |preact| (bf16 activations, fp32 sums
+                    # in another order: a rounding flip moves a row by an
+                    # ulp of its activations)
 
 # The card's peaks (NVIDIA's data sheet, H100 SXM, dense): bf16 tensor
 # cores and HBM3.  A kernel's bound is the larger of its products over the
@@ -71,10 +90,12 @@ LOSS_TOL = 2e-2     # relative, with an absolute floor of 1e-6 (zero losses)
 # written once) over the second.
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12   # float32 outside the tensor cores
 # products per row, at the kernels' operand shapes (IPE padded to 128,
 # as the packed weights are)
 TRUNK_MACS = 128 * 256 + 3 * 256 * 256 + 384 * 256 + 3 * 256 * 256
 DGRAD_MACS = TRUNK_MACS  # W^T through the 8 layers, x part included
+PROP_IN = 6 * 8 + 3  # K9's IPE: 8 octaves of sin and cos of 3 dims, mean
 FLOPS = {
     # trunk, heads + mid seed (16 + 128 columns), mid head
     "field_forward_v3": 2 * (TRUNK_MACS + 256 * 144 + 128 * 3),
@@ -89,7 +110,18 @@ FLOPS = {
     # K5 plus layer 4's x part and layer 0 (the IPE backward's dx)
     "field_backward_v5": 2 * (256 * 128 + 2 * 128 * 3 + 2 * 256 * 144
                               + TRUNK_MACS + DGRAD_MACS),
+    # the 4 x 64 trunk on the IPE's live columns, and the 64 -> 1 head
+    "prop_forward": 2 * (PROP_IN * 64 + 3 * 64 * 64 + 64),
 }
+# K9's IPE on the CUDA cores, counting a sine and an exp as one operation
+# each: per sin/cos column the phase product (+ pi/2), the variance
+# product, its halving, exp, sin and the damping product
+PROP_FP32_OPS = 48 * 7
+# K9's bytes: per row the 6 live f32 columns of its input (mean, cov) and
+# its f32 output; once, the live weights (bf16) and biases (f32)
+PROP_ROW_BYTES = 6 * 4 + 4
+PROP_PARAM_BYTES = (2 * (PROP_IN * 64 + 3 * 64 * 64 + 64)
+                    + 4 * (4 * 64 + 1))
 
 
 def phase(name: str) -> None:
@@ -114,9 +146,12 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float):
-    """-> (least ms the card could take, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, fp32_ops: float = 0.0):
+    """-> (least ms the card could take, "operations" or "bytes"): the
+    larger of the tensor-core products over the bf16 peak, the float32
+    operations over the float32 peak and the bytes over the memory rate."""
+    t_ops = max(flops / PEAK_FLOPS, fp32_ops / PEAK_FP32)
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -145,11 +180,12 @@ def png_pixels(path: str):
     return rows[:, 1:]
 
 
-def smoke_config():
+def smoke_config(method: str = "reflect-sampling-nerf", **model_flags):
     from rsn_torch.cli.registry import get_method
 
-    cfg = get_method("reflect-sampling-nerf").config_factory()
-    model = dataclasses.replace(cfg.pipeline.model, compute_dtype="bfloat16")
+    cfg = get_method(method).config_factory()
+    model = dataclasses.replace(cfg.pipeline.model, compute_dtype="bfloat16",
+                                **model_flags)
     dm = dataclasses.replace(cfg.pipeline.datamanager, dataparser="synthetic",
                              data=f"sphere:res={FRAME_RES}")
     return dataclasses.replace(cfg, pipeline=dataclasses.replace(
@@ -218,7 +254,6 @@ def main() -> int:
         raise RuntimeError("chip_smoke.py runs from a checkout of the repo "
                            "(rsn_torch/ not found beside it)")
     sys.path.insert(0, REPO)
-    import numpy as np
     import torch
 
     # ---- 1. device ----
@@ -259,10 +294,9 @@ def main() -> int:
     from rsn_torch.data.cameras import rescale_cameras
     from rsn_torch.data.synthetic import load_cameras
     from rsn_torch.engine import checkpoints as ckpt_lib
-    from rsn_torch.engine.trainer import preferred_eval_chunk, render_image
+    from rsn_torch.engine.trainer import render_image
     from rsn_torch.kernels import field_forward as ff
     from rsn_torch.models.field import Field
-    from rsn_torch.models.model import final_rgb
 
     config = smoke_config()
     field_cpu = Field(torch.Generator().manual_seed(SEED)).eval()
@@ -320,25 +354,9 @@ def main() -> int:
 
     # ---- 4. CPU against GPU ----
     phase("phase 4: CPU (plain versions) against GPU (kernels), 32x32")
-    small = rescale_cameras(orbit, FRAME_RES / 32)
     for product_only in (True, False):
-        outs = []
-        for f, dev in ((field_cpu, torch.device("cpu")), (field, device)):
-            # orbit frame 1: some of its rays reflect, some do not
-            outs.append(render_image(
-                f, small.to(dev), 1, config,
-                rays_per_chunk=preferred_eval_chunk(config, dev),
-                product_only=product_only))
-        cpu, gpu = outs
-        agree = cpu["mask"] == gpu["mask"]
-        share = float(agree.mean())
-        diff = np.abs(final_rgb(cpu) - final_rgb(gpu))[agree[..., 0]]
-        print(f"  product_only={product_only}: masks agree on "
-              f"{share:.4%} of rays (mask fraction {cpu['mask'].mean():.4f}),"
-              f" final_rgb max |diff| {diff.max():.6g} where they agree",
-              flush=True)
-        if share < 0.99 or diff.max() > 0.05:
-            raise RuntimeError("CPU and GPU renders disagree")
+        cpu_gpu_render(config, (field_cpu, field), orbit, device,
+                       f"product_only={product_only}", product_only)
 
     # ---- 5. the entry point ----
     phase(f"phase 5: rsn_torch.cli.render --mode orbit at "
@@ -348,44 +366,14 @@ def main() -> int:
         ckpt_lib.dump_config(run, config)
         ckpt_lib.save_checkpoint(os.path.join(run, "checkpoints"), 0,
                                  field_cpu)
-        frames_dir = os.path.join(tmp, "frames")
-        buf = io.StringIO()
-        ff.reset_launch_counts()
-        with contextlib.redirect_stdout(buf):
-            rc = render_cli.main(["--load-dir", run, "--mode", "orbit",
-                                  "--num-frames", "3", "--output-dir",
-                                  frames_dir])
-        torch.cuda.synchronize()
-        launches = {k: ff.LAUNCHES[k] for k in RENDER_KERNELS}
-        print(buf.getvalue(), end="")
-        if rc != 0:
-            raise RuntimeError(f"render CLI exited {rc}")
-        print(f"  launches in the CLI run: {launches}")
+        text, stats, all_launches = run_render_cli(
+            run, os.path.join(tmp, "frames"), "--num-frames", "3")
+        print(text, end="")
+        launches = {k: all_launches[k] for k in RENDER_KERNELS}
+        print(f"  launches in the CLI run: {all_launches}")
         if min(launches.values()) <= 0:
             raise RuntimeError("a kernel of the render path never launched")
-        stats = [tuple(float(x) for x in m) for m in re.findall(
-            r"rendered \d+/\d+: ([\d.]+) s, ([\d.]+) rays/s, mask fraction "
-            r"([\d.]+), reflect bucket ([\d.]+), rgb range \[([-\d.e]+), "
-            r"([-\d.e]+)\]", buf.getvalue())]
-        if len(stats) != 3:
-            raise RuntimeError("expected three rendered frames")
-        for i in range(3):
-            px = png_pixels(os.path.join(frames_dir, f"frame_{i:05d}.png"))
-            if px.shape != (FRAME_RES, FRAME_RES * 3) or px.min() == px.max():
-                raise RuntimeError(f"frame {i}: wrong size or constant")
-        lo, hi = min(s[4] for s in stats), max(s[5] for s in stats)
-        if lo < -RGB_SLACK or hi > 1.0 + RGB_SLACK:
-            raise RuntimeError(f"final_rgb outside [0, 1]: [{lo}, {hi}]")
-        mask_frac = sum(s[2] for s in stats) / 3
-        print(f"  frames finite (checked by the CLI), final_rgb in "
-              f"[{lo:.9g}, {hi:.9g}] (limit [0, 1] +- {RGB_SLACK}), not "
-              f"constant; mask fraction over the frames {mask_frac:.6f}")
-        if not 0.0 < mask_frac < 1.0:
-            raise RuntimeError("degenerate reflection mask")
-        rays_s = [s[1] for s in stats[1:]]
-        print(f"  product frames 2-3 at {FRAME_RES}x{FRAME_RES}: "
-              f"{rays_s[0]:.1f} and {rays_s[1]:.1f} rays/s; eval reflect "
-              f"bucket after the run {stats[-1][3]} ({card})", flush=True)
+        check_orbit_frames(os.path.join(tmp, "frames"), stats, card)
 
     half = rescale_cameras(orbit, 2.0).to(device)
     ff.reset_launch_counts()
@@ -405,8 +393,13 @@ def main() -> int:
     results.update(train_results["kernels"])
     launches.update(train_results["launches"])
 
-    # ---- 9. result ----
-    phase("phase 9: result")
+    # ---- 9-11. the proposal preset ----
+    preset_results = preset_phases(field, field_cpu, orbit, device, card)
+    results.update(preset_results["kernels"])
+    launches.update(preset_results["launches"])
+
+    # ---- 12. result ----
+    phase("phase 12: result")
     kernels = []
     for name, source, line in KERNEL_ROWS:
         r = results[name]
@@ -441,7 +434,40 @@ KERNEL_ROWS = (
      "rsn/kernels/field_train.py:516"),
     ("field_backward_v6", "field_train.cu",
      "rsn/kernels/field_train.py:608"),
+    ("prop_forward", "proposal_forward.cu",
+     "rsn/kernels/proposal_pallas.py:107"),
 )
+
+
+def cpu_gpu_render(config, fields, orbit, device, label: str,
+                   product_only: bool = True, proposals=(None, None)):
+    """Orbit frame 1 at 32x32 on the CPU (plain versions) and on the card
+    (kernels): masks agree on >= 99% of rays, final_rgb within 0.05 where
+    they agree.  fields / proposals: (CPU, GPU) pairs."""
+    import numpy as np
+    import torch
+
+    from rsn_torch.data.cameras import rescale_cameras
+    from rsn_torch.engine.trainer import preferred_eval_chunk, render_image
+    from rsn_torch.models.model import final_rgb
+
+    small = rescale_cameras(orbit, FRAME_RES / 32)
+    outs = []
+    for f, p, dev in zip(fields, proposals, (torch.device("cpu"), device)):
+        # orbit frame 1: some of its rays reflect, some do not
+        outs.append(render_image(
+            f, small.to(dev), 1, config,
+            rays_per_chunk=preferred_eval_chunk(config, dev),
+            product_only=product_only, proposal=p))
+    cpu, gpu = outs
+    agree = cpu["mask"] == gpu["mask"]
+    share = float(agree.mean())
+    diff = np.abs(final_rgb(cpu) - final_rgb(gpu))[agree[..., 0]]
+    print(f"  {label}: masks agree on {share:.4%} of rays (mask fraction "
+          f"{cpu['mask'].mean():.4f}), final_rgb max |diff| "
+          f"{diff.max():.6g} where they agree", flush=True)
+    if share < 0.99 or diff.max() > 0.05:
+        raise RuntimeError("CPU and GPU renders disagree")
 
 
 def rel_err(got, ref) -> float:
@@ -622,14 +648,17 @@ def check_train_kernels(calls, card):
     return results
 
 
-def cpu_gpu_train_step(config, field_eval, device):
-    """Phase 7: one 64-ray step with midpoint draws on both devices."""
+def cpu_gpu_train_step(config, field_eval, device, proposal_eval=None,
+                       step: int = 50):
+    """One 64-ray step with midpoint draws on both devices, at `step`
+    (the loss coefficients and the proposal's weight anneal); with
+    proposal_eval (the preset) its gradients are compared too."""
+    import copy
+
     import torch
 
-    from rsn_torch.configs import loss_coefficients_at_step
     from rsn_torch.engine import trainer as trainer_lib
     from rsn_torch.models import model as model_lib
-    from rsn_torch.models.field import Field
 
     mcfg = config.pipeline.model
     ds = trainer_lib.load_dataset("synthetic", f"sphere:res={FRAME_RES}",
@@ -638,24 +667,28 @@ def cpu_gpu_train_step(config, field_eval, device):
         torch.as_tensor(ds.images), ds.cameras, 64,
         torch.Generator().manual_seed(SEED))
     bundle = model_lib.apply_collider(bundle, mcfg)
-    coeffs = loss_coefficients_at_step(50)
+    coeffs = trainer_lib.loss_coefficients(mcfg, step)
+    anneal = trainer_lib.proposal_anneal(mcfg, step)
     step_out = []
     for dev in (torch.device("cpu"), device):
-        f = Field()
-        f.load_state_dict({k: v.cpu() for k, v in
-                           field_eval.state_dict().items()})
-        f = f.to(dev)
+        f = copy.deepcopy(field_eval).to(dev)
+        p = (None if proposal_eval is None
+             else copy.deepcopy(proposal_eval).to(dev))
         b = dataclasses.replace(bundle, **{
             fl.name: (None if getattr(bundle, fl.name) is None
                       else getattr(bundle, fl.name).to(dev))
             for fl in dataclasses.fields(bundle)})
         outs = model_lib.get_outputs(f, b, mcfg, training=True,
-                                     rays_live=False)
+                                     rays_live=False, proposal=p,
+                                     prop_anneal=anneal)
         losses = model_lib.get_loss_dict(outs, gt.to(dev), coeffs)
         sum(losses.values()).backward()
+        params = list(f.named_parameters()) + (
+            [] if p is None else [(f"proposal.{k}", v)
+                                  for k, v in p.named_parameters()])
         step_out.append(({k: float(v.detach()) for k, v in losses.items()},
-                         {k: p.grad.cpu() for k, p in f.named_parameters()
-                          if p.grad is not None},
+                         {k: v.grad.cpu() for k, v in params
+                          if v.grad is not None},
                          float(outs["mask"].float().mean())))
     (lc, gc, mfc), (lg, gg, mfg) = step_out
     worst_loss = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6 / LOSS_TOL)
@@ -669,81 +702,142 @@ def cpu_gpu_train_step(config, field_eval, device):
         raise RuntimeError("CPU and GPU train steps disagree")
 
 
-def train_entry_point(card):
-    """Phase 8: the train CLI for TRAIN_STEPS steps, then one orbit frame
-    of the trained run -> the training kernels' launches of the run."""
+def run_train_cli(card, method: str, flags, per_step, tmp,
+                  report=("loss_mid_fine",)):
+    """The train CLI for TRAIN_STEPS full-width steps of `method` on the
+    sphere at FRAME_RES, from zeroed launch counts: every kernel's launches
+    equal per_step x TRAIN_STEPS (absent kernels: zero), every logged loss
+    finite, loss_mid_fine lower over the last 10 steps than over the first
+    10, the warmup's zeros before step 50, the final checkpoint; the means
+    of the `report` losses are printed.  -> (run dir, the kernels'
+    launches)."""
     import numpy as np
     import torch
 
-    from rsn_torch.cli import render as render_cli
     from rsn_torch.cli import train as train_cli
     from rsn_torch.kernels import field_forward as ff
 
+    argv = [method, "--data", f"sphere:res={FRAME_RES}",
+            "--pipeline.datamanager.dataparser", "synthetic",
+            "--pipeline.model.compute-dtype", "bfloat16", *flags,
+            "--max-num-iterations", str(TRAIN_STEPS),
+            "--steps-per-log", "1", "--seed", str(SEED), "--output-dir", tmp]
+    buf = io.StringIO()
+    ff.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(ff.LAUNCHES)
+    text = buf.getvalue().splitlines()
+    print("\n".join(text[:3] + ["  ..."] + text[-2:]))
+    if rc != 0:
+        raise RuntimeError(f"train CLI exited {rc}")
+    want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in launches}
+    print(f"  launches in the CLI run: {launches}")
+    if launches != want:
+        raise RuntimeError(f"the train path's launches are not {want}")
+    run = re.search(r"run dir: (\S+)", buf.getvalue()).group(1)
+    with open(os.path.join(run, "train_log.jsonl")) as fh:
+        log = [json.loads(line) for line in fh]
+    if [e["step"] for e in log] != list(range(1, TRAIN_STEPS + 1)):
+        raise RuntimeError("expected one log line per step")
+    keys = [k for k in log[0] if k.startswith(
+        ("loss", "predicted", "orientation", "interlevel", "distortion",
+         "total"))]
+    if not all(np.isfinite(e[k]) for e in log for k in keys):
+        raise RuntimeError("a logged loss is not finite")
+    means = {k: (float(np.mean([e[k] for e in log[:10]])),
+                 float(np.mean([e[k] for e in log[-10:]])))
+             for k in report}
+    warm = all(e["orientation_loss_fine"] == 0 for e in log[:49])
+    print(f"  {len(keys)} loss keys finite on every step; " + "; ".join(
+        f"mean {k} steps 1-10 {a:.6g}, steps {TRAIN_STEPS - 9}-"
+        f"{TRAIN_STEPS} {b:.6g}" for k, (a, b) in means.items())
+        + f"; normal losses zero before step 50: {warm}; mask fraction at "
+        f"the end {log[-1]['mask_fraction']:.4f}, reflect bucket "
+        f"{log[-1]['reflect_fraction']}")
+    early = float(np.mean([e["loss_mid_fine"] for e in log[:10]]))
+    late = float(np.mean([e["loss_mid_fine"] for e in log[-10:]]))
+    if not late < early:
+        raise RuntimeError("loss_mid_fine did not fall")
+    if not warm:
+        raise RuntimeError("the warmup did not zero the normal losses")
+    ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")))
+    print(f"  checkpoints: {ckpts}")
+    if ckpts != [f"step-{TRAIN_STEPS:09d}.pt"]:
+        raise RuntimeError("expected the final checkpoint")
+    rays_s = [e["rays_per_sec"] for e in log[10:]]
+    print(f"  train throughput, steps 11-{TRAIN_STEPS}: median "
+          f"{statistics.median(rays_s):.1f} rays/s (min "
+          f"{min(rays_s):.1f}, max {max(rays_s):.1f}; {card})", flush=True)
+    return run, {k: v for k, v in launches.items() if per_step.get(k)}
+
+
+def check_orbit_frames(frames_dir, stats, card):
+    """Three 800x800 frames: not constant, final_rgb in [0, 1] (the CLI
+    checked them finite), a mixed reflection mask; prints frames 2-3's
+    rays/s."""
+    if len(stats) != 3:
+        raise RuntimeError("expected three rendered frames")
+    for i in range(3):
+        px = png_pixels(os.path.join(frames_dir, f"frame_{i:05d}.png"))
+        if px.shape != (FRAME_RES, FRAME_RES * 3) or px.min() == px.max():
+            raise RuntimeError(f"frame {i}: wrong size or constant")
+    lo, hi = min(s[4] for s in stats), max(s[5] for s in stats)
+    if lo < -RGB_SLACK or hi > 1.0 + RGB_SLACK:
+        raise RuntimeError(f"final_rgb outside [0, 1]: [{lo}, {hi}]")
+    mask_frac = sum(s[2] for s in stats) / 3
+    print(f"  frames finite (checked by the CLI), final_rgb in "
+          f"[{lo:.9g}, {hi:.9g}] (limit [0, 1] +- {RGB_SLACK}), not "
+          f"constant; mask fraction over the frames {mask_frac:.6f}")
+    if not 0.0 < mask_frac < 1.0:
+        raise RuntimeError("degenerate reflection mask")
+    rays_s = [s[1] for s in stats[1:]]
+    print(f"  product frames 2-3 at {FRAME_RES}x{FRAME_RES}: "
+          f"{rays_s[0]:.1f} and {rays_s[1]:.1f} rays/s; eval reflect "
+          f"bucket after the run {stats[-1][3]} ({card})", flush=True)
+
+
+def run_render_cli(run, frames_dir, *flags):
+    """The render CLI's orbit mode on `run`, from zeroed launch counts ->
+    (its stdout, the per-frame (s, rays/s, mask fraction, bucket, rgb lo,
+    rgb hi), the kernels' launches)."""
+    import torch
+
+    from rsn_torch.cli import render as render_cli
+    from rsn_torch.kernels import field_forward as ff
+
+    buf = io.StringIO()
+    ff.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = render_cli.main(["--load-dir", run, "--mode", "orbit",
+                              "--output-dir", frames_dir, *flags])
+    torch.cuda.synchronize()
+    launches = dict(ff.LAUNCHES)
+    if rc != 0:
+        raise RuntimeError(f"render CLI exited {rc}")
+    stats = [tuple(float(x) for x in m) for m in re.findall(
+        r"rendered \d+/\d+: ([\d.]+) s, ([\d.]+) rays/s, mask fraction "
+        r"([\d.]+), reflect bucket ([\d.]+), rgb range \[([-\d.e]+), "
+        r"([-\d.e]+)\]", buf.getvalue())]
+    return buf.getvalue(), stats, launches
+
+
+def train_entry_point(card):
+    """Phase 8: the train CLI for TRAIN_STEPS steps, then one orbit frame
+    of the trained run -> the training kernels' launches of the run."""
     with tempfile.TemporaryDirectory() as tmp:
-        argv = ["reflect-sampling-nerf", "--data", f"sphere:res={FRAME_RES}",
-                "--pipeline.datamanager.dataparser", "synthetic",
-                "--pipeline.model.compute-dtype", "bfloat16",
-                "--max-num-iterations", str(TRAIN_STEPS),
-                "--steps-per-log", "1", "--seed", str(SEED),
-                "--output-dir", tmp]
-        buf = io.StringIO()
-        ff.reset_launch_counts()
-        with contextlib.redirect_stdout(buf):
-            rc = train_cli.main(argv)
-        torch.cuda.synchronize()
-        launches = {k: ff.LAUNCHES[k] for k in TRAIN_KERNELS}
-        text = buf.getvalue().splitlines()
-        print("\n".join(text[:3] + ["  ..."] + text[-2:]))
-        if rc != 0:
-            raise RuntimeError(f"train CLI exited {rc}")
-        want = {"field_forward_v6": 4 * TRAIN_STEPS,
-                "field_backward_v6": 2 * TRAIN_STEPS,
-                "field_backward_v5": 2 * TRAIN_STEPS}
-        print(f"  launches in the CLI run: {launches} (want {want})")
-        if launches != want or any(ff.LAUNCHES[k] for k in RENDER_KERNELS):
-            raise RuntimeError("the train path did not run K3 4x, K5 2x and "
-                               "K4 2x per step (and no render kernel)")
-        run = re.search(r"run dir: (\S+)", buf.getvalue()).group(1)
-        with open(os.path.join(run, "train_log.jsonl")) as fh:
-            log = [json.loads(line) for line in fh]
-        if [e["step"] for e in log] != list(range(1, TRAIN_STEPS + 1)):
-            raise RuntimeError("expected one log line per step")
-        keys = [k for k in log[0] if k.startswith(
-            ("loss", "predicted", "orientation", "total"))]
-        if not all(np.isfinite(e[k]) for e in log for k in keys):
-            raise RuntimeError("a logged loss is not finite")
-        early = float(np.mean([e["loss_mid_fine"] for e in log[:10]]))
-        late = float(np.mean([e["loss_mid_fine"] for e in log[-10:]]))
-        warm = all(e["orientation_loss_fine"] == 0 for e in log[:49])
-        print(f"  {len(keys)} loss keys finite on every step; mean "
-              f"loss_mid_fine steps 1-10 {early:.6g}, steps "
-              f"{TRAIN_STEPS - 9}-{TRAIN_STEPS} {late:.6g}; normal losses "
-              f"zero before step 50: {warm}; mask fraction at the end "
-              f"{log[-1]['mask_fraction']:.4f}, reflect bucket "
-              f"{log[-1]['reflect_fraction']}")
-        if not late < early:
-            raise RuntimeError("loss_mid_fine did not fall")
-        if not warm:
-            raise RuntimeError("the warmup did not zero the normal losses")
-        ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")))
-        print(f"  checkpoints: {ckpts}")
-        if ckpts != [f"step-{TRAIN_STEPS:09d}.pt"]:
-            raise RuntimeError("expected the final checkpoint")
-        rays_s = [e["rays_per_sec"] for e in log[10:]]
-        print(f"  train throughput, steps 11-{TRAIN_STEPS}: median "
-              f"{statistics.median(rays_s):.1f} rays/s (min "
-              f"{min(rays_s):.1f}, max {max(rays_s):.1f}; {card})",
-              flush=True)
+        run, launches = run_train_cli(
+            card, "reflect-sampling-nerf", (),
+            {"field_forward_v6": 4, "field_backward_v6": 2,
+             "field_backward_v5": 2}, tmp)
         frames = os.path.join(tmp, "frames")
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = render_cli.main(["--load-dir", run, "--mode", "orbit",
-                                  "--num-frames", "1", "--downscale-factor",
-                                  "4", "--output-dir", frames])
-        print(buf.getvalue(), end="")
+        text, _, _ = run_render_cli(run, frames, "--num-frames", "1",
+                                    "--downscale-factor", "4")
+        print(text, end="")
         px = png_pixels(os.path.join(frames, "frame_00000.png"))
         side = FRAME_RES // 4
-        if rc != 0 or px.shape != (side, side * 3) or px.min() == px.max():
+        if px.shape != (side, side * 3) or px.min() == px.max():
             raise RuntimeError("the trained run's orbit frame failed")
     return launches
 
@@ -776,6 +870,192 @@ def train_phases(config, field, device, card):
           f"{FRAME_RES}x{FRAME_RES}")
     launches = train_entry_point(card)
     return {"kernels": results, "launches": launches}
+
+
+def capture_prop_inputs(field, proposal, cams, config, device):
+    """The preset's get_outputs on the middle 16384-ray chunk of orbit
+    frame 0, recording K9's inputs -> [(packed, mc)] for passes 1 and 3."""
+    import torch
+
+    from rsn_torch.core.rays import RayBundle
+    from rsn_torch.data.cameras import generate_image_rays
+    from rsn_torch.kernels import field_forward as ff
+    from rsn_torch.kernels import proposal_forward as pf
+    from rsn_torch.models import model as model_lib
+
+    o, d, pa = generate_image_rays(cams, 0)
+    mid = (o.shape[0] // CHUNK) // 2
+    sl = slice(mid * CHUNK, (mid + 1) * CHUNK)
+    zeros = torch.zeros_like(pa[sl])
+    rb = model_lib.apply_collider(
+        RayBundle(o[sl], d[sl], pa[sl], zeros, zeros), config.pipeline.model)
+    calls = []
+    real = pf.prop_forward
+
+    def rec(packed, mc):
+        calls.append((packed, mc.clone()))
+        return real(packed, mc)
+
+    pf.prop_forward = rec
+    ff.reset_launch_counts()
+    try:
+        model_lib.get_outputs(field, rb, config.pipeline.model,
+                              need_coarse_rgb=False, proposal=proposal)
+    finally:
+        pf.prop_forward = real
+    torch.cuda.synchronize(device)
+    k1, k2 = ff.LAUNCHES["field_forward_v3"], ff.LAUNCHES["field_forward_density"]
+    if len(calls) != 2 or (k1, k2) != (2, 0):
+        raise RuntimeError(f"a preset chunk ran K9 {len(calls)}x, K1 {k1}x, "
+                           f"K2 {k2}x (want 2, 2, 0)")
+    return calls
+
+
+def check_prop_kernel(calls, card):
+    """Phase 9's comparisons and times -> K9's results."""
+    import torch
+
+    from rsn_torch.kernels import proposal_forward as pf
+
+    result = {"err": 0.0}
+    for p, (packed, mc) in zip((1, 3), calls):
+        got = pf.prop_forward(packed, mc)
+        ref = pf.prop_forward_plain(packed, mc)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise RuntimeError("K9: non-finite kernel output")
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        print(f"  K9 pass {p}: rows {mc.shape[0]}, max |err| {err:.6g} of "
+              f"max |preact| {scale:.6g} (limit {PROP_TOL} of it)",
+              flush=True)
+        if err > PROP_TOL * scale:
+            raise RuntimeError("K9 disagrees with its plain version")
+        result["err"] = max(result["err"], err)
+    for p, (packed, mc) in zip((1, 3), calls):
+        n = mc.shape[0]
+        k = cuda_ms(lambda: pf.prop_forward(packed, mc))
+        pl = cuda_ms(lambda: pf.prop_forward_plain(packed, mc))
+        b, by = bound(FLOPS["prop_forward"] * n,
+                      n * PROP_ROW_BYTES + PROP_PARAM_BYTES,
+                      PROP_FP32_OPS * n)
+        print(f"  K9 pass {p}: {n} rows, kernel {k:.4f} ms, plain {pl:.4f} "
+              f"ms, bound {b:.4f} ms ({by}; median of 10; {card})",
+              flush=True)
+        if p == 1:
+            result.update(ms=k, plain_ms=pl, bound_ms=b, bound_by=by)
+    return result
+
+
+def preset_phases(field, field_cpu, orbit, device, card):
+    """Phases 9-11, the reflect-sampling-nerf-proposal preset with
+    use_pallas_proposal -> {"kernels": K9's results, "launches": K9's
+    launches in the render CLI run}."""
+    import copy
+
+    import torch
+
+    from rsn_torch.models.proposal import ProposalField
+
+    config = smoke_config("reflect-sampling-nerf-proposal",
+                          use_pallas_proposal=True)
+    prop_cpu = ProposalField(torch.Generator().manual_seed(SEED + 2)).eval()
+    prop = copy.deepcopy(prop_cpu).to(device)
+
+    phase("phase 9: K9 (prop_forward) against its plain version at the "
+          "preset render's shapes")
+    calls = capture_prop_inputs(field, prop, orbit.to(device), config,
+                                device)
+    result = check_prop_kernel(calls, card)
+    del calls
+    torch.cuda.empty_cache()
+
+    phase("phase 10: the preset, CPU (plain versions) against GPU "
+          "(kernels): a 32x32 frame, a 64-ray train step at step 100")
+    cpu_gpu_render(config, (field_cpu, field), orbit, device,
+                   "preset product frame", True, (prop_cpu, prop))
+    cpu_gpu_train_step(config, field, device, prop, step=100)
+
+    phase(f"phase 11: rsn_torch.cli.train reflect-sampling-nerf-proposal, "
+          f"{TRAIN_STEPS} steps at full width, then rsn_torch.cli.render "
+          f"--mode orbit of the run at {FRAME_RES}x{FRAME_RES}")
+    with tempfile.TemporaryDirectory() as tmp:
+        # the interlevel loss is reported, not required to fall: from a
+        # random init it is 0 while the proposal's envelope covers the
+        # field's spread fine weights, and grows as the field sharpens
+        run, _ = run_train_cli(
+            card, "reflect-sampling-nerf-proposal",
+            ("--pipeline.model.use-pallas-proposal", "True"),
+            {"field_forward_v6": 2, "field_backward_v6": 1,
+             "field_backward_v5": 1}, tmp,
+            ("loss_mid_fine", "interlevel_loss", "distortion_loss"))
+        frames = os.path.join(tmp, "frames")
+        text, stats, launches = run_render_cli(run, frames, "--num-frames",
+                                               "3")
+        print(text, end="")
+        print(f"  launches in the CLI run: {launches}")
+        chunks = -(-FRAME_RES * FRAME_RES // CHUNK)
+        k9 = launches["prop_forward"]
+        others = [launches[k] for k in ("field_forward_density",)
+                  + TRAIN_KERNELS]
+        if (k9 < 3 * 2 * chunks or k9 % (2 * chunks)
+                or launches["field_forward_v3"] != k9 or any(others)):
+            raise RuntimeError("a preset frame must run K9 and K1 twice per "
+                               "chunk (passes 1, 3 and 2, 4) and nothing "
+                               "else")
+        print(f"  K9 and K1 each twice per chunk: {k9 // (2 * chunks)} "
+              f"renders of {chunks} chunks for 3 frames (re-renders "
+              f"included)")
+        check_orbit_frames(frames, stats, card)
+
+        compare_proposal_settings(run, orbit.to(device), device, card)
+    return {"kernels": {"prop_forward": result},
+            "launches": {"prop_forward": k9}}
+
+
+def compare_proposal_settings(run, cams, device, card):
+    """The run's orbit frames 2-3 with use_pallas_proposal on (K9) and off
+    (the proposal's fp32 composition on passes 1 and 3), both timed the
+    same way: render_image on the host clock, ending in a device sync,
+    after frame 1 of each setting has set its bucket memo; in the order
+    on, off, off, on.  Only K9's launches may differ between them."""
+    import numpy as np
+    import torch
+
+    from rsn_torch.cli.run_io import load_run_full
+    from rsn_torch.engine.trainer import render_image
+    from rsn_torch.kernels import field_forward as ff
+    from rsn_torch.models.model import final_rgb
+
+    field, cfg, _, extras = load_run_full(run, device)
+    cfgs = {on: dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, model=dataclasses.replace(
+            cfg.pipeline.model, use_pallas_proposal=on)))
+        for on in (True, False)}
+    memo = {}
+    kw = dict(rays_per_chunk=CHUNK, product_only=True, reflect_memo=memo,
+              proposal=extras["proposal"])
+    for on in (True, False):
+        render_image(field, cams, 0, cfgs[on], **kw)
+    rates = {True: [], False: []}
+    for frame, on in ((1, True), (1, False), (2, False), (2, True)):
+        ff.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render_image(field, cams, frame, cfgs[on], **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k9 = ff.LAUNCHES["prop_forward"]
+        if (k9 > 0) != on or not np.isfinite(final_rgb(out)).all():
+            raise RuntimeError(f"frame {frame + 1} with use_pallas_proposal "
+                               f"{on} failed (K9 launches {k9})")
+        rates[on].append(FRAME_RES * FRAME_RES / seconds)
+        print(f"  frame {frame + 1}, use_pallas_proposal {on}: {seconds:.4f}"
+              f" s, {rates[on][-1]:.1f} rays/s, K9 launches {k9}")
+    print(f"  frames 2-3 through render_image: use_pallas_proposal on "
+          f"{statistics.mean(rates[True]):.1f} rays/s, off "
+          f"{statistics.mean(rates[False]):.1f} rays/s (mean of 2 each; "
+          f"{card})", flush=True)
 
 
 if __name__ == "__main__":

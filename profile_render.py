@@ -4,14 +4,17 @@ goes, on one CUDA card (the breakdown of PERF.md section 5).
 
     python3 profile_render.py
 
-Renders the orbit of chip_smoke.py (the registry's reflect-sampling-nerf
-config with compute_dtype bfloat16, weights drawn from chip_smoke.SEED,
-the synthetic sphere at 800x800) through render_image with
-product_only=True, as the render CLI does.  Frames 0 and 1 warm up (kernel
-build, compaction bucket); frame 2 is timed once without the profiler and
-once under torch.profiler.  Prints the wall times, the device time summed
-over every kernel, copy and fill (so the device's busy and idle shares of
-the profiled frame), and the device time per kernel name, largest first.
+For each method of chip_smoke.py (the registry's reflect-sampling-nerf,
+and reflect-sampling-nerf-proposal with use_pallas_proposal and a proposal
+field drawn from chip_smoke.SEED + 2; compute_dtype bfloat16, field
+weights drawn from chip_smoke.SEED, the synthetic sphere at 800x800),
+renders its orbit through render_image with product_only=True, as the
+render CLI does.  Frames 0 and 1 warm up (kernel build, compaction
+bucket); frame 2 is timed once without the profiler and once under
+torch.profiler.  Prints, per method, the wall times, the device time
+summed over every kernel, copy and fill (so the device's busy and idle
+shares of the profiled frame), and the device time per kernel name,
+largest first.
 """
 from __future__ import annotations
 
@@ -24,10 +27,30 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 FRAME = 2
 TOP = 25
+METHODS = (("reflect-sampling-nerf", {}),
+           ("reflect-sampling-nerf-proposal", {"use_pallas_proposal": True}))
 
 
 def main() -> int:
     sys.path.insert(0, REPO)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_render.py needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    print(f"card: {card}; torch {torch.__version__}, cuda "
+          f"{torch.version.cuda}")
+    for method, flags in METHODS:
+        profile_frame(method, flags, torch.device("cuda", 0))
+    return 0
+
+
+def profile_frame(method: str, flags, device) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -37,18 +60,13 @@ def main() -> int:
     from rsn_torch.engine.trainer import preferred_eval_chunk, render_image
     from rsn_torch.kernels import field_forward as ff
     from rsn_torch.models.field import Field
+    from rsn_torch.models.proposal import ProposalField
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_render.py needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True,
-                          timeout=60).stdout.strip().splitlines()[0]
-    config = smoke_config()
+    config = smoke_config(method, **flags)
     field = Field(torch.Generator().manual_seed(SEED)).to(device).eval()
+    proposal = (ProposalField(torch.Generator().manual_seed(SEED + 2))
+                .to(device).eval() if config.pipeline.model.use_proposal
+                else None)
     cams = orbit_cameras(load_cameras("synthetic", f"sphere:res={FRAME_RES}",
                                       "test"), FRAME + 1).to(device)
     chunk = preferred_eval_chunk(config, device)
@@ -57,7 +75,8 @@ def main() -> int:
     def frame(i):
         t0 = time.perf_counter()
         out = render_image(field, cams, i, config, rays_per_chunk=chunk,
-                           product_only=True, reflect_memo=memo)
+                           product_only=True, reflect_memo=memo,
+                           proposal=proposal)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
@@ -79,9 +98,8 @@ def main() -> int:
     if busy <= 0.0:
         raise RuntimeError("the profiler recorded no device time")
     n = cams.width * cams.height
-    print(f"card: {card}; torch {torch.__version__}, cuda "
-          f"{torch.version.cuda}")
-    print(f"frame {FRAME} at {cams.width}x{cams.height}, {chunk}-ray chunks: "
+    print(f"{config.method_name}: frame {FRAME} at {cams.width}x"
+          f"{cams.height}, {chunk}-ray chunks: "
           f"mask fraction {float(out['mask'].mean()):.6f}, reflect bucket "
           f"{next(iter(memo.values()), 1.0)}, launches {launches}")
     print(f"wall {plain_wall:.4f} s without the profiler "
@@ -92,8 +110,8 @@ def main() -> int:
     print(f"{'device s':>10} {'share':>7} {'count':>6}  name")
     for name, (count, secs) in sorted(per_name.items(),
                                       key=lambda kv: -kv[1][1])[:TOP]:
-        print(f"{secs:10.4f} {secs / busy:7.2%} {count:6d}  {name[:110]}")
-    return 0
+        print(f"{secs:10.4f} {secs / busy:7.2%} {count:6d}  {name[:110]}",
+              flush=True)
 
 
 if __name__ == "__main__":

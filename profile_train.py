@@ -4,15 +4,17 @@ on one CUDA card (the training breakdown of PERF.md section 5).
 
     python3 profile_train.py
 
-Builds the trainer of chip_smoke.py's configuration (the registry's
-reflect-sampling-nerf with compute_dtype bfloat16: 1024 rays, 128 + 128 +
-64 + 64 samples, the synthetic sphere at 800x800, weights from
-chip_smoke.SEED), runs 60 steps to warm up (kernel build, the adaptive
-reflect bucket, the normal losses on from step 50), times STEPS steps
-without the profiler, then PROFILED steps under torch.profiler.  Prints
-the wall time per step, the device time summed over every kernel, copy
-and fill (the device's busy and idle shares of the profiled wall), and
-the device time per kernel name, largest first.
+For each method of chip_smoke.py (the registry's reflect-sampling-nerf:
+128 + 128 + 64 + 64 samples; reflect-sampling-nerf-proposal: 64 proposal
++ 128 fine + 64 reflect-proposal + 64 reflect-fine samples; both with
+compute_dtype bfloat16, 1024 rays, the synthetic sphere at 800x800, seed
+chip_smoke.SEED), builds the trainer, runs 60 steps to warm up (kernel
+build, the adaptive reflect bucket, the normal losses on from step 50),
+times STEPS steps without the profiler, then PROFILED steps under
+torch.profiler.  Prints, per method, the wall time per step, the device
+time summed over every kernel, copy and fill (the device's busy and idle
+shares of the profiled wall), and the device time per kernel name,
+largest first.
 """
 from __future__ import annotations
 
@@ -29,10 +31,30 @@ WARMUP = 60
 STEPS = 20
 PROFILED = 5
 TOP = 25
+METHODS = (("reflect-sampling-nerf", {}),
+           ("reflect-sampling-nerf-proposal", {"use_pallas_proposal": True}))
 
 
 def main() -> int:
     sys.path.insert(0, REPO)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_train.py needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    print(f"card: {card}; torch {torch.__version__}, cuda "
+          f"{torch.version.cuda}")
+    for method, flags in METHODS:
+        profile_steps(method, flags, torch.device("cuda", 0))
+    return 0
+
+
+def profile_steps(method: str, flags, device) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -40,17 +62,7 @@ def main() -> int:
     from rsn_torch.engine.trainer import Trainer
     from rsn_torch.kernels import field_forward as ff
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_train.py needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True,
-                          timeout=60).stdout.strip().splitlines()[0]
-    config = smoke_config()
-    config = dataclasses.replace(config, seed=SEED)
+    config = dataclasses.replace(smoke_config(method, **flags), seed=SEED)
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer(config, run_dir=tmp, device=device)
         for _ in range(WARMUP):
@@ -87,9 +99,8 @@ def main() -> int:
     if busy <= 0.0:
         raise RuntimeError("the profiler recorded no device time")
     rays = config.pipeline.datamanager.train_num_rays_per_batch
-    print(f"card: {card}; torch {torch.__version__}, cuda "
-          f"{torch.version.cuda}")
-    print(f"{rays}-ray steps after {WARMUP} warm-up steps, reflect bucket "
+    print(f"{config.method_name}: {rays}-ray steps after {WARMUP} warm-up "
+          f"steps, reflect bucket "
           f"{bucket}; launches in {PROFILED} profiled steps {launches}")
     print(f"wall {step_s * 1e3:.4f} ms per step without the profiler "
           f"({rays / step_s:.1f} rays/s over {STEPS} steps), "
@@ -102,8 +113,7 @@ def main() -> int:
     for name, (count, secs) in sorted(per_name.items(),
                                       key=lambda kv: -kv[1][1])[:TOP]:
         print(f"{secs / PROFILED * 1e3:10.4f} {secs / busy:7.2%} "
-              f"{count // PROFILED:6d}  {name[:110]}")
-    return 0
+              f"{count // PROFILED:6d}  {name[:110]}", flush=True)
 
 
 if __name__ == "__main__":

@@ -97,7 +97,7 @@ def main(argv=None, device=None) -> int:
             "dataset panels) is not ported yet; use --mode orbit")
     device = entry_device(device)
 
-    field, config, _, _ = load_run_full(ns.load_dir, device)
+    field, config, _, extras = load_run_full(ns.load_dir, device)
     dm = config.pipeline.datamanager
     cams = orbit_cameras(load_cameras(dm.dataparser, dm.data or "",
                                       ns.split), ns.num_frames)
@@ -110,7 +110,8 @@ def main(argv=None, device=None) -> int:
     for i in range(n):
         t0 = time.perf_counter()
         out = render_image(field, cams, i, config, rays_per_chunk=chunk,
-                           product_only=True, reflect_memo=memo)
+                           product_only=True, reflect_memo=memo,
+                           proposal=extras.get("proposal"))
         seconds = time.perf_counter() - t0
         frame = final_rgb(out)
         if not np.isfinite(frame).all():

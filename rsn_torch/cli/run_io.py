@@ -15,6 +15,7 @@ from rsn_torch.configs import (BugCompat, DataManagerConfig, ModelConfig,
                                TrainerConfig)
 from rsn_torch.engine import checkpoints as ckpt_lib
 from rsn_torch.models.field import Field
+from rsn_torch.models.proposal import ProposalField
 
 
 def _from_dict(cls, d):
@@ -58,8 +59,9 @@ def load_config(run_dir: str) -> TrainerConfig:
 def load_run_full(run_dir: str, device="cpu"
                   ) -> Tuple[Field, TrainerConfig, int, Dict[str, Any]]:
     """-> (field on `device`, config, step, extras) from the run dir's
-    latest checkpoint.  extras holds the optional state groups (camera
-    deltas, proposal field); the port's checkpoints have none yet."""
+    latest checkpoint.  extras holds the optional state groups: "proposal"
+    (a ProposalField on `device`) for a preset run; camera deltas are a
+    later step of the port."""
     config = load_config(run_dir)
     ckpt_dir = os.path.join(run_dir, "checkpoints")
     path = ckpt_lib.latest_checkpoint(ckpt_dir)
@@ -68,4 +70,9 @@ def load_run_full(run_dir: str, device="cpu"
     state = ckpt_lib.load_checkpoint(path)
     field = Field()
     field.load_state_dict(state["field"])
-    return field.to(device).eval(), config, int(state["step"]), {}
+    extras: Dict[str, Any] = {}
+    if "proposal" in state:
+        prop = ProposalField()
+        prop.load_state_dict(state["proposal"])
+        extras["proposal"] = prop.to(device).eval()
+    return field.to(device).eval(), config, int(state["step"]), extras

@@ -5,6 +5,10 @@
         --pipeline.model.compute-dtype bfloat16 [--max-num-iterations N]
     python -m rsn_torch.cli.train reflect-sampling-nerf ... \
         --load-dir RUN/checkpoints
+    python -m rsn_torch.cli.train reflect-sampling-nerf-proposal \
+        --data sphere:res=800 --pipeline.datamanager.dataparser synthetic \
+        --pipeline.model.compute-dtype bfloat16 \
+        [--pipeline.model.use-pallas-proposal True]
 
 The same flags as rsn-train (every config field, through the port's copy
 of parse_config).  Writes <output-dir>/<experiment>/<method>/<timestamp>/

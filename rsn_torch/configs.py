@@ -161,8 +161,8 @@ class ModelConfig:
     use_pallas_train: bool = True
     use_pallas: bool = True
     #   use_pallas_proposal: the proposal-density kernel on the render
-    #                     path (off by default; the port has no proposal
-    #                     field yet)
+    #                     path (rsn_torch: K9 prop_forward; off by
+    #                     default)
     use_pallas_proposal: bool = False
     #   use_pallas_acts:  with use_pallas_train, the forward spills the
     #                     trunk activations and the backward reads them

@@ -48,6 +48,11 @@ class RaySamples:
         tau = torch.cat([torch.zeros_like(tau[..., :1, :]), tau], dim=-2)
         return torch.nan_to_num(alphas * torch.exp(-tau))
 
+    def spacing_bins(self) -> torch.Tensor:
+        """(R, S+1) spacing-domain bin edges."""
+        return torch.cat([self.spacing_starts[..., 0],
+                          self.spacing_ends[..., -1:, 0]], dim=-1)
+
 
 def get_ray_samples(ray_bundle: RayBundle, euclidean_bins: torch.Tensor,
                     spacing_bins: torch.Tensor) -> RaySamples:

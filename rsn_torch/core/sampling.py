@@ -49,9 +49,7 @@ def pdf_sample(ray_bundle: RayBundle, ray_samples: RaySamples,
         u = u + 1.0 / (2 * num_bins)
     u = u.contiguous()
 
-    existing_bins = torch.cat([ray_samples.spacing_starts[..., 0],
-                               ray_samples.spacing_ends[..., -1:, 0]],
-                              dim=-1)  # (R, S+1)
+    existing_bins = ray_samples.spacing_bins()  # (R, S+1)
     last = cdf.shape[-1] - 1
     inds = torch.searchsorted(cdf.contiguous(), u, right=True)
     below = (inds - 1).clamp(0, last)

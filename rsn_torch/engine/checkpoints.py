@@ -4,11 +4,14 @@ rsn.engine.checkpoints).
 A checkpoint is `checkpoints/step-XXXXXXXXX.pt` (torch.save of
 {"step", "field"}, and from a trainer also "optimizer", "scheduler" and
 "trainer": the optimizer and schedule state and the host-side trainer
-state, such as the adaptive reflect-fraction controller); the run's
+state, such as the adaptive reflect-fraction controller; a preset run adds
+"proposal", "proposal_optimizer" and "proposal_scheduler"); the run's
 config sits beside it as config.json, readable by both packages'
 load_config.  `params_from_rsn` maps rsn's
 params pytree (numpy, (in, out) weights) to the port's Field state dict
-((out, in) weights) and `params_to_rsn` maps it back.
+((out, in) weights) and `params_to_rsn` maps it back;
+`proposal_from_rsn` / `proposal_to_rsn` do the same for the proposal
+field ({"trunk": [{"w", "b"}] * 4, "density": {"w", "b"}}).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from rsn_torch.models.field import TRUNK_LAYERS
+from rsn_torch.models.proposal import PROP_LAYERS
 
 # rsn params key -> reference / port module name
 HEAD_MAP = {
@@ -76,21 +80,53 @@ def params_to_rsn(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return tree
 
 
+def proposal_from_rsn(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """rsn proposal params ({"trunk": [{"w", "b"}] * 4, "density": {...}},
+    numpy, (in, out) weights) -> ProposalField state dict."""
+    layers = [(f"trunk.{i}", layer) for i, layer in enumerate(tree["trunk"])]
+    sd = {}
+    for module, layer in layers + [("density", tree["density"])]:
+        sd[f"{module}.weight"] = torch.from_numpy(
+            np.array(np.asarray(layer["w"], np.float32).T, order="C"))
+        sd[f"{module}.bias"] = torch.from_numpy(
+            np.array(layer["b"], np.float32))
+    return sd
+
+
+def proposal_to_rsn(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """ProposalField state dict -> rsn proposal params of numpy arrays."""
+    def layer(module):
+        return {"w": np.ascontiguousarray(
+                    state_dict[f"{module}.weight"].detach().cpu().numpy().T),
+                "b": state_dict[f"{module}.bias"].detach().cpu().numpy()}
+
+    return {"trunk": [layer(f"trunk.{i}") for i in range(PROP_LAYERS)],
+            "density": layer("density")}
+
+
+def _cpu_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+
 def save_checkpoint(ckpt_dir: str, step: int, field: torch.nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None,
                     scheduler=None,
-                    trainer_state: Optional[Dict[str, Any]] = None) -> str:
+                    trainer_state: Optional[Dict[str, Any]] = None,
+                    proposal: Optional[torch.nn.Module] = None,
+                    proposal_optimizer: Optional[torch.optim.Optimizer] = None,
+                    proposal_scheduler=None) -> str:
     """Write step-XXXXXXXXX.pt (atomically: a temporary file, then a
     rename) and return its path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"step-{step:09d}.pt")
-    state: Dict[str, Any] = {
-        "step": step,
-        "field": {k: v.detach().cpu() for k, v in field.state_dict().items()}}
-    if optimizer is not None:
-        state["optimizer"] = optimizer.state_dict()
-    if scheduler is not None:
-        state["scheduler"] = scheduler.state_dict()
+    state: Dict[str, Any] = {"step": step, "field": _cpu_state(field)}
+    if proposal is not None:
+        state["proposal"] = _cpu_state(proposal)
+    for key, obj in (("optimizer", optimizer), ("scheduler", scheduler),
+                     ("proposal_optimizer", proposal_optimizer),
+                     ("proposal_scheduler", proposal_scheduler)):
+        if obj is not None:
+            state[key] = obj.state_dict()
     if trainer_state is not None:
         state["trainer"] = trainer_state
     torch.save(state, path + ".tmp")
@@ -108,7 +144,8 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """-> {"step": int, "field": state dict on the CPU, and what the
-    writer added ("optimizer", "scheduler", "trainer")}."""
+    writer added ("optimizer", "scheduler", "trainer", "proposal",
+    "proposal_optimizer", "proposal_scheduler")}."""
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

@@ -1,10 +1,12 @@
 """The optimizer table (port of rsn.engine.optimizers).
 
-  fields: RAdam(lr 1e-3, eps 1e-15), exponential decay -> 1e-4 at 50k
+  fields:            RAdam(lr 1e-3, eps 1e-15), exponential decay -> 1e-4 at 50k
+  proposal_networks: Adam(lr 1e-3, eps 1e-15), exponential decay -> 1e-4 at 200k
 
-Only "fields" binds parameters (the reference's proposal_networks and
-camera_opt groups bind none; SURVEY.md B#6).  The decay is nerfstudio's
-ExponentialDecayScheduler without warmup,
+"fields" binds the field's parameters; "proposal_networks" binds the
+proposal field's in proposal mode (the trainer builds it then; in the
+reference it binds none, SURVEY.md B#6); camera_opt binds none yet.  The
+decay is nerfstudio's ExponentialDecayScheduler without warmup,
 lr(t) = lr_init (lr_final / lr_init)^(min(t, T) / T), as a LambdaLR
 multiplier of lr_init: step t (counted from 0) runs at lr(t), as optax's
 schedule does.

@@ -4,8 +4,11 @@ rsn.engine.trainer).
 One training step: uniform pixel sampling and ray generation on the
 device, the 4-pass training forward (the fused kernels with bf16), the
 loss dict with the 50-step warmup of the normal and orientation losses,
-backward, RAdam.  The camera optimizer, the proposal field, a mesh of
-several devices and the eval hooks (steps_per_eval_batch /
+backward, RAdam on the field.  With model.use_proposal (the
+reflect-sampling-nerf-proposal preset) the proposal field runs passes 1
+and 3, trains on the interlevel loss with Adam (the "proposal_networks"
+group), and its sampling histogram is annealed.  The camera optimizer, a
+mesh of several devices and the eval hooks (steps_per_eval_batch /
 steps_per_eval_image) are later steps of the port (ROADMAP.md).
 steps_per_dispatch is read as 1: one step per loop iteration (a CUDA
 graph of several steps is later work).
@@ -27,9 +30,10 @@ from rsn_torch.core.rays import RayBundle
 from rsn_torch.data.cameras import Cameras, generate_image_rays, generate_rays
 from rsn_torch.data.synthetic import load_dataset
 from rsn_torch.engine import checkpoints as ckpt_lib
-from rsn_torch.engine.optimizers import build_field_optimizer
+from rsn_torch.engine.optimizers import build_field_optimizer, build_optimizer
 from rsn_torch.models import model as model_lib
 from rsn_torch.models.field import Field
+from rsn_torch.models.proposal import ProposalField
 
 # Adaptive eval compaction: renders start at the remembered bucket and
 # re-render at a larger one whenever a chunk drops a masked ray, so the
@@ -56,10 +60,12 @@ def render_image(field: Field, cameras: Cameras, camera_index: int,
                  config: TrainerConfig,
                  rays_per_chunk: Optional[int] = None,
                  product_only: bool = False, mesh=None,
-                 reflect_memo: Optional[Dict] = None
+                 reflect_memo: Optional[Dict] = None,
+                 proposal: Optional[ProposalField] = None
                  ) -> Dict[str, np.ndarray]:
     """Render camera `camera_index` chunk by chunk on the cameras' device
-    -> {name: (H, W, C) numpy}.
+    -> {name: (H, W, C) numpy}.  proposal: the run's proposal field (the
+    preset), else None.
 
     product_only: the caller consumes only final_rgb, accumulation and
     depth (orbit / path renders): passes 1 and 3 run density-only.
@@ -86,7 +92,7 @@ def render_image(field: Field, cameras: Cameras, camera_index: int,
                 "roughness")
 
     # one packing of the kernels' weights for every chunk and re-render
-    packed = model_lib.pack_kernel_operands(field, mcfg)
+    packed = model_lib.pack_kernel_operands(field, mcfg, proposal)
 
     def render_all(mcfg_b):
         parts, masks, overflows = {}, [], []
@@ -99,7 +105,7 @@ def render_image(field: Field, cameras: Cameras, camera_index: int,
             rb = model_lib.apply_collider(rb, mcfg_b)
             out = model_lib.get_outputs(field, rb, mcfg_b,
                                         need_coarse_rgb=not product_only,
-                                        packed=packed)
+                                        packed=packed, proposal=proposal)
             for k in keep:
                 if k in out:
                     parts.setdefault(k, []).append(out[k])
@@ -161,6 +167,30 @@ def sample_pixel_batch(images: torch.Tensor, cameras: Cameras,
     return bundle, gt
 
 
+def loss_coefficients(mcfg, step: int) -> Dict[str, float]:
+    """The loss coefficients at `step`: the warmup schedule, plus the
+    interlevel and distortion multipliers in proposal mode."""
+    coeffs = loss_coefficients_at_step(step)
+    if mcfg.use_proposal:
+        coeffs["interlevel_loss"] = mcfg.interlevel_loss_mult
+        if mcfg.distortion_loss_mult:
+            coeffs["distortion_loss"] = mcfg.distortion_loss_mult
+    return coeffs
+
+
+def proposal_anneal(mcfg, step: int) -> Optional[float]:
+    """mip-NeRF-360's weight-anneal exponent at `step`,
+    s f / ((s - 1) f + 1) with f = clip(step / N, 0, 1), in float32 as rsn
+    traces it; None when off (no proposal, or N = 0)."""
+    n = mcfg.proposal_weights_anneal_max_num_iters
+    if not (mcfg.use_proposal and n):
+        return None
+    f32 = np.float32
+    frac = f32(min(max(f32(step) / f32(n), f32(0.0)), f32(1.0)))
+    s = f32(mcfg.proposal_weights_anneal_slope)
+    return float(f32((s * frac) / ((s - f32(1.0)) * frac + f32(1.0))))
+
+
 def _check_slice(config: TrainerConfig) -> None:
     """Raise on what the training slice of the port leaves out."""
     dm, mcfg = config.pipeline.datamanager, config.pipeline.model
@@ -168,10 +198,6 @@ def _check_slice(config: TrainerConfig) -> None:
         raise NotImplementedError(
             f"camera_optimizer={dm.camera_optimizer!r}: ROADMAP Queue 1 "
             "step 8 (camera-optimizer path, kernels K7/K8) is not ported")
-    if mcfg.use_proposal:
-        raise NotImplementedError(
-            "use_proposal: ROADMAP Queue 1 step 14 (preset slice, K9) is "
-            "not ported")
     if config.num_devices > 1:
         raise NotImplementedError(
             f"num_devices={config.num_devices}: ROADMAP Queue 1 step 13 "
@@ -213,6 +239,13 @@ class Trainer:
             self.device)
         self.optimizer, self.scheduler = build_field_optimizer(
             self.field, config.optimizers)
+        self.proposal = self.prop_optimizer = self.prop_scheduler = None
+        if config.pipeline.model.use_proposal:
+            self.proposal = ProposalField(
+                torch.Generator().manual_seed(config.seed + 2)).to(self.device)
+            self.prop_optimizer, self.prop_scheduler = build_optimizer(
+                self.proposal.parameters(),
+                config.optimizers["proposal_networks"])
         self.images = torch.as_tensor(self.train_ds.images).to(self.device)
         self.cameras = self.train_ds.cameras.to(self.device)
         self.generator = torch.Generator(self.device).manual_seed(
@@ -242,19 +275,25 @@ class Trainer:
         bundle = model_lib.apply_collider(bundle, mcfg)
         # rays are autograd leaves (no camera optimizer): the primary
         # passes' backward skips the dead IPE backward
-        outputs = model_lib.get_outputs(self.field, bundle, mcfg,
-                                        training=True,
-                                        generator=self.generator,
-                                        rays_live=False)
+        outputs = model_lib.get_outputs(
+            self.field, bundle, mcfg, training=True,
+            generator=self.generator, rays_live=False,
+            proposal=self.proposal,
+            prop_anneal=proposal_anneal(mcfg, self.step))
         # the warmup (rsn's loss_coefficients_traced): the normal and
         # orientation losses are zero before WARMUP_STEPS
         loss_dict = model_lib.get_loss_dict(
-            outputs, gt, loss_coefficients_at_step(self.step))
+            outputs, gt, loss_coefficients(mcfg, self.step))
         total = sum(loss_dict.values())
-        self.optimizer.zero_grad(set_to_none=True)
+        groups = [(self.optimizer, self.scheduler)]
+        if self.proposal is not None:
+            groups.append((self.prop_optimizer, self.prop_scheduler))
+        for opt, _ in groups:
+            opt.zero_grad(set_to_none=True)
         total.backward()
-        self.optimizer.step()
-        self.scheduler.step()
+        for opt, sched in groups:
+            opt.step()
+            sched.step()
         self.step += 1
         return dict({k: v.detach() for k, v in loss_dict.items()},
                     total_loss=total.detach(),
@@ -300,12 +339,15 @@ class Trainer:
             self.ckpt_dir, self.step, self.field, self.optimizer,
             self.scheduler, {"reflect_fraction": self._reflect_frac,
                              "reflect_down_votes": self._reflect_down_votes,
-                             "generator": self.generator.get_state()})
+                             "generator": self.generator.get_state()},
+            proposal=self.proposal, proposal_optimizer=self.prop_optimizer,
+            proposal_scheduler=self.prop_scheduler)
 
     def restore(self, load_dir: str) -> None:
         """Resume from the latest checkpoint under load_dir (a run's
-        checkpoints directory): field, optimizer, schedule, step and the
-        controller state."""
+        checkpoints directory): field, optimizer, schedule, step, the
+        controller state, and the proposal field with its optimizer and
+        schedule."""
         path = ckpt_lib.latest_checkpoint(load_dir)
         if path is None:
             raise FileNotFoundError(f"no checkpoints under {load_dir}")
@@ -316,6 +358,14 @@ class Trainer:
             self.optimizer.load_state_dict(state["optimizer"])
         if "scheduler" in state:
             self.scheduler.load_state_dict(state["scheduler"])
+        if self.proposal is not None:
+            self.proposal.load_state_dict(state["proposal"])
+            if "proposal_optimizer" in state:
+                self.prop_optimizer.load_state_dict(
+                    state["proposal_optimizer"])
+            if "proposal_scheduler" in state:
+                self.prop_scheduler.load_state_dict(
+                    state["proposal_scheduler"])
         trainer = state.get("trainer", {})
         floor = self.config.pipeline.model.reflect_ray_fraction
         self._reflect_frac = max(float(trainer.get("reflect_fraction",
@@ -367,7 +417,9 @@ class Trainer:
                 losses = " ".join(f"{k}={values[k]:.6g}"
                                   for k in sorted(values)
                                   if k.startswith(("loss", "predicted",
-                                                   "orientation")))
+                                                   "orientation",
+                                                   "interlevel",
+                                                   "distortion")))
                 print(f"step {self.step}: loss={values['total_loss']:.6g} "
                       f"{losses} mask fraction "
                       f"{values['mask_fraction']:.4f}, reflect bucket "

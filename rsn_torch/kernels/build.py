@@ -24,7 +24,7 @@ from typing import Dict, Tuple
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("field_forward.cu", "field_train.cu")
+SOURCES = ("field_forward.cu", "field_train.cu", "proposal_forward.cu")
 HEADERS = ("field_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -81,24 +81,34 @@ def build_library() -> Tuple[Dict[str, str], str]:
     return paths, "\n".join(logs)
 
 
-def _declare(lib: ctypes.CDLL, source: str) -> None:
+def _signatures() -> Dict[str, Dict[str, list]]:
+    """Each source's entry points and their argtypes (every one returns a
+    cudaError_t code as an int)."""
     vp, ptrs = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
     ll, i32 = ctypes.c_longlong, ctypes.c_int
-    if source == "field_forward.cu":
-        lib.rsn_field_forward_v3.argtypes = [vp, vp, vp, ptrs, vp, ll, i32,
-                                             vp]
-        lib.rsn_field_forward_density.argtypes = [vp, vp, ptrs, vp, ll, vp]
-        fns = (lib.rsn_field_forward_v3, lib.rsn_field_forward_density)
-    else:
-        lib.rsn_field_forward_v6.argtypes = [vp, vp, vp, ptrs, vp, vp, ll,
-                                             i32, i32, i32, vp]
-        lib.rsn_field_backward_v5.argtypes = [vp, vp, vp, vp, vp, vp, ptrs,
-                                              vp, vp, vp, ll, i32, i32, vp]
-        lib.rsn_field_backward_v6.argtypes = [vp, vp, vp, vp, ptrs, vp, vp,
-                                              ll, i32, i32, vp]
-        fns = (lib.rsn_field_forward_v6, lib.rsn_field_backward_v5,
-               lib.rsn_field_backward_v6)
-    for fn in fns:
+    return {
+        "field_forward.cu": {
+            "rsn_field_forward_v3": [vp, vp, vp, ptrs, vp, ll, i32, vp],
+            "rsn_field_forward_density": [vp, vp, ptrs, vp, ll, vp],
+        },
+        "field_train.cu": {
+            "rsn_field_forward_v6": [vp, vp, vp, ptrs, vp, vp, ll, i32, i32,
+                                     i32, vp],
+            "rsn_field_backward_v5": [vp, vp, vp, vp, vp, vp, ptrs, vp, vp,
+                                      vp, ll, i32, i32, vp],
+            "rsn_field_backward_v6": [vp, vp, vp, vp, ptrs, vp, vp, ll, i32,
+                                      i32, vp],
+        },
+        "proposal_forward.cu": {
+            "rsn_prop_forward": [vp, vp, ptrs, vp, ll, vp],
+        },
+    }
+
+
+def _declare(lib: ctypes.CDLL, source: str) -> None:
+    for name, argtypes in _signatures()[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.rsn_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rsn_cuda_error_string.restype = ctypes.c_char_p

@@ -67,10 +67,11 @@ _INV_2PI = 0.15915494309189535
 _HALF_LOG2E = 0.7213475204444817  # 0.5 / ln 2
 
 # launches per kernel wrapper, for every kernel of the port (the training
-# kernels' wrappers live in field_train.py)
+# kernels' wrappers live in field_train.py, the proposal's in
+# proposal_forward.py)
 LAUNCHES = {"field_forward_v3": 0, "field_forward_density": 0,
             "field_forward_v6": 0, "field_backward_v5": 0,
-            "field_backward_v6": 0}
+            "field_backward_v6": 0, "prop_forward": 0}
 
 
 def reset_launch_counts() -> None:

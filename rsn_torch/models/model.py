@@ -16,13 +16,21 @@ wrappers launch the CUDA kernels for CUDA tensors and run their plain
 versions for CPU tensors.  Other configs run the plain field
 (rsn_torch.models.field), under autograd when training.
 
+With cfg.use_proposal and a ProposalField passed (the
+reflect-sampling-nerf-proposal preset), pass 1 runs the small proposal
+field instead of the main field (density only), and with
+cfg.use_proposal_reflect so does pass 3; the fine passes resample from its
+weights (annealed by prop_anneal).  Its density is the fp32 composition
+(rsn_torch.models.proposal), or on the render path with
+cfg.use_pallas_proposal and bf16 the K9 kernel
+(rsn_torch.kernels.proposal_forward).
+
 The .detach() pattern is rsn's stop_gradient pattern (the reference's):
 ray-level diff / tint / pred-normals / n.d, the reflected weights, the
 roughness into the directional encoding, the reflected rays' origins and
 directions, the PDF bins.
 
-The proposal sampler and meshes are later steps of the port (ROADMAP.md):
-asking for them raises NotImplementedError.
+Meshes are a later step of the port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -47,7 +55,10 @@ from rsn_torch.core.spacing import (identity_spacing, reciprocal_spacing,
                                     spaced_sample)
 from rsn_torch.kernels import field_forward as ff
 from rsn_torch.kernels import field_train as ft
+from rsn_torch.kernels import proposal_forward as pf
+from rsn_torch.models import proposal as proposal_lib
 from rsn_torch.models.field import DENSITY_BIAS, Field, get_reflection
+from rsn_torch.models.proposal import ProposalField
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,9 +71,11 @@ class FieldConfig:
 
 @dataclasses.dataclass(frozen=True)
 class KernelOperands:
-    """K1's and K2's packed weights (pack_kernel_operands)."""
+    """K1's and K2's packed weights, and K9's when the render takes the
+    proposal kernel (pack_kernel_operands)."""
     v3f: Tuple[torch.Tensor, ...]
     density: Tuple[torch.Tensor, ...]
+    proposal: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,15 +95,25 @@ def _field_cfg(cfg: ModelConfig) -> FieldConfig:
                        use_train_kernels=use_kernels and cfg.use_pallas_train)
 
 
-def pack_kernel_operands(field: Field, cfg: ModelConfig
+def _use_prop_kernel(cfg: ModelConfig, fcfg: FieldConfig) -> bool:
+    """K9 on the render path (rsn: use_pallas, bf16, use_pallas_proposal)."""
+    return fcfg.use_kernels and cfg.use_pallas_proposal
+
+
+def pack_kernel_operands(field: Field, cfg: ModelConfig,
+                         proposal: Optional[ProposalField] = None
                          ) -> Optional[KernelOperands]:
     """The kernels' packed weights, or None when `cfg` takes the plain
     field.  A caller that renders many chunks packs once and passes the
     result to every get_outputs call."""
-    if not _field_cfg(cfg).use_kernels:
+    fcfg = _field_cfg(cfg)
+    if not fcfg.use_kernels:
         return None
+    prop = (pf.pack_prop_params(proposal)
+            if proposal is not None and _use_prop_kernel(cfg, fcfg)
+            else None)
     return KernelOperands(ff.pack_params_v3f(field),
-                          ff.pack_params_density(field))
+                          ff.pack_params_density(field), prop)
 
 
 def pack_train_operands(field: Field) -> TrainOperands:
@@ -233,7 +256,10 @@ def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
                 training: bool = False, need_coarse_rgb: bool = True,
                 generator: Optional[torch.Generator] = None,
                 packed: Optional[KernelOperands] = None,
-                rays_live: bool = True) -> Dict[str, torch.Tensor]:
+                rays_live: bool = True,
+                proposal: Optional[ProposalField] = None,
+                prop_anneal: Optional[float] = None
+                ) -> Dict[str, torch.Tensor]:
     """The 4-pass render; ray_bundle must already be collided.
 
     training=False: the eval render, under torch.no_grad().
@@ -251,12 +277,16 @@ def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
 
     generator: also draws the per-ray background of the tint composite
     when cfg.bug_compat.tint_random_background is set (off by default).
-    packed: pack_kernel_operands(field, cfg), when the caller already
-    holds it (eval only); packed here otherwise."""
-    if cfg.use_proposal:
-        raise NotImplementedError(
-            "proposal sampling: ROADMAP Queue 1 step 14 (preset slice) is "
-            "not ported yet")
+    packed: pack_kernel_operands(field, cfg, proposal), when the caller
+    already holds it (eval only); packed here otherwise.
+
+    proposal: the preset's ProposalField; with cfg.use_proposal it runs
+    pass 1 (and pass 3 with cfg.use_proposal_reflect), and the outputs
+    carry the interlevel and distortion losses' inputs.  Without one, a
+    use_proposal config runs the main field's coarse pass, as rsn does.
+    prop_anneal: the exponent a of the sampling histogram w**a (w > 0),
+    mip-NeRF-360's weight anneal; None is off.  Only the histogram the
+    fine passes resample from is annealed."""
     fcfg = _field_cfg(cfg)
     if training:
         if fcfg.use_train_kernels and not cfg.use_pallas_acts:
@@ -266,35 +296,65 @@ def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
         train_ops = (pack_train_operands(field) if fcfg.use_train_kernels
                      else None)
         return _get_outputs(field, ray_bundle, cfg, fcfg, True, True,
-                            generator, train_ops, rays_live)
+                            generator, train_ops, rays_live, proposal,
+                            prop_anneal)
     with torch.no_grad():
         if packed is None:
-            packed = pack_kernel_operands(field, cfg)
+            packed = pack_kernel_operands(field, cfg, proposal)
         return _get_outputs(field, ray_bundle, cfg, fcfg, False,
-                            need_coarse_rgb, generator, packed, True)
+                            need_coarse_rgb, generator, packed, True,
+                            proposal, prop_anneal)
+
+
+def _anneal(w: torch.Tensor, a: Optional[float]) -> torch.Tensor:
+    """The sampling histogram w**a; w == 0 stays 0 (0**0 would be 1)."""
+    if a is None:
+        return w
+    return torch.where(w > 0.0, w ** a, torch.zeros_like(w))
 
 
 def _get_outputs(field, ray_bundle, cfg, fcfg, training, need_coarse_rgb,
-                 generator, packed, rays_live):
+                 generator, packed, rays_live, proposal, prop_anneal):
     uniform = identity_spacing()
     wht = white(ray_bundle.origins.device)
     strat = generator if training else None
+    use_prop = cfg.use_proposal and proposal is not None
+
+    def prop_density(rs: RaySamples) -> torch.Tensor:
+        """The proposal density: K9 on the render path, else the fp32
+        composition (under autograd when training)."""
+        if not training and _use_prop_kernel(cfg, fcfg):
+            return pf.proposal_density_kernel(packed.proposal, rs)
+        return proposal_lib.proposal_density(proposal, rs)
 
     # ---- pass 1: coarse ----
-    rs_uniform = spaced_sample(ray_bundle, uniform, cfg.num_coarse_samples,
-                               generator=strat)
     c = None
-    if not need_coarse_rgb:
+    if use_prop:
+        rs_uniform = spaced_sample(ray_bundle, uniform,
+                                   cfg.num_proposal_samples, generator=strat)
+        w_prop = rs_uniform.get_weights(prop_density(rs_uniform))
+        coarse_weights = w_prop.detach()
+        sampling_weights = _anneal(coarse_weights, prop_anneal)
+        accumulation_coarse = render_accumulation(coarse_weights)
+        depth_coarse = render_depth_median(coarse_weights, rs_uniform.starts,
+                                           rs_uniform.ends)
+        # no coarse rgb in proposal mode: the background fill
+        mid_rgb_coarse = wht * (1.0 - accumulation_coarse)
+    elif not need_coarse_rgb:
+        rs_uniform = spaced_sample(ray_bundle, uniform,
+                                   cfg.num_coarse_samples, generator=strat)
         wS = _density_pass(field, rs_uniform, fcfg, packed)
-        coarse_weights = wS[..., None]
+        coarse_weights = sampling_weights = wS[..., None]
         accumulation_coarse = wS.sum(dim=-1, keepdim=True)
         depth_coarse = render_depth_median_planes(
             wS, rs_uniform.starts[..., 0], rs_uniform.ends[..., 0])
         mid_rgb_coarse = wht * (1.0 - accumulation_coarse)
     else:
+        rs_uniform = spaced_sample(ray_bundle, uniform,
+                                   cfg.num_coarse_samples, generator=strat)
         c = _primary_pass(field, rs_uniform, fcfg, packed, training,
                           rays_live)
-        coarse_weights = c["weights"]
+        coarse_weights = sampling_weights = c["weights"]
         if c["out_planes"] is not None:
             wS = coarse_weights[..., 0]
             accumulation_coarse = wS.sum(dim=-1, keepdim=True)
@@ -311,7 +371,7 @@ def _get_outputs(field, ray_bundle, cfg, fcfg, training, need_coarse_rgb,
                                         training=training).clamp(0.0, 1.0)
 
     # ---- pass 2: fine ----
-    rs_pdf = pdf_sample(ray_bundle, rs_uniform, coarse_weights, uniform,
+    rs_pdf = pdf_sample(ray_bundle, rs_uniform, sampling_weights, uniform,
                         cfg.num_importance_samples, generator=strat)
     f = _primary_pass(field, rs_pdf, fcfg, packed, training, rays_live)
     tint_bg = "random" if cfg.bug_compat.tint_random_background else None
@@ -379,7 +439,17 @@ def _get_outputs(field, ray_bundle, cfg, fcfg, training, need_coarse_rgb,
         # share of rays masked but beyond the compaction cap
         "reflect_overflow": zero,
     }
-    if c is not None:
+    if use_prop:
+        # the interlevel loss's inputs: the LIVE proposal weights and both
+        # spacing-domain histograms
+        outputs["prop_weights"] = w_prop
+        outputs["prop_spacing_bins"] = rs_uniform.spacing_bins()
+        outputs["fine_spacing_bins"] = rs_pdf.spacing_bins()
+        if cfg.distortion_loss_mult:
+            # on the LIVE fine weights: it reaches the main field's density
+            outputs["distortion"] = proposal_lib.distortion_per_ray(
+                f["weights"], outputs["fine_spacing_bins"])[..., None]
+    elif c is not None:
         outputs.update({"pred_normals_coarse": c["pred_normals"],
                         "normals_coarse": c["normals"].detach(),
                         "n_dot_d_coarse": c["n_dot_d"]})
@@ -440,7 +510,17 @@ def _get_outputs(field, ray_bundle, cfg, fcfg, training, need_coarse_rgb,
             mask_col, (diff_fine + tint_fine * inner).clamp(0.0, 1.0),
             bg_fill)
 
-    if not need_coarse_rgb:
+    use_prop_reflect = use_prop and cfg.use_proposal_reflect
+    if use_prop_reflect:
+        # the proposal places pass 4's samples.  It sees DETACHED geometry:
+        # rs_recip's pixel_area is live through the roughness, and the
+        # interlevel loss keeps w_refl_prop live, so without the detach it
+        # would train the main field's roughness head
+        rs_recip_sg = RaySamples(*(getattr(rs_recip, fl.name).detach()
+                                   for fl in dataclasses.fields(rs_recip)))
+        w_refl_prop = rs_recip_sg.get_weights(prop_density(rs_recip_sg))
+        w_refl_coarse = _anneal(w_refl_prop.detach(), prop_anneal)
+    elif not need_coarse_rgb:
         w_refl_coarse = _density_pass(field, rs_recip, fcfg, packed)[..., None]
     else:
         w_refl_coarse, mid_reflect_coarse_in = _reflect_pass(
@@ -458,6 +538,13 @@ def _get_outputs(field, ray_bundle, cfg, fcfg, training, need_coarse_rgb,
     outputs["mid_reflect_fine"] = scatter_reflect(mid_reflect_fine_in)
     # valid only where mask (SURVEY B#10)
     outputs["depth_reflect_fine"] = scatter(depth_sub, 1)
+    if use_prop_reflect:
+        # the second interlevel term's inputs, on the reflected K-subset
+        # (reciprocal spacing domain); w_refl_fine is detached
+        outputs["reflect_prop_weights"] = w_refl_prop
+        outputs["reflect_prop_spacing_bins"] = rs_recip.spacing_bins()
+        outputs["reflect_fine_spacing_bins"] = rs_refl_pdf.spacing_bins()
+        outputs["reflect_weights_fine"] = w_refl_fine
     return outputs
 
 
@@ -484,8 +571,10 @@ NON_PHOTOMETRIC_LOSS_KEYS = frozenset({
 def get_loss_dict(outputs: Dict[str, torch.Tensor], gt_image: torch.Tensor,
                   coefficients: Dict[str, float]) -> Dict[str, torch.Tensor]:
     """The 8 active losses of the reference model, scaled by
-    `coefficients` (rsn.models.model.get_loss_dict).  gt_image: (R, 3)
-    or (R, 4); RGBA is blended against white."""
+    `coefficients` (rsn.models.model.get_loss_dict); in proposal mode the
+    coarse and reflect-coarse terms give way to "interlevel_loss" (and
+    "distortion_loss" with distortion_loss_mult).  gt_image: (R, 3) or
+    (R, 4); RGBA is blended against white."""
     def mse(a, b):
         return ((a - b) ** 2).mean()
 
@@ -507,13 +596,30 @@ def get_loss_dict(outputs: Dict[str, torch.Tensor], gt_image: torch.Tensor,
         if "mid_reflect_coarse" in outputs:
             losses["loss_reflect_mid_coarse"] = mse(
                 gt_rgb, outputs["mid_reflect_coarse"])
-    losses.update({
-        "loss_mid_coarse": mse(gt_rgb, pred_mid_coarse),
-        "predicted_normal_loss_coarse": (outputs["weights_coarse"] * (
-            (outputs["normals_coarse"] - outputs["pred_normals_coarse"]) ** 2
-        ).sum(dim=-1, keepdim=True)).sum(),
-        "orientation_loss_coarse": (outputs["weights_coarse"] * torch.relu(
-            outputs["n_dot_d_coarse"]) ** 2).sum(),
-    })
+    if "prop_weights" in outputs:
+        # proposal mode: no coarse rgb or normal heads; the proposal field
+        # trains on the interlevel loss (one term per proposal pass)
+        interlevel = proposal_lib.interlevel_loss(
+            outputs["weights_fine"], outputs["fine_spacing_bins"],
+            outputs["prop_weights"], outputs["prop_spacing_bins"])
+        if "reflect_prop_weights" in outputs:
+            interlevel = interlevel + proposal_lib.interlevel_loss(
+                outputs["reflect_weights_fine"],
+                outputs["reflect_fine_spacing_bins"],
+                outputs["reflect_prop_weights"],
+                outputs["reflect_prop_spacing_bins"])
+        losses["interlevel_loss"] = interlevel
+        if "distortion" in outputs:
+            losses["distortion_loss"] = outputs["distortion"].mean()
+    else:
+        losses.update({
+            "loss_mid_coarse": mse(gt_rgb, pred_mid_coarse),
+            "predicted_normal_loss_coarse": (outputs["weights_coarse"] * (
+                (outputs["normals_coarse"] - outputs["pred_normals_coarse"])
+                ** 2).sum(dim=-1, keepdim=True)).sum(),
+            "orientation_loss_coarse": (outputs["weights_coarse"]
+                                        * torch.relu(outputs["n_dot_d_coarse"])
+                                        ** 2).sum(),
+        })
     # strict lookup: a missing coefficient is an error, not a default
     return {k: v * coefficients[k] for k, v in losses.items()}

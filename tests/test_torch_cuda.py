@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: shapes the smoke run does not
 reach (ragged last tiles, odd samples per ray, every flag pair of the
-training forward), the launch counters, the alignment checks, and a small
-render on both devices.
+training forward, K9 over many tiles per block), the launch counters,
+determinism, the alignment checks, and small renders (the default method
+and the proposal preset) on both devices.
 
 Needs a CUDA card and nvcc; skipped without them.  This file imports no
 jax, so it also runs on a machine without it:
@@ -17,7 +18,9 @@ from rsn_torch.data.synthetic import make_synthetic_cameras
 from rsn_torch.engine.trainer import render_image
 from rsn_torch.kernels import field_forward as ff
 from rsn_torch.kernels import field_train as tft
+from rsn_torch.kernels import proposal_forward as pf
 from rsn_torch.models.field import Field
+from rsn_torch.models.proposal import ProposalField
 
 pytestmark = pytest.mark.cuda
 ATOL = 2e-2  # bf16 outputs: two ulps near 1
@@ -210,3 +213,74 @@ def test_small_render_cpu_matches_gpu(field):
                 assert np.mean(diff <= 0.05) >= 0.9, k
             else:
                 assert diff.max() <= 0.05, k
+
+
+@pytest.fixture(scope="module")
+def proposal(field):
+    return ProposalField(torch.Generator().manual_seed(5)).cuda().eval()
+
+
+@pytest.mark.parametrize("R,S", [(1, 1), (3, 29), (5, 64), (3, 7),
+                                 (1000, 64)])
+def test_prop_kernel_matches_plain_version(proposal, R, S):
+    """K9 against its plain version: ragged last tiles, one row, and
+    (1000, 64) for more tiles than blocks (the grid-stride loop); within
+    1e-2 of max |preact| (bf16 activations, fp32 sums in another order)."""
+    mc, _ = _inputs(R, S, seed=S)
+    packed = pf.pack_prop_params(proposal)
+    got = pf.prop_forward(packed, mc)
+    torch.cuda.synchronize()
+    ref = pf.prop_forward_plain(packed, mc)
+    assert got.shape == (R * S,) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-2 * scale
+
+
+def test_prop_launch_counts_and_determinism(proposal):
+    mc, _ = _inputs(6, 64)
+    packed = pf.pack_prop_params(proposal)
+    ff.reset_launch_counts()
+    a = pf.prop_forward(packed, mc)
+    b = pf.prop_forward(packed, mc)
+    pf.prop_forward_plain(packed, mc)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES["prop_forward"] == 2
+    assert sum(ff.LAUNCHES.values()) == 2
+    assert torch.equal(a, b)  # a fixed summation order, no atomics
+
+
+def test_prop_misaligned_operand_raises(proposal):
+    mc, _ = _inputs(2, 32)
+    packed = list(pf.pack_prop_params(proposal))
+    shifted = torch.empty(packed[0].numel() + 1, dtype=torch.bfloat16,
+                          device="cuda")[1:].view_as(packed[0])
+    shifted.copy_(packed[0])
+    packed[0] = shifted
+    with pytest.raises(ValueError, match="aligned"):
+        pf.prop_forward(packed, mc)
+
+
+def test_small_preset_render_cpu_matches_gpu(field, proposal):
+    mcfg = ModelConfig(num_proposal_samples=16, num_importance_samples=16,
+                       num_reflect_coarse_samples=16,
+                       num_reflect_importance_samples=16,
+                       use_proposal=True, use_proposal_reflect=True,
+                       use_pallas_proposal=True, compute_dtype="bfloat16")
+    config = TrainerConfig(pipeline=PipelineConfig(model=mcfg))
+    cams = make_synthetic_cameras(num_cameras=2, H=12, W=12)
+    field_cpu, prop_cpu = Field(), ProposalField()
+    field_cpu.load_state_dict({k: v.cpu() for k, v in
+                               field.state_dict().items()})
+    prop_cpu.load_state_dict({k: v.cpu() for k, v in
+                              proposal.state_dict().items()})
+    ff.reset_launch_counts()
+    cpu, gpu = (render_image(f, cams.to(dev), 1, config, product_only=True,
+                             proposal=p)
+                for f, p, dev in ((field_cpu, prop_cpu, "cpu"),
+                                  (field, proposal, "cuda")))
+    assert ff.LAUNCHES["prop_forward"] == ff.LAUNCHES["field_forward_v3"] == 2
+    agree = cpu["mask"] == gpu["mask"]
+    assert agree.mean() >= 0.99
+    diff = np.abs(cpu["mid_reflect_fine"] - gpu["mid_reflect_fine"])
+    assert diff[agree[..., 0]].max() <= 0.05

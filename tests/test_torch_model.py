@@ -14,6 +14,7 @@ from rsn.data.cameras import generate_image_rays as jrays
 from rsn.data.synthetic import make_synthetic_dataset
 from rsn.models import model as jmodel
 from rsn_torch.models import model as tmodel
+from rsn_torch.models.proposal import ProposalField
 from torch_parity import bundles, jax_params, n, port_field, rsn_params
 
 GLUE_KEYS = ("mid_rgb_coarse", "mid_rgb_fine", "mid_reflect_coarse",
@@ -131,6 +132,25 @@ def test_unported_modes_raise(setup):
         tmodel.get_outputs(field, tb, dataclasses.replace(
             mcfg, compute_dtype="bfloat16", use_pallas_acts=False),
             training=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.get_outputs(field, tb, dataclasses.replace(
-            mcfg, use_proposal=True))
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_proposal_mode_runs(setup, training):
+    """use_proposal with a proposal field runs passes 1 and 3 on it; a
+    use_proposal config without one runs the main field's coarse pass,
+    as rsn does."""
+    mcfg, _, field, _, tb = setup
+    cfg = dataclasses.replace(mcfg, use_proposal=True,
+                              use_proposal_reflect=True,
+                              num_proposal_samples=8)
+    prop = ProposalField(torch.Generator().manual_seed(0))
+    out = tmodel.get_outputs(field, tb, cfg, training=training,
+                             proposal=prop)
+    assert {"prop_weights", "reflect_prop_weights"} <= set(out)
+    assert "mid_reflect_coarse" not in out
+    assert torch.isfinite(tmodel.final_rgb(out)).all()
+    without = tmodel.get_outputs(field, tb, cfg, training=training)
+    ref = tmodel.get_outputs(field, tb, mcfg, training=training)
+    assert set(without) == set(ref)
+    for k in ref:
+        assert torch.equal(without[k], ref[k]), k

@@ -402,6 +402,42 @@ def test_train_cli_writes_a_run_dir(tmp_path, capsys):
     assert step == 2 and isinstance(field, tfield.Field)
 
 
+def test_train_cli_runs_the_preset(tmp_path, capsys):
+    """reflect-sampling-nerf-proposal through the train CLI: the
+    interlevel and distortion losses in the log, the proposal field and
+    its optimizer in the checkpoint."""
+    argv = ["reflect-sampling-nerf-proposal", "--data", "sphere:res=8,cams=2",
+            "--pipeline.datamanager.dataparser", "synthetic",
+            "--pipeline.model.compute-dtype", "bfloat16",
+            "--pipeline.model.use-pallas-proposal", "true",
+            "--pipeline.datamanager.train-num-rays-per-batch", "16",
+            "--pipeline.model.num-proposal-samples", "8",
+            "--pipeline.model.num-importance-samples", "8",
+            "--pipeline.model.num-reflect-coarse-samples", "8",
+            "--pipeline.model.num-reflect-importance-samples", "8",
+            "--max-num-iterations", "2", "--steps-per-log", "1",
+            "--output-dir", str(tmp_path)]
+    assert ttrain_cli.main(argv, device="cpu") == 0
+    assert "interlevel_loss=" in capsys.readouterr().out
+    (run,) = [os.path.join(r, d) for r, ds, _ in os.walk(tmp_path)
+              for d in ds if d == "checkpoints"]
+    run = os.path.dirname(run)
+    mcfg = trun_io.load_config(run).pipeline.model
+    assert mcfg.use_proposal and mcfg.use_proposal_reflect
+    with open(os.path.join(run, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    assert [e["step"] for e in log] == [1, 2]
+    for e in log:
+        assert "loss_mid_coarse" not in e
+        assert np.isfinite(e["interlevel_loss"])
+        assert np.isfinite(e["distortion_loss"])
+    _, _, step, extras = trun_io.load_run_full(run)
+    assert step == 2 and "proposal" in extras
+    state = tckpt.load_checkpoint(os.path.join(
+        run, "checkpoints", "step-000000002.pt"))
+    assert len(state["proposal_optimizer"]["state"]) == 10
+
+
 def test_entry_points_need_the_card_unless_asked(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
@@ -415,7 +451,6 @@ def test_entry_points_need_the_card_unless_asked(tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     (["--pipeline.datamanager.camera-optimizer", "SO3xR3"], "camera"),
-    (["--pipeline.model.use-proposal", "true"], "proposal"),
     (["--num-devices", "4"], "mesh"),
     (["--pipeline.model.use-pallas-acts", "false"], "K7/K8"),
     (["--pipeline.datamanager.dataparser", "blender"], "dataparser"),

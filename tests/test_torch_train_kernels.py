@@ -108,6 +108,9 @@ def test_k4_plain_matches_field_backward_v5(setup):
         _port_packed(s), t(s["mc"]), t(s["g"]), to_t(acts_j),
         to_t(d_out[:, :tft.OUT_TRAIN]), to_t(out_j[:, :tft.OUT_TRAIN]), S)
     _close(dmc_t, dmc_j, "dmc")
+    # the cov columns on their own scale: through them alone a cone
+    # radius (pass 4's, from the roughness head) gets its gradient
+    _close(dmc_t[:, 3:6], np.asarray(dmc_j)[:, 3:6], "dmc cov")
     _close(dg_t, dg_j, "dg")
     assert len(dpk_t) == 20
     for i, (a, b) in enumerate(zip(dpk_t, dpk_j)):
