@@ -60,8 +60,8 @@ def load_run_full(run_dir: str, device="cpu"
                   ) -> Tuple[Field, TrainerConfig, int, Dict[str, Any]]:
     """-> (field on `device`, config, step, extras) from the run dir's
     latest checkpoint.  extras holds the optional state groups: "proposal"
-    (a ProposalField on `device`) for a preset run; camera deltas are a
-    later step of the port."""
+    (a ProposalField on `device`) for a preset run, "camera" (the (N, 6)
+    pose deltas on `device`) for a run with the camera optimizer."""
     config = load_config(run_dir)
     ckpt_dir = os.path.join(run_dir, "checkpoints")
     path = ckpt_lib.latest_checkpoint(ckpt_dir)
@@ -75,4 +75,6 @@ def load_run_full(run_dir: str, device="cpu"
         prop = ProposalField()
         prop.load_state_dict(state["proposal"])
         extras["proposal"] = prop.to(device).eval()
+    if "camera" in state:
+        extras["camera"] = state["camera"].to(device)
     return field.to(device).eval(), config, int(state["step"]), extras

@@ -166,8 +166,9 @@ class ModelConfig:
     use_pallas_proposal: bool = False
     #   use_pallas_acts:  with use_pallas_train, the forward spills the
     #                     trunk activations and the backward reads them
-    #                     instead of recomputing the trunk (the port's
-    #                     only training route; False raises there)
+    #                     (rsn_torch: K3 with K4 / K5); False recomputes
+    #                     the trunk in the backward and keeps no spill
+    #                     (K7, K1 at the train width, K8)
     use_pallas_acts: bool = True
     #   pallas_interpret: JAX-package test switch (Pallas interpret
     #                     mode); the port never reads it
@@ -187,7 +188,7 @@ class DataManagerConfig:
     # pose refinement: "off" (reference behavior — the camera_opt
     # optimizer group binds nothing, SURVEY.md B#6) or "SO3xR3"
     # (per-camera se(3) deltas trained by the camera_opt group;
-    # rsn/models/camera_opt.py)
+    # rsn_torch/models/camera_opt.py)
     camera_optimizer: str = "off"
     # L2 gauge regularizer on the pose deltas (nerfstudio
     # CameraOptimizerConfig rot_l2_penalty / trans_l2_penalty

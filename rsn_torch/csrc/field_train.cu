@@ -1,6 +1,6 @@
 // Field training kernels, for NVIDIA Hopper (sm_90a).
 //
-// Replaces three Pallas TPU kernels:
+// Replaces five Pallas TPU kernels:
 //   field_forward_v6   (K3; rsn/kernels/field_pallas.py, body
 //                       _field_kernel_halved_acts / _field_half): K1's
 //                       forward at the train width (24 columns: the V3_*
@@ -11,12 +11,22 @@
 //                       appended ((N, 2176)) under spill_x.  With the
 //                       normals, the density head row is backpropagated
 //                       through the 8 layers and the IPE in the same block.
+//   field_forward_v4   (K7; field_pallas.py, _field_kernel_halved with
+//                       the normals): K3 with the normals and no spill.
+//                       Without the normals the same kernel is K1 at the
+//                       train width (field_forward_v3 at its default
+//                       V3_OUT store, which writes the mid value for the
+//                       backward).  One body for the three forwards, so
+//                       their outputs are equal bit for bit.
 //   field_backward_v5  (K4; rsn/kernels/field_train.py, body _bwd_half):
 //                       the backward from the spilled activations and the
 //                       forward's stored output: dmc (N, 16), dg (R, 512)
 //                       and the 20 packed-operand weight gradients.
 //   field_backward_v6  (K5; _bwd_half with want_dmc=False): the same
 //                       without the IPE backward, x read from the spill.
+//   field_backward_v4  (K8; _bwd_kernel_impl(two_d=True, has_acts=False)):
+//                       K4 with the trunk activations recomputed in the
+//                       block instead of read from a spill.
 //
 // What bounds them on this card: about 2.2 MFLOP of bf16 products per
 // sample row each, against 4.3 KB (K3 spill) or 4.4 KB (K4/K5 reads) of
@@ -46,6 +56,20 @@
 //   - Roundings follow the TPU kernels: cotangents enter bf16, dpre is
 //     rounded to bf16 before its products, bias gradients sum the fp32
 //     values, the roughness -> attenuation edge carries no gradient.
+//   - K8 (the recompute route, which keeps no (N, 2048) spill alive
+//     between the forward and the backward): K4 reads layer i's tile
+//     whenever its backward needs it, and a 64-row tile's eight bf16
+//     layers (256 KB) do not fit the 227 KB of shared memory.  So each
+//     block recomputes its tile's trunk with K3's code (ipe_tile, trunk
+//     and K3's spill hook) into its own 64 x 2048 bf16 slot of a
+//     workspace (one slot per block, not per row: ~34 MB at one block
+//     per SM, within the 50 MB L2), and K4's body then reads that slot
+//     unchanged.  The recompute equals K3's spill bit for bit (every row
+//     is computed by the same code from the same inputs), and K8 uses
+//     K4's rays-per-block partition, so K8 equals K4 on K3's spill bit
+//     for bit.  The other simple design, 32-row tiles with all layers in
+//     shared memory, would double the weight-gradient slice traffic per
+//     row, which already bounds K4.
 // Later work: keep the weight-gradient accumulators on chip (larger row
 // tiles, or a split of the layers over blocks), wgmma, TMA.
 #include "field_common.cuh"
@@ -119,12 +143,12 @@ __device__ void load_rows(bf16* dst, int ldd, const bf16* src, long long ld,
 
 // K3's trunk hook: each layer's tile to the spill, and its ReLU mask bits.
 struct SpillHook {
-  bf16* acts;          // row row0 of the spill
+  bf16* acts;          // row row0 of the spill; nullptr: no spill (K7)
   int ld;              // 2048 or 2176
   int nv;              // valid rows of the tile
   uint32_t* masks;     // nullptr: no normals
   __device__ void operator()(int i, const bf16* H) const {
-    store_rows(acts + i * WIDTH, ld, H, LDH, WIDTH, nv);
+    if (acts != nullptr) store_rows(acts + i * WIDTH, ld, H, LDH, WIDTH, nv);
     if (masks == nullptr) return;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     for (int r = warp * (TM / WARPS); r < (warp + 1) * (TM / WARPS); ++r)
@@ -237,16 +261,20 @@ __device__ void wgrad_acc(const bf16* A, int lda, int M, const bf16* B,
   }
 }
 
-// ---- K3 kernel ---------------------------------------------------------
+// ---- K3 / K7 / K1 at the train width -----------------------------------
 
-template <bool NORMALS, bool SPILL_X>
-__global__ void __launch_bounds__(THREADS, 2)
-    field_forward_v6_kernel(const float* __restrict__ mc,
-                            const float* __restrict__ g,
-                            const float* __restrict__ consts, V3Params p,
-                            const float* __restrict__ wd_row,
-                            bf16* __restrict__ out, bf16* __restrict__ acts,
-                            long long n, int S) {
+// The train-width forward of one 64-row tile; SPILL: K3's activation
+// spill (acts), else none (K7, and K1 at the train width without the
+// normals).
+template <bool NORMALS, bool SPILL, bool SPILL_X>
+__device__ void field_forward_train_body(const float* __restrict__ mc,
+                                         const float* __restrict__ g,
+                                         const float* __restrict__ consts,
+                                         const V3Params& p,
+                                         const float* __restrict__ wd_row,
+                                         bf16* __restrict__ out,
+                                         bf16* __restrict__ acts,
+                                         long long n, int S) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* H0 = reinterpret_cast<bf16*>(smem + OFF_H0);
   bf16* X = reinterpret_cast<bf16*>(smem + OFF_X);
@@ -258,11 +286,11 @@ __global__ void __launch_bounds__(THREADS, 2)
   const long long row0 = (long long)blockIdx.x * TM;
   const int nv = (int)min((long long)TM, n - row0);
   constexpr int ld = SPILL_X ? XACTS_COLS : ACTS_COLS;
-  bf16* acts_tile = acts + row0 * ld;
+  bf16* acts_tile = SPILL ? acts + row0 * ld : nullptr;
 
   ipe_tile(mc, consts, row0, n, X);
   __syncthreads();
-  if (SPILL_X) store_rows(acts_tile + ACTS_COLS, ld, X, LDX, ENC, nv);
+  if (SPILL && SPILL_X) store_rows(acts_tile + ACTS_COLS, ld, X, LDX, ENC, nv);
   SpillHook hook{acts_tile, ld, nv, NORMALS ? masks : nullptr};
   bf16* H = trunk(p.trunk, X, H0, H1, stage, hook);
   v3_tail<OUT_TRAIN>(p, H, smem, g, row0, n, S, rowout);
@@ -331,6 +359,29 @@ __global__ void __launch_bounds__(THREADS, 2)
              OUT_TRAIN, nv);
 }
 
+template <bool NORMALS, bool SPILL_X>
+__global__ void __launch_bounds__(THREADS, 2)
+    field_forward_v6_kernel(const float* __restrict__ mc,
+                            const float* __restrict__ g,
+                            const float* __restrict__ consts, V3Params p,
+                            const float* __restrict__ wd_row,
+                            bf16* __restrict__ out, bf16* __restrict__ acts,
+                            long long n, int S) {
+  field_forward_train_body<NORMALS, true, SPILL_X>(mc, g, consts, p, wd_row,
+                                                   out, acts, n, S);
+}
+
+template <bool NORMALS>
+__global__ void __launch_bounds__(THREADS, 2)
+    field_forward_v4_kernel(const float* __restrict__ mc,
+                            const float* __restrict__ g,
+                            const float* __restrict__ consts, V3Params p,
+                            const float* __restrict__ wd_row,
+                            bf16* __restrict__ out, long long n, int S) {
+  field_forward_train_body<NORMALS, false, false>(mc, g, consts, p, wd_row,
+                                                  out, nullptr, n, S);
+}
+
 // ---- K4 / K5 -----------------------------------------------------------
 
 constexpr int RF = 24;  // per-row scalars: [0:4) atten, [4:7) dz3,
@@ -348,22 +399,26 @@ static_assert(OFF_ROWF % 32 == 0 && OFF_MBITS % 32 == 0 &&
               OFF_BSTAGE % 32 == 0 && OFF_DXE % 32 == 0, "alignment");
 
 struct BwdArgs {
-  const float* mc;      // (N, 16) f32, K4 only
+  const float* mc;      // (N, 16) f32, K4 and K8
   const float* g;       // (R, 512) f32
-  const float* consts;  // IPE constants, K4 only
-  const bf16* acts;     // (N, 2048) K4 or (N, 2176) K5
-  const bf16* dout;     // (N, 24) bf16 cotangent of K3's output
-  const bf16* fout;     // (N, 24) bf16, K3's output
-  float* dmc;           // (N, 16) f32, K4 only
+  const float* consts;  // IPE constants, K4 and K8
+  const bf16* acts;     // (N, 2048) K4 or (N, 2176) K5; K8: none
+  const bf16* dout;     // (N, 24) bf16 cotangent of the forward's output
+  const bf16* fout;     // (N, 24) bf16, the forward's output
+  float* dmc;           // (N, 16) f32, K4 and K8
   float* dg;            // (R, 512) f32, zeroed by the caller
   float* dpk;           // (blocks, PACK_FLOATS) f32, zeroed by the caller
+  bf16* ws;             // K8: (blocks, TM, 2048) bf16 recompute slots
   long long rays;
   int S;
   int rays_per_block;
 };
 
-template <bool WANT_DMC>
+// K4 (WANT_DMC), K5, and with RECOMPUTE (K8) K4 on activations that the
+// block recomputes per tile into its workspace slot.
+template <bool WANT_DMC, bool RECOMPUTE>
 __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
+  static_assert(WANT_DMC || !RECOMPUTE, "K8 computes dmc");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* D = reinterpret_cast<bf16*>(smem + OFF_D);
   bf16* INP = reinterpret_cast<bf16*>(smem + OFF_INP);
@@ -383,13 +438,22 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
 
   for (long long row0 = rowA; row0 < rowB; row0 += TM) {
     const int nv = (int)min((long long)TM, rowB - row0);
-    const bf16* acts = a.acts + row0 * ld;
+    bf16* slot = RECOMPUTE ? a.ws + (long long)blockIdx.x * TM * ld : nullptr;
+    const bf16* acts = RECOMPUTE ? slot : a.acts + row0 * ld;
+
+    // ---- K8: the tile's trunk forward again, K3's code, into the slot
+    // (D and INP serve as the two activation buffers, BSTAGE as stage) ----
+    if (RECOMPUTE) {
+      ipe_tile(a.mc, a.consts, row0, rowB, X);
+      __syncthreads();
+      trunk(p.trunk, X, D, INP, stage, SpillHook{slot, ld, nv, nullptr});
+    }
 
     // ---- loads: hs7, x, per-row scalars ----
     load_rows(INP, LDH, acts + (LAYERS - 1) * WIDTH, ld, WIDTH, nv);
-    if (WANT_DMC)
+    if (WANT_DMC && !RECOMPUTE)
       ipe_tile(a.mc, a.consts, row0, rowB, X);
-    else
+    else if (!WANT_DMC)
       load_rows(X, LDX, acts + ACTS_COLS, ld, ENC, nv);
     for (int e = tid; e < TM * (MID / 32); e += THREADS) mbits[e] = 0u;
     if (tid < TM) {
@@ -605,12 +669,17 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
 
 __global__ void __launch_bounds__(THREADS, 1)
     field_backward_v5_kernel(V3Params p, BwdArgs a) {
-  field_backward_body<true>(p, a);
+  field_backward_body<true, false>(p, a);
 }
 
 __global__ void __launch_bounds__(THREADS, 2)
     field_backward_v6_kernel(V3Params p, BwdArgs a) {
-  field_backward_body<false>(p, a);
+  field_backward_body<false, false>(p, a);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    field_backward_v4_kernel(V3Params p, BwdArgs a) {
+  field_backward_body<true, true>(p, a);
 }
 
 unsigned grid_for(long long n) { return (unsigned)((n + TM - 1) / TM); }
@@ -625,6 +694,32 @@ int launch_v6(const float* mc, const float* g, const float* consts,
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid_for(n), THREADS, K3_SMEM_BYTES, stream>>>(
       mc, g, consts, p, wd_row, out, acts, n, S);
+  return (int)cudaGetLastError();
+}
+
+template <bool NORMALS>
+int launch_v4(const float* mc, const float* g, const float* consts,
+              const V3Params& p, const float* wd_row, bf16* out, long long n,
+              int S, cudaStream_t stream) {
+  auto kernel = field_forward_v4_kernel<NORMALS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K3_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid_for(n), THREADS, K3_SMEM_BYTES, stream>>>(
+      mc, g, consts, p, wd_row, out, n, S);
+  return (int)cudaGetLastError();
+}
+
+template <typename Kernel>
+int launch_backward(Kernel kernel, int smem_bytes, const V3Params& p,
+                    const BwdArgs& a, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid =
+      (unsigned)((a.rays + a.rays_per_block - 1) / a.rays_per_block);
+  kernel<<<grid, THREADS, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      p, a);
   return (int)cudaGetLastError();
 }
 
@@ -663,6 +758,27 @@ int rsn_field_forward_v6(const void* mean_cov, const void* g_bands,
                                  samples_per_ray, st);
 }
 
+// K7 (want_normals: ptrs carries wd_row as ptrs[20]) or K1 at the train
+// width: K3's out (N, 24) bf16 without the spill.
+int rsn_field_forward_v4(const void* mean_cov, const void* g_bands,
+                         const void* ipe_consts, const void* const* ptrs,
+                         void* out, long long n, int samples_per_ray,
+                         int want_normals, void* stream) {
+  V3Params p;
+  fill_v3(&p, ptrs);
+  const float* mc = static_cast<const float*>(mean_cov);
+  const float* g = static_cast<const float*>(g_bands);
+  const float* consts = static_cast<const float*>(ipe_consts);
+  bf16* o = static_cast<bf16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (want_normals)
+    return launch_v4<true>(mc, g, consts, p,
+                           static_cast<const float*>(ptrs[20]), o, n,
+                           samples_per_ray, st);
+  return launch_v4<false>(mc, g, consts, p, nullptr, o, n, samples_per_ray,
+                          st);
+}
+
 // K4.  ptrs: the 20 packed operands.  dg and dpk must be zeroed; dpk has
 // ceil(rays / rays_per_block) slices of 608640 floats.
 int rsn_field_backward_v5(const void* mean_cov, const void* g_bands,
@@ -678,16 +794,10 @@ int rsn_field_backward_v5(const void* mean_cov, const void* g_bands,
             static_cast<const float*>(ipe_consts),
             static_cast<const bf16*>(acts), static_cast<const bf16*>(d_out),
             static_cast<const bf16*>(f_out), static_cast<float*>(dmc),
-            static_cast<float*>(dg), static_cast<float*>(dpk), rays,
-            samples_per_ray, rays_per_block};
-  cudaError_t err = cudaFuncSetAttribute(
-      field_backward_v5_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      K4_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((rays + rays_per_block - 1) / rays_per_block);
-  field_backward_v5_kernel<<<grid, THREADS, K4_SMEM_BYTES,
-                             static_cast<cudaStream_t>(stream)>>>(p, a);
-  return (int)cudaGetLastError();
+            static_cast<float*>(dg), static_cast<float*>(dpk), nullptr,
+            rays, samples_per_ray, rays_per_block};
+  return launch_backward(field_backward_v5_kernel, K4_SMEM_BYTES, p, a,
+                         stream);
 }
 
 // K5: K4 without dmc; xacts (N, 2176) carries x.
@@ -701,16 +811,31 @@ int rsn_field_backward_v6(const void* g_bands, const void* xacts,
   BwdArgs a{nullptr, static_cast<const float*>(g_bands), nullptr,
             static_cast<const bf16*>(xacts), static_cast<const bf16*>(d_out),
             static_cast<const bf16*>(f_out), nullptr,
-            static_cast<float*>(dg), static_cast<float*>(dpk), rays,
+            static_cast<float*>(dg), static_cast<float*>(dpk), nullptr,
+            rays, samples_per_ray, rays_per_block};
+  return launch_backward(field_backward_v6_kernel, K5_SMEM_BYTES, p, a,
+                         stream);
+}
+
+// K8: K4 with no spill.  ws: ceil(rays / rays_per_block) slots of
+// 64 x 2048 bf16 (uninitialised); dg and dpk as for K4.
+int rsn_field_backward_v4(const void* mean_cov, const void* g_bands,
+                          const void* ipe_consts, const void* d_out,
+                          const void* f_out, const void* const* ptrs,
+                          void* dmc, void* dg, void* dpk, void* ws,
+                          long long rays, int samples_per_ray,
+                          int rays_per_block, void* stream) {
+  V3Params p;
+  fill_v3(&p, ptrs);
+  BwdArgs a{static_cast<const float*>(mean_cov),
+            static_cast<const float*>(g_bands),
+            static_cast<const float*>(ipe_consts), nullptr,
+            static_cast<const bf16*>(d_out), static_cast<const bf16*>(f_out),
+            static_cast<float*>(dmc), static_cast<float*>(dg),
+            static_cast<float*>(dpk), static_cast<bf16*>(ws), rays,
             samples_per_ray, rays_per_block};
-  cudaError_t err = cudaFuncSetAttribute(
-      field_backward_v6_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      K5_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((rays + rays_per_block - 1) / rays_per_block);
-  field_backward_v6_kernel<<<grid, THREADS, K5_SMEM_BYTES,
-                             static_cast<cudaStream_t>(stream)>>>(p, a);
-  return (int)cudaGetLastError();
+  return launch_backward(field_backward_v4_kernel, K4_SMEM_BYTES, p, a,
+                         stream);
 }
 
 const char* rsn_cuda_error_string(int code) {

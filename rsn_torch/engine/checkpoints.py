@@ -5,7 +5,9 @@ A checkpoint is `checkpoints/step-XXXXXXXXX.pt` (torch.save of
 {"step", "field"}, and from a trainer also "optimizer", "scheduler" and
 "trainer": the optimizer and schedule state and the host-side trainer
 state, such as the adaptive reflect-fraction controller; a preset run adds
-"proposal", "proposal_optimizer" and "proposal_scheduler"); the run's
+"proposal", "proposal_optimizer" and "proposal_scheduler", a run with the
+camera optimizer "camera" (the (N, 6) pose deltas), "camera_optimizer"
+and "camera_scheduler"); the run's
 config sits beside it as config.json, readable by both packages'
 load_config.  `params_from_rsn` maps rsn's
 params pytree (numpy, (in, out) weights) to the port's Field state dict
@@ -114,7 +116,10 @@ def save_checkpoint(ckpt_dir: str, step: int, field: torch.nn.Module,
                     trainer_state: Optional[Dict[str, Any]] = None,
                     proposal: Optional[torch.nn.Module] = None,
                     proposal_optimizer: Optional[torch.optim.Optimizer] = None,
-                    proposal_scheduler=None) -> str:
+                    proposal_scheduler=None,
+                    camera: Optional[torch.Tensor] = None,
+                    camera_optimizer: Optional[torch.optim.Optimizer] = None,
+                    camera_scheduler=None) -> str:
     """Write step-XXXXXXXXX.pt (atomically: a temporary file, then a
     rename) and return its path."""
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -122,9 +127,13 @@ def save_checkpoint(ckpt_dir: str, step: int, field: torch.nn.Module,
     state: Dict[str, Any] = {"step": step, "field": _cpu_state(field)}
     if proposal is not None:
         state["proposal"] = _cpu_state(proposal)
+    if camera is not None:
+        state["camera"] = camera.detach().cpu()
     for key, obj in (("optimizer", optimizer), ("scheduler", scheduler),
                      ("proposal_optimizer", proposal_optimizer),
-                     ("proposal_scheduler", proposal_scheduler)):
+                     ("proposal_scheduler", proposal_scheduler),
+                     ("camera_optimizer", camera_optimizer),
+                     ("camera_scheduler", camera_scheduler)):
         if obj is not None:
             state[key] = obj.state_dict()
     if trainer_state is not None:
@@ -145,7 +154,8 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """-> {"step": int, "field": state dict on the CPU, and what the
     writer added ("optimizer", "scheduler", "trainer", "proposal",
-    "proposal_optimizer", "proposal_scheduler")}."""
+    "proposal_optimizer", "proposal_scheduler", "camera",
+    "camera_optimizer", "camera_scheduler")}."""
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

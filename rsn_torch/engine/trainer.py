@@ -7,9 +7,14 @@ loss dict with the 50-step warmup of the normal and orientation losses,
 backward, RAdam on the field.  With model.use_proposal (the
 reflect-sampling-nerf-proposal preset) the proposal field runs passes 1
 and 3, trains on the interlevel loss with Adam (the "proposal_networks"
-group), and its sampling histogram is annealed.  The camera optimizer, a
-mesh of several devices and the eval hooks (steps_per_eval_batch /
-steps_per_eval_image) are later steps of the port (ROADMAP.md).
+group), and its sampling histogram is annealed.  With
+datamanager.camera_optimizer "SO3xR3" one pose delta per training camera
+moves the sampled rays before the model (rsn_torch.models.camera_opt) and
+trains with Adam (the "camera_opt" group) on the photometric losses and
+its regularizer alone, while the field sees every loss: two backward
+passes over one graph, as rsn takes two VJPs.  A mesh of several devices
+and the eval hooks (steps_per_eval_batch / steps_per_eval_image) are
+later steps of the port (ROADMAP.md).
 steps_per_dispatch is read as 1: one step per loop iteration (a CUDA
 graph of several steps is later work).
 """
@@ -31,6 +36,7 @@ from rsn_torch.data.cameras import Cameras, generate_image_rays, generate_rays
 from rsn_torch.data.synthetic import load_dataset
 from rsn_torch.engine import checkpoints as ckpt_lib
 from rsn_torch.engine.optimizers import build_field_optimizer, build_optimizer
+from rsn_torch.models import camera_opt
 from rsn_torch.models import model as model_lib
 from rsn_torch.models.field import Field
 from rsn_torch.models.proposal import ProposalField
@@ -44,6 +50,7 @@ REFLECT_HEADROOM = 0.1
 # controller cadence when logging is off (steps_per_log <= 0): the
 # controller keeps running
 REFLECT_ADAPT_FALLBACK_CADENCE = 100
+CAMERA_REG_KEY = "camera_opt_regularizer"
 
 
 def preferred_eval_chunk(config: TrainerConfig, device) -> int:
@@ -191,13 +198,41 @@ def proposal_anneal(mcfg, step: int) -> Optional[float]:
     return float(f32((s * frac) / ((s - f32(1.0)) * frac + f32(1.0))))
 
 
+def camera_objective(loss_dict: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """What the pose deltas train on: the photometric losses and the pose
+    regularizer (rsn's trainer).  The normal and orientation losses'
+    sum(w * residual) form would steer rays off the density.  Raises on a
+    loss key in neither route's set: the routing would be silently
+    wrong."""
+    unclassified = (set(loss_dict) - model_lib.PHOTOMETRIC_LOSS_KEYS
+                    - model_lib.NON_PHOTOMETRIC_LOSS_KEYS - {CAMERA_REG_KEY})
+    if unclassified:
+        raise ValueError(
+            f"loss keys {sorted(unclassified)} are in neither "
+            "model.PHOTOMETRIC_LOSS_KEYS nor NON_PHOTOMETRIC_LOSS_KEYS")
+    return sum(v for k, v in loss_dict.items()
+               if k in model_lib.PHOTOMETRIC_LOSS_KEYS or k == CAMERA_REG_KEY)
+
+
+def routed_backward(loss_dict: Dict[str, torch.Tensor], params,
+                    camera: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Backward of the summed losses into `params`' .grad; with the pose
+    deltas `camera`, first camera_objective's gradient into camera.grad.
+    Two backward passes over one graph, as rsn takes two VJPs: neither
+    writes the other's .grad.  -> the total loss."""
+    total = sum(loss_dict.values())
+    if camera is None:
+        total.backward()
+        return total
+    (cam_grad,) = torch.autograd.grad(camera_objective(loss_dict), [camera],
+                                      retain_graph=True)
+    total.backward(inputs=list(params))
+    camera.grad = cam_grad
+    return total
+
+
 def _check_slice(config: TrainerConfig) -> None:
     """Raise on what the training slice of the port leaves out."""
-    dm, mcfg = config.pipeline.datamanager, config.pipeline.model
-    if dm.camera_optimizer != "off":
-        raise NotImplementedError(
-            f"camera_optimizer={dm.camera_optimizer!r}: ROADMAP Queue 1 "
-            "step 8 (camera-optimizer path, kernels K7/K8) is not ported")
     if config.num_devices > 1:
         raise NotImplementedError(
             f"num_devices={config.num_devices}: ROADMAP Queue 1 step 13 "
@@ -206,11 +241,6 @@ def _check_slice(config: TrainerConfig) -> None:
         raise NotImplementedError(
             "profile_dir: ROADMAP Queue 1 step 7 (the trainer's profiler "
             "window) is not ported")
-    if (mcfg.compute_dtype == "bfloat16" and mcfg.use_pallas
-            and mcfg.use_pallas_train and not mcfg.use_pallas_acts):
-        raise NotImplementedError(
-            "use_pallas_acts=False (the recompute backward, kernels K7/K8): "
-            "ROADMAP Queue 1 step 8 is not ported")
 
 
 class Trainer:
@@ -246,6 +276,13 @@ class Trainer:
             self.prop_optimizer, self.prop_scheduler = build_optimizer(
                 self.proposal.parameters(),
                 config.optimizers["proposal_networks"])
+        self.camera = camera_opt.init_camera_opt_params(
+            self.train_ds.cameras.num_cameras, dm.camera_optimizer,
+            self.device)
+        self.cam_optimizer = self.cam_scheduler = None
+        if self.camera is not None:
+            self.cam_optimizer, self.cam_scheduler = build_optimizer(
+                [self.camera], config.optimizers["camera_opt"])
         self.images = torch.as_tensor(self.train_ds.images).to(self.device)
         self.cameras = self.train_ds.cameras.to(self.device)
         self.generator = torch.Generator(self.device).manual_seed(
@@ -273,24 +310,33 @@ class Trainer:
             cfg.pipeline.datamanager.train_num_rays_per_batch,
             self.generator)
         bundle = model_lib.apply_collider(bundle, mcfg)
-        # rays are autograd leaves (no camera optimizer): the primary
-        # passes' backward skips the dead IPE backward
+        dm = cfg.pipeline.datamanager
+        cam = self.camera
+        bundle = camera_opt.apply_to_bundle(bundle, cam, dm.camera_optimizer)
+        # rays are autograd leaves unless the camera optimizer refines the
+        # poses: then the primary passes' backward computes dmc
         outputs = model_lib.get_outputs(
             self.field, bundle, mcfg, training=True,
-            generator=self.generator, rays_live=False,
+            generator=self.generator, rays_live=cam is not None,
             proposal=self.proposal,
             prop_anneal=proposal_anneal(mcfg, self.step))
         # the warmup (rsn's loss_coefficients_traced): the normal and
         # orientation losses are zero before WARMUP_STEPS
         loss_dict = model_lib.get_loss_dict(
             outputs, gt, loss_coefficients(mcfg, self.step))
-        total = sum(loss_dict.values())
+        if cam is not None:
+            loss_dict[CAMERA_REG_KEY] = camera_opt.regularization_loss(
+                cam, dm.camera_opt_rot_penalty, dm.camera_opt_trans_penalty)
         groups = [(self.optimizer, self.scheduler)]
+        params = list(self.field.parameters())
         if self.proposal is not None:
             groups.append((self.prop_optimizer, self.prop_scheduler))
+            params += list(self.proposal.parameters())
+        if cam is not None:
+            groups.append((self.cam_optimizer, self.cam_scheduler))
         for opt, _ in groups:
             opt.zero_grad(set_to_none=True)
-        total.backward()
+        total = routed_backward(loss_dict, params, cam)
         for opt, sched in groups:
             opt.step()
             sched.step()
@@ -341,13 +387,15 @@ class Trainer:
                              "reflect_down_votes": self._reflect_down_votes,
                              "generator": self.generator.get_state()},
             proposal=self.proposal, proposal_optimizer=self.prop_optimizer,
-            proposal_scheduler=self.prop_scheduler)
+            proposal_scheduler=self.prop_scheduler, camera=self.camera,
+            camera_optimizer=self.cam_optimizer,
+            camera_scheduler=self.cam_scheduler)
 
     def restore(self, load_dir: str) -> None:
         """Resume from the latest checkpoint under load_dir (a run's
         checkpoints directory): field, optimizer, schedule, step, the
-        controller state, and the proposal field with its optimizer and
-        schedule."""
+        controller state, the proposal field and the camera deltas, each
+        with its optimizer and schedule."""
         path = ckpt_lib.latest_checkpoint(load_dir)
         if path is None:
             raise FileNotFoundError(f"no checkpoints under {load_dir}")
@@ -366,6 +414,13 @@ class Trainer:
             if "proposal_scheduler" in state:
                 self.prop_scheduler.load_state_dict(
                     state["proposal_scheduler"])
+        if self.camera is not None:
+            with torch.no_grad():
+                self.camera.copy_(state["camera"])
+            if "camera_optimizer" in state:
+                self.cam_optimizer.load_state_dict(state["camera_optimizer"])
+            if "camera_scheduler" in state:
+                self.cam_scheduler.load_state_dict(state["camera_scheduler"])
         trainer = state.get("trainer", {})
         floor = self.config.pipeline.model.reflect_ray_fraction
         self._reflect_frac = max(float(trainer.get("reflect_fraction",

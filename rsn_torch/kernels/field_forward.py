@@ -71,7 +71,9 @@ _HALF_LOG2E = 0.7213475204444817  # 0.5 / ln 2
 # proposal_forward.py)
 LAUNCHES = {"field_forward_v3": 0, "field_forward_density": 0,
             "field_forward_v6": 0, "field_backward_v5": 0,
-            "field_backward_v6": 0, "prop_forward": 0}
+            "field_backward_v6": 0, "field_forward_v4": 0,
+            "field_forward_v3_train": 0, "field_backward_v4": 0,
+            "prop_forward": 0}
 
 
 def reset_launch_counts() -> None:

@@ -17,9 +17,22 @@ K5 `field_backward_v6` (replaces field_train.py::field_backward_v6): K4
 without dmc (the caller's promise that the mean/cov cotangent is dead),
 x read from the spill.
 
+K7 `field_forward_v4` (replaces field_pallas.py::field_forward_v4): K3
+with the normals and without the spill, (N, 24) bf16.  Its sibling
+`field_forward_v3_train` is K1 at the train width (field_pallas.py::
+field_forward_v3 at its default V3_OUT store): K3 without the normals and
+without the spill.  The same kernel body as K3, so both equal K3's output
+bit for bit.
+
+K8 `field_backward_v4` (replaces field_train.py::field_backward_v4): K4
+with the trunk activations recomputed in the kernel instead of read from
+a spill -> dmc, dg and the 20 gradients.
+
 K6 `FusedFieldTrain` (replaces field_train.py::fused_field_train, a
-custom VJP with no kernel of its own): the autograd Function that runs K3
-forward and K4 or K5 backward on fp32 packed operands.
+custom VJP with no kernel of its own): the autograd Function that runs,
+on fp32 packed operands, K3 forward and K4 or K5 backward (save_acts, the
+spill route), or K7 / K1 at the train width forward and K8 backward (the
+recompute route).
 
 Each wrapper checks its inputs, runs the plain version for CPU tensors
 and launches the CUDA kernel (rsn_torch/csrc/field_train.cu) for CUDA
@@ -48,6 +61,7 @@ V4_DPDM = slice(14, 17)
 V3_MIDVAL = slice(17, 20)
 ACTS_COLS = TRUNK_LAYERS * TRUNK_WIDTH  # 2048
 XACTS_COLS = ACTS_COLS + ENC_PAD        # 2176
+TILE_ROWS = 64  # sample rows per block tile (field_common.cuh TM)
 N_PACKED = 20
 # one block's fp32 slice of the backward's weight gradients: the packed
 # operands in order (field_train.cu PACK_FLOATS)
@@ -164,6 +178,15 @@ def field_forward_v6_plain(packed, mean_cov: torch.Tensor,
     return out, acts
 
 
+def field_forward_v4_plain(packed, mean_cov: torch.Tensor,
+                           g_bands: torch.Tensor, samples_per_ray: int,
+                           want_normals: bool = True) -> torch.Tensor:
+    """Plain PyTorch K7 (want_normals) or K1 at the train width: the
+    plain K3's output -> (N, 24) bf16."""
+    return field_forward_v6_plain(packed, mean_cov, g_bands, samples_per_ray,
+                                  want_normals)[0]
+
+
 def _backward_plain(packed, g_bands, hs, x, d_out, f_out, S, mean_cov):
     """rsn's _bwd_half written out: -> (dmc or None, dg, dpacked).
     mean_cov None: no IPE backward and no layer-0 dgrad (K5)."""
@@ -260,6 +283,16 @@ def field_backward_v6_plain(packed, g_bands, xacts, d_out, f_out,
     return dg, dpk
 
 
+def field_backward_v4_plain(packed, mean_cov, g_bands, d_out, f_out,
+                            samples_per_ray):
+    """Plain PyTorch K8: the plain K4 on the trunk activations recomputed
+    from mean_cov -> (dmc (N, 16), dg (R, 512), dpacked (20))."""
+    x = ff.ipe_x(mean_cov)
+    return _backward_plain(packed[:N_PACKED], g_bands,
+                           _trunk_acts(packed[:8], packed[8:16], x), x,
+                           d_out, f_out, samples_per_ray, mean_cov)
+
+
 # ---- wrappers --------------------------------------------------------------
 
 def _rows(n: int, S: int, name: str) -> int:
@@ -332,6 +365,53 @@ def field_forward_v6(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
     _raise_on_error(lib, rc, "field_forward_v6")
     LAUNCHES["field_forward_v6"] += 1
     return out, acts
+
+
+def _forward_no_spill(packed, mean_cov, g_bands, samples_per_ray,
+                      want_normals: bool, name: str) -> torch.Tensor:
+    device = mean_cov.device
+    n = mean_cov.shape[0]
+    S = int(samples_per_ray)
+    R = _rows(n, S, name)
+    _check("mean_cov", mean_cov, (n, IN_COLS), F32, device)
+    _check("g_bands", g_bands, (R, 512), F32, device)
+    _check_train_packed(packed, want_normals, device)
+    if device.type == "cpu":
+        return field_forward_v4_plain(packed, mean_cov, g_bands, S,
+                                      want_normals)
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_train.cu")
+    out = torch.empty((n, OUT_TRAIN), dtype=BF16, device=device)
+    with torch.cuda.device(device):
+        rc = lib.rsn_field_forward_v4(
+            mean_cov.data_ptr(), g_bands.data_ptr(),
+            _ipe_consts(device).data_ptr(), _ptr_array(packed),
+            out.data_ptr(), n, S, int(want_normals),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def field_forward_v4(packed_v4f, mean_cov: torch.Tensor,
+                     g_bands: torch.Tensor,
+                     samples_per_ray: int) -> torch.Tensor:
+    """K7: packed_v4f = pack_params_v4f(...) -> (N, 24) bf16, K3's output
+    with the normals (V4_DPDM), no spill."""
+    return _forward_no_spill(packed_v4f, mean_cov, g_bands, samples_per_ray,
+                             True, "field_forward_v4")
+
+
+def field_forward_v3_train(packed, mean_cov: torch.Tensor,
+                           g_bands: torch.Tensor,
+                           samples_per_ray: int) -> torch.Tensor:
+    """K1 at the train width: pack_params_v3f operands -> (N, 24) bf16,
+    K3's output without the normals (V4_DPDM zero), no spill."""
+    return _forward_no_spill(packed, mean_cov, g_bands, samples_per_ray,
+                             False, "field_forward_v3_train")
 
 
 def _check_bwd(d_out, f_out, n, device):
@@ -413,11 +493,55 @@ def field_backward_v6(packed, g_bands: torch.Tensor, xacts: torch.Tensor,
     return dg, _unpack_slices(buf)
 
 
+def field_backward_v4(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
+                      d_out: torch.Tensor, f_out: torch.Tensor,
+                      samples_per_ray: int):
+    """K8 -> (dmc (N, 16) f32, dg (R, 512) f32, dpacked: 20 fp32 tensors),
+    K4's results with the trunk recomputed from mean_cov."""
+    device = mean_cov.device
+    n = mean_cov.shape[0]
+    S = int(samples_per_ray)
+    R = _rows(n, S, "field_backward_v4")
+    _check("mean_cov", mean_cov, (n, IN_COLS), F32, device)
+    _check("g_bands", g_bands, (R, 512), F32, device)
+    _check_bwd(d_out, f_out, n, device)
+    _check_train_packed(packed, False, device)
+    if device.type == "cpu":
+        return field_backward_v4_plain(packed, mean_cov, g_bands, d_out,
+                                       f_out, S)
+    if device.type != "cuda":
+        raise ValueError(f"field_backward_v4: unsupported device {device}")
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_train.cu")
+    rpb = _rays_per_block(R, device, 1)  # K4's partition
+    blocks = -(-R // rpb)
+    dmc = torch.empty((n, IN_COLS), dtype=F32, device=device)
+    dg = torch.zeros((R, 512), dtype=F32, device=device)
+    buf = torch.zeros((blocks, PACK_FLOATS), dtype=F32, device=device)
+    # one tile's recompute slot per block
+    ws = torch.empty((blocks, TILE_ROWS, ACTS_COLS), dtype=BF16,
+                     device=device)
+    with torch.cuda.device(device):
+        rc = lib.rsn_field_backward_v4(
+            mean_cov.data_ptr(), g_bands.data_ptr(),
+            _ipe_consts(device).data_ptr(), d_out.data_ptr(),
+            f_out.data_ptr(), _ptr_array(packed), dmc.data_ptr(),
+            dg.data_ptr(), buf.data_ptr(), ws.data_ptr(), R, S, rpb,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, rc, "field_backward_v4")
+    LAUNCHES["field_backward_v4"] += 1
+    return dmc, dg, _unpack_slices(buf)
+
+
 # ---- K6: the autograd Function ---------------------------------------------
 
 class FusedFieldTrain(torch.autograd.Function):
-    """The fused training field (rsn fused_field_train with save_acts):
-    K3 forward, K4 (want_dmc) or K5 backward.
+    """The fused training field (rsn fused_field_train).  save_acts (the
+    spill route): K3 forward, K4 (want_dmc) or K5 backward.  Otherwise
+    (the recompute route, which keeps no activations between forward and
+    backward): K7 (want_normals) or K1 at the train width forward, K8
+    backward.
 
     Differentiable inputs: mean_cov (N, 16) f32, g_bands (R, 512) f32 and
     the 20 fp32 operands of pack_params_v3f_f32.  The bf16 casts happen
@@ -425,48 +549,62 @@ class FusedFieldTrain(torch.autograd.Function):
     (N, 24) bf16; the cotangents of its columns 14:20 (V4_DPDM,
     V3_MIDVAL) are ignored, and the one of V3_DENSITY..V3_ROUGH enters
     the backward bf16-rounded.  want_dmc=False promises that mean_cov's
-    cotangent is dead (rays that are autograd leaves): K5 runs and the
-    mean_cov gradient is zero."""
+    cotangent is dead (rays that are autograd leaves): on the spill route
+    K5 runs and the mean_cov gradient is zero; the recompute route always
+    returns K8's mean_cov gradient, as rsn's does."""
 
     @staticmethod
     def forward(ctx, samples_per_ray: int, want_normals: bool,
-                want_dmc: bool, wd_row, mean_cov, g_bands, *packed_f32):
+                want_dmc: bool, save_acts: bool, wd_row, mean_cov, g_bands,
+                *packed_f32):
         packed = ff.cast_packed(packed_f32)
         mean_cov = mean_cov.detach().contiguous()
         g_bands = g_bands.detach().float().contiguous()
         ops = packed + ((wd_row.detach().contiguous(),) if want_normals
                         else ())
-        out, acts = field_forward_v6(ops, mean_cov, g_bands,
-                                     samples_per_ray, want_normals,
-                                     spill_x=not want_dmc)
-        ctx.save_for_backward(mean_cov, g_bands, acts, out, *packed)
+        if save_acts:
+            out, acts = field_forward_v6(ops, mean_cov, g_bands,
+                                         samples_per_ray, want_normals,
+                                         spill_x=not want_dmc)
+            ctx.save_for_backward(mean_cov, g_bands, out, acts, *packed)
+        else:
+            fwd = field_forward_v4 if want_normals else field_forward_v3_train
+            out = fwd(ops, mean_cov, g_bands, samples_per_ray)
+            ctx.save_for_backward(mean_cov, g_bands, out, *packed)
         ctx.samples_per_ray = samples_per_ray
         ctx.want_dmc = want_dmc
+        ctx.save_acts = save_acts
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        mean_cov, g_bands, acts, out, *packed = ctx.saved_tensors
+        mean_cov, g_bands, out, *rest = ctx.saved_tensors
         S = ctx.samples_per_ray
         d_out = d_out.to(BF16).contiguous()
-        if ctx.want_dmc:
-            dmc, dg, dpk = field_backward_v5(packed, mean_cov, g_bands, acts,
-                                             d_out, out, S)
+        if not ctx.save_acts:
+            dmc, dg, dpk = field_backward_v4(rest, mean_cov, g_bands, d_out,
+                                             out, S)
+        elif ctx.want_dmc:
+            dmc, dg, dpk = field_backward_v5(rest[1:], mean_cov, g_bands,
+                                             rest[0], d_out, out, S)
         else:
-            dg, dpk = field_backward_v6(packed, g_bands, acts, d_out, out, S)
+            dg, dpk = field_backward_v6(rest[1:], g_bands, rest[0], d_out,
+                                        out, S)
             dmc = torch.zeros_like(mean_cov)  # dead by the caller's promise
-        return (None, None, None, None, dmc, dg) + tuple(dpk)
+        return (None, None, None, None, None, dmc, dg) + tuple(dpk)
 
 
 def fused_field_train(packed_f32, mean_cov: torch.Tensor,
                       g_bands: torch.Tensor, samples_per_ray: int,
                       want_normals: bool = False, want_dmc: bool = True,
-                      wd_row: torch.Tensor = None) -> torch.Tensor:
+                      wd_row: torch.Tensor = None,
+                      save_acts: bool = True) -> torch.Tensor:
     """FusedFieldTrain.apply with rsn's argument order.  packed_f32 =
     pack_params_v3f_f32(field); wd_row = the density head's (1, 256)
-    weight row, needed with want_normals."""
+    weight row, needed with want_normals; save_acts: the spill route (K3
+    with K4 / K5), else the recompute route (K7 / K1 with K8)."""
     if want_normals and wd_row is None:
         raise ValueError("want_normals needs the density head row wd_row")
     return FusedFieldTrain.apply(int(samples_per_ray), bool(want_normals),
-                                 bool(want_dmc), wd_row, mean_cov, g_bands,
-                                 *packed_f32)
+                                 bool(want_dmc), bool(save_acts), wd_row,
+                                 mean_cov, g_bands, *packed_f32)

@@ -11,7 +11,9 @@ With compute_dtype "bfloat16" and cfg.use_pallas, every full field
 evaluation of a render goes through K1 and every density-only one through
 K2 (rsn_torch.kernels.field_forward); a training forward with
 cfg.use_pallas_train goes through the FusedFieldTrain autograd Function
-(K3 forward, K4 or K5 backward; rsn_torch.kernels.field_train).  The
+(rsn_torch.kernels.field_train): with cfg.use_pallas_acts the spill route
+(K3 forward, K4 or K5 backward), else the recompute route (K7 on passes 1
+and 2, K1 at the train width on passes 3 and 4, K8 backward).  The
 wrappers launch the CUDA kernels for CUDA tensors and run their plain
 versions for CPU tensors.  Other configs run the plain field
 (rsn_torch.models.field), under autograd when training.
@@ -66,7 +68,9 @@ class FieldConfig:
     compute_dtype: torch.dtype
     sh_l8_m7_2x: bool
     use_kernels: bool        # K1/K2 for every render field evaluation
-    use_train_kernels: bool  # FusedFieldTrain (K3-K5) when training
+    use_train_kernels: bool  # FusedFieldTrain when training
+    save_acts: bool          # its spill route (K3-K5), else the recompute
+                             # route (K7, K1 at the train width, K8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,10 +93,12 @@ class TrainOperands:
 def _field_cfg(cfg: ModelConfig) -> FieldConfig:
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     use_kernels = cfg.use_pallas and dtype == torch.bfloat16
+    use_train_kernels = use_kernels and cfg.use_pallas_train
     return FieldConfig(compute_dtype=dtype,
                        sh_l8_m7_2x=cfg.bug_compat.sh_l8_m7_2x,
                        use_kernels=use_kernels,
-                       use_train_kernels=use_kernels and cfg.use_pallas_train)
+                       use_train_kernels=use_train_kernels,
+                       save_acts=use_train_kernels and cfg.use_pallas_acts)
 
 
 def _use_prop_kernel(cfg: ModelConfig, fcfg: FieldConfig) -> bool:
@@ -147,7 +153,7 @@ def _eval_field(field: Field, ray_samples: RaySamples, fcfg: FieldConfig,
             g = ff.mid_g_bands_f32(field, ray_dirs, fcfg.sh_l8_m7_2x)
             out = ft.fused_field_train(packed.packed_f32, mc, g, S,
                                        want_normals, want_dmc,
-                                       packed.wd_row)
+                                       packed.wd_row, fcfg.save_acts)
         else:
             g = ff.mid_g_bands(field, ray_dirs, fcfg.sh_l8_m7_2x)
             out = ff.field_forward_v3(packed.v3f, mc, g, S)
@@ -271,9 +277,11 @@ def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
     training=True: the training forward under autograd, with stratified
     draws from `generator` (None: the eval midpoints) and the
     reflect_ray_fraction compaction cap.  rays_live: whether the rays'
-    geometry carries live gradients; the trainer passes False when the
-    camera optimizer is off, which lets the primary passes' backward
-    skip the dead IPE backward (K5 instead of K4).
+    geometry carries live gradients (the camera optimizer's pose deltas
+    reach the bundle's origins and directions); the trainer passes False
+    when the camera optimizer is off, which lets the primary passes'
+    backward on the spill route skip the dead IPE backward (K5 instead
+    of K4).
 
     generator: also draws the per-ray background of the tint composite
     when cfg.bug_compat.tint_random_background is set (off by default).
@@ -289,10 +297,6 @@ def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
     fine passes resample from is annealed."""
     fcfg = _field_cfg(cfg)
     if training:
-        if fcfg.use_train_kernels and not cfg.use_pallas_acts:
-            raise NotImplementedError(
-                "use_pallas_acts=False (the recompute backward, kernels "
-                "K7/K8): ROADMAP Queue 1 step 8 is not ported yet")
         train_ops = (pack_train_operands(field) if fcfg.use_train_kernels
                      else None)
         return _get_outputs(field, ray_bundle, cfg, fcfg, True, True,

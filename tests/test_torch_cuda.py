@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: shapes the smoke run does not
 reach (ragged last tiles, odd samples per ray, every flag pair of the
-training forward, K9 over many tiles per block), the launch counters,
-determinism, the alignment checks, and small renders (the default method
-and the proposal preset) on both devices.
+training forward, K9 over many tiles per block, K7 / K8 at ragged
+shapes), the launch counters (one train step on each route, camera off
+and on), determinism, the alignment checks, small renders (the default
+method and the proposal preset) on both devices, and the recompute
+route's smaller peak memory.
 
 Needs a CUDA card and nvcc; skipped without them.  This file imports no
 jax, so it also runs on a machine without it:
@@ -284,3 +286,116 @@ def test_small_preset_render_cpu_matches_gpu(field, proposal):
     assert agree.mean() >= 0.99
     diff = np.abs(cpu["mid_reflect_fine"] - gpu["mid_reflect_fine"])
     assert diff[agree[..., 0]].max() <= 0.05
+
+
+# ---- the recompute route (K7, K1 at the train width, K8) ------------------
+
+K8_TOL = 1e-1  # plain K8 recomputes its own trunk: bf16 rounding flips
+
+
+def _same(a, b):
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
+
+
+@pytest.mark.parametrize("R,S", [(1, 1), (3, 7), (5, 29), (7, 64),
+                                 (33, 128)])
+def test_recompute_kernels_match_plain_versions(field, R, S):
+    """K7 and K1 at the train width equal K3's output bit for bit and
+    agree with their plain versions; K8 equals K4 on K3's spill bit for
+    bit, agrees with the plain K4 on that spill within ATOL and with its
+    own plain version (which recomputes the trunk) within K8_TOL, and
+    gives the same result twice."""
+    mc, dirs = _inputs(R, S, seed=R + S)
+    g = ff.mid_g_bands(field, dirs)
+    p3 = ff.pack_params_v3f(field)
+    p4 = tft.pack_params_v4f(p3, field)
+    k7 = tft.field_forward_v4(p4, mc, g, S)
+    k1 = tft.field_forward_v3_train(p3, mc, g, S)
+    k3n, acts = tft.field_forward_v6(p4, mc, g, S, True)
+    k3, _ = tft.field_forward_v6(p3, mc, g, S)
+    torch.cuda.synchronize()
+    assert torch.equal(k7, k3n) and torch.equal(k1, k3)
+    cols = list(range(14)) + list(range(17, 20))
+    for got, normals in ((k7, True), (k1, False)):
+        ref = tft.field_forward_v4_plain(p4 if normals else p3, mc, g, S,
+                                         normals)
+        assert torch.isfinite(got.float()).all()
+        assert float((got[:, cols].float() - ref[:, cols].float()).abs()
+                     .max()) <= ATOL
+    chain = tft.normals_dgrad_plain(p4, tft._split_acts(acts), mc)
+    unit = lambda v: -torch.nn.functional.normalize(v.float(), dim=-1)
+    live = chain.norm(dim=-1) > 1e-3
+    assert float((unit(k7[:, 14:17]) * unit(chain)).sum(-1)[live].min()) \
+        >= 0.999
+    assert torch.all(k1[:, 14:17] == 0)
+
+    gen = torch.Generator().manual_seed(S)
+    d_out = torch.randn(R * S, tft.OUT_TRAIN, generator=gen)
+    d_out[:, 14:] = 0.0
+    d_out = d_out.to(torch.bfloat16).cuda()
+    k8 = tft.field_backward_v4(p3, mc, g, d_out, k7, S)
+    k8b = tft.field_backward_v4(p3, mc, g, d_out, k7, S)
+    k4 = tft.field_backward_v5(p3, mc, g, acts, d_out, k7, S)
+    torch.cuda.synchronize()
+    assert _same(k8, k4) and _same(k8, k8b)
+    for ref, tol in ((tft.field_backward_v5_plain(p3, mc, g, acts, d_out,
+                                                  k7, S), ATOL),
+                     (tft.field_backward_v4_plain(p3, mc, g, d_out, k7, S),
+                      K8_TOL)):
+        assert _rel_err(k8[0], ref[0]) <= tol
+        assert _rel_err(k8[1], ref[1]) <= tol
+        for a, b in zip(k8[2], ref[2]):
+            assert a.shape == b.shape and _rel_err(a, b) <= tol
+
+
+def _tiny_trainer(tmp_path, camera: bool, acts: bool):
+    from rsn_torch.configs import DataManagerConfig
+    from rsn_torch.engine.trainer import Trainer
+
+    mcfg = ModelConfig(compute_dtype="bfloat16", use_pallas_acts=acts)
+    dm = DataManagerConfig(dataparser="synthetic", data="sphere:res=16",
+                           camera_optimizer="SO3xR3" if camera else "off")
+    config = TrainerConfig(pipeline=PipelineConfig(model=mcfg,
+                                                   datamanager=dm))
+    return Trainer(config, run_dir=str(tmp_path / f"{camera}-{acts}"),
+                   device="cuda")
+
+
+@pytest.mark.parametrize("camera,acts,want", [
+    (False, True, {"field_forward_v6": 4, "field_backward_v5": 2,
+                   "field_backward_v6": 2}),
+    (False, False, {"field_forward_v4": 2, "field_forward_v3_train": 2,
+                    "field_backward_v4": 4}),
+    (True, True, {"field_forward_v6": 4, "field_backward_v5": 8}),
+    (True, False, {"field_forward_v4": 2, "field_forward_v3_train": 2,
+                   "field_backward_v4": 8}),
+])
+def test_train_step_launches_per_route(field, tmp_path, camera, acts, want):
+    """The launches of one default-method train step on each route, with
+    the camera optimizer off and on (two backward passes)."""
+    tr = _tiny_trainer(tmp_path, camera, acts)
+    ff.reset_launch_counts()
+    tr.train_step()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ff.LAUNCHES.items() if v} == want
+    if camera:
+        assert torch.isfinite(tr.camera).all() and tr.camera.abs().max() > 0
+
+
+def test_recompute_route_holds_less_memory(field, tmp_path):
+    """One full-width step's peak device memory above what the trainer
+    holds before it: the recompute route keeps no (N, 2048) spill."""
+    peaks = {}
+    for acts in (True, False):
+        tr = _tiny_trainer(tmp_path, True, acts)
+        tr.train_step()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr.train_step()
+        torch.cuda.synchronize()
+        peaks[acts] = torch.cuda.max_memory_allocated() - base
+        del tr
+        torch.cuda.empty_cache()
+    assert peaks[False] < peaks[True], peaks

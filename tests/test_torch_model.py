@@ -126,12 +126,32 @@ def test_compaction_selection_matches_jax_top_k():
     np.testing.assert_array_equal(sel.numpy(), np.asarray(ref))
 
 
-def test_unported_modes_raise(setup):
+@pytest.mark.parametrize("rays_live", [False, True])
+def test_recompute_route_matches_spill_route(setup, rays_live):
+    """Training with use_pallas_acts=False (K7, K1 at the train width and
+    K8) gives the spill route's (K3 with K5 / K4) outputs and parameter
+    gradients bit for bit: on the CPU both run the plain versions, and
+    the recompute recomputes the spilled activations exactly."""
     mcfg, _, field, _, tb = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.get_outputs(field, tb, dataclasses.replace(
-            mcfg, compute_dtype="bfloat16", use_pallas_acts=False),
-            training=True)
+    res = []
+    for acts in (True, False):
+        cfg = dataclasses.replace(mcfg, compute_dtype="bfloat16",
+                                  use_pallas_acts=acts)
+        assert tmodel._field_cfg(cfg).save_acts == acts
+        field.zero_grad()
+        out = tmodel.get_outputs(field, tb, cfg, training=True,
+                                 rays_live=rays_live)
+        sum(v.float().sum() for k, v in out.items()
+            if v.requires_grad).backward()
+        res.append((out, {k: p.grad for k, p in field.named_parameters()
+                          if p.grad is not None}))
+    (out_s, grad_s), (out_r, grad_r) = res
+    assert set(out_r) == set(out_s)
+    for k in out_s:
+        assert torch.equal(out_r[k], out_s[k]), k
+    assert set(grad_r) == set(grad_s)
+    for k in grad_s:
+        assert torch.equal(grad_r[k], grad_s[k]), k
 
 
 @pytest.mark.parametrize("training", [False, True])

@@ -38,7 +38,8 @@ from rsn_torch.kernels import field_forward as ff
 from rsn_torch.kernels import proposal_forward as pf
 from rsn_torch.models import model as tmodel
 from rsn_torch.models import proposal as tprop
-from torch_parity import bundles, jax_params, n, port_field, rsn_params, t
+from torch_parity import (assert_grads as _assert_grads, bundles,
+                          jax_params, n, port_field, rsn_params, t)
 
 SPACINGS = {"identity": (jspacing.identity_spacing(),
                          tspacing.identity_spacing()),
@@ -394,20 +395,6 @@ def _port_preset_step(field, prop, tb, gt, cfg, step):
     return ({k: float(v.detach()) for k, v in ld.items()}, n(out["mask"]),
             (grads(field, tckpt.params_to_rsn),
              grads(prop, tckpt.proposal_to_rsn)))
-
-
-def _assert_grads(got, ref, tol, tols=None):
-    """Each gradient within tol of its max |value| (tols: per (name, i)
-    exceptions)."""
-    for name in ref:
-        layers = got[name] if isinstance(got[name], list) else [got[name]]
-        refs = ref[name] if isinstance(ref[name], list) else [ref[name]]
-        for i, (a, b) in enumerate(zip(layers, refs)):
-            limit = (tols or {}).get((name, i), tol)
-            for k in ("w", "b"):
-                scale = max(float(np.abs(b[k]).max()), 1e-12)
-                err = float(np.abs(a[k] - b[k]).max())
-                assert err <= limit * scale, (name, i, k, err, scale)
 
 
 @pytest.fixture(scope="module")

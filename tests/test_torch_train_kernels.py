@@ -1,7 +1,9 @@
 """The training kernels' plain versions (K3 field_forward_v6, K4
-field_backward_v5, K5 field_backward_v6) and the autograd Function (K6)
-against rsn's Pallas kernels in interpret mode, on the same numpy inputs
-(R=8 rays, S=8 samples, 32-row tiles on the JAX side)."""
+field_backward_v5, K5 field_backward_v6, and the recompute route's K7
+field_forward_v4, K1 at the train width and K8 field_backward_v4) and the
+autograd Function (K6) on both routes against rsn's Pallas kernels in
+interpret mode, on the same numpy inputs (R=8 rays, S=8 samples, 32-row
+tiles on the JAX side)."""
 import functools
 
 import numpy as np
@@ -136,30 +138,124 @@ def test_k5_plain_matches_field_backward_v6(setup):
         _close(a, b, f"dpacked[{i}]")
 
 
-_PATCHED = ("field_forward_v6", "field_backward_v5", "field_backward_v6")
+def _unit(v):
+    return -v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-12)
 
 
-@pytest.mark.parametrize("want_dmc", [True, False])
-def test_autograd_function_matches_fused_field_train(setup, want_dmc):
+def test_k7_plain_matches_field_forward_v4(setup):
+    """K7's plain version against rsn's field_forward_v4: the V3 columns
+    and the mid value within TOL, the normals' directions at cos >= 0.999
+    (as K3's are held); and it is the plain K3's output with the normals,
+    bit for bit."""
+    s = setup
+    out_j = fp.field_forward_v4(fp.pack_params_v4f(s["params"]),
+                                jnp.asarray(s["mc"]), jnp.asarray(s["g"]),
+                                S, tile=TILE, interpret=True)
+    packed = _port_packed(s, True)
+    out_t = tft.field_forward_v4(packed, t(s["mc"]), t(s["g"]), S)
+    assert out_t.shape == (N, tft.OUT_TRAIN) and out_t.dtype == torch.bfloat16
+    oj = np.asarray(out_j, np.float32)
+    for cols in (slice(0, 14), tft.V3_MIDVAL):
+        np.testing.assert_allclose(n(out_t)[:, cols], oj[:, cols], atol=TOL,
+                                   rtol=TOL)
+    dj, dt = oj[:, tft.V4_DPDM], n(out_t)[:, tft.V4_DPDM]
+    live = np.linalg.norm(dj, axis=-1) > 1e-3
+    assert live.any()
+    cos = np.sum(_unit(dt) * _unit(dj), axis=-1)[live]
+    assert cos.min() >= 0.999, cos.min()
+    ref, _ = tft.field_forward_v6_plain(packed, t(s["mc"]), t(s["g"]), S,
+                                        True)
+    assert torch.equal(out_t, ref)
+
+
+def test_k1_train_width_plain_matches_field_forward_v3(setup):
+    """K1 at the train width against rsn's field_forward_v3 at its default
+    V3_OUT store (which writes the mid value for the backward); the plain
+    K3's output without the normals, bit for bit."""
+    s = setup
+    out_j = fp.field_forward_v3(fp.pack_params_v3f(s["params"]),
+                                jnp.asarray(s["mc"]), jnp.asarray(s["g"]),
+                                S, tile=TILE, interpret=True)
+    assert out_j.shape == (N, fp.V3_OUT)
+    packed = _port_packed(s)
+    out_t = tft.field_forward_v3_train(packed, t(s["mc"]), t(s["g"]), S)
+    oj = np.asarray(out_j, np.float32)
+    for cols in (slice(0, 14), tft.V3_MIDVAL):
+        np.testing.assert_allclose(n(out_t)[:, cols], oj[:, cols], atol=TOL,
+                                   rtol=TOL)
+    assert np.all(n(out_t)[:, tft.V4_DPDM] == 0)
+    ref, _ = tft.field_forward_v6_plain(packed, t(s["mc"]), t(s["g"]), S)
+    assert torch.equal(out_t, ref)
+
+
+def test_k8_plain_matches_field_backward_v4(setup):
+    """K8's plain version against rsn's recompute backward, at K4's
+    tolerances (dmc's cov columns on their own scale); and it is the plain
+    K4 on the plain K3's activations, bit for bit."""
+    s = setup
+    out_j = fp.field_forward_v4(fp.pack_params_v4f(s["params"]),
+                                jnp.asarray(s["mc"]), jnp.asarray(s["g"]),
+                                S, tile=TILE, interpret=True)
+    d_out = jnp.asarray(s["d_out"]).astype(jnp.bfloat16)
+    dmc_j, dg_j, dpk_j = jft.field_backward_v4(
+        fp.pack_params_v3f(s["params"]), jnp.asarray(s["mc"]),
+        jnp.asarray(s["g"]), d_out, out_j, S, tile=TILE, inner=2,
+        interpret=True)
+    to_t = lambda a: torch.from_numpy(np.array(a.astype(jnp.float32))
+                                      ).to(torch.bfloat16).contiguous()
+    packed = _port_packed(s)
+    args = (t(s["mc"]), t(s["g"]), to_t(d_out[:, :tft.OUT_TRAIN]),
+            to_t(out_j[:, :tft.OUT_TRAIN]), S)
+    dmc_t, dg_t, dpk_t = tft.field_backward_v4(packed, *args)
+    _close(dmc_t, dmc_j, "dmc")
+    _close(dmc_t[:, 3:6], np.asarray(dmc_j)[:, 3:6], "dmc cov")
+    _close(dg_t, dg_j, "dg")
+    assert len(dpk_t) == 20
+    for i, (a, b) in enumerate(zip(dpk_t, dpk_j)):
+        assert tuple(a.shape) == tuple(b.shape), i
+        _close(a, b, f"dpacked[{i}]")
+    _, acts = tft.field_forward_v6_plain(packed, args[0], args[1], S)
+    k4 = tft.field_backward_v5(packed, args[0], args[1], acts, *args[2:])
+    assert torch.equal(dmc_t, k4[0]) and torch.equal(dg_t, k4[1])
+    for a, b in zip(dpk_t, k4[2]):
+        assert torch.equal(a, b)
+
+
+# rsn's kernels behind fused_field_train, on both routes
+_PATCHED = ((jft, "field_forward_v6"), (jft, "field_backward_v5"),
+            (jft, "field_backward_v6"), (jft, "field_forward_v3"),
+            (fp, "field_forward_v4"), (jft, "field_backward_v4"))
+
+
+@pytest.mark.parametrize("want_normals,save_acts,want_dmc", [
+    pytest.param(True, True, True, id="True"),
+    pytest.param(True, True, False, id="False"),
+    pytest.param(True, False, False, id="recompute-normals"),
+    pytest.param(False, False, True, id="recompute-no-normals"),
+])
+def test_autograd_function_matches_fused_field_train(setup, want_normals,
+                                                     save_acts, want_dmc):
     """FusedFieldTrain's parameter, mean_cov and g_bands gradients against
-    jax.grad through fused_field_train (normals on, save_acts on), the
-    kernels patched to interpret mode."""
+    jax.grad through fused_field_train on the spill route (save_acts, ids
+    True / False: want_dmc) and the recompute route, the kernels patched
+    to interpret mode.  The recompute route returns K8's mean_cov
+    gradient even with want_dmc=False, as rsn's does."""
     s = setup
     w = s["d_out"]
-    saved = {k: getattr(jft, k) for k in _PATCHED}
-    for k, fn in saved.items():
-        setattr(jft, k, functools.partial(fn, interpret=True))
+    saved = {(m, k): getattr(m, k) for m, k in _PATCHED}
+    for (m, k), fn in saved.items():
+        setattr(m, k, functools.partial(fn, interpret=True))
     try:
         def loss_j(p, m, g):
-            out = jft.fused_field_train(p, m, g, S, TILE, True, True,
-                                        want_dmc)
+            out = jft.fused_field_train(p, m, g, S, TILE, want_normals,
+                                        save_acts, want_dmc)
             return jnp.sum(out.astype(jnp.float32) * w)
 
         gp_j, gm_j, gg_j = jax.grad(loss_j, argnums=(0, 1, 2))(
             s["params"], jnp.asarray(s["mc"]), jnp.asarray(s["g"]))
     finally:
-        for k, fn in saved.items():
-            setattr(jft, k, fn)
+        for (m, k), fn in saved.items():
+            setattr(m, k, fn)
 
     field = port_field(s["tree"])
     field.zero_grad()
@@ -167,8 +263,8 @@ def test_autograd_function_matches_fused_field_train(setup, want_dmc):
     dirs_g = t(s["g"]).requires_grad_(True)
     packed = ff.pack_params_v3f_f32(field)
     wd_row = field.field_output_density.net.weight.detach().reshape(1, 256)
-    out = tft.fused_field_train(packed, mc, dirs_g, S, True, want_dmc,
-                                wd_row)
+    out = tft.fused_field_train(packed, mc, dirs_g, S, want_normals,
+                                want_dmc, wd_row, save_acts)
     (out.float()[:, :tft.OUT_TRAIN] * t(w[:, :tft.OUT_TRAIN])).sum().backward()
     grads = params_to_rsn({k: (p.grad if p.grad is not None
                                else torch.zeros_like(p))
@@ -183,7 +279,8 @@ def test_autograd_function_matches_fused_field_train(setup, want_dmc):
                 err = float(np.abs(a[k] - b[k]).max())
                 assert err <= 5e-2 * scale, (name, i, k, err, scale)
     _close(dirs_g.grad, gg_j, "g_bands", 5e-2)
-    if want_dmc:
+    if want_dmc or not save_acts:
+        assert float(jnp.abs(gm_j).max()) > 0.0
         _close(mc.grad, gm_j, "mean_cov", 5e-2)
     else:
         assert float(mc.grad.abs().max()) == 0.0

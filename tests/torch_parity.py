@@ -59,6 +59,34 @@ def random_rays(rng: np.random.Generator, num: int):
     return o, d.astype(np.float32), pa
 
 
+def facing_rays(num: int):
+    """Rays from (0, 0, 4): the first half look at the scene, the second
+    half point away -> numpy (origins, unit directions, pixel_area)."""
+    rng = np.random.default_rng(3)
+    d = rng.normal(size=(num, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d[: num // 2, 2] = -np.abs(d[: num // 2, 2]) - 1.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.broadcast_to(np.array([0.0, 0.0, 4.0], np.float32),
+                        (num, 3)).copy()
+    pa = np.full((num, 1), 1e-6, np.float32)
+    return o, d, pa
+
+
+def assert_grads(got, ref, tol, tols=None):
+    """Each gradient of an rsn-layout tree within tol of its max |value|
+    (tols: per (name, layer index) exceptions)."""
+    for name in ref:
+        layers = got[name] if isinstance(got[name], list) else [got[name]]
+        refs = ref[name] if isinstance(ref[name], list) else [ref[name]]
+        for i, (a, b) in enumerate(zip(layers, refs)):
+            limit = (tols or {}).get((name, i), tol)
+            for k in ("w", "b"):
+                scale = max(float(np.abs(b[k]).max()), 1e-12)
+                err = float(np.abs(a[k] - b[k]).max())
+                assert err <= limit * scale, (name, i, k, err, scale)
+
+
 def bundles(o, d, pa, near: float = 2.0, far: float = 6.0):
     """The same rays as an rsn and an rsn_torch RayBundle."""
     nears = np.full((o.shape[0], 1), near, np.float32)
