@@ -70,7 +70,19 @@ Phases, each announced on its own line:
   15. pose recovery — rsn's protocol (tests/test_camera_opt_recovery.py)
                 in bf16 on K7 / K1 / K8: the deltas must pull perturbed
                 rays back toward the true ones.
-  16. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
+  The field API and the schedule variants:
+  16. K10-K13 — the slice's path from zeroed launch counts: K11
+                (field_forward_v2) through Field.get_field_outputs(
+                use_pallas=True, differentiable=False) on phase 3's pass-2
+                render chunk (2,097,152 rows), K12 (field_forward) on the
+                IPE encoding of the same rows, K10 (field_forward_v5) with
+                both flags and K13 (field_backward_v3) on phase 12's
+                camera-on inputs (passes 2 and 4); each against its plain
+                version; K10 == K7 and K1 at the train width, K13 == K8 on
+                dmc and dg, bit for bit, K13 the same twice and within 1e-4
+                of K8's weight gradients; CUDA-event times, K10 beside K7
+                and K1, K13 beside K8.
+  17. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
 
 Any failed check raises: the script then exits non-zero and prints no
 result.  It imports neither jax nor PIL, nor anything of the JAX package.
@@ -109,6 +121,8 @@ K8_TOL = 1e-1       # K8 against its plain version, which recomputes its own
                     # (6.1e-2 of its max measured at random cotangents);
                     # against the plain K4 on K3's spill (= K8's recompute,
                     # bit for bit) K8 is held to ATOL
+K13_TOL = 1e-4      # K13's weight gradients against K8's, of each tensor's
+                    # max: the same slices summed in another fp32 order
 DELTA_TOL = 1e-1    # pose-delta gradients, CPU against card: rsn's own bf16
                     # kernel branch is 6.1e-2 from its fp32 gradient
                     # (tests/test_torch_camera_opt.py)
@@ -122,9 +136,12 @@ CAMERA_FLAGS = ("--pipeline.datamanager.camera-optimizer", "SO3xR3",
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12   # float32 outside the tensor cores
-# products per row, at the kernels' operand shapes (IPE padded to 128,
-# as the packed weights are)
-TRUNK_MACS = 128 * 256 + 3 * 256 * 256 + 384 * 256 + 3 * 256 * 256
+# products per row, on the IPE's 99 live columns: the packed weights pad
+# layer 0 and layer 4's x part to 128 rows with zeros, which no function
+# needs to multiply
+IPE_DIM = 99
+TRUNK_MACS = (IPE_DIM * 256 + 3 * 256 * 256 + (IPE_DIM + 256) * 256
+              + 3 * 256 * 256)
 DGRAD_MACS = TRUNK_MACS  # W^T through the 8 layers, x part included
 PROP_IN = 6 * 8 + 3  # K9's IPE: 8 octaves of sin and cos of 3 dims, mean
 FLOPS = {
@@ -137,7 +154,8 @@ FLOPS = {
     # dgrad (144 live columns), 8 wgrads, the dgrads of layers 7..1
     # without layer 4's x part
     "field_backward_v6": 2 * (256 * 128 + 2 * 128 * 3 + 2 * 256 * 144
-                              + TRUNK_MACS + DGRAD_MACS - 2 * 128 * 256),
+                              + TRUNK_MACS + DGRAD_MACS
+                              - 2 * IPE_DIM * 256),
     # K5 plus layer 4's x part and layer 0 (the IPE backward's dx)
     "field_backward_v5": 2 * (256 * 128 + 2 * 128 * 3 + 2 * 256 * 144
                               + TRUNK_MACS + DGRAD_MACS),
@@ -146,6 +164,10 @@ FLOPS = {
                               + 2 * TRUNK_MACS + DGRAD_MACS),
     # the 4 x 64 trunk on the IPE's live columns, and the 64 -> 1 head
     "prop_forward": 2 * (PROP_IN * 64 + 3 * 64 * 64 + 64),
+    # the trunk and the (256, 267) live heads, bottleneck included; K12's
+    # encoding columns 99..127 meet the zero rows of layers 0 and 4
+    "field_forward_v2": 2 * (TRUNK_MACS + 256 * 267),
+    "field_forward": 2 * (TRUNK_MACS + 256 * 267),
 }
 # K9's IPE on the CUDA cores, counting a sine and an exp as one operation
 # each: per sin/cos column the phase product (+ pi/2), the variance
@@ -383,6 +405,7 @@ def main() -> int:
                           nbytes(mc, *packed) + mc.shape[0] * 8 * 2)
             results["field_forward_density"].update(ms=k, plain_ms=pl,
                                                     bound_ms=b, bound_by=by)
+    render_mc = calls["v3"][0][1]  # pass 2's rows, for phase 16
     del calls
     torch.cuda.empty_cache()
 
@@ -437,8 +460,13 @@ def main() -> int:
     results.update(camera_results["kernels"])
     launches.update(camera_results["launches"])
 
-    # ---- 16. result ----
-    phase("phase 16: result")
+    # ---- 16. the field API and the schedule variants ----
+    api_results = api_phase(field, render_mc, camera_results["calls"], card)
+    results.update(api_results["kernels"])
+    launches.update(api_results["launches"])
+
+    # ---- 17. result ----
+    phase("phase 17: result")
     kernels = []
     for name, source, line in KERNEL_ROWS:
         r = results[name]
@@ -481,6 +509,14 @@ KERNEL_ROWS = (
      "rsn/kernels/field_pallas.py:512"),
     ("field_backward_v4", "field_train.cu",
      "rsn/kernels/field_train.py:427"),
+    ("field_forward_v5", "field_train.cu",
+     "rsn/kernels/field_pallas.py:945"),
+    ("field_forward_v2", "field_forward.cu",
+     "rsn/kernels/field_pallas.py:182"),
+    ("field_forward", "field_forward.cu",
+     "rsn/kernels/field_pallas.py:217"),
+    ("field_backward_v3", "field_train.cu",
+     "rsn/kernels/field_train.py:353"),
 )
 
 
@@ -1198,6 +1234,14 @@ def capture_recompute_inputs(trainer, step: int):
     return calls
 
 
+def same_grads(a, b) -> bool:
+    """(dmc, dg, 20 weight gradients) equal bit for bit."""
+    import torch
+
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
+
+
 def check_recompute_kernels(calls, card):
     """Phase 12's comparisons and times -> per-kernel results."""
     import torch
@@ -1229,10 +1273,7 @@ def check_recompute_kernels(calls, card):
         k8b = ft.field_backward_v4(bpacked, bmc, bg, d_out, f_out, bS)
         k4 = ft.field_backward_v5(bpacked, bmc, bg, acts, d_out, f_out, bS)
         torch.cuda.synchronize()
-        same = lambda a, b: (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-                             and all(torch.equal(x, y)
-                                     for x, y in zip(a[2], b[2])))
-        if not same(k8, k4) or not same(k8, k8b):
+        if not same_grads(k8, k4) or not same_grads(k8, k8b):
             raise RuntimeError(f"K8 pass {p} differs from K4 on K3's spill or "
                                "from itself")
         plain = ft.field_backward_v4_plain(bpacked, bmc, bg, d_out, f_out, bS)
@@ -1420,7 +1461,8 @@ def pose_recovery(device, compute_dtype: str = "bfloat16",
 
 def camera_phases(config, field, device, card):
     """Phases 12-15 -> {"kernels": K7's, K1 train width's and K8's results,
-    "launches": their launches in the camera-on train CLI run}."""
+    "launches": their launches in the camera-on train CLI run, "calls":
+    phase 12's captured kernel inputs}."""
     import torch
 
     from rsn_torch.engine import checkpoints as ckpt_lib
@@ -1440,7 +1482,6 @@ def camera_phases(config, field, device, card):
                 generator=torch.Generator().manual_seed(SEED)))
         calls = capture_recompute_inputs(trainer, 50)
         results = check_recompute_kernels(calls, card)
-        del calls
         torch.cuda.empty_cache()
         # one trainer per camera setting; the route switches in its config
         off = trainer_lib.Trainer(with_route(config, False, True),
@@ -1503,6 +1544,172 @@ def camera_phases(config, field, device, card):
         before, after, trans = pose_recovery(device, "float32", True)
         if not (after < 0.75 * before and trans < 0.3):
             raise RuntimeError("pose recovery failed")
+    return {"kernels": results, "launches": launches, "calls": calls}
+
+
+# ---- the field API (K11, K12) and the schedule variants (K10, K13) ---------
+
+API_KERNELS = ("field_forward_v2", "field_forward", "field_forward_v5",
+               "field_backward_v3")
+
+
+def api_phase(field, render_mc, cam_calls, card):
+    """Phase 16 -> {"kernels": K10-K13's results, "launches": their
+    launches in the run of this slice's path (the field's kernel route and
+    the kernel API; no CLI path calls them, as in rsn)}."""
+    import torch
+
+    from rsn_torch.kernels import field_forward as ff
+    from rsn_torch.kernels import field_train as ft
+
+    phase("phase 16: K10-K13 against plain versions at main-path shapes")
+    fpacked, fmc, g, S, _ = cam_calls["fwd"][2]  # pass 2: with the normals
+    bwd = {p: cam_calls["bwd"][p] for p in (2, 4)}
+    ff.reset_launch_counts()
+    route = field.get_field_outputs(render_mc[:, 0:3], render_mc[:, 3:6],
+                                    use_pallas=True, differentiable=False)
+    packed = ff.pack_params(field)
+    enc = ff.ipe_enc(render_mc)
+    k12 = ff.field_forward(packed, enc)
+    k10 = {True: ft.field_forward_v5(fpacked, fmc, g, S, True),
+           False: ft.field_forward_v5(fpacked[:20], fmc, g, S, False)}
+    k13 = {p: ft.field_backward_v3(*args) for p, args in bwd.items()}
+    torch.cuda.synchronize()
+    launches = {k: ff.LAUNCHES[k] for k in API_KERNELS}
+    print(f"  launches in the path's run (the kernel route, the kernel API): "
+          f"{launches}; the CLI runs launch none of them (no CLI caller, as "
+          f"in rsn)")
+    if min(launches.values()) <= 0:
+        raise RuntimeError("a kernel of the field API never launched")
+    results = {k: {"err": 0.0} for k in API_KERNELS}
+    n = render_mc.shape[0]
+
+    # K11 and K12 on the render chunk's rows
+    live = list(range(ff.N_HEAD_COLS))
+    k11 = ff.field_forward_v2(packed, render_mc)
+    ref = ff.field_forward_v2_plain(packed, render_mc)
+    torch.cuda.synchronize()
+    results["field_forward_v2"]["err"] = compare("K11 pass 2", k11, ref, live)
+    del ref
+    if torch.any(k11[:, ff.N_HEAD_COLS:] != 0):
+        raise RuntimeError("K11's padding columns are not zero")
+    if not (torch.equal(route["bottleneck"], k11[:, ff.OUT_BOTTLENECK])
+            and torch.equal(route["density_preact"],
+                            k11[:, ff.OUT_DENSITY:ff.OUT_DENSITY + 1].float())
+            and all(torch.isfinite(v.float()).all() for v in route.values())):
+        raise RuntimeError("the kernel route's outputs are not K11's")
+    print(f"  Field.get_field_outputs(use_pallas=True, differentiable=False): "
+          f"{len(route)} outputs of {n} rows, finite; its bottleneck and "
+          f"density pre-activation == K11's, bit for bit")
+    del route
+    ref = ff.field_forward_plain(packed, enc)
+    torch.cuda.synchronize()
+    results["field_forward"]["err"] = compare(
+        "K12 pass 2 (the rows' IPE encoding)", k12, ref, live)
+    del ref
+    e12 = float((k12.float() - k11.float()).abs().max())
+    dens = ff.field_forward_density(ff.pack_params_density(field), render_mc)
+    ed = float((k11[:, ff.OUT_DENSITY].float() - dens[:, 0].float()).abs()
+               .max())
+    print(f"  K12 on the plain encoding within {e12:.6g} of K11; K11's "
+          f"density column within {ed:.6g} of K2's (polynomial IPE; limit "
+          f"{ATOL})")
+    if ed > ATOL:
+        raise RuntimeError("K11's density disagrees with K2's")
+    del k11, k12, dens
+
+    # K10 on the camera-on step's pass 2, both flags
+    k7 = ft.field_forward_v4(fpacked, fmc, g, S)
+    k1 = ft.field_forward_v3_train(fpacked[:20], fmc, g, S)
+    torch.cuda.synchronize()
+    if not (torch.equal(k10[True], k7) and torch.equal(k10[False], k1)):
+        raise RuntimeError("K10 differs from K7 or K1 at the train width")
+    print(f"  K10 pass 2 ({fmc.shape[0]} rows): == K7 (normals) and == K1 at "
+          f"the train width, bit for bit")
+    for normals in (True, False):
+        ref = ft.field_forward_v4_plain(fpacked if normals else fpacked[:20],
+                                        fmc, g, S, normals)
+        err = compare(f"K10 pass 2 (normals={normals})", k10[normals], ref,
+                      list(range(14)) + list(range(17, 20)))
+        results["field_forward_v5"]["err"] = max(
+            results["field_forward_v5"]["err"], err)
+
+    # K13 on K8's captured inputs of passes 2 and 4
+    r13 = results["field_backward_v3"]
+    for p, args in bwd.items():
+        again = ft.field_backward_v3(*args)
+        k8 = ft.field_backward_v4(*args)
+        torch.cuda.synchronize()
+        if not same_grads(k13[p], again):
+            raise RuntimeError(f"K13 pass {p} differs from itself")
+        if not (torch.equal(k13[p][0], k8[0])
+                and torch.equal(k13[p][1], k8[1])):
+            raise RuntimeError(f"K13 pass {p}: dmc or dg differ from K8's")
+        werr = max(rel_err(a, b) for a, b in zip(k13[p][2], k8[2]))
+        plain = ft.field_backward_v4_plain(*args)
+        errs = {"dmc": rel_err(k13[p][0], plain[0]),
+                "dg": rel_err(k13[p][1], plain[1]),
+                "dpacked": max(rel_err(a, b)
+                               for a, b in zip(k13[p][2], plain[2]))}
+        print(f"  K13 pass {p}: rows {args[1].shape[0]}, == itself, dmc and "
+              f"dg == K8's, bit for bit; weight gradients within {werr:.6g} "
+              f"of K8's (limit {K13_TOL}); against its plain version: "
+              + ", ".join(f"{k} {v:.6g}" for k, v in errs.items())
+              + f" (limit {K8_TOL})", flush=True)
+        if werr > K13_TOL or max(errs.values()) > K8_TOL:
+            raise RuntimeError(f"K13 pass {p} disagrees")
+        r13["err"] = max(r13["err"], max(errs.values()))
+
+    # times and bounds
+    w2 = nbytes(*packed)
+    for name, tag, fn, plain_fn, x in (
+            ("field_forward_v2", "K11", ff.field_forward_v2,
+             ff.field_forward_v2_plain, render_mc),
+            ("field_forward", "K12", ff.field_forward, ff.field_forward_plain,
+             enc)):
+        k = cuda_ms(lambda: fn(packed, x))
+        pl = cuda_ms(lambda: plain_fn(packed, x))
+        b, by = bound(FLOPS[name] * n, nbytes(x) + w2 + n * ff.OUT_DIM * 2)
+        print(f"  {tag} pass 2: {n} rows, kernel {k:.4f} ms, plain {pl:.4f} "
+              f"ms, bound {b:.4f} ms ({by}; median of 10; {card})",
+              flush=True)
+        results[name].update(ms=k, plain_ms=pl, bound_ms=b, bound_by=by)
+    del enc
+    nf = fmc.shape[0]
+    w_bytes = nbytes(*fpacked[:20])
+    for normals in (True, False):
+        pk = fpacked if normals else fpacked[:20]
+        ms = {"K10": cuda_ms(lambda: ft.field_forward_v5(pk, fmc, g, S,
+                                                         normals))}
+        other = "K7" if normals else "K1 train width"
+        ms[other] = cuda_ms(lambda: (ft.field_forward_v4 if normals else
+                                     ft.field_forward_v3_train)(pk, fmc, g, S))
+        pl = cuda_ms(lambda: ft.field_forward_v4_plain(pk, fmc, g, S,
+                                                       normals))
+        flops = (FLOPS["field_forward_v6"] + (2 * DGRAD_MACS if normals
+                                              else 0)) * nf
+        b, by = bound(flops, nbytes(fmc, g, *pk[20:]) + w_bytes
+                      + nf * ft.OUT_TRAIN * 2)
+        print(f"  K10 pass 2 (normals={normals}): {nf} rows, kernel "
+              f"{ms['K10']:.4f} ms, {other} {ms[other]:.4f} ms, plain "
+              f"{pl:.4f} ms, bound {b:.4f} ms ({by}; median of 10; {card})",
+              flush=True)
+        if normals:
+            results["field_forward_v5"].update(ms=ms["K10"], plain_ms=pl,
+                                               bound_ms=b, bound_by=by)
+    for p in (4, 2):
+        args = bwd[p]
+        _, mc, g8, d_out, f_out, _ = args
+        k = cuda_ms(lambda: ft.field_backward_v3(*args))
+        k8 = cuda_ms(lambda: ft.field_backward_v4(*args))
+        pl = cuda_ms(lambda: ft.field_backward_v4_plain(*args))
+        outs = g8.shape[0] * 512 * 4 + ft.PACK_FLOATS * 4 + mc.shape[0] * 16 * 4
+        b, by = bound(FLOPS["field_backward_v4"] * mc.shape[0],
+                      nbytes(mc, g8, d_out, f_out) + w_bytes + outs)
+        print(f"  K13 pass {p}: {mc.shape[0]} rows, kernel {k:.4f} ms, K8 "
+              f"{k8:.4f} ms, plain {pl:.4f} ms, bound {b:.4f} ms ({by}; "
+              f"median of 10; {card})", flush=True)
+        r13.update(ms=k, plain_ms=pl, bound_ms=b, bound_by=by)
     return {"kernels": results, "launches": launches}
 
 

@@ -1,8 +1,14 @@
-// Device routines shared by the field kernels (field_forward.cu: K1, K2;
-// field_train.cu: K3, K4, K5).  Every kernel computes its IPE, trunk,
-// density column and V3 tail through these routines, so the values they
-// have in common come from one piece of code: K2's density column and
-// K3's column 12 equal K1's bit for bit.
+// Device routines shared by the field kernels (field_forward.cu: K1, K2,
+// K11, K12; field_train.cu: K3, K4, K5, K7, K8, K10, K13).  Every kernel
+// computes its trunk, and all but K11 / K12 (rsn's exact-sine IPE, heads
+// product) their IPE, density column and V3 tail, through these routines,
+// so the values they have in common come from one piece of code: K2's
+// density column and K3's column 12 equal K1's bit for bit.
+//
+// The routines run on THREADS threads (threadIdx.x < THREADS) and meet at
+// block_sync(), named barrier 1 over THREADS threads: in a block of
+// THREADS threads that is __syncthreads(), and K10's block adds producer
+// warps (threadIdx.x >= THREADS) that never take it.
 //
 // Each .cu includes this header and is compiled on its own (one nvcc per
 // source, run in parallel); everything here sits in an anonymous
@@ -106,6 +112,10 @@ __device__ __forceinline__ float cos2pi(float u) {
   return __fmaf_rn(p, w, 0.999999989f);
 }
 
+__device__ __forceinline__ void block_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(THREADS) : "memory");
+}
+
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
@@ -141,11 +151,13 @@ __device__ __forceinline__ void ipe_phase(const float* m,
 
 // IPE of the block's rows into X (TM x ENC bf16):
 // cols [0, 48) damp * sin(2 pi f_k mean_d), [48, 96) the cos half, [96, 99)
-// mean, [99, 128) zero.  Rows at or past n are zero.
+// mean, [99, 128) zero.  Rows at or past n are zero.  Thread t0 + i of a
+// group of nt threads computes elements i, i + nt, ...; each element's
+// value does not depend on which thread computes it.
 __device__ void ipe_tile(const float* __restrict__ mc,
                          const float* __restrict__ consts, long long row0,
-                         long long n, bf16* X) {
-  for (int e = threadIdx.x; e < TM * ENC; e += THREADS) {
+                         long long n, bf16* X, int t0, int nt) {
+  for (int e = t0; e < TM * ENC; e += nt) {
     const int r = e / ENC, c = e % ENC;
     const long long row = row0 + r;
     float v = 0.f;
@@ -161,6 +173,12 @@ __device__ void ipe_tile(const float* __restrict__ mc,
     }
     X[r * LDX + c] = __float2bfloat16_rn(v);
   }
+}
+
+__device__ void ipe_tile(const float* __restrict__ mc,
+                         const float* __restrict__ consts, long long row0,
+                         long long n, bf16* X) {
+  ipe_tile(mc, consts, row0, n, X, threadIdx.x, THREADS);
 }
 
 // One trunk layer on the block's 64 rows:
@@ -229,14 +247,14 @@ struct NoLayerHook {
 };
 
 // The trunk on X; returns the buffer holding the last layer's output.
-// After each layer (and a __syncthreads) `hook(i, out)` sees the layer's
-// output tile; it must not write it.  Ends with __syncthreads(): the
-// result is visible to the whole block.
+// After each layer (and a block_sync) `hook(i, out)` sees the layer's
+// output tile; it must not write it.  Ends with block_sync(): the result
+// is visible to every thread of the routines.
 template <typename Hook>
 __device__ bf16* trunk(const TrunkParams& p, const bf16* X, bf16* H0,
                        bf16* H1, float* stage, const Hook& hook) {
   dense_relu_layer(X, LDX, ENC, nullptr, 0, 0, p.w[0], p.b[0], H0, stage);
-  __syncthreads();
+  block_sync();
   hook(0, H0);
   bf16* hin = H0;
   bf16* hout = H1;
@@ -247,13 +265,13 @@ __device__ bf16* trunk(const TrunkParams& p, const bf16* X, bf16* H0,
     else
       dense_relu_layer(nullptr, 0, 0, hin, LDH, WIDTH, p.w[i], p.b[i], hout,
                        stage);
-    __syncthreads();
+    block_sync();
     hook(i, hout);
     bf16* t = hin;
     hin = hout;
     hout = t;
   }
-  __syncthreads();
+  block_sync();
   return hin;
 }
 
@@ -320,7 +338,7 @@ __device__ void v3_tail(const V3Params& p, bf16* H, unsigned char* smem,
       wmma::store_matrix_sync(HC + warp * 16 * LDHC, acc_h, LDHC,
                               wmma::mem_row_major);
   }
-  __syncthreads();
+  block_sync();
 
   // per-row scalars in the stage area: [0:4) band attenuations,
   // [4] density pre-activation, [5:8) mid
@@ -335,7 +353,7 @@ __device__ void v3_tail(const V3Params& p, bf16* H, unsigned char* smem,
       rowf[r4 * 8 + b] = expf(__fmul_rn(-sp, band_k(b)));
     rowf[r4 * 8 + 4] = dens;
   }
-  __syncthreads();  // also: every density_row read of H is done
+  block_sync();  // also: every density_row read of H is done
 
   // hmid = bf16(relu(seed + b + sum_b atten_b * g_b[ray])) into H
   for (int e = tid; e < TM * MID; e += THREADS) {
@@ -350,7 +368,7 @@ __device__ void v3_tail(const V3Params& p, bf16* H, unsigned char* smem,
     }
     H[r * LDH + c] = __float2bfloat16_rn(relu_keep_nan(m));
   }
-  __syncthreads();
+  block_sync();
 
   // mid = sigmoid(hmid @ w_out[:, 0:3] + b_out): one thread per (row, col)
   if (tid < TM * 3) {
@@ -361,7 +379,7 @@ __device__ void v3_tail(const V3Params& p, bf16* H, unsigned char* smem,
                     __bfloat162float(p.w_out[k * MID + c]), s);
     rowf[r * 8 + 5 + c] = sigmoidf(__fadd_rn(s, p.b_out[c]));
   }
-  __syncthreads();
+  block_sync();
 
   // assemble the row
   if (tid < TM) {
@@ -393,7 +411,7 @@ __device__ void v3_tail(const V3Params& p, bf16* H, unsigned char* smem,
       for (int i = 0; i < OUTC / 8; ++i) out[i] = src[i];
     }
   }
-  __syncthreads();
+  block_sync();
 }
 
 void fill_trunk(TrunkParams* t, const void* const* ptrs) {

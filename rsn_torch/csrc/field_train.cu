@@ -1,6 +1,6 @@
 // Field training kernels, for NVIDIA Hopper (sm_90a).
 //
-// Replaces five Pallas TPU kernels:
+// Replaces seven Pallas TPU kernels:
 //   field_forward_v6   (K3; rsn/kernels/field_pallas.py, body
 //                       _field_kernel_halved_acts / _field_half): K1's
 //                       forward at the train width (24 columns: the V3_*
@@ -27,6 +27,12 @@
 //   field_backward_v4  (K8; _bwd_kernel_impl(two_d=True, has_acts=False)):
 //                       K4 with the trunk activations recomputed in the
 //                       block instead of read from a spill.
+//   field_forward_v5   (K10; field_pallas.py, _kernel_v5): K7 (with the
+//                       normals) or K1 at the train width, with the next
+//                       tile's IPE computed while this tile's trunk runs.
+//   field_backward_v3  (K13; field_train.py, _bwd_kernel_impl(two_d=False)):
+//                       K8 with whole-grid weight-gradient accumulators:
+//                       the kernel returns the 20 gradients themselves.
 //
 // What bounds them on this card: about 2.2 MFLOP of bf16 products per
 // sample row each, against 4.3 KB (K3 spill) or 4.4 KB (K4/K5 reads) of
@@ -70,6 +76,22 @@
 //     for bit.  The other simple design, 32-row tiles with all layers in
 //     shared memory, would double the weight-gradient slice traffic per
 //     row, which already bounds K4.
+//   - K10 carries rsn's schedule over, not its two-slot VMEM buffer kept
+//     across sequential grid steps: one persistent block per SM, whose four
+//     producer warps write the next tile's IPE into one of two X slots
+//     while its eight consumer warps run the current tile from the other,
+//     handed over through named barriers.  The consumers run K7's code
+//     (forward_train_tile) and the producers K7's ipe_tile, so K10 equals K7
+//     and K1 at the train width bit for bit.  The normals' IPE backward
+//     recomputes damp and u from mc, so only X is double-buffered (146 KB,
+//     one block per SM).
+//   - K13's whole-grid accumulators without float atomics: each block runs
+//     K8's body into its own slice; a cooperative launch keeps every block
+//     resident, so a grid-wide barrier on a counter can wait for all
+//     slices, and the blocks then sum the columns over the slices in block
+//     order.  dmc and dg equal K8's bit for bit (its partition); the
+//     weight gradients differ from K8's (torch.sum over the slices) only by
+//     the order of the fp32 sums, and are the same from run to run.
 // Later work: keep the weight-gradient accumulators on chip (larger row
 // tiles, or a split of the layers over blocks), wgmma, TMA.
 #include "field_common.cuh"
@@ -263,33 +285,30 @@ __device__ void wgrad_acc(const bf16* A, int lda, int M, const bf16* B,
 
 // ---- K3 / K7 / K1 at the train width -----------------------------------
 
-// The train-width forward of one 64-row tile; SPILL: K3's activation
-// spill (acts), else none (K7, and K1 at the train width without the
-// normals).
+// The train-width forward of the 64-row tile at row0, whose IPE X already
+// holds (visible to every thread of the routines); SPILL: K3's activation
+// spill (acts), else none (K7, K10, and K1 at the train width without the
+// normals).  Reads X only in the trunk.
 template <bool NORMALS, bool SPILL, bool SPILL_X>
-__device__ void field_forward_train_body(const float* __restrict__ mc,
-                                         const float* __restrict__ g,
-                                         const float* __restrict__ consts,
-                                         const V3Params& p,
-                                         const float* __restrict__ wd_row,
-                                         bf16* __restrict__ out,
-                                         bf16* __restrict__ acts,
-                                         long long n, int S) {
+__device__ void forward_train_tile(const float* __restrict__ mc,
+                                   const float* __restrict__ g,
+                                   const float* __restrict__ consts,
+                                   const V3Params& p,
+                                   const float* __restrict__ wd_row,
+                                   bf16* __restrict__ out,
+                                   bf16* __restrict__ acts, long long n,
+                                   int S, long long row0, const bf16* X) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* H0 = reinterpret_cast<bf16*>(smem + OFF_H0);
-  bf16* X = reinterpret_cast<bf16*>(smem + OFF_X);
   bf16* H1 = reinterpret_cast<bf16*>(smem + OFF_H1);
   float* stage = reinterpret_cast<float*>(smem + OFF_STAGE);
   uint32_t* masks = reinterpret_cast<uint32_t*>(smem + OFF_MASKS);
   bf16* rowout = reinterpret_cast<bf16*>(smem + OFF_ROWOUT);
   const int tid = threadIdx.x;
-  const long long row0 = (long long)blockIdx.x * TM;
   const int nv = (int)min((long long)TM, n - row0);
   constexpr int ld = SPILL_X ? XACTS_COLS : ACTS_COLS;
   bf16* acts_tile = SPILL ? acts + row0 * ld : nullptr;
 
-  ipe_tile(mc, consts, row0, n, X);
-  __syncthreads();
   if (SPILL && SPILL_X) store_rows(acts_tile + ACTS_COLS, ld, X, LDX, ENC, nv);
   SpillHook hook{acts_tile, ld, nv, NORMALS ? masks : nullptr};
   bf16* H = trunk(p.trunk, X, H0, H1, stage, hook);
@@ -305,7 +324,7 @@ __device__ void field_forward_train_body(const float* __restrict__ mc,
       D[r * LDH + c] = __float2bfloat16_rn(
           mask_bit(masks, LAYERS - 1, r, c) ? wd_row[c] : 0.f);
     }
-    __syncthreads();
+    block_sync();
     for (int i = LAYERS - 1; i >= 0; --i) {
       const bf16* W = p.trunk.w[i];
       if (i == 0 || i == SKIP_AT) {  // the x part: dx (layer 0) or its
@@ -322,7 +341,7 @@ __device__ void field_forward_train_body(const float* __restrict__ mc,
         const int c0 = i == SKIP_AT ? ENC : 0;
         FragC acc[4][2];
         dgrad_mma<2>(D, W, c0, ALL_TILES, acc);
-        __syncthreads();  // every warp's reads of D are done
+        block_sync();  // every warp's reads of D are done
         drain<2>(acc, c0, stage, [&](int r, int c, float v) {
           const int h = c - c0;
           const float m = mask_bit(masks, i - 1, r, h) ? v : 0.f;
@@ -330,7 +349,7 @@ __device__ void field_forward_train_body(const float* __restrict__ mc,
           return 0.f;
         }, NoColSum());
       }
-      __syncthreads();
+      block_sync();
     }
     // IPE backward of the mean: dx * damp * cos (the sin and cos halves)
     // times 2 pi f_k, plus the identity columns 96..98
@@ -353,10 +372,29 @@ __device__ void field_forward_train_body(const float* __restrict__ mc,
         rowout[r * OUT_TRAIN + 14 + d] = __float2bfloat16_rn(s);
       }
     }
-    __syncthreads();
+    block_sync();
   }
   store_rows(out + row0 * OUT_TRAIN, OUT_TRAIN, rowout, OUT_TRAIN,
              OUT_TRAIN, nv);
+}
+
+// The block's own tile: its IPE into X, then forward_train_tile.
+template <bool NORMALS, bool SPILL, bool SPILL_X>
+__device__ void field_forward_train_body(const float* __restrict__ mc,
+                                         const float* __restrict__ g,
+                                         const float* __restrict__ consts,
+                                         const V3Params& p,
+                                         const float* __restrict__ wd_row,
+                                         bf16* __restrict__ out,
+                                         bf16* __restrict__ acts,
+                                         long long n, int S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* X = reinterpret_cast<bf16*>(smem + OFF_X);
+  const long long row0 = (long long)blockIdx.x * TM;
+  ipe_tile(mc, consts, row0, n, X);
+  block_sync();
+  forward_train_tile<NORMALS, SPILL, SPILL_X>(mc, g, consts, p, wd_row, out,
+                                              acts, n, S, row0, X);
 }
 
 template <bool NORMALS, bool SPILL_X>
@@ -380,6 +418,66 @@ __global__ void __launch_bounds__(THREADS, 2)
                             bf16* __restrict__ out, long long n, int S) {
   field_forward_train_body<NORMALS, false, false>(mc, g, consts, p, wd_row,
                                                   out, nullptr, n, S);
+}
+
+// ---- K10: K7 / K1 at the train width, the next tile's IPE ahead ---------
+
+// A persistent block (one per SM) walks the tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ...  Its THREADS consumer threads run each tile
+// with K7's code (forward_train_tile) from one of two X slots, while
+// PRODUCERS producer threads fill the other slot with the next tile's IPE
+// (ipe_tile, the same routine and arithmetic as K7's).  Hand-off through
+// named barriers over all K10_THREADS threads: FULL(s) (producers arrive
+// after writing slot s, consumers wait) and EMPTY(s) (consumers arrive
+// after a tile, producers wait before refilling its slot two tiles on).
+constexpr int PRODUCERS = 128;
+constexpr int K10_THREADS = THREADS + PRODUCERS;
+constexpr int OFF_SLOTS = K3_SMEM_BYTES;
+constexpr int K10_SMEM_BYTES = OFF_SLOTS + 2 * X_BYTES;
+static_assert(OFF_SLOTS % 32 == 0 && X_BYTES % 32 == 0, "alignment");
+constexpr int BAR_FULL = 2, BAR_EMPTY = 4;  // + slot; 1 is block_sync()
+
+__device__ __forceinline__ void bar_wait(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(K10_THREADS) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(K10_THREADS) : "memory");
+}
+
+template <bool NORMALS>
+__global__ void __launch_bounds__(K10_THREADS, 1)
+    field_forward_v5_kernel(const float* __restrict__ mc,
+                            const float* __restrict__ g,
+                            const float* __restrict__ consts, V3Params p,
+                            const float* __restrict__ wd_row,
+                            bf16* __restrict__ out, long long n, int S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const long long tiles = (n + TM - 1) / TM;  // > blockIdx.x
+  const long long count = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  auto slot = [&](long long j) {
+    return reinterpret_cast<bf16*>(smem + OFF_SLOTS + (j & 1) * X_BYTES);
+  };
+  auto row0 = [&](long long j) {
+    return (blockIdx.x + j * gridDim.x) * (long long)TM;
+  };
+  if (threadIdx.x >= THREADS) {  // producers
+    for (long long j = 0; j < count; ++j) {
+      if (j >= 2) bar_wait(BAR_EMPTY + (int)(j & 1));
+      ipe_tile(mc, consts, row0(j), n, slot(j), threadIdx.x - THREADS,
+               PRODUCERS);
+      __threadfence_block();
+      bar_arrive(BAR_FULL + (int)(j & 1));
+    }
+    return;
+  }
+  for (long long j = 0; j < count; ++j) {
+    bar_wait(BAR_FULL + (int)(j & 1));
+    forward_train_tile<NORMALS, false, false>(mc, g, consts, p, wd_row, out,
+                                              nullptr, n, S, row0(j),
+                                              slot(j));
+    block_sync();  // the next tile rewrites H0, H1, the masks and rowout
+    if (j + 2 < count) bar_arrive(BAR_EMPTY + (int)(j & 1));
+  }
 }
 
 // ---- K4 / K5 -----------------------------------------------------------
@@ -445,7 +543,7 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
     // (D and INP serve as the two activation buffers, BSTAGE as stage) ----
     if (RECOMPUTE) {
       ipe_tile(a.mc, a.consts, row0, rowB, X);
-      __syncthreads();
+      block_sync();
       trunk(p.trunk, X, D, INP, stage, SpillHook{slot, ld, nv, nullptr});
     }
 
@@ -487,7 +585,7 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
         rf[10 + 7] = dout[13];
       }
     }
-    __syncthreads();
+    block_sync();
 
     // ---- mid seed recompute: hmid into D[:, 0:128], mid_pre > 0 bits ----
     {
@@ -519,7 +617,7 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
         return 0.f;
       }, NoColSum());
     }
-    __syncthreads();
+    block_sync();
 
     // ---- mid head: w_out / b_out gradients; dmid_pre, dg, b_hc[128:] ----
     for (int e = tid; e < MID * 3 + 3; e += THREADS) {
@@ -569,7 +667,7 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
           a.dg[ray_cur * G_COLS + b * MID + c] += acc[b];
       grp[OFF_BHC + MID + c] += bias;
     }
-    __syncthreads();
+    block_sync();
 
     // ---- the head columns of d_hc into D[:, 0:16] ----
     for (int e = tid; e < TM * 16; e += THREADS) {
@@ -581,14 +679,14 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
       for (int r = 0; r < TM; ++r) s = __fadd_rn(s, rowf[r * RF + 10 + tid]);
       grp[OFF_BHC + tid] += s;
     }
-    __syncthreads();
+    block_sync();
 
     // ---- heads + mid: dW_hc += hs7^T d_hc; dh7 = d_hc w_hc^T ----
     wgrad_acc(INP, LDH, WIDTH, D, HC_TILES, grp + OFF_WHC);
     {
       FragC acc[4][2];
       dgrad_mma<2>(D, p.w_hc, 0, HC_TILES, acc);
-      __syncthreads();
+      block_sync();
       drain<2>(acc, 0, stage, [&](int r, int c, float v) {
         const float m =
             (r < nv && __bfloat162float(INP[r * LDH + c]) > 0.f) ? v : 0.f;
@@ -596,13 +694,13 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
         return m;
       }, BiasSum{grp + OFF_B + (LAYERS - 1) * WIDTH});
     }
-    __syncthreads();
+    block_sync();
 
     // ---- trunk: D holds dpre_i; INP gets layer i's input hs_{i-1} ----
     for (int i = LAYERS - 1; i >= 0; --i) {
       if (i > 0) {
         load_rows(INP, LDH, acts + (i - 1) * WIDTH, ld, WIDTH, nv);
-        __syncthreads();
+        block_sync();
       }
       float* dW = grp + off_w(i);
       if (i == 0 || i == SKIP_AT) wgrad_acc(X, LDX, ENC, D, ALL_TILES, dW);
@@ -624,7 +722,7 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
         const int c0 = i == SKIP_AT ? ENC : 0;
         FragC acc[4][2];
         dgrad_mma<2>(D, W, c0, ALL_TILES, acc);
-        __syncthreads();  // wgrad and dgrad reads of D are done
+        block_sync();  // wgrad and dgrad reads of D are done
         drain<2>(acc, c0, stage, [&](int r, int c, float v) {
           const int h = c - c0;
           const float m =
@@ -633,7 +731,7 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
           return m;
         }, BiasSum{grp + OFF_B + (i - 1) * WIDTH - c0});
       }
-      __syncthreads();
+      block_sync();
     }
 
     // ---- IPE backward (K4): dmc = dpre_enc A^T + dvar V^T ----
@@ -662,7 +760,7 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
         }
         a.dmc[row * IN_COLS + col] = s;
       }
-      __syncthreads();
+      block_sync();
     }
   }
 }
@@ -680,6 +778,33 @@ __global__ void __launch_bounds__(THREADS, 2)
 __global__ void __launch_bounds__(THREADS, 1)
     field_backward_v4_kernel(V3Params p, BwdArgs a) {
   field_backward_body<true, true>(p, a);
+}
+
+// K13: K8's body, then the weight gradients summed over the blocks' slices
+// in the kernel.  Launched cooperatively (every block resident), so a
+// grid-wide barrier on the zeroed counter `arrived` can wait for every
+// slice; then each thread sums its columns over the slices in block order
+// (a fixed order, no float atomics) into grads (608640 floats, the packed
+// operands' shapes in order).
+__global__ void __launch_bounds__(THREADS, 1)
+    field_backward_v3_kernel(V3Params p, BwdArgs a, float* __restrict__ grads,
+                             unsigned* arrived) {
+  field_backward_body<true, true>(p, a);
+  __threadfence();  // this thread's slice, dmc and dg writes, device-wide
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    atomicAdd(arrived, 1u);
+    while (atomicAdd(arrived, 0u) < gridDim.x) __nanosleep(256);
+    __threadfence();
+  }
+  __syncthreads();
+  for (long long c = (long long)blockIdx.x * THREADS + threadIdx.x;
+       c < PACK_FLOATS; c += (long long)gridDim.x * THREADS) {
+    float s = 0.f;
+    for (unsigned b = 0; b < gridDim.x; ++b)
+      s = __fadd_rn(s, __ldcg(a.dpk + (long long)b * PACK_FLOATS + c));
+    grads[c] = s;
+  }
 }
 
 unsigned grid_for(long long n) { return (unsigned)((n + TM - 1) / TM); }
@@ -707,6 +832,26 @@ int launch_v4(const float* mc, const float* g, const float* consts,
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid_for(n), THREADS, K3_SMEM_BYTES, stream>>>(
       mc, g, consts, p, wd_row, out, n, S);
+  return (int)cudaGetLastError();
+}
+
+template <bool NORMALS>
+int launch_v5(const float* mc, const float* g, const float* consts,
+              const V3Params& p, const float* wd_row, bf16* out, long long n,
+              int S, cudaStream_t stream) {
+  auto kernel = field_forward_v5_kernel<NORMALS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K10_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (n + TM - 1) / TM;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  kernel<<<grid, K10_THREADS, K10_SMEM_BYTES, stream>>>(mc, g, consts, p,
+                                                        wd_row, out, n, S);
   return (int)cudaGetLastError();
 }
 
@@ -836,6 +981,63 @@ int rsn_field_backward_v4(const void* mean_cov, const void* g_bands,
             samples_per_ray, rays_per_block};
   return launch_backward(field_backward_v4_kernel, K4_SMEM_BYTES, p, a,
                          stream);
+}
+
+// K10: K7 (want_normals: ptrs carries wd_row as ptrs[20]) or K1 at the
+// train width, on a persistent grid with the next tile's IPE computed
+// ahead; the same (N, 24) bf16 output, bit for bit.
+int rsn_field_forward_v5(const void* mean_cov, const void* g_bands,
+                         const void* ipe_consts, const void* const* ptrs,
+                         void* out, long long n, int samples_per_ray,
+                         int want_normals, void* stream) {
+  V3Params p;
+  fill_v3(&p, ptrs);
+  const float* mc = static_cast<const float*>(mean_cov);
+  const float* g = static_cast<const float*>(g_bands);
+  const float* consts = static_cast<const float*>(ipe_consts);
+  bf16* o = static_cast<bf16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (want_normals)
+    return launch_v5<true>(mc, g, consts, p,
+                           static_cast<const float*>(ptrs[20]), o, n,
+                           samples_per_ray, st);
+  return launch_v5<false>(mc, g, consts, p, nullptr, o, n, samples_per_ray,
+                          st);
+}
+
+// K13: K8's arguments, plus grads (608640 floats, written) and arrived (one
+// zeroed unsigned).  dpk is K8's zeroed per-block workspace; the grid must
+// fit the card at one block per SM (the cooperative launch checks it).
+int rsn_field_backward_v3(const void* mean_cov, const void* g_bands,
+                          const void* ipe_consts, const void* d_out,
+                          const void* f_out, const void* const* ptrs,
+                          void* dmc, void* dg, void* dpk, void* ws,
+                          void* grads, void* arrived, long long rays,
+                          int samples_per_ray, int rays_per_block,
+                          void* stream) {
+  V3Params p;
+  fill_v3(&p, ptrs);
+  BwdArgs a{static_cast<const float*>(mean_cov),
+            static_cast<const float*>(g_bands),
+            static_cast<const float*>(ipe_consts), nullptr,
+            static_cast<const bf16*>(d_out), static_cast<const bf16*>(f_out),
+            static_cast<float*>(dmc), static_cast<float*>(dg),
+            static_cast<float*>(dpk), static_cast<bf16*>(ws), rays,
+            samples_per_ray, rays_per_block};
+  float* gr = static_cast<float*>(grads);
+  unsigned* ar = static_cast<unsigned*>(arrived);
+  cudaError_t err = cudaFuncSetAttribute(
+      field_backward_v3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      K4_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((rays + rays_per_block - 1) /
+                                   rays_per_block);
+  void* args[] = {&p, &a, &gr, &ar};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(field_backward_v3_kernel), dim3(grid),
+      dim3(THREADS), args, K4_SMEM_BYTES, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 const char* rsn_cuda_error_string(int code) {

@@ -90,6 +90,8 @@ def _signatures() -> Dict[str, Dict[str, list]]:
         "field_forward.cu": {
             "rsn_field_forward_v3": [vp, vp, vp, ptrs, vp, ll, i32, vp],
             "rsn_field_forward_density": [vp, vp, ptrs, vp, ll, vp],
+            "rsn_field_forward_v2": [vp, vp, ptrs, vp, ll, vp],
+            "rsn_field_forward": [vp, ptrs, vp, ll, vp],
         },
         "field_train.cu": {
             "rsn_field_forward_v6": [vp, vp, vp, ptrs, vp, vp, ll, i32, i32,
@@ -101,6 +103,9 @@ def _signatures() -> Dict[str, Dict[str, list]]:
             "rsn_field_forward_v4": [vp, vp, vp, ptrs, vp, ll, i32, i32, vp],
             "rsn_field_backward_v4": [vp, vp, vp, vp, vp, ptrs, vp, vp, vp,
                                       vp, ll, i32, i32, vp],
+            "rsn_field_forward_v5": [vp, vp, vp, ptrs, vp, ll, i32, i32, vp],
+            "rsn_field_backward_v3": [vp, vp, vp, vp, vp, ptrs, vp, vp, vp,
+                                      vp, vp, vp, ll, i32, i32, vp],
         },
         "proposal_forward.cu": {
             "rsn_prop_forward": [vp, vp, ptrs, vp, ll, vp],

@@ -1,5 +1,5 @@
-"""The render path's two field kernels, their packed operands and their
-plain PyTorch versions (port of the eval half of
+"""The render path's field kernels and the field API's, their packed
+operands and their plain PyTorch versions (port of the eval half of
 rsn/kernels/field_pallas.py).
 
 K1 `field_forward_v3` (replaces field_pallas.py::field_forward_v3):
@@ -12,6 +12,16 @@ K2 `field_forward_density` (replaces field_pallas.py::
 field_forward_density): IPE -> trunk -> density column only.  Output
 (N, 8) bf16, column 0 bit-identical to K1's V3_DENSITY column (the two
 kernels share the device routines that produce it).
+
+K11 `field_forward_v2` (replaces field_pallas.py::field_forward_v2): the
+IPE with exact sin and exp (rsn's _ipe_in_kernel, not K1's polynomial) ->
+trunk -> one (256, 384) product for every head, the 256-wide bottleneck
+included.  Output (N, 384) bf16 in the OUT_* columns (267 live, the rest
+zero); the field's kernel route (Field.get_field_outputs with use_pallas
+and not differentiable).
+
+K12 `field_forward` (replaces field_pallas.py::field_forward): K11 from a
+precomputed (N, 128) bf16 encoding, no IPE.
 
 Each wrapper checks its inputs, runs the plain version for CPU tensors
 and launches the CUDA kernel (rsn_torch/csrc/field_forward.cu) for CUDA
@@ -48,6 +58,17 @@ V3_DENSITY = 12
 V3_ROUGH = 13
 DENS_COLS = 8    # K2 output: col 0 = density pre-activation
 
+# K11 / K12 output columns (field_pallas.OUT_*): the bottleneck, then the
+# raw heads; [267, 384) zero
+OUT_DIM = 384
+OUT_BOTTLENECK = slice(0, 256)
+OUT_DENSITY = 256
+OUT_DIFF = slice(257, 260)
+OUT_TINT = slice(260, 263)
+OUT_ROUGH = 263
+OUT_NORMALS = slice(264, 267)
+N_HEAD_COLS = 267
+
 # head columns of the fused (256, 256) heads+mid product (field_pallas.FH_*)
 FH_DIFF = slice(1, 4)
 FH_TINT = slice(4, 7)
@@ -73,7 +94,8 @@ LAUNCHES = {"field_forward_v3": 0, "field_forward_density": 0,
             "field_forward_v6": 0, "field_backward_v5": 0,
             "field_backward_v6": 0, "field_forward_v4": 0,
             "field_forward_v3_train": 0, "field_backward_v4": 0,
-            "prop_forward": 0}
+            "prop_forward": 0, "field_forward_v2": 0, "field_forward": 0,
+            "field_forward_v5": 0, "field_backward_v3": 0}
 
 
 def reset_launch_counts() -> None:
@@ -163,6 +185,23 @@ def pack_params_density(field: Field) -> Tuple[torch.Tensor, ...]:
             + tuple(b.detach().contiguous() for b in bs) + (wd, bd))
 
 
+@torch.no_grad()
+def pack_params(field: Field) -> Tuple[torch.Tensor, ...]:
+    """K11 / K12 operands (field_pallas.pack_params): ws(8) + bs(8) +
+    (wh, bh), wh (256, 384) bf16 = [bottleneck | density | diff | tint |
+    roughness | normals] zero-padded, bh (1, 384) fp32."""
+    ws, bs = _trunk_operands(field)
+    heads = (field.field_output_bottleneck, field.field_output_density,
+             field.field_output_diff, field.field_output_tint,
+             field.field_output_roughness, field.field_output_normals)
+    wh = torch.cat([_w_in_out(h.net) for h in heads], dim=1)  # (256, 267)
+    bh = torch.cat([h.net.bias.float() for h in heads])
+    wh = F.pad(wh, (0, OUT_DIM - N_HEAD_COLS)).to(BF16).contiguous()
+    bh = F.pad(bh, (0, OUT_DIM - N_HEAD_COLS)).reshape(1, -1).contiguous()
+    return (tuple(w.to(BF16).contiguous() for w in ws)
+            + tuple(b.detach().contiguous() for b in bs) + (wh, bh))
+
+
 def mid_g_bands_f32(field: Field, ray_dirs: torch.Tensor,
                     sh_l8_m7_2x: bool = True) -> torch.Tensor:
     """Per-ray SH band partials basis_b @ W_enc_b: (R, 3) -> (R, 512) f32,
@@ -218,6 +257,47 @@ def ipe_x(mean_cov: torch.Tensor) -> torch.Tensor:
     zeros = torch.zeros(n, ENC_PAD - IPE_OUT_DIM, device=mean_cov.device)
     return torch.cat([damp * _sin2pi(u), mean_cov[:, 0:3], zeros],
                      dim=1).to(BF16)
+
+
+def ipe_matrices(device=None):
+    """field_pallas.ipe_matrices as float32 tensors: A (16, 128), bA (1,
+    128), V (16, 128), M (1, 128), built from the same float64 values.
+    mc @ A + bA is the sin argument 2 pi f_k mean_d (+ pi/2 on the cos half
+    [48, 96); mean_d itself in 96..98), mc @ V the f_k^2-scaled variance,
+    M marks the damped-sine columns [0, 96).  Their nonzero entries are
+    IPE_SCALE, IPE_VAR and _HALF_PI, which ipe_enc applies elementwise."""
+    A = np.zeros((IN_COLS, ENC_PAD), np.float32)
+    V = np.zeros((IN_COLS, ENC_PAD), np.float32)
+    bA = np.zeros((1, ENC_PAD), np.float32)
+    M = np.zeros((1, ENC_PAD), np.float32)
+    for d in range(3):
+        for k in range(16):
+            c = d * 16 + k
+            A[d, c] = A[d, 48 + c] = 2.0 * np.pi * _FREQS[k]
+            V[3 + d, c] = V[3 + d, 48 + c] = _FREQS[k] ** 2
+        A[d, 96 + d] = 1.0
+    bA[0, 48:96] = np.pi / 2.0
+    M[0, 0:96] = 1.0
+    return tuple(torch.as_tensor(m, device=device) for m in (A, bA, V, M))
+
+
+def ipe_enc(mean_cov: torch.Tensor) -> torch.Tensor:
+    """K11's IPE (field_pallas._ipe_in_kernel): (N, 16) f32 -> (N, 128)
+    bf16 [damp*sin (48) | damp*cos (48) | mean (3) | 0 (29)] with the exact
+    sine of pre = f32(2 pi f_k) mean_d (+ f32(pi/2) on the cos half) and
+    damp = exp(-0.5 f32(f_k^2) var_d): rsn's mc @ A + bA and mc @ V, whose
+    columns each hold one nonzero entry, product for product."""
+    n = mean_cov.shape[0]
+    dev = mean_cov.device
+    mean, cov = mean_cov[:, 0:3], mean_cov[:, 3:6]
+    pre = (mean[:, :, None] * torch.as_tensor(IPE_SCALE, device=dev)
+           ).reshape(n, 48)
+    var = (cov[:, :, None] * torch.as_tensor(IPE_VAR, device=dev)
+           ).reshape(n, 48)
+    pre = torch.cat([pre, pre + _HALF_PI], dim=1)
+    damp = torch.exp(-0.5 * torch.cat([var, var], dim=1))
+    zeros = torch.zeros(n, ENC_PAD - IPE_OUT_DIM, device=dev)
+    return torch.cat([damp * torch.sin(pre), mean, zeros], dim=1).to(BF16)
 
 
 def _trunk_plain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
@@ -277,6 +357,32 @@ def field_forward_density_plain(packed,
     return _density_head(h, wd, bd).to(BF16)
 
 
+def field_forward_plain(packed, enc: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K12: (N, 128) bf16 encoding -> (N, 384) bf16."""
+    ws, bs = packed[:8], packed[8:16]
+    wh, bh = packed[16:]
+    h = _trunk_plain(ws, bs, enc)
+    return (h.float() @ wh.float() + bh).to(BF16)
+
+
+def field_forward_v2_plain(packed, mean_cov: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K11: (N, 16) f32 mean_cov -> (N, 384) bf16."""
+    return field_forward_plain(packed, ipe_enc(mean_cov))
+
+
+def unpack_outputs(out: torch.Tensor):
+    """Split the (.., 384) output into its heads (field_pallas.
+    unpack_outputs): the bottleneck stays bf16, the rest fp32."""
+    return {
+        "bottleneck": out[..., OUT_BOTTLENECK],
+        "density_preact": out[..., OUT_DENSITY:OUT_DENSITY + 1].float(),
+        "diff_raw": out[..., OUT_DIFF].float(),
+        "tint_raw": out[..., OUT_TINT].float(),
+        "rough_raw": out[..., OUT_ROUGH:OUT_ROUGH + 1].float(),
+        "normals_raw": out[..., OUT_NORMALS].float(),
+    }
+
+
 # ---- wrappers --------------------------------------------------------------
 
 _TRUNK_SHAPES = ([(ENC_PAD, 256)] + [(256, 256)] * 3 + [(SKIP_PAD, 256)]
@@ -285,8 +391,10 @@ V3_SHAPES = (_TRUNK_SHAPES[0] + _TRUNK_SHAPES[1]
              + [(256, 256), (1, 256), (128, 128), (1, 128)])
 DENSITY_SHAPES = (_TRUNK_SHAPES[0] + _TRUNK_SHAPES[1]
                   + [(256, DENS_COLS), (1, DENS_COLS)])
+V2_SHAPES = (_TRUNK_SHAPES[0] + _TRUNK_SHAPES[1]
+             + [(256, OUT_DIM), (1, OUT_DIM)])
 _V3_DTYPES = [BF16] * 8 + [F32] * 8 + [BF16, F32, BF16, F32]
-_DENSITY_DTYPES = [BF16] * 8 + [F32] * 8 + [BF16, F32]
+_DENSITY_DTYPES = [BF16] * 8 + [F32] * 8 + [BF16, F32]  # and V2's
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -383,4 +491,61 @@ def field_forward_density(packed, mean_cov: torch.Tensor) -> torch.Tensor:
             torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, rc, "field_forward_density")
     LAUNCHES["field_forward_density"] += 1
+    return out
+
+
+def _check_heads(packed, x: torch.Tensor, label: str, cols: int, dtype,
+                 name: str) -> int:
+    """K11's and K12's checks: packed = pack_params(field), x (N, cols) ->
+    N; raises on a device that is neither the CPU nor CUDA."""
+    device = x.device
+    n = x.shape[0]
+    if n == 0:
+        raise ValueError(f"{name}: empty input")
+    _check(label, x, (n, cols), dtype, device)
+    _check_packed(packed, V2_SHAPES, _DENSITY_DTYPES, device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")
+    return n
+
+
+def field_forward_v2(packed, mean_cov: torch.Tensor) -> torch.Tensor:
+    """K11: packed = pack_params(field), (N, 16) f32 mean_cov
+    [mean | cov_diag | 0] -> (N, 384) bf16 (OUT_* columns)."""
+    n = _check_heads(packed, mean_cov, "mean_cov", IN_COLS, F32,
+                     "field_forward_v2")
+    device = mean_cov.device
+    if device.type == "cpu":
+        return field_forward_v2_plain(packed, mean_cov)
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_forward.cu")
+    out = torch.empty((n, OUT_DIM), dtype=BF16, device=device)
+    with torch.cuda.device(device):
+        rc = lib.rsn_field_forward_v2(
+            mean_cov.data_ptr(), _ipe_consts(device).data_ptr(),
+            _ptr_array(packed), out.data_ptr(), n,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, rc, "field_forward_v2")
+    LAUNCHES["field_forward_v2"] += 1
+    return out
+
+
+def field_forward(packed, enc: torch.Tensor) -> torch.Tensor:
+    """K12: packed = pack_params(field), (N, 128) bf16 IPE encoding (as
+    ipe_enc gives it) -> (N, 384) bf16 (OUT_* columns)."""
+    n = _check_heads(packed, enc, "enc", ENC_PAD, BF16, "field_forward")
+    device = enc.device
+    if device.type == "cpu":
+        return field_forward_plain(packed, enc)
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_forward.cu")
+    out = torch.empty((n, OUT_DIM), dtype=BF16, device=device)
+    with torch.cuda.device(device):
+        rc = lib.rsn_field_forward(enc.data_ptr(), _ptr_array(packed),
+                                   out.data_ptr(), n,
+                                   torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, rc, "field_forward")
+    LAUNCHES["field_forward"] += 1
     return out

@@ -28,6 +28,15 @@ K8 `field_backward_v4` (replaces field_train.py::field_backward_v4): K4
 with the trunk activations recomputed in the kernel instead of read from
 a spill -> dmc, dg and the 20 gradients.
 
+K10 `field_forward_v5` (replaces field_pallas.py::field_forward_v5): K7
+(want_normals) or K1 at the train width on another schedule, the next
+tile's IPE computed while this tile's trunk runs; the same (N, 24) bf16
+output bit for bit.
+
+K13 `field_backward_v3` (replaces field_train.py::field_backward_v3): K8
+with whole-grid weight-gradient accumulators: the kernel itself returns
+the 20 gradients (no sum over per-block slices outside it).
+
 K6 `FusedFieldTrain` (replaces field_train.py::fused_field_train, a
 custom VJP with no kernel of its own): the autograd Function that runs,
 on fp32 packed operands, K3 forward and K4 or K5 backward (save_acts, the
@@ -182,7 +191,10 @@ def field_forward_v4_plain(packed, mean_cov: torch.Tensor,
                            g_bands: torch.Tensor, samples_per_ray: int,
                            want_normals: bool = True) -> torch.Tensor:
     """Plain PyTorch K7 (want_normals) or K1 at the train width: the
-    plain K3's output -> (N, 24) bf16."""
+    plain K3's output -> (N, 24) bf16.  Also K10's plain version: rsn
+    asserts that field_forward_v5 computes the same function as v3 and v4
+    (tests/test_field_train_kernel.py), so one plain version serves all
+    three."""
     return field_forward_v6_plain(packed, mean_cov, g_bands, samples_per_ray,
                                   want_normals)[0]
 
@@ -286,7 +298,9 @@ def field_backward_v6_plain(packed, g_bands, xacts, d_out, f_out,
 def field_backward_v4_plain(packed, mean_cov, g_bands, d_out, f_out,
                             samples_per_ray):
     """Plain PyTorch K8: the plain K4 on the trunk activations recomputed
-    from mean_cov -> (dmc (N, 16), dg (R, 512), dpacked (20))."""
+    from mean_cov -> (dmc (N, 16), dg (R, 512), dpacked (20)).  Also K13's
+    plain version: rsn's field_backward_v3 and v4 compute the same function
+    and differ only in where the weight gradients are summed."""
     x = ff.ipe_x(mean_cov)
     return _backward_plain(packed[:N_PACKED], g_bands,
                            _trunk_acts(packed[:8], packed[8:16], x), x,
@@ -320,16 +334,20 @@ def _rays_per_block(rays: int, device, blocks_per_sm: int) -> int:
     return max(1, -(-rays // target))
 
 
+def _packed_views(flat: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(PACK_FLOATS,) -> the 20 packed-operand gradients, as views."""
+    out, off = [], 0
+    for r, c in PACKED_SHAPES:
+        out.append(flat[off:off + r * c].view(r, c))
+        off += r * c
+    return tuple(out)
+
+
 def _unpack_slices(buf: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """(blocks, PACK_FLOATS) per-block gradients -> the 20 packed-operand
     gradients, summed over the blocks (rsn sums its per-group
     accumulators with jnp.sum outside the kernel)."""
-    total = buf.sum(dim=0)
-    out, off = [], 0
-    for r, c in PACKED_SHAPES:
-        out.append(total[off:off + r * c].view(r, c))
-        off += r * c
-    return tuple(out)
+    return _packed_views(buf.sum(dim=0))
 
 
 def field_forward_v6(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
@@ -368,7 +386,10 @@ def field_forward_v6(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
 
 
 def _forward_no_spill(packed, mean_cov, g_bands, samples_per_ray,
-                      want_normals: bool, name: str) -> torch.Tensor:
+                      want_normals: bool, name: str,
+                      entry: str) -> torch.Tensor:
+    """K7, K1 at the train width and K10: the same checks, plain version
+    and arguments; `entry` is the C function that launches `name`."""
     device = mean_cov.device
     n = mean_cov.shape[0]
     S = int(samples_per_ray)
@@ -386,7 +407,7 @@ def _forward_no_spill(packed, mean_cov, g_bands, samples_per_ray,
     lib = load_library("field_train.cu")
     out = torch.empty((n, OUT_TRAIN), dtype=BF16, device=device)
     with torch.cuda.device(device):
-        rc = lib.rsn_field_forward_v4(
+        rc = getattr(lib, entry)(
             mean_cov.data_ptr(), g_bands.data_ptr(),
             _ipe_consts(device).data_ptr(), _ptr_array(packed),
             out.data_ptr(), n, S, int(want_normals),
@@ -402,7 +423,8 @@ def field_forward_v4(packed_v4f, mean_cov: torch.Tensor,
     """K7: packed_v4f = pack_params_v4f(...) -> (N, 24) bf16, K3's output
     with the normals (V4_DPDM), no spill."""
     return _forward_no_spill(packed_v4f, mean_cov, g_bands, samples_per_ray,
-                             True, "field_forward_v4")
+                             True, "field_forward_v4",
+                             "rsn_field_forward_v4")
 
 
 def field_forward_v3_train(packed, mean_cov: torch.Tensor,
@@ -411,7 +433,20 @@ def field_forward_v3_train(packed, mean_cov: torch.Tensor,
     """K1 at the train width: pack_params_v3f operands -> (N, 24) bf16,
     K3's output without the normals (V4_DPDM zero), no spill."""
     return _forward_no_spill(packed, mean_cov, g_bands, samples_per_ray,
-                             False, "field_forward_v3_train")
+                             False, "field_forward_v3_train",
+                             "rsn_field_forward_v4")
+
+
+def field_forward_v5(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
+                     samples_per_ray: int,
+                     want_normals: bool = False) -> torch.Tensor:
+    """K10: K7's operands (pack_params_v4f) with want_normals, else K1's
+    (pack_params_v3f) -> (N, 24) bf16, equal to field_forward_v4's or
+    field_forward_v3_train's output bit for bit; one persistent block per
+    SM computes the next tile's IPE while this tile's trunk runs."""
+    return _forward_no_spill(packed, mean_cov, g_bands, samples_per_ray,
+                             want_normals, "field_forward_v5",
+                             "rsn_field_forward_v5")
 
 
 def _check_bwd(d_out, f_out, n, device):
@@ -493,45 +528,96 @@ def field_backward_v6(packed, g_bands: torch.Tensor, xacts: torch.Tensor,
     return dg, _unpack_slices(buf)
 
 
-def field_backward_v4(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
-                      d_out: torch.Tensor, f_out: torch.Tensor,
-                      samples_per_ray: int):
-    """K8 -> (dmc (N, 16) f32, dg (R, 512) f32, dpacked: 20 fp32 tensors),
-    K4's results with the trunk recomputed from mean_cov."""
+def _check_recompute(packed, mean_cov, g_bands, d_out, f_out, S: int,
+                     name: str) -> int:
+    """K8's and K13's checks -> R; raises on a device that is neither the
+    CPU nor CUDA."""
     device = mean_cov.device
     n = mean_cov.shape[0]
-    S = int(samples_per_ray)
-    R = _rows(n, S, "field_backward_v4")
+    R = _rows(n, S, name)
     _check("mean_cov", mean_cov, (n, IN_COLS), F32, device)
     _check("g_bands", g_bands, (R, 512), F32, device)
     _check_bwd(d_out, f_out, n, device)
     _check_train_packed(packed, False, device)
-    if device.type == "cpu":
-        return field_backward_v4_plain(packed, mean_cov, g_bands, d_out,
-                                       f_out, S)
-    if device.type != "cuda":
-        raise ValueError(f"field_backward_v4: unsupported device {device}")
-    from rsn_torch.kernels.build import load_library
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")
+    return R
 
-    lib = load_library("field_train.cu")
-    rpb = _rays_per_block(R, device, 1)  # K4's partition
+
+def _recompute_operands(packed, mean_cov, g_bands, d_out, f_out, R: int):
+    """K8's and K13's outputs and scratch on the card -> (rays per block,
+    dmc, dg, per-block gradient slices, recompute workspace, the pointer
+    arguments the two C entries share).  The caller holds every tensor
+    until it has launched.  K4's partition; at one block per SM the grid
+    also fits K13's cooperative launch."""
+    device = mean_cov.device
+    rpb = _rays_per_block(R, device, 1)
     blocks = -(-R // rpb)
-    dmc = torch.empty((n, IN_COLS), dtype=F32, device=device)
+    dmc = torch.empty((mean_cov.shape[0], IN_COLS), dtype=F32, device=device)
     dg = torch.zeros((R, 512), dtype=F32, device=device)
     buf = torch.zeros((blocks, PACK_FLOATS), dtype=F32, device=device)
     # one tile's recompute slot per block
     ws = torch.empty((blocks, TILE_ROWS, ACTS_COLS), dtype=BF16,
                      device=device)
-    with torch.cuda.device(device):
-        rc = lib.rsn_field_backward_v4(
-            mean_cov.data_ptr(), g_bands.data_ptr(),
+    args = (mean_cov.data_ptr(), g_bands.data_ptr(),
             _ipe_consts(device).data_ptr(), d_out.data_ptr(),
             f_out.data_ptr(), _ptr_array(packed), dmc.data_ptr(),
-            dg.data_ptr(), buf.data_ptr(), ws.data_ptr(), R, S, rpb,
-            torch.cuda.current_stream().cuda_stream)
+            dg.data_ptr(), buf.data_ptr(), ws.data_ptr())
+    return rpb, dmc, dg, buf, ws, args
+
+
+def field_backward_v4(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
+                      d_out: torch.Tensor, f_out: torch.Tensor,
+                      samples_per_ray: int):
+    """K8 -> (dmc (N, 16) f32, dg (R, 512) f32, dpacked: 20 fp32 tensors),
+    K4's results with the trunk recomputed from mean_cov."""
+    S = int(samples_per_ray)
+    R = _check_recompute(packed, mean_cov, g_bands, d_out, f_out, S,
+                         "field_backward_v4")
+    device = mean_cov.device
+    if device.type == "cpu":
+        return field_backward_v4_plain(packed, mean_cov, g_bands, d_out,
+                                       f_out, S)
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_train.cu")
+    rpb, dmc, dg, buf, ws, args = _recompute_operands(
+        packed, mean_cov, g_bands, d_out, f_out, R)
+    with torch.cuda.device(device):
+        rc = lib.rsn_field_backward_v4(
+            *args, R, S, rpb, torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, rc, "field_backward_v4")
     LAUNCHES["field_backward_v4"] += 1
     return dmc, dg, _unpack_slices(buf)
+
+
+def field_backward_v3(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
+                      d_out: torch.Tensor, f_out: torch.Tensor,
+                      samples_per_ray: int):
+    """K13 -> (dmc (N, 16) f32, dg (R, 512) f32, dpacked: 20 fp32 tensors
+    in the packed operands' shapes, summed over the blocks in the kernel
+    in a fixed order).  dmc and dg equal K8's bit for bit."""
+    S = int(samples_per_ray)
+    R = _check_recompute(packed, mean_cov, g_bands, d_out, f_out, S,
+                         "field_backward_v3")
+    device = mean_cov.device
+    if device.type == "cpu":
+        return field_backward_v4_plain(packed, mean_cov, g_bands, d_out,
+                                       f_out, S)
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_train.cu")
+    rpb, dmc, dg, buf, ws, args = _recompute_operands(
+        packed, mean_cov, g_bands, d_out, f_out, R)
+    grads = torch.empty(PACK_FLOATS, dtype=F32, device=device)
+    arrived = torch.zeros(1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        rc = lib.rsn_field_backward_v3(
+            *args, grads.data_ptr(), arrived.data_ptr(), R, S, rpb,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, rc, "field_backward_v3")
+    LAUNCHES["field_backward_v3"] += 1
+    return dmc, dg, _packed_views(grads)
 
 
 # ---- K6: the autograd Function ---------------------------------------------

@@ -159,11 +159,18 @@ class Field(nn.Module):
         return (-normalize(g)).detach()
 
     def get_field_outputs(self, mean: torch.Tensor, cov_diag: torch.Tensor,
-                          dtype: torch.dtype = torch.float32
+                          dtype: torch.dtype = torch.float32,
+                          use_pallas: bool = False,
+                          differentiable: bool = True
                           ) -> Dict[str, torch.Tensor]:
         """One trunk evaluation -> every per-sample head, on (N, C) rows
         (the batch is flattened like rsn's, so the density equals the
-        density-only pass bit for bit)."""
+        density-only pass bit for bit).  With use_pallas and not
+        differentiable, the kernel route: K11 (field_forward_v2, bf16
+        whatever dtype, as in rsn) on the (N, 16) rows [mean | cov_diag |
+        0], then rsn's post-processing of its raw heads."""
+        if use_pallas and not differentiable:
+            return self._field_outputs_kernel(mean, cov_diag)
         batch_shape = mean.shape[:-1]
         density, emb, preact = self.get_density(
             mean.reshape(-1, 3), cov_diag.reshape(-1, 3), dtype)
@@ -177,6 +184,32 @@ class Field(nn.Module):
             "pred_normals": self.get_pred_normals(emb),
             "bottleneck": _apply(self.field_output_bottleneck.net, emb,
                                  dtype, out_dtype=act),
+        }
+        return {k: v.reshape(*batch_shape, v.shape[-1])
+                for k, v in out.items()}
+
+    @torch.no_grad()
+    def _field_outputs_kernel(self, mean: torch.Tensor,
+                              cov_diag: torch.Tensor
+                              ) -> Dict[str, torch.Tensor]:
+        # the kernels' module imports this one
+        from rsn_torch.kernels import field_forward as ff
+
+        batch_shape = mean.shape[:-1]
+        mean, cov_diag = mean.reshape(-1, 3), cov_diag.reshape(-1, 3)
+        pad = torch.zeros(mean.shape[0], ff.IN_COLS - 6, device=mean.device)
+        mc = torch.cat([mean.float(), cov_diag.float(), pad],
+                       dim=-1).contiguous()
+        h = ff.unpack_outputs(ff.field_forward_v2(ff.pack_params(self), mc))
+        preact = h["density_preact"]
+        out = {
+            "density": F.softplus(preact + DENSITY_BIAS),
+            "density_preact": preact,
+            "diff": torch.sigmoid(h["diff_raw"]),
+            "tint": torch.sigmoid(h["tint_raw"]),
+            "rough_raw": h["rough_raw"],
+            "pred_normals": normalize(-h["normals_raw"]),
+            "bottleneck": h["bottleneck"],
         }
         return {k: v.reshape(*batch_shape, v.shape[-1])
                 for k, v in out.items()}

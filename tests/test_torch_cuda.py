@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: shapes the smoke run does not
 reach (ragged last tiles, odd samples per ray, every flag pair of the
 training forward, K9 over many tiles per block, K7 / K8 at ragged
-shapes), the launch counters (one train step on each route, camera off
-and on), determinism, the alignment checks, small renders (the default
+shapes, K10-K13 at ragged shapes and over many tiles per block), the
+launch counters (one train step on each route, camera off and on, the
+field API), determinism, the alignment checks, small renders (the default
 method and the proposal preset) on both devices, and the recompute
 route's smaller peak memory.
 
@@ -399,3 +400,114 @@ def test_recompute_route_holds_less_memory(field, tmp_path):
         del tr
         torch.cuda.empty_cache()
     assert peaks[False] < peaks[True], peaks
+
+
+# ---- the field API (K11, K12) and the schedule variants (K10, K13) -------
+
+K13_TOL = 1e-4  # K13's weight gradients against K8's: another fp32 order
+
+
+@pytest.mark.parametrize("n", [1, 77, 1000, 4099])
+def test_field_api_kernels_match_plain_versions(field, n):
+    """K11 and K12 against their plain versions on ragged row counts:
+    every live OUT_* column within ATOL, the padding zero; K12 on the
+    plain encoding of the rows; both density columns against K2's within
+    ATOL (K2's IPE is the polynomial one)."""
+    mc, _ = _inputs(n, 1, seed=n)
+    packed = ff.pack_params(field)
+    enc = ff.ipe_enc(mc)
+    k11 = ff.field_forward_v2(packed, mc)
+    k12 = ff.field_forward(packed, enc)
+    k2 = ff.field_forward_density(ff.pack_params_density(field), mc)
+    torch.cuda.synchronize()
+    live = ff.N_HEAD_COLS
+    for got, ref in ((k11, ff.field_forward_v2_plain(packed, mc)),
+                     (k12, ff.field_forward_plain(packed, enc))):
+        assert got.shape == (n, ff.OUT_DIM) and got.dtype == torch.bfloat16
+        assert torch.isfinite(got.float()).all()
+        assert float((got[:, :live].float() - ref[:, :live].float()).abs()
+                     .max()) <= ATOL
+        assert torch.all(got[:, live:] == 0)
+        assert float((got[:, ff.OUT_DENSITY].float() - k2[:, 0].float())
+                     .abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("R,S", [(1, 1), (3, 7), (5, 29), (300, 64),
+                                 (1000, 64)])
+def test_k10_equals_k7_and_k1_train_width(field, R, S):
+    """K10 with the normals equals K7, without them K1 at the train width,
+    bit for bit (one tile, ragged tiles, and more tiles than blocks: both
+    slots of every block), and agrees with the plain version."""
+    mc, dirs = _inputs(R, S, seed=R * S)
+    g = ff.mid_g_bands(field, dirs)
+    p3 = ff.pack_params_v3f(field)
+    p4 = tft.pack_params_v4f(p3, field)
+    k10n = tft.field_forward_v5(p4, mc, g, S, True)
+    k10 = tft.field_forward_v5(p3, mc, g, S, False)
+    k7 = tft.field_forward_v4(p4, mc, g, S)
+    k1 = tft.field_forward_v3_train(p3, mc, g, S)
+    torch.cuda.synchronize()
+    assert torch.equal(k10n, k7) and torch.equal(k10, k1)
+    cols = list(range(14)) + list(range(17, 20))
+    for got, pk, normals in ((k10n, p4, True), (k10, p3, False)):
+        ref = tft.field_forward_v4_plain(pk, mc, g, S, normals)
+        assert float((got[:, cols].float() - ref[:, cols].float()).abs()
+                     .max()) <= ATOL
+
+
+@pytest.mark.parametrize("R,S", [(1, 1), (3, 7), (5, 29), (33, 128),
+                                 (1000, 64)])
+def test_k13_deterministic_and_matches_k8(field, R, S):
+    """K13 gives the same bits twice; its dmc and dg equal K8's; each of
+    its 20 weight gradients is within K13_TOL of that tensor's max of
+    K8's; and it agrees with its plain version as K8 does."""
+    mc, dirs = _inputs(R, S, seed=R + 2 * S)
+    g = ff.mid_g_bands(field, dirs)
+    p3 = ff.pack_params_v3f(field)
+    out = tft.field_forward_v4(tft.pack_params_v4f(p3, field), mc, g, S)
+    gen = torch.Generator().manual_seed(R)
+    d_out = torch.randn(R * S, tft.OUT_TRAIN, generator=gen)
+    d_out[:, 14:] = 0.0
+    d_out = d_out.to(torch.bfloat16).cuda()
+    a = tft.field_backward_v3(p3, mc, g, d_out, out, S)
+    b = tft.field_backward_v3(p3, mc, g, d_out, out, S)
+    k8 = tft.field_backward_v4(p3, mc, g, d_out, out, S)
+    torch.cuda.synchronize()
+    assert _same(a, b)
+    assert torch.equal(a[0], k8[0]) and torch.equal(a[1], k8[1])
+    assert len(a[2]) == 20
+    for x, y in zip(a[2], k8[2]):
+        assert x.shape == y.shape and _rel_err(x, y) <= K13_TOL
+    ref = tft.field_backward_v4_plain(p3, mc, g, d_out, out, S)
+    assert _rel_err(a[0], ref[0]) <= K8_TOL
+    assert _rel_err(a[1], ref[1]) <= K8_TOL
+    for x, y in zip(a[2], ref[2]):
+        assert _rel_err(x, y) <= K8_TOL
+
+
+def test_field_api_launch_counts_and_route(field):
+    """Each wrapper counts its launches and nothing else (plain versions
+    count none); the field's kernel route runs K11 and returns its heads."""
+    mc, dirs = _inputs(4, 16)
+    g = ff.mid_g_bands(field, dirs)
+    packed, p3 = ff.pack_params(field), ff.pack_params_v3f(field)
+    out = tft.field_forward_v3_train(p3, mc, g, 16)
+    ff.reset_launch_counts()
+    route = field.get_field_outputs(mc[:, 0:3].reshape(4, 16, 3),
+                                    mc[:, 3:6].reshape(4, 16, 3),
+                                    use_pallas=True, differentiable=False)
+    k11 = ff.field_forward_v2(packed, mc)
+    ff.field_forward(packed, ff.ipe_enc(mc))
+    tft.field_forward_v5(p3, mc, g, 16)
+    tft.field_backward_v3(p3, mc, g, out, out, 16)
+    ff.field_forward_v2_plain(packed, mc)
+    tft.field_backward_v4_plain(p3, mc, g, out, out, 16)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ff.LAUNCHES.items() if v} == {
+        "field_forward_v2": 2, "field_forward": 1, "field_forward_v5": 1,
+        "field_backward_v3": 1}
+    assert route["bottleneck"].shape == (4, 16, 256)
+    assert torch.equal(route["bottleneck"].reshape(64, 256),
+                       k11[:, ff.OUT_BOTTLENECK])
+    unit = route["pred_normals"].norm(dim=-1)
+    assert float((unit - 1.0).abs().max()) <= 1e-5
