@@ -30,8 +30,10 @@ Phases, each announced on its own line:
                 (plain versions) and on the card (kernels): losses and
                 every parameter gradient.
   8. train    — `python -m rsn_torch.cli.train reflect-sampling-nerf` for
-                60 steps at full width on the synthetic sphere at 800x800:
-                launches per step, finite and falling losses, the
+                60 steps at full width on the synthetic sphere at 800x800,
+                with the eval hooks every 20 (batch) and 60 (image) steps:
+                launches per step, finite and falling losses, the eval
+                lines and the three panel PNGs (fine SSIM in [0, 1]), the
                 checkpoint; then one orbit frame of the trained run at
                 downscale 4 through the render CLI.
   The proposal preset (reflect-sampling-nerf-proposal, bf16, with
@@ -82,7 +84,17 @@ Phases, each announced on its own line:
                 dmc and dg, bit for bit, K13 the same twice and within 1e-4
                 of K8's weight gradients; CUDA-event times, K10 beside K7
                 and K1, K13 beside K8.
-  17. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
+  The tools' forward experiments:
+  17. K14-K16 — from zeroed launch counts, K14 (field_forward_v3u,
+                field_forward_v3i) and K15 (field_forward_v3L, and with
+                full field_forward_v3F) on phase 3's pass-2 render chunk
+                (2,097,152 rows), each against its plain version, v3i ==
+                v3u and v3F == v3L bit for bit, v3u and v3L on columns 0:14
+                against K1 on the same rows; K16 (cheap_sin) in its eight
+                modes on (2,097,152, 128) f32 rows of the tool's
+                distribution, each against its plain version; CUDA-event
+                times beside K1's, K16's beside one PyTorch call each.
+  18. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
 
 Any failed check raises: the script then exits non-zero and prints no
 result.  It imports neither jax nor PIL, nor anything of the JAX package.
@@ -186,20 +198,9 @@ def phase(name: str) -> None:
 
 def cuda_ms(fn, reps: int = 10) -> float:
     """Median CUDA-event time of `fn` over `reps` runs, after a warm-up."""
-    import torch
+    from rsn_torch.utils.timing import time_kernel
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return time_kernel(fn, reps=reps, warmup=1)
 
 
 def bound(flops: float, nbytes: float, fp32_ops: float = 0.0):
@@ -405,7 +406,8 @@ def main() -> int:
                           nbytes(mc, *packed) + mc.shape[0] * 8 * 2)
             results["field_forward_density"].update(ms=k, plain_ms=pl,
                                                     bound_ms=b, bound_by=by)
-    render_mc = calls["v3"][0][1]  # pass 2's rows, for phase 16
+    # pass 2's rows, for phases 16 and 17
+    _, render_mc, render_g, render_s = calls["v3"][0]
     del calls
     torch.cuda.empty_cache()
 
@@ -465,8 +467,14 @@ def main() -> int:
     results.update(api_results["kernels"])
     launches.update(api_results["launches"])
 
-    # ---- 17. result ----
-    phase("phase 17: result")
+    # ---- 17. the tools' forward experiments ----
+    exp_results = experiments_phase(field, render_mc, render_g, render_s,
+                                    card)
+    results.update(exp_results["kernels"])
+    launches.update(exp_results["launches"])
+
+    # ---- 18. result ----
+    phase("phase 18: result")
     kernels = []
     for name, source, line in KERNEL_ROWS:
         r = results[name]
@@ -477,8 +485,8 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            # no single PyTorch call computes a fused field
-            "library_ms": None})
+            # one PyTorch call computes K16's modes; none a fused field
+            "library_ms": r.get("library_ms")})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -517,7 +525,13 @@ KERNEL_ROWS = (
      "rsn/kernels/field_pallas.py:217"),
     ("field_backward_v3", "field_train.cu",
      "rsn/kernels/field_train.py:353"),
-)
+    ("field_forward_v3u", "experiments.cu", "tools/exp_interleave.py:161"),
+    ("field_forward_v3i", "experiments.cu", "tools/exp_interleave.py:77"),
+    ("field_forward_v3L", "experiments.cu", "tools/exp_interleave2.py:124"),
+    ("field_forward_v3F", "experiments.cu", "tools/exp_interleave2.py:124"),
+) + tuple((f"cheap_sin_{m}", "experiments.cu", "tools/exp_cheap_sin.py:82")
+          for m in ("copy", "exact", "poly", "exp", "exp2", "exp2_ldexp",
+                    "poly_bf16", "cos_poly"))
 
 
 def cpu_gpu_render(config, fields, orbit, device, label: str,
@@ -812,18 +826,21 @@ def cpu_gpu_train_step(config, field_eval, device, proposal_eval=None,
 
 
 def run_train_cli(card, method: str, flags, per_step, tmp,
-                  report=("loss_mid_fine",)):
+                  report=("loss_mid_fine",), evals=None):
     """The train CLI for TRAIN_STEPS full-width steps of `method` on the
     sphere at FRAME_RES, from zeroed launch counts: every kernel's launches
     equal per_step x TRAIN_STEPS (absent kernels: zero), every logged loss
     finite, loss_mid_fine lower over the last 10 steps than over the first
     10, the warmup's zeros before step 50, the final checkpoint; the means
-    of the `report` losses are printed.  -> (run dir, the kernels'
-    launches)."""
+    of the `report` losses are printed.  evals: (steps_per_eval_batch,
+    steps_per_eval_image) to run the eval hooks at (else the defaults, 100
+    and 500: none in the run); their renders add K1 launches, their lines
+    and panels are checked.  -> (run dir, the kernels' launches)."""
     import numpy as np
     import torch
 
     from rsn_torch.cli import train as train_cli
+    from rsn_torch.cli.run_io import load_config
     from rsn_torch.kernels import field_forward as ff
 
     argv = [method, "--data", f"sphere:res={FRAME_RES}",
@@ -831,6 +848,9 @@ def run_train_cli(card, method: str, flags, per_step, tmp,
             "--pipeline.model.compute-dtype", "bfloat16", *flags,
             "--max-num-iterations", str(TRAIN_STEPS),
             "--steps-per-log", "1", "--seed", str(SEED), "--output-dir", tmp]
+    if evals:
+        argv += ["--steps-per-eval-batch", str(evals[0]),
+                 "--steps-per-eval-image", str(evals[1])]
     buf = io.StringIO()
     ff.reset_launch_counts()
     with contextlib.redirect_stdout(buf):
@@ -838,18 +858,36 @@ def run_train_cli(card, method: str, flags, per_step, tmp,
     torch.cuda.synchronize()
     launches = dict(ff.LAUNCHES)
     text = buf.getvalue().splitlines()
-    print("\n".join(text[:3] + ["  ..."] + text[-2:]))
+    print("\n".join(text[:3] + ["  ..."] + text[-3:]))
     if rc != 0:
         raise RuntimeError(f"train CLI exited {rc}")
     want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in launches}
+    if evals:
+        # K1 on all four passes of each eval batch and of each chunk of
+        # each eval image's full render (re-renders at a larger reflect
+        # bucket included)
+        batches, images = TRAIN_STEPS // evals[0], TRAIN_STEPS // evals[1]
+        chunks = -(-FRAME_RES * FRAME_RES // CHUNK)
+        k1 = launches["field_forward_v3"]
+        renders, rest = divmod(k1 - 4 * batches, 4 * chunks)
+        print(f"  K1 in the eval hooks: {k1} launches = 4 x {batches} eval "
+              f"batches + 4 x {chunks} chunks x {renders} renders of "
+              f"{images} eval images")
+        if rest or renders < images:
+            raise RuntimeError("the eval hooks did not run K1 as expected")
+        want["field_forward_v3"] = k1
     print(f"  launches in the CLI run: {launches}")
     if launches != want:
         raise RuntimeError(f"the train path's launches are not {want}")
     run = re.search(r"run dir: (\S+)", buf.getvalue()).group(1)
     with open(os.path.join(run, "train_log.jsonl")) as fh:
-        log = [json.loads(line) for line in fh]
+        lines = [json.loads(line) for line in fh]
+    log = [e for e in lines if "total_loss" in e]
     if [e["step"] for e in log] != list(range(1, TRAIN_STEPS + 1)):
         raise RuntimeError("expected one log line per step")
+    if any("mask_fraction" in e or "reflect_overflow" in e for e in log):
+        raise RuntimeError("telemetry in the log without debug_telemetry")
+    eval_steps = check_eval_lines(run, lines, evals) if evals else []
     keys = [k for k in log[0] if k.startswith(
         ("loss", "predicted", "orientation", "interlevel", "distortion",
          "total"))]
@@ -859,12 +897,12 @@ def run_train_cli(card, method: str, flags, per_step, tmp,
                  float(np.mean([e[k] for e in log[-10:]])))
              for k in report}
     warm = all(e["orientation_loss_fine"] == 0 for e in log[:49])
+    mask = re.findall(r"mask fraction ([\d.]+)", buf.getvalue())[-1]
     print(f"  {len(keys)} loss keys finite on every step; " + "; ".join(
         f"mean {k} steps 1-10 {a:.6g}, steps {TRAIN_STEPS - 9}-"
         f"{TRAIN_STEPS} {b:.6g}" for k, (a, b) in means.items())
         + f"; normal losses zero before step 50: {warm}; mask fraction at "
-        f"the end {log[-1]['mask_fraction']:.4f}, reflect bucket "
-        f"{log[-1]['reflect_fraction']}")
+        f"the end {mask}, reflect bucket {log[-1]['reflect_fraction']}")
     early = float(np.mean([e["loss_mid_fine"] for e in log[:10]]))
     late = float(np.mean([e["loss_mid_fine"] for e in log[-10:]]))
     if not late < early:
@@ -875,11 +913,66 @@ def run_train_cli(card, method: str, flags, per_step, tmp,
     print(f"  checkpoints: {ckpts}")
     if ckpts != [f"step-{TRAIN_STEPS:09d}.pt"]:
         raise RuntimeError("expected the final checkpoint")
-    rays_s = [e["rays_per_sec"] for e in log[10:]]
-    print(f"  train throughput, steps 11-{TRAIN_STEPS}: median "
-          f"{statistics.median(rays_s):.1f} rays/s (min "
-          f"{min(rays_s):.1f}, max {max(rays_s):.1f}; {card})", flush=True)
+    rays = load_config(run).pipeline.datamanager.train_num_rays_per_batch
+    a, rate = steady_rate(log, eval_steps, rays)
+    print(f"  train throughput, steps {a + 1}-{TRAIN_STEPS}: {rate:.1f} "
+          f"rays/s (from the cumulative rays_per_sec of the lines at steps "
+          f"{a} and {TRAIN_STEPS}; over the whole run "
+          f"{log[-1]['rays_per_sec']:.1f}; {card})", flush=True)
     return run, {k: v for k, v in launches.items() if per_step.get(k)}
+
+
+def steady_rate(log, eval_steps, rays: int):
+    """rays_per_sec counts from the run's start, so the steady rate between
+    two log lines comes from their cumulative counts: from the line after
+    the warm-up steps (10) and after the last eval hook before the end, to
+    the last line.  log: the train lines of steps 1..TRAIN_STEPS -> (the
+    first line's step, rays/s)."""
+    a = max([10] + [s + 1 for s in eval_steps if s < len(log)])
+
+    def elapsed(e):
+        return e["step"] * rays / e["rays_per_sec"]
+
+    return a, (len(log) - a) * rays / (elapsed(log[-1]) - elapsed(log[a - 1]))
+
+
+def check_eval_lines(run, lines, evals):
+    """The eval hooks' lines at their cadences (rsn's keys), a fine SSIM in
+    [0, 1], and each eval image's three panels at FRAME_RES -> the steps at
+    which a hook ran."""
+    import numpy as np
+
+    batch_steps = list(range(evals[0], TRAIN_STEPS + 1, evals[0]))
+    image_steps = list(range(evals[1], TRAIN_STEPS + 1, evals[1]))
+    ev = [e for e in lines if "eval_loss" in e]
+    im = [e for e in lines if "eval_image_psnr" in e]
+    image_keys = {"step"} | {f"eval_image_{k}" for k in (
+        "fine_psnr", "fine_ssim", "coarse_psnr", "psnr")}
+    if ([e["step"] for e in ev] != batch_steps
+            or [e["step"] for e in im] != image_steps
+            or any(set(e) != {"step", "eval_loss", "eval_psnr_batch"}
+                   for e in ev)
+            or any(set(e) != image_keys for e in im)):
+        raise RuntimeError("the eval hooks' lines are not rsn's")
+    for e in ev + im:
+        if not all(np.isfinite(v) for v in e.values()):
+            raise RuntimeError(f"a non-finite eval value: {e}")
+    ssims = [e["eval_image_fine_ssim"] for e in im]
+    if not all(0.0 <= v <= 1.0 for v in ssims):
+        raise RuntimeError(f"fine SSIM outside [0, 1]: {ssims}")
+    for step in image_steps:
+        for name, width in (("img", 3), ("accumulation", 2), ("depth", 2)):
+            px = png_pixels(os.path.join(run, "eval_images",
+                                         f"{step:09d}-{name}.png"))
+            if px.shape != (FRAME_RES, FRAME_RES * width * 3):
+                raise RuntimeError(f"eval panel {name}: shape {px.shape}")
+    print(f"  eval batches at steps {batch_steps}: eval_psnr_batch "
+          + ", ".join(f"{e['eval_psnr_batch']:.4f}" for e in ev)
+          + f"; eval images at steps {image_steps}: fine psnr "
+          + ", ".join(f"{e['eval_image_fine_psnr']:.4f}" for e in im)
+          + f", fine ssim {', '.join(f'{v:.6f}' for v in ssims)}; panels "
+          f"img, accumulation, depth at {FRAME_RES} rows")
+    return sorted(set(batch_steps + image_steps))
 
 
 def check_orbit_frames(frames_dir, stats, card):
@@ -939,7 +1032,7 @@ def train_entry_point(card):
         run, launches = run_train_cli(
             card, "reflect-sampling-nerf", (),
             {"field_forward_v6": 4, "field_backward_v6": 2,
-             "field_backward_v5": 2}, tmp)
+             "field_backward_v5": 2}, tmp, evals=(20, TRAIN_STEPS))
         frames = os.path.join(tmp, "frames")
         text, _, _ = run_render_cli(run, frames, "--num-frames", "1",
                                     "--downscale-factor", "4")
@@ -1710,6 +1803,139 @@ def api_phase(field, render_mc, cam_calls, card):
               f"{k8:.4f} ms, plain {pl:.4f} ms, bound {b:.4f} ms ({by}; "
               f"median of 10; {card})", flush=True)
         r13.update(ms=k, plain_ms=pl, bound_ms=b, bound_by=by)
+    return {"kernels": results, "launches": launches}
+
+
+# ---- the tools' forward experiments (K14-K16) -------------------------------
+
+EXP_FORWARDS = ("field_forward_v3u", "field_forward_v3i",
+                "field_forward_v3L", "field_forward_v3F")
+K16_TOL = 1e-6      # K16's fp32 modes against their plain versions: the
+                    # same operations in the same order (no contraction)
+# K16's fp32 operations per element, a sine, exp or rint counted as one
+K16_OPS = {"copy": 1, "exact": 2, "poly": 12, "exp": 3, "exp2": 3,
+           "exp2_ldexp": 16, "poly_bf16": 26, "cos_poly": 14}
+
+
+def experiments_phase(field, render_mc, render_g, S, card):
+    """Phase 17 -> {"kernels": K14-K16's results, "launches": their launches
+    in the run of this slice's path (the experiments' kernels on the render
+    chunk's rows and on the tool's input; no model or CLI path calls them,
+    as in rsn)}."""
+    import math
+
+    import torch
+
+    from rsn_torch.experiments import cheap_sin, interleave, interleave2
+    from rsn_torch.kernels import field_forward as ff
+
+    phase("phase 17: K14-K16 against plain versions at main-path shapes")
+    p3 = ff.pack_params_v3(field)
+    n = render_mc.shape[0]
+    args = (p3, render_mc, render_g, S)
+    x = cheap_sin.tool_input(n, render_mc.device, seed=SEED)
+    ff.reset_launch_counts()
+    outs = {"field_forward_v3u": interleave.field_forward_v3u(*args),
+            "field_forward_v3i": interleave.field_forward_v3i(*args),
+            "field_forward_v3L": interleave2.field_forward_v3L(*args),
+            "field_forward_v3F": interleave2.field_forward_v3L(*args, True)}
+    for mode in cheap_sin.MODES:
+        cheap_sin.run(mode, x)
+    torch.cuda.synchronize()
+    names = EXP_FORWARDS + tuple(f"cheap_sin_{m}" for m in cheap_sin.MODES)
+    launches = {k: ff.LAUNCHES[k] for k in names}
+    print(f"  launches in the path's run (the experiments' kernels): "
+          f"{launches}; the CLI runs launch none of them (no caller outside "
+          f"the tools, as in rsn)")
+    if min(launches.values()) <= 0:
+        raise RuntimeError("a kernel of the experiments never launched")
+    results = {k: {"err": 0.0} for k in names}
+
+    # K14 / K15 on the render chunk's rows
+    if not torch.equal(outs["field_forward_v3i"], outs["field_forward_v3u"]):
+        raise RuntimeError("v3i differs from v3u")
+    if not torch.equal(outs["field_forward_v3F"], outs["field_forward_v3L"]):
+        raise RuntimeError("v3F differs from v3L")
+    print(f"  v3i == v3u and v3F == v3L, bit for bit ({n} rows)")
+    k1 = ff.field_forward_v3(ff.pack_params_v3f(field), render_mc, render_g,
+                             S)
+    plains = {"field_forward_v3u": interleave.field_forward_v3u_plain,
+              "field_forward_v3L": interleave2.field_forward_v3L_plain}
+    for name in ("field_forward_v3u", "field_forward_v3L"):
+        got = outs[name]
+        ref = plains[name](*args)
+        torch.cuda.synchronize()
+        err = compare(f"{name} pass 2", got, ref, list(range(128)))
+        del ref
+        pair = ("field_forward_v3i" if name.endswith("u")
+                else "field_forward_v3F")
+        results[name]["err"] = results[pair]["err"] = err
+        compare(f"{name} against K1, columns 0:14", got, k1, LIVE_V3)
+    del outs, k1
+
+    # times and bounds
+    b, by = bound(interleave.FLOPS_PER_ROW * n,
+                  nbytes(render_mc, render_g, *p3) + n * interleave.V3_OUT * 2)
+    ms = {"K1": cuda_ms(lambda: ff.field_forward_v3(
+        ff.pack_params_v3f(field), render_mc, render_g, S))}
+    for name, fn, flag in (
+            ("field_forward_v3u", interleave.field_forward_v3u, ()),
+            ("field_forward_v3i", interleave.field_forward_v3i, ()),
+            ("field_forward_v3L", interleave2.field_forward_v3L, (False,)),
+            ("field_forward_v3F", interleave2.field_forward_v3L, (True,))):
+        ms[name] = cuda_ms(lambda: fn(*args, *flag))
+    for name in plains:
+        pl = cuda_ms(lambda: plains[name](*args))
+        pair = ("field_forward_v3i" if name.endswith("u")
+                else "field_forward_v3F")
+        for k in (name, pair):
+            results[k].update(ms=ms[k], plain_ms=pl, bound_ms=b, bound_by=by)
+    print(f"  pass 2 ({n} rows): " + ", ".join(
+        f"{k.replace('field_forward_', '')} {v:.4f} ms" for k, v in ms.items())
+        + f" (K1 on the same rows, the same call); plain v3u "
+        f"{results['field_forward_v3u']['plain_ms']:.4f} ms, plain v3L "
+        f"{results['field_forward_v3L']['plain_ms']:.4f} ms; bound {b:.4f} "
+        f"ms ({by}; median of 10; {card})", flush=True)
+
+    # K16 on the tool's distribution
+    two_pi = 2.0 * math.pi
+    lib_args = {"sin": x * two_pi, "exp": -0.5 * x.abs(),
+                "exp2": -0.72134752 * x.abs()}
+    library = {"copy": lambda: x * 2.0,
+               "exact": lambda: torch.sin(lib_args["sin"]),
+               "poly": lambda: torch.sin(lib_args["sin"]),
+               "poly_bf16": lambda: torch.sin(lib_args["sin"]),
+               "cos_poly": lambda: torch.cos(lib_args["sin"]),
+               "exp": lambda: torch.exp(lib_args["exp"]),
+               "exp2": lambda: torch.exp2(lib_args["exp2"]),
+               "exp2_ldexp": lambda: torch.exp2(lib_args["exp2"])}
+    for mode in cheap_sin.MODES:
+        name = f"cheap_sin_{mode}"
+        got = cheap_sin.run(mode, x)
+        ref = cheap_sin.run_plain(mode, x)
+        torch.cuda.synchronize()
+        diff = (got - ref).abs()
+        err = float(diff.max())
+        if mode == "copy":
+            ok, limit = torch.equal(got, ref), "bit for bit"
+        elif mode == "poly_bf16":
+            ok = bool(torch.all(diff <= cheap_sin.bf16_ulp(ref)))
+            limit = "1 bf16 ulp"
+        else:
+            ok, limit = err <= K16_TOL, f"{K16_TOL}"
+        del got, ref, diff
+        k = cuda_ms(lambda: cheap_sin.run(mode, x))
+        pl = cuda_ms(lambda: cheap_sin.run_plain(mode, x))
+        lib = cuda_ms(library[mode])
+        b16, by16 = bound(0.0, 2 * nbytes(x), K16_OPS[mode] * x.numel())
+        results[name].update(err=err, ms=k, plain_ms=pl, bound_ms=b16,
+                             bound_by=by16, library_ms=lib)
+        print(f"  K16 {mode}: max |err| {err:.6g} (limit {limit}), kernel "
+              f"{k:.4f} ms, plain {pl:.4f} ms, one PyTorch call {lib:.4f} "
+              f"ms, bound {b16:.4f} ms ({by16}; {x.shape[0]} x 128 f32; "
+              f"median of 10; {card})", flush=True)
+        if not ok:
+            raise RuntimeError(f"K16 {mode} disagrees with its plain version")
     return {"kernels": results, "launches": launches}
 
 

@@ -8,9 +8,11 @@ around the scene from a run dir to PNG frames.
 Renders on the CUDA card, and raises when torch sees none; a Python
 caller may ask for the CPU with main(argv, device="cpu").
 
-Ported: the orbit mode on runs whose dataparser is `synthetic`.  The
-split-panel mode, the path / interpolate / spiral modes and the other
-dataparsers come with rsn/data/blender.py (ROADMAP Queue 1 steps 9, 12).
+Ported: the orbit mode on runs whose dataparser is `synthetic`, and the
+eval panels (render_panels, the turbo colormaps) that the trainer's eval
+hook writes.  The split-panel mode, the path / interpolate / spiral modes
+and the other dataparsers come with rsn/data/blender.py (ROADMAP Queue 1
+steps 5, 6).
 """
 from __future__ import annotations
 
@@ -25,6 +27,50 @@ import torch
 
 from rsn_torch.data.cameras import Cameras
 from rsn_torch.data.synthetic import _look_at_pose
+from rsn_torch.utils._turbo_table import TURBO
+
+_TURBO = np.asarray(TURBO, np.float64)  # matplotlib's lookup table
+
+
+def apply_colormap(x: np.ndarray) -> np.ndarray:
+    """Scalar (H, W, 1) -> turbo RGB (H, W, 3) float32 (nerfstudio's
+    default), as matplotlib.colormaps["turbo"] maps it: v clipped to
+    [0, 1] picks entry min(int(v * 256), 255), the product taken in v's
+    type; NaN maps to black."""
+    v = np.clip(x[..., 0], 0.0, 1.0)
+    bad = np.isnan(v)
+    scaled = np.where(bad, 0, v * v.dtype.type(len(_TURBO)))
+    idx = np.minimum(scaled.astype(np.int64), len(_TURBO) - 1)
+    rgb = _TURBO[idx]
+    rgb[bad] = 0.0
+    return rgb.astype(np.float32)
+
+
+def apply_depth_colormap(depth: np.ndarray, accumulation: np.ndarray,
+                         near: float, far: float) -> np.ndarray:
+    """Depth -> turbo, normalized by the collider near / far planes and
+    modulated by the accumulation (reference model.py:444-455)."""
+    v = np.clip((depth - near) / max(far - near, 1e-6), 0.0, 1.0)
+    rgb = apply_colormap(v)
+    return rgb * accumulation + (1.0 - accumulation)
+
+
+def render_panels(out: dict, gt: np.ndarray, near: float, far: float):
+    """The reference's three eval panels (model.py:457-459): img = gt |
+    coarse | fine rgb, accumulation = coarse | fine, depth = coarse | fine,
+    each (H, k W, 3)."""
+    from rsn_torch.models.model import final_rgb
+
+    rgb = np.concatenate([gt, np.clip(out["mid_rgb_coarse"], 0, 1),
+                          np.clip(final_rgb(out), 0, 1)], axis=1)
+    acc = np.concatenate([apply_colormap(out["accumulation_coarse"]),
+                          apply_colormap(out["accumulation_fine"])], axis=1)
+    depth = np.concatenate([
+        apply_depth_colormap(out["depth_coarse"], out["accumulation_coarse"],
+                             near, far),
+        apply_depth_colormap(out["depth_fine"], out["accumulation_fine"],
+                             near, far)], axis=1)
+    return {"img": rgb, "accumulation": acc, "depth": depth}
 
 
 def save_png(path: str, img: np.ndarray) -> None:

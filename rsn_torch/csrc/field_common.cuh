@@ -1,14 +1,17 @@
 // Device routines shared by the field kernels (field_forward.cu: K1, K2,
-// K11, K12; field_train.cu: K3, K4, K5, K7, K8, K10, K13).  Every kernel
-// computes its trunk, and all but K11 / K12 (rsn's exact-sine IPE, heads
-// product) their IPE, density column and V3 tail, through these routines,
-// so the values they have in common come from one piece of code: K2's
-// density column and K3's column 12 equal K1's bit for bit.
+// K11, K12; field_train.cu: K3, K4, K5, K7, K8, K10, K13; experiments.cu:
+// K14, K15).  Every kernel computes its trunk and its IPE (K1's polynomial
+// one, or K11's exact one) through these routines, and K1, K2, K3 their
+// density column and V3 tail, so the values they have in common come from
+// one piece of code: K2's density column and K3's column 12 equal K1's bit
+// for bit.
 //
 // The routines run on THREADS threads (threadIdx.x < THREADS) and meet at
 // block_sync(), named barrier 1 over THREADS threads: in a block of
 // THREADS threads that is __syncthreads(), and K10's block adds producer
-// warps (threadIdx.x >= THREADS) that never take it.
+// warps (threadIdx.x >= THREADS) that never take it.  The *_rows variants
+// run on a group of warps that owns a row sub-tile and meets at its own
+// barrier (K14's and K15's two warp groups).
 //
 // Each .cu includes this header and is compiled on its own (one nvcc per
 // source, run in parallel); everything here sits in an anonymous
@@ -149,15 +152,22 @@ __device__ __forceinline__ void ipe_phase(const float* m,
   *u = __fsub_rn(uu, rintf(uu));
 }
 
-// IPE of the block's rows into X (TM x ENC bf16):
-// cols [0, 48) damp * sin(2 pi f_k mean_d), [48, 96) the cos half, [96, 99)
-// mean, [99, 128) zero.  Rows at or past n are zero.  Thread t0 + i of a
-// group of nt threads computes elements i, i + nt, ...; each element's
-// value does not depend on which thread computes it.
-__device__ void ipe_tile(const float* __restrict__ mc,
+// IPE of `rows` rows from row0 into X (rows x ENC bf16): cols [0, 48)
+// damp * sin(2 pi f_k mean_d), [48, 96) the cos half, [96, 99) mean,
+// [99, 128) zero.  Rows at or past n are zero.  Thread t0 + i of a group
+// of nt threads computes elements i, i + nt, ...; each element's value
+// does not depend on which thread computes it.
+//   EXACT false (K1 and the kernels built on it): the wrapped phase and the
+//     polynomial sine, damp = exp2(-var / (2 ln 2)).
+//   EXACT true (K11, K14; rsn's _ipe_in_kernel): sinf of the fp32 phase
+//     2 pi f_k mean_d (+ f32(pi / 2) on the cos half, not a cos) and
+//     expf(-var / 2), with full range reduction (no fast-math intrinsics):
+//     phases reach 2 pi 2^16 |mean| ~ 8e5 at the top octave.
+template <bool EXACT>
+__device__ void ipe_rows(const float* __restrict__ mc,
                          const float* __restrict__ consts, long long row0,
-                         long long n, bf16* X, int t0, int nt) {
-  for (int e = t0; e < TM * ENC; e += nt) {
+                         long long n, bf16* X, int t0, int nt, int rows) {
+  for (int e = t0; e < rows * ENC; e += nt) {
     const int r = e / ENC, c = e % ENC;
     const long long row = row0 + r;
     float v = 0.f;
@@ -165,6 +175,12 @@ __device__ void ipe_tile(const float* __restrict__ mc,
       const float* m = mc + row * IN_COLS;
       if (c >= 96) {
         v = m[c - 96];
+      } else if (EXACT) {
+        const int cc = c % 48, d = cc / 16, k = cc % 16;
+        float pre = __fmul_rn(m[d], consts[k]);
+        if (c >= 48) pre = __fadd_rn(pre, HALF_PI);
+        const float var = __fmul_rn(m[3 + d], consts[NFREQ + k]);
+        v = __fmul_rn(expf(__fmul_rn(-0.5f, var)), sinf(pre));
       } else {
         float damp, u;
         ipe_phase(m, consts, c, &damp, &u);
@@ -177,68 +193,103 @@ __device__ void ipe_tile(const float* __restrict__ mc,
 
 __device__ void ipe_tile(const float* __restrict__ mc,
                          const float* __restrict__ consts, long long row0,
+                         long long n, bf16* X, int t0, int nt) {
+  ipe_rows<false>(mc, consts, row0, n, X, t0, nt, TM);
+}
+
+__device__ void ipe_tile(const float* __restrict__ mc,
+                         const float* __restrict__ consts, long long row0,
                          long long n, bf16* X) {
   ipe_tile(mc, consts, row0, n, X, threadIdx.x, THREADS);
 }
 
-// One trunk layer on the block's 64 rows:
-//   Out = bf16(relu([A0 | A1] @ W + b)),
-// A0 (k0 columns, stride lda0) and A1 (k1 columns) in shared memory,
-// W (k0 + k1, 256) bf16 row-major in global memory.  Warp w computes
-// output columns [32w, 32w + 32).
-__device__ void dense_relu_layer(const bf16* A0, int lda0, int k0,
-                                 const bf16* A1, int lda1, int k1,
-                                 const bf16* __restrict__ W,
-                                 const float* __restrict__ bias, bf16* Out,
-                                 float* stage) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col0 = warp * 32;
-  FragC acc[4][2];
+// No hand-off around a warp's products (every kernel but K15's, whose two
+// warp groups take turns on the tensor cores).
+struct NoTurn {
+  __device__ void begin() {}
+  __device__ void end() {}
+};
+
+// One warp's part of a product on a tile of 16 RT rows:
+//   acc = [A0 | A1] @ W[:, col0 : col0 + 16 CT],
+// A0 (k0 columns, stride lda0) and A1 (k1 columns) in shared memory, W
+// (k0 + k1 rows, stride ldw) bf16 row-major in global memory (L2-resident),
+// each weight fragment read one k-step ahead of its use.  Then
+// epi(r, c, v) for every element: r in [0, 16 RT), c the absolute column,
+// v the fp32 sum; the fragments reach it through the warp's stage `st`.
+// turn.begin() comes before the first product, turn.end() after the last.
+// An element's sum does not depend on RT, CT or the warp computing it.
+template <int RT, int CT, typename Turn, typename Epi>
+__device__ void warp_product(const bf16* A0, int lda0, int k0,
+                             const bf16* A1, int lda1, int k1,
+                             const bf16* __restrict__ W, int ldw, int col0,
+                             float* st, Turn& turn, const Epi& epi) {
+  const int lane = threadIdx.x & 31;
+  FragC acc[RT][CT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    wmma::fill_fragment(acc[i][0], 0.f);
-    wmma::fill_fragment(acc[i][1], 0.f);
-  }
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) wmma::fill_fragment(acc[i][j], 0.f);
   const int ksteps = (k0 + k1) / 16;
-  FragB b[2], bn[2];
-  wmma::load_matrix_sync(b[0], W + col0, WIDTH);
-  wmma::load_matrix_sync(b[1], W + col0 + 16, WIDTH);
+  FragB b[CT], bn[CT];
+#pragma unroll
+  for (int j = 0; j < CT; ++j)
+    wmma::load_matrix_sync(b[j], W + col0 + j * 16, ldw);
+  turn.begin();
   for (int ks = 0; ks < ksteps; ++ks) {
     if (ks + 1 < ksteps) {  // next k-step's weights, ahead of their use
-      const bf16* wn = W + (ks + 1) * 16 * WIDTH + col0;
-      wmma::load_matrix_sync(bn[0], wn, WIDTH);
-      wmma::load_matrix_sync(bn[1], wn + 16, WIDTH);
+      const bf16* wn = W + (ks + 1) * 16 * ldw + col0;
+#pragma unroll
+      for (int j = 0; j < CT; ++j)
+        wmma::load_matrix_sync(bn[j], wn + j * 16, ldw);
     }
     const int kc = ks * 16;
     const bf16* A = kc < k0 ? A0 + kc : A1 + (kc - k0);
     const int lda = kc < k0 ? lda0 : lda1;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RT; ++i) {
       FragA a;
       wmma::load_matrix_sync(a, A + i * 16 * lda, lda);
-      wmma::mma_sync(acc[i][0], a, b[0], acc[i][0]);
-      wmma::mma_sync(acc[i][1], a, b[1], acc[i][1]);
+#pragma unroll
+      for (int j = 0; j < CT; ++j)
+        wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
     }
     if (ks + 1 < ksteps) {
-      b[0] = bn[0];
-      b[1] = bn[1];
+#pragma unroll
+      for (int j = 0; j < CT; ++j) b[j] = bn[j];
     }
   }
-  float* st = stage + warp * 16 * LDS;
+  turn.end();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RT; ++i) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < CT; ++j) {
       wmma::store_matrix_sync(st, acc[i][j], LDS, wmma::mem_row_major);
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
-        const int r = e >> 4, c = e & 15, col = col0 + j * 16 + c;
-        const float v = __fadd_rn(st[r * LDS + c], bias[col]);
-        Out[(i * 16 + r) * LDH + col] = __float2bfloat16_rn(relu_keep_nan(v));
+        const int r = e >> 4, c = e & 15;
+        epi(i * 16 + r, col0 + j * 16 + c, st[r * LDS + c]);
       }
       __syncwarp();
     }
   }
+}
+
+// One trunk layer on a tile of 16 RT rows, by the NW = 16 / CT warps of a
+// group: Out = bf16(relu([A0 | A1] @ W + b)), W (k0 + k1, 256); warp w of
+// the group computes output columns [16 CT w, 16 CT (w + 1)).
+template <int RT, int CT, typename Turn>
+__device__ void dense_relu_rows(const bf16* A0, int lda0, int k0,
+                                const bf16* A1, int lda1, int k1,
+                                const bf16* __restrict__ W,
+                                const float* __restrict__ bias, bf16* Out,
+                                int warp, float* st, Turn& turn) {
+  warp_product<RT, CT>(
+      A0, lda0, k0, A1, lda1, k1, W, WIDTH, warp * 16 * CT, st, turn,
+      [&](int r, int c, float v) {
+        Out[r * LDH + c] =
+            __float2bfloat16_rn(relu_keep_nan(__fadd_rn(v, bias[c])));
+      });
 }
 
 // Nothing to do after a trunk layer (K1, K2).
@@ -246,33 +297,51 @@ struct NoLayerHook {
   __device__ void operator()(int, const bf16*) const {}
 };
 
-// The trunk on X; returns the buffer holding the last layer's output.
-// After each layer (and a block_sync) `hook(i, out)` sees the layer's
-// output tile; it must not write it.  Ends with block_sync(): the result
-// is visible to every thread of the routines.
-template <typename Hook>
-__device__ bf16* trunk(const TrunkParams& p, const bf16* X, bf16* H0,
-                       bf16* H1, float* stage, const Hook& hook) {
-  dense_relu_layer(X, LDX, ENC, nullptr, 0, 0, p.w[0], p.b[0], H0, stage);
-  block_sync();
+// block_sync() as a functor (the trunk's meeting point by default).
+struct BlockSync {
+  __device__ void operator()() const { block_sync(); }
+};
+
+// The trunk on the X tile of 16 RT rows, by the warps of a group (warp:
+// its index in the group, st: its stage) that meet at sync(); returns the
+// buffer holding the last layer's output.  After each layer (and a sync)
+// `hook(i, out)` sees the layer's output tile; it must not write it.  Ends
+// with sync(): the result is visible to every thread of the group.
+template <int RT, int CT, typename Sync, typename Turn, typename Hook>
+__device__ bf16* trunk_rows(const TrunkParams& p, const bf16* X, bf16* H0,
+                            bf16* H1, int warp, float* st, const Sync& sync,
+                            Turn& turn, const Hook& hook) {
+  dense_relu_rows<RT, CT>(X, LDX, ENC, nullptr, 0, 0, p.w[0], p.b[0], H0,
+                          warp, st, turn);
+  sync();
   hook(0, H0);
   bf16* hin = H0;
   bf16* hout = H1;
   for (int i = 1; i < LAYERS; ++i) {
     if (i == SKIP_AT)
-      dense_relu_layer(X, LDX, ENC, hin, LDH, WIDTH, p.w[i], p.b[i], hout,
-                       stage);
+      dense_relu_rows<RT, CT>(X, LDX, ENC, hin, LDH, WIDTH, p.w[i], p.b[i],
+                              hout, warp, st, turn);
     else
-      dense_relu_layer(nullptr, 0, 0, hin, LDH, WIDTH, p.w[i], p.b[i], hout,
-                       stage);
-    block_sync();
+      dense_relu_rows<RT, CT>(nullptr, 0, 0, hin, LDH, WIDTH, p.w[i],
+                              p.b[i], hout, warp, st, turn);
+    sync();
     hook(i, hout);
     bf16* t = hin;
     hin = hout;
     hout = t;
   }
-  block_sync();
+  sync();
   return hin;
+}
+
+// The trunk on the block's 64 rows by its 8 warps, meeting at block_sync().
+template <typename Hook>
+__device__ bf16* trunk(const TrunkParams& p, const bf16* X, bf16* H0,
+                       bf16* H1, float* stage, const Hook& hook) {
+  const int warp = threadIdx.x >> 5;
+  NoTurn turn;
+  return trunk_rows<4, 2>(p, X, H0, H1, warp, stage + warp * 16 * LDS,
+                          BlockSync(), turn, hook);
 }
 
 // Density pre-activation of row threadIdx.x / 4: dot(h_row, w[:, 0]) + b.

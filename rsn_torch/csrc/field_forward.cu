@@ -50,10 +50,8 @@
 //     equals K1's column 12 bit for bit.
 //   - K11's IPE is not K1's: rsn's v2 front end takes jnp.sin of the fp32
 //     phase 2 pi f_k mean_d (+ f32(pi / 2) on the cos half, not a cos) and
-//     jnp.exp(-var / 2), not K1's wrapped polynomial.  K11 forms the phase
-//     with __fmul_rn / __fadd_rn (no contraction) and takes sinf / expf
-//     with full range reduction (no fast-math intrinsics): phases reach
-//     2 pi 2^16 |mean| ~ 8e5 at the top octave.  Its heads epilogue stages
+//     jnp.exp(-var / 2), not K1's wrapped polynomial (ipe_rows<true> in
+//     field_common.cuh, which K14 shares).  Its heads epilogue stages
 //     the (64, 384) bf16 output tile in the freed H0 + X buffers and stores
 //     whole rows with 16-byte stores.
 // The device routines live in field_common.cuh, shared with the training
@@ -130,32 +128,6 @@ struct HeadsParams {
                       // roughness | normals | 0]
   const float* bh;    // (384,)
 };
-
-// rsn's v2 IPE (_ipe_in_kernel) of the block's rows into X: cols [0, 96)
-// exp(-var / 2) * sin(pre), pre = 2 pi f_k mean_d (+ pi / 2 on [48, 96)),
-// var = f_k^2 cov_d; [96, 99) mean; [99, 128) zero; rows at or past n zero.
-__device__ void ipe_tile_exact(const float* __restrict__ mc,
-                               const float* __restrict__ consts,
-                               long long row0, long long n, bf16* X) {
-  for (int e = threadIdx.x; e < TM * ENC; e += THREADS) {
-    const int r = e / ENC, c = e % ENC;
-    const long long row = row0 + r;
-    float v = 0.f;
-    if (row < n && c < IPE_DIM) {
-      const float* m = mc + row * IN_COLS;
-      if (c >= 96) {
-        v = m[c - 96];
-      } else {
-        const int cc = c % 48, d = cc / 16, k = cc % 16;
-        float pre = __fmul_rn(m[d], consts[k]);
-        if (c >= 48) pre = __fadd_rn(pre, HALF_PI);
-        const float var = __fmul_rn(m[3 + d], consts[NFREQ + k]);
-        v = __fmul_rn(expf(__fmul_rn(-0.5f, var)), sinf(pre));
-      }
-    }
-    X[r * LDX + c] = __float2bfloat16_rn(v);
-  }
-}
 
 // K12's (N, 128) bf16 encoding rows into X, 16 bytes per thread and step;
 // rows at or past n zero.
@@ -239,7 +211,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   const long long row0 = (long long)blockIdx.x * TM;
 
   if (IPE)
-    ipe_tile_exact(mc, consts, row0, n, X);
+    ipe_rows<true>(mc, consts, row0, n, X, threadIdx.x, THREADS, TM);
   else
     load_enc_tile(enc, row0, n, X);
   block_sync();

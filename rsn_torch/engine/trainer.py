@@ -12,11 +12,21 @@ datamanager.camera_optimizer "SO3xR3" one pose delta per training camera
 moves the sampled rays before the model (rsn_torch.models.camera_opt) and
 trains with Adam (the "camera_opt" group) on the photometric losses and
 its regularizer alone, while the field sees every loss: two backward
-passes over one graph, as rsn takes two VJPs.  A mesh of several devices
-and the eval hooks (steps_per_eval_batch / steps_per_eval_image) are
-later steps of the port (ROADMAP.md).
-steps_per_dispatch is read as 1: one step per loop iteration (a CUDA
-graph of several steps is later work).
+passes over one graph, as rsn takes two VJPs.
+
+The eval hooks run at rsn's cadences, on the eval split ("val" for
+blender, "test" otherwise, the train split where the eval split has no
+files): every steps_per_eval_batch steps the eval-mode loss and PSNR of
+eval_num_rays_per_batch pixels drawn from a generator seeded with
+seed + 1 (log line {"eval_loss", "eval_psnr_batch"}); every
+steps_per_eval_image steps one eval camera, in turn, rendered whole:
+fine PSNR and SSIM, the coarse PSNR (not with the proposal), the panels
+in eval_images/ (log line {"eval_image_<k>"}).  A log line of the loop
+counts rays_per_sec from the start of train() and carries the reflect
+bucket after that step's controller decision; mask_fraction and
+reflect_overflow only with debug_telemetry.  A mesh of several devices is
+a later step of the port (ROADMAP.md).  steps_per_dispatch is read as 1:
+one step per loop iteration (a CUDA graph of several steps is later work).
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ from rsn_torch.data.cameras import Cameras, generate_image_rays, generate_rays
 from rsn_torch.data.synthetic import load_dataset
 from rsn_torch.engine import checkpoints as ckpt_lib
 from rsn_torch.engine.optimizers import build_field_optimizer, build_optimizer
+from rsn_torch.metrics import psnr, ssim
 from rsn_torch.models import camera_opt
 from rsn_torch.models import model as model_lib
 from rsn_torch.models.field import Field
@@ -185,6 +196,26 @@ def loss_coefficients(mcfg, step: int) -> Dict[str, float]:
     return coeffs
 
 
+@torch.no_grad()
+def eval_batch_metrics(field: Field, bundle: RayBundle, gt: torch.Tensor,
+                       config: TrainerConfig, step: int,
+                       proposal: Optional[ProposalField] = None
+                       ) -> Dict[str, float]:
+    """rsn's eval-batch step (make_eval_batch_step) on a drawn pixel batch:
+    the eval-mode outputs, the loss dict with `step`'s coefficients ->
+    {"eval_loss": its sum, "eval_psnr_batch": the PSNR of mid_rgb_fine}."""
+    mcfg = config.pipeline.model
+    bundle = model_lib.apply_collider(bundle, mcfg)
+    outputs = model_lib.get_outputs(field, bundle, mcfg, training=False,
+                                    proposal=proposal)
+    loss_dict = model_lib.get_loss_dict(outputs, gt,
+                                        loss_coefficients(mcfg, step))
+    mse = torch.mean((outputs["mid_rgb_fine"] - gt[..., :3]) ** 2)
+    return {"eval_loss": float(sum(loss_dict.values())),
+            "eval_psnr_batch": float(-10.0 * torch.log10(
+                torch.clamp_min(mse, 1e-12)))}
+
+
 def proposal_anneal(mcfg, step: int) -> Optional[float]:
     """mip-NeRF-360's weight-anneal exponent at `step`,
     s f / ((s - 1) f + 1) with f = clip(step / N, 0, 1), in float32 as rsn
@@ -245,8 +276,9 @@ def _check_slice(config: TrainerConfig) -> None:
 
 class Trainer:
     """Run dir, config.json and train_log.jsonl; one training step per
-    loop iteration; the adaptive reflect-fraction controller; checkpoints
-    every steps_per_save steps and at the end; restore."""
+    loop iteration; the adaptive reflect-fraction controller; the eval
+    hooks; checkpoints every steps_per_save steps and at the end;
+    restore."""
 
     def __init__(self, config: TrainerConfig, run_dir: Optional[str] = None,
                  device="cuda"):
@@ -256,6 +288,13 @@ class Trainer:
         dm = config.pipeline.datamanager
         self.train_ds = load_dataset(dm.dataparser, dm.data or "", "train",
                                      dm.downscale_factor, dm.scale_factor)
+        try:
+            eval_split = "val" if dm.dataparser == "blender" else "test"
+            self.eval_ds = load_dataset(dm.dataparser, dm.data or "",
+                                        eval_split, dm.downscale_factor,
+                                        dm.scale_factor)
+        except FileNotFoundError:
+            self.eval_ds = self.train_ds
         if run_dir is None:
             ts = time.strftime("%Y-%m-%d_%H%M%S", time.localtime())
             run_dir = os.path.join(config.output_dir, config.experiment_name,
@@ -285,8 +324,14 @@ class Trainer:
                 [self.camera], config.optimizers["camera_opt"])
         self.images = torch.as_tensor(self.train_ds.images).to(self.device)
         self.cameras = self.train_ds.cameras.to(self.device)
+        self.eval_images = torch.as_tensor(self.eval_ds.images).to(self.device)
+        self.eval_cameras = self.eval_ds.cameras.to(self.device)
         self.generator = torch.Generator(self.device).manual_seed(
             config.seed)
+        self.eval_generator = torch.Generator(self.device).manual_seed(
+            config.seed + 1)
+        self._eval_image_cursor = 0
+        self._eval_reflect_memo: Dict = {}
         self.step = 0
         self._reflect_frac = config.pipeline.model.reflect_ray_fraction
         self._reflect_down_votes = 0
@@ -385,7 +430,9 @@ class Trainer:
             self.ckpt_dir, self.step, self.field, self.optimizer,
             self.scheduler, {"reflect_fraction": self._reflect_frac,
                              "reflect_down_votes": self._reflect_down_votes,
-                             "generator": self.generator.get_state()},
+                             "generator": self.generator.get_state(),
+                             "eval_generator":
+                                 self.eval_generator.get_state()},
             proposal=self.proposal, proposal_optimizer=self.prop_optimizer,
             proposal_scheduler=self.prop_scheduler, camera=self.camera,
             camera_optimizer=self.cam_optimizer,
@@ -428,6 +475,53 @@ class Trainer:
         self._reflect_down_votes = int(trainer.get("reflect_down_votes", 0))
         if "generator" in trainer:
             self.generator.set_state(trainer["generator"])
+        if "eval_generator" in trainer:
+            self.eval_generator.set_state(trainer["eval_generator"])
+
+    # ---- the eval hooks (rsn's steps_per_eval_batch / _image) ----
+
+    def eval_batch(self) -> Dict[str, float]:
+        """The eval-batch hook: eval_num_rays_per_batch pixels of the eval
+        split -> {"eval_loss", "eval_psnr_batch"} (eval_batch_metrics)."""
+        bundle, gt = sample_pixel_batch(
+            self.eval_images, self.eval_cameras,
+            self.config.pipeline.datamanager.eval_num_rays_per_batch,
+            self.eval_generator)
+        return eval_batch_metrics(self.field, bundle, gt, self.config,
+                                  self.step, self.proposal)
+
+    def _eval_image(self, step: int) -> Dict[str, float]:
+        """The eval-image hook: the next eval camera in turn, rendered
+        whole -> {fine_psnr, fine_ssim[, coarse_psnr], psnr}; its panels go
+        to eval_images/{step:09d}-{name}.png."""
+        from rsn_torch.cli.render import render_panels, save_png
+
+        idx = self._eval_image_cursor % self.eval_ds.cameras.num_cameras
+        self._eval_image_cursor += 1
+        out = render_image(self.field, self.eval_cameras, idx, self.config,
+                           rays_per_chunk=preferred_eval_chunk(self.config,
+                                                               self.device),
+                           reflect_memo=self._eval_reflect_memo,
+                           proposal=self.proposal)
+        gt = self.eval_ds.images[idx]
+        mcfg = self.config.pipeline.model
+        fine = torch.as_tensor(np.clip(model_lib.final_rgb(out), 0, 1),
+                               device=self.device)
+        gt_t = torch.as_tensor(gt, device=self.device)
+        m = {"fine_psnr": float(psnr(fine, gt_t)),
+             "fine_ssim": float(ssim(fine, gt_t))}
+        if not mcfg.use_proposal:  # no coarse rgb head with the proposal
+            coarse = torch.as_tensor(np.clip(out["mid_rgb_coarse"], 0, 1),
+                                     device=self.device)
+            m["coarse_psnr"] = float(psnr(coarse, gt_t))
+        m["psnr"] = m["fine_psnr"]
+        img_dir = os.path.join(self.run_dir, "eval_images")
+        os.makedirs(img_dir, exist_ok=True)
+        panels = render_panels(out, gt, mcfg.collider_near_plane,
+                               mcfg.collider_far_plane)
+        for name, img in panels.items():
+            save_png(os.path.join(img_dir, f"{step:09d}-{name}.png"), img)
+        return m
 
     # ---- the loop ----
 
@@ -440,9 +534,12 @@ class Trainer:
             torch.cuda.synchronize(self.device)
 
     def train(self, max_steps: Optional[int] = None) -> Dict[str, float]:
-        """Train to max_steps (default max_num_iterations); each log line
-        has the step, the losses, the mask fraction, the reflect bucket
-        and the rays/s since the previous log line."""
+        """Train to max_steps (default max_num_iterations), with rsn's log
+        lines: at each log step {"rays_per_sec" (from the start of this
+        call), losses, total_loss, reflect_fraction (after the step's
+        controller decision)[, mask_fraction, reflect_overflow with
+        debug_telemetry]}, then the eval hooks' lines at their cadences.
+        -> the last logged line's metrics."""
         cfg = self.config
         max_steps = max_steps or cfg.max_num_iterations
         num_rays = cfg.pipeline.datamanager.train_num_rays_per_batch
@@ -457,18 +554,23 @@ class Trainer:
                          and hit(self._adapt_cadence))
             log_now = hit(cfg.steps_per_log) or first
             if cfg.debug_nans or adapt_now or log_now:
-                values = {k: float(v) for k, v in metrics.items()}
+                # sorted, as rsn's device_get of the metrics pytree
+                values = {k: float(metrics[k]) for k in sorted(metrics)}
                 if cfg.debug_nans and not math.isfinite(values["total_loss"]):
                     raise FloatingPointError(
                         f"step {self.step}: non-finite loss {values}")
+            if adapt_now:  # fixed cadence, never the first log
+                self._maybe_adapt_reflect_fraction(values)
             if log_now:
                 first = False
                 self._sync()
-                t1 = time.perf_counter()
-                rays_s = (self.step - step0) * num_rays / (t1 - t0)
-                line = dict(values, reflect_fraction=self._reflect_frac,
-                            rays_per_sec=rays_s)
-                self._log(self.step, line)
+                rays_s = ((self.step - step0) * num_rays
+                          / (time.perf_counter() - t0))
+                logged = dict(values, reflect_fraction=self._reflect_frac)
+                if not cfg.debug_telemetry:
+                    logged.pop("mask_fraction")
+                    logged.pop("reflect_overflow")
+                self._log(self.step, {"rays_per_sec": rays_s, **logged})
                 losses = " ".join(f"{k}={values[k]:.6g}"
                                   for k in sorted(values)
                                   if k.startswith(("loss", "predicted",
@@ -480,10 +582,15 @@ class Trainer:
                       f"{values['mask_fraction']:.4f}, reflect bucket "
                       f"{self._reflect_frac:g}, {rays_s:.1f} rays/s",
                       flush=True)
-                last = line
-                t0, step0 = time.perf_counter(), self.step
-            if adapt_now:  # fixed cadence, never the first log
-                self._maybe_adapt_reflect_fraction(values)
+                last = logged
+            if hit(cfg.steps_per_eval_batch):
+                self._log(self.step, self.eval_batch())
+            if hit(cfg.steps_per_eval_image):
+                m = self._eval_image(self.step)
+                self._log(self.step,
+                          {f"eval_image_{k}": v for k, v in m.items()})
+                print(f"step {self.step}: eval image psnr={m['psnr']:.2f}",
+                      flush=True)
             if hit(cfg.steps_per_save) or self.step == max_steps:
                 self.save()
         return last

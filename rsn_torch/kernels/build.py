@@ -24,7 +24,8 @@ from typing import Dict, Tuple
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("field_forward.cu", "field_train.cu", "proposal_forward.cu")
+SOURCES = ("field_forward.cu", "field_train.cu", "proposal_forward.cu",
+           "experiments.cu")
 HEADERS = ("field_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -109,6 +110,13 @@ def _signatures() -> Dict[str, Dict[str, list]]:
         },
         "proposal_forward.cu": {
             "rsn_prop_forward": [vp, vp, ptrs, vp, ll, vp],
+        },
+        "experiments.cu": {
+            "rsn_field_forward_v3u": [vp, vp, vp, ptrs, vp, ll, i32, vp],
+            "rsn_field_forward_v3i": [vp, vp, vp, ptrs, vp, ll, i32, vp],
+            "rsn_field_forward_v3L": [vp, vp, vp, ptrs, vp, ll, i32, i32,
+                                      vp],
+            "rsn_cheap_sin": [vp, vp, ll, i32, vp],
         },
     }
 

@@ -95,7 +95,13 @@ LAUNCHES = {"field_forward_v3": 0, "field_forward_density": 0,
             "field_backward_v6": 0, "field_forward_v4": 0,
             "field_forward_v3_train": 0, "field_backward_v4": 0,
             "prop_forward": 0, "field_forward_v2": 0, "field_forward": 0,
-            "field_forward_v5": 0, "field_backward_v3": 0}
+            "field_forward_v5": 0, "field_backward_v3": 0,
+            "field_forward_v3u": 0, "field_forward_v3i": 0,
+            "field_forward_v3L": 0, "field_forward_v3F": 0}
+# K16's modes (rsn_torch.experiments.cheap_sin), one count each
+CHEAP_SIN_MODES = ("copy", "exact", "poly", "exp", "exp2", "exp2_ldexp",
+                   "poly_bf16", "cos_poly")
+LAUNCHES.update({f"cheap_sin_{m}": 0 for m in CHEAP_SIN_MODES})
 
 
 def reset_launch_counts() -> None:
@@ -200,6 +206,21 @@ def pack_params(field: Field) -> Tuple[torch.Tensor, ...]:
     bh = F.pad(bh, (0, OUT_DIM - N_HEAD_COLS)).reshape(1, -1).contiguous()
     return (tuple(w.to(BF16).contiguous() for w in ws)
             + tuple(b.detach().contiguous() for b in bs) + (wh, bh))
+
+
+@torch.no_grad()
+def pack_params_v3(field: Field) -> Tuple[torch.Tensor, ...]:
+    """K14 / K15 operands (field_pallas.pack_params_v3, the unfolded
+    packing): pack_params' 18 + (w_emb, b_mid, w_out, b_out), w_emb the
+    mid-MLP's bottleneck rows (256, 128) bf16, b_mid (1, 128) f32, w_out
+    the mid head zero-padded to (128, 128) bf16, b_out (1, 128) f32."""
+    _, w_emb, b_mid = field.mid_weights()
+    w_out = F.pad(_w_in_out(field.field_output_mid.net), (0, 125))
+    b_out = F.pad(field.field_output_mid.net.bias.float(), (0, 125))
+    return pack_params(field) + (
+        w_emb.float().to(BF16).contiguous(),
+        b_mid.detach().float().reshape(1, -1).contiguous(),
+        w_out.to(BF16).contiguous(), b_out.reshape(1, -1).contiguous())
 
 
 def mid_g_bands_f32(field: Field, ray_dirs: torch.Tensor,
@@ -393,8 +414,10 @@ DENSITY_SHAPES = (_TRUNK_SHAPES[0] + _TRUNK_SHAPES[1]
                   + [(256, DENS_COLS), (1, DENS_COLS)])
 V2_SHAPES = (_TRUNK_SHAPES[0] + _TRUNK_SHAPES[1]
              + [(256, OUT_DIM), (1, OUT_DIM)])
+V3U_SHAPES = V2_SHAPES + [(256, 128), (1, 128), (128, 128), (1, 128)]
 _V3_DTYPES = [BF16] * 8 + [F32] * 8 + [BF16, F32, BF16, F32]
 _DENSITY_DTYPES = [BF16] * 8 + [F32] * 8 + [BF16, F32]  # and V2's
+V3U_DTYPES = _DENSITY_DTYPES + [BF16, F32, BF16, F32]
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:

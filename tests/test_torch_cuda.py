@@ -4,8 +4,10 @@ training forward, K9 over many tiles per block, K7 / K8 at ragged
 shapes, K10-K13 at ragged shapes and over many tiles per block), the
 launch counters (one train step on each route, camera off and on, the
 field API), determinism, the alignment checks, small renders (the default
-method and the proposal preset) on both devices, and the recompute
-route's smaller peak memory.
+method and the proposal preset) on both devices, the recompute route's
+smaller peak memory, and the tools' experiments (K14-K16) against their
+plain versions at ragged shapes, with v3i == v3u and v3F == v3L bit for
+bit.
 
 Needs a CUDA card and nvcc; skipped without them.  This file imports no
 jax, so it also runs on a machine without it:
@@ -19,6 +21,7 @@ import torch
 from rsn_torch.configs import ModelConfig, PipelineConfig, TrainerConfig
 from rsn_torch.data.synthetic import make_synthetic_cameras
 from rsn_torch.engine.trainer import render_image
+from rsn_torch.experiments import cheap_sin, interleave, interleave2
 from rsn_torch.kernels import field_forward as ff
 from rsn_torch.kernels import field_train as tft
 from rsn_torch.kernels import proposal_forward as pf
@@ -511,3 +514,64 @@ def test_field_api_launch_counts_and_route(field):
                        k11[:, ff.OUT_BOTTLENECK])
     unit = route["pred_normals"].norm(dim=-1)
     assert float((unit - 1.0).abs().max()) <= 1e-5
+
+
+# ---- the tools' experiments: K14 (v3u, v3i), K15 (v3L, v3F), K16 ----------
+
+@pytest.mark.parametrize("R,S", [(1, 1), (3, 7), (5, 29), (33, 128),
+                                 (130, 64)])
+def test_experiment_forwards_match_plain_versions(field, R, S):
+    mc, dirs = _inputs(R, S, seed=7)
+    g = ff.mid_g_bands(field, dirs)
+    p3 = ff.pack_params_v3(field)
+    u = interleave.field_forward_v3u(p3, mc, g, S)
+    i = interleave.field_forward_v3i(p3, mc, g, S)
+    L = interleave2.field_forward_v3L(p3, mc, g, S)
+    F = interleave2.field_forward_v3L(p3, mc, g, S, full=True)
+    torch.cuda.synchronize()
+    assert u.shape == (R * S, 128) and u.dtype == torch.bfloat16
+    assert torch.equal(u, i) and torch.equal(L, F)
+    for got, ref in ((u, interleave.field_forward_v3u_plain(p3, mc, g, S)),
+                     (L, interleave2.field_forward_v3L_plain(p3, mc, g, S))):
+        assert torch.isfinite(got.float()).all()
+        assert torch.all(got[:, 14:] == 0)
+        assert float((got.float() - ref.float()).abs().max()) <= ATOL
+    k1 = ff.field_forward_v3(ff.pack_params_v3f(field), mc, g, S)
+    assert float((L[:, :14].float() - k1[:, :14].float()).abs().max()) <= ATOL
+
+
+def test_experiment_launch_counts(field):
+    mc, dirs = _inputs(4, 16)
+    g = ff.mid_g_bands(field, dirs)
+    p3 = ff.pack_params_v3(field)
+    ff.reset_launch_counts()
+    interleave.field_forward_v3u(p3, mc, g, 16)
+    interleave.field_forward_v3i(p3, mc, g, 16)
+    interleave2.field_forward_v3L(p3, mc, g, 16)
+    interleave2.field_forward_v3L(p3, mc, g, 16, full=True)
+    interleave2.field_forward_v3L(p3, mc, g, 16, full=True)
+    interleave.field_forward_v3u_plain(p3, mc, g, 16)
+    x = cheap_sin.tool_input(64, "cuda")
+    cheap_sin.run("poly", x)
+    cheap_sin.run_plain("poly", x)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ff.LAUNCHES.items() if v} == {
+        "field_forward_v3u": 1, "field_forward_v3i": 1,
+        "field_forward_v3L": 1, "field_forward_v3F": 2,
+        "cheap_sin_poly": 1}
+
+
+@pytest.mark.parametrize("mode", cheap_sin.MODES)
+@pytest.mark.parametrize("n", [1, 77, 4099])
+def test_cheap_sin_matches_plain_version(field, mode, n):
+    x = cheap_sin.tool_input(n, "cuda", seed=n)
+    got = cheap_sin.run(mode, x)
+    ref = cheap_sin.run_plain(mode, x)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == torch.float32
+    if mode == "copy":
+        assert torch.equal(got, ref)
+    elif mode == "poly_bf16":
+        assert torch.all((got - ref).abs() <= cheap_sin.bf16_ulp(ref))
+    else:
+        assert float((got - ref).abs().max()) <= 1e-6

@@ -1,6 +1,7 @@
 """The port stands alone: every rsn_torch module, and chip_smoke.py's,
 imports in a fresh interpreter whose import system refuses rsn (the JAX
-package, jax-free modules included), jax, flax, optax and PIL."""
+package, jax-free modules included), rsn's tools/, jax, flax, optax, PIL
+and matplotlib (the card machine has no matplotlib)."""
 import os
 import subprocess
 import sys
@@ -10,7 +11,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CODE = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("rsn", "jax", "jaxlib", "flax", "optax", "PIL")
+BLOCKED = ("rsn", "tools", "jax", "jaxlib", "flax", "optax", "PIL",
+           "matplotlib")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
