@@ -94,7 +94,20 @@ Phases, each announced on its own line:
                 modes on (2,097,152, 128) f32 rows of the tool's
                 distribution, each against its plain version; CUDA-event
                 times beside K1's, K16's beside one PyTorch call each.
-  18. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
+  The tools' backward experiments:
+  18. K17-K19 — from zeroed launch counts, on the tools' rows (131,072
+                rows, 128 samples per ray, the field from seed 0, a seeded
+                (N, 128) cotangent): K17 (field_backward_whole), K18
+                (bwd_ablate.run) in its four modes and K19 (run_noipe) on
+                K3's spill of the same rows; each against its plain
+                version fed the kernel's activations (ATOL of each
+                output's max) and, K17 and K18, against the plain version
+                that recomputes its trunk (K8_TOL); K19 == K18's full mode
+                on dg and the 22 weight gradients, bit for bit; K17
+                against K8 on the tools' rows and on phase 12's pass-2 and
+                pass-4 rows: dmc bit for bit, dg and the weight gradients
+                within K13_TOL; CUDA-event times beside K8's and K4's.
+  19. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
 
 Any failed check raises: the script then exits non-zero and prints no
 result.  It imports neither jax nor PIL, nor anything of the JAX package.
@@ -473,8 +486,13 @@ def main() -> int:
     results.update(exp_results["kernels"])
     launches.update(exp_results["launches"])
 
-    # ---- 18. result ----
-    phase("phase 18: result")
+    # ---- 18. the tools' backward experiments ----
+    bwd_results = backward_experiments_phase(camera_results["calls"], card)
+    results.update(bwd_results["kernels"])
+    launches.update(bwd_results["launches"])
+
+    # ---- 19. result ----
+    phase("phase 19: result")
     kernels = []
     for name, source, line in KERNEL_ROWS:
         r = results[name]
@@ -486,6 +504,7 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             # one PyTorch call computes K16's modes; none a fused field
+            # or its backward
             "library_ms": r.get("library_ms")})
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -531,7 +550,12 @@ KERNEL_ROWS = (
     ("field_forward_v3F", "experiments.cu", "tools/exp_interleave2.py:124"),
 ) + tuple((f"cheap_sin_{m}", "experiments.cu", "tools/exp_cheap_sin.py:82")
           for m in ("copy", "exact", "poly", "exp", "exp2", "exp2_ldexp",
-                    "poly_bf16", "cos_poly"))
+                    "poly_bf16", "cos_poly")) + (
+    ("field_backward_whole", "field_train.cu", "tools/exp_bwd_whole.py:76"),
+) + tuple((f"bwd_ablate_{m}", "experiments_bwd.cu",
+           "tools/exp_bwd_ablate.py:191")
+          for m in ("full_wgrad", "full", "no_ipe_bwd", "recompute")) + (
+    ("run_noipe", "experiments_bwd.cu", "tools/exp_bwd_noipe.py:171"),)
 
 
 def cpu_gpu_render(config, fields, orbit, device, label: str,
@@ -1936,6 +1960,196 @@ def experiments_phase(field, render_mc, render_g, S, card):
               f"median of 10; {card})", flush=True)
         if not ok:
             raise RuntimeError(f"K16 {mode} disagrees with its plain version")
+    return {"kernels": results, "launches": launches}
+
+
+# ---- the tools' backward experiments (K17-K19) ------------------------------
+
+# the unfolded field's products per row (K18, K19), on the IPE's 99 live
+# columns: the forward recompute after the trunk (267 live head columns,
+# the mid seed, the mid head's 3 columns), the dgrads (dhmid, dbottleneck,
+# dh7, the trunk's), the weight gradients (w_out, w_emb, wh, the trunk's)
+U_TAIL_MACS = 256 * 267 + 256 * 128 + 128 * 3
+U_DGRAD_MACS = 128 * 3 + 128 * 256 + 267 * 256 + DGRAD_MACS
+U_WGRAD_MACS = 128 * 3 + 256 * 128 + 256 * 267 + TRUNK_MACS
+BWD_EXP_FLOPS = {
+    "bwd_ablate_full_wgrad": 2 * (TRUNK_MACS + U_TAIL_MACS + U_DGRAD_MACS
+                                  + U_WGRAD_MACS),
+    "bwd_ablate_full": 2 * (TRUNK_MACS + U_TAIL_MACS + U_DGRAD_MACS),
+    "bwd_ablate_no_ipe_bwd": 2 * (TRUNK_MACS + U_TAIL_MACS + U_DGRAD_MACS),
+    "bwd_ablate_recompute": 2 * (TRUNK_MACS + U_TAIL_MACS),
+    # no trunk recompute, no layer-0 dgrad nor layer 4's x part
+    "run_noipe": 2 * (U_TAIL_MACS + U_DGRAD_MACS - 2 * IPE_DIM * 256
+                      + U_WGRAD_MACS),
+}
+
+
+def check_k17_against_k8(tag, args, k17=None):
+    """K17 against K8 on the same rows: dmc bit for bit, dg and the weight
+    gradients within K13_TOL of each tensor's max (the sums over rows run
+    in another order) -> K17's result."""
+    import torch
+
+    from rsn_torch.experiments import bwd_whole
+    from rsn_torch.kernels import field_train as ft
+
+    k17 = bwd_whole.field_backward_whole(*args) if k17 is None else k17
+    k8 = ft.field_backward_v4(*args)
+    torch.cuda.synchronize()
+    errs = {"dg": rel_err(k17[1], k8[1]),
+            "dpacked": max(rel_err(a, b) for a, b in zip(k17[2], k8[2]))}
+    same = torch.equal(k17[0], k8[0])
+    print(f"  K17 against K8, {tag} ({args[1].shape[0]} rows): dmc "
+          f"{'==' if same else '!='} K8's bit for bit; dg and the weight "
+          f"gradients within " + ", ".join(f"{k} {v:.6g}"
+                                           for k, v in errs.items())
+          + f" of K8's max (limit {K13_TOL})", flush=True)
+    if not same or max(errs.values()) > K13_TOL:
+        raise RuntimeError(f"K17 disagrees with K8 ({tag})")
+    return k17
+
+
+def backward_experiments_phase(cam_calls, card):
+    """Phase 18 -> {"kernels": K17-K19's results, "launches": their
+    launches in the run of this slice's path (the tools' backward
+    experiments on the tools' rows; no model or CLI path calls them, as in
+    rsn)}."""
+    import torch
+
+    from rsn_torch.experiments import bwd_ablate, bwd_noipe, bwd_whole
+    from rsn_torch.experiments.interleave import tool_inputs
+    from rsn_torch.kernels import field_forward as ff
+    from rsn_torch.kernels import field_train as ft
+
+    phase("phase 18: K17-K19 against plain versions at the tools' shapes")
+    n, S = 131072, 128
+    tfield, mc, g = tool_inputs(n, S)
+    p3, p1 = ff.pack_params_v3(tfield), ff.pack_params_v3f(tfield)
+    d_out = bwd_ablate.tool_cotangent(n, mc.device)
+    d24 = d_out[:, :ft.OUT_TRAIN].contiguous()
+    f_out = ft.field_forward_v3_train(p1, mc, g, S)
+    _, xacts = ft.field_forward_v6(p1, mc, g, S, spill_x=True)
+    k17_args = (p1, mc, g, d24, f_out, S)
+    names = (("field_backward_whole",)
+             + tuple(bwd_ablate.label(*v) for v in bwd_ablate.VARIANTS)
+             + ("run_noipe",))
+    ff.reset_launch_counts()
+    k17 = bwd_whole.field_backward_whole(*k17_args)
+    k18 = {bwd_ablate.label(*v): bwd_ablate.run(*v, p3, mc, g, d_out, S)
+           for v in bwd_ablate.VARIANTS}
+    k19 = bwd_noipe.run_noipe(p3, xacts, g, d_out, S)
+    torch.cuda.synchronize()
+    launches = {k: ff.LAUNCHES[k] for k in names}
+    print(f"  launches in the path's run (the tools' backward experiments): "
+          f"{launches}; the CLI runs launch none of them (no caller outside "
+          f"the tools, as in rsn)")
+    if min(launches.values()) <= 0:
+        raise RuntimeError("a kernel of the backward experiments never "
+                           "launched")
+    results = {k: {"err": 0.0} for k in names}
+
+    def hold(tag, got, on_acts, plain, label):
+        """got against the plain version fed the kernel's activations
+        (ATOL) and, if given, the plain version that recomputes its trunk
+        (K8_TOL) -> the largest error over each tensor's max against the
+        latter (or the former)."""
+        errs = {}
+        for ref_tag, ref in (("on the kernel's activations", on_acts),
+                             ("recomputing its trunk", plain)):
+            if ref is None:
+                continue
+            e = {}
+            if got[0] is not None:
+                e["dmc"] = rel_err(got[0], ref[0])
+            e["dg"] = rel_err(got[1], ref[1])
+            if got[2] is not None:
+                e["dpacked"] = max(rel_err(a, b) for a, b in zip(got[2],
+                                                                 ref[2]))
+            errs[ref_tag] = e
+        print(f"  {tag}: max error over each tensor's max against its plain "
+              f"version " + "; ".join(f"{k}: " + ", ".join(
+                  f"{n_} {v:.6g}" for n_, v in e.items())
+                  for k, e in errs.items())
+              + f" (limits {ATOL} and {K8_TOL})", flush=True)
+        first = max(errs["on the kernel's activations"].values())
+        worst = max(errs.get("recomputing its trunk", {"": first}).values())
+        if first > ATOL or worst > K8_TOL:
+            raise RuntimeError(f"{tag} disagrees with its plain version")
+        results[label]["err"] = worst
+
+    # K17: its plain version is K8's
+    hold("K17", k17, ft.field_backward_v5_plain(p1, mc, g, xacts, d24, f_out,
+                                                S),
+         ft.field_backward_v4_plain(*k17_args), "field_backward_whole")
+    check_k17_against_k8("the tools' rows", k17_args, k17)
+    for p in (2, 4):
+        check_k17_against_k8(f"phase 12's pass {p}", cam_calls["bwd"][p])
+    del k17
+    # K18's modes; K19 on K3's spill of the same rows
+    hs, x = ft._split_acts(xacts), xacts[:, ft.ACTS_COLS:]
+    for mode, wg in bwd_ablate.VARIANTS:
+        label = bwd_ablate.label(mode, wg)
+        hold(f"K18 {mode}{'+wgrad' if wg else ''}", k18[label],
+             bwd_ablate.backward_from_acts(p3, hs, x, g, d_out, S, mode, wg,
+                                           mc),
+             bwd_ablate.bwd_ablate_plain(p3, mc, g, d_out, S, mode, wg),
+             label)
+        torch.cuda.empty_cache()
+    full, nowg = k18["bwd_ablate_full_wgrad"], k18["bwd_ablate_full"]
+    if not (torch.equal(full[0], nowg[0]) and torch.equal(full[1], nowg[1])):
+        raise RuntimeError("K18 full: dmc or dg depend on the weight "
+                           "gradients")
+    hold("K19", (None,) + k19, (None,) + bwd_noipe.run_noipe_plain(
+        p3, xacts, g, d_out, S), None, "run_noipe")
+    same = torch.equal(k19[0], full[1]) and all(
+        torch.equal(a, b) for a, b in zip(k19[1], full[2]))
+    print(f"  K19 on K3's spill {'==' if same else '!='} K18's full mode (dg "
+          f"and the 22 weight gradients), bit for bit; K18 full's dmc and dg "
+          f"== without the weight gradients", flush=True)
+    if not same:
+        raise RuntimeError("K19 differs from K18's full mode")
+    del k18, k19, full, nowg
+    torch.cuda.empty_cache()
+
+    # times and bounds
+    w1, w3 = nbytes(*p1), nbytes(*p3)
+    dg_bytes = g.shape[0] * 512 * 4
+    ms = {"K8": cuda_ms(lambda: ft.field_backward_v4(*k17_args))}
+    k = cuda_ms(lambda: bwd_whole.field_backward_whole(*k17_args))
+    pl = cuda_ms(lambda: ft.field_backward_v4_plain(*k17_args))
+    b, by = bound(FLOPS["field_backward_v4"] * n,
+                  nbytes(mc, g, d24, f_out) + w1 + dg_bytes
+                  + ft.PACK_FLOATS * 4 + n * 16 * 4)
+    results["field_backward_whole"].update(ms=k, plain_ms=pl, bound_ms=b,
+                                           bound_by=by)
+    print(f"  K17: {n} rows, kernel {k:.4f} ms, K8 {ms['K8']:.4f} ms (the "
+          f"same call), plain {pl:.4f} ms, bound {b:.4f} ms ({by}; median "
+          f"of 10; {card})", flush=True)
+    for mode, wg in bwd_ablate.VARIANTS:
+        label = bwd_ablate.label(mode, wg)
+        k = cuda_ms(lambda: bwd_ablate.run(mode, wg, p3, mc, g, d_out, S))
+        pl = cuda_ms(lambda: bwd_ablate.bwd_ablate_plain(p3, mc, g, d_out, S,
+                                                         mode, wg))
+        b, by = bound(BWD_EXP_FLOPS[label] * n,
+                      nbytes(mc, g, d_out) + w3 + dg_bytes + n * 16 * 4
+                      + (bwd_ablate.PACK_FLOATS * 4 if wg else 0))
+        results[label].update(ms=k, plain_ms=pl, bound_ms=b, bound_by=by)
+        print(f"  K18 {mode}{'+wgrad' if wg else ''}: {n} rows, kernel "
+              f"{k:.4f} ms, plain {pl:.4f} ms, bound {b:.4f} ms ({by}; "
+              f"median of 10; {card})", flush=True)
+        torch.cuda.empty_cache()
+    out, acts = ft.field_forward_v6(p1, mc, g, S)
+    k4 = cuda_ms(lambda: ft.field_backward_v5(p1, mc, g, acts, d24, out, S))
+    del acts
+    k = cuda_ms(lambda: bwd_noipe.run_noipe(p3, xacts, g, d_out, S))
+    pl = cuda_ms(lambda: bwd_noipe.run_noipe_plain(p3, xacts, g, d_out, S))
+    b, by = bound(BWD_EXP_FLOPS["run_noipe"] * n,
+                  nbytes(xacts, g, d_out) + w3 + dg_bytes
+                  + bwd_ablate.PACK_FLOATS * 4)
+    results["run_noipe"].update(ms=k, plain_ms=pl, bound_ms=b, bound_by=by)
+    print(f"  K19: {n} rows, kernel {k:.4f} ms, K4 on K3's spill {k4:.4f} ms "
+          f"(the same call), plain {pl:.4f} ms, bound {b:.4f} ms ({by}; "
+          f"median of 10; {card})", flush=True)
     return {"kernels": results, "launches": launches}
 
 

@@ -55,9 +55,6 @@
 namespace {
 
 constexpr int OUT_COLS = 128;    // V3_OUT: columns 0:14 live, 14:128 zero
-constexpr int HEAD_COLS = 384;   // the unfolded heads' width (OUT_*)
-constexpr int OUT_DENSITY = 256, OUT_DIFF = 257, OUT_TINT = 260,
-              OUT_ROUGH = 263, OUT_NORMALS = 264;
 constexpr int LDF = 20;          // f32 head columns 256..271, + 4
 constexpr int LDM = MID + 4;     // f32 mid seed
 constexpr int ROWF = 8;          // per row: 4 attenuations, density, 3 mid
@@ -65,17 +62,6 @@ constexpr int SUB = TM / 2;      // rows of a half
 static_assert(TM * LDM * 4 <= H_BYTES, "the mid seed must fit H1");
 static_assert(TM * (LDF + ROWF) * 4 + TM * 16 * 2 <= X_BYTES,
               "head columns, row scalars and the row staging must fit X");
-
-struct V3UParams {
-  TrunkParams trunk;
-  const bf16* wh;      // (256, 384): [bottleneck | density | diff | tint |
-                       // roughness | normals | 0]
-  const float* bh;     // (384,)
-  const bf16* w_emb;   // (256, 128): the mid-MLP's bottleneck rows
-  const float* b_mid;  // (128,)
-  const bf16* w_out;   // (128, 128), 3 live columns
-  const float* b_out;  // (128,)
-};
 
 struct GroupSync {
   int bar, nt;
@@ -371,16 +357,6 @@ int launch_cheap_sin(const float* x, float* y, long long n,
                            256, 0, stream>>>(
       reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y), n4);
   return (int)cudaGetLastError();
-}
-
-void fill_v3u(V3UParams* p, const void* const* ptrs) {
-  fill_trunk(&p->trunk, ptrs);
-  p->wh = static_cast<const bf16*>(ptrs[16]);
-  p->bh = static_cast<const float*>(ptrs[17]);
-  p->w_emb = static_cast<const bf16*>(ptrs[18]);
-  p->b_mid = static_cast<const float*>(ptrs[19]);
-  p->w_out = static_cast<const bf16*>(ptrs[20]);
-  p->b_out = static_cast<const float*>(ptrs[21]);
 }
 
 typedef void (*ForwardKernel)(const float*, const float*, const float*,

@@ -1,6 +1,6 @@
 // Device routines shared by the field kernels (field_forward.cu: K1, K2,
-// K11, K12; field_train.cu: K3, K4, K5, K7, K8, K10, K13; experiments.cu:
-// K14, K15).  Every kernel computes its trunk and its IPE (K1's polynomial
+// K11, K12; field_train.cu: K3, K4, K5, K7, K8, K10, K13, K17;
+// experiments.cu: K14, K15; experiments_bwd.cu: K18, K19).  Every kernel computes its trunk and its IPE (K1's polynomial
 // one, or K11's exact one) through these routines, and K1, K2, K3 their
 // density column and V3 tail, so the values they have in common come from
 // one piece of code: K2's density column and K3's column 12 equal K1's bit
@@ -483,6 +483,338 @@ __device__ void v3_tail(const V3Params& p, bf16* H, unsigned char* smem,
   block_sync();
 }
 
+// ---- the backward kernels' routines (field_train.cu: K3's normals, K4,
+// K5, K8, K13, K17; experiments_bwd.cu: K18, K19) ------------------------
+
+constexpr int ACTS_COLS = LAYERS * WIDTH;    // the spill: 8 layers, 2048
+constexpr int XACTS_COLS = ACTS_COLS + ENC;  // with the IPE tile x, 2176
+constexpr unsigned ALL_TILES = 0xFFFFu;
+
+// the trunk's part of a block's fp32 weight-gradient slice: w0..w7 (rows:
+// 128 for w0, 384 for w4, 256 for the others), then b0..b7
+__host__ __device__ constexpr int off_w(int i) {
+  return i == 0 ? 0
+                : ENC * WIDTH + (i - 1) * WIDTH * WIDTH +
+                      (i > SKIP_AT ? ENC * WIDTH : 0);
+}
+constexpr int OFF_B = off_w(LAYERS);                 // 524288
+
+// Copies rows [0, nv) of a (ROWS, ncols) bf16 shared tile to dst rows
+// (stride ld), 16 bytes per thread and step.
+template <int ROWS = TM>
+__device__ void store_rows(bf16* dst, long long ld, const bf16* src,
+                           int lds, int ncols, int nv) {
+  const int q8 = ncols / 8;
+  for (int e = threadIdx.x; e < ROWS * q8; e += THREADS) {
+    const int r = e / q8, q = e % q8;
+    if (r < nv)
+      *reinterpret_cast<uint4*>(dst + r * ld + q * 8) =
+          *reinterpret_cast<const uint4*>(src + r * lds + q * 8);
+  }
+}
+
+// Loads rows [0, nv) of dst (ROWS, ncols) from src rows (stride ld); rows
+// nv.. are zero.
+template <int ROWS = TM>
+__device__ void load_rows(bf16* dst, int ldd, const bf16* src, long long ld,
+                          int ncols, int nv) {
+  const int q8 = ncols / 8;
+  for (int e = threadIdx.x; e < ROWS * q8; e += THREADS) {
+    const int r = e / q8, q = e % q8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < nv) v = *reinterpret_cast<const uint4*>(src + r * ld + q * 8);
+    *reinterpret_cast<uint4*>(dst + r * ldd + q * 8) = v;
+  }
+}
+
+// acc = D @ W^T on a 64-row tile, for the warp's NF column tiles starting
+// at column c0 + warp * 16 * NF of W's rows (the layer's input dims): D
+// (TM, 16 ktiles) bf16 in shared memory (stride ldd), W (in, 16 ktiles)
+// row-major bf16 in global memory (stride ldw), read as a col_major
+// fragment.  Only the k-tiles set in kmask are visited (the others are
+// zero in D).
+template <int NF>
+__device__ void dgrad_mma(const bf16* D, int ldd, const bf16* __restrict__ W,
+                          int ldw, int c0, int ktiles, unsigned kmask,
+                          FragC (&acc)[4][NF]) {
+  const int warp = threadIdx.x >> 5;
+  const int cw = c0 + warp * 16 * NF;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  for (int kt = 0; kt < ktiles; ++kt) {
+    if (!((kmask >> kt) & 1u)) continue;
+    FragBT b[NF];
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+      wmma::load_matrix_sync(b[j], W + (cw + j * 16) * ldw + kt * 16, ldw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      FragA a;
+      wmma::load_matrix_sync(a, D + i * 16 * ldd + kt * 16, ldd);
+#pragma unroll
+      for (int j = 0; j < NF; ++j) wmma::mma_sync(acc[i][j], a, b[j],
+                                                  acc[i][j]);
+    }
+  }
+}
+
+// The trunk's case: D (TM, 256) at stride LDH, W (in, 256).
+template <int NF>
+__device__ void dgrad_mma(const bf16* D, const bf16* __restrict__ W, int c0,
+                          unsigned kmask, FragC (&acc)[4][NF]) {
+  dgrad_mma<NF>(D, LDH, W, WIDTH, c0, WIDTH / 16, kmask, acc);
+}
+
+// Hands every element of the warp's accumulators to epi(r, c, v), which
+// returns the value to add to column c's sum; colsum(c, s) then receives
+// the column sums over the 64 rows (fixed order: each lane owns one
+// column of a fragment).
+template <int NF, typename Epi, typename ColSum>
+__device__ void drain(FragC (&acc)[4][NF], int c0, float* stage,
+                      const Epi& epi, const ColSum& colsum) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cw = c0 + warp * 16 * NF;
+  float* st = stage + warp * 16 * LDS;
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    const int c = cw + j * 16 + (lane & 15);
+    float part = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      wmma::store_matrix_sync(st, acc[i][j], LDS, wmma::mem_row_major);
+      __syncwarp();
+      for (int t = 0; t < 8; ++t) {
+        const int rr = (lane >> 4) + 2 * t;
+        part += epi(i * 16 + rr, c, st[rr * LDS + (lane & 15)]);
+      }
+      __syncwarp();
+    }
+    part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, 16));
+    if (lane < 16) colsum(c, part);
+  }
+}
+
+struct NoColSum {
+  __device__ void operator()(int, float) const {}
+};
+
+// Adds into a global fp32 bias slice (none when b is null: K18's modes
+// without weight gradients).
+struct BiasSum {
+  float* b;
+  __device__ void operator()(int c, float s) const {
+    if (b != nullptr) b[c] += s;
+  }
+};
+
+// dW[m][n] += sum_{k < ROWS} A[k][m] * B[k][n] for m < M and the n-tiles
+// in nmask: A (ROWS, M) bf16 in shared memory (stride lda), B (ROWS, 16
+// n-tiles of nmask) bf16 in shared memory (stride ldb), dW (M, ldw) fp32
+// row-major in the block's gradient slice: one load and one store of each
+// dW fragment per call, the contraction over all ROWS rows between them.
+// Warp w takes the 16-row strips m = w, w + 8, ...
+template <int ROWS = TM>
+__device__ void wgrad_acc(const bf16* A, int lda, int M, const bf16* B,
+                          int ldb, unsigned nmask, float* dW, int ldw) {
+  const int warp = threadIdx.x >> 5;
+  for (int mt = warp; mt < M / 16; mt += WARPS) {
+    FragAT a[ROWS / 16];
+#pragma unroll
+    for (int kt = 0; kt < ROWS / 16; ++kt)
+      wmma::load_matrix_sync(a[kt], A + kt * 16 * lda + mt * 16, lda);
+    for (int nt = 0; nt < 32; ++nt) {
+      if (!((nmask >> nt) & 1u)) continue;
+      float* dst = dW + mt * 16 * ldw + nt * 16;
+      FragC acc;
+      wmma::load_matrix_sync(acc, dst, ldw, wmma::mem_row_major);
+#pragma unroll
+      for (int kt = 0; kt < ROWS / 16; ++kt) {
+        FragB b;
+        wmma::load_matrix_sync(b, B + kt * 16 * ldb + nt * 16, ldb);
+        wmma::mma_sync(acc, a[kt], b, acc);
+      }
+      wmma::store_matrix_sync(dst, acc, ldw, wmma::mem_row_major);
+    }
+  }
+}
+
+// The trunk's case: B (TM, 256) at stride LDH, dW (M, 256).
+__device__ void wgrad_acc(const bf16* A, int lda, int M, const bf16* B,
+                          unsigned nmask, float* dW) {
+  wgrad_acc<TM>(A, lda, M, B, LDH, nmask, dW, WIDTH);
+}
+
+constexpr int MASK_WORDS = WIDTH / 32;  // 8 words per row and layer
+
+// The trunk hook of K3 and of the recomputes (K8, K17, K18): each layer's
+// tile to the spill or a block's slot, and (K3's normals) its ReLU mask
+// bits.
+struct SpillHook {
+  bf16* acts;          // row row0 of the spill; nullptr: no spill (K7)
+  int ld;              // 2048 or 2176
+  int nv;              // valid rows of the tile
+  uint32_t* masks;     // nullptr: no normals
+  __device__ void operator()(int i, const bf16* H) const {
+    if (acts != nullptr) store_rows(acts + i * WIDTH, ld, H, LDH, WIDTH, nv);
+    if (masks == nullptr) return;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = warp * (TM / WARPS); r < (warp + 1) * (TM / WARPS); ++r)
+      for (int w = 0; w < MASK_WORDS; ++w) {
+        const bool on = __bfloat162float(H[r * LDH + w * 32 + lane]) > 0.f;
+        const unsigned bits = __ballot_sync(0xffffffffu, on);
+        if (lane == 0) masks[(i * TM + r) * MASK_WORDS + w] = bits;
+      }
+  }
+};
+
+// The V3 tail's per-row cotangents (K4, K5, K8, K17, K18, K19) from the
+// row's d_out columns dq[0:14) (bf16) and its diff, tint and mid values:
+// rf[4:7) dz3 = dmid_out tint mid (1 - mid) at the mid head's
+// pre-activation, rf[7:10) bf16(dz3), rf[10:21) the head columns'
+// cotangents in FH_* order (density, diff, tint, roughness, normals).
+__device__ void tail_cotangents(const bf16* __restrict__ dq,
+                                const float* diff, const float* tint,
+                                const float* mid, float* rf) {
+  float dout[14];
+  for (int i = 0; i < 14; ++i) dout[i] = __bfloat162float(dq[i]);
+  for (int i = 0; i < 3; ++i) {
+    const float dmid_out = dout[i];
+    const float ddiff = __fadd_rn(dmid_out, dout[3 + i]);
+    const float dtint = __fadd_rn(__fmul_rn(dmid_out, mid[i]), dout[6 + i]);
+    const float dmid = __fmul_rn(dmid_out, tint[i]);
+    const float dz =
+        __fmul_rn(__fmul_rn(dmid, mid[i]), __fsub_rn(1.f, mid[i]));
+    rf[4 + i] = dz;
+    rf[7 + i] = __bfloat162float(__float2bfloat16_rn(dz));
+    rf[10 + 1 + i] = __fmul_rn(__fmul_rn(ddiff, diff[i]),
+                               __fsub_rn(1.f, diff[i]));
+    rf[10 + 4 + i] = __fmul_rn(__fmul_rn(dtint, tint[i]),
+                               __fsub_rn(1.f, tint[i]));
+    rf[10 + 8 + i] = dout[9 + i];
+  }
+  rf[10 + 0] = dout[12];
+  rf[10 + 7] = dout[13];
+}
+
+// The mid head's weight gradients over a tile of `rows` rows: dw_out[c][j]
+// += sum_r hmid[r][c] bf16(dz3)[r][j] for j < 3, db_out[j] += sum_r
+// dz3[r][j]; hmid bf16 (stride ldh), the row scalars of tail_cotangents
+// at stride rs.
+__device__ void mid_head_wgrad(const bf16* hmid, int ldh, const float* rowf,
+                               int rs, int rows, float* dw_out,
+                               float* db_out) {
+  for (int e = threadIdx.x; e < MID * 3 + 3; e += THREADS) {
+    if (e < MID * 3) {
+      const int c = e / 3, j = e % 3;
+      float s = 0.f;
+      for (int r = 0; r < rows; ++r)
+        s = __fmaf_rn(__bfloat162float(hmid[r * ldh + c]),
+                      rowf[r * rs + 7 + j], s);
+      dw_out[c * MID + j] += s;
+    } else {
+      const int j = e - MID * 3;
+      float s = 0.f;
+      for (int r = 0; r < rows; ++r) s = __fadd_rn(s, rowf[r * rs + 4 + j]);
+      db_out[j] += s;
+    }
+  }
+}
+
+// dmid_pre on a tile, thread c < MID owning column c: for rows r < nv
+// (bf16(dz3) @ w_out[:, 0:3]^T) where mid_pre > 0 (the bits mbits), else
+// 0, written bf16 to out[r * ldo + c] for all `rows` rows; its fp32 sum
+// into bias[c] (bias null: not wanted); the per-ray band gradients
+// dg[ray][b][c] += sum over the ray's rows of atten_b dmid_pre
+// (rowf[0:4) at stride rs), in row order.
+__device__ void dmid_pre_rows(const bf16* __restrict__ w_out,
+                              const uint32_t* mbits, const float* rowf,
+                              int rs, int rows, int nv, long long row0,
+                              int S, float* __restrict__ dg, bf16* out,
+                              int ldo, float* bias) {
+  const int c = threadIdx.x;
+  if (c >= MID) return;
+  const float w0 = __bfloat162float(w_out[c * MID + 0]);
+  const float w1 = __bfloat162float(w_out[c * MID + 1]);
+  const float w2 = __bfloat162float(w_out[c * MID + 2]);
+  float sum = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
+  long long ray_cur = -1;
+  for (int r = 0; r < rows; ++r) {
+    float v = 0.f;
+    if (r < nv && ((mbits[r * (MID / 32) + (c >> 5)] >> (c & 31)) & 1u)) {
+      const float* dz = rowf + r * rs + 7;
+      v = __fmaf_rn(dz[2], w2, __fmaf_rn(dz[1], w1, __fmul_rn(dz[0], w0)));
+    }
+    out[r * ldo + c] = __float2bfloat16_rn(v);
+    if (r >= nv) continue;
+    sum = __fadd_rn(sum, v);
+    const long long ray = (row0 + r) / S;
+    if (ray != ray_cur) {
+      if (ray_cur >= 0)
+        for (int b = 0; b < 4; ++b) dg[ray_cur * G_COLS + b * MID + c] +=
+            acc[b];
+      ray_cur = ray;
+      for (int b = 0; b < 4; ++b) acc[b] = 0.f;
+    }
+    for (int b = 0; b < 4; ++b) acc[b] = __fmaf_rn(rowf[r * rs + b], v, acc[b]);
+  }
+  if (ray_cur >= 0)
+    for (int b = 0; b < 4; ++b) dg[ray_cur * G_COLS + b * MID + c] += acc[b];
+  if (bias != nullptr) bias[c] += sum;
+}
+
+// The IPE backward of rows [0, nv) of the tile at row0 (K4, K8, K17,
+// K18): from the fp32 dx tile dxe (rows x 128, stride ENC) to dmc (N, 16)
+// f32 = dpre_enc A^T + dvar V^T, written out per frequency: d mean in
+// columns 0:3 (dx damp cos(2 pi u) 2 pi f_k over both halves, plus the
+// identity columns 96..98), d cov in 3:6 (-dx damp sin(2 pi u) / 2 f_k^2),
+// zero in 6:16.
+__device__ void ipe_backward_rows(const float* __restrict__ mc,
+                                  const float* __restrict__ consts,
+                                  const float* dxe, float* __restrict__ dmc,
+                                  long long row0, int nv, int rows) {
+  for (int e = threadIdx.x; e < rows * IN_COLS; e += THREADS) {
+    const int r = e / IN_COLS, col = e % IN_COLS;
+    if (r >= nv) continue;
+    const long long row = row0 + r;
+    float s = 0.f;
+    if (col < 6) {
+      const float* m = mc + row * IN_COLS;
+      const int d = col % 3;
+      const bool var = col >= 3;
+      for (int half = 0; half < 2; ++half)
+        for (int k = 0; k < NFREQ; ++k) {
+          const int c = half * 48 + d * NFREQ + k;
+          float damp, u;
+          ipe_phase(m, consts, c, &damp, &u);
+          const float dx = dxe[r * ENC + c];
+          const float t = var
+              ? __fmul_rn(__fmul_rn(__fmul_rn(dx, -0.5f), damp), sin2pi(u))
+              : __fmul_rn(dx, __fmul_rn(damp, cos2pi(u)));
+          s = __fmaf_rn(t, consts[(var ? NFREQ : 0) + k], s);
+        }
+      if (!var) s = __fadd_rn(s, dxe[r * ENC + 96 + d]);
+    }
+    dmc[row * IN_COLS + col] = s;
+  }
+}
+
+// The unfolded operands (pack_params_v3, 22 tensors: K14, K15, K18, K19).
+struct V3UParams {
+  TrunkParams trunk;
+  const bf16* wh;      // (256, 384): [bottleneck | density | diff | tint |
+                       // roughness | normals | 0]
+  const float* bh;     // (384,)
+  const bf16* w_emb;   // (256, 128): the mid-MLP's bottleneck rows
+  const float* b_mid;  // (128,)
+  const bf16* w_out;   // (128, 128), 3 live columns
+  const float* b_out;  // (128,)
+};
+constexpr int HEAD_COLS = 384;   // the unfolded heads' width (OUT_*)
+constexpr int OUT_DENSITY = 256, OUT_DIFF = 257, OUT_TINT = 260,
+              OUT_ROUGH = 263, OUT_NORMALS = 264;
+
 void fill_trunk(TrunkParams* t, const void* const* ptrs) {
   for (int i = 0; i < LAYERS; ++i) {
     t->w[i] = static_cast<const bf16*>(ptrs[i]);
@@ -496,6 +828,16 @@ void fill_v3(V3Params* p, const void* const* ptrs) {
   p->b_hc = static_cast<const float*>(ptrs[17]);
   p->w_out = static_cast<const bf16*>(ptrs[18]);
   p->b_out = static_cast<const float*>(ptrs[19]);
+}
+
+void fill_v3u(V3UParams* p, const void* const* ptrs) {
+  fill_trunk(&p->trunk, ptrs);
+  p->wh = static_cast<const bf16*>(ptrs[16]);
+  p->bh = static_cast<const float*>(ptrs[17]);
+  p->w_emb = static_cast<const bf16*>(ptrs[18]);
+  p->b_mid = static_cast<const float*>(ptrs[19]);
+  p->w_out = static_cast<const bf16*>(ptrs[20]);
+  p->b_out = static_cast<const float*>(ptrs[21]);
 }
 
 }  // namespace

@@ -117,7 +117,6 @@ __global__ void __launch_bounds__(THREADS, 2)
 
 // ---- K11 / K12 ------------------------------------------------------------
 
-constexpr int HEAD_COLS = 384;   // the (N, 384) store, OUT_* columns
 constexpr int HEAD_TILES = 17;   // 16-column tiles holding the 267 live ones
 constexpr int LDO = HEAD_COLS + 8;  // bf16 output staging stride
 static_assert(TM * LDO * 2 <= H_BYTES + X_BYTES, "output tile must fit H0+X");

@@ -1,6 +1,6 @@
 // Field training kernels, for NVIDIA Hopper (sm_90a).
 //
-// Replaces seven Pallas TPU kernels:
+// Replaces eight Pallas TPU kernels:
 //   field_forward_v6   (K3; rsn/kernels/field_pallas.py, body
 //                       _field_kernel_halved_acts / _field_half): K1's
 //                       forward at the train width (24 columns: the V3_*
@@ -33,6 +33,11 @@
 //   field_backward_v3  (K13; field_train.py, _bwd_kernel_impl(two_d=False)):
 //                       K8 with whole-grid weight-gradient accumulators:
 //                       the kernel returns the 20 gradients themselves.
+//   field_backward_whole (K17; tools/exp_bwd_whole.py, field_backward_whole,
+//                       rsn's field_backward_v4(n_halves=1)): K8's
+//                       function on 128-row tiles, each weight gradient
+//                       contracted over all 128 rows between one load and
+//                       one store of the block's slice.
 //
 // What bounds them on this card: about 2.2 MFLOP of bf16 products per
 // sample row each, against 4.3 KB (K3 spill) or 4.4 KB (K4/K5 reads) of
@@ -92,6 +97,14 @@
 //     order.  dmc and dg equal K8's bit for bit (its partition); the
 //     weight gradients differ from K8's (torch.sum over the slices) only by
 //     the order of the fp32 sums, and are the same from run to run.
+//   - K17 is K8's body with a template row tile of 128 (the tool's "one
+//     whole-tile chain"): its tile's D, INP and X take 170 KB of shared
+//     memory, so its fp32 dx tile (64 KB) lives in the block's global
+//     workspace beside its 128-row recompute slot; the recompute, the
+//     dgrads and their epilogues run on the two 64-row halves, so every
+//     per-row value (dmc, the activations) equals K8's bit for bit, and
+//     only the sums over rows (dg, the weight gradients) change order.
+//     It halves the slice traffic per row.
 // Later work: keep the weight-gradient accumulators on chip (larger row
 // tiles, or a split of the layers over blocks), wgmma, TMA.
 #include "field_common.cuh"
@@ -99,19 +112,7 @@
 namespace {
 
 constexpr int OUT_TRAIN = 24;      // K3 store width
-constexpr int ACTS_COLS = LAYERS * WIDTH;   // 2048
-constexpr int XACTS_COLS = ACTS_COLS + ENC;  // 2176
-constexpr int MASK_WORDS = WIDTH / 32;       // 8 words per row and layer
 
-// the fp32 weight-gradient slice of one block: the packed operands in
-// order w0..w7, b0..b7, w_hc, b_hc, w_out, b_out
-// (rows: 128 for w0, 384 for w4, 256 for the others)
-__host__ __device__ constexpr int off_w(int i) {
-  return i == 0 ? 0
-                : ENC * WIDTH + (i - 1) * WIDTH * WIDTH +
-                      (i > SKIP_AT ? ENC * WIDTH : 0);
-}
-constexpr int OFF_B = off_w(LAYERS);                 // 524288
 constexpr int OFF_WHC = OFF_B + LAYERS * WIDTH;
 constexpr int OFF_BHC = OFF_WHC + WIDTH * WIDTH;
 constexpr int OFF_WOUT = OFF_BHC + WIDTH;
@@ -122,7 +123,6 @@ static_assert(PACK_FLOATS == 608640, "packed-gradient layout");
 // k-tiles / n-tiles of the fused heads+mid product that carry data:
 // column tile 0 (the 11 head columns) and tiles 8..15 (the mid seed)
 constexpr unsigned HC_TILES = 0xFF01u;
-constexpr unsigned ALL_TILES = 0xFFFFu;
 
 // ---- K3 ---------------------------------------------------------------
 
@@ -135,152 +135,6 @@ static_assert(OFF_MASKS % 32 == 0 && OFF_ROWOUT % 32 == 0, "alignment");
 __device__ __forceinline__ bool mask_bit(const uint32_t* masks, int layer,
                                          int r, int c) {
   return (masks[(layer * TM + r) * MASK_WORDS + (c >> 5)] >> (c & 31)) & 1u;
-}
-
-// Copies rows [0, nv) of a (TM, ncols) bf16 shared tile to dst rows
-// (stride ld), 16 bytes per thread and step.
-__device__ void store_rows(bf16* dst, long long ld, const bf16* src,
-                           int lds, int ncols, int nv) {
-  const int q8 = ncols / 8;
-  for (int e = threadIdx.x; e < TM * q8; e += THREADS) {
-    const int r = e / q8, q = e % q8;
-    if (r < nv)
-      *reinterpret_cast<uint4*>(dst + r * ld + q * 8) =
-          *reinterpret_cast<const uint4*>(src + r * lds + q * 8);
-  }
-}
-
-// Loads rows [0, nv) of dst (TM, ncols) from src rows (stride ld); rows
-// nv.. are zero.
-__device__ void load_rows(bf16* dst, int ldd, const bf16* src, long long ld,
-                          int ncols, int nv) {
-  const int q8 = ncols / 8;
-  for (int e = threadIdx.x; e < TM * q8; e += THREADS) {
-    const int r = e / q8, q = e % q8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nv) v = *reinterpret_cast<const uint4*>(src + r * ld + q * 8);
-    *reinterpret_cast<uint4*>(dst + r * ldd + q * 8) = v;
-  }
-}
-
-// K3's trunk hook: each layer's tile to the spill, and its ReLU mask bits.
-struct SpillHook {
-  bf16* acts;          // row row0 of the spill; nullptr: no spill (K7)
-  int ld;              // 2048 or 2176
-  int nv;              // valid rows of the tile
-  uint32_t* masks;     // nullptr: no normals
-  __device__ void operator()(int i, const bf16* H) const {
-    if (acts != nullptr) store_rows(acts + i * WIDTH, ld, H, LDH, WIDTH, nv);
-    if (masks == nullptr) return;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int r = warp * (TM / WARPS); r < (warp + 1) * (TM / WARPS); ++r)
-      for (int w = 0; w < MASK_WORDS; ++w) {
-        const bool on = __bfloat162float(H[r * LDH + w * 32 + lane]) > 0.f;
-        const unsigned bits = __ballot_sync(0xffffffffu, on);
-        if (lane == 0) masks[(i * TM + r) * MASK_WORDS + w] = bits;
-      }
-  }
-};
-
-// ---- products shared by the normals dgrad and the backward -------------
-
-// acc = D @ W^T for the warp's NF column tiles starting at column
-// c0 + warp * 16 * NF of W's rows (the layer's input dims): D is the
-// (TM, 256) bf16 tile in shared memory, W the (in, 256) row-major bf16
-// weight in global memory, read as a col_major fragment.  Only the
-// k-tiles set in kmask are visited (the others are zero in D).
-template <int NF>
-__device__ void dgrad_mma(const bf16* D, const bf16* __restrict__ W, int c0,
-                          unsigned kmask, FragC (&acc)[4][NF]) {
-  const int warp = threadIdx.x >> 5;
-  const int cw = c0 + warp * 16 * NF;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  for (int kt = 0; kt < WIDTH / 16; ++kt) {
-    if (!((kmask >> kt) & 1u)) continue;
-    FragBT b[NF];
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-      wmma::load_matrix_sync(b[j], W + (cw + j * 16) * WIDTH + kt * 16,
-                             WIDTH);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      FragA a;
-      wmma::load_matrix_sync(a, D + i * 16 * LDH + kt * 16, LDH);
-#pragma unroll
-      for (int j = 0; j < NF; ++j) wmma::mma_sync(acc[i][j], a, b[j],
-                                                  acc[i][j]);
-    }
-  }
-}
-
-// Hands every element of the warp's accumulators to epi(r, c, v), which
-// returns the value to add to column c's sum; colsum(c, s) then receives
-// the column sums over the 64 rows (fixed order: each lane owns one
-// column of a fragment).
-template <int NF, typename Epi, typename ColSum>
-__device__ void drain(FragC (&acc)[4][NF], int c0, float* stage,
-                      const Epi& epi, const ColSum& colsum) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int cw = c0 + warp * 16 * NF;
-  float* st = stage + warp * 16 * LDS;
-#pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    const int c = cw + j * 16 + (lane & 15);
-    float part = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      wmma::store_matrix_sync(st, acc[i][j], LDS, wmma::mem_row_major);
-      __syncwarp();
-      for (int t = 0; t < 8; ++t) {
-        const int rr = (lane >> 4) + 2 * t;
-        part += epi(i * 16 + rr, c, st[rr * LDS + (lane & 15)]);
-      }
-      __syncwarp();
-    }
-    part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, 16));
-    if (lane < 16) colsum(c, part);
-  }
-}
-
-struct NoColSum {
-  __device__ void operator()(int, float) const {}
-};
-
-// Adds into a global fp32 bias slice.
-struct BiasSum {
-  float* b;
-  __device__ void operator()(int c, float s) const { b[c] += s; }
-};
-
-// dW[m][n] += sum_{k < TM} A[k][m] * B[k][n] for m < M and the n-tiles in
-// nmask: A (TM, M) bf16 in shared memory (stride lda), B (TM, 256) bf16 in
-// shared memory (stride LDH), dW (M, 256) fp32 row-major in the block's
-// gradient slice.  Warp w takes the 16-row strips m = w, w + 8, ...
-__device__ void wgrad_acc(const bf16* A, int lda, int M, const bf16* B,
-                          unsigned nmask, float* dW) {
-  const int warp = threadIdx.x >> 5;
-  for (int mt = warp; mt < M / 16; mt += WARPS) {
-    FragAT a[TM / 16];
-#pragma unroll
-    for (int kt = 0; kt < TM / 16; ++kt)
-      wmma::load_matrix_sync(a[kt], A + kt * 16 * lda + mt * 16, lda);
-    for (int nt = 0; nt < WIDTH / 16; ++nt) {
-      if (!((nmask >> nt) & 1u)) continue;
-      float* dst = dW + mt * 16 * WIDTH + nt * 16;
-      FragC acc;
-      wmma::load_matrix_sync(acc, dst, WIDTH, wmma::mem_row_major);
-#pragma unroll
-      for (int kt = 0; kt < TM / 16; ++kt) {
-        FragB b;
-        wmma::load_matrix_sync(b, B + kt * 16 * LDH + nt * 16, LDH);
-        wmma::mma_sync(acc, a[kt], b, acc);
-      }
-      wmma::store_matrix_sync(dst, acc, WIDTH, wmma::mem_row_major);
-    }
-  }
 }
 
 // ---- K3 / K7 / K1 at the train width -----------------------------------
@@ -480,21 +334,32 @@ __global__ void __launch_bounds__(K10_THREADS, 1)
   }
 }
 
-// ---- K4 / K5 -----------------------------------------------------------
+// ---- K4 / K5 / K8 / K17 -------------------------------------------------
 
 constexpr int RF = 24;  // per-row scalars: [0:4) atten, [4:7) dz3,
                         // [7:10) bf16(dz3), [10:21) d heads (FH_* order)
-constexpr int OFF_D = 0;
-constexpr int OFF_INP = OFF_D + H_BYTES;
-constexpr int OFF_BX = OFF_INP + H_BYTES;
-constexpr int OFF_ROWF = OFF_BX + X_BYTES;
-constexpr int OFF_MBITS = OFF_ROWF + TM * RF * 4;
-constexpr int OFF_BSTAGE = OFF_MBITS + TM * (MID / 32) * 4;
-constexpr int OFF_DXE = OFF_BSTAGE + STAGE_BYTES;
-constexpr int K5_SMEM_BYTES = OFF_DXE;
-constexpr int K4_SMEM_BYTES = OFF_DXE + TM * ENC * 4;
-static_assert(OFF_ROWF % 32 == 0 && OFF_MBITS % 32 == 0 &&
-              OFF_BSTAGE % 32 == 0 && OFF_DXE % 32 == 0, "alignment");
+
+// The backward's shared memory on a tile of ROWS rows: D and INP (ROWS x
+// 256 bf16), X (ROWS x 128 bf16), the row scalars, the mid-seed mask bits,
+// the stage, and with K4 / K8 the fp32 dx tile (64 rows only: K17 keeps
+// its 128-row dx tile in its block's global workspace).
+template <int ROWS>
+struct BwdSmem {
+  static constexpr int D = 0;
+  static constexpr int INP = D + ROWS * LDH * 2;
+  static constexpr int BX = INP + ROWS * LDH * 2;
+  static constexpr int ROWF = BX + ROWS * LDX * 2;
+  static constexpr int MBITS = ROWF + ROWS * RF * 4;
+  static constexpr int STAGE = MBITS + ROWS * (MID / 32) * 4;
+  static constexpr int DXE = STAGE + STAGE_BYTES;
+  static_assert(ROWF % 32 == 0 && MBITS % 32 == 0 && STAGE % 32 == 0 &&
+                DXE % 32 == 0, "alignment");
+};
+constexpr int K5_SMEM_BYTES = BwdSmem<TM>::DXE;
+constexpr int K4_SMEM_BYTES = BwdSmem<TM>::DXE + TM * ENC * 4;
+constexpr int WHOLE = 2 * TM;  // K17's row tile
+constexpr int K17_SMEM_BYTES = BwdSmem<WHOLE>::DXE;
+static_assert(K17_SMEM_BYTES <= 232448, "K17 must fit one SM");
 
 struct BwdArgs {
   const float* mc;      // (N, 16) f32, K4 and K8
@@ -506,25 +371,37 @@ struct BwdArgs {
   float* dmc;           // (N, 16) f32, K4 and K8
   float* dg;            // (R, 512) f32, zeroed by the caller
   float* dpk;           // (blocks, PACK_FLOATS) f32, zeroed by the caller
-  bf16* ws;             // K8: (blocks, TM, 2048) bf16 recompute slots
+  bf16* ws;             // K8: (blocks, ROWS, 2048) bf16 recompute slots
   long long rays;
   int S;
   int rays_per_block;
+  float* dxe;           // K17: (blocks, 128, 128) f32 dx tiles
 };
 
 // K4 (WANT_DMC), K5, and with RECOMPUTE (K8) K4 on activations that the
-// block recomputes per tile into its workspace slot.
-template <bool WANT_DMC, bool RECOMPUTE>
+// block recomputes per tile into its workspace slot.  ROWS: the row tile,
+// 64 (K4, K5, K8, K13) or 128 (K17, recompute only).  Every product that
+// contracts over the rows (the weight gradients) runs over the whole tile
+// between one load and one store of the block's slice; the trunk
+// recompute, the dgrads and their epilogues run on the tile's 64-row
+// halves, each element computed as on a 64-row tile.
+template <bool WANT_DMC, bool RECOMPUTE, int ROWS = TM>
 __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
   static_assert(WANT_DMC || !RECOMPUTE, "K8 computes dmc");
+  static_assert(ROWS == TM || RECOMPUTE, "128-row tiles: K17 only");
+  static_assert(ROWS % TM == 0 && ROWS <= THREADS, "64-row halves");
+  typedef BwdSmem<ROWS> L;
+  constexpr int HALVES = ROWS / TM;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* D = reinterpret_cast<bf16*>(smem + OFF_D);
-  bf16* INP = reinterpret_cast<bf16*>(smem + OFF_INP);
-  bf16* X = reinterpret_cast<bf16*>(smem + OFF_BX);
-  float* rowf = reinterpret_cast<float*>(smem + OFF_ROWF);
-  uint32_t* mbits = reinterpret_cast<uint32_t*>(smem + OFF_MBITS);
-  float* stage = reinterpret_cast<float*>(smem + OFF_BSTAGE);
-  float* dxe = reinterpret_cast<float*>(smem + OFF_DXE);  // K4 only
+  bf16* D = reinterpret_cast<bf16*>(smem + L::D);
+  bf16* INP = reinterpret_cast<bf16*>(smem + L::INP);
+  bf16* X = reinterpret_cast<bf16*>(smem + L::BX);
+  float* rowf = reinterpret_cast<float*>(smem + L::ROWF);
+  uint32_t* mbits = reinterpret_cast<uint32_t*>(smem + L::MBITS);
+  float* stage = reinterpret_cast<float*>(smem + L::STAGE);
+  float* dxe = ROWS == TM  // K4, K8: in shared memory; K17: its workspace
+      ? reinterpret_cast<float*>(smem + L::DXE)
+      : a.dxe + (long long)blockIdx.x * ROWS * ENC;
   const int tid = threadIdx.x, warp = tid >> 5;
   const int S = a.S;
   constexpr int ld = WANT_DMC ? ACTS_COLS : XACTS_COLS;
@@ -534,61 +411,52 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
   const long long rowA = ray0 * S, rowB = ray1 * S;
   float* grp = a.dpk + (long long)blockIdx.x * PACK_FLOATS;
 
-  for (long long row0 = rowA; row0 < rowB; row0 += TM) {
-    const int nv = (int)min((long long)TM, rowB - row0);
-    bf16* slot = RECOMPUTE ? a.ws + (long long)blockIdx.x * TM * ld : nullptr;
+  for (long long row0 = rowA; row0 < rowB; row0 += ROWS) {
+    const int nv = (int)min((long long)ROWS, rowB - row0);
+    bf16* slot =
+        RECOMPUTE ? a.ws + (long long)blockIdx.x * ROWS * ld : nullptr;
     const bf16* acts = RECOMPUTE ? slot : a.acts + row0 * ld;
 
     // ---- K8: the tile's trunk forward again, K3's code, into the slot
     // (D and INP serve as the two activation buffers, BSTAGE as stage) ----
     if (RECOMPUTE) {
-      ipe_tile(a.mc, a.consts, row0, rowB, X);
+      ipe_rows<false>(a.mc, a.consts, row0, rowB, X, tid, THREADS, ROWS);
       block_sync();
-      trunk(p.trunk, X, D, INP, stage, SpillHook{slot, ld, nv, nullptr});
+      for (int h = 0; h < HALVES; ++h)
+        trunk(p.trunk, X + h * TM * LDX, D + h * TM * LDH,
+              INP + h * TM * LDH, stage,
+              SpillHook{slot + h * TM * ld, ld, nv - h * TM, nullptr});
     }
 
     // ---- loads: hs7, x, per-row scalars ----
-    load_rows(INP, LDH, acts + (LAYERS - 1) * WIDTH, ld, WIDTH, nv);
+    load_rows<ROWS>(INP, LDH, acts + (LAYERS - 1) * WIDTH, ld, WIDTH, nv);
     if (WANT_DMC && !RECOMPUTE)
       ipe_tile(a.mc, a.consts, row0, rowB, X);
     else if (!WANT_DMC)
       load_rows(X, LDX, acts + ACTS_COLS, ld, ENC, nv);
-    for (int e = tid; e < TM * (MID / 32); e += THREADS) mbits[e] = 0u;
-    if (tid < TM) {
+    for (int e = tid; e < ROWS * (MID / 32); e += THREADS) mbits[e] = 0u;
+    if (tid < ROWS) {
       float* rf = rowf + tid * RF;
       for (int i = 0; i < RF; ++i) rf[i] = 0.f;
       if (tid < nv) {
         const bf16* fo = a.fout + (row0 + tid) * OUT_TRAIN;
-        const bf16* dq = a.dout + (row0 + tid) * OUT_TRAIN;
-        float dout[14];
-        for (int i = 0; i < 14; ++i) dout[i] = __bfloat162float(dq[i]);
         const float sp = softplusf(__bfloat162float(fo[13]));
         for (int b = 0; b < 4; ++b) rf[b] = expf(__fmul_rn(-sp, band_k(b)));
+        float diff[3], tint[3], mid[3];
         for (int i = 0; i < 3; ++i) {
-          const float diff = __bfloat162float(fo[3 + i]);
-          const float tint = __bfloat162float(fo[6 + i]);
-          const float mid = __bfloat162float(fo[17 + i]);
-          const float dmid_out = dout[i];
-          const float ddiff = __fadd_rn(dmid_out, dout[3 + i]);
-          const float dtint = __fadd_rn(__fmul_rn(dmid_out, mid), dout[6 + i]);
-          const float dmid = __fmul_rn(dmid_out, tint);
-          const float dz = __fmul_rn(__fmul_rn(dmid, mid), __fsub_rn(1.f, mid));
-          rf[4 + i] = dz;
-          rf[7 + i] = __bfloat162float(__float2bfloat16_rn(dz));
-          rf[10 + 1 + i] = __fmul_rn(__fmul_rn(ddiff, diff),
-                                     __fsub_rn(1.f, diff));
-          rf[10 + 4 + i] = __fmul_rn(__fmul_rn(dtint, tint),
-                                     __fsub_rn(1.f, tint));
-          rf[10 + 8 + i] = dout[9 + i];
+          diff[i] = __bfloat162float(fo[3 + i]);
+          tint[i] = __bfloat162float(fo[6 + i]);
+          mid[i] = __bfloat162float(fo[17 + i]);
         }
-        rf[10 + 0] = dout[12];
-        rf[10 + 7] = dout[13];
+        tail_cotangents(a.dout + (row0 + tid) * OUT_TRAIN, diff, tint, mid,
+                        rf);
       }
     }
     block_sync();
 
     // ---- mid seed recompute: hmid into D[:, 0:128], mid_pre > 0 bits ----
-    {
+    for (int h = 0; h < HALVES; ++h) {
+      const int r0 = h * TM;
       FragC acc[4][1];
 #pragma unroll
       for (int i = 0; i < 4; ++i) wmma::fill_fragment(acc[i][0], 0.f);
@@ -599,11 +467,12 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           FragA fa;
-          wmma::load_matrix_sync(fa, INP + i * 16 * LDH + kt * 16, LDH);
+          wmma::load_matrix_sync(fa, INP + (r0 + i * 16) * LDH + kt * 16, LDH);
           wmma::mma_sync(acc[i][0], fa, b, acc[i][0]);
         }
       }
-      drain<1>(acc, 0, stage, [&](int r, int c, float v) {
+      drain<1>(acc, 0, stage, [&](int rr, int c, float v) {
+        const int r = r0 + rr;
         float m = __fadd_rn(v, p.b_hc[MID + c]);
         if (r < nv) {
           const float* gr = a.g + ((row0 + r) / S) * G_COLS + c;
@@ -620,74 +489,32 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
     block_sync();
 
     // ---- mid head: w_out / b_out gradients; dmid_pre, dg, b_hc[128:] ----
-    for (int e = tid; e < MID * 3 + 3; e += THREADS) {
-      if (e < MID * 3) {  // dW_out[c][j] = sum_r hmid[r][c] * bf16(dz)[r][j]
-        const int c = e / 3, j = e % 3;
-        float s = 0.f;
-        for (int r = 0; r < TM; ++r)
-          s = __fmaf_rn(__bfloat162float(D[r * LDH + c]), rowf[r * RF + 7 + j],
-                        s);
-        grp[OFF_WOUT + c * MID + j] += s;
-      } else {
-        const int j = e - MID * 3;
-        float s = 0.f;
-        for (int r = 0; r < TM; ++r) s = __fadd_rn(s, rowf[r * RF + 4 + j]);
-        grp[OFF_BOUT + j] += s;
-      }
-    }
-    if (tid < MID) {
-      const int c = tid;
-      const float w0 = __bfloat162float(p.w_out[c * MID + 0]);
-      const float w1 = __bfloat162float(p.w_out[c * MID + 1]);
-      const float w2 = __bfloat162float(p.w_out[c * MID + 2]);
-      float bias = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
-      long long ray_cur = -1;
-      for (int r = 0; r < TM; ++r) {
-        float v = 0.f;
-        if (r < nv && ((mbits[r * (MID / 32) + (c >> 5)] >> (c & 31)) & 1u)) {
-          const float* dz = rowf + r * RF + 7;
-          v = __fmaf_rn(dz[2], w2, __fmaf_rn(dz[1], w1, __fmul_rn(dz[0], w0)));
-        }
-        D[r * LDH + MID + c] = __float2bfloat16_rn(v);
-        if (r >= nv) continue;
-        bias = __fadd_rn(bias, v);
-        const long long ray = (row0 + r) / S;
-        if (ray != ray_cur) {
-          if (ray_cur >= 0)
-            for (int b = 0; b < 4; ++b) a.dg[ray_cur * G_COLS + b * MID + c] +=
-                acc[b];
-          ray_cur = ray;
-          for (int b = 0; b < 4; ++b) acc[b] = 0.f;
-        }
-        for (int b = 0; b < 4; ++b)
-          acc[b] = __fmaf_rn(rowf[r * RF + b], v, acc[b]);
-      }
-      if (ray_cur >= 0)
-        for (int b = 0; b < 4; ++b)
-          a.dg[ray_cur * G_COLS + b * MID + c] += acc[b];
-      grp[OFF_BHC + MID + c] += bias;
-    }
+    mid_head_wgrad(D, LDH, rowf, RF, ROWS, grp + OFF_WOUT, grp + OFF_BOUT);
+    dmid_pre_rows(p.w_out, mbits, rowf, RF, ROWS, nv, row0, S, a.dg,
+                  D + MID, LDH, grp + OFF_BHC + MID);
     block_sync();
 
     // ---- the head columns of d_hc into D[:, 0:16] ----
-    for (int e = tid; e < TM * 16; e += THREADS) {
+    for (int e = tid; e < ROWS * 16; e += THREADS) {
       const int r = e / 16, c = e % 16;
       D[r * LDH + c] = __float2bfloat16_rn(c < 11 ? rowf[r * RF + 10 + c] : 0.f);
     }
     if (tid < 11) {
       float s = 0.f;
-      for (int r = 0; r < TM; ++r) s = __fadd_rn(s, rowf[r * RF + 10 + tid]);
+      for (int r = 0; r < ROWS; ++r) s = __fadd_rn(s, rowf[r * RF + 10 + tid]);
       grp[OFF_BHC + tid] += s;
     }
     block_sync();
 
     // ---- heads + mid: dW_hc += hs7^T d_hc; dh7 = d_hc w_hc^T ----
-    wgrad_acc(INP, LDH, WIDTH, D, HC_TILES, grp + OFF_WHC);
-    {
+    wgrad_acc<ROWS>(INP, LDH, WIDTH, D, LDH, HC_TILES, grp + OFF_WHC, WIDTH);
+    for (int h = 0; h < HALVES; ++h) {
+      const int r0 = h * TM;
       FragC acc[4][2];
-      dgrad_mma<2>(D, p.w_hc, 0, HC_TILES, acc);
+      dgrad_mma<2>(D + r0 * LDH, p.w_hc, 0, HC_TILES, acc);
       block_sync();
-      drain<2>(acc, 0, stage, [&](int r, int c, float v) {
+      drain<2>(acc, 0, stage, [&](int rr, int c, float v) {
+        const int r = r0 + rr;
         const float m =
             (r < nv && __bfloat162float(INP[r * LDH + c]) > 0.f) ? v : 0.f;
         D[r * LDH + c] = __float2bfloat16_rn(m);
@@ -699,67 +526,49 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
     // ---- trunk: D holds dpre_i; INP gets layer i's input hs_{i-1} ----
     for (int i = LAYERS - 1; i >= 0; --i) {
       if (i > 0) {
-        load_rows(INP, LDH, acts + (i - 1) * WIDTH, ld, WIDTH, nv);
+        load_rows<ROWS>(INP, LDH, acts + (i - 1) * WIDTH, ld, WIDTH, nv);
         block_sync();
       }
       float* dW = grp + off_w(i);
-      if (i == 0 || i == SKIP_AT) wgrad_acc(X, LDX, ENC, D, ALL_TILES, dW);
+      if (i == 0 || i == SKIP_AT)
+        wgrad_acc<ROWS>(X, LDX, ENC, D, LDH, ALL_TILES, dW, WIDTH);
       if (i > 0)
-        wgrad_acc(INP, LDH, WIDTH, D, ALL_TILES,
-                  i == SKIP_AT ? dW + ENC * WIDTH : dW);
+        wgrad_acc<ROWS>(INP, LDH, WIDTH, D, LDH, ALL_TILES,
+                        i == SKIP_AT ? dW + ENC * WIDTH : dW, WIDTH);
       const bf16* W = p.trunk.w[i];
-      if (WANT_DMC && (i == 0 || i == SKIP_AT)) {
-        FragC acc[4][1];
-        dgrad_mma<1>(D, W, 0, ALL_TILES, acc);
-        const bool first = i == SKIP_AT;
-        drain<1>(acc, 0, stage, [&](int r, int c, float v) {
-          float* d = dxe + r * ENC + c;
-          *d = first ? v : __fadd_rn(v, *d);
-          return 0.f;
-        }, NoColSum());
-      }
-      if (i > 0) {
-        const int c0 = i == SKIP_AT ? ENC : 0;
-        FragC acc[4][2];
-        dgrad_mma<2>(D, W, c0, ALL_TILES, acc);
-        block_sync();  // wgrad and dgrad reads of D are done
-        drain<2>(acc, c0, stage, [&](int r, int c, float v) {
-          const int h = c - c0;
-          const float m =
-              (r < nv && __bfloat162float(INP[r * LDH + h]) > 0.f) ? v : 0.f;
-          D[r * LDH + h] = __float2bfloat16_rn(m);
-          return m;
-        }, BiasSum{grp + OFF_B + (i - 1) * WIDTH - c0});
+      for (int h = 0; h < HALVES; ++h) {
+        const int r0 = h * TM;
+        if (WANT_DMC && (i == 0 || i == SKIP_AT)) {
+          FragC acc[4][1];
+          dgrad_mma<1>(D + r0 * LDH, W, 0, ALL_TILES, acc);
+          const bool first = i == SKIP_AT;
+          drain<1>(acc, 0, stage, [&](int rr, int c, float v) {
+            float* d = dxe + (r0 + rr) * ENC + c;
+            *d = first ? v : __fadd_rn(v, *d);
+            return 0.f;
+          }, NoColSum());
+        }
+        if (i > 0) {
+          const int c0 = i == SKIP_AT ? ENC : 0;
+          FragC acc[4][2];
+          dgrad_mma<2>(D + r0 * LDH, W, c0, ALL_TILES, acc);
+          block_sync();  // wgrad and dgrad reads of D are done
+          drain<2>(acc, c0, stage, [&](int rr, int c, float v) {
+            const int r = r0 + rr, hc = c - c0;
+            const float m =
+                (r < nv && __bfloat162float(INP[r * LDH + hc]) > 0.f) ? v
+                                                                      : 0.f;
+            D[r * LDH + hc] = __float2bfloat16_rn(m);
+            return m;
+          }, BiasSum{grp + OFF_B + (i - 1) * WIDTH - c0});
+        }
       }
       block_sync();
     }
 
     // ---- IPE backward (K4): dmc = dpre_enc A^T + dvar V^T ----
     if (WANT_DMC) {
-      for (int e = tid; e < TM * IN_COLS; e += THREADS) {
-        const int r = e / IN_COLS, col = e % IN_COLS;
-        if (r >= nv) continue;
-        const long long row = row0 + r;
-        float s = 0.f;
-        if (col < 6) {
-          const float* m = a.mc + row * IN_COLS;
-          const int d = col % 3;
-          const bool var = col >= 3;
-          for (int half = 0; half < 2; ++half)
-            for (int k = 0; k < NFREQ; ++k) {
-              const int c = half * 48 + d * NFREQ + k;
-              float damp, u;
-              ipe_phase(m, a.consts, c, &damp, &u);
-              const float dx = dxe[r * ENC + c];
-              const float t = var
-                  ? __fmul_rn(__fmul_rn(__fmul_rn(dx, -0.5f), damp), sin2pi(u))
-                  : __fmul_rn(dx, __fmul_rn(damp, cos2pi(u)));
-              s = __fmaf_rn(t, a.consts[(var ? NFREQ : 0) + k], s);
-            }
-          if (!var) s = __fadd_rn(s, dxe[r * ENC + 96 + d]);
-        }
-        a.dmc[row * IN_COLS + col] = s;
-      }
+      ipe_backward_rows(a.mc, a.consts, dxe, a.dmc, row0, nv, ROWS);
       block_sync();
     }
   }
@@ -778,6 +587,11 @@ __global__ void __launch_bounds__(THREADS, 2)
 __global__ void __launch_bounds__(THREADS, 1)
     field_backward_v4_kernel(V3Params p, BwdArgs a) {
   field_backward_body<true, true>(p, a);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    field_backward_whole_kernel(V3Params p, BwdArgs a) {
+  field_backward_body<true, true, WHOLE>(p, a);
 }
 
 // K13: K8's body, then the weight gradients summed over the blocks' slices
@@ -980,6 +794,28 @@ int rsn_field_backward_v4(const void* mean_cov, const void* g_bands,
             static_cast<float*>(dpk), static_cast<bf16*>(ws), rays,
             samples_per_ray, rays_per_block};
   return launch_backward(field_backward_v4_kernel, K4_SMEM_BYTES, p, a,
+                         stream);
+}
+
+// K17: K8 on 128-row tiles.  ws: ceil(rays / rays_per_block) slots of
+// 128 x 2048 bf16 and dxe as many (128, 128) f32 tiles (both
+// uninitialised); dg and dpk as for K4.
+int rsn_field_backward_whole(const void* mean_cov, const void* g_bands,
+                             const void* ipe_consts, const void* d_out,
+                             const void* f_out, const void* const* ptrs,
+                             void* dmc, void* dg, void* dpk, void* ws,
+                             void* dxe, long long rays, int samples_per_ray,
+                             int rays_per_block, void* stream) {
+  V3Params p;
+  fill_v3(&p, ptrs);
+  BwdArgs a{static_cast<const float*>(mean_cov),
+            static_cast<const float*>(g_bands),
+            static_cast<const float*>(ipe_consts), nullptr,
+            static_cast<const bf16*>(d_out), static_cast<const bf16*>(f_out),
+            static_cast<float*>(dmc), static_cast<float*>(dg),
+            static_cast<float*>(dpk), static_cast<bf16*>(ws), rays,
+            samples_per_ray, rays_per_block, static_cast<float*>(dxe)};
+  return launch_backward(field_backward_whole_kernel, K17_SMEM_BYTES, p, a,
                          stream);
 }
 

@@ -39,33 +39,44 @@ FLOPS_PER_ROW = 2 * (99 * 256 + 3 * 256 * 256 + (99 + 256) * 256
                      + 3 * 256 * 256 + 256 * 267 + 256 * 128 + 128 * 3)
 
 
+def unfolded_tail(packed_v3, h: torch.Tensor, g_bands: torch.Tensor,
+                  samples_per_ray: int):
+    """The tools' _half after the trunk, from its last (N, 256) bf16
+    activation h -> (heads (N, 384) f32 with their bias, the bf16
+    bottleneck, the 4 band attenuations (N, 1), mid_pre (N, 128) f32, hmid
+    (N, 128) bf16, mid (N, 3) f32)."""
+    wh, bh, w_emb, b_mid, w_out, b_out = packed_v3[16:]
+    n, S = h.shape[0], samples_per_ray
+    heads = h.float() @ wh.float() + bh
+    bneck = heads[:, ff.OUT_BOTTLENECK].to(BF16)
+    rough_raw = heads[:, ff.OUT_ROUGH:ff.OUT_ROUGH + 1]
+    rough_sp = torch.logaddexp(rough_raw, torch.zeros_like(rough_raw))
+    attens = [torch.exp(-rough_sp * k) for k in ff._BAND_KS]
+    mid_pre = (bneck.float() @ w_emb.float() + b_mid).reshape(n // S, S, 128)
+    for bi, a in enumerate(attens):
+        band = g_bands[:, None, bi * 128:(bi + 1) * 128]
+        mid_pre = mid_pre + a.reshape(n // S, S, 1) * band
+    mid_pre = mid_pre.reshape(n, 128)
+    hmid = torch.relu(mid_pre).to(BF16)
+    mid = torch.sigmoid(hmid.float() @ w_out.float() + b_out)[:, 0:3]
+    return heads, bneck, attens, mid_pre, hmid, mid
+
+
 def unfolded_forward_plain(packed_v3, x: torch.Tensor, g_bands: torch.Tensor,
                            samples_per_ray: int) -> torch.Tensor:
     """The tools' _half from the (N, 128) bf16 encoding x: trunk, unfolded
     heads, mid seed, attenuation, mid head -> (N, 128) bf16."""
-    ws, bs = packed_v3[:8], packed_v3[8:16]
-    wh, bh, w_emb, b_mid, w_out, b_out = packed_v3[16:]
-    n, S = x.shape[0], samples_per_ray
-    h = ff._trunk_plain(ws, bs, x)
-    heads = h.float() @ wh.float() + bh
-    bneck = heads[:, ff.OUT_BOTTLENECK].to(BF16)
-    density = heads[:, ff.OUT_DENSITY:ff.OUT_DENSITY + 1]
+    h = ff._trunk_plain(packed_v3[:8], packed_v3[8:16], x)
+    heads, _, _, _, _, mid = unfolded_tail(packed_v3, h, g_bands,
+                                           samples_per_ray)
     diff = torch.sigmoid(heads[:, ff.OUT_DIFF])
     tint = torch.sigmoid(heads[:, ff.OUT_TINT])
-    rough_raw = heads[:, ff.OUT_ROUGH:ff.OUT_ROUGH + 1]
-    normals_raw = heads[:, ff.OUT_NORMALS]
-    rough_sp = torch.logaddexp(rough_raw, torch.zeros_like(rough_raw))
-    mid_pre = (bneck.float() @ w_emb.float() + b_mid).reshape(n // S, S, 128)
-    for bi, k in enumerate(ff._BAND_KS):
-        band = g_bands[:, None, bi * 128:(bi + 1) * 128]
-        mid_pre = mid_pre + torch.exp(-rough_sp * k).reshape(n // S, S,
-                                                             1) * band
-    hmid = torch.relu(mid_pre).reshape(n, 128).to(BF16)
-    mid = torch.sigmoid(hmid.float() @ w_out.float() + b_out)[:, 0:3]
-    mid_out = diff + tint * mid
-    zeros = torch.zeros(n, V3_OUT - 14, device=x.device)
-    return torch.cat([mid_out, diff, tint, normals_raw, density, rough_raw,
-                      zeros], dim=1).to(BF16)
+    zeros = torch.zeros(x.shape[0], V3_OUT - 14, device=x.device)
+    return torch.cat([diff + tint * mid, diff, tint,
+                      heads[:, ff.OUT_NORMALS],
+                      heads[:, ff.OUT_DENSITY:ff.OUT_DENSITY + 1],
+                      heads[:, ff.OUT_ROUGH:ff.OUT_ROUGH + 1], zeros],
+                     dim=1).to(BF16)
 
 
 def field_forward_v3u_plain(packed_v3, mean_cov: torch.Tensor,

@@ -25,7 +25,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("field_forward.cu", "field_train.cu", "proposal_forward.cu",
-           "experiments.cu")
+           "experiments.cu", "experiments_bwd.cu")
 HEADERS = ("field_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -107,6 +107,8 @@ def _signatures() -> Dict[str, Dict[str, list]]:
             "rsn_field_forward_v5": [vp, vp, vp, ptrs, vp, ll, i32, i32, vp],
             "rsn_field_backward_v3": [vp, vp, vp, vp, vp, ptrs, vp, vp, vp,
                                       vp, vp, vp, ll, i32, i32, vp],
+            "rsn_field_backward_whole": [vp, vp, vp, vp, vp, ptrs, vp, vp,
+                                         vp, vp, vp, ll, i32, i32, vp],
         },
         "proposal_forward.cu": {
             "rsn_prop_forward": [vp, vp, ptrs, vp, ll, vp],
@@ -117,6 +119,11 @@ def _signatures() -> Dict[str, Dict[str, list]]:
             "rsn_field_forward_v3L": [vp, vp, vp, ptrs, vp, ll, i32, i32,
                                       vp],
             "rsn_cheap_sin": [vp, vp, ll, i32, vp],
+        },
+        "experiments_bwd.cu": {
+            "rsn_bwd_ablate": [vp, vp, vp, vp, ptrs, vp, vp, vp, vp, ll, i32,
+                               i32, i32, vp],
+            "rsn_bwd_noipe": [vp, vp, vp, ptrs, vp, vp, ll, i32, i32, vp],
         },
     }
 

@@ -97,7 +97,11 @@ LAUNCHES = {"field_forward_v3": 0, "field_forward_density": 0,
             "prop_forward": 0, "field_forward_v2": 0, "field_forward": 0,
             "field_forward_v5": 0, "field_backward_v3": 0,
             "field_forward_v3u": 0, "field_forward_v3i": 0,
-            "field_forward_v3L": 0, "field_forward_v3F": 0}
+            "field_forward_v3L": 0, "field_forward_v3F": 0,
+            "field_backward_whole": 0, "run_noipe": 0}
+# K18's four modes (rsn_torch.experiments.bwd_ablate), one count each
+LAUNCHES.update({f"bwd_ablate_{m}": 0 for m in (
+    "full_wgrad", "full", "no_ipe_bwd", "recompute")})
 # K16's modes (rsn_torch.experiments.cheap_sin), one count each
 CHEAP_SIN_MODES = ("copy", "exact", "poly", "exp", "exp2", "exp2_ldexp",
                    "poly_bf16", "cos_poly")

@@ -334,10 +334,12 @@ def _rays_per_block(rays: int, device, blocks_per_sm: int) -> int:
     return max(1, -(-rays // target))
 
 
-def _packed_views(flat: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """(PACK_FLOATS,) -> the 20 packed-operand gradients, as views."""
+def _packed_views(flat: torch.Tensor, shapes=PACKED_SHAPES
+                  ) -> Tuple[torch.Tensor, ...]:
+    """(PACK_FLOATS,) -> the 20 packed-operand gradients (or, for other
+    `shapes`, one per shape), as views."""
     out, off = [], 0
-    for r, c in PACKED_SHAPES:
+    for r, c in shapes:
         out.append(flat[off:off + r * c].view(r, c))
         off += r * c
     return tuple(out)

@@ -7,7 +7,9 @@ field API), determinism, the alignment checks, small renders (the default
 method and the proposal preset) on both devices, the recompute route's
 smaller peak memory, and the tools' experiments (K14-K16) against their
 plain versions at ragged shapes, with v3i == v3u and v3F == v3L bit for
-bit.
+bit, and the backward experiments (K17-K19): K17 against K8 and its plain
+version, K18's four modes and K19 against theirs, K19 == K18's full mode
+on K3's spill.
 
 Needs a CUDA card and nvcc; skipped without them.  This file imports no
 jax, so it also runs on a machine without it:
@@ -21,7 +23,8 @@ import torch
 from rsn_torch.configs import ModelConfig, PipelineConfig, TrainerConfig
 from rsn_torch.data.synthetic import make_synthetic_cameras
 from rsn_torch.engine.trainer import render_image
-from rsn_torch.experiments import cheap_sin, interleave, interleave2
+from rsn_torch.experiments import (bwd_ablate, bwd_noipe, bwd_whole,
+                                   cheap_sin, interleave, interleave2)
 from rsn_torch.kernels import field_forward as ff
 from rsn_torch.kernels import field_train as tft
 from rsn_torch.kernels import proposal_forward as pf
@@ -575,3 +578,105 @@ def test_cheap_sin_matches_plain_version(field, mode, n):
         assert torch.all((got - ref).abs() <= cheap_sin.bf16_ulp(ref))
     else:
         assert float((got - ref).abs().max()) <= 1e-6
+
+
+# ---- the tools' backward experiments: K17, K18 (four modes), K19 ----------
+
+def _bwd_inputs(field, R, S, seed):
+    mc, dirs = _inputs(R, S, seed=seed)
+    g = ff.mid_g_bands(field, dirs)
+    gen = torch.Generator().manual_seed(seed)
+    d_out = torch.randn(R * S, bwd_ablate.D_OUT_COLS, generator=gen)
+    d_out[:, 14:] = 0.0
+    return mc, g, d_out.to(torch.bfloat16).cuda()
+
+
+@pytest.mark.parametrize("R,S", [(1, 1), (3, 7), (5, 29), (33, 128),
+                                 (300, 64)])
+def test_k17_matches_k8_and_plain(field, R, S):
+    """K17 (128-row tiles): dmc equals K8's bit for bit, dg and each
+    weight gradient within K13_TOL of K8's (the sums over rows change
+    order); the same bits twice; against its plain version fed the
+    kernel's activations (the plain K4 on K3's spill, = the recompute)
+    within ATOL.  (The plain version that recomputes its own trunk is held
+    at K8_TOL in chip_smoke.py at full size: on a few rows one bf16 flip
+    of an activation moves a whole weight gradient, 1.3e-1 of its max at
+    R=3, S=7 for K8 and K17 alike.)"""
+    mc, g, d_out = _bwd_inputs(field, R, S, R + 3 * S)
+    p3 = ff.pack_params_v3f(field)
+    out = tft.field_forward_v3_train(p3, mc, g, S)
+    _, acts = tft.field_forward_v6(p3, mc, g, S)
+    d24 = d_out[:, :tft.OUT_TRAIN].contiguous()
+    a = bwd_whole.field_backward_whole(p3, mc, g, d24, out, S)
+    b = bwd_whole.field_backward_whole(p3, mc, g, d24, out, S)
+    k8 = tft.field_backward_v4(p3, mc, g, d24, out, S)
+    torch.cuda.synchronize()
+    assert _same(a, b)
+    assert torch.equal(a[0], k8[0])
+    assert _rel_err(a[1], k8[1]) <= K13_TOL
+    for x, y in zip(a[2], k8[2]):
+        assert x.shape == y.shape and _rel_err(x, y) <= K13_TOL
+    ref = tft.field_backward_v5_plain(p3, mc, g, acts, d24, out, S)
+    for x, y in zip(a[:2] + tuple(a[2]), ref[:2] + tuple(ref[2])):
+        assert _rel_err(x, y) <= ATOL
+
+
+@pytest.mark.parametrize("R,S", [(1, 1), (3, 7), (5, 29), (33, 128),
+                                 (300, 64)])
+def test_k18_k19_match_plain_versions(field, R, S):
+    """K18 in each mode against its plain version on K3's spill of the
+    same rows (= the kernel's recompute) within ATOL of each output's max
+    (the whole plain version, which recomputes its trunk, is held at
+    K8_TOL in chip_smoke.py at full size, as K8 is); K19 on that spill ==
+    K18's full mode (dg and the 22 gradients) bit for bit, and within
+    ATOL of its plain version."""
+    mc, g, d_out = _bwd_inputs(field, R, S, 2 * R + S)
+    p3 = ff.pack_params_v3(field)
+    _, xacts = tft.field_forward_v6(ff.pack_params_v3f(field), mc, g, S,
+                                    spill_x=True)
+    hs, x = tft._split_acts(xacts), xacts[:, tft.ACTS_COLS:]
+    got = {}
+    for mode, wg in bwd_ablate.VARIANTS:
+        got[mode, wg] = k = bwd_ablate.run(mode, wg, p3, mc, g, d_out, S)
+        torch.cuda.synchronize()
+        assert (k[2] is None) == (not wg)
+        ref = bwd_ablate.backward_from_acts(p3, hs, x, g, d_out, S, mode,
+                                            wg, mc)
+        assert _rel_err(k[0], ref[0]) <= ATOL, (mode, wg)
+        assert _rel_err(k[1], ref[1]) <= ATOL, (mode, wg)
+        for a, b in zip(k[2] or (), ref[2] or ()):
+            assert a.shape == b.shape and _rel_err(a, b) <= ATOL
+    full = got["full", True]
+    assert torch.equal(full[0], got["full", False][0])
+    assert torch.equal(full[1], got["full", False][1])
+    k19 = bwd_noipe.run_noipe(p3, xacts, g, d_out, S)
+    again = bwd_noipe.run_noipe(p3, xacts, g, d_out, S)
+    torch.cuda.synchronize()
+    assert torch.equal(k19[0], full[1])
+    assert all(torch.equal(a, b) for a, b in zip(k19[1], full[2]))
+    assert torch.equal(k19[0], again[0])
+    assert all(torch.equal(a, b) for a, b in zip(k19[1], again[1]))
+    ref = bwd_noipe.run_noipe_plain(p3, xacts, g, d_out, S)
+    assert _rel_err(k19[0], ref[0]) <= ATOL
+    for a, b in zip(k19[1], ref[1]):
+        assert _rel_err(a, b) <= ATOL
+
+
+def test_backward_experiment_launch_counts(field):
+    mc, g, d_out = _bwd_inputs(field, 4, 16, 1)
+    p3, p1 = ff.pack_params_v3(field), ff.pack_params_v3f(field)
+    out, xacts = tft.field_forward_v6(p1, mc, g, 16, spill_x=True)
+    d24 = d_out[:, :tft.OUT_TRAIN].contiguous()
+    ff.reset_launch_counts()
+    bwd_whole.field_backward_whole(p1, mc, g, d24, out, 16)
+    for mode, wg in bwd_ablate.VARIANTS:
+        bwd_ablate.run(mode, wg, p3, mc, g, d_out, 16)
+    bwd_ablate.run("recompute", False, p3, mc, g, d_out, 16)
+    bwd_noipe.run_noipe(p3, xacts, g, d_out, 16)
+    bwd_noipe.run_noipe_plain(p3, xacts, g, d_out, 16)
+    bwd_ablate.bwd_ablate_plain(p3, mc, g, d_out, 16)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ff.LAUNCHES.items() if v} == {
+        "field_backward_whole": 1, "bwd_ablate_full_wgrad": 1,
+        "bwd_ablate_full": 1, "bwd_ablate_no_ipe_bwd": 1,
+        "bwd_ablate_recompute": 2, "run_noipe": 1}
