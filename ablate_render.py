@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Where K1's and K2's time goes, by ablation, on one CUDA card.
+
+    python3 ablate_render.py
+
+Builds rsn_torch/csrc/field_forward.cu once as the port builds it and once
+per RSN_ABLATE_* macro of trunk_sm90.cuh (each leaves one part out of the
+Hopper trunk: the weight copies, the per-layer bias + ReLU + bf16
+epilogue, the IPE, or all three), one nvcc per build, in parallel, into
+rsn_torch/_build/ablate/ (git-ignored).  Then times K1
+(rsn_field_forward_v3) and K2 (rsn_field_forward_density) of every build
+on the orbit chunk's shape (16,384 rays x 128 samples = 2,097,152 rows;
+field weights from chip_smoke.SEED), CUDA events, median of 10, the full
+build first and last.  A build with a part left out computes a wrong
+result; only its time is read.  Prints the card's name and power limit.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+VARIANTS = (("full", ()),
+            ("no weight copies", ("RSN_ABLATE_NO_LOAD",)),
+            ("no epilogue", ("RSN_ABLATE_NO_EPILOGUE",)),
+            ("no IPE", ("RSN_ABLATE_NO_IPE",)),
+            ("products only", ("RSN_ABLATE_NO_LOAD", "RSN_ABLATE_NO_EPILOGUE",
+                               "RSN_ABLATE_NO_IPE")))
+
+
+def build(out_dir: str):
+    from rsn_torch.kernels.build import CSRC_DIR, NVCC_FLAGS, find_nvcc
+
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc, jobs = find_nvcc(), []
+    for i, (name, macros) in enumerate(VARIANTS):
+        lib = os.path.join(out_dir, f"field_forward_{i}.so")
+        cmd = [nvcc, *NVCC_FLAGS, *(f"-D{m}" for m in macros), "-o", lib,
+               os.path.join(CSRC_DIR, "field_forward.cu")]
+        jobs.append((name, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    libs = {}
+    for name, lib, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+        libs[name] = ctypes.CDLL(lib)
+        vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        ptrs = ctypes.POINTER(ctypes.c_void_p)
+        libs[name].rsn_field_forward_v3.argtypes = [vp, vp, vp, vp, ptrs, vp,
+                                                    ll, i32, vp]
+        libs[name].rsn_field_forward_density.argtypes = [vp, vp, vp, ptrs,
+                                                         vp, ll, vp]
+    return libs
+
+
+def main() -> int:
+    sys.path.insert(0, REPO)
+    import numpy as np
+    import torch
+
+    from chip_smoke import SEED
+    from rsn_torch.kernels import field_forward as ff
+    from rsn_torch.models.field import Field
+    from rsn_torch.utils.timing import time_kernel
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("ablate_render.py needs a CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    libs = build(os.path.join(REPO, "rsn_torch", "_build", "ablate"))
+    R, S = 16384, 128
+    n = R * S
+    rng = np.random.default_rng(SEED)
+    mc = np.zeros((n, ff.IN_COLS), np.float32)
+    mc[:, :3] = rng.uniform(-1.8, 1.8, (n, 3))
+    mc[:, 3:6] = rng.uniform(0.0, 3e-3, (n, 3))
+    dev = torch.device("cuda", 0)
+    mc = torch.from_numpy(mc).to(dev)
+    dirs = torch.nn.functional.normalize(
+        torch.from_numpy(rng.standard_normal((R, 3)).astype(np.float32)),
+        dim=-1).to(dev)
+    field = Field(torch.Generator().manual_seed(SEED)).to(dev).eval()
+    g = ff.mid_g_bands(field, dirs)
+    p1, p2 = ff.pack_params_v3f(field), ff.pack_params_density(field)
+    b1, b2 = ff._ring_blob(p1, heads=True), ff._ring_blob(p2, heads=False)
+    a1, a2 = ff._ptr_array(p1), ff._ptr_array(p2)
+    consts = ff._ipe_consts(dev)
+    out1 = torch.empty(n, ff.V3_EVAL_COLS, dtype=torch.bfloat16, device=dev)
+    out2 = torch.empty(n, ff.DENS_COLS, dtype=torch.bfloat16, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def k1(lib):
+        rc = lib.rsn_field_forward_v3(mc.data_ptr(), g.data_ptr(),
+                                      consts.data_ptr(), b1.data_ptr(), a1,
+                                      out1.data_ptr(), n, S, stream)
+        if rc:
+            raise RuntimeError(f"K1 launch failed ({rc})")
+
+    def k2(lib):
+        rc = lib.rsn_field_forward_density(mc.data_ptr(), consts.data_ptr(),
+                                           b2.data_ptr(), a2, out2.data_ptr(),
+                                           n, stream)
+        if rc:
+            raise RuntimeError(f"K2 launch failed ({rc})")
+
+    order = [name for name, _ in VARIANTS] + ["full"]
+    for name in order:
+        t2 = time_kernel(k2, libs[name], reps=10, warmup=1)
+        t1 = time_kernel(k1, libs[name], reps=10, warmup=1)
+        print(f"{name:18s} K2 {t2:.4f} ms  K1 {t1:.4f} ms  ({n} rows; median "
+              f"of 10; {card})", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,7 +13,11 @@ Phases, each announced on its own line:
                 against their plain PyTorch versions on the card, on the
                 real inputs of one 16384-ray chunk of the first 800x800
                 orbit frame (passes 1-4), plus K2's density column
-                against K1's, bit for bit, and CUDA-event times.
+                against K1's, bit for bit, and CUDA-event times beside K14
+                v3u's (the old 64-row wmma design) in the same call; the
+                wgmma / mma.sync probe (one 64 x 256 x 256 bf16 layer by
+                both instructions, fp32 sums bit for bit); K1's and K2's
+                registers and spills from the build.
   4. cpu/gpu  — one 32x32 frame rendered on the CPU (plain versions) and
                 on the card (kernels), product_only both ways.
   5. render   — `python -m rsn_torch.cli.render --mode orbit` on a run
@@ -421,7 +425,20 @@ def main() -> int:
                                                     bound_ms=b, bound_by=by)
     # pass 2's rows, for phases 16 and 17
     _, render_mc, render_g, render_s = calls["v3"][0]
-    del calls
+    # the old design's yardstick in the same call: K14 v3u (trunk() on
+    # 64-row tiles, wmma) on pass 2's rows
+    from rsn_torch.experiments import interleave
+
+    p3u = ff.pack_params_v3(field)
+    v3u = cuda_ms(lambda: interleave.field_forward_v3u(p3u, render_mc,
+                                                       render_g, render_s))
+    print(f"  K1 {results['field_forward_v3']['ms']:.4f} ms and K2 "
+          f"{results['field_forward_density']['ms']:.4f} ms beside K14 v3u "
+          f"{v3u:.4f} ms on pass 2's rows (the same call; median of 10; "
+          f"{card})", flush=True)
+    mma_probe(card)
+    render_kernel_registers()
+    del p3u, calls
     torch.cuda.empty_cache()
 
     # ---- 4. CPU against GPU ----
@@ -556,6 +573,60 @@ KERNEL_ROWS = (
            "tools/exp_bwd_ablate.py:191")
           for m in ("full_wgrad", "full", "no_ipe_bwd", "recompute")) + (
     ("run_noipe", "experiments_bwd.cu", "tools/exp_bwd_noipe.py:171"),)
+
+
+def mma_probe(card) -> None:
+    """K1's and K2's wgmma against trunk()'s mma.sync: one 64 x 256 x 256
+    bf16 layer on seeded inputs through both instructions; the fp32 sums
+    must agree bit for bit (the premise of K2 == K1 == K3 on the density
+    column), and both must be the product (against float64)."""
+    import numpy as np
+    import torch
+
+    from rsn_torch.kernels import trunk_sm90 as ts
+
+    for seed in range(4):
+        rng = np.random.default_rng(SEED + seed)
+        a = rng.standard_normal((64, 256))
+        w = rng.standard_normal((256, 256)) * 0.06
+        if seed == 3:  # exponents over 2^-12..2^12: the sums round
+            a = a * np.exp2(rng.integers(-12, 12, a.shape))
+            w = w * np.exp2(rng.integers(-12, 12, w.shape))
+        a = torch.tensor(a, dtype=torch.float32).to(torch.bfloat16).cuda()
+        w = torch.tensor(w, dtype=torch.float32).to(torch.bfloat16).cuda()
+        d_wgmma, d_mma = ts.mma_probe(a, w)
+        torch.cuda.synchronize()
+        same = int((d_wgmma.view(torch.int32) == d_mma.view(torch.int32))
+                   .sum())
+        ref = a.double() @ w.double()
+        scale = float((a.double().abs() @ w.double().abs()).max())
+        err = float((d_wgmma.double() - ref).abs().max()) / scale
+        print(f"  probe seed {seed}: wgmma m64n256k16 == mma.sync m16n8k16 "
+              f"on {same} of {d_mma.numel()} fp32 sums; max |wgmma - "
+              f"float64| {err:.3g} of the largest |a| @ |w| ({card})",
+              flush=True)
+        if same != d_mma.numel() or err > 1e-5:
+            raise RuntimeError("the wgmma / mma.sync probe disagrees")
+
+
+def render_kernel_registers() -> None:
+    """K1's and K2's registers and spills from the build's ptxas output."""
+    from rsn_torch.kernels.build import build_log
+
+    names = {"field_render_kernelILb1E": "K1 (field_render_kernel<true>)",
+             "field_render_kernelILb0E": "K2 (field_render_kernel<false>)"}
+    seen, cur = {}, None
+    for line in build_log("field_forward.cu").splitlines():
+        if "Compiling entry function" in line:
+            cur = next((v for k, v in names.items() if k in line), None)
+        elif cur and ("spill" in line or "registers" in line):
+            seen.setdefault(cur, []).append(line.split(":")[-1].strip())
+    if not seen:
+        print("  K1 / K2 registers: no ptxas output (the library was built "
+              "before this run)")
+    for name, lines in seen.items():
+        print(f"  {name}: {'; '.join(lines)}")
+    sys.stdout.flush()
 
 
 def cpu_gpu_render(config, fields, orbit, device, label: str,
@@ -1900,8 +1971,9 @@ def experiments_phase(field, render_mc, render_g, S, card):
     # times and bounds
     b, by = bound(interleave.FLOPS_PER_ROW * n,
                   nbytes(render_mc, render_g, *p3) + n * interleave.V3_OUT * 2)
+    p1 = ff.pack_params_v3f(field)
     ms = {"K1": cuda_ms(lambda: ff.field_forward_v3(
-        ff.pack_params_v3f(field), render_mc, render_g, S))}
+        p1, render_mc, render_g, S))}
     for name, fn, flag in (
             ("field_forward_v3u", interleave.field_forward_v3u, ()),
             ("field_forward_v3i", interleave.field_forward_v3i, ()),

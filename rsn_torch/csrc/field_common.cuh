@@ -1,10 +1,13 @@
 // Device routines shared by the field kernels (field_forward.cu: K1, K2,
 // K11, K12; field_train.cu: K3, K4, K5, K7, K8, K10, K13, K17;
-// experiments.cu: K14, K15; experiments_bwd.cu: K18, K19).  Every kernel computes its trunk and its IPE (K1's polynomial
-// one, or K11's exact one) through these routines, and K1, K2, K3 their
-// density column and V3 tail, so the values they have in common come from
-// one piece of code: K2's density column and K3's column 12 equal K1's bit
-// for bit.
+// experiments.cu: K14, K15; experiments_bwd.cu: K18, K19).  Every kernel
+// computes its IPE (K1's polynomial one, or K11's exact one) through
+// ipe_rows (K1 and K2: ipe_sincos, the same operations on every element).
+// Every kernel but K1 and K2 runs its trunk through trunk() /
+// trunk_rows() (wmma, 64-row tiles), and K3 its V3 tail through v3_tail;
+// K1 and K2 run the same sums on Hopper's wgmma in trunk_sm90.cuh, in the
+// same k order and with the same epilogue arithmetic, so K2's density
+// column and K3's column 12 equal K1's bit for bit.
 //
 // The routines run on THREADS threads (threadIdx.x < THREADS) and meet at
 // block_sync(), named barrier 1 over THREADS threads: in a block of
@@ -136,6 +139,12 @@ __device__ __forceinline__ float relu_keep_nan(float v) {
   return v < 0.f ? 0.f : v;
 }
 
+// A phase in turns, wrapped to [-1/2, 1/2]: pre / 2 pi - rint(pre / 2 pi).
+__device__ __forceinline__ float wrap_turns(float pre) {
+  const float uu = __fmul_rn(pre, INV_2PI);
+  return __fsub_rn(uu, rintf(uu));
+}
+
 // The IPE of one element: column c < 96 of row m = [mean(3) | cov(3)]:
 // the damping exp(-f_k^2 var_d / 2) and the wrapped phase u of
 // 2 pi f_k mean_d (+ pi/2 on the cos half [48, 96)), in turns.
@@ -148,8 +157,20 @@ __device__ __forceinline__ void ipe_phase(const float* m,
   if (c >= 48) pre = __fadd_rn(pre, HALF_PI);
   const float var = __fmul_rn(m[3 + d], consts[NFREQ + k]);
   *damp = exp2f(__fmul_rn(-HALF_LOG2E, var));
-  float uu = __fmul_rn(pre, INV_2PI);
-  *u = __fsub_rn(uu, rintf(uu));
+  *u = wrap_turns(pre);
+}
+
+// Both columns of one (d, k) at once, with one damping: *s = column
+// 16 d + k, *c = column 48 + 16 d + k, each the same operations on the same
+// operands as ipe_rows<false> (mean_d = m[d], cov_d = m[3 + d],
+// sk = consts[k], vk = consts[NFREQ + k]).
+__device__ __forceinline__ void ipe_sincos(float mean_d, float cov_d,
+                                           float sk, float vk, float* s,
+                                           float* c) {
+  const float pre = __fmul_rn(mean_d, sk);
+  const float damp = exp2f(__fmul_rn(-HALF_LOG2E, __fmul_rn(cov_d, vk)));
+  *s = __fmul_rn(damp, sin2pi(wrap_turns(pre)));
+  *c = __fmul_rn(damp, sin2pi(wrap_turns(__fadd_rn(pre, HALF_PI))));
 }
 
 // IPE of `rows` rows from row0 into X (rows x ENC bf16): cols [0, 48)
@@ -292,7 +313,7 @@ __device__ void dense_relu_rows(const bf16* A0, int lda0, int k0,
       });
 }
 
-// Nothing to do after a trunk layer (K1, K2).
+// Nothing to do after a trunk layer (K11, K12, K14, K15).
 struct NoLayerHook {
   __device__ void operator()(int, const bf16*) const {}
 };
@@ -347,7 +368,9 @@ __device__ bf16* trunk(const TrunkParams& p, const bf16* X, bf16* H0,
 // Density pre-activation of row threadIdx.x / 4: dot(h_row, w[:, 0]) + b.
 // Four threads per row sum interleaved quarters in a fixed order, then
 // combine with two xor shuffles; every thread of the row gets the value.
-// K1, K2 and K3 all call this, which makes their density columns identical.
+// K3 (and the kernels on its code) call this; K1 and K2 (trunk_sm90.cuh,
+// density_sw) take the same operands in the same order, which makes the
+// density columns identical.
 __device__ float density_row(const bf16* H, const bf16* __restrict__ w,
                              int wstride, float b) {
   const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
@@ -362,7 +385,8 @@ __device__ float density_row(const bf16* H, const bf16* __restrict__ w,
   return __fadd_rn(s, b);
 }
 
-// The V3 tail on the trunk output H of the block's rows (K1, K3):
+// The V3 tail on the trunk output H of the block's rows (K3 and the train-
+// width K1; the render K1 runs the same arithmetic in trunk_sm90.cuh):
 // heads + folded mid seed in one product, roughness attenuation against
 // the per-ray SH band partials g, the mid head, and the row of OUTC bf16
 // columns [mid_out | diff | tint | normals raw | density | rough raw |

@@ -23,96 +23,62 @@
 //
 // What bounds it on this card: about 1.18 MFLOP of bf16 matrix products
 // per sample row against 64 B read and 32 B written, so device memory is
-// far from the limit; the tensor cores are, and behind them the L2 traffic
-// of the weights (1.2 MB of bf16, re-read by every row tile).  K11 and
-// K12 write 768 B per row (K12 reads 256 B), still about 1,400 FLOP per
-// byte: the tensor cores again.
+// far from the limit; the tensor cores are.  K11 and K12 write 768 B per
+// row (K12 reads 256 B), still about 1,400 FLOP per byte.
 //
-// What the design does about it (a first, simple design):
-//   - One block of 8 warps owns a tile of TM = 64 sample rows; the ragged
-//     last tile is masked.  No intermediate goes to device memory: the
-//     IPE tile x and the activations ping-pong in shared memory (93 KB,
-//     two blocks per SM), only the 16 (or 8) output columns are stored.
-//   - Products run on the tensor cores through nvcuda::wmma 16x16x16 bf16
-//     fragments with fp32 accumulators.  Warp w owns output columns
-//     [32w, 32w + 32) of all 64 rows, so every weight fragment is read
-//     once per block, straight from global memory (L2-resident), one
-//     k-step ahead of its use.
-//   - The bias + ReLU epilogue rounds activations to bf16, as the TPU
-//     kernel does; heads, softplus, sigmoid, attenuation and
-//     diff + tint * mid stay fp32; hmid is rounded to bf16 before the mid
-//     head; the output is stored bf16.
-//   - A sample row finds its ray as row / S (the TPU kernel's one-hot
-//     expansion matmul is dropped), and the IPE is computed per element
-//     (no 128-lane constant matrices).
-//   - The density pre-activation comes from one scalar routine with a
-//     fixed summation order that both kernels call, so K2's column 0
-//     equals K1's column 12 bit for bit.
+// K1 and K2 (the render path; sm90::render_trunk in trunk_sm90.cuh):
+//   - A persistent grid of at most one block per SM walks 128-row tiles;
+//     the ragged last tile is masked.  Warpgroup 0's producer thread
+//     streams the weights, pre-packed once per packed tuple into 64-row
+//     chunks in wgmma's B layout (rsn_torch/kernels/trunk_sm90.py), through
+//     a 3-stage ring of 32 KB with a cp.async.bulk and an mbarrier per
+//     stage, continuously across layers and tiles.  Each weight byte
+//     brought on chip serves 128 rows.
+//   - Warpgroups 1 and 2 own 64 rows each: the IPE tile X and the
+//     activations H stay in shared memory in wgmma's A layout (one H per
+//     warpgroup: a layer's output overwrites its input).  Each layer is
+//     one m64n256k16 wgmma accumulator, k ascending in steps of 16 from +0,
+//     which the probe (rsn_mma_probe) finds bit-identical to trunk()'s
+//     mma.sync; the bias + ReLU + bf16 epilogue runs from the registers.
+//     Layer 0 and layer 4's x part take 7 k-steps: the IPE's columns
+//     112..127 are zero.
+//   - The IPE: two threads per row, each sin / cos pair from one damping
+//     (ipe_sincos, ipe_rows' operations, so X has the same bits).  K1's
+//     heads + mid seed are one m64n144 wgmma from the ring; roughness
+//     attenuation, hmid, the mid head and the row follow v3_tail's
+//     arithmetic.  The density column comes from density_row's operands in
+//     its order, so K2's column 0 and K3's column 12 (trunk()) equal K1's
+//     column 12 bit for bit.
+//   - Where the time goes (ablations on the card, PERF.md): the products;
+//     then each layer's epilogue, which stops its warpgroup's tensor work.
+//
+// K11 and K12 (the field API), a first, simple design on trunk():
+//   - One block of 8 warps owns a tile of TM = 64 sample rows.  The IPE
+//     tile x and the activations ping-pong in shared memory (93 KB, two
+//     blocks per SM).  Products run through nvcuda::wmma 16x16x16 bf16
+//     fragments with fp32 accumulators, each weight fragment read from
+//     global memory (L2-resident) one k-step ahead of its use.
 //   - K11's IPE is not K1's: rsn's v2 front end takes jnp.sin of the fp32
 //     phase 2 pi f_k mean_d (+ f32(pi / 2) on the cos half, not a cos) and
 //     jnp.exp(-var / 2), not K1's wrapped polynomial (ipe_rows<true> in
 //     field_common.cuh, which K14 shares).  Its heads epilogue stages
 //     the (64, 384) bf16 output tile in the freed H0 + X buffers and stores
 //     whole rows with 16-byte stores.
-// The device routines live in field_common.cuh, shared with the training
-// kernels (field_train.cu).
-// Later work: larger row tiles (fewer L2 weight reads), wgmma with a TMA
-// ring for the weights, warp specialisation.
+// In every kernel a sample row finds its ray as row / S (the TPU kernel's
+// one-hot expansion matmul is dropped), the bias + ReLU epilogue rounds
+// activations to bf16 as the TPU kernel does, and heads, softplus,
+// sigmoid, attenuation and diff + tint * mid stay fp32.
 #include "field_common.cuh"
+#include "trunk_sm90.cuh"
 
 namespace {
 
-constexpr int OUT_COLS = 16;    // K1 eval store (V3_EVAL_COLS)
-constexpr int DENS_COLS = 8;    // K2 store
-
-struct DensityParams {
-  TrunkParams trunk;
-  const bf16* wd;     // (256, 8), column 0 live
-  const float* bd;
-};
-
-__global__ void __launch_bounds__(THREADS, 2)
-    field_forward_v3_kernel(const float* __restrict__ mc,
-                            const float* __restrict__ g,
-                            const float* __restrict__ consts, V3Params p,
-                            bf16* __restrict__ out, long long n, int S) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* H0 = reinterpret_cast<bf16*>(smem + OFF_H0);
-  bf16* X = reinterpret_cast<bf16*>(smem + OFF_X);
-  bf16* H1 = reinterpret_cast<bf16*>(smem + OFF_H1);
-  float* stage = reinterpret_cast<float*>(smem + OFF_STAGE);
-  const long long row0 = (long long)blockIdx.x * TM;
-
-  ipe_tile(mc, consts, row0, n, X);
-  block_sync();
-  bf16* H = trunk(p.trunk, X, H0, H1, stage, NoLayerHook());  // == H1
-  v3_tail<OUT_COLS>(p, H, smem, g, row0, n, S, out + row0 * OUT_COLS);
-}
-
-__global__ void __launch_bounds__(THREADS, 2)
-    field_forward_density_kernel(const float* __restrict__ mc,
-                                 const float* __restrict__ consts,
-                                 DensityParams p, bf16* __restrict__ out,
-                                 long long n) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* H0 = reinterpret_cast<bf16*>(smem + OFF_H0);
-  bf16* X = reinterpret_cast<bf16*>(smem + OFF_X);
-  bf16* H1 = reinterpret_cast<bf16*>(smem + OFF_H1);
-  float* stage = reinterpret_cast<float*>(smem + OFF_STAGE);
-  const long long row0 = (long long)blockIdx.x * TM;
-
-  ipe_tile(mc, consts, row0, n, X);
-  block_sync();
-  const bf16* H = trunk(p.trunk, X, H0, H1, stage, NoLayerHook());
-  const float dens = density_row(H, p.wd, DENS_COLS, p.bd[0]);
-  const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
-  const long long row = row0 + r;
-  if (row < n) {  // thread q stores columns 2q, 2q + 1
-    // columns 1..7 of wd are zero padding: their value is the bias
-    const float c0 = q == 0 ? dens : p.bd[2 * q];
-    out[row * DENS_COLS + 2 * q] = __float2bfloat16_rn(c0);
-    out[row * DENS_COLS + 2 * q + 1] = __float2bfloat16_rn(p.bd[2 * q + 1]);
-  }
+// K1 and K2: the body is sm90::render_trunk (trunk_sm90.cuh).
+template <bool HEADS>
+__global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
+    field_render_kernel(const __grid_constant__ sm90::RenderParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  sm90::render_trunk<HEADS>(p, smem_raw);
 }
 
 // ---- K11 / K12 ------------------------------------------------------------
@@ -227,6 +193,83 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
+// ---- the wgmma / mma.sync probe ---------------------------------------------
+// One 64 x 256 x 256 bf16 product with fp32 sums, by both of Hopper's
+// tensor-core instructions: wgmma m64n256k16 (A and B from shared memory in
+// the layouts of trunk_sm90.cuh, B bulk-copied from a pre-packed blob) and
+// wmma 16x16x16 (mma.sync m16n8k16, trunk()'s instruction), each sum k
+// ascending in steps of 16 into one accumulator that starts at +0.  Equal
+// bits say that the two instructions round a k-step's sum the same way.
+constexpr int PROBE_SMEM =
+    4 * sm90::W_CHUNK_BYTES + 4 * sm90::KB_BYTES + 1024 + 64;
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024u - (sm90::smem_u32(p) & 1023u)) & 1023u);
+}
+
+__global__ void __launch_bounds__(128, 1)
+    mma_probe_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
+                     const bf16* __restrict__ blob,
+                     float* __restrict__ d_wgmma, float* __restrict__ d_mma) {
+  using namespace sm90;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* Bs = align_1024(smem_raw);
+  unsigned char* As = Bs + 4 * W_CHUNK_BYTES;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(As + 4 * KB_BYTES);
+  const int t = threadIdx.x;
+  if (t == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (t == 0) {
+    mbar_expect_tx(bar, 4 * W_CHUNK_BYTES);
+    for (int c = 0; c < 4; ++c)
+      bulk_load(Bs + c * W_CHUNK_BYTES,
+                reinterpret_cast<const unsigned char*>(blob) +
+                    c * W_CHUNK_BYTES,
+                W_CHUNK_BYTES, bar);
+  }
+  for (int e = t; e < 64 * WIDTH; e += 128)
+    *reinterpret_cast<bf16*>(As + swz(e / WIDTH, e % WIDTH)) = a[e];
+  fence_async_smem();
+  __syncthreads();
+  mbar_wait(bar, 0);
+
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  wgmma_fence();
+  fence_regs<128>(acc);
+#pragma unroll
+  for (int ks = 0; ks < WIDTH / 16; ++ks)
+    wgmma_n256(acc,
+               desc_sw128(smem_u32(As + (ks >> 2) * KB_BYTES + (ks & 3) * 32)),
+               desc_sw128(smem_u32(Bs + (ks >> 2) * W_CHUNK_BYTES +
+                                   (ks & 3) * 32)));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<128>(acc);
+#pragma unroll
+  for (int i = 0; i < 128; ++i)
+    d_wgmma[frag_row(t, i) * WIDTH + frag_col(t, i)] = acc[i];
+
+  const int warp = t >> 5;
+  for (int nt = 0; nt < WIDTH / 16; ++nt) {
+    FragC c;
+    wmma::fill_fragment(c, 0.f);
+    for (int ks = 0; ks < WIDTH / 16; ++ks) {
+      FragA fa;
+      FragB fb;
+      wmma::load_matrix_sync(fa, a + warp * 16 * WIDTH + ks * 16, WIDTH);
+      wmma::load_matrix_sync(fb, w + ks * 16 * WIDTH + nt * 16, WIDTH);
+      wmma::mma_sync(c, fa, fb, c);
+    }
+    wmma::store_matrix_sync(d_mma + warp * 16 * WIDTH + nt * 16, c, WIDTH,
+                            wmma::mem_row_major);
+  }
+}
+
 unsigned grid_for(long long n) { return (unsigned)((n + TM - 1) / TM); }
 
 template <bool IPE>
@@ -246,47 +289,70 @@ int launch_heads(const float* mc, const bf16* enc, const float* consts,
   return (int)cudaGetLastError();
 }
 
+// K1 / K2 on a persistent grid of at most one block per SM.
+template <bool HEADS>
+int launch_render(const sm90::RenderParams& p, cudaStream_t stream) {
+  constexpr int smem = sm90::smem_bytes<HEADS>();
+  auto kernel = field_render_kernel<HEADS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (p.n + sm90::TILE_ROWS - 1) / sm90::TILE_ROWS;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  kernel<<<grid, sm90::BLOCK_THREADS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+void fill_render(sm90::RenderParams* p, const void* mean_cov,
+                 const void* ipe_consts, const void* blob,
+                 const void* const* ptrs, void* out, long long n) {
+  *p = sm90::RenderParams{};
+  p->mc = static_cast<const float*>(mean_cov);
+  p->consts = static_cast<const float*>(ipe_consts);
+  p->blob = static_cast<const unsigned char*>(blob);
+  for (int i = 0; i < LAYERS; ++i)
+    p->b[i] = static_cast<const float*>(ptrs[LAYERS + i]);
+  p->n = n;
+  p->out = static_cast<bf16*>(out);
+}
+
 }  // namespace
 
 extern "C" {
 
-// ptrs: w0..w7, b0..b7, w_hc, b_hc, w_out, b_out (device pointers).
+// K1.  ptrs: w0..w7, b0..b7, w_hc, b_hc, w_out, b_out (device pointers; the
+// kernel reads the weights from blob, the biases, w_hc's column 0 and w_out
+// from ptrs); blob: trunk_sm90.pack_blob(w0..w7, w_hc).
 // Returns a cudaError_t code (0 = launched).
 int rsn_field_forward_v3(const void* mean_cov, const void* g_bands,
-                         const void* ipe_consts, const void* const* ptrs,
-                         void* out, long long n, int samples_per_ray,
-                         void* stream) {
-  V3Params p;
-  fill_v3(&p, ptrs);
-  cudaError_t err = cudaFuncSetAttribute(
-      field_forward_v3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      FWD_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  field_forward_v3_kernel<<<grid_for(n), THREADS, FWD_SMEM_BYTES,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(mean_cov), static_cast<const float*>(g_bands),
-      static_cast<const float*>(ipe_consts), p, static_cast<bf16*>(out), n,
-      samples_per_ray);
-  return (int)cudaGetLastError();
+                         const void* ipe_consts, const void* blob,
+                         const void* const* ptrs, void* out, long long n,
+                         int samples_per_ray, void* stream) {
+  sm90::RenderParams p;
+  fill_render(&p, mean_cov, ipe_consts, blob, ptrs, out, n);
+  p.g = static_cast<const float*>(g_bands);
+  p.S = samples_per_ray;
+  p.w_hc = static_cast<const bf16*>(ptrs[16]);
+  p.b_hc = static_cast<const float*>(ptrs[17]);
+  p.w_out = static_cast<const bf16*>(ptrs[18]);
+  p.b_out = static_cast<const float*>(ptrs[19]);
+  return launch_render<true>(p, static_cast<cudaStream_t>(stream));
 }
 
-// ptrs: w0..w7, b0..b7, wd, bd (device pointers).
+// K2.  ptrs: w0..w7, b0..b7, wd, bd; blob: trunk_sm90.pack_blob(w0..w7).
 int rsn_field_forward_density(const void* mean_cov, const void* ipe_consts,
-                              const void* const* ptrs, void* out,
-                              long long n, void* stream) {
-  DensityParams p;
-  fill_trunk(&p.trunk, ptrs);
+                              const void* blob, const void* const* ptrs,
+                              void* out, long long n, void* stream) {
+  sm90::RenderParams p;
+  fill_render(&p, mean_cov, ipe_consts, blob, ptrs, out, n);
   p.wd = static_cast<const bf16*>(ptrs[16]);
   p.bd = static_cast<const float*>(ptrs[17]);
-  cudaError_t err = cudaFuncSetAttribute(
-      field_forward_density_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  field_forward_density_kernel<<<grid_for(n), THREADS, FWD_SMEM_BYTES,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(mean_cov),
-      static_cast<const float*>(ipe_consts), p, static_cast<bf16*>(out), n);
-  return (int)cudaGetLastError();
+  return launch_render<false>(p, static_cast<cudaStream_t>(stream));
 }
 
 // K11.  ptrs: w0..w7, b0..b7, wh, bh (device pointers); out (N, 384) bf16.
@@ -305,6 +371,21 @@ int rsn_field_forward(const void* enc, const void* const* ptrs, void* out,
   return launch_heads<false>(nullptr, static_cast<const bf16*>(enc), nullptr,
                              ptrs, static_cast<bf16*>(out), n,
                              static_cast<cudaStream_t>(stream));
+}
+
+// The probe: a (64, 256) bf16, w (256, 256) bf16 row-major, blob = w in
+// four pre-packed 64-row chunks; d_wgmma, d_mma (64, 256) fp32.
+int rsn_mma_probe(const void* a, const void* w, const void* blob,
+                  void* d_wgmma, void* d_mma, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mma_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      PROBE_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  mma_probe_kernel<<<1, 128, PROBE_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(blob), static_cast<float*>(d_wgmma),
+      static_cast<float*>(d_mma));
+  return (int)cudaGetLastError();
 }
 
 const char* rsn_cuda_error_string(int code) {

@@ -6,8 +6,9 @@ The sources are compiled in parallel (one nvcc per source, all started
 together).  The build runs at first use, on the machine with the card,
 into rsn_torch/_build/ (git-ignored); a library's name carries a hash of
 its source, the shared header and the flags, so an edited source is
-rebuilt and a stale library is never loaded.  Nothing here runs at
-import time: the CPU test suite imports every module on a machine
+rebuilt and a stale library is never loaded.  nvcc's output (with
+ptxas's registers and spills) is kept beside each library.  Nothing here
+runs at import time: the CPU test suite imports every module on a machine
 without nvcc.
 """
 from __future__ import annotations
@@ -26,7 +27,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("field_forward.cu", "field_train.cu", "proposal_forward.cu",
            "experiments.cu", "experiments_bwd.cu")
-HEADERS = ("field_common.cuh",)
+HEADERS = ("field_common.cuh", "trunk_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,6 +48,20 @@ def _library_path(source: str) -> str:
             h.update(f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
+
+
+def _log_path(library: str) -> str:
+    return os.path.splitext(library)[0] + ".log"
+
+
+def build_log(source: str) -> str:
+    """nvcc's output (ptxas's registers and spills, -Xptxas -v) from the
+    build of `source`'s current library; empty if it was not built here."""
+    try:
+        with open(_log_path(_library_path(source))) as f:
+            return f.read()
+    except FileNotFoundError:
+        return ""
 
 
 def build_library() -> Tuple[Dict[str, str], str]:
@@ -76,6 +91,8 @@ def build_library() -> Tuple[Dict[str, str], str]:
             failed.append(f"nvcc failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{out}")
         else:
+            with open(_log_path(paths[s]), "w") as f:
+                f.write(out)
             os.replace(tmp, paths[s])  # atomic: no half-written library
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -89,10 +106,11 @@ def _signatures() -> Dict[str, Dict[str, list]]:
     ll, i32 = ctypes.c_longlong, ctypes.c_int
     return {
         "field_forward.cu": {
-            "rsn_field_forward_v3": [vp, vp, vp, ptrs, vp, ll, i32, vp],
-            "rsn_field_forward_density": [vp, vp, ptrs, vp, ll, vp],
+            "rsn_field_forward_v3": [vp, vp, vp, vp, ptrs, vp, ll, i32, vp],
+            "rsn_field_forward_density": [vp, vp, vp, ptrs, vp, ll, vp],
             "rsn_field_forward_v2": [vp, vp, ptrs, vp, ll, vp],
             "rsn_field_forward": [vp, ptrs, vp, ll, vp],
+            "rsn_mma_probe": [vp, vp, vp, vp, vp, vp],
         },
         "field_train.cu": {
             "rsn_field_forward_v6": [vp, vp, vp, ptrs, vp, vp, ll, i32, i32,

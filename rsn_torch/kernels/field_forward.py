@@ -13,6 +13,10 @@ field_forward_density): IPE -> trunk -> density column only.  Output
 (N, 8) bf16, column 0 bit-identical to K1's V3_DENSITY column (the two
 kernels share the device routines that produce it).
 
+K1 and K2 run on Hopper's wgmma with their weights streamed from a blob
+that trunk_sm90.pack_blob pre-packs once per packed tuple
+(PackedOperands); the tuples themselves keep the 20 / 18 operands.
+
 K11 `field_forward_v2` (replaces field_pallas.py::field_forward_v2): the
 IPE with exact sin and exp (rsn's _ipe_in_kernel, not K1's polynomial) ->
 trunk -> one (256, 384) product for every head, the 256-wide bottleneck
@@ -39,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from rsn_torch.core.encodings import _BAND_SLICES, IPE_OUT_DIM, sh_basis
+from rsn_torch.kernels import trunk_sm90
 from rsn_torch.models.field import SKIP_AT, TRUNK_LAYERS, TRUNK_WIDTH, Field
 
 BF16 = torch.bfloat16
@@ -173,13 +178,34 @@ def cast_packed(packed_f32) -> Tuple[torch.Tensor, ...]:
                  .contiguous() for i, t in enumerate(packed_f32))
 
 
+class PackedOperands(tuple):
+    """A packed-operand tuple (pack_params_v3f, pack_params_density) that
+    keeps, from the first CUDA launch on, its weights pre-packed for K1's /
+    K2's weight ring (trunk_sm90.pack_blob), so a render packs them once and
+    not per chunk.  The blob is a copy: editing the tuple's weight tensors
+    in place afterwards leaves it stale."""
+
+    blob = None
+
+
+def _ring_blob(packed, heads: bool) -> torch.Tensor:
+    """The ring's chunks of packed's trunk weights (and, for K1, of w_hc):
+    cached on a PackedOperands, built anew for any other sequence."""
+    blob = getattr(packed, "blob", None)
+    if blob is None:
+        blob = trunk_sm90.pack_blob(packed[:8], packed[16] if heads else None)
+        if isinstance(packed, PackedOperands):
+            packed.blob = blob
+    return blob
+
+
 @torch.no_grad()
 def pack_params_v3f(field: Field) -> Tuple[torch.Tensor, ...]:
     """K1 operands (field_pallas.pack_params_v3f): ws(8) + bs(8) +
     (w_hc, b_hc, w_out, b_out).  The bottleneck head is folded into the
     mid-MLP's embedding half in fp32 (w_comb = W_bneck @ W_emb, then
     bf16); w_hc = [heads (FH_* columns, padded to 128) | w_comb]."""
-    return cast_packed(pack_params_v3f_f32(field))
+    return PackedOperands(cast_packed(pack_params_v3f_f32(field)))
 
 
 @torch.no_grad()
@@ -191,8 +217,9 @@ def pack_params_density(field: Field) -> Tuple[torch.Tensor, ...]:
     wd = F.pad(_w_in_out(head), (0, DENS_COLS - 1)).to(BF16).contiguous()
     bd = F.pad(head.bias.float(),
                (0, DENS_COLS - 1)).reshape(1, -1).contiguous()
-    return (tuple(w.to(BF16).contiguous() for w in ws)
-            + tuple(b.detach().contiguous() for b in bs) + (wd, bd))
+    return PackedOperands(tuple(w.to(BF16).contiguous() for w in ws)
+                          + tuple(b.detach().contiguous() for b in bs)
+                          + (wd, bd))
 
 
 @torch.no_grad()
@@ -487,7 +514,8 @@ def field_forward_v3(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
     with torch.cuda.device(device):
         rc = lib.rsn_field_forward_v3(
             mean_cov.data_ptr(), g_bands.data_ptr(),
-            _ipe_consts(device).data_ptr(), _ptr_array(packed),
+            _ipe_consts(device).data_ptr(),
+            _ring_blob(packed, heads=True).data_ptr(), _ptr_array(packed),
             out.data_ptr(), n, S, torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, rc, "field_forward_v3")
     LAUNCHES["field_forward_v3"] += 1
@@ -514,7 +542,8 @@ def field_forward_density(packed, mean_cov: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(device):
         rc = lib.rsn_field_forward_density(
             mean_cov.data_ptr(), _ipe_consts(device).data_ptr(),
-            _ptr_array(packed), out.data_ptr(), n,
+            _ring_blob(packed, heads=False).data_ptr(), _ptr_array(packed),
+            out.data_ptr(), n,
             torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, rc, "field_forward_density")
     LAUNCHES["field_forward_density"] += 1

@@ -1,5 +1,7 @@
-"""The port's CUDA kernels on the card: shapes the smoke run does not
-reach (ragged last tiles, odd samples per ray, every flag pair of the
+"""The port's CUDA kernels on the card: the wgmma / mma.sync probe that K1's
+and K2's Hopper trunk rests on, shapes the smoke run does not
+reach (ragged last tiles, K1 / K2 over more tiles than one block per SM,
+odd samples per ray, every flag pair of the
 training forward, K9 over many tiles per block, K7 / K8 at ragged
 shapes, K10-K13 at ragged shapes and over many tiles per block), the
 launch counters (one train step on each route, camera off and on, the
@@ -28,6 +30,7 @@ from rsn_torch.experiments import (bwd_ablate, bwd_noipe, bwd_whole,
 from rsn_torch.kernels import field_forward as ff
 from rsn_torch.kernels import field_train as tft
 from rsn_torch.kernels import proposal_forward as pf
+from rsn_torch.kernels import trunk_sm90 as ts
 from rsn_torch.models.field import Field
 from rsn_torch.models.proposal import ProposalField
 
@@ -71,6 +74,58 @@ def test_kernels_match_plain_versions(field, R, S):
     assert torch.all(k1[:, 14:] == 0)
     assert float((k2.float() - r2.float()).abs().max()) <= ATOL
     assert torch.equal(k2[:, 0], k1[:, ff.V3_DENSITY])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_wgmma_probe_matches_mma_sync(field, seed):
+    """One 64 x 256 x 256 bf16 layer through wgmma (the Hopper K1 / K2) and
+    through mma.sync (trunk(), which K3 and the others keep): the fp32 sums
+    agree bit for bit, and both are the product (against float64).  Seed 3
+    spreads the exponents over 2^-12..2^12, so the sums round."""
+    rng = np.random.default_rng(seed)
+    if seed < 3:
+        a = rng.standard_normal((64, 256))
+        w = rng.standard_normal((256, 256)) * 0.06
+    else:
+        a = rng.standard_normal((64, 256)) * np.exp2(
+            rng.integers(-12, 12, (64, 256)))
+        w = rng.standard_normal((256, 256)) * np.exp2(
+            rng.integers(-12, 12, (256, 256)))
+    a = torch.tensor(a, dtype=torch.float32).to(torch.bfloat16).cuda()
+    w = torch.tensor(w, dtype=torch.float32).to(torch.bfloat16).cuda()
+    d_wgmma, d_mma = ts.mma_probe(a, w)
+    torch.cuda.synchronize()
+    assert torch.equal(d_wgmma.view(torch.int32), d_mma.view(torch.int32))
+    ref = a.double() @ w.double()
+    scale = float((a.double().abs() @ w.double().abs()).max())
+    assert float((d_wgmma.double() - ref).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("R,S", [(1, 100), (3, 43), (2, 64), (1, 128),
+                                 (133, 128), (2500, 7), (300, 64)])
+def test_render_kernels_ragged_and_persistent(field, R, S):
+    """K1 and K2 on 128-row tiles of a persistent grid: fewer rows than a
+    tile, a ragged last tile, S = 64, 128 and odd, more tiles than 132
+    blocks (the loop over tiles wraps).  Each within ATOL of its plain
+    version; K2's column 0 == K1's column 12 == K3's (trunk()) bit for bit;
+    two calls give equal outputs."""
+    mc, dirs = _inputs(R, S, seed=R + S)
+    g = ff.mid_g_bands(field, dirs)
+    p3, pd = ff.pack_params_v3f(field), ff.pack_params_density(field)
+    k1 = ff.field_forward_v3(p3, mc, g, S)
+    k2 = ff.field_forward_density(pd, mc)
+    k3, _ = tft.field_forward_v6(p3, mc, g, S, False, False)
+    again1 = ff.field_forward_v3(p3, mc, g, S)
+    again2 = ff.field_forward_density(pd, mc)
+    torch.cuda.synchronize()
+    r1 = ff.field_forward_v3_plain(p3, mc, g, S)
+    r2 = ff.field_forward_density_plain(pd, mc)
+    assert torch.isfinite(k1.float()).all() and torch.all(k1[:, 14:] == 0)
+    assert float((k1[:, :14].float() - r1[:, :14].float()).abs().max()) <= ATOL
+    assert float((k2.float() - r2.float()).abs().max()) <= ATOL
+    assert torch.equal(k2[:, 0], k1[:, ff.V3_DENSITY])
+    assert torch.equal(k3[:, ff.V3_DENSITY], k1[:, ff.V3_DENSITY])
+    assert torch.equal(again1, k1) and torch.equal(again2, k2)
 
 
 def test_launch_counts_follow_kernel_launches(field):
