@@ -62,9 +62,15 @@ Phases, each announced on its own line:
                 (field_forward_v3_train) and K8 (field_backward_v4)
                 against their plain versions on the real inputs of one
                 full-width camera-on train step (step 50); K7 and K1's
-                outputs against K3's, K8's against K4's on K3's spill, bit
-                for bit; CUDA-event times; the peak device memory of one
-                full-width step on each route, camera off and on.
+                outputs against K3's bit for bit; K8 the same twice and
+                against K4 on K3's spill: dmc, dg, the biases and the mid
+                head bit for bit, the weight matrices within K13_TOL; K8's
+                kernel B alone against its plain contraction on the
+                records kernel A leaves of pass 2; CUDA-event times (K8,
+                its kernels A and B alone, K13 as the first design in the
+                same call), K8's scratch per call beside the first
+                design's; the peak device memory of one full-width step on
+                each route, camera off and on.
   13. cpu/gpu camera step — one 64-ray camera-on step on the CPU (plain
                 versions) and on the card (kernels), on both routes:
                 losses, field gradients and pose-delta gradients.
@@ -553,6 +559,8 @@ KERNEL_ROWS = (
      "rsn/kernels/field_pallas.py:512"),
     ("field_backward_v4", "field_train.cu",
      "rsn/kernels/field_train.py:427"),
+    ("field_backward_v4_wgrad", "wgrad_sm90.cuh",
+     "rsn/kernels/field_train.py:427"),
     ("field_forward_v5", "field_train.cu",
      "rsn/kernels/field_pallas.py:945"),
     ("field_forward_v2", "field_forward.cu",
@@ -921,10 +929,12 @@ def cpu_gpu_train_step(config, field_eval, device, proposal_eval=None,
 
 
 def run_train_cli(card, method: str, flags, per_step, tmp,
-                  report=("loss_mid_fine",), evals=None):
+                  report=("loss_mid_fine",), evals=None, at_least=()):
     """The train CLI for TRAIN_STEPS full-width steps of `method` on the
     sphere at FRAME_RES, from zeroed launch counts: every kernel's launches
-    equal per_step x TRAIN_STEPS (absent kernels: zero), every logged loss
+    equal per_step x TRAIN_STEPS (absent kernels: zero; the kernels in
+    at_least: no fewer, as K8's kernel B, launched once per chunk, whose
+    count follows the reflect bucket), every logged loss
     finite, loss_mid_fine lower over the last 10 steps than over the first
     10, the warmup's zeros before step 50, the final checkpoint; the means
     of the `report` losses are printed.  evals: (steps_per_eval_batch,
@@ -971,6 +981,8 @@ def run_train_cli(card, method: str, flags, per_step, tmp,
         if rest or renders < images:
             raise RuntimeError("the eval hooks did not run K1 as expected")
         want["field_forward_v3"] = k1
+    for k in at_least:
+        want[k] = max(want[k], launches[k])
     print(f"  launches in the CLI run: {launches}")
     if launches != want:
         raise RuntimeError(f"the train path's launches are not {want}")
@@ -1358,7 +1370,16 @@ def compare_proposal_settings(run, cams, device, card):
 # ---- pose refinement and the recompute route ------------------------------
 
 RECOMPUTE_KERNELS = ("field_forward_v4", "field_forward_v3_train",
-                     "field_backward_v4")
+                     "field_backward_v4", "field_backward_v4_wgrad")
+# K8's outputs that keep their bits against K4 on K3's spill (dmc, dg and,
+# of the 20 gradients, b0..b7, b_hc, w_out, b_out: the body's own sums);
+# the weight matrices w0..w7, w_hc are kernel B's sums over the rows, in
+# another fp32 order, held to K13_TOL
+K8_EXACT = tuple(range(8, 16)) + (17, 18, 19)
+K8_WEIGHTS = tuple(range(8)) + (16,)
+# kernel B's products per row: w0 and w4's x part on the IPE's 99 live
+# columns, w1-w3, w5-w7 and w4's hs3 part, w_hc's 144 live columns
+WGRAD_MACS = IPE_DIM * 256 * 2 + 7 * 256 * 256 + 256 * 144
 
 
 def with_route(config, camera: bool, use_pallas_acts: bool):
@@ -1430,6 +1451,19 @@ def same_grads(a, b) -> bool:
             and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
 
 
+def k8_against_k4(k8, k4) -> float:
+    """K8's identities with K4 on K3's spill: dmc, dg, the biases and the
+    mid head's gradients bit for bit (raises otherwise) -> the largest
+    error of the weight matrices over each tensor's max."""
+    import torch
+
+    if not (torch.equal(k8[0], k4[0]) and torch.equal(k8[1], k4[1])
+            and all(torch.equal(k8[2][i], k4[2][i]) for i in K8_EXACT)):
+        raise RuntimeError("K8's dmc, dg, biases or mid-head gradients "
+                           "differ from K4's on K3's spill")
+    return max(rel_err(k8[2][i], k4[2][i]) for i in K8_WEIGHTS)
+
+
 def check_recompute_kernels(calls, card):
     """Phase 12's comparisons and times -> per-kernel results."""
     import torch
@@ -1461,9 +1495,12 @@ def check_recompute_kernels(calls, card):
         k8b = ft.field_backward_v4(bpacked, bmc, bg, d_out, f_out, bS)
         k4 = ft.field_backward_v5(bpacked, bmc, bg, acts, d_out, f_out, bS)
         torch.cuda.synchronize()
-        if not same_grads(k8, k4) or not same_grads(k8, k8b):
-            raise RuntimeError(f"K8 pass {p} differs from K4 on K3's spill or "
-                               "from itself")
+        if not same_grads(k8, k8b):
+            raise RuntimeError(f"K8 pass {p} differs from itself")
+        werr = k8_against_k4(k8, k4)
+        if werr > K13_TOL:
+            raise RuntimeError(f"K8 pass {p}: weight gradients {werr:.6g} "
+                               f"from K4's (limit {K13_TOL})")
         plain = ft.field_backward_v4_plain(bpacked, bmc, bg, d_out, f_out, bS)
         on_spill = ft.field_backward_v5_plain(bpacked, bmc, bg, acts, d_out,
                                               f_out, bS)
@@ -1477,8 +1514,10 @@ def check_recompute_kernels(calls, card):
                                           for a, b in zip(k8[2], r[2]))}
         _, plain_acts = ft.field_forward_v6_plain(bpacked, bmc, bg, bS)
         flips = float((acts != plain_acts).float().mean())
-        print(f"  K8 pass {p}: rows {bmc.shape[0]}, == K4 on K3's spill and "
-              f"== itself, bit for bit; max error over each tensor's max: "
+        print(f"  K8 pass {p}: rows {bmc.shape[0]}, == itself bit for bit; "
+              f"against K4 on K3's spill dmc, dg, b0..b7, b_hc, w_out, b_out "
+              f"bit for bit, w0..w7, w_hc within {werr:.6g} (limit "
+              f"{K13_TOL}); max error over each tensor's max: "
               + "; ".join(f"against the {k}: " + ", ".join(
                   f"{n} {v:.6g}" for n, v in e.items())
                   for k, e in errs.items())
@@ -1511,11 +1550,19 @@ def check_recompute_kernels(calls, card):
               f"{pl:.4f} ms, bound {b:.4f} ms ({by}; median of 10; {card})",
               flush=True)
         results[name].update(ms=k, plain_ms=pl, bound_ms=b, bound_by=by)
+    # K8 on passes 4 and 2: both kernels, kernel A's and kernel B's launches
+    # alone, K13 (the first design's body, + its grid sum) and K4 on K3's
+    # spill in the same call; the scratch of each design
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for p in (4, 2):
         args = calls["bwd"][p]
         packed, mc, g, d_out, f_out, S = args
         n = mc.shape[0]
+        plan = ft.k8_plan(g.shape[0], S, sms)
         k = cuda_ms(lambda: ft.field_backward_v4(*args))
+        ka = cuda_ms(lambda: ft.k8_launch(*args, kernels="A"))
+        kb = cuda_ms(lambda: ft.k8_launch(*args, kernels="B"))
+        k13 = cuda_ms(lambda: ft.field_backward_v3(*args))
         pl = cuda_ms(lambda: ft.field_backward_v4_plain(*args))
         outs = g.shape[0] * 512 * 4 + ft.PACK_FLOATS * 4 + n * 16 * 4
         b, by = bound(FLOPS["field_backward_v4"] * n,
@@ -1523,11 +1570,60 @@ def check_recompute_kernels(calls, card):
         _, acts = ft.field_forward_v6(packed, mc, g, S)
         k4 = cuda_ms(lambda: ft.field_backward_v5(packed, mc, g, acts, d_out,
                                                   f_out, S))
-        print(f"  K8 pass {p}: {n} rows, kernel {k:.4f} ms, plain {pl:.4f} "
-              f"ms, bound {b:.4f} ms ({by}); K4 on K3's spill {k4:.4f} ms "
-              f"(median of 10; {card})", flush=True)
+        del acts
+        first = plan.blocks * (ft.PACK_FLOATS * 4 + ft.TILE_ROWS
+                               * ft.ACTS_COLS * 2)
+        print(f"  K8 pass {p}: {n} rows, kernel {k:.4f} ms (kernel A alone "
+              f"{ka:.4f} ms, kernel B alone {kb:.4f} ms over "
+              f"{len(plan.chunks)} chunks of {plan.blocks} blocks x up to "
+              f"{ft.TILES_PER_CHUNK} tiles, P = {plan.slices}); K13 (the "
+              f"first design's body) {k13:.4f} ms in the same call; plain "
+              f"{pl:.4f} ms, bound {b:.4f} ms ({by}); K4 on K3's spill "
+              f"{k4:.4f} ms (median of 10; {card})", flush=True)
+        peak = {}
+        for tag, fn in (("K8", ft.field_backward_v4),
+                        ("K13", ft.field_backward_v3)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res = fn(*args)
+            torch.cuda.synchronize()
+            peak[tag] = torch.cuda.max_memory_allocated() - base
+            del res
+        print(f"  K8 pass {p} scratch per call: {plan.scratch_bytes()} bytes "
+              f"(the first design's: {first}); the peak of one call above "
+              f"what was allocated before it: K8 {peak['K8']} bytes, K13 "
+              f"(the first design's body) {peak['K13']} bytes", flush=True)
         results["field_backward_v4"].update(ms=k, plain_ms=pl, bound_ms=b,
                                             bound_by=by)
+
+    # kernel B alone on the records kernel A left of pass 2's last chunk,
+    # against its plain contraction
+    from rsn_torch.kernels import wgrad_sm90 as wg
+
+    args = calls["bwd"][2]
+    plan = ft.k8_plan(args[2].shape[0], args[5], sms)
+    ws = ft.k8_launch(*args, kernels="A")[4]
+    got = torch.empty((plan.slices, wg.PARTIAL_FLOATS), device=ws.device)
+    ref = torch.empty_like(got)
+    wg.contract(ws, got, accumulate=False)
+    wg.contract_plain(ws, ref, accumulate=False)
+    torch.cuda.synchronize()
+    err = max(rel_err(a, r) for a, r in zip(wg.weight_grads(got),
+                                            wg.weight_grads(ref)))
+    k = cuda_ms(lambda: wg.contract(ws, got, accumulate=False))
+    pl = cuda_ms(lambda: wg.contract_plain(ws, ref, accumulate=False))
+    b, by = bound(2 * WGRAD_MACS * ws.shape[0] * wg.REC_ROWS,
+                  nbytes(ws, got))
+    print(f"  kernel B on pass 2's last chunk ({ws.shape[0]} records, "
+          f"{ws.shape[0] * wg.REC_ROWS} rows, P = {plan.slices}): within "
+          f"{err:.6g} of its plain fp32 contraction (limit {K13_TOL}); "
+          f"kernel {k:.4f} ms, plain {pl:.4f} ms, bound {b:.4f} ms ({by}; "
+          f"median of 10; {card})", flush=True)
+    if err > K13_TOL:
+        raise RuntimeError("kernel B disagrees with its plain version")
+    results["field_backward_v4_wgrad"].update(err=err, ms=k, plain_ms=pl,
+                                              bound_ms=b, bound_by=by)
     return results
 
 
@@ -1699,7 +1795,8 @@ def camera_phases(config, field, device, card):
         run, launches = run_train_cli(
             card, "reflect-sampling-nerf", CAMERA_FLAGS,
             {"field_forward_v4": 2, "field_forward_v3_train": 2,
-             "field_backward_v4": 8}, tmp)
+             "field_backward_v4": 8, "field_backward_v4_wgrad": 8}, tmp,
+            at_least=("field_backward_v4_wgrad",))
         state = ckpt_lib.load_checkpoint(os.path.join(
             run, "checkpoints", f"step-{TRAIN_STEPS:09d}.pt"))
         deltas = state["camera"]

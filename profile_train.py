@@ -4,17 +4,20 @@ on one CUDA card (the training breakdown of PERF.md section 5).
 
     python3 profile_train.py
 
-For each method of chip_smoke.py (the registry's reflect-sampling-nerf:
+For each cell of chip_smoke.py (the registry's reflect-sampling-nerf:
 128 + 128 + 64 + 64 samples; reflect-sampling-nerf-proposal: 64 proposal
-+ 128 fine + 64 reflect-proposal + 64 reflect-fine samples; both with
-compute_dtype bfloat16, 1024 rays, the synthetic sphere at 800x800, seed
-chip_smoke.SEED), builds the trainer, runs 60 steps to warm up (kernel
-build, the adaptive reflect bucket, the normal losses on from step 50),
-times STEPS steps without the profiler, then PROFILED steps under
-torch.profiler.  Prints, per method, the wall time per step, the device
-time summed over every kernel, copy and fill (the device's busy and idle
-shares of the profiled wall), and the device time per kernel name,
-largest first.
++ 128 fine + 64 reflect-proposal + 64 reflect-fine samples; the default
+method with pose refinement (camera_optimizer SO3xR3) on the recompute
+route (use_pallas_acts False); all with compute_dtype bfloat16, 1024
+rays, the synthetic sphere at 800x800, seed chip_smoke.SEED), builds the
+trainer, runs 60 steps to warm up (kernel build, the adaptive reflect
+bucket, the normal losses on from step 50), times STEPS steps without the
+profiler, then PROFILED steps under torch.profiler, then one step for its
+peak device memory above what the trainer holds before it.  Prints, per
+cell, the wall time per step, the device time summed over every kernel,
+copy and fill (the device's busy and idle shares of the profiled wall),
+K8's share of it (its kernels field_backward_v4_kernel and wgrad_kernel),
+the peak memory, and the device time per kernel name, largest first.
 """
 from __future__ import annotations
 
@@ -31,8 +34,12 @@ WARMUP = 60
 STEPS = 20
 PROFILED = 5
 TOP = 25
-METHODS = (("reflect-sampling-nerf", {}),
-           ("reflect-sampling-nerf-proposal", {"use_pallas_proposal": True}))
+# (method, model flags, pose refinement on the recompute route)
+METHODS = (("reflect-sampling-nerf", {}, False),
+           ("reflect-sampling-nerf-proposal", {"use_pallas_proposal": True},
+            False),
+           ("reflect-sampling-nerf", {}, True))
+K8_KERNELS = ("field_backward_v4_kernel", "wgrad_kernel")
 
 
 def main() -> int:
@@ -49,20 +56,22 @@ def main() -> int:
                           timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, cuda "
           f"{torch.version.cuda}")
-    for method, flags in METHODS:
-        profile_steps(method, flags, torch.device("cuda", 0))
+    for method, flags, camera in METHODS:
+        profile_steps(method, flags, camera, torch.device("cuda", 0))
     return 0
 
 
-def profile_steps(method: str, flags, device) -> None:
+def profile_steps(method: str, flags, camera: bool, device) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import SEED, smoke_config
+    from chip_smoke import SEED, smoke_config, with_route
     from rsn_torch.engine.trainer import Trainer
     from rsn_torch.kernels import field_forward as ff
 
     config = dataclasses.replace(smoke_config(method, **flags), seed=SEED)
+    if camera:
+        config = with_route(config, True, False)
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer(config, run_dir=tmp, device=device)
         for _ in range(WARMUP):
@@ -85,6 +94,11 @@ def profile_steps(method: str, flags, device) -> None:
             wall = time.perf_counter() - t0
         launches = {k: v for k, v in ff.LAUNCHES.items() if v}
         bucket = trainer._reflect_frac
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train_step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
 
     per_name = collections.defaultdict(lambda: [0, 0.0])
     for e in prof.events():
@@ -99,7 +113,9 @@ def profile_steps(method: str, flags, device) -> None:
     if busy <= 0.0:
         raise RuntimeError("the profiler recorded no device time")
     rays = config.pipeline.datamanager.train_num_rays_per_batch
-    print(f"{config.method_name}: {rays}-ray steps after {WARMUP} warm-up "
+    cell = config.method_name + (" camera SO3xR3, recompute route" if camera
+                                 else "")
+    print(f"{cell}: {rays}-ray steps after {WARMUP} warm-up "
           f"steps, reflect bucket "
           f"{bucket}; launches in {PROFILED} profiled steps {launches}")
     print(f"wall {step_s * 1e3:.4f} ms per step without the profiler "
@@ -109,6 +125,11 @@ def profile_steps(method: str, flags, device) -> None:
           f"{sum(c for c, _ in per_name.values()) // PROFILED} device ops: "
           f"busy {busy / wall:.2%}, idle {1 - busy / wall:.2%} of the "
           f"profiled wall")
+    k8 = sum(secs for name, (_, secs) in per_name.items()
+             if any(k in name for k in K8_KERNELS))
+    print(f"K8 {k8 / PROFILED * 1e3:.4f} ms per step, {k8 / busy:.2%} of "
+          f"device time; peak device memory of one step {peak / 2**30:.4f} "
+          f"GiB above the trainer's {base / 2**30:.4f} GiB")
     print(f"{'device ms':>10} {'share':>7} {'count':>6}  name (per step)")
     for name, (count, secs) in sorted(per_name.items(),
                                       key=lambda kv: -kv[1][1])[:TOP]:

@@ -1,5 +1,6 @@
 // Device routines shared by the field kernels (field_forward.cu: K1, K2,
-// K11, K12; field_train.cu: K3, K4, K5, K7, K8, K10, K13, K17;
+// K11, K12; field_train.cu: K3, K4, K5, K7, K8 (with wgrad_sm90.cuh), K10,
+// K13, K17;
 // experiments.cu: K14, K15; experiments_bwd.cu: K18, K19).  Every kernel
 // computes its IPE (K1's polynomial one, or K11's exact one) through
 // ipe_rows (K1 and K2: ipe_sincos, the same operations on every element).
@@ -723,12 +724,12 @@ __device__ void tail_cotangents(const bf16* __restrict__ dq,
 }
 
 // The mid head's weight gradients over a tile of `rows` rows: dw_out[c][j]
-// += sum_r hmid[r][c] bf16(dz3)[r][j] for j < 3, db_out[j] += sum_r
-// dz3[r][j]; hmid bf16 (stride ldh), the row scalars of tail_cotangents
-// at stride rs.
+// (row stride ldw) += sum_r hmid[r][c] bf16(dz3)[r][j] for j < 3,
+// db_out[j] += sum_r dz3[r][j]; hmid bf16 (stride ldh), the row scalars of
+// tail_cotangents at stride rs.
 __device__ void mid_head_wgrad(const bf16* hmid, int ldh, const float* rowf,
                                int rs, int rows, float* dw_out,
-                               float* db_out) {
+                               float* db_out, int ldw = MID) {
   for (int e = threadIdx.x; e < MID * 3 + 3; e += THREADS) {
     if (e < MID * 3) {
       const int c = e / 3, j = e % 3;
@@ -736,7 +737,7 @@ __device__ void mid_head_wgrad(const bf16* hmid, int ldh, const float* rowf,
       for (int r = 0; r < rows; ++r)
         s = __fmaf_rn(__bfloat162float(hmid[r * ldh + c]),
                       rowf[r * rs + 7 + j], s);
-      dw_out[c * MID + j] += s;
+      dw_out[c * ldw + j] += s;
     } else {
       const int j = e - MID * 3;
       float s = 0.f;

@@ -26,7 +26,9 @@
 //                       without the IPE backward, x read from the spill.
 //   field_backward_v4  (K8; _bwd_kernel_impl(two_d=True, has_acts=False)):
 //                       K4 with the trunk activations recomputed in the
-//                       block instead of read from a spill.
+//                       block instead of read from a spill; its weight
+//                       gradients are contracted by wgmma in a second
+//                       kernel (wgrad_sm90.cuh).
 //   field_forward_v5   (K10; field_pallas.py, _kernel_v5): K7 (with the
 //                       normals) or K1 at the train width, with the next
 //                       tile's IPE computed while this tile's trunk runs.
@@ -42,10 +44,11 @@
 // What bounds them on this card: about 2.2 MFLOP of bf16 products per
 // sample row each, against 4.3 KB (K3 spill) or 4.4 KB (K4/K5 reads) of
 // device memory per row: about 500 FLOP per byte, above the card's ~295,
-// so the tensor cores are the limit.  In this first design the weight
-// gradient accumulators are not: they live in device memory (one fp32
-// slice of 2.4 MB per block), and every 64-row tile reads and writes its
-// block's slice once, about 38 KB per row of traffic.
+// so the tensor cores are the limit.  In the first design (K4, K5, K13,
+// K17) the weight-gradient accumulators are not: they live in device
+// memory (one fp32 slice of 2.4 MB per block), and every 64-row tile reads
+// and writes its block's slice once, about 38 KB per row of traffic (K18:
+// 57% of the backward).
 //
 // What the design does about it (a first, simple design):
 //   - The forward (K3) is K1's code: ipe_tile, trunk and v3_tail of
@@ -77,10 +80,24 @@
 //     per SM, within the 50 MB L2), and K4's body then reads that slot
 //     unchanged.  The recompute equals K3's spill bit for bit (every row
 //     is computed by the same code from the same inputs), and K8 uses
-//     K4's rays-per-block partition, so K8 equals K4 on K3's spill bit
-//     for bit.  The other simple design, 32-row tiles with all layers in
-//     shared memory, would double the weight-gradient slice traffic per
-//     row, which already bounds K4.
+//     K4's rays-per-block partition, so every per-row value and every sum
+//     the body takes in its tile loop (dmc, dg, the biases, the mid
+//     head's gradients) equals K4's on K3's spill bit for bit.
+//   - K8's weight gradients leave the tile loop: a call runs in chunks of
+//     up to 4 tiles of every block's run, and per chunk the body (kernel
+//     A, STASH) stores each weight-gradient product's two operand tiles
+//     (X, hs0..hs7, dpre0..dpre7, d_hc: 8,736 bytes per row) to the tile's
+//     record of a workspace, in the K-major swizzled layout wgmma reads,
+//     where K4 multiplies them into its slice (gathered through two shared
+//     staging buffers, 64 KB behind K4's layout, and written by bulk
+//     copies); kernel B (wgrad_sm90.cuh) then contracts the chunk's
+//     records over all their rows with wgmma,
+//     18 output tiles x P slices, each slice's sums in its own fp32
+//     partial (read and written once per chunk).  The workspace per block
+//     fits in what the first design's slice took (4 x 559,104 <=
+//     2,434,560 bytes).  The weight matrices differ from K4's only by the
+//     order of their fp32 sums over the rows, and are the same from run
+//     to run.
 //   - K10 carries rsn's schedule over, not its two-slot VMEM buffer kept
 //     across sequential grid steps: one persistent block per SM, whose four
 //     producer warps write the next tile's IPE into one of two X slots
@@ -105,9 +122,10 @@
 //     per-row value (dmc, the activations) equals K8's bit for bit, and
 //     only the sums over rows (dg, the weight gradients) change order.
 //     It halves the slice traffic per row.
-// Later work: keep the weight-gradient accumulators on chip (larger row
-// tiles, or a split of the layers over blocks), wgmma, TMA.
+// Later work: K4 and K5 on kernel B; the recompute and the dgrads on
+// wgmma (trunk_sm90.cuh).
 #include "field_common.cuh"
+#include "wgrad_sm90.cuh"
 
 namespace {
 
@@ -357,6 +375,8 @@ struct BwdSmem {
 };
 constexpr int K5_SMEM_BYTES = BwdSmem<TM>::DXE;
 constexpr int K4_SMEM_BYTES = BwdSmem<TM>::DXE + TM * ENC * 4;
+constexpr int K8_SMEM_BYTES = K4_SMEM_BYTES + wgrad::STASH_SMEM_BYTES;
+static_assert(K8_SMEM_BYTES <= 232448, "K8 must fit one SM");
 constexpr int WHOLE = 2 * TM;  // K17's row tile
 constexpr int K17_SMEM_BYTES = BwdSmem<WHOLE>::DXE;
 static_assert(K17_SMEM_BYTES <= 232448, "K17 must fit one SM");
@@ -376,21 +396,46 @@ struct BwdArgs {
   int S;
   int rays_per_block;
   float* dxe;           // K17: (blocks, 128, 128) f32 dx tiles
+  unsigned char* stash = nullptr;  // K8: the chunk's wgrad workspace
+  int tile0 = 0, tile1 = 0;        // K8: the chunk's tiles of each run
 };
 
-// K4 (WANT_DMC), K5, and with RECOMPUTE (K8) K4 on activations that the
-// block recomputes per tile into its workspace slot.  ROWS: the row tile,
-// 64 (K4, K5, K8, K13) or 128 (K17, recompute only).  Every product that
-// contracts over the rows (the weight gradients) runs over the whole tile
-// between one load and one store of the block's slice; the trunk
+// Offsets in a block's fp32 gradient slice: the 20 packed operands
+// (PACK_FLOATS), or with STASH (K8, whose weight matrices go to the
+// workspace instead) only the biases and the mid head: b0..b7, b_hc,
+// w_out's 3 live columns (128 x 3), b_out (3, padded to 4).
+template <bool STASH>
+struct GradSlice {
+  static constexpr int B = STASH ? 0 : OFF_B;
+  static constexpr int BHC = STASH ? LAYERS * WIDTH : OFF_BHC;
+  static constexpr int WOUT = STASH ? BHC + WIDTH : OFF_WOUT;
+  static constexpr int LDWOUT = STASH ? 3 : MID;
+  static constexpr int BOUT = STASH ? WOUT + MID * 3 : OFF_BOUT;
+  static constexpr int FLOATS = STASH ? BOUT + 4 : PACK_FLOATS;
+};
+static_assert(GradSlice<true>::FLOATS == 2692, "K8's compact slice");
+
+// K4 (WANT_DMC), K5, and with RECOMPUTE (K8, K13) K4 on activations that
+// the block recomputes per tile into its workspace slot.  ROWS: the row
+// tile, 64 (K4, K5, K8, K13) or 128 (K17, recompute only).  Every product
+// that contracts over the rows (the weight gradients) runs over the whole
+// tile between one load and one store of the block's slice; the trunk
 // recompute, the dgrads and their epilogues run on the tile's 64-row
-// halves, each element computed as on a 64-row tile.
-template <bool WANT_DMC, bool RECOMPUTE, int ROWS = TM>
+// halves, each element computed as on a 64-row tile.  STASH (K8's kernel
+// A): only the tiles [a.tile0, a.tile1) of the block's run, and instead of
+// each weight-gradient product its two operand tiles go to the tile's
+// record of the chunk's workspace (wgrad_sm90.cuh), which kernel B
+// contracts; the biases and the mid head's gradients go to the block's
+// compact slice (GradSlice<true>), summed over the chunks' launches in
+// the same order as over one run.
+template <bool WANT_DMC, bool RECOMPUTE, int ROWS = TM, bool STASH = false>
 __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
   static_assert(WANT_DMC || !RECOMPUTE, "K8 computes dmc");
   static_assert(ROWS == TM || RECOMPUTE, "128-row tiles: K17 only");
   static_assert(ROWS % TM == 0 && ROWS <= THREADS, "64-row halves");
+  static_assert(!STASH || (RECOMPUTE && ROWS == TM), "the stash is K8's");
   typedef BwdSmem<ROWS> L;
+  typedef GradSlice<STASH> G;
   constexpr int HALVES = ROWS / TM;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* D = reinterpret_cast<bf16*>(smem + L::D);
@@ -409,10 +454,19 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
   const long long ray0 = (long long)blockIdx.x * a.rays_per_block;
   const long long ray1 = min(a.rays, ray0 + a.rays_per_block);
   const long long rowA = ray0 * S, rowB = ray1 * S;
-  float* grp = a.dpk + (long long)blockIdx.x * PACK_FLOATS;
+  float* grp = a.dpk + (long long)blockIdx.x * G::FLOATS;
+  const long long rowEnd =
+      STASH ? min(rowB, rowA + (long long)a.tile1 * TM) : rowB;
+  const long long chunk_tiles = a.tile1 - a.tile0;
+  wgrad::Stash st{smem + K4_SMEM_BYTES};  // K8: behind K4's layout
 
-  for (long long row0 = rowA; row0 < rowB; row0 += ROWS) {
+  for (long long row0 = STASH ? rowA + (long long)a.tile0 * TM : rowA;
+       row0 < rowEnd; row0 += ROWS) {
     const int nv = (int)min((long long)ROWS, rowB - row0);
+    unsigned char* rec =
+        STASH ? a.stash + (blockIdx.x * chunk_tiles + (row0 - rowA) / TM -
+                           a.tile0) * wgrad::REC_BYTES
+              : nullptr;
     bf16* slot =
         RECOMPUTE ? a.ws + (long long)blockIdx.x * ROWS * ld : nullptr;
     const bf16* acts = RECOMPUTE ? slot : a.acts + row0 * ld;
@@ -489,9 +543,10 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
     block_sync();
 
     // ---- mid head: w_out / b_out gradients; dmid_pre, dg, b_hc[128:] ----
-    mid_head_wgrad(D, LDH, rowf, RF, ROWS, grp + OFF_WOUT, grp + OFF_BOUT);
+    mid_head_wgrad(D, LDH, rowf, RF, ROWS, grp + G::WOUT, grp + G::BOUT,
+                   G::LDWOUT);
     dmid_pre_rows(p.w_out, mbits, rowf, RF, ROWS, nv, row0, S, a.dg,
-                  D + MID, LDH, grp + OFF_BHC + MID);
+                  D + MID, LDH, grp + G::BHC + MID);
     block_sync();
 
     // ---- the head columns of d_hc into D[:, 0:16] ----
@@ -502,24 +557,43 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
     if (tid < 11) {
       float s = 0.f;
       for (int r = 0; r < ROWS; ++r) s = __fadd_rn(s, rowf[r * RF + 10 + tid]);
-      grp[OFF_BHC + tid] += s;
+      grp[G::BHC + tid] += s;
     }
+    if constexpr (STASH) st.wait_free();
     block_sync();
 
-    // ---- heads + mid: dW_hc += hs7^T d_hc; dh7 = d_hc w_hc^T ----
-    wgrad_acc<ROWS>(INP, LDH, WIDTH, D, LDH, HC_TILES, grp + OFF_WHC, WIDTH);
+    // ---- heads + mid: dW_hc += hs7^T d_hc (K8: hs7 and d_hc's 144 live
+    // columns to the record, copied after the barrier below); dh7 = d_hc
+    // w_hc^T ----
+    if constexpr (STASH) {
+#ifndef RSN_ABLATE_NO_STASH  // ablate_k8.py: kernel A without its stores
+      wgrad::stage_rows(st.buf, INP, LDH, WIDTH);
+      wgrad::stage_rows(st.second(), D, LDH, 16);  // the heads, the mid seed
+      wgrad::stage_rows(st.second(), D + MID, LDH, MID, 16);
+      st.gathered();
+#endif
+    } else {
+      wgrad_acc<ROWS>(INP, LDH, WIDTH, D, LDH, HC_TILES, grp + OFF_WHC,
+                      WIDTH);
+    }
     for (int h = 0; h < HALVES; ++h) {
       const int r0 = h * TM;
       FragC acc[4][2];
       dgrad_mma<2>(D + r0 * LDH, p.w_hc, 0, HC_TILES, acc);
       block_sync();
+#ifndef RSN_ABLATE_NO_STASH
+      if constexpr (STASH)
+        st.copy_out(rec + wgrad::ACT_OFF + (LAYERS - 1) * wgrad::ACT_BYTES,
+                    wgrad::ACT_BYTES, rec + wgrad::DHC_OFF,
+                    sm90::HEAD_N * wgrad::FEAT_BYTES);
+#endif
       drain<2>(acc, 0, stage, [&](int rr, int c, float v) {
         const int r = r0 + rr;
         const float m =
             (r < nv && __bfloat162float(INP[r * LDH + c]) > 0.f) ? v : 0.f;
         D[r * LDH + c] = __float2bfloat16_rn(m);
         return m;
-      }, BiasSum{grp + OFF_B + (LAYERS - 1) * WIDTH});
+      }, BiasSum{grp + G::B + (LAYERS - 1) * WIDTH});
     }
     block_sync();
 
@@ -527,14 +601,32 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
     for (int i = LAYERS - 1; i >= 0; --i) {
       if (i > 0) {
         load_rows<ROWS>(INP, LDH, acts + (i - 1) * WIDTH, ld, WIDTH, nv);
+        if constexpr (STASH) st.wait_free();
         block_sync();
       }
-      float* dW = grp + off_w(i);
-      if (i == 0 || i == SKIP_AT)
-        wgrad_acc<ROWS>(X, LDX, ENC, D, LDH, ALL_TILES, dW, WIDTH);
-      if (i > 0)
-        wgrad_acc<ROWS>(INP, LDH, WIDTH, D, LDH, ALL_TILES,
-                        i == SKIP_AT ? dW + ENC * WIDTH : dW, WIDTH);
+      // K8: X (layer 0) or hs_{i-1}, and dpre_i, to the record: copied
+      // after the next barrier
+      const int off0 =
+          i == 0 ? wgrad::X_OFF : wgrad::ACT_OFF + (i - 1) * wgrad::ACT_BYTES;
+      const int bytes0 = (i == 0 ? ENC : WIDTH) * wgrad::FEAT_BYTES;
+      const int off1 = wgrad::DPRE_OFF + i * wgrad::ACT_BYTES;
+      if constexpr (STASH) {
+#ifndef RSN_ABLATE_NO_STASH
+        if (i == 0)
+          wgrad::stage_rows(st.buf, X, LDX, ENC);
+        else
+          wgrad::stage_rows(st.buf, INP, LDH, WIDTH);
+        wgrad::stage_rows(st.second(), D, LDH, WIDTH);
+        st.gathered();
+#endif
+      } else {
+        float* dW = grp + off_w(i);
+        if (i == 0 || i == SKIP_AT)
+          wgrad_acc<ROWS>(X, LDX, ENC, D, LDH, ALL_TILES, dW, WIDTH);
+        if (i > 0)
+          wgrad_acc<ROWS>(INP, LDH, WIDTH, D, LDH, ALL_TILES,
+                          i == SKIP_AT ? dW + ENC * WIDTH : dW, WIDTH);
+      }
       const bf16* W = p.trunk.w[i];
       for (int h = 0; h < HALVES; ++h) {
         const int r0 = h * TM;
@@ -553,6 +645,10 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
           FragC acc[4][2];
           dgrad_mma<2>(D + r0 * LDH, W, c0, ALL_TILES, acc);
           block_sync();  // wgrad and dgrad reads of D are done
+#ifndef RSN_ABLATE_NO_STASH
+          if constexpr (STASH)
+            st.copy_out(rec + off0, bytes0, rec + off1, wgrad::ACT_BYTES);
+#endif
           drain<2>(acc, c0, stage, [&](int rr, int c, float v) {
             const int r = r0 + rr, hc = c - c0;
             const float m =
@@ -560,10 +656,17 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
                                                                       : 0.f;
             D[r * LDH + hc] = __float2bfloat16_rn(m);
             return m;
-          }, BiasSum{grp + OFF_B + (i - 1) * WIDTH - c0});
+          }, BiasSum{grp + G::B + (i - 1) * WIDTH - c0});
         }
       }
+      if constexpr (STASH)
+        if (i == 1) st.wait_free();  // layer 0 gathers after this barrier
       block_sync();
+#ifndef RSN_ABLATE_NO_STASH
+      if constexpr (STASH)
+        if (i == 0)
+          st.copy_out(rec + off0, bytes0, rec + off1, wgrad::ACT_BYTES);
+#endif
     }
 
     // ---- IPE backward (K4): dmc = dpre_enc A^T + dvar V^T ----
@@ -571,6 +674,13 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
       ipe_backward_rows(a.mc, a.consts, dxe, a.dmc, row0, nv, ROWS);
       block_sync();
     }
+  }
+  if constexpr (STASH) {  // the chunk's records past the end of the run
+    const long long tiles = (rowB - rowA + TM - 1) / TM;
+    for (long long t = max(tiles, (long long)a.tile0); t < a.tile1; ++t)
+      wgrad::zero_record(a.stash + (blockIdx.x * chunk_tiles + t - a.tile0) *
+                                       wgrad::REC_BYTES);
+    st.drain();
   }
 }
 
@@ -586,7 +696,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 
 __global__ void __launch_bounds__(THREADS, 1)
     field_backward_v4_kernel(V3Params p, BwdArgs a) {
-  field_backward_body<true, true>(p, a);
+  field_backward_body<true, true, TM, true>(p, a);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -776,14 +886,19 @@ int rsn_field_backward_v6(const void* g_bands, const void* xacts,
                          stream);
 }
 
-// K8: K4 with no spill.  ws: ceil(rays / rays_per_block) slots of
-// 64 x 2048 bf16 (uninitialised); dg and dpk as for K4.
+// K8's kernel A on one chunk: tiles [tile0, tile1) of every block's run
+// (K4's partition).  ws: ceil(rays / rays_per_block) slots of 64 x 2048
+// bf16 (uninitialised); small: as many zeroed compact slices of 2692
+// floats (GradSlice<true>), summed into over a call's chunks; stash: the
+// chunk's blocks x (tile1 - tile0) records of wgrad::REC_BYTES (written
+// whole); dg zeroed.
 int rsn_field_backward_v4(const void* mean_cov, const void* g_bands,
                           const void* ipe_consts, const void* d_out,
                           const void* f_out, const void* const* ptrs,
-                          void* dmc, void* dg, void* dpk, void* ws,
-                          long long rays, int samples_per_ray,
-                          int rays_per_block, void* stream) {
+                          void* dmc, void* dg, void* small, void* ws,
+                          void* stash, long long rays, int samples_per_ray,
+                          int rays_per_block, int tile0, int tile1,
+                          void* stream) {
   V3Params p;
   fill_v3(&p, ptrs);
   BwdArgs a{static_cast<const float*>(mean_cov),
@@ -791,10 +906,21 @@ int rsn_field_backward_v4(const void* mean_cov, const void* g_bands,
             static_cast<const float*>(ipe_consts), nullptr,
             static_cast<const bf16*>(d_out), static_cast<const bf16*>(f_out),
             static_cast<float*>(dmc), static_cast<float*>(dg),
-            static_cast<float*>(dpk), static_cast<bf16*>(ws), rays,
-            samples_per_ray, rays_per_block};
-  return launch_backward(field_backward_v4_kernel, K4_SMEM_BYTES, p, a,
+            static_cast<float*>(small), static_cast<bf16*>(ws), rays,
+            samples_per_ray, rays_per_block, nullptr,
+            static_cast<unsigned char*>(stash), tile0, tile1};
+  return launch_backward(field_backward_v4_kernel, K8_SMEM_BYTES, p, a,
                          stream);
+}
+
+// K8's kernel B on one chunk: records (blocks x tiles of the chunk) at
+// stash into `slices` fp32 partials of wgrad::PARTIAL_FLOATS (w0..w7, then
+// w_hc's 144 live columns), which it overwrites (accumulate 0: the call's
+// first chunk) or adds to.
+int rsn_wgrad_sm90(const void* stash, void* partial, long long records,
+                   int slices, int accumulate, void* stream) {
+  return wgrad::launch_wgrad(stash, partial, records, slices, accumulate,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // K17: K8 on 128-row tiles.  ws: ceil(rays / rays_per_block) slots of

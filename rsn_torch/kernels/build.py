@@ -27,7 +27,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("field_forward.cu", "field_train.cu", "proposal_forward.cu",
            "experiments.cu", "experiments_bwd.cu")
-HEADERS = ("field_common.cuh", "trunk_sm90.cuh")
+HEADERS = ("field_common.cuh", "trunk_sm90.cuh", "wgrad_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -121,7 +121,8 @@ def _signatures() -> Dict[str, Dict[str, list]]:
                                       i32, vp],
             "rsn_field_forward_v4": [vp, vp, vp, ptrs, vp, ll, i32, i32, vp],
             "rsn_field_backward_v4": [vp, vp, vp, vp, vp, ptrs, vp, vp, vp,
-                                      vp, ll, i32, i32, vp],
+                                      vp, vp, ll, i32, i32, i32, i32, vp],
+            "rsn_wgrad_sm90": [vp, vp, ll, i32, i32, vp],
             "rsn_field_forward_v5": [vp, vp, vp, ptrs, vp, ll, i32, i32, vp],
             "rsn_field_backward_v3": [vp, vp, vp, vp, vp, ptrs, vp, vp, vp,
                                       vp, vp, vp, ll, i32, i32, vp],

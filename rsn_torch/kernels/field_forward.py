@@ -99,7 +99,8 @@ LAUNCHES = {"field_forward_v3": 0, "field_forward_density": 0,
             "field_forward_v6": 0, "field_backward_v5": 0,
             "field_backward_v6": 0, "field_forward_v4": 0,
             "field_forward_v3_train": 0, "field_backward_v4": 0,
-            "prop_forward": 0, "field_forward_v2": 0, "field_forward": 0,
+            "field_backward_v4_wgrad": 0, "prop_forward": 0,
+            "field_forward_v2": 0, "field_forward": 0,
             "field_forward_v5": 0, "field_backward_v3": 0,
             "field_forward_v3u": 0, "field_forward_v3i": 0,
             "field_forward_v3L": 0, "field_forward_v3F": 0,

@@ -26,7 +26,10 @@ bit for bit.
 
 K8 `field_backward_v4` (replaces field_train.py::field_backward_v4): K4
 with the trunk activations recomputed in the kernel instead of read from
-a spill -> dmc, dg and the 20 gradients.
+a spill -> dmc, dg and the 20 gradients.  On the card a call is a few
+chunks of two kernels: K4's body, which stashes each tile's weight-
+gradient operands into a workspace (kernel A), and their contraction by
+wgmma (kernel B, rsn_torch/kernels/wgrad_sm90.py).
 
 K10 `field_forward_v5` (replaces field_pallas.py::field_forward_v5): K7
 (want_normals) or K1 at the train width on another schedule, the next
@@ -50,12 +53,15 @@ in field_forward.LAUNCHES.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
 from rsn_torch.kernels import field_forward as ff
+from rsn_torch.kernels import trunk_sm90 as ts
+from rsn_torch.kernels import wgrad_sm90 as wg
 from rsn_torch.kernels.field_forward import (BF16, F32, ENC_PAD, FH_COLS,
                                              IN_COLS, IPE_SCALE, IPE_VAR,
                                              LAUNCHES, _BAND_KS, _V3_DTYPES,
@@ -76,6 +82,15 @@ N_PACKED = 20
 # operands in order (field_train.cu PACK_FLOATS)
 PACKED_SHAPES = tuple(ff.V3_SHAPES)
 PACK_FLOATS = sum(r * c for r, c in PACKED_SHAPES)
+# K8's per-block fp32 slice (field_train.cu GradSlice<true>): b0..b7,
+# b_hc, w_out's 3 live columns (128 x 3), b_out (3, padded to 4)
+SMALL_B, SMALL_BHC = 0, TRUNK_LAYERS * TRUNK_WIDTH
+SMALL_WOUT = SMALL_BHC + TRUNK_WIDTH
+SMALL_BOUT = SMALL_WOUT + 128 * 3
+SMALL_FLOATS = SMALL_BOUT + 4  # 2692
+# K8's chunk: the most tiles of every block whose workspace records fit in
+# what the first design's per-block fp32 slice took (2,434,560 bytes)
+TILES_PER_CHUNK = PACK_FLOATS * 4 // wg.REC_BYTES  # 4
 
 
 def density_row(field) -> torch.Tensor:
@@ -199,9 +214,12 @@ def field_forward_v4_plain(packed, mean_cov: torch.Tensor,
                                   want_normals)[0]
 
 
-def _backward_plain(packed, g_bands, hs, x, d_out, f_out, S, mean_cov):
+def _backward_plain(packed, g_bands, hs, x, d_out, f_out, S, mean_cov,
+                    ops=None):
     """rsn's _bwd_half written out: -> (dmc or None, dg, dpacked).
-    mean_cov None: no IPE backward and no layer-0 dgrad (K5)."""
+    mean_cov None: no IPE backward and no layer-0 dgrad (K5).  ops: a dict
+    that receives the weight gradients' bf16 operands ("dhc": d_hc (N,
+    256), "dpre": dpre_0..dpre_7 (N, 256))."""
     ws, bs = packed[:8], packed[8:16]
     w_hc, b_hc, w_out, b_out = packed[16:20]
     n = d_out.shape[0]
@@ -246,6 +264,8 @@ def _backward_plain(packed, g_bands, hs, x, d_out, f_out, S, mean_cov):
                          torch.zeros(n, 128 - FH_COLS, device=dev)], dim=1)
     d_hc = torch.cat([d_heads, dmid_pre], dim=1)
     d_hc_b = d_hc.to(BF16).float()
+    if ops is not None:
+        ops["dhc"], ops["dpre"] = d_hc.to(BF16), [None] * TRUNK_LAYERS
     dpk[16] = h.float().t() @ d_hc_b
     dpk[17] = d_hc.sum(dim=0, keepdim=True)
     dh = d_hc_b @ w_hc.float().t()
@@ -256,6 +276,8 @@ def _backward_plain(packed, g_bands, hs, x, d_out, f_out, S, mean_cov):
             inp = torch.cat([x, hs[i - 1]], dim=1)
         dpre_f = dh * (hs[i].float() > 0)
         dpre = dpre_f.to(BF16).float()
+        if ops is not None:
+            ops["dpre"][i] = dpre_f.to(BF16)
         dpk[i] = inp.float().t() @ dpre
         dpk[8 + i] = dpre_f.sum(dim=0, keepdim=True)
         if i == 0 and mean_cov is None:
@@ -305,6 +327,105 @@ def field_backward_v4_plain(packed, mean_cov, g_bands, d_out, f_out,
     return _backward_plain(packed[:N_PACKED], g_bands,
                            _trunk_acts(packed[:8], packed[8:16], x), x,
                            d_out, f_out, samples_per_ray, mean_cov)
+
+
+# ---- K8's schedule on the card, and its two phases in plain PyTorch ---------
+
+@dataclasses.dataclass(frozen=True)
+class K8Plan:
+    """K8 on the card: K4's partition (rays_per_block whole rays per block,
+    one block per SM), each block's run walked in 64-row tiles, the tiles
+    cut into chunks [t0, t1) of every block's run; per chunk kernel A
+    stashes blocks x (t1 - t0) records and kernel B contracts them over
+    `slices` slices."""
+    rays: int
+    samples_per_ray: int
+    rays_per_block: int
+    blocks: int
+    tiles: int  # a full block's tiles
+    chunks: Tuple[Tuple[int, int], ...]
+    slices: int
+
+    def records(self, chunk) -> List[Tuple[int, int, int, int]]:
+        """The chunk's records in workspace order: (block, tile, first row,
+        rows; 0 past the end of the block's run)."""
+        t0, t1 = chunk
+        S, rpb = self.samples_per_ray, self.rays_per_block
+        out = []
+        for b in range(self.blocks):
+            row_a, row_b = b * rpb * S, min(self.rays, (b + 1) * rpb) * S
+            for t in range(t0, t1):
+                row0 = row_a + t * TILE_ROWS
+                out.append((b, t, row0, max(0, min(TILE_ROWS, row_b - row0))))
+        return out
+
+    def scratch_bytes(self) -> int:
+        """K8's scratch on the card: the largest chunk's workspace, the
+        recompute slots, the compact slices and the partials."""
+        t0, t1 = self.chunks[0]
+        return (self.blocks * (t1 - t0) * wg.REC_BYTES
+                + self.blocks * TILE_ROWS * ACTS_COLS * 2
+                + self.blocks * SMALL_FLOATS * 4
+                + self.slices * wg.PARTIAL_FLOATS * 4)
+
+
+def k8_plan(rays: int, samples_per_ray: int, sms: int) -> K8Plan:
+    """K8's schedule on a card of `sms` SMs (K4's rays per block at one
+    block per SM; chunks of TILES_PER_CHUNK tiles)."""
+    S = int(samples_per_ray)
+    rpb = max(1, -(-rays // sms))
+    tiles = -(-(rpb * S) // TILE_ROWS)
+    chunks = tuple((t0, min(tiles, t0 + TILES_PER_CHUNK))
+                   for t0 in range(0, tiles, TILES_PER_CHUNK))
+    blocks = -(-rays // rpb)
+    return K8Plan(rays, S, rpb, blocks, tiles, chunks,
+                  wg.slices_for(sms, blocks * (chunks[0][1] - chunks[0][0])))
+
+
+def stash_chunk_plain(plan: K8Plan, chunk, x, hs, ops) -> torch.Tensor:
+    """Plain kernel A's stash: the chunk's records from the rows' operands
+    (x, hs, and _backward_plain's ops), rows past a run's end zero
+    -> (records, wg.REC_ELEMS) bf16."""
+    dhc = ts.head_columns(ops["dhc"])  # the record's 144 columns of d_hc
+
+    def tile(a, row0, nv):
+        out = torch.zeros((TILE_ROWS, a.shape[1]), dtype=BF16,
+                          device=a.device)
+        out[:nv] = a[row0:row0 + nv]
+        return out
+
+    return torch.stack([
+        wg.pack_record(tile(x, row0, nv), [tile(h, row0, nv) for h in hs],
+                       [tile(d, row0, nv) for d in ops["dpre"]],
+                       tile(dhc, row0, nv))
+        for _, _, row0, nv in plan.records(chunk)])
+
+
+def _with_weights(dpk, w) -> Tuple[torch.Tensor, ...]:
+    """The 20 gradients with w0..w7 and w_hc taken from w (9 tensors)."""
+    return tuple(w[:8]) + tuple(dpk[8:16]) + (w[8],) + tuple(dpk[17:20])
+
+
+def field_backward_v4_chunked_plain(packed, mean_cov, g_bands, d_out, f_out,
+                                    samples_per_ray, sms: int):
+    """Plain K8 in its two phases on a card of `sms` SMs: the plain
+    backward's per-row values (dmc, dg, the biases and the mid head's
+    gradients as field_backward_v4_plain's), its weight-gradient operands
+    stashed per chunk in kernel A's record layout, and plain kernel B's
+    contraction of each chunk (its slices, the P partials summed as the
+    wrapper sums them)."""
+    S = int(samples_per_ray)
+    plan = k8_plan(mean_cov.shape[0] // S, S, sms)
+    x = ff.ipe_x(mean_cov)
+    hs = _trunk_acts(packed[:8], packed[8:16], x)
+    ops = {}
+    dmc, dg, dpk = _backward_plain(packed[:N_PACKED], g_bands, hs, x, d_out,
+                                   f_out, S, mean_cov, ops)
+    partial = torch.empty((plan.slices, wg.PARTIAL_FLOATS), dtype=F32)
+    for c, chunk in enumerate(plan.chunks):
+        wg.contract_plain(stash_chunk_plain(plan, chunk, x, hs, ops),
+                            partial, accumulate=c > 0)
+    return dmc, dg, _with_weights(dpk, wg.weight_grads(partial))
 
 
 # ---- wrappers --------------------------------------------------------------
@@ -547,11 +668,11 @@ def _check_recompute(packed, mean_cov, g_bands, d_out, f_out, S: int,
 
 
 def _recompute_operands(packed, mean_cov, g_bands, d_out, f_out, R: int):
-    """K8's and K13's outputs and scratch on the card -> (rays per block,
-    dmc, dg, per-block gradient slices, recompute workspace, the pointer
-    arguments the two C entries share).  The caller holds every tensor
-    until it has launched.  K4's partition; at one block per SM the grid
-    also fits K13's cooperative launch."""
+    """K13's outputs and scratch on the card -> (rays per block, dmc, dg,
+    per-block gradient slices, recompute workspace, the pointer arguments
+    of its C entry).  The caller holds every tensor until it has launched.
+    K4's partition; at one block per SM the grid fits K13's cooperative
+    launch."""
     device = mean_cov.device
     rpb = _rays_per_block(R, device, 1)
     blocks = -(-R // rpb)
@@ -568,29 +689,98 @@ def _recompute_operands(packed, mean_cov, g_bands, d_out, f_out, R: int):
     return rpb, dmc, dg, buf, ws, args
 
 
+def k8_launch(packed, mean_cov, g_bands, d_out, f_out, samples_per_ray,
+              kernels: str = "AB"):
+    """K8's launches on the card, on checked inputs: for each chunk of
+    k8_plan, kernel A (in `kernels`: "A") and kernel B ("B"; chip_smoke.py
+    times each alone) -> (dmc (N, 16), dg (R, 512), the blocks' compact
+    slices (blocks, SMALL_FLOATS), the partials (P, PARTIAL_FLOATS), the
+    workspace (records, wg.REC_ELEMS) holding the last chunk's records).
+    Kernel B counts its own launches."""
+    from rsn_torch.kernels.build import load_library
+
+    device = mean_cov.device
+    S = int(samples_per_ray)
+    R = mean_cov.shape[0] // S
+    plan = k8_plan(R, S, _sm_count(device))
+    lib = load_library("field_train.cu")
+    dmc = torch.empty((mean_cov.shape[0], IN_COLS), dtype=F32, device=device)
+    dg = torch.zeros((R, 512), dtype=F32, device=device)
+    small = torch.zeros((plan.blocks, SMALL_FLOATS), dtype=F32,
+                        device=device)
+    slots = torch.empty((plan.blocks, TILE_ROWS, ACTS_COLS), dtype=BF16,
+                        device=device)
+    per = plan.chunks[0][1] - plan.chunks[0][0]
+    stash = torch.empty((plan.blocks * per, wg.REC_ELEMS), dtype=BF16,
+                        device=device)
+    partial = torch.empty((plan.slices, wg.PARTIAL_FLOATS), dtype=F32,
+                          device=device)
+    ptrs = _ptr_array(packed)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for c, (t0, t1) in enumerate(plan.chunks):
+            ws = stash[:plan.blocks * (t1 - t0)]
+            if "A" in kernels:
+                rc = lib.rsn_field_backward_v4(
+                    mean_cov.data_ptr(), g_bands.data_ptr(),
+                    _ipe_consts(device).data_ptr(), d_out.data_ptr(),
+                    f_out.data_ptr(), ptrs, dmc.data_ptr(), dg.data_ptr(),
+                    small.data_ptr(), slots.data_ptr(), ws.data_ptr(), R, S,
+                    plan.rays_per_block, t0, t1, stream)
+                _raise_on_error(lib, rc, "field_backward_v4")
+            if "B" in kernels:
+                wg.contract(ws, partial, accumulate=c > 0)
+    return dmc, dg, small, partial, ws
+
+
+def k8_grads(small: torch.Tensor, partial: torch.Tensor
+             ) -> Tuple[torch.Tensor, ...]:
+    """K8's 20 packed-operand gradients: the compact slices summed over the
+    blocks (torch.sum over dim 0, as K4's slices: the same order per
+    column, so the biases and the mid head's gradients equal K4's bit for
+    bit) and the weight matrices from the partials."""
+    tot = small.sum(dim=0)
+    biases = [tot[SMALL_B + i * TRUNK_WIDTH:SMALL_B + (i + 1) * TRUNK_WIDTH]
+              .view(1, TRUNK_WIDTH) for i in range(TRUNK_LAYERS)]
+    w_out = torch.zeros((128, 128), dtype=F32, device=small.device)
+    w_out[:, :3] = tot[SMALL_WOUT:SMALL_BOUT].view(128, 3)
+    b_out = torch.zeros((1, 128), dtype=F32, device=small.device)
+    b_out[0, :3] = tot[SMALL_BOUT:SMALL_BOUT + 3]
+    b_hc = tot[SMALL_BHC:SMALL_WOUT].view(1, TRUNK_WIDTH)
+    dpk = [None] * 8 + biases + [None, b_hc, w_out, b_out]
+    return _with_weights(dpk, wg.weight_grads(partial))
+
+
 def field_backward_v4(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
                       d_out: torch.Tensor, f_out: torch.Tensor,
                       samples_per_ray: int):
     """K8 -> (dmc (N, 16) f32, dg (R, 512) f32, dpacked: 20 fp32 tensors),
-    K4's results with the trunk recomputed from mean_cov."""
+    K4's results with the trunk recomputed from mean_cov.
+
+    On the card (k8_plan): K4's partition, each block's run of 64-row tiles
+    cut into chunks of TILES_PER_CHUNK = 4 tiles of every block, the most
+    whose records (559,104 bytes each) fit in what the first design's
+    per-block fp32 slice took (608,640 floats).  Per chunk, kernel A (K4's
+    body, recomputing the trunk into each block's slot; dmc, dg, the biases
+    and the mid head's gradients as before; each tile's weight-gradient
+    operands to the chunk's workspace) and kernel B (their wgmma
+    contraction into P fp32 partials).  Scratch per call
+    (K8Plan.scratch_bytes): at the camera-on step's pass 2 (1,024 rays x
+    128 samples on 132 SMs: 128 blocks of 16 tiles, 4 chunks, P = 7)
+    286,261,248 bytes of workspace + 33,554,432 of slots + 1,378,304 of
+    compact slices + 15,712,256 of partials = 336,906,240 (the first
+    design: 311,623,680 of slices + 33,554,432 of slots = 345,178,112)."""
     S = int(samples_per_ray)
-    R = _check_recompute(packed, mean_cov, g_bands, d_out, f_out, S,
-                         "field_backward_v4")
-    device = mean_cov.device
-    if device.type == "cpu":
+    _check_recompute(packed, mean_cov, g_bands, d_out, f_out, S,
+                     "field_backward_v4")
+    if mean_cov.device.type == "cpu":
         return field_backward_v4_plain(packed, mean_cov, g_bands, d_out,
                                        f_out, S)
-    from rsn_torch.kernels.build import load_library
-
-    lib = load_library("field_train.cu")
-    rpb, dmc, dg, buf, ws, args = _recompute_operands(
-        packed, mean_cov, g_bands, d_out, f_out, R)
-    with torch.cuda.device(device):
-        rc = lib.rsn_field_backward_v4(
-            *args, R, S, rpb, torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(lib, rc, "field_backward_v4")
+    dmc, dg, small, partial, stash = k8_launch(packed, mean_cov, g_bands,
+                                               d_out, f_out, S)
     LAUNCHES["field_backward_v4"] += 1
-    return dmc, dg, _unpack_slices(buf)
+    del stash  # the sums below need none of K8's scratch
+    return dmc, dg, k8_grads(small, partial)
 
 
 def field_backward_v3(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,

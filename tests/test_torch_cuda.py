@@ -31,6 +31,7 @@ from rsn_torch.kernels import field_forward as ff
 from rsn_torch.kernels import field_train as tft
 from rsn_torch.kernels import proposal_forward as pf
 from rsn_torch.kernels import trunk_sm90 as ts
+from rsn_torch.kernels import wgrad_sm90 as wg
 from rsn_torch.models.field import Field
 from rsn_torch.models.proposal import ProposalField
 
@@ -360,14 +361,38 @@ def _same(a, b):
             and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
 
 
+# K8 against K4 on K3's spill, per output of (dmc, dg, the 20 gradients):
+# (name, index, tolerance of the tensor's max; 0: bit for bit).  The
+# per-row values and every sum the body still takes in its tile loop
+# (dmc, dg, the biases, the mid head) keep their bits; the weight
+# matrices are kernel B's sums, over the rows in another fp32 order.
+K8_VS_K4 = ((("dmc", 0, 0.0), ("dg", 1, 0.0))
+            + tuple((f"b{i}", 10 + i, 0.0) for i in range(8))
+            + (("b_hc", 19, 0.0), ("w_out", 20, 0.0), ("b_out", 21, 0.0))
+            + tuple((f"w{i}", 2 + i, 1e-4) for i in range(8))
+            + (("w_hc", 18, 1e-4),))
+
+
+def _k8_matches_k4(k8, k4):
+    flat = lambda res: [res[0], res[1], *res[2]]
+    for name, i, tol in K8_VS_K4:
+        got, ref = flat(k8)[i], flat(k4)[i]
+        assert got.shape == ref.shape, name
+        if tol == 0.0:
+            assert torch.equal(got, ref), name
+        else:
+            assert _rel_err(got, ref) <= tol, name
+
+
 @pytest.mark.parametrize("R,S", [(1, 1), (3, 7), (5, 29), (7, 64),
                                  (33, 128)])
 def test_recompute_kernels_match_plain_versions(field, R, S):
     """K7 and K1 at the train width equal K3's output bit for bit and
-    agree with their plain versions; K8 equals K4 on K3's spill bit for
-    bit, agrees with the plain K4 on that spill within ATOL and with its
-    own plain version (which recomputes the trunk) within K8_TOL, and
-    gives the same result twice."""
+    agree with their plain versions; K8 equals K4 on K3's spill as
+    K8_VS_K4 says (dmc, dg, the biases and the mid head bit for bit, the
+    weight matrices within 1e-4 of each max), agrees with the plain K4 on
+    that spill within ATOL and with its own plain version (which
+    recomputes the trunk) within K8_TOL, and gives the same bits twice."""
     mc, dirs = _inputs(R, S, seed=R + S)
     g = ff.mid_g_bands(field, dirs)
     p3 = ff.pack_params_v3f(field)
@@ -400,7 +425,8 @@ def test_recompute_kernels_match_plain_versions(field, R, S):
     k8b = tft.field_backward_v4(p3, mc, g, d_out, k7, S)
     k4 = tft.field_backward_v5(p3, mc, g, acts, d_out, k7, S)
     torch.cuda.synchronize()
-    assert _same(k8, k4) and _same(k8, k8b)
+    assert _same(k8, k8b)
+    _k8_matches_k4(k8, k4)
     for ref, tol in ((tft.field_backward_v5_plain(p3, mc, g, acts, d_out,
                                                   k7, S), ATOL),
                      (tft.field_backward_v4_plain(p3, mc, g, d_out, k7, S),
@@ -435,12 +461,18 @@ def _tiny_trainer(tmp_path, camera: bool, acts: bool):
 ])
 def test_train_step_launches_per_route(field, tmp_path, camera, acts, want):
     """The launches of one default-method train step on each route, with
-    the camera optimizer off and on (two backward passes)."""
+    the camera optimizer off and on (two backward passes); on the
+    recompute route every K8 call launches kernel B once per chunk (at
+    least once)."""
     tr = _tiny_trainer(tmp_path, camera, acts)
     ff.reset_launch_counts()
     tr.train_step()
     torch.cuda.synchronize()
-    assert {k: v for k, v in ff.LAUNCHES.items() if v} == want
+    got = {k: v for k, v in ff.LAUNCHES.items() if v}
+    wgrad = got.pop("field_backward_v4_wgrad", 0)
+    assert got == want
+    assert wgrad >= want.get("field_backward_v4", 0)
+    assert (wgrad > 0) == (not acts)
     if camera:
         assert torch.isfinite(tr.camera).all() and tr.camera.abs().max() > 0
 
@@ -466,6 +498,35 @@ def test_recompute_route_holds_less_memory(field, tmp_path):
 # ---- the field API (K11, K12) and the schedule variants (K10, K13) -------
 
 K13_TOL = 1e-4  # K13's weight gradients against K8's: another fp32 order
+
+
+@pytest.mark.parametrize("records,slices", [(512, 7), (37, 7), (3, 2)])
+def test_wgrad_kernel_matches_plain_contraction(field, records, slices):
+    """Kernel B alone on a seeded workspace (a full chunk of the camera-on
+    step's 128 blocks x 4 tiles, a ragged one, fewer records than slices
+    would want): each tile's sum over the P partials within K13_TOL of
+    each weight's max of the plain fp32 contraction, overwriting and then
+    adding to the partials; the same bits twice."""
+    gen = torch.Generator().manual_seed(records)
+    ws = torch.randn(records, wg.REC_ELEMS, generator=gen).to(
+        torch.bfloat16).cuda()
+    ref = torch.zeros(slices, wg.PARTIAL_FLOATS, device="cuda")
+    wg.contract_plain(ws, ref, accumulate=False)
+    got = torch.full_like(ref, float("nan"))
+    again = torch.empty_like(ref)
+    ff.reset_launch_counts()
+    wg.contract(ws, got, accumulate=False)
+    wg.contract(ws, again, accumulate=False)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES["field_backward_v4_wgrad"] == 2
+    assert torch.equal(got, again)
+    for w, r in zip(wg.weight_grads(got), wg.weight_grads(ref)):
+        assert _rel_err(w, r) <= K13_TOL
+    wg.contract(ws, got, accumulate=True)
+    wg.contract_plain(ws, ref, accumulate=True)
+    torch.cuda.synchronize()
+    for w, r in zip(wg.weight_grads(got), wg.weight_grads(ref)):
+        assert _rel_err(w, r) <= K13_TOL
 
 
 @pytest.mark.parametrize("n", [1, 77, 1000, 4099])
