@@ -9,7 +9,7 @@ with RSN_ABLATE_NO_STASH_COPY (kernel A gathers its weight-gradient
 operands into its shared staging buffers but copies none to the
 workspace) and once with RSN_ABLATE_NO_STASH (neither), one nvcc each, in
 parallel, into rsn_torch/_build/ablate/ (git-ignored).  Then times kernel
-A over every chunk of one K8 call (rsn_field_backward_v4 per chunk of
+A over every chunk of one K8 call (field_train.k8_kernel_a per chunk of
 field_train.k8_plan, as field_backward_v4 launches it) of each build at
 the camera-on step's pass-2 and pass-4 shapes (1,024 rays x 128 samples,
 512 x 64; seeded rays, field weights from chip_smoke.SEED), CUDA events,
@@ -61,7 +61,6 @@ def main() -> int:
     from chip_smoke import SEED
     from rsn_torch.kernels import field_forward as ff
     from rsn_torch.kernels import field_train as ft
-    from rsn_torch.kernels import wgrad_sm90 as wg
     from rsn_torch.models.field import Field
     from rsn_torch.utils.timing import time_kernel
 
@@ -74,7 +73,6 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     field = Field(torch.Generator().manual_seed(SEED)).to(dev).eval()
     packed = ff.pack_params_v3f(field)
-    ptrs = ff._ptr_array(packed)
     for R, S in ((1024, 128), (512, 64)):
         gen = torch.Generator().manual_seed(R)
         n = R * S
@@ -90,27 +88,12 @@ def main() -> int:
         d_out[:, 14:] = 0.0
         d_out = d_out.to(torch.bfloat16).to(dev)
         plan = ft.k8_plan(R, S, sms)
-        dmc = torch.empty(n, 16, device=dev)
-        dg = torch.zeros(R, 512, device=dev)
-        small = torch.zeros(plan.blocks, ft.SMALL_FLOATS, device=dev)
-        slots = torch.empty(plan.blocks, ft.TILE_ROWS, ft.ACTS_COLS,
-                            dtype=torch.bfloat16, device=dev)
-        per = plan.chunks[0][1] - plan.chunks[0][0]
-        stash = torch.empty(plan.blocks * per, wg.REC_ELEMS,
-                            dtype=torch.bfloat16, device=dev)
-        consts = ff._ipe_consts(dev)
+        sc = ft.k8_scratch(plan, dev)
+        inputs = (packed, mc, g, d_out, f_out)
 
         def kernel_a(lib):
-            stream = torch.cuda.current_stream().cuda_stream
-            for t0, t1 in plan.chunks:
-                rc = lib.rsn_field_backward_v4(
-                    mc.data_ptr(), g.data_ptr(), consts.data_ptr(),
-                    d_out.data_ptr(), f_out.data_ptr(), ptrs,
-                    dmc.data_ptr(), dg.data_ptr(), small.data_ptr(),
-                    slots.data_ptr(), stash.data_ptr(), R, S,
-                    plan.rays_per_block, t0, t1, stream)
-                if rc:
-                    raise RuntimeError(f"kernel A failed ({rc})")
+            for chunk in plan.chunks:
+                ft.k8_kernel_a(lib, plan, chunk, inputs, sc)
 
         order = [name for name, _ in VARIANTS] + [VARIANTS[0][0]]
         ms = [(name, time_kernel(kernel_a, libs[name])) for name in order]

@@ -929,24 +929,27 @@ def cpu_gpu_train_step(config, field_eval, device, proposal_eval=None,
 
 
 def run_train_cli(card, method: str, flags, per_step, tmp,
-                  report=("loss_mid_fine",), evals=None, at_least=()):
+                  report=("loss_mid_fine",), evals=None, k8_calls=0):
     """The train CLI for TRAIN_STEPS full-width steps of `method` on the
     sphere at FRAME_RES, from zeroed launch counts: every kernel's launches
-    equal per_step x TRAIN_STEPS (absent kernels: zero; the kernels in
-    at_least: no fewer, as K8's kernel B, launched once per chunk, whose
-    count follows the reflect bucket), every logged loss
+    equal per_step x TRAIN_STEPS (absent kernels: zero), K8's calls
+    k8_calls x TRAIN_STEPS, and K8's kernels A and B each launched once
+    per chunk of each call's k8_plan (whose chunks follow the reflect
+    bucket; the calls are recorded), every logged loss
     finite, loss_mid_fine lower over the last 10 steps than over the first
     10, the warmup's zeros before step 50, the final checkpoint; the means
     of the `report` losses are printed.  evals: (steps_per_eval_batch,
     steps_per_eval_image) to run the eval hooks at (else the defaults, 100
     and 500: none in the run); their renders add K1 launches, their lines
-    and panels are checked.  -> (run dir, the kernels' launches)."""
+    and panels are checked.  -> (run dir, the launches of the kernels in
+    per_step, and of K8's two if it ran)."""
     import numpy as np
     import torch
 
     from rsn_torch.cli import train as train_cli
     from rsn_torch.cli.run_io import load_config
     from rsn_torch.kernels import field_forward as ff
+    from rsn_torch.kernels import field_train as ft
 
     argv = [method, "--data", f"sphere:res={FRAME_RES}",
             "--pipeline.datamanager.dataparser", "synthetic",
@@ -956,10 +959,21 @@ def run_train_cli(card, method: str, flags, per_step, tmp,
     if evals:
         argv += ["--steps-per-eval-batch", str(evals[0]),
                  "--steps-per-eval-image", str(evals[1])]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    real, k8_chunks = ft.field_backward_v4, []
+
+    def k8(packed, mc, g, d_out, f_out, S):
+        k8_chunks.append(len(ft.k8_plan(g.shape[0], S, sms).chunks))
+        return real(packed, mc, g, d_out, f_out, S)
+
     buf = io.StringIO()
     ff.reset_launch_counts()
-    with contextlib.redirect_stdout(buf):
-        rc = train_cli.main(argv)
+    ft.field_backward_v4 = k8
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main(argv)
+    finally:
+        ft.field_backward_v4 = real
     torch.cuda.synchronize()
     launches = dict(ff.LAUNCHES)
     text = buf.getvalue().splitlines()
@@ -967,6 +981,15 @@ def run_train_cli(card, method: str, flags, per_step, tmp,
     if rc != 0:
         raise RuntimeError(f"train CLI exited {rc}")
     want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in launches}
+    want["field_backward_v4"] = sum(k8_chunks)
+    want["field_backward_v4_wgrad"] = sum(k8_chunks)
+    if len(k8_chunks) != k8_calls * TRAIN_STEPS:
+        raise RuntimeError(f"{len(k8_chunks)} K8 calls, not {k8_calls} per "
+                           f"step")
+    if k8_chunks:
+        print(f"  K8: {len(k8_chunks)} calls of {min(k8_chunks)}-"
+              f"{max(k8_chunks)} chunks, {sum(k8_chunks)} chunks in all: "
+              f"kernels A and B each launched once per chunk")
     if evals:
         # K1 on all four passes of each eval batch and of each chunk of
         # each eval image's full render (re-renders at a larger reflect
@@ -981,8 +1004,6 @@ def run_train_cli(card, method: str, flags, per_step, tmp,
         if rest or renders < images:
             raise RuntimeError("the eval hooks did not run K1 as expected")
         want["field_forward_v3"] = k1
-    for k in at_least:
-        want[k] = max(want[k], launches[k])
     print(f"  launches in the CLI run: {launches}")
     if launches != want:
         raise RuntimeError(f"the train path's launches are not {want}")
@@ -1026,7 +1047,9 @@ def run_train_cli(card, method: str, flags, per_step, tmp,
           f"rays/s (from the cumulative rays_per_sec of the lines at steps "
           f"{a} and {TRAIN_STEPS}; over the whole run "
           f"{log[-1]['rays_per_sec']:.1f}; {card})", flush=True)
-    return run, {k: v for k, v in launches.items() if per_step.get(k)}
+    mine = set(per_step) | ({"field_backward_v4", "field_backward_v4_wgrad"}
+                            if k8_chunks else set())
+    return run, {k: v for k, v in launches.items() if k in mine}
 
 
 def steady_rate(log, eval_steps, rays: int):
@@ -1550,9 +1573,14 @@ def check_recompute_kernels(calls, card):
               f"{pl:.4f} ms, bound {b:.4f} ms ({by}; median of 10; {card})",
               flush=True)
         results[name].update(ms=k, plain_ms=pl, bound_ms=b, bound_by=by)
-    # K8 on passes 4 and 2: both kernels, kernel A's and kernel B's launches
-    # alone, K13 (the first design's body, + its grid sum) and K4 on K3's
+    # K8 on passes 4 and 2: both kernels, kernel A's launches over the
+    # call's chunks alone and kernel B's alone (on the records kernel A
+    # left), K13 (the first design's body, + its grid sum) and K4 on K3's
     # spill in the same call; the scratch of each design
+    from rsn_torch.kernels import wgrad_sm90 as wg
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_train.cu")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for p in (4, 2):
         args = calls["bwd"][p]
@@ -1560,8 +1588,16 @@ def check_recompute_kernels(calls, card):
         n = mc.shape[0]
         plan = ft.k8_plan(g.shape[0], S, sms)
         k = cuda_ms(lambda: ft.field_backward_v4(*args))
-        ka = cuda_ms(lambda: ft.k8_launch(*args, kernels="A"))
-        kb = cuda_ms(lambda: ft.k8_launch(*args, kernels="B"))
+        sc = ft.k8_scratch(plan, mc.device)
+        partial = torch.empty((plan.slices, wg.PARTIAL_FLOATS),
+                              device=mc.device)
+        ka = cuda_ms(lambda: [ft.k8_kernel_a(lib, plan, c, args[:5], sc)
+                              for c in plan.chunks])
+        kb = cuda_ms(lambda: [
+            wg.contract(sc.stash[:plan.blocks * (t1 - t0)], partial,
+                        accumulate=i > 0)
+            for i, (t0, t1) in enumerate(plan.chunks)])
+        del sc, partial
         k13 = cuda_ms(lambda: ft.field_backward_v3(*args))
         pl = cuda_ms(lambda: ft.field_backward_v4_plain(*args))
         outs = g.shape[0] * 512 * 4 + ft.PACK_FLOATS * 4 + n * 16 * 4
@@ -1599,11 +1635,10 @@ def check_recompute_kernels(calls, card):
 
     # kernel B alone on the records kernel A left of pass 2's last chunk,
     # against its plain contraction
-    from rsn_torch.kernels import wgrad_sm90 as wg
-
     args = calls["bwd"][2]
     plan = ft.k8_plan(args[2].shape[0], args[5], sms)
-    ws = ft.k8_launch(*args, kernels="A")[4]
+    sc = ft.k8_scratch(plan, args[1].device)
+    ws = [ft.k8_kernel_a(lib, plan, c, args[:5], sc) for c in plan.chunks][-1]
     got = torch.empty((plan.slices, wg.PARTIAL_FLOATS), device=ws.device)
     ref = torch.empty_like(got)
     wg.contract(ws, got, accumulate=False)
@@ -1794,9 +1829,8 @@ def camera_phases(config, field, device, card):
     with tempfile.TemporaryDirectory() as tmp:
         run, launches = run_train_cli(
             card, "reflect-sampling-nerf", CAMERA_FLAGS,
-            {"field_forward_v4": 2, "field_forward_v3_train": 2,
-             "field_backward_v4": 8, "field_backward_v4_wgrad": 8}, tmp,
-            at_least=("field_backward_v4_wgrad",))
+            {"field_forward_v4": 2, "field_forward_v3_train": 2}, tmp,
+            k8_calls=8)
         state = ckpt_lib.load_checkpoint(os.path.join(
             run, "checkpoints", f"step-{TRAIN_STEPS:09d}.pt"))
         deltas = state["camera"]

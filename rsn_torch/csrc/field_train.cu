@@ -566,12 +566,10 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
     // columns to the record, copied after the barrier below); dh7 = d_hc
     // w_hc^T ----
     if constexpr (STASH) {
-#ifndef RSN_ABLATE_NO_STASH  // ablate_k8.py: kernel A without its stores
       wgrad::stage_rows(st.buf, INP, LDH, WIDTH);
       wgrad::stage_rows(st.second(), D, LDH, 16);  // the heads, the mid seed
       wgrad::stage_rows(st.second(), D + MID, LDH, MID, 16);
       st.gathered();
-#endif
     } else {
       wgrad_acc<ROWS>(INP, LDH, WIDTH, D, LDH, HC_TILES, grp + OFF_WHC,
                       WIDTH);
@@ -581,12 +579,10 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
       FragC acc[4][2];
       dgrad_mma<2>(D + r0 * LDH, p.w_hc, 0, HC_TILES, acc);
       block_sync();
-#ifndef RSN_ABLATE_NO_STASH
       if constexpr (STASH)
         st.copy_out(rec + wgrad::ACT_OFF + (LAYERS - 1) * wgrad::ACT_BYTES,
                     wgrad::ACT_BYTES, rec + wgrad::DHC_OFF,
                     sm90::HEAD_N * wgrad::FEAT_BYTES);
-#endif
       drain<2>(acc, 0, stage, [&](int rr, int c, float v) {
         const int r = r0 + rr;
         const float m =
@@ -611,14 +607,12 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
       const int bytes0 = (i == 0 ? ENC : WIDTH) * wgrad::FEAT_BYTES;
       const int off1 = wgrad::DPRE_OFF + i * wgrad::ACT_BYTES;
       if constexpr (STASH) {
-#ifndef RSN_ABLATE_NO_STASH
         if (i == 0)
           wgrad::stage_rows(st.buf, X, LDX, ENC);
         else
           wgrad::stage_rows(st.buf, INP, LDH, WIDTH);
         wgrad::stage_rows(st.second(), D, LDH, WIDTH);
         st.gathered();
-#endif
       } else {
         float* dW = grp + off_w(i);
         if (i == 0 || i == SKIP_AT)
@@ -645,10 +639,8 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
           FragC acc[4][2];
           dgrad_mma<2>(D + r0 * LDH, W, c0, ALL_TILES, acc);
           block_sync();  // wgrad and dgrad reads of D are done
-#ifndef RSN_ABLATE_NO_STASH
           if constexpr (STASH)
             st.copy_out(rec + off0, bytes0, rec + off1, wgrad::ACT_BYTES);
-#endif
           drain<2>(acc, c0, stage, [&](int rr, int c, float v) {
             const int r = r0 + rr, hc = c - c0;
             const float m =
@@ -662,11 +654,9 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
       if constexpr (STASH)
         if (i == 1) st.wait_free();  // layer 0 gathers after this barrier
       block_sync();
-#ifndef RSN_ABLATE_NO_STASH
       if constexpr (STASH)
         if (i == 0)
           st.copy_out(rec + off0, bytes0, rec + off1, wgrad::ACT_BYTES);
-#endif
     }
 
     // ---- IPE backward (K4): dmc = dpre_enc A^T + dvar V^T ----

@@ -168,13 +168,23 @@ __device__ void stage_steps(unsigned char* buf, const bf16* src, int lds,
   }
 }
 
+// ablate_k8.py's builds, which only time kernel A (the port sets neither
+// macro): RSN_ABLATE_NO_STASH_COPY leaves out copy_out's copies,
+// RSN_ABLATE_NO_STASH stage_rows's gathers as well.  Nothing else reads
+// them.
+#ifdef RSN_ABLATE_NO_STASH
+#define RSN_ABLATE_NO_STASH_COPY
+#endif
+
 // nf: a multiple of 16 (the heads' 16 columns), else of 32.
 __device__ void stage_rows(unsigned char* buf, const bf16* src, int lds,
                            int nf, int f0 = 0) {
+#ifndef RSN_ABLATE_NO_STASH
   if (nf % 32 == 0)
     stage_steps<4>(buf, src, lds, nf, f0);
   else
     stage_steps<2>(buf, src, lds, nf, f0);
+#endif
 }
 
 // The two staging buffers; thread 0 starts, commits and waits for every
@@ -194,7 +204,7 @@ struct Stash {
   __device__ void copy_out(unsigned char* dst0, int bytes0,
                            unsigned char* dst1, int bytes1) const {
     if (threadIdx.x == 0) {
-#ifndef RSN_ABLATE_NO_STASH_COPY  // ablate_k8.py: the gathers without copies
+#ifndef RSN_ABLATE_NO_STASH_COPY
       bulk_store_evict_first(dst0, buf, bytes0);
       bulk_store_evict_first(dst1, second(), bytes1);
 #endif
@@ -277,10 +287,13 @@ __device__ void produce_records(const unsigned char* __restrict__ ws,
   }
 }
 
-// A consumer warpgroup (c: its 64 features) over `count` records: acc
-// (from dst, or zero) += A^T B, k ascending in steps of 16 rows, then back
-// to dst (its rows at stride N).  Each stage is released (one arrival per
-// warp) once the products that read it are done.
+// A consumer warpgroup (c: its 64 features) over `count` records: acc =
+// A^T B from zero, k ascending in steps of 16 rows, then to dst (its rows
+// at stride N), added to dst's value by an fp32 add when accumulating.
+// (The tensor cores' adds truncate: a chain that carried the sum of the
+// earlier chunks in acc lost ~7e-5 of a weight's max over a pass-2 call,
+// k8_margin.py; each chunk's chain starts from zero.)  Each stage is
+// released (one arrival per warp) once the products that read it are done.
 template <int N>
 __device__ void consume_records(const unsigned char* ring, uint64_t* full,
                                 uint64_t* empty, long long count, float* dst,
@@ -288,14 +301,7 @@ __device__ void consume_records(const unsigned char* ring, uint64_t* full,
   constexpr int R = N / 2;
   float acc[R];
 #pragma unroll
-  for (int i = 0; i < R; i += 2) {
-    float2 v = make_float2(0.f, 0.f);
-    if (accumulate)
-      v = *reinterpret_cast<const float2*>(dst + frag_row(t, i) * N +
-                                           frag_col(t, i));
-    acc[i] = v.x;
-    acc[i + 1] = v.y;
-  }
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
   fence_regs<R>(acc);
   const bool lane0 = (t & 31) == 0;
   int st = 0, prev = 0;
@@ -327,9 +333,16 @@ __device__ void consume_records(const unsigned char* ring, uint64_t* full,
   wgmma_wait<0>();
   fence_regs<R>(acc);
 #pragma unroll
-  for (int i = 0; i < R; i += 2)
-    *reinterpret_cast<float2*>(dst + frag_row(t, i) * N + frag_col(t, i)) =
-        make_float2(acc[i], acc[i + 1]);
+  for (int i = 0; i < R; i += 2) {
+    float2* d =
+        reinterpret_cast<float2*>(dst + frag_row(t, i) * N + frag_col(t, i));
+    float2 v = make_float2(acc[i], acc[i + 1]);
+    if (accumulate) {
+      const float2 old = *d;
+      v = make_float2(__fadd_rn(old.x, v.x), __fadd_rn(old.y, v.y));
+    }
+    *d = v;
+  }
 }
 
 // Block (output tile blockIdx.x, slice blockIdx.y of gridDim.y) of a chunk

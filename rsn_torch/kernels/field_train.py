@@ -55,7 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -373,7 +373,7 @@ def k8_plan(rays: int, samples_per_ray: int, sms: int) -> K8Plan:
     """K8's schedule on a card of `sms` SMs (K4's rays per block at one
     block per SM; chunks of TILES_PER_CHUNK tiles)."""
     S = int(samples_per_ray)
-    rpb = max(1, -(-rays // sms))
+    rpb = _per_block(rays, sms)
     tiles = -(-(rpb * S) // TILE_ROWS)
     chunks = tuple((t0, min(tiles, t0 + TILES_PER_CHUNK))
                    for t0 in range(0, tiles, TILES_PER_CHUNK))
@@ -449,10 +449,14 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _per_block(rays: int, blocks: int) -> int:
+    """Whole rays per block for at most `blocks` blocks."""
+    return max(1, -(-rays // blocks))
+
+
 def _rays_per_block(rays: int, device, blocks_per_sm: int) -> int:
     """Whole rays per backward block: about blocks_per_sm blocks per SM."""
-    target = _sm_count(device) * blocks_per_sm
-    return max(1, -(-rays // target))
+    return _per_block(rays, _sm_count(device) * blocks_per_sm)
 
 
 def _packed_views(flat: torch.Tensor, shapes=PACKED_SHAPES
@@ -689,48 +693,51 @@ def _recompute_operands(packed, mean_cov, g_bands, d_out, f_out, R: int):
     return rpb, dmc, dg, buf, ws, args
 
 
-def k8_launch(packed, mean_cov, g_bands, d_out, f_out, samples_per_ray,
-              kernels: str = "AB"):
-    """K8's launches on the card, on checked inputs: for each chunk of
-    k8_plan, kernel A (in `kernels`: "A") and kernel B ("B"; chip_smoke.py
-    times each alone) -> (dmc (N, 16), dg (R, 512), the blocks' compact
-    slices (blocks, SMALL_FLOATS), the partials (P, PARTIAL_FLOATS), the
-    workspace (records, wg.REC_ELEMS) holding the last chunk's records).
-    Kernel B counts its own launches."""
-    from rsn_torch.kernels.build import load_library
+class K8Scratch(NamedTuple):
+    """One K8 call's outputs and scratch on the card."""
+    dmc: torch.Tensor    # (N, 16) f32
+    dg: torch.Tensor     # (R, 512) f32, zeroed
+    small: torch.Tensor  # (blocks, SMALL_FLOATS) f32 compact slices, zeroed
+    slots: torch.Tensor  # (blocks, 64, ACTS_COLS) bf16 recompute slots
+    stash: torch.Tensor  # (blocks x the first chunk's tiles, REC_ELEMS) bf16
 
-    device = mean_cov.device
-    S = int(samples_per_ray)
-    R = mean_cov.shape[0] // S
-    plan = k8_plan(R, S, _sm_count(device))
-    lib = load_library("field_train.cu")
-    dmc = torch.empty((mean_cov.shape[0], IN_COLS), dtype=F32, device=device)
-    dg = torch.zeros((R, 512), dtype=F32, device=device)
-    small = torch.zeros((plan.blocks, SMALL_FLOATS), dtype=F32,
-                        device=device)
-    slots = torch.empty((plan.blocks, TILE_ROWS, ACTS_COLS), dtype=BF16,
-                        device=device)
+
+def k8_scratch(plan: K8Plan, device) -> K8Scratch:
+    """A call's K8Scratch, its workspace sized for the largest chunk."""
     per = plan.chunks[0][1] - plan.chunks[0][0]
-    stash = torch.empty((plan.blocks * per, wg.REC_ELEMS), dtype=BF16,
-                        device=device)
-    partial = torch.empty((plan.slices, wg.PARTIAL_FLOATS), dtype=F32,
-                          device=device)
-    ptrs = _ptr_array(packed)
+    return K8Scratch(
+        torch.empty((plan.rays * plan.samples_per_ray, IN_COLS), dtype=F32,
+                    device=device),
+        torch.zeros((plan.rays, 512), dtype=F32, device=device),
+        torch.zeros((plan.blocks, SMALL_FLOATS), dtype=F32, device=device),
+        torch.empty((plan.blocks, TILE_ROWS, ACTS_COLS), dtype=BF16,
+                    device=device),
+        torch.empty((plan.blocks * per, wg.REC_ELEMS), dtype=BF16,
+                    device=device))
+
+
+def k8_kernel_a(lib, plan: K8Plan, chunk, inputs, sc: K8Scratch
+                ) -> torch.Tensor:
+    """Kernel A of `lib` (field_train.cu as load_library builds it, or
+    ablate_k8.py's builds of it) on chunk (t0, t1) of `plan`, on checked
+    inputs (packed, mean_cov, g_bands, d_out, f_out), into `sc` -> the
+    chunk's workspace, a view of sc.stash.  Counts its launch."""
+    packed, mean_cov, g_bands, d_out, f_out = inputs
+    t0, t1 = chunk
+    ws = sc.stash[:plan.blocks * (t1 - t0)]
+    device = mean_cov.device
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for c, (t0, t1) in enumerate(plan.chunks):
-            ws = stash[:plan.blocks * (t1 - t0)]
-            if "A" in kernels:
-                rc = lib.rsn_field_backward_v4(
-                    mean_cov.data_ptr(), g_bands.data_ptr(),
-                    _ipe_consts(device).data_ptr(), d_out.data_ptr(),
-                    f_out.data_ptr(), ptrs, dmc.data_ptr(), dg.data_ptr(),
-                    small.data_ptr(), slots.data_ptr(), ws.data_ptr(), R, S,
-                    plan.rays_per_block, t0, t1, stream)
-                _raise_on_error(lib, rc, "field_backward_v4")
-            if "B" in kernels:
-                wg.contract(ws, partial, accumulate=c > 0)
-    return dmc, dg, small, partial, ws
+        rc = lib.rsn_field_backward_v4(
+            mean_cov.data_ptr(), g_bands.data_ptr(),
+            _ipe_consts(device).data_ptr(), d_out.data_ptr(),
+            f_out.data_ptr(), _ptr_array(packed), sc.dmc.data_ptr(),
+            sc.dg.data_ptr(), sc.small.data_ptr(), sc.slots.data_ptr(),
+            ws.data_ptr(), plan.rays, plan.samples_per_ray,
+            plan.rays_per_block, t0, t1,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, rc, "field_backward_v4")
+    LAUNCHES["field_backward_v4"] += 1
+    return ws
 
 
 def k8_grads(small: torch.Tensor, partial: torch.Tensor
@@ -764,7 +771,8 @@ def field_backward_v4(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
     body, recomputing the trunk into each block's slot; dmc, dg, the biases
     and the mid head's gradients as before; each tile's weight-gradient
     operands to the chunk's workspace) and kernel B (their wgmma
-    contraction into P fp32 partials).  Scratch per call
+    contraction into P fp32 partials); each counts one launch per chunk.
+    Scratch per call
     (K8Plan.scratch_bytes): at the camera-on step's pass 2 (1,024 rays x
     128 samples on 132 SMs: 128 blocks of 16 tiles, 4 chunks, P = 7)
     286,261,248 bytes of workspace + 33,554,432 of slots + 1,378,304 of
@@ -776,10 +784,19 @@ def field_backward_v4(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
     if mean_cov.device.type == "cpu":
         return field_backward_v4_plain(packed, mean_cov, g_bands, d_out,
                                        f_out, S)
-    dmc, dg, small, partial, stash = k8_launch(packed, mean_cov, g_bands,
-                                               d_out, f_out, S)
-    LAUNCHES["field_backward_v4"] += 1
-    del stash  # the sums below need none of K8's scratch
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_train.cu")
+    plan = k8_plan(mean_cov.shape[0] // S, S, _sm_count(mean_cov.device))
+    sc = k8_scratch(plan, mean_cov.device)
+    partial = torch.empty((plan.slices, wg.PARTIAL_FLOATS), dtype=F32,
+                          device=mean_cov.device)
+    inputs = (packed, mean_cov, g_bands, d_out, f_out)
+    for c, chunk in enumerate(plan.chunks):
+        wg.contract(k8_kernel_a(lib, plan, chunk, inputs, sc), partial,
+                    accumulate=c > 0)
+    dmc, dg, small = sc.dmc, sc.dg, sc.small
+    del sc  # the sums below need none of K8's scratch
     return dmc, dg, k8_grads(small, partial)
 
 

@@ -129,8 +129,9 @@ def unpack_record(rec: torch.Tensor):
 def contract_plain(ws: torch.Tensor, partial: torch.Tensor,
                    accumulate: bool) -> None:
     """Plain kernel B, in place: for each output tile and slice p of the
-    records (kernel B's split), partial[p] (or zero) + A^T B in fp32 over
-    the slice's rows in record order."""
+    records (kernel B's split), partial[p] (or zero) + A^T B over the
+    slice's rows in record order, in the partial's dtype (fp32 as kernel
+    B's; fp64 gives a reference of the sums)."""
     records, slices = ws.shape[0], partial.shape[0]
     if not accumulate:
         partial.zero_()
@@ -145,7 +146,7 @@ def contract_plain(ws: torch.Tensor, partial: torch.Tensor,
             b = _unswizzle(recs[:, b_off:b_off + n * REC_ROWS],
                            n).reshape(-1, n)
             out = partial[p, out_off:out_off + TILE_FEATS * n]
-            out += (a.float().t() @ b.float()).reshape(-1)
+            out += (a.to(out.dtype).t() @ b.to(out.dtype)).reshape(-1)
 
 
 def contract(ws: torch.Tensor, partial: torch.Tensor,
