@@ -9,8 +9,8 @@ with RSN_ABLATE_NO_STASH_COPY (kernel A gathers its weight-gradient
 operands into its shared staging buffers but copies none to the
 workspace) and once with RSN_ABLATE_NO_STASH (neither), one nvcc each, in
 parallel, into rsn_torch/_build/ablate/ (git-ignored).  Then times kernel
-A over every chunk of one K8 call (field_train.k8_kernel_a per chunk of
-field_train.k8_plan, as field_backward_v4 launches it) of each build at
+A over every chunk of one K8 call (field_train.kernel_a per chunk of
+field_train.stash_plan, as field_backward_v4 launches it) of each build at
 the camera-on step's pass-2 and pass-4 shapes (1,024 rays x 128 samples,
 512 x 64; seeded rays, field weights from chip_smoke.SEED), CUDA events,
 median of 10, the full build first and last.  The ablated builds leave
@@ -87,13 +87,14 @@ def main() -> int:
         d_out = torch.randn(n, ft.OUT_TRAIN, generator=gen)
         d_out[:, 14:] = 0.0
         d_out = d_out.to(torch.bfloat16).to(dev)
-        plan = ft.k8_plan(R, S, sms)
-        sc = ft.k8_scratch(plan, dev)
+        plan = ft.stash_plan(R, S, sms)
+        sc = ft.stash_scratch(plan, dev)
         inputs = (packed, mc, g, d_out, f_out)
 
         def kernel_a(lib):
             for chunk in plan.chunks:
-                ft.k8_kernel_a(lib, plan, chunk, inputs, sc)
+                ft.kernel_a(lib, "field_backward_v4", plan, chunk, inputs,
+                            sc)
 
         order = [name for name, _ in VARIANTS] + [VARIANTS[0][0]]
         ms = [(name, time_kernel(kernel_a, libs[name])) for name in order]

@@ -29,14 +29,19 @@ Phases, each announced on its own line:
                 (field_backward_v5) against their plain versions on the
                 real inputs of one full-width train step (1024 rays, step
                 50: the normal losses on), K3's density column against
-                K1's, CUDA-event times.
+                K1's, K5 == K4 on the same spill (dg, all 20 gradients)
+                bit for bit, CUDA-event times (K5 at pass 2 and K4 at
+                pass 4 with their kernels A and B apart), each call's
+                scratch.
   7. cpu/gpu step — one 64-ray train step with midpoint draws on the CPU
                 (plain versions) and on the card (kernels): losses and
                 every parameter gradient.
   8. train    — `python -m rsn_torch.cli.train reflect-sampling-nerf` for
                 60 steps at full width on the synthetic sphere at 800x800,
                 with the eval hooks every 20 (batch) and 60 (image) steps:
-                launches per step, finite and falling losses, the eval
+                launches per step (K4's and K5's kernels A once per chunk
+                of each call, kernel B once per chunk of both), finite
+                and falling losses, the eval
                 lines and the three panel PNGs (fine SSIM in [0, 1]), the
                 checkpoint; then one orbit frame of the trained run at
                 downscale 4 through the render CLI.
@@ -63,22 +68,24 @@ Phases, each announced on its own line:
                 against their plain versions on the real inputs of one
                 full-width camera-on train step (step 50); K7 and K1's
                 outputs against K3's bit for bit; K8 the same twice and
-                against K4 on K3's spill: dmc, dg, the biases and the mid
-                head bit for bit, the weight matrices within K13_TOL; K8's
-                kernel B alone against its plain contraction on the
-                records kernel A leaves of pass 2; CUDA-event times (K8,
-                its kernels A and B alone, K13 as the first design in the
-                same call), K8's scratch per call beside the first
-                design's; the peak device memory of one full-width step on
-                each route, camera off and on.
+                equal to K4 on K3's spill (dmc, dg, all 20 gradients) bit
+                for bit, its weight matrices within K13_TOL of K13's (the
+                first design's per-block slices); kernel B alone against
+                its plain contraction on the records kernel A leaves of
+                pass 2, and cuBLAS on the same operands (four calls);
+                CUDA-event times (K8, its kernels A and B alone, K13 as
+                the first design in the same call), K8's scratch per call
+                beside the first design's; the peak device memory of one
+                full-width step on each route, camera off and on.
   13. cpu/gpu camera step — one 64-ray camera-on step on the CPU (plain
                 versions) and on the card (kernels), on both routes:
                 losses, field gradients and pose-delta gradients.
   14. camera train — `python -m rsn_torch.cli.train reflect-sampling-nerf
                 --pipeline.datamanager.camera-optimizer SO3xR3
                 --pipeline.model.use-pallas-acts False` for 60 full-width
-                steps (launches per step, falling losses, moving deltas in
-                the checkpoint), then one 800x800 orbit frame of the run.
+                steps (launches per step: K8's kernels A and B once per
+                chunk; falling losses, moving deltas in the checkpoint),
+                then one 800x800 orbit frame of the run.
   15. pose recovery — rsn's protocol (tests/test_camera_opt_recovery.py)
                 in bf16 on K7 / K1 / K8: the deltas must pull perturbed
                 rays back toward the true ones.
@@ -111,8 +118,11 @@ Phases, each announced on its own line:
                 (bwd_ablate.run) in its four modes and K19 (run_noipe) on
                 K3's spill of the same rows; each against its plain
                 version fed the kernel's activations (ATOL of each
-                output's max) and, K17 and K18, against the plain version
-                that recomputes its trunk (K8_TOL); K19 == K18's full mode
+                output's max; K18 and K19 with K12's bottleneck, their dg
+                on the rays whose mid_pre cannot change sign with the
+                order of the fp32 sums) and, K17 and K18, against the
+                plain version that recomputes its trunk (K8_TOL); K19 ==
+                K18's full mode
                 on dg and the 22 weight gradients, bit for bit; K17
                 against K8 on the tools' rows and on phase 12's pass-2 and
                 pass-4 rows: dmc bit for bit, dg and the weight gradients
@@ -496,7 +506,10 @@ def main() -> int:
     # ---- 12-15. pose refinement and the recompute route ----
     camera_results = camera_phases(config, field, device, card)
     results.update(camera_results["kernels"])
+    # kernel B runs on both routes: its launches in phases 8 and 14
+    wgrad = launches["field_backward_v4_wgrad"]
     launches.update(camera_results["launches"])
+    launches["field_backward_v4_wgrad"] += wgrad
 
     # ---- 16. the field API and the schedule variants ----
     api_results = api_phase(field, render_mc, camera_results["calls"], card)
@@ -818,6 +831,17 @@ def check_train_kernels(calls, card):
             if worst > ATOL:
                 raise RuntimeError(f"{tag} disagrees with its plain version")
             results[name]["err"] = max(results[name]["err"], worst)
+            if key == "bwd6":  # K4 on the same spill, the pass's mean_cov
+                packed, g, xacts, d_out, f_out, S = args
+                mc = calls["fwd"][p - 1][1]
+                k4 = ft.field_backward_v5(
+                    packed, mc, g, xacts[:, :ft.ACTS_COLS].contiguous(),
+                    d_out, f_out, S)
+                if not same_grads((k4[0],) + got, k4):
+                    raise RuntimeError(f"K5 pass {p} differs from K4 on the "
+                                       f"same spill")
+                print(f"  K5 pass {p} == K4 on the same spill (dg, all 20 "
+                      f"gradients), bit for bit")
 
     # times and bounds: K3 on passes 2 and 4, K5 on pass 2, K4 on pass 4
     w_bytes = nbytes(*calls["fwd"][0][0][:20])
@@ -843,17 +867,63 @@ def check_train_kernels(calls, card):
         n = args[-2].shape[0]
         g = args[2] if key == "bwd5" else args[1]
         k = cuda_ms(lambda: fn(*args))
+        ka, kb, plan = kernels_a_and_b(name, args)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del res
+        # the first design: one fp32 slice of the 20 gradients per block,
+        # K5 at two blocks per SM
+        per_sm = 2 if key == "bwd6" else 1
+        first = -(-g.shape[0] // ft._per_block(
+            g.shape[0], per_sm * ft._sm_count(g.device))) * ft.PACK_FLOATS * 4
         pl = cuda_ms(lambda: plain(*args))
         ins = nbytes(*[a for a in args[1:] if isinstance(a, torch.Tensor)])
         outs = g.shape[0] * 512 * 4 + ft.PACK_FLOATS * 4 + (
             n * 16 * 4 if key == "bwd5" else 0)
         b, by = bound(FLOPS[name] * n, ins + w_bytes + outs)
         tag = "K4" if key == "bwd5" else "K5"
-        print(f"  {tag} pass {p}: {n} rows, kernel {k:.4f} ms, plain "
-              f"{pl:.4f} ms, bound {b:.4f} ms ({by}; median of 10; {card})",
-              flush=True)
+        print(f"  {tag} pass {p}: {n} rows, kernel {k:.4f} ms (kernel A "
+              f"alone {ka:.4f} ms, kernel B alone {kb:.4f} ms over "
+              f"{len(plan.chunks)} chunks of {plan.blocks} blocks x up to "
+              f"{ft.TILES_PER_CHUNK} tiles, P = {plan.slices}), plain "
+              f"{pl:.4f} ms, bound {b:.4f} ms ({by}; median of 10; "
+              f"{card}); scratch per call {plan.scratch_bytes()} bytes (the "
+              f"first design's slices: {first}), the peak of one call above "
+              f"what was allocated before it {peak} bytes", flush=True)
         results[name].update(ms=k, plain_ms=pl, bound_ms=b, bound_by=by)
     return results
+
+
+def kernels_a_and_b(name: str, args):
+    """The CUDA-event times of one call's kernel A launches alone and of
+    its kernel B launches alone (on the records kernel A left), for K4, K5
+    or K8 (`name`) on its wrapper's arguments `args` -> (kernel A ms,
+    kernel B ms, the call's StashPlan)."""
+    import torch
+
+    from rsn_torch.kernels import field_train as ft
+    from rsn_torch.kernels import wgrad_sm90 as wg
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_train.cu")
+    f_out, S = args[-2], args[-1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ft.stash_plan(f_out.shape[0] // S, S, sms,
+                         name == "field_backward_v4")
+    sc = ft.stash_scratch(plan, f_out.device, ft.STASH_KERNELS[name])
+    partial = torch.empty((plan.slices, wg.PARTIAL_FLOATS),
+                          device=f_out.device)
+    ka = cuda_ms(lambda: [ft.kernel_a(lib, name, plan, c, args[:-1], sc)
+                          for c in plan.chunks])
+    kb = cuda_ms(lambda: [
+        wg.contract(sc.stash[:plan.blocks * (t1 - t0)], partial,
+                    accumulate=i > 0)
+        for i, (t0, t1) in enumerate(plan.chunks)])
+    return ka, kb, plan
 
 
 def cpu_gpu_train_step(config, field_eval, device, proposal_eval=None,
@@ -929,20 +999,21 @@ def cpu_gpu_train_step(config, field_eval, device, proposal_eval=None,
 
 
 def run_train_cli(card, method: str, flags, per_step, tmp,
-                  report=("loss_mid_fine",), evals=None, k8_calls=0):
+                  report=("loss_mid_fine",), evals=None):
     """The train CLI for TRAIN_STEPS full-width steps of `method` on the
-    sphere at FRAME_RES, from zeroed launch counts: every kernel's launches
-    equal per_step x TRAIN_STEPS (absent kernels: zero), K8's calls
-    k8_calls x TRAIN_STEPS, and K8's kernels A and B each launched once
-    per chunk of each call's k8_plan (whose chunks follow the reflect
-    bucket; the calls are recorded), every logged loss
-    finite, loss_mid_fine lower over the last 10 steps than over the first
-    10, the warmup's zeros before step 50, the final checkpoint; the means
-    of the `report` losses are printed.  evals: (steps_per_eval_batch,
-    steps_per_eval_image) to run the eval hooks at (else the defaults, 100
-    and 500: none in the run); their renders add K1 launches, their lines
-    and panels are checked.  -> (run dir, the launches of the kernels in
-    per_step, and of K8's two if it ran)."""
+    sphere at FRAME_RES, from zeroed launch counts: every forward kernel's
+    launches equal per_step x TRAIN_STEPS (absent kernels: zero); the
+    calls of the backward kernels K4, K5 and K8 (STASH_KERNELS) per_step x
+    TRAIN_STEPS, each kernel's kernel A launched once per chunk of each of
+    its calls' stash_plan (whose chunks follow the reflect bucket; the
+    calls are recorded) and kernel B once per chunk of all of them; every
+    logged loss finite, loss_mid_fine lower over the last 10 steps than
+    over the first 10, the warmup's zeros before step 50, the final
+    checkpoint; the means of the `report` losses are printed.  evals:
+    (steps_per_eval_batch, steps_per_eval_image) to run the eval hooks at
+    (else the defaults, 100 and 500: none in the run); their renders add
+    K1 launches, their lines and panels are checked.  -> (run dir, the
+    launches of the kernels in per_step, and of kernel B if it ran)."""
     import numpy as np
     import torch
 
@@ -960,20 +1031,27 @@ def run_train_cli(card, method: str, flags, per_step, tmp,
         argv += ["--steps-per-eval-batch", str(evals[0]),
                  "--steps-per-eval-image", str(evals[1])]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    real, k8_chunks = ft.field_backward_v4, []
+    real = {k: getattr(ft, k) for k in ft.STASH_KERNELS}
+    chunks = {k: [] for k in ft.STASH_KERNELS}
 
-    def k8(packed, mc, g, d_out, f_out, S):
-        k8_chunks.append(len(ft.k8_plan(g.shape[0], S, sms).chunks))
-        return real(packed, mc, g, d_out, f_out, S)
+    def recording(name):
+        def fn(*args):  # g_bands: args[1] (K5) or args[2]
+            g = args[1] if name == "field_backward_v6" else args[2]
+            chunks[name].append(len(ft.stash_plan(g.shape[0], args[-1],
+                                                  sms).chunks))
+            return real[name](*args)
+        return fn
 
     buf = io.StringIO()
     ff.reset_launch_counts()
-    ft.field_backward_v4 = k8
+    for k in real:
+        setattr(ft, k, recording(k))
     try:
         with contextlib.redirect_stdout(buf):
             rc = train_cli.main(argv)
     finally:
-        ft.field_backward_v4 = real
+        for k, fn in real.items():
+            setattr(ft, k, fn)
     torch.cuda.synchronize()
     launches = dict(ff.LAUNCHES)
     text = buf.getvalue().splitlines()
@@ -981,25 +1059,25 @@ def run_train_cli(card, method: str, flags, per_step, tmp,
     if rc != 0:
         raise RuntimeError(f"train CLI exited {rc}")
     want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in launches}
-    want["field_backward_v4"] = sum(k8_chunks)
-    want["field_backward_v4_wgrad"] = sum(k8_chunks)
-    if len(k8_chunks) != k8_calls * TRAIN_STEPS:
-        raise RuntimeError(f"{len(k8_chunks)} K8 calls, not {k8_calls} per "
-                           f"step")
-    if k8_chunks:
-        print(f"  K8: {len(k8_chunks)} calls of {min(k8_chunks)}-"
-              f"{max(k8_chunks)} chunks, {sum(k8_chunks)} chunks in all: "
-              f"kernels A and B each launched once per chunk")
+    for k, c in chunks.items():
+        if len(c) != want[k]:
+            raise RuntimeError(f"{len(c)} {k} calls, not {per_step.get(k, 0)}"
+                               f" per step")
+        want[k] = sum(c)
+        if c:
+            print(f"  {k}: {len(c)} calls of {min(c)}-{max(c)} chunks, "
+                  f"{sum(c)} chunks in all: kernel A launched once per chunk")
+    want["field_backward_v4_wgrad"] = sum(map(sum, chunks.values()))
     if evals:
         # K1 on all four passes of each eval batch and of each chunk of
         # each eval image's full render (re-renders at a larger reflect
         # bucket included)
         batches, images = TRAIN_STEPS // evals[0], TRAIN_STEPS // evals[1]
-        chunks = -(-FRAME_RES * FRAME_RES // CHUNK)
+        n_chunks = -(-FRAME_RES * FRAME_RES // CHUNK)
         k1 = launches["field_forward_v3"]
-        renders, rest = divmod(k1 - 4 * batches, 4 * chunks)
+        renders, rest = divmod(k1 - 4 * batches, 4 * n_chunks)
         print(f"  K1 in the eval hooks: {k1} launches = 4 x {batches} eval "
-              f"batches + 4 x {chunks} chunks x {renders} renders of "
+              f"batches + 4 x {n_chunks} chunks x {renders} renders of "
               f"{images} eval images")
         if rest or renders < images:
             raise RuntimeError("the eval hooks did not run K1 as expected")
@@ -1047,8 +1125,7 @@ def run_train_cli(card, method: str, flags, per_step, tmp,
           f"rays/s (from the cumulative rays_per_sec of the lines at steps "
           f"{a} and {TRAIN_STEPS}; over the whole run "
           f"{log[-1]['rays_per_sec']:.1f}; {card})", flush=True)
-    mine = set(per_step) | ({"field_backward_v4", "field_backward_v4_wgrad"}
-                            if k8_chunks else set())
+    mine = set(per_step) | {"field_backward_v4_wgrad"}
     return run, {k: v for k, v in launches.items() if k in mine}
 
 
@@ -1163,6 +1240,8 @@ def train_entry_point(card):
             card, "reflect-sampling-nerf", (),
             {"field_forward_v6": 4, "field_backward_v6": 2,
              "field_backward_v5": 2}, tmp, evals=(20, TRAIN_STEPS))
+        print(f"  kernel B: {launches['field_backward_v4_wgrad']} launches "
+              f"= the chunks of K5's and K4's calls")
         frames = os.path.join(tmp, "frames")
         text, _, _ = run_render_cli(run, frames, "--num-frames", "1",
                                     "--downscale-factor", "4")
@@ -1394,11 +1473,9 @@ def compare_proposal_settings(run, cams, device, card):
 
 RECOMPUTE_KERNELS = ("field_forward_v4", "field_forward_v3_train",
                      "field_backward_v4", "field_backward_v4_wgrad")
-# K8's outputs that keep their bits against K4 on K3's spill (dmc, dg and,
-# of the 20 gradients, b0..b7, b_hc, w_out, b_out: the body's own sums);
-# the weight matrices w0..w7, w_hc are kernel B's sums over the rows, in
-# another fp32 order, held to K13_TOL
-K8_EXACT = tuple(range(8, 16)) + (17, 18, 19)
+# the weight matrices w0..w7, w_hc of the 20 gradients: kernel B's sums
+# over the rows, held to K13's (the first design's per-block slices) within
+# K13_TOL; K8's other outputs are the body's own
 K8_WEIGHTS = tuple(range(8)) + (16,)
 # kernel B's products per row: w0 and w4's x part on the IPE's 99 live
 # columns, w1-w3, w5-w7 and w4's hs3 part, w_hc's 144 live columns
@@ -1474,17 +1551,10 @@ def same_grads(a, b) -> bool:
             and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
 
 
-def k8_against_k4(k8, k4) -> float:
-    """K8's identities with K4 on K3's spill: dmc, dg, the biases and the
-    mid head's gradients bit for bit (raises otherwise) -> the largest
-    error of the weight matrices over each tensor's max."""
-    import torch
-
-    if not (torch.equal(k8[0], k4[0]) and torch.equal(k8[1], k4[1])
-            and all(torch.equal(k8[2][i], k4[2][i]) for i in K8_EXACT)):
-        raise RuntimeError("K8's dmc, dg, biases or mid-head gradients "
-                           "differ from K4's on K3's spill")
-    return max(rel_err(k8[2][i], k4[2][i]) for i in K8_WEIGHTS)
+def weights_against_k13(k8, k13) -> float:
+    """The largest error of K8's weight matrices over each of K13's (the
+    first design's body, which sums the per-block slices)."""
+    return max(rel_err(k8[2][i], k13[2][i]) for i in K8_WEIGHTS)
 
 
 def check_recompute_kernels(calls, card):
@@ -1517,13 +1587,17 @@ def check_recompute_kernels(calls, card):
         k8 = ft.field_backward_v4(bpacked, bmc, bg, d_out, f_out, bS)
         k8b = ft.field_backward_v4(bpacked, bmc, bg, d_out, f_out, bS)
         k4 = ft.field_backward_v5(bpacked, bmc, bg, acts, d_out, f_out, bS)
+        k13 = ft.field_backward_v3(bpacked, bmc, bg, d_out, f_out, bS)
         torch.cuda.synchronize()
         if not same_grads(k8, k8b):
             raise RuntimeError(f"K8 pass {p} differs from itself")
-        werr = k8_against_k4(k8, k4)
+        if not same_grads(k8, k4):
+            raise RuntimeError(f"K8 pass {p} differs from K4 on K3's spill")
+        werr = weights_against_k13(k8, k13)
+        del k13
         if werr > K13_TOL:
             raise RuntimeError(f"K8 pass {p}: weight gradients {werr:.6g} "
-                               f"from K4's (limit {K13_TOL})")
+                               f"from K13's (limit {K13_TOL})")
         plain = ft.field_backward_v4_plain(bpacked, bmc, bg, d_out, f_out, bS)
         on_spill = ft.field_backward_v5_plain(bpacked, bmc, bg, acts, d_out,
                                               f_out, bS)
@@ -1537,10 +1611,10 @@ def check_recompute_kernels(calls, card):
                                           for a, b in zip(k8[2], r[2]))}
         _, plain_acts = ft.field_forward_v6_plain(bpacked, bmc, bg, bS)
         flips = float((acts != plain_acts).float().mean())
-        print(f"  K8 pass {p}: rows {bmc.shape[0]}, == itself bit for bit; "
-              f"against K4 on K3's spill dmc, dg, b0..b7, b_hc, w_out, b_out "
-              f"bit for bit, w0..w7, w_hc within {werr:.6g} (limit "
-              f"{K13_TOL}); max error over each tensor's max: "
+        print(f"  K8 pass {p}: rows {bmc.shape[0]}, == itself and == K4 on "
+              f"K3's spill (dmc, dg, all 20 gradients) bit for bit; w0..w7, "
+              f"w_hc within {werr:.6g} of K13's (the first design's slices; "
+              f"limit {K13_TOL}); max error over each tensor's max: "
               + "; ".join(f"against the {k}: " + ", ".join(
                   f"{n} {v:.6g}" for n, v in e.items())
                   for k, e in errs.items())
@@ -1578,26 +1652,13 @@ def check_recompute_kernels(calls, card):
     # left), K13 (the first design's body, + its grid sum) and K4 on K3's
     # spill in the same call; the scratch of each design
     from rsn_torch.kernels import wgrad_sm90 as wg
-    from rsn_torch.kernels.build import load_library
 
-    lib = load_library("field_train.cu")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for p in (4, 2):
         args = calls["bwd"][p]
         packed, mc, g, d_out, f_out, S = args
         n = mc.shape[0]
-        plan = ft.k8_plan(g.shape[0], S, sms)
         k = cuda_ms(lambda: ft.field_backward_v4(*args))
-        sc = ft.k8_scratch(plan, mc.device)
-        partial = torch.empty((plan.slices, wg.PARTIAL_FLOATS),
-                              device=mc.device)
-        ka = cuda_ms(lambda: [ft.k8_kernel_a(lib, plan, c, args[:5], sc)
-                              for c in plan.chunks])
-        kb = cuda_ms(lambda: [
-            wg.contract(sc.stash[:plan.blocks * (t1 - t0)], partial,
-                        accumulate=i > 0)
-            for i, (t0, t1) in enumerate(plan.chunks)])
-        del sc, partial
+        ka, kb, plan = kernels_a_and_b("field_backward_v4", args)
         k13 = cuda_ms(lambda: ft.field_backward_v3(*args))
         pl = cuda_ms(lambda: ft.field_backward_v4_plain(*args))
         outs = g.shape[0] * 512 * 4 + ft.PACK_FLOATS * 4 + n * 16 * 4
@@ -1634,11 +1695,16 @@ def check_recompute_kernels(calls, card):
                                             bound_by=by)
 
     # kernel B alone on the records kernel A left of pass 2's last chunk,
-    # against its plain contraction
+    # against its plain contraction, and cuBLAS on the same operands
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_train.cu")
     args = calls["bwd"][2]
-    plan = ft.k8_plan(args[2].shape[0], args[5], sms)
-    sc = ft.k8_scratch(plan, args[1].device)
-    ws = [ft.k8_kernel_a(lib, plan, c, args[:5], sc) for c in plan.chunks][-1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ft.stash_plan(args[2].shape[0], args[5], sms)
+    sc = ft.stash_scratch(plan, args[1].device)
+    ws = [ft.kernel_a(lib, "field_backward_v4", plan, c, args[:5], sc)
+          for c in plan.chunks][-1]
     got = torch.empty((plan.slices, wg.PARTIAL_FLOATS), device=ws.device)
     ref = torch.empty_like(got)
     wg.contract(ws, got, accumulate=False)
@@ -1648,18 +1714,66 @@ def check_recompute_kernels(calls, card):
                                             wg.weight_grads(ref)))
     k = cuda_ms(lambda: wg.contract(ws, got, accumulate=False))
     pl = cuda_ms(lambda: wg.contract_plain(ws, ref, accumulate=False))
+    lib_ms, lib_err, how = cublas_contraction(ws, wg.weight_grads(got))
     b, by = bound(2 * WGRAD_MACS * ws.shape[0] * wg.REC_ROWS,
                   nbytes(ws, got))
     print(f"  kernel B on pass 2's last chunk ({ws.shape[0]} records, "
           f"{ws.shape[0] * wg.REC_ROWS} rows, P = {plan.slices}): within "
           f"{err:.6g} of its plain fp32 contraction (limit {K13_TOL}); "
-          f"kernel {k:.4f} ms, plain {pl:.4f} ms, bound {b:.4f} ms ({by}; "
-          f"median of 10; {card})", flush=True)
+          f"kernel {k:.4f} ms, plain {pl:.4f} ms, cuBLAS {lib_ms:.4f} ms "
+          f"(4 calls, {how}; within {lib_err:.6g} of kernel B), bound "
+          f"{b:.4f} ms ({by}; median of 10; {card})", flush=True)
     if err > K13_TOL:
         raise RuntimeError("kernel B disagrees with its plain version")
     results["field_backward_v4_wgrad"].update(err=err, ms=k, plain_ms=pl,
-                                              bound_ms=b, bound_by=by)
+                                              bound_ms=b, bound_by=by,
+                                              library_ms=lib_ms)
     return results
+
+
+def cublas_contraction(ws, want):
+    """Kernel B's function through cuBLAS: a chunk's records unpacked to
+    row-major operands (not timed), then one torch.bmm over the six
+    256 x 256 layers (w1-w3, w5-w7) and torch.mm for w0, w4 and w_hc's 144
+    live columns, bf16 in, fp32 accumulate (fp32 out where this torch
+    takes out_dtype, else bf16 out) -> (the four calls' CUDA-event ms,
+    their largest error over each of `want`'s maxima, the output dtype)."""
+    import torch
+
+    from rsn_torch.kernels import wgrad_sm90 as wg
+
+    rows = ws.shape[0] * wg.REC_ROWS
+    feats = lambda off, f: wg._unswizzle(ws[:, off:off + f * wg.REC_ROWS],
+                                         f).reshape(rows, f).contiguous()
+    step = 256 * wg.REC_ROWS
+    x = feats(wg.X_OFF, 128)
+    hs = [feats(wg.ACT_OFF + i * step, 256) for i in range(8)]
+    dpre = [feats(wg.DPRE_OFF + i * step, 256) for i in range(8)]
+    dhc = feats(wg.DHC_OFF, wg.HEAD_N)
+    six = (1, 2, 3, 5, 6, 7)
+    a6 = torch.stack([hs[i - 1] for i in six]).transpose(1, 2)
+    b6 = torch.stack([dpre[i] for i in six])
+    x4 = torch.cat([x, hs[3]], dim=1)
+    try:
+        torch.mm(x.t(), dpre[0], out_dtype=torch.float32)
+        kw, how = {"out_dtype": torch.float32}, "fp32 out"
+    except (TypeError, RuntimeError):
+        kw, how = {}, "bf16 out"
+
+    def four():
+        return (torch.bmm(a6, b6, **kw), torch.mm(x.t(), dpre[0], **kw),
+                torch.mm(x4.t(), dpre[4], **kw),
+                torch.mm(hs[7].t(), dhc, **kw))
+
+    w6, w0, w4, whc = four()
+    ms = cuda_ms(four)
+    ws_ = {0: w0, 4: w4}
+    ws_.update({i: w6[j] for j, i in enumerate(six)})
+    errs = [rel_err(ws_[i], want[i]) for i in range(8)]
+    errs.append(rel_err(whc[:, :wg.HEAD_COLS], want[8][:, :wg.HEAD_COLS]))
+    errs.append(rel_err(whc[:, wg.HEAD_COLS:],
+                        want[8][:, 256 - (wg.HEAD_N - wg.HEAD_COLS):]))
+    return ms, max(errs), how
 
 
 def step_peak_memory(trainer, config, card, label: str) -> None:
@@ -1829,8 +1943,8 @@ def camera_phases(config, field, device, card):
     with tempfile.TemporaryDirectory() as tmp:
         run, launches = run_train_cli(
             card, "reflect-sampling-nerf", CAMERA_FLAGS,
-            {"field_forward_v4": 2, "field_forward_v3_train": 2}, tmp,
-            k8_calls=8)
+            {"field_forward_v4": 2, "field_forward_v3_train": 2,
+             "field_backward_v4": 8}, tmp)
         state = ckpt_lib.load_checkpoint(os.path.join(
             run, "checkpoints", f"step-{TRAIN_STEPS:09d}.pt"))
         deltas = state["camera"]
@@ -2173,6 +2287,14 @@ def experiments_phase(field, render_mc, render_g, S, card):
 # the mid seed, the mid head's 3 columns), the dgrads (dhmid, dbottleneck,
 # dh7, the trunk's), the weight gradients (w_out, w_emb, wh, the trunk's)
 U_TAIL_MACS = 256 * 267 + 256 * 128 + 128 * 3
+# K18 / K19 dg against their plain versions per ray: a mid_pre entry within
+# this share of the sum of its terms' magnitudes may change sign with the
+# order of the fp32 sums (a 256-term dot product and 5 adds: ~2^-20 of it
+# for sums in a random order, 2^-16 at worst), and with it the whole
+# row's contribution to its ray's dg; such rays (at most FLIP_SHARE of
+# them) are left out of the comparison
+MID_FLIP_TAU = 2.0 ** -20
+FLIP_SHARE = 0.1
 U_DGRAD_MACS = 128 * 3 + 128 * 256 + 267 * 256 + DGRAD_MACS
 U_WGRAD_MACS = 128 * 3 + 256 * 128 + 256 * 267 + TRUNK_MACS
 BWD_EXP_FLOPS = {
@@ -2185,6 +2307,30 @@ BWD_EXP_FLOPS = {
     "run_noipe": 2 * (U_TAIL_MACS + U_DGRAD_MACS - 2 * IPE_DIM * 256
                       + U_WGRAD_MACS),
 }
+
+
+def flip_free_rays(packed_v3, h7, g, bneck, S: int):
+    """The rays whose every mid_pre entry stands further from zero than
+    MID_FLIP_TAU of the sum of its terms' magnitudes (|bneck| |w_emb| +
+    |b_mid| + the bands' |atten g|), mid_pre taken in float64 from the
+    kernel's bottleneck `bneck`: on them the plain mask of mid_pre > 0 is
+    the kernel's whatever the order of its fp32 sums -> (R,) bool."""
+    import torch
+
+    from rsn_torch.kernels import field_forward as ff
+
+    wh, bh, w_emb, b_mid = packed_v3[16:20]
+    col = slice(ff.OUT_ROUGH, ff.OUT_ROUGH + 1)
+    rough = h7.double() @ wh[:, col].double() + bh[:, col].double()
+    sp = torch.nn.functional.softplus(rough)
+    m = bneck.double() @ w_emb.double() + b_mid.double()
+    mag = bneck.double().abs() @ w_emb.double().abs() + b_mid.double().abs()
+    for bi, k in enumerate(ff._BAND_KS):
+        ag = torch.exp(-sp * k) * g[:, bi * 128:(bi + 1) * 128].double() \
+            .repeat_interleave(S, 0)
+        m, mag = m + ag, mag + ag.abs()
+    near = (m.abs() <= MID_FLIP_TAU * mag).reshape(g.shape[0], -1)
+    return ~near.any(dim=1)
 
 
 def check_k17_against_k8(tag, args, k17=None):
@@ -2251,12 +2397,13 @@ def backward_experiments_phase(cam_calls, card):
                            "launched")
     results = {k: {"err": 0.0} for k in names}
 
-    def hold(tag, got, on_acts, plain, label):
+    def hold(tag, got, on_acts, plain, label, free=None):
         """got against the plain version fed the kernel's activations
-        (ATOL) and, if given, the plain version that recomputes its trunk
-        (K8_TOL) -> the largest error over each tensor's max against the
-        latter (or the former)."""
-        errs = {}
+        (ATOL; with `free`, its dg on those rays only, over dg's max) and,
+        if given, the plain version that recomputes its trunk (K8_TOL) ->
+        the largest error over each tensor's max against the latter (or
+        the former)."""
+        errs, note = {}, ""
         for ref_tag, ref in (("on the kernel's activations", on_acts),
                              ("recomputing its trunk", plain)):
             if ref is None:
@@ -2265,6 +2412,11 @@ def backward_experiments_phase(cam_calls, card):
             if got[0] is not None:
                 e["dmc"] = rel_err(got[0], ref[0])
             e["dg"] = rel_err(got[1], ref[1])
+            if free is not None and ref is on_acts:
+                note = (f"; on the kernel's activations dg over all rays "
+                        f"{e['dg']:.6g}")
+                e["dg"] = float((got[1] - ref[1]).abs()[free].max()) / max(
+                    float(ref[1].abs().max()), 1e-6)
             if got[2] is not None:
                 e["dpacked"] = max(rel_err(a, b) for a, b in zip(got[2],
                                                                  ref[2]))
@@ -2273,7 +2425,7 @@ def backward_experiments_phase(cam_calls, card):
               f"version " + "; ".join(f"{k}: " + ", ".join(
                   f"{n_} {v:.6g}" for n_, v in e.items())
                   for k, e in errs.items())
-              + f" (limits {ATOL} and {K8_TOL})", flush=True)
+              + f" (limits {ATOL} and {K8_TOL}){note}", flush=True)
         first = max(errs["on the kernel's activations"].values())
         worst = max(errs.get("recomputing its trunk", {"": first}).values())
         if first > ATOL or worst > K8_TOL:
@@ -2288,22 +2440,37 @@ def backward_experiments_phase(cam_calls, card):
     for p in (2, 4):
         check_k17_against_k8(f"phase 12's pass {p}", cam_calls["bwd"][p])
     del k17
-    # K18's modes; K19 on K3's spill of the same rows
-    hs, x = ft._split_acts(xacts), xacts[:, ft.ACTS_COLS:]
+    # K18's modes; K19 on K3's spill of the same rows.  The plain versions
+    # on the kernels' activations take the kernels' bottleneck: K12's
+    # heads product on the same activations (the same wmma sums, k
+    # ascending, and bias add), and compare dg on the rays whose mid_pre
+    # cannot change sign with the order of the fp32 sums
+    hs, x = ft._split_acts(xacts), xacts[:, ft.ACTS_COLS:].contiguous()
+    bneck = ff.field_forward(p3[:18], x)[:, ff.OUT_BOTTLENECK]
+    free = flip_free_rays(p3, hs[-1], g, bneck, S)
+    share = 1.0 - float(free.float().mean())
+    print(f"  K18 / K19 dg per ray: {int((~free).sum())} of {free.numel()} "
+          f"rays ({share:.4%}; limit {FLIP_SHARE:.0%}) hold a mid_pre entry "
+          f"within {MID_FLIP_TAU:.3g} of its terms' magnitudes of zero and "
+          f"are left out; the plain versions take K12's bottleneck",
+          flush=True)
+    if share > FLIP_SHARE:
+        raise RuntimeError("too many rays near a mid_pre sign change")
     for mode, wg in bwd_ablate.VARIANTS:
         label = bwd_ablate.label(mode, wg)
         hold(f"K18 {mode}{'+wgrad' if wg else ''}", k18[label],
              bwd_ablate.backward_from_acts(p3, hs, x, g, d_out, S, mode, wg,
-                                           mc),
+                                           mc, bneck),
              bwd_ablate.bwd_ablate_plain(p3, mc, g, d_out, S, mode, wg),
-             label)
+             label, free)
         torch.cuda.empty_cache()
     full, nowg = k18["bwd_ablate_full_wgrad"], k18["bwd_ablate_full"]
     if not (torch.equal(full[0], nowg[0]) and torch.equal(full[1], nowg[1])):
         raise RuntimeError("K18 full: dmc or dg depend on the weight "
                            "gradients")
     hold("K19", (None,) + k19, (None,) + bwd_noipe.run_noipe_plain(
-        p3, xacts, g, d_out, S), None, "run_noipe")
+        p3, xacts, g, d_out, S, bneck), None, "run_noipe", free)
+    del bneck, free
     same = torch.equal(k19[0], full[1]) and all(
         torch.equal(a, b) for a, b in zip(k19[1], full[2]))
     print(f"  K19 on K3's spill {'==' if same else '!='} K18's full mode (dg "

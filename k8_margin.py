@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""How far K8's weight-gradient check stands from its limit, on one CUDA
-card.
+"""How far the weight-gradient checks of kernel B's users stand from their
+limit, on one CUDA card.
 
     python3 k8_margin.py
 
-chip_smoke.py's phase 12 holds K8's w0..w7 and w_hc to K4's on K3's spill
-within K13_TOL (1e-4) of each tensor's max, on passes 2 and 4 of one
-camera-on step.  This script reads that error over field seeds SEEDS and
-train steps STEPS: chip_smoke.py's full-width camera-on recompute route
-on the sphere at 800x800, a trainer per seed (field weights, pose deltas
-and the trainer's seed from it), each step's K8 inputs captured as phase
-12 captures them.  On the same inputs it also reads what a wrong kernel B
-would give: K8's partials with one of the P row slices left out, and with
+K8, K4 and K5 take their weight matrices (w0..w7, w_hc) from kernel B.
+chip_smoke.py's phase 12 holds K8's to K13's (the first design's body,
+which sums per-block fp32 slices) within K13_TOL (1e-4) of each tensor's
+max, on passes 2 and 4 of one camera-on step.  This script reads that
+error for K8 on passes 2 and 4, K5 on pass 2 and K4 on pass 4 (both on
+K3's spill of the pass's rows), over field seeds SEEDS and train steps
+STEPS: chip_smoke.py's full-width camera-on recompute route on the sphere
+at 800x800, a trainer per seed (field weights, pose deltas and the
+trainer's seed from it), each step's K8 inputs captured as phase 12
+captures them.  On the same inputs it also reads what a wrong kernel B
+would give: the partials with one of the P row slices left out, and with
 one 64-row record of the first chunk zeroed before the contraction; and
-how far K8's and K4's weight matrices each stand from the fp64 sums of
-the same bf16 operands (K8's records, contracted in float64).  Prints one
-line per (seed, step, pass), then the largest sound reading and the
-smallest wrong one, with the card's name and power limit.
+how far the kernel's and K13's weight matrices each stand from the fp64
+sums of the same bf16 operands (the kernel's records, contracted in
+float64).  Prints one line per (seed, step, kernel, pass), then per kernel
+the largest sound reading and the smallest wrong one, with the card's
+name and power limit.
 """
 from __future__ import annotations
 
@@ -29,33 +33,52 @@ import tempfile
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEEDS = (3, 4, 5)
 STEPS = (1, 2, 50, 51, 52, 53)
+# (label, wrapper, pass)
+READINGS = (("K8", "field_backward_v4", 2), ("K8", "field_backward_v4", 4),
+            ("K5", "field_backward_v6", 2), ("K4", "field_backward_v5", 4))
 
 
-def readings(lib, args, sms):
-    """K8's weight matrices against K4's on K3's spill -> (sound, a slice
-    left out, a record zeroed, K8 against the fp64 sums of its records, K4
-    against them): each the largest error over each tensor's max."""
+def kernel_args(name: str, args):
+    """The wrapper arguments of K8, K4 or K5 (`name`) on K8's captured
+    arguments, K4 and K5 on K3's spill of the same rows."""
+    from rsn_torch.kernels import field_train as ft
+
+    packed, mc, g, d_out, f_out, S = args
+    if name == "field_backward_v4":
+        return args
+    if name == "field_backward_v5":
+        _, acts = ft.field_forward_v6(packed, mc, g, S)
+        return (packed, mc, g, acts, d_out, f_out, S)
+    _, xacts = ft.field_forward_v6(packed, mc, g, S, spill_x=True)
+    return (packed, g, xacts, d_out, f_out, S)
+
+
+def readings(lib, name: str, args, k13, sms):
+    """The weight matrices of K8, K4 or K5 (`name`, on its wrapper's
+    arguments `args`) against K13's (`k13`: its 20 gradients on the same
+    rows) -> (sound, a slice left out, a record zeroed, the kernel against
+    the fp64 sums of its records, K13 against them): each the largest
+    error over each tensor's max."""
     import torch
 
     from chip_smoke import K8_WEIGHTS, rel_err
     from rsn_torch.kernels import field_train as ft
     from rsn_torch.kernels import wgrad_sm90 as wg
 
-    packed, mc, g, d_out, f_out, S = args
-    _, acts = ft.field_forward_v6(packed, mc, g, S)
-    k4 = ft.field_backward_v5(packed, mc, g, acts, d_out, f_out, S)
-    ref = [k4[2][i] for i in K8_WEIGHTS]
+    ref = [k13[i] for i in K8_WEIGHTS]
     err = lambda ws: max(rel_err(w, r) for w, r in zip(ws, ref))
-    plan = ft.k8_plan(g.shape[0], S, sms)
-
+    f_out, S = args[-2], args[-1]
+    device = f_out.device
+    plan = ft.stash_plan(f_out.shape[0] // S, S, sms,
+                         name == "field_backward_v4")
     exact = torch.zeros((1, wg.PARTIAL_FLOATS), dtype=torch.float64,
-                        device=mc.device)
+                        device=device)
 
     def partials(zero_record: bool):
-        sc = ft.k8_scratch(plan, mc.device)
-        part = torch.empty((plan.slices, wg.PARTIAL_FLOATS), device=mc.device)
+        sc = ft.stash_scratch(plan, device, ft.STASH_KERNELS[name])
+        part = torch.empty((plan.slices, wg.PARTIAL_FLOATS), device=device)
         for c, chunk in enumerate(plan.chunks):
-            ws = ft.k8_kernel_a(lib, plan, chunk, args[:5], sc)
+            ws = ft.kernel_a(lib, name, plan, chunk, args[:-1], sc)
             if zero_record and c == 0:
                 ws[0].zero_()  # block 0's first tile: 64 rows
             elif not zero_record:
@@ -63,11 +86,12 @@ def readings(lib, args, sms):
             wg.contract(ws, part, accumulate=c > 0)
         return part
 
-    sound = [ft.field_backward_v4(*args)[2][i] for i in K8_WEIGHTS]
+    grads = getattr(ft, name)(*args)[-1]
+    sound = [grads[i] for i in K8_WEIGHTS]
     part = partials(False)
     if not all(torch.equal(w, s) for w, s in
                zip(wg.weight_grads(part), sound)):
-        raise RuntimeError("K8's chunks here differ from field_backward_v4")
+        raise RuntimeError(f"{name}'s chunks here differ from its wrapper")
     part[plan.slices // 2] = 0.0
     exact = wg.weight_grads(exact)
     return (err(sound), err(wg.weight_grads(part)),
@@ -86,6 +110,7 @@ def main() -> int:
     from chip_smoke import (K13_TOL, capture_recompute_inputs, smoke_config,
                             with_route)
     from rsn_torch.engine.trainer import Trainer
+    from rsn_torch.kernels import field_train as ft
     from rsn_torch.kernels.build import load_library
     from rsn_torch.models.field import Field
 
@@ -96,7 +121,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     lib = load_library("field_train.cu")
-    worst = [0.0, float("inf"), float("inf"), 0.0, 0.0]
+    worst = {label: [0.0, float("inf"), float("inf"), 0.0, 0.0]
+             for label, _, _ in READINGS}
     for seed in SEEDS:
         config = with_route(dataclasses.replace(smoke_config(), seed=seed),
                             True, False)
@@ -110,25 +136,31 @@ def main() -> int:
                     generator=torch.Generator().manual_seed(seed)))
             for step in STEPS:
                 calls = capture_recompute_inputs(trainer, step)
-                for p in (2, 4):
-                    r = readings(lib, calls["bwd"][p], sms)
-                    worst = [max(worst[0], r[0]), min(worst[1], r[1]),
-                             min(worst[2], r[2]), max(worst[3], r[3]),
-                             max(worst[4], r[4])]
-                    print(f"seed {seed} step {step} pass {p}: sound "
+                k13 = {p: ft.field_backward_v3(*calls["bwd"][p])[2]
+                       for p in (2, 4)}
+                for label, name, p in READINGS:
+                    r = readings(lib, name, kernel_args(name,
+                                                        calls["bwd"][p]),
+                                 k13[p], sms)
+                    w = worst[label]
+                    worst[label] = [max(w[0], r[0]), min(w[1], r[1]),
+                                    min(w[2], r[2]), max(w[3], r[3]),
+                                    max(w[4], r[4])]
+                    print(f"seed {seed} step {step} {label} pass {p}: sound "
                           f"{r[0]:.6g}, a slice left out {r[1]:.6g}, a "
                           f"record zeroed {r[2]:.6g}; against the fp64 "
-                          f"sums of the records K8 {r[3]:.6g}, K4 "
+                          f"sums of the records {label} {r[3]:.6g}, K13 "
                           f"{r[4]:.6g}", flush=True)
-                del calls
+                del calls, k13
             del trainer
         torch.cuda.empty_cache()
-    print(f"over {len(SEEDS)} seeds x {len(STEPS)} steps x passes 2, 4: "
-          f"largest sound {worst[0]:.6g}, smallest with a slice left out "
-          f"{worst[1]:.6g} (the sound reading where the slice holds only "
-          f"rows without a gradient), with a record zeroed {worst[2]:.6g} "
-          f"(limit {K13_TOL}); against the fp64 sums at most K8 "
-          f"{worst[3]:.6g}, K4 {worst[4]:.6g} ({card})")
+    for label, w in worst.items():
+        print(f"{label} over {len(SEEDS)} seeds x {len(STEPS)} steps against "
+              f"K13: largest sound {w[0]:.6g}, smallest with a slice left "
+              f"out {w[1]:.6g} (the sound reading where the slice holds "
+              f"only rows without a gradient), with a record zeroed "
+              f"{w[2]:.6g} (limit {K13_TOL}); against the fp64 sums at "
+              f"most {label} {w[3]:.6g}, K13 {w[4]:.6g} ({card})")
     return 0
 
 

@@ -16,8 +16,9 @@ profiler, then PROFILED steps under torch.profiler, then one step for its
 peak device memory above what the trainer holds before it.  Prints, per
 cell, the wall time per step, the device time summed over every kernel,
 copy and fill (the device's busy and idle shares of the profiled wall),
-K8's share of it (its kernels field_backward_v4_kernel and wgrad_kernel),
-the peak memory, and the device time per kernel name, largest first.
+the backward kernels' share of it (kernel A of K5, K4 and K8, each its
+body's field_backward_v6 / v5 / v4 kernel, and kernel B, wgrad_kernel,
+which all three share), the peak memory, and the device time per kernel name, largest first.
 """
 from __future__ import annotations
 
@@ -39,7 +40,10 @@ METHODS = (("reflect-sampling-nerf", {}, False),
            ("reflect-sampling-nerf-proposal", {"use_pallas_proposal": True},
             False),
            ("reflect-sampling-nerf", {}, True))
-K8_KERNELS = ("field_backward_v4_kernel", "wgrad_kernel")
+BWD_KERNELS = (("K5 kernel A", "field_backward_v6_kernel"),
+               ("K4 kernel A", "field_backward_v5_kernel"),
+               ("K8 kernel A", "field_backward_v4_kernel"),
+               ("kernel B", "wgrad_kernel"))
 
 
 def main() -> int:
@@ -125,11 +129,15 @@ def profile_steps(method: str, flags, camera: bool, device) -> None:
           f"{sum(c for c, _ in per_name.values()) // PROFILED} device ops: "
           f"busy {busy / wall:.2%}, idle {1 - busy / wall:.2%} of the "
           f"profiled wall")
-    k8 = sum(secs for name, (_, secs) in per_name.items()
-             if any(k in name for k in K8_KERNELS))
-    print(f"K8 {k8 / PROFILED * 1e3:.4f} ms per step, {k8 / busy:.2%} of "
-          f"device time; peak device memory of one step {peak / 2**30:.4f} "
-          f"GiB above the trainer's {base / 2**30:.4f} GiB")
+    bwd = {label: sum(secs for name, (_, secs) in per_name.items()
+                      if kernel in name) for label, kernel in BWD_KERNELS}
+    total = sum(bwd.values())
+    print("backward kernels per step: " + ", ".join(
+        f"{label} {secs / PROFILED * 1e3:.4f} ms" for label, secs in
+        bwd.items()) + f"; together {total / PROFILED * 1e3:.4f} ms, "
+          f"{total / busy:.2%} of device time; peak device memory of one "
+          f"step {peak / 2**30:.4f} GiB above the trainer's "
+          f"{base / 2**30:.4f} GiB")
     print(f"{'device ms':>10} {'share':>7} {'count':>6}  name (per step)")
     for name, (count, secs) in sorted(per_name.items(),
                                       key=lambda kv: -kv[1][1])[:TOP]:

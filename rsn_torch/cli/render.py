@@ -11,8 +11,8 @@ caller may ask for the CPU with main(argv, device="cpu").
 Ported: the orbit mode on runs whose dataparser is `synthetic`, and the
 eval panels (render_panels, the turbo colormaps) that the trainer's eval
 hook writes.  The split-panel mode, the path / interpolate / spiral modes
-and the other dataparsers come with rsn/data/blender.py (ROADMAP Queue 1
-steps 5, 6).
+and the other dataparsers come with rsn/cli/render.py and
+rsn/data/blender.py (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -139,8 +139,9 @@ def main(argv=None, device=None) -> int:
     ns = p.parse_args(argv)
     if ns.mode != "orbit":
         raise NotImplementedError(
-            f"--mode {ns.mode}: ROADMAP Queue 1 step 12 (render modes with "
-            "dataset panels) is not ported yet; use --mode orbit")
+            f"--mode {ns.mode}: ROADMAP Queue 1: rsn/cli/render.py (render "
+            "modes with dataset panels) is not ported yet; use --mode "
+            "orbit")
     device = entry_device(device)
 
     field, config, _, extras = load_run_full(ns.load_dir, device)

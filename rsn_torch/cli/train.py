@@ -54,8 +54,8 @@ def main(argv=None, device=None) -> int:
         }, base=base)
     if extras.multihost or extras.num_processes or extras.coordinator_address:
         raise NotImplementedError(
-            "multi-host training: ROADMAP Queue 1 step 13 (data-parallel "
-            "mesh) is not ported")
+            "multi-host training: ROADMAP Queue 1: rsn/parallel/mesh.py "
+            "(data-parallel mesh) is not ported")
     if extras.data:
         cfg = apply_overrides(cfg, {"pipeline.datamanager.data": extras.data})
 

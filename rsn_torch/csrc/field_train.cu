@@ -21,14 +21,14 @@
 //   field_backward_v5  (K4; rsn/kernels/field_train.py, body _bwd_half):
 //                       the backward from the spilled activations and the
 //                       forward's stored output: dmc (N, 16), dg (R, 512)
-//                       and the 20 packed-operand weight gradients.
+//                       and the 20 packed-operand weight gradients, whose
+//                       weight matrices are contracted by wgmma in a
+//                       second kernel (wgrad_sm90.cuh).
 //   field_backward_v6  (K5; _bwd_half with want_dmc=False): the same
 //                       without the IPE backward, x read from the spill.
 //   field_backward_v4  (K8; _bwd_kernel_impl(two_d=True, has_acts=False)):
 //                       K4 with the trunk activations recomputed in the
-//                       block instead of read from a spill; its weight
-//                       gradients are contracted by wgmma in a second
-//                       kernel (wgrad_sm90.cuh).
+//                       block instead of read from a spill.
 //   field_forward_v5   (K10; field_pallas.py, _kernel_v5): K7 (with the
 //                       normals) or K1 at the train width, with the next
 //                       tile's IPE computed while this tile's trunk runs.
@@ -44,11 +44,11 @@
 // What bounds them on this card: about 2.2 MFLOP of bf16 products per
 // sample row each, against 4.3 KB (K3 spill) or 4.4 KB (K4/K5 reads) of
 // device memory per row: about 500 FLOP per byte, above the card's ~295,
-// so the tensor cores are the limit.  In the first design (K4, K5, K13,
-// K17) the weight-gradient accumulators are not: they live in device
-// memory (one fp32 slice of 2.4 MB per block), and every 64-row tile reads
-// and writes its block's slice once, about 38 KB per row of traffic (K18:
-// 57% of the backward).
+// so the tensor cores are the limit.  In the first design (K13, K17, and
+// K4, K5 and K8 before kernel B) the weight-gradient accumulators are not:
+// they live in device memory (one fp32 slice of 2.4 MB per block), and
+// every 64-row tile reads and writes its block's slice once, about 38 KB
+// per row of traffic (K18: 57% of the backward).
 //
 // What the design does about it (a first, simple design):
 //   - The forward (K3) is K1's code: ipe_tile, trunk and v3_tail of
@@ -59,14 +59,14 @@
 //     bf16 weight read as a col_major fragment, no transposed copy.
 //   - The backward (K4/K5) gives each block a run of whole rays, walked
 //     in 64-row tiles.  Per-ray band gradients dg are summed in the block
-//     (no one-hot matrix, no float atomics); weight gradients go to the
-//     block's own fp32 slice of a (blocks, 608640) buffer, which the
-//     wrapper reduces over blocks.  The result is the same from run to
-//     run.
+//     (no one-hot matrix, no float atomics); in the first design the
+//     weight gradients go to the block's own fp32 slice of a (blocks,
+//     608640) buffer, which the wrapper reduces over blocks.  The result
+//     is the same from run to run.
 //   - Every product is nvcuda::wmma 16x16x16 bf16 -> fp32.  Dgrads are
 //     computed for all 64 rows into registers, then written back over
-//     their own input (one barrier), which keeps K5 at 100 KB of shared
-//     memory (two blocks per SM); K4 adds the fp32 dx tile (132 KB).
+//     their own input (one barrier), which keeps K5's body at 100 KB of
+//     shared memory; K4 adds the fp32 dx tile (132 KB).
 //   - Roundings follow the TPU kernels: cotangents enter bf16, dpre is
 //     rounded to bf16 before its products, bias gradients sum the fp32
 //     values, the roughness -> attenuation edge carries no gradient.
@@ -83,21 +83,27 @@
 //     K4's rays-per-block partition, so every per-row value and every sum
 //     the body takes in its tile loop (dmc, dg, the biases, the mid
 //     head's gradients) equals K4's on K3's spill bit for bit.
-//   - K8's weight gradients leave the tile loop: a call runs in chunks of
-//     up to 4 tiles of every block's run, and per chunk the body (kernel
-//     A, STASH) stores each weight-gradient product's two operand tiles
-//     (X, hs0..hs7, dpre0..dpre7, d_hc: 8,736 bytes per row) to the tile's
-//     record of a workspace, in the K-major swizzled layout wgmma reads,
-//     where K4 multiplies them into its slice (gathered through two shared
-//     staging buffers, 64 KB behind K4's layout, and written by bulk
-//     copies); kernel B (wgrad_sm90.cuh) then contracts the chunk's
-//     records over all their rows with wgmma,
-//     18 output tiles x P slices, each slice's sums in its own fp32
-//     partial (read and written once per chunk).  The workspace per block
-//     fits in what the first design's slice took (4 x 559,104 <=
-//     2,434,560 bytes).  The weight matrices differ from K4's only by the
-//     order of their fp32 sums over the rows, and are the same from run
-//     to run.
+//   - The weight gradients of K4, K5 and K8 leave the tile loop: a call
+//     runs in chunks of up to 4 tiles of every block's run, and per chunk
+//     the body (kernel A, STASH) stores each weight-gradient product's two
+//     operand tiles (X, hs0..hs7, dpre0..dpre7, d_hc: 8,736 bytes per row)
+//     to the tile's record of a workspace, in the K-major swizzled layout
+//     wgmma reads, where the first design multiplies them into its slice
+//     (gathered through two shared staging buffers, 64 KB behind the
+//     kernel's own layout, and written by bulk copies); kernel B
+//     (wgrad_sm90.cuh) then contracts the chunk's records over all their
+//     rows with wgmma, 18 output tiles x P slices, each slice's sums in its
+//     own fp32 partial (read and written once per chunk).  The workspace
+//     per block fits in what the first design's slice took (4 x 559,104 <=
+//     2,434,560 bytes).  The stash does not care where its operands come
+//     from: K8's recompute slot, or K3's spill (K4, K5, which then run one
+//     block per SM on K4's partition: 164 KB and 196 KB of shared memory).
+//     The three kernels share the partition and the chunks, so they take
+//     every per-row value and every sum in the same order: K4 equals K8,
+//     and K5 equals K4 on dg, on every one of the 20 gradients, bit for
+//     bit.  The weight matrices differ from the first design's (K13, K17)
+//     only by the order of their fp32 sums over the rows, and are the same
+//     from run to run.
 //   - K10 carries rsn's schedule over, not its two-slot VMEM buffer kept
 //     across sequential grid steps: one persistent block per SM, whose four
 //     producer warps write the next tile's IPE into one of two X slots
@@ -122,8 +128,7 @@
 //     per-row value (dmc, the activations) equals K8's bit for bit, and
 //     only the sums over rows (dg, the weight gradients) change order.
 //     It halves the slice traffic per row.
-// Later work: K4 and K5 on kernel B; the recompute and the dgrads on
-// wgmma (trunk_sm90.cuh).
+// Later work: the recompute and the dgrads on wgmma (trunk_sm90.cuh).
 #include "field_common.cuh"
 #include "wgrad_sm90.cuh"
 
@@ -375,8 +380,11 @@ struct BwdSmem {
 };
 constexpr int K5_SMEM_BYTES = BwdSmem<TM>::DXE;
 constexpr int K4_SMEM_BYTES = BwdSmem<TM>::DXE + TM * ENC * 4;
-constexpr int K8_SMEM_BYTES = K4_SMEM_BYTES + wgrad::STASH_SMEM_BYTES;
-static_assert(K8_SMEM_BYTES <= 232448, "K8 must fit one SM");
+// kernel A: the stash's staging buffers behind the layout of the body that
+// uses them (K5's, or K4's with the dx tile: K4 and K8)
+constexpr int K5A_SMEM_BYTES = K5_SMEM_BYTES + wgrad::STASH_SMEM_BYTES;
+constexpr int K4A_SMEM_BYTES = K4_SMEM_BYTES + wgrad::STASH_SMEM_BYTES;
+static_assert(K4A_SMEM_BYTES <= 232448, "K4's kernel A must fit one SM");
 constexpr int WHOLE = 2 * TM;  // K17's row tile
 constexpr int K17_SMEM_BYTES = BwdSmem<WHOLE>::DXE;
 static_assert(K17_SMEM_BYTES <= 232448, "K17 must fit one SM");
@@ -390,18 +398,18 @@ struct BwdArgs {
   const bf16* fout;     // (N, 24) bf16, the forward's output
   float* dmc;           // (N, 16) f32, K4 and K8
   float* dg;            // (R, 512) f32, zeroed by the caller
-  float* dpk;           // (blocks, PACK_FLOATS) f32, zeroed by the caller
+  float* dpk;           // (blocks, GradSlice<STASH>::FLOATS) f32, zeroed
   bf16* ws;             // K8: (blocks, ROWS, 2048) bf16 recompute slots
   long long rays;
   int S;
   int rays_per_block;
   float* dxe;           // K17: (blocks, 128, 128) f32 dx tiles
-  unsigned char* stash = nullptr;  // K8: the chunk's wgrad workspace
-  int tile0 = 0, tile1 = 0;        // K8: the chunk's tiles of each run
+  unsigned char* stash = nullptr;  // kernel A: the chunk's wgrad workspace
+  int tile0 = 0, tile1 = 0;        // kernel A: the chunk's tiles of each run
 };
 
 // Offsets in a block's fp32 gradient slice: the 20 packed operands
-// (PACK_FLOATS), or with STASH (K8, whose weight matrices go to the
+// (PACK_FLOATS), or with STASH (kernel A, whose weight matrices go to the
 // workspace instead) only the biases and the mid head: b0..b7, b_hc,
 // w_out's 3 live columns (128 x 3), b_out (3, padded to 4).
 template <bool STASH>
@@ -421,8 +429,9 @@ static_assert(GradSlice<true>::FLOATS == 2692, "K8's compact slice");
 // that contracts over the rows (the weight gradients) runs over the whole
 // tile between one load and one store of the block's slice; the trunk
 // recompute, the dgrads and their epilogues run on the tile's 64-row
-// halves, each element computed as on a 64-row tile.  STASH (K8's kernel
-// A): only the tiles [a.tile0, a.tile1) of the block's run, and instead of
+// halves, each element computed as on a 64-row tile.  STASH (kernel A of
+// K4, K5 and K8): only the tiles [a.tile0, a.tile1) of the block's run,
+// and instead of
 // each weight-gradient product its two operand tiles go to the tile's
 // record of the chunk's workspace (wgrad_sm90.cuh), which kernel B
 // contracts; the biases and the mid head's gradients go to the block's
@@ -433,7 +442,7 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
   static_assert(WANT_DMC || !RECOMPUTE, "K8 computes dmc");
   static_assert(ROWS == TM || RECOMPUTE, "128-row tiles: K17 only");
   static_assert(ROWS % TM == 0 && ROWS <= THREADS, "64-row halves");
-  static_assert(!STASH || (RECOMPUTE && ROWS == TM), "the stash is K8's");
+  static_assert(!STASH || ROWS == TM, "the stash takes 64-row tiles");
   typedef BwdSmem<ROWS> L;
   typedef GradSlice<STASH> G;
   constexpr int HALVES = ROWS / TM;
@@ -458,7 +467,9 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
   const long long rowEnd =
       STASH ? min(rowB, rowA + (long long)a.tile1 * TM) : rowB;
   const long long chunk_tiles = a.tile1 - a.tile0;
-  wgrad::Stash st{smem + K4_SMEM_BYTES};  // K8: behind K4's layout
+  // kernel A: the staging buffers behind the body's layout (K4's with the
+  // dx tile, or K5's)
+  wgrad::Stash st{smem + (WANT_DMC ? K4_SMEM_BYTES : K5_SMEM_BYTES)};
 
   for (long long row0 = STASH ? rowA + (long long)a.tile0 * TM : rowA;
        row0 < rowEnd; row0 += ROWS) {
@@ -562,7 +573,7 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
     if constexpr (STASH) st.wait_free();
     block_sync();
 
-    // ---- heads + mid: dW_hc += hs7^T d_hc (K8: hs7 and d_hc's 144 live
+    // ---- heads + mid: dW_hc += hs7^T d_hc (kernel A: hs7 and d_hc's 144 live
     // columns to the record, copied after the barrier below); dh7 = d_hc
     // w_hc^T ----
     if constexpr (STASH) {
@@ -600,7 +611,7 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
         if constexpr (STASH) st.wait_free();
         block_sync();
       }
-      // K8: X (layer 0) or hs_{i-1}, and dpre_i, to the record: copied
+      // kernel A: X (layer 0) or hs_{i-1}, and dpre_i, to the record: copied
       // after the next barrier
       const int off0 =
           i == 0 ? wgrad::X_OFF : wgrad::ACT_OFF + (i - 1) * wgrad::ACT_BYTES;
@@ -676,12 +687,12 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
 
 __global__ void __launch_bounds__(THREADS, 1)
     field_backward_v5_kernel(V3Params p, BwdArgs a) {
-  field_backward_body<true, false>(p, a);
+  field_backward_body<true, false, TM, true>(p, a);
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, 1)
     field_backward_v6_kernel(V3Params p, BwdArgs a) {
-  field_backward_body<false, false>(p, a);
+  field_backward_body<false, false, TM, true>(p, a);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -838,14 +849,19 @@ int rsn_field_forward_v4(const void* mean_cov, const void* g_bands,
                           st);
 }
 
-// K4.  ptrs: the 20 packed operands.  dg and dpk must be zeroed; dpk has
-// ceil(rays / rays_per_block) slices of 608640 floats.
+// K4's kernel A on one chunk: tiles [tile0, tile1) of every block's run
+// (rays_per_block whole rays per block).  ptrs: the 20 packed operands;
+// small: ceil(rays / rays_per_block) zeroed compact slices of 2692 floats
+// (GradSlice<true>), summed into over a call's chunks; stash: the chunk's
+// blocks x (tile1 - tile0) records of wgrad::REC_BYTES (written whole); dg
+// zeroed.
 int rsn_field_backward_v5(const void* mean_cov, const void* g_bands,
                           const void* ipe_consts, const void* acts,
                           const void* d_out, const void* f_out,
                           const void* const* ptrs, void* dmc, void* dg,
-                          void* dpk, long long rays, int samples_per_ray,
-                          int rays_per_block, void* stream) {
+                          void* small, void* stash, long long rays,
+                          int samples_per_ray, int rays_per_block, int tile0,
+                          int tile1, void* stream) {
   V3Params p;
   fill_v3(&p, ptrs);
   BwdArgs a{static_cast<const float*>(mean_cov),
@@ -853,35 +869,35 @@ int rsn_field_backward_v5(const void* mean_cov, const void* g_bands,
             static_cast<const float*>(ipe_consts),
             static_cast<const bf16*>(acts), static_cast<const bf16*>(d_out),
             static_cast<const bf16*>(f_out), static_cast<float*>(dmc),
-            static_cast<float*>(dg), static_cast<float*>(dpk), nullptr,
-            rays, samples_per_ray, rays_per_block};
-  return launch_backward(field_backward_v5_kernel, K4_SMEM_BYTES, p, a,
+            static_cast<float*>(dg), static_cast<float*>(small), nullptr,
+            rays, samples_per_ray, rays_per_block, nullptr,
+            static_cast<unsigned char*>(stash), tile0, tile1};
+  return launch_backward(field_backward_v5_kernel, K4A_SMEM_BYTES, p, a,
                          stream);
 }
 
-// K5: K4 without dmc; xacts (N, 2176) carries x.
+// K5's kernel A on one chunk: K4's without dmc; xacts (N, 2176) carries x.
 int rsn_field_backward_v6(const void* g_bands, const void* xacts,
                           const void* d_out, const void* f_out,
-                          const void* const* ptrs, void* dg, void* dpk,
-                          long long rays, int samples_per_ray,
-                          int rays_per_block, void* stream) {
+                          const void* const* ptrs, void* dg, void* small,
+                          void* stash, long long rays, int samples_per_ray,
+                          int rays_per_block, int tile0, int tile1,
+                          void* stream) {
   V3Params p;
   fill_v3(&p, ptrs);
   BwdArgs a{nullptr, static_cast<const float*>(g_bands), nullptr,
             static_cast<const bf16*>(xacts), static_cast<const bf16*>(d_out),
             static_cast<const bf16*>(f_out), nullptr,
-            static_cast<float*>(dg), static_cast<float*>(dpk), nullptr,
-            rays, samples_per_ray, rays_per_block};
-  return launch_backward(field_backward_v6_kernel, K5_SMEM_BYTES, p, a,
+            static_cast<float*>(dg), static_cast<float*>(small), nullptr,
+            rays, samples_per_ray, rays_per_block, nullptr,
+            static_cast<unsigned char*>(stash), tile0, tile1};
+  return launch_backward(field_backward_v6_kernel, K5A_SMEM_BYTES, p, a,
                          stream);
 }
 
-// K8's kernel A on one chunk: tiles [tile0, tile1) of every block's run
-// (K4's partition).  ws: ceil(rays / rays_per_block) slots of 64 x 2048
-// bf16 (uninitialised); small: as many zeroed compact slices of 2692
-// floats (GradSlice<true>), summed into over a call's chunks; stash: the
-// chunk's blocks x (tile1 - tile0) records of wgrad::REC_BYTES (written
-// whole); dg zeroed.
+// K8's kernel A on one chunk: K4's arguments without the spill, plus ws:
+// ceil(rays / rays_per_block) recompute slots of 64 x 2048 bf16
+// (uninitialised).
 int rsn_field_backward_v4(const void* mean_cov, const void* g_bands,
                           const void* ipe_consts, const void* d_out,
                           const void* f_out, const void* const* ptrs,
@@ -899,11 +915,12 @@ int rsn_field_backward_v4(const void* mean_cov, const void* g_bands,
             static_cast<float*>(small), static_cast<bf16*>(ws), rays,
             samples_per_ray, rays_per_block, nullptr,
             static_cast<unsigned char*>(stash), tile0, tile1};
-  return launch_backward(field_backward_v4_kernel, K8_SMEM_BYTES, p, a,
+  return launch_backward(field_backward_v4_kernel, K4A_SMEM_BYTES, p, a,
                          stream);
 }
 
-// K8's kernel B on one chunk: records (blocks x tiles of the chunk) at
+// Kernel B (K4's, K5's and K8's) on one chunk: records (blocks x tiles of
+// the chunk) at
 // stash into `slices` fp32 partials of wgrad::PARTIAL_FLOATS (w0..w7, then
 // w_hc's 144 live columns), which it overwrites (accumulate 0: the call's
 // first chunk) or adds to.
@@ -915,7 +932,7 @@ int rsn_wgrad_sm90(const void* stash, void* partial, long long records,
 
 // K17: K8 on 128-row tiles.  ws: ceil(rays / rays_per_block) slots of
 // 128 x 2048 bf16 and dxe as many (128, 128) f32 tiles (both
-// uninitialised); dg and dpk as for K4.
+// uninitialised); dg zeroed, dpk as many zeroed slices of 608640 floats.
 int rsn_field_backward_whole(const void* mean_cov, const void* g_bands,
                              const void* ipe_consts, const void* d_out,
                              const void* f_out, const void* const* ptrs,

@@ -435,11 +435,11 @@ def parse_synthetic_spec(spec: str) -> Dict:
 def load_cameras(dataparser: str, data: str, split: str) -> Cameras:
     """The cameras of a run's dataset split.  Only the synthetic
     dataparser is ported; blender / nerfstudio / instant-ngp come with
-    rsn/data/blender.py (ROADMAP Queue 1 step 9)."""
+    rsn/data/blender.py (ROADMAP Queue 1)."""
     if dataparser != "synthetic":
         raise NotImplementedError(
-            f"dataparser {dataparser!r}: ROADMAP Queue 1 step 9 "
-            "(rsn/data loaders) is not ported yet; only 'synthetic' is")
+            f"dataparser {dataparser!r}: ROADMAP Queue 1: "
+            "rsn/data/blender.py is not ported yet; only 'synthetic' is")
     return make_synthetic_cameras(split=split, **parse_synthetic_spec(data))
 
 
@@ -483,7 +483,7 @@ def load_dataset(parser: str, data: str, split: str, downscale: int = 1,
     nerfstudio and instant-ngp come with rsn/data/blender.py."""
     if parser != "synthetic":
         raise NotImplementedError(
-            f"dataparser {parser!r}: ROADMAP Queue 1 step 9 (rsn/data "
-            "loaders) is not ported yet; only 'synthetic' is")
+            f"dataparser {parser!r}: ROADMAP Queue 1: rsn/data/blender.py "
+            "is not ported yet; only 'synthetic' is")
     return make_synthetic_dataset(split=split,
                                   **parse_synthetic_spec(data))

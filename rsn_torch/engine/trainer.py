@@ -92,7 +92,8 @@ def render_image(field: Field, cameras: Cameras, camera_index: int,
     also carries "mask", the rays that took the reflected passes."""
     if mesh is not None:
         raise NotImplementedError(
-            "multi-device render: ROADMAP Queue 1 step 13 is not ported")
+            "multi-device render: ROADMAP Queue 1: rsn/parallel/mesh.py "
+            "is not ported")
     mcfg = config.pipeline.model
     chunk = rays_per_chunk or mcfg.eval_num_rays_per_chunk
     H, W = cameras.height, cameras.width
@@ -266,12 +267,12 @@ def _check_slice(config: TrainerConfig) -> None:
     """Raise on what the training slice of the port leaves out."""
     if config.num_devices > 1:
         raise NotImplementedError(
-            f"num_devices={config.num_devices}: ROADMAP Queue 1 step 13 "
-            "(data-parallel mesh) is not ported")
+            f"num_devices={config.num_devices}: ROADMAP Queue 1: "
+            "rsn/parallel/mesh.py (data-parallel mesh) is not ported")
     if config.profile_dir:
         raise NotImplementedError(
-            "profile_dir: ROADMAP Queue 1 step 7 (the trainer's profiler "
-            "window) is not ported")
+            "profile_dir: ROADMAP Queue 1: rsn/engine/trainer.py (the "
+            "trainer's profiler window) is not ported")
 
 
 class Trainer:

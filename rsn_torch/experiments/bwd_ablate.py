@@ -65,11 +65,13 @@ def label(mode: str, use_wgrad: bool) -> str:
 def backward_from_acts(packed_v3, hs, x: torch.Tensor, g_bands: torch.Tensor,
                        d_out: torch.Tensor, samples_per_ray: int,
                        mode: str = "full", use_wgrad: bool = True,
-                       mean_cov: torch.Tensor = None):
+                       mean_cov: torch.Tensor = None,
+                       bneck: torch.Tensor = None):
     """The tools' _half after the trunk recompute, from the 8 post-ReLU
     (N, 256) bf16 activations hs and the (N, 128) bf16 encoding x
     -> (dmc (N, 16) or None, dg (R, 512), dpacked (22) or None).
-    mean_cov None: no IPE backward and no layer-0 dgrad (K19)."""
+    mean_cov None: no IPE backward and no layer-0 dgrad (K19).  bneck: the
+    (N, 256) bf16 bottleneck to use (unfolded_tail), else rounded here."""
     ws = packed_v3[:8]
     wh, _, w_emb, _, w_out, _ = packed_v3[16:]
     n, S = x.shape[0], samples_per_ray
@@ -77,7 +79,7 @@ def backward_from_acts(packed_v3, hs, x: torch.Tensor, g_bands: torch.Tensor,
     wgrad = use_wgrad and mode == "full"
     dpk = [None] * len(ff.V3U_SHAPES)
     heads, bneck, attens, mid_pre, hmid, mid = unfolded_tail(
-        packed_v3, hs[-1], g_bands, S)
+        packed_v3, hs[-1], g_bands, S, bneck)
     if mode == "recompute":
         dmc = torch.zeros(n, ff.IN_COLS, device=dev)
         dmc[:, 0] = mid[:, 0] + heads[:, ff.OUT_DENSITY]
@@ -193,7 +195,7 @@ def run(mode: str, use_wgrad: bool, packed_v3, mean_cov: torch.Tensor,
     from rsn_torch.kernels.build import load_library
 
     lib = load_library("experiments_bwd.cu")
-    rpb = ft._rays_per_block(R, device, 1)
+    rpb = ft._rays_per_block(R, device)
     blocks = -(-R // rpb)
     dmc = torch.empty((n, ff.IN_COLS), dtype=F32, device=device)
     dg = torch.zeros((R, 512), dtype=F32, device=device)

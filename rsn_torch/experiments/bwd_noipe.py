@@ -37,12 +37,15 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 
 def run_noipe_plain(packed_v3, xacts: torch.Tensor, g_bands: torch.Tensor,
-                    d_out: torch.Tensor, samples_per_ray: int):
+                    d_out: torch.Tensor, samples_per_ray: int,
+                    bneck: torch.Tensor = None):
     """Plain PyTorch K19: K18's plain full mode after its recompute, on the
-    spilled activations and x -> (dg, dpacked (22))."""
+    spilled activations and x -> (dg, dpacked (22)); bneck as for
+    backward_from_acts."""
     _, dg, dpk = backward_from_acts(packed_v3, ft._split_acts(xacts),
                                     xacts[:, ft.ACTS_COLS:], g_bands, d_out,
-                                    samples_per_ray, "full", True, None)
+                                    samples_per_ray, "full", True, None,
+                                    bneck)
     return dg, dpk
 
 
@@ -58,7 +61,7 @@ def run_noipe(packed_v3, xacts: torch.Tensor, g_bands: torch.Tensor,
     from rsn_torch.kernels.build import load_library
 
     lib = load_library("experiments_bwd.cu")
-    rpb = ft._rays_per_block(R, device, 1)
+    rpb = ft._rays_per_block(R, device)
     blocks = -(-R // rpb)
     dg = torch.zeros((R, 512), dtype=F32, device=device)
     buf = torch.zeros((blocks, PACK_FLOATS), dtype=F32, device=device)

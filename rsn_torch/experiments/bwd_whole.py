@@ -49,7 +49,7 @@ def field_backward_whole(packed, mean_cov: torch.Tensor,
     from rsn_torch.kernels.build import load_library
 
     lib = load_library("field_train.cu")
-    rpb = ft._rays_per_block(R, device, 1)
+    rpb = ft._rays_per_block(R, device)
     blocks = -(-R // rpb)
     dmc = torch.empty((mean_cov.shape[0], ff.IN_COLS), dtype=F32,
                       device=device)

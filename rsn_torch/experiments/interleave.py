@@ -40,15 +40,18 @@ FLOPS_PER_ROW = 2 * (99 * 256 + 3 * 256 * 256 + (99 + 256) * 256
 
 
 def unfolded_tail(packed_v3, h: torch.Tensor, g_bands: torch.Tensor,
-                  samples_per_ray: int):
+                  samples_per_ray: int, bneck: torch.Tensor = None):
     """The tools' _half after the trunk, from its last (N, 256) bf16
     activation h -> (heads (N, 384) f32 with their bias, the bf16
     bottleneck, the 4 band attenuations (N, 1), mid_pre (N, 128) f32, hmid
-    (N, 128) bf16, mid (N, 3) f32)."""
+    (N, 128) bf16, mid (N, 3) f32).  bneck: a given (N, 256) bf16
+    bottleneck in place of the one rounded from heads (a kernel's own, so
+    that the masks of mid_pre > 0 follow the kernel's)."""
     wh, bh, w_emb, b_mid, w_out, b_out = packed_v3[16:]
     n, S = h.shape[0], samples_per_ray
     heads = h.float() @ wh.float() + bh
-    bneck = heads[:, ff.OUT_BOTTLENECK].to(BF16)
+    if bneck is None:
+        bneck = heads[:, ff.OUT_BOTTLENECK].to(BF16)
     rough_raw = heads[:, ff.OUT_ROUGH:ff.OUT_ROUGH + 1]
     rough_sp = torch.logaddexp(rough_raw, torch.zeros_like(rough_raw))
     attens = [torch.exp(-rough_sp * k) for k in ff._BAND_KS]

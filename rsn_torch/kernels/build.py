@@ -116,9 +116,9 @@ def _signatures() -> Dict[str, Dict[str, list]]:
             "rsn_field_forward_v6": [vp, vp, vp, ptrs, vp, vp, ll, i32, i32,
                                      i32, vp],
             "rsn_field_backward_v5": [vp, vp, vp, vp, vp, vp, ptrs, vp, vp,
-                                      vp, ll, i32, i32, vp],
-            "rsn_field_backward_v6": [vp, vp, vp, vp, ptrs, vp, vp, ll, i32,
-                                      i32, vp],
+                                      vp, vp, ll, i32, i32, i32, i32, vp],
+            "rsn_field_backward_v6": [vp, vp, vp, vp, ptrs, vp, vp, vp, ll,
+                                      i32, i32, i32, i32, vp],
             "rsn_field_forward_v4": [vp, vp, vp, ptrs, vp, ll, i32, i32, vp],
             "rsn_field_backward_v4": [vp, vp, vp, vp, vp, ptrs, vp, vp, vp,
                                       vp, vp, ll, i32, i32, i32, i32, vp],

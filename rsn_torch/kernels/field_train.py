@@ -11,11 +11,14 @@ spill_x.
 
 K4 `field_backward_v5` (replaces field_train.py::field_backward_v5): the
 backward from the spill and the forward's stored output -> dmc (N, 16),
-dg (R, 512) and the 20 fp32 gradients of the packed operands.
+dg (R, 512) and the 20 fp32 gradients of the packed operands.  On the
+card a call is a few chunks of two kernels: the body, which stashes each
+tile's weight-gradient operands into a workspace (kernel A), and their
+contraction by wgmma (kernel B, rsn_torch/kernels/wgrad_sm90.py).
 
 K5 `field_backward_v6` (replaces field_train.py::field_backward_v6): K4
 without dmc (the caller's promise that the mean/cov cotangent is dead),
-x read from the spill.
+x read from the spill; the same two kernels on the same schedule.
 
 K7 `field_forward_v4` (replaces field_pallas.py::field_forward_v4): K3
 with the normals and without the spill, (N, 24) bf16.  Its sibling
@@ -26,10 +29,8 @@ bit for bit.
 
 K8 `field_backward_v4` (replaces field_train.py::field_backward_v4): K4
 with the trunk activations recomputed in the kernel instead of read from
-a spill -> dmc, dg and the 20 gradients.  On the card a call is a few
-chunks of two kernels: K4's body, which stashes each tile's weight-
-gradient operands into a workspace (kernel A), and their contraction by
-wgmma (kernel B, rsn_torch/kernels/wgrad_sm90.py).
+a spill -> dmc, dg and the 20 gradients; K4's two kernels and schedule
+(stash_backward), so it equals K4 on K3's spill bit for bit.
 
 K10 `field_forward_v5` (replaces field_pallas.py::field_forward_v5): K7
 (want_normals) or K1 at the train width on another schedule, the next
@@ -82,14 +83,14 @@ N_PACKED = 20
 # operands in order (field_train.cu PACK_FLOATS)
 PACKED_SHAPES = tuple(ff.V3_SHAPES)
 PACK_FLOATS = sum(r * c for r, c in PACKED_SHAPES)
-# K8's per-block fp32 slice (field_train.cu GradSlice<true>): b0..b7,
+# kernel A's per-block fp32 slice (field_train.cu GradSlice<true>): b0..b7,
 # b_hc, w_out's 3 live columns (128 x 3), b_out (3, padded to 4)
 SMALL_B, SMALL_BHC = 0, TRUNK_LAYERS * TRUNK_WIDTH
 SMALL_WOUT = SMALL_BHC + TRUNK_WIDTH
 SMALL_BOUT = SMALL_WOUT + 128 * 3
 SMALL_FLOATS = SMALL_BOUT + 4  # 2692
-# K8's chunk: the most tiles of every block whose workspace records fit in
-# what the first design's per-block fp32 slice took (2,434,560 bytes)
+# a chunk of kernel A: the most tiles of every block whose workspace records
+# fit in what the first design's per-block fp32 slice took (2,434,560 bytes)
 TILES_PER_CHUNK = PACK_FLOATS * 4 // wg.REC_BYTES  # 4
 
 
@@ -329,15 +330,16 @@ def field_backward_v4_plain(packed, mean_cov, g_bands, d_out, f_out,
                            d_out, f_out, samples_per_ray, mean_cov)
 
 
-# ---- K8's schedule on the card, and its two phases in plain PyTorch ---------
+# ---- the stash schedule on the card, and the two phases in plain PyTorch ---
 
 @dataclasses.dataclass(frozen=True)
-class K8Plan:
-    """K8 on the card: K4's partition (rays_per_block whole rays per block,
-    one block per SM), each block's run walked in 64-row tiles, the tiles
-    cut into chunks [t0, t1) of every block's run; per chunk kernel A
-    stashes blocks x (t1 - t0) records and kernel B contracts them over
-    `slices` slices."""
+class StashPlan:
+    """K4, K5 and K8 on the card: K4's partition (rays_per_block whole rays
+    per block, one block per SM), each block's run walked in 64-row tiles,
+    the tiles cut into chunks [t0, t1) of every block's run; per chunk
+    kernel A stashes blocks x (t1 - t0) records and kernel B contracts them
+    over `slices` slices.  recompute: K8's route, whose kernel A recomputes
+    each tile's trunk into a slot per block (K4 and K5 read K3's spill)."""
     rays: int
     samples_per_ray: int
     rays_per_block: int
@@ -345,6 +347,7 @@ class K8Plan:
     tiles: int  # a full block's tiles
     chunks: Tuple[Tuple[int, int], ...]
     slices: int
+    recompute: bool = True
 
     def records(self, chunk) -> List[Tuple[int, int, int, int]]:
         """The chunk's records in workspace order: (block, tile, first row,
@@ -360,29 +363,33 @@ class K8Plan:
         return out
 
     def scratch_bytes(self) -> int:
-        """K8's scratch on the card: the largest chunk's workspace, the
-        recompute slots, the compact slices and the partials."""
+        """A call's scratch on the card: the largest chunk's workspace, the
+        recompute slots (K8 only), the compact slices and the partials."""
         t0, t1 = self.chunks[0]
-        return (self.blocks * (t1 - t0) * wg.REC_BYTES
-                + self.blocks * TILE_ROWS * ACTS_COLS * 2
+        slots = self.blocks * TILE_ROWS * ACTS_COLS * 2 if self.recompute \
+            else 0
+        return (self.blocks * (t1 - t0) * wg.REC_BYTES + slots
                 + self.blocks * SMALL_FLOATS * 4
                 + self.slices * wg.PARTIAL_FLOATS * 4)
 
 
-def k8_plan(rays: int, samples_per_ray: int, sms: int) -> K8Plan:
-    """K8's schedule on a card of `sms` SMs (K4's rays per block at one
-    block per SM; chunks of TILES_PER_CHUNK tiles)."""
+def stash_plan(rays: int, samples_per_ray: int, sms: int,
+               recompute: bool = True) -> StashPlan:
+    """The schedule of K8 (recompute) or of K4 and K5 on a card of `sms`
+    SMs (K4's rays per block at one block per SM; chunks of
+    TILES_PER_CHUNK tiles)."""
     S = int(samples_per_ray)
     rpb = _per_block(rays, sms)
     tiles = -(-(rpb * S) // TILE_ROWS)
     chunks = tuple((t0, min(tiles, t0 + TILES_PER_CHUNK))
                    for t0 in range(0, tiles, TILES_PER_CHUNK))
     blocks = -(-rays // rpb)
-    return K8Plan(rays, S, rpb, blocks, tiles, chunks,
-                  wg.slices_for(sms, blocks * (chunks[0][1] - chunks[0][0])))
+    return StashPlan(rays, S, rpb, blocks, tiles, chunks,
+                     wg.slices_for(sms, blocks * (chunks[0][1] - chunks[0][0])),
+                     bool(recompute))
 
 
-def stash_chunk_plain(plan: K8Plan, chunk, x, hs, ops) -> torch.Tensor:
+def stash_chunk_plain(plan: StashPlan, chunk, x, hs, ops) -> torch.Tensor:
     """Plain kernel A's stash: the chunk's records from the rows' operands
     (x, hs, and _backward_plain's ops), rows past a run's end zero
     -> (records, wg.REC_ELEMS) bf16."""
@@ -406,26 +413,54 @@ def _with_weights(dpk, w) -> Tuple[torch.Tensor, ...]:
     return tuple(w[:8]) + tuple(dpk[8:16]) + (w[8],) + tuple(dpk[17:20])
 
 
-def field_backward_v4_chunked_plain(packed, mean_cov, g_bands, d_out, f_out,
-                                    samples_per_ray, sms: int):
-    """Plain K8 in its two phases on a card of `sms` SMs: the plain
-    backward's per-row values (dmc, dg, the biases and the mid head's
-    gradients as field_backward_v4_plain's), its weight-gradient operands
-    stashed per chunk in kernel A's record layout, and plain kernel B's
-    contraction of each chunk (its slices, the P partials summed as the
-    wrapper sums them)."""
-    S = int(samples_per_ray)
-    plan = k8_plan(mean_cov.shape[0] // S, S, sms)
-    x = ff.ipe_x(mean_cov)
-    hs = _trunk_acts(packed[:8], packed[8:16], x)
+def _two_phases_plain(packed, g_bands, hs, x, d_out, f_out, S: int, mean_cov,
+                      sms: int, recompute: bool):
+    """The plain backward's per-row values (dmc, dg, the biases and the
+    mid head's gradients), its weight-gradient operands stashed per chunk
+    of the card's schedule in kernel A's record layout, and plain kernel
+    B's contraction of each chunk (its slices, the P partials summed as
+    the wrappers sum them) -> (dmc or None, dg, the 20 gradients)."""
+    plan = stash_plan(d_out.shape[0] // S, S, sms, recompute)
     ops = {}
     dmc, dg, dpk = _backward_plain(packed[:N_PACKED], g_bands, hs, x, d_out,
                                    f_out, S, mean_cov, ops)
     partial = torch.empty((plan.slices, wg.PARTIAL_FLOATS), dtype=F32)
     for c, chunk in enumerate(plan.chunks):
         wg.contract_plain(stash_chunk_plain(plan, chunk, x, hs, ops),
-                            partial, accumulate=c > 0)
+                          partial, accumulate=c > 0)
     return dmc, dg, _with_weights(dpk, wg.weight_grads(partial))
+
+
+def field_backward_v4_chunked_plain(packed, mean_cov, g_bands, d_out, f_out,
+                                    samples_per_ray, sms: int):
+    """Plain K8 in its two phases on a card of `sms` SMs: the trunk
+    recomputed from mean_cov, then _two_phases_plain -> (dmc, dg, the 20
+    gradients)."""
+    x = ff.ipe_x(mean_cov)
+    return _two_phases_plain(packed, g_bands,
+                             _trunk_acts(packed[:8], packed[8:16], x), x,
+                             d_out, f_out, int(samples_per_ray), mean_cov,
+                             sms, True)
+
+
+def field_backward_v5_chunked_plain(packed, mean_cov, g_bands, acts, d_out,
+                                    f_out, samples_per_ray, sms: int):
+    """Plain K4 in its two phases on a card of `sms` SMs, on the spill ->
+    (dmc, dg, the 20 gradients), field_backward_v5_plain's per-row values
+    with the weight matrices summed as kernel B sums them."""
+    return _two_phases_plain(packed, g_bands, _split_acts(acts),
+                             ff.ipe_x(mean_cov), d_out, f_out,
+                             int(samples_per_ray), mean_cov, sms, False)
+
+
+def field_backward_v6_chunked_plain(packed, g_bands, xacts, d_out, f_out,
+                                    samples_per_ray, sms: int):
+    """Plain K5 in its two phases on a card of `sms` SMs, x read from the
+    spill -> (dg, the 20 gradients)."""
+    _, dg, dpk = _two_phases_plain(packed, g_bands, _split_acts(xacts),
+                                   xacts[:, ACTS_COLS:], d_out, f_out,
+                                   int(samples_per_ray), None, sms, False)
+    return dg, dpk
 
 
 # ---- wrappers --------------------------------------------------------------
@@ -454,9 +489,9 @@ def _per_block(rays: int, blocks: int) -> int:
     return max(1, -(-rays // blocks))
 
 
-def _rays_per_block(rays: int, device, blocks_per_sm: int) -> int:
-    """Whole rays per backward block: about blocks_per_sm blocks per SM."""
-    return _per_block(rays, _sm_count(device) * blocks_per_sm)
+def _rays_per_block(rays: int, device) -> int:
+    """Whole rays per backward block at one block per SM."""
+    return _per_block(rays, _sm_count(device))
 
 
 def _packed_views(flat: torch.Tensor, shapes=PACKED_SHAPES
@@ -585,7 +620,12 @@ def field_backward_v5(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
                       acts: torch.Tensor, d_out: torch.Tensor,
                       f_out: torch.Tensor, samples_per_ray: int):
     """K4 -> (dmc (N, 16) f32, dg (R, 512) f32, dpacked: 20 fp32 tensors
-    shaped like the packed operands)."""
+    shaped like the packed operands).  On the card, K8's schedule without
+    the recompute (stash_backward); at the default step's pass 4 (512 rays
+    x 64 samples on 132 SMs: 128 blocks of 4 tiles, one chunk, P = 7) its
+    scratch is 286,261,248 bytes of workspace + 1,378,304 of compact
+    slices + 15,712,256 of partials = 303,351,808 (the first design's
+    slices: 311,623,680)."""
     device = mean_cov.device
     n = mean_cov.shape[0]
     S = int(samples_per_ray)
@@ -600,30 +640,18 @@ def field_backward_v5(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
                                        d_out, f_out, S)
     if device.type != "cuda":
         raise ValueError(f"field_backward_v5: unsupported device {device}")
-    from rsn_torch.kernels.build import load_library
-
-    lib = load_library("field_train.cu")
-    rpb = _rays_per_block(R, device, 1)
-    blocks = -(-R // rpb)
-    dmc = torch.empty((n, IN_COLS), dtype=F32, device=device)
-    dg = torch.zeros((R, 512), dtype=F32, device=device)
-    buf = torch.zeros((blocks, PACK_FLOATS), dtype=F32, device=device)
-    with torch.cuda.device(device):
-        rc = lib.rsn_field_backward_v5(
-            mean_cov.data_ptr(), g_bands.data_ptr(),
-            _ipe_consts(device).data_ptr(), acts.data_ptr(),
-            d_out.data_ptr(), f_out.data_ptr(), _ptr_array(packed),
-            dmc.data_ptr(), dg.data_ptr(), buf.data_ptr(), R, S, rpb,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(lib, rc, "field_backward_v5")
-    LAUNCHES["field_backward_v5"] += 1
-    return dmc, dg, _unpack_slices(buf)
+    return stash_backward("field_backward_v5",
+                          (packed, mean_cov, g_bands, acts, d_out, f_out), S)
 
 
 def field_backward_v6(packed, g_bands: torch.Tensor, xacts: torch.Tensor,
                       d_out: torch.Tensor, f_out: torch.Tensor,
                       samples_per_ray: int):
-    """K5 -> (dg (R, 512) f32, dpacked: 20 fp32 tensors)."""
+    """K5 -> (dg (R, 512) f32, dpacked: 20 fp32 tensors).  On the card,
+    K4's schedule (stash_backward); at the default step's pass 2 (1,024
+    rays x 128 samples: 128 blocks of 16 tiles, 4 chunks, P = 7) its
+    scratch is 303,351,808 bytes (the first design's slices, at two blocks
+    per SM: 623,247,360)."""
     device = xacts.device
     n = xacts.shape[0]
     S = int(samples_per_ray)
@@ -637,22 +665,9 @@ def field_backward_v6(packed, g_bands: torch.Tensor, xacts: torch.Tensor,
                                        f_out, S)
     if device.type != "cuda":
         raise ValueError(f"field_backward_v6: unsupported device {device}")
-    from rsn_torch.kernels.build import load_library
-
-    lib = load_library("field_train.cu")
-    rpb = _rays_per_block(R, device, 2)
-    blocks = -(-R // rpb)
-    dg = torch.zeros((R, 512), dtype=F32, device=device)
-    buf = torch.zeros((blocks, PACK_FLOATS), dtype=F32, device=device)
-    with torch.cuda.device(device):
-        rc = lib.rsn_field_backward_v6(
-            g_bands.data_ptr(), xacts.data_ptr(), d_out.data_ptr(),
-            f_out.data_ptr(), _ptr_array(packed), dg.data_ptr(),
-            buf.data_ptr(), R, S, rpb,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(lib, rc, "field_backward_v6")
-    LAUNCHES["field_backward_v6"] += 1
-    return dg, _unpack_slices(buf)
+    _, dg, dpk = stash_backward("field_backward_v6",
+                                (packed, g_bands, xacts, d_out, f_out), S)
+    return dg, dpk
 
 
 def _check_recompute(packed, mean_cov, g_bands, d_out, f_out, S: int,
@@ -678,7 +693,7 @@ def _recompute_operands(packed, mean_cov, g_bands, d_out, f_out, R: int):
     K4's partition; at one block per SM the grid fits K13's cooperative
     launch."""
     device = mean_cov.device
-    rpb = _rays_per_block(R, device, 1)
+    rpb = _rays_per_block(R, device)
     blocks = -(-R // rpb)
     dmc = torch.empty((mean_cov.shape[0], IN_COLS), dtype=F32, device=device)
     dg = torch.zeros((R, 512), dtype=F32, device=device)
@@ -693,59 +708,84 @@ def _recompute_operands(packed, mean_cov, g_bands, d_out, f_out, R: int):
     return rpb, dmc, dg, buf, ws, args
 
 
-class K8Scratch(NamedTuple):
-    """One K8 call's outputs and scratch on the card."""
-    dmc: torch.Tensor    # (N, 16) f32
+class StashScratch(NamedTuple):
+    """One K4, K5 or K8 call's outputs and scratch on the card."""
+    dmc: torch.Tensor    # (N, 16) f32; K5: None
     dg: torch.Tensor     # (R, 512) f32, zeroed
     small: torch.Tensor  # (blocks, SMALL_FLOATS) f32 compact slices, zeroed
-    slots: torch.Tensor  # (blocks, 64, ACTS_COLS) bf16 recompute slots
+    slots: torch.Tensor  # K8: (blocks, 64, ACTS_COLS) bf16 recompute slots
     stash: torch.Tensor  # (blocks x the first chunk's tiles, REC_ELEMS) bf16
 
 
-def k8_scratch(plan: K8Plan, device) -> K8Scratch:
-    """A call's K8Scratch, its workspace sized for the largest chunk."""
+def stash_scratch(plan: StashPlan, device, want_dmc: bool = True
+                  ) -> StashScratch:
+    """A call's StashScratch, its workspace sized for the largest chunk;
+    the recompute slots only for K8's plan, dmc only with want_dmc."""
     per = plan.chunks[0][1] - plan.chunks[0][0]
-    return K8Scratch(
-        torch.empty((plan.rays * plan.samples_per_ray, IN_COLS), dtype=F32,
-                    device=device),
+    n = plan.rays * plan.samples_per_ray
+    return StashScratch(
+        torch.empty((n, IN_COLS), dtype=F32, device=device)
+        if want_dmc else None,
         torch.zeros((plan.rays, 512), dtype=F32, device=device),
         torch.zeros((plan.blocks, SMALL_FLOATS), dtype=F32, device=device),
         torch.empty((plan.blocks, TILE_ROWS, ACTS_COLS), dtype=BF16,
-                    device=device),
+                    device=device) if plan.recompute else None,
         torch.empty((plan.blocks * per, wg.REC_ELEMS), dtype=BF16,
                     device=device))
 
 
-def k8_kernel_a(lib, plan: K8Plan, chunk, inputs, sc: K8Scratch
-                ) -> torch.Tensor:
-    """Kernel A of `lib` (field_train.cu as load_library builds it, or
-    ablate_k8.py's builds of it) on chunk (t0, t1) of `plan`, on checked
-    inputs (packed, mean_cov, g_bands, d_out, f_out), into `sc` -> the
-    chunk's workspace, a view of sc.stash.  Counts its launch."""
-    packed, mean_cov, g_bands, d_out, f_out = inputs
+# the kernels that run as kernel A + kernel B, and whether each computes dmc
+STASH_KERNELS = {"field_backward_v4": True, "field_backward_v5": True,
+                 "field_backward_v6": False}
+
+
+def kernel_a(lib, name: str, plan: StashPlan, chunk, inputs,
+             sc: StashScratch) -> torch.Tensor:
+    """Kernel A of `name` (K8 field_backward_v4, K4 field_backward_v5 or
+    K5 field_backward_v6) from `lib` (field_train.cu as load_library
+    builds it, or ablate_k8.py's builds of it) on chunk (t0, t1) of
+    `plan`, on checked inputs (the wrapper's arguments without
+    samples_per_ray), into `sc` -> the chunk's workspace, a view of
+    sc.stash.  Counts its launch."""
     t0, t1 = chunk
     ws = sc.stash[:plan.blocks * (t1 - t0)]
-    device = mean_cov.device
+    packed, d_out, f_out = inputs[0], inputs[-2], inputs[-1]
+    device = d_out.device
+    tail = (sc.dg.data_ptr(), sc.small.data_ptr())
+    sched = (plan.rays, plan.samples_per_ray, plan.rays_per_block, t0, t1,
+             torch.cuda.current_stream(device).cuda_stream)
     with torch.cuda.device(device):
-        rc = lib.rsn_field_backward_v4(
-            mean_cov.data_ptr(), g_bands.data_ptr(),
-            _ipe_consts(device).data_ptr(), d_out.data_ptr(),
-            f_out.data_ptr(), _ptr_array(packed), sc.dmc.data_ptr(),
-            sc.dg.data_ptr(), sc.small.data_ptr(), sc.slots.data_ptr(),
-            ws.data_ptr(), plan.rays, plan.samples_per_ray,
-            plan.rays_per_block, t0, t1,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(lib, rc, "field_backward_v4")
-    LAUNCHES["field_backward_v4"] += 1
+        if name == "field_backward_v6":
+            g_bands, xacts = inputs[1:3]
+            rc = lib.rsn_field_backward_v6(
+                g_bands.data_ptr(), xacts.data_ptr(), d_out.data_ptr(),
+                f_out.data_ptr(), _ptr_array(packed), *tail, ws.data_ptr(),
+                *sched)
+        else:
+            mean_cov, g_bands = inputs[1:3]
+            head = (mean_cov.data_ptr(), g_bands.data_ptr(),
+                    _ipe_consts(device).data_ptr())
+            if name == "field_backward_v5":
+                rc = lib.rsn_field_backward_v5(
+                    *head, inputs[3].data_ptr(), d_out.data_ptr(),
+                    f_out.data_ptr(), _ptr_array(packed), sc.dmc.data_ptr(),
+                    *tail, ws.data_ptr(), *sched)
+            else:
+                rc = lib.rsn_field_backward_v4(
+                    *head, d_out.data_ptr(), f_out.data_ptr(),
+                    _ptr_array(packed), sc.dmc.data_ptr(), *tail,
+                    sc.slots.data_ptr(), ws.data_ptr(), *sched)
+    _raise_on_error(lib, rc, name)
+    LAUNCHES[name] += 1
     return ws
 
 
-def k8_grads(small: torch.Tensor, partial: torch.Tensor
-             ) -> Tuple[torch.Tensor, ...]:
-    """K8's 20 packed-operand gradients: the compact slices summed over the
-    blocks (torch.sum over dim 0, as K4's slices: the same order per
-    column, so the biases and the mid head's gradients equal K4's bit for
-    bit) and the weight matrices from the partials."""
+def stash_grads(small: torch.Tensor, partial: torch.Tensor
+                ) -> Tuple[torch.Tensor, ...]:
+    """The 20 packed-operand gradients of a K4, K5 or K8 call: the compact
+    slices summed over the blocks (torch.sum over dim 0, as the first
+    design's slices: the same order per column) and the weight matrices
+    from the partials."""
     tot = small.sum(dim=0)
     biases = [tot[SMALL_B + i * TRUNK_WIDTH:SMALL_B + (i + 1) * TRUNK_WIDTH]
               .view(1, TRUNK_WIDTH) for i in range(TRUNK_LAYERS)]
@@ -758,46 +798,59 @@ def k8_grads(small: torch.Tensor, partial: torch.Tensor
     return _with_weights(dpk, wg.weight_grads(partial))
 
 
+def stash_backward(name: str, inputs, samples_per_ray: int):
+    """K8, K4 or K5 (`name`, a key of STASH_KERNELS) on the card, on checked
+    CUDA inputs (the wrapper's arguments without samples_per_ray) -> (dmc
+    or None, dg, the 20 gradients).
+
+    stash_plan's schedule: K4's partition, each block's run of 64-row
+    tiles cut into chunks of TILES_PER_CHUNK = 4 tiles of every block, the
+    most whose records (559,104 bytes each) fit in what the first design's
+    per-block fp32 slice took (608,640 floats).  Per chunk, kernel A (the
+    body: dmc, dg, the biases and the mid head's gradients as in the first
+    design; each tile's weight-gradient operands to the chunk's workspace)
+    and kernel B (their wgmma contraction into P fp32 partials); each
+    counts one launch per chunk.  The three kernels share the schedule, so
+    K4 equals K8 and K5 equals K4 (dg, the 20 gradients) bit for bit."""
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_train.cu")
+    f_out = inputs[-1]
+    plan = stash_plan(f_out.shape[0] // samples_per_ray, samples_per_ray,
+                      _sm_count(f_out.device), name == "field_backward_v4")
+    device = f_out.device
+    sc = stash_scratch(plan, device, STASH_KERNELS[name])
+    partial = torch.empty((plan.slices, wg.PARTIAL_FLOATS), dtype=F32,
+                          device=device)
+    for c, chunk in enumerate(plan.chunks):
+        wg.contract(kernel_a(lib, name, plan, chunk, inputs, sc), partial,
+                    accumulate=c > 0)
+    dmc, dg, small = sc.dmc, sc.dg, sc.small
+    del sc  # the sums below need none of the scratch
+    return dmc, dg, stash_grads(small, partial)
+
+
 def field_backward_v4(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
                       d_out: torch.Tensor, f_out: torch.Tensor,
                       samples_per_ray: int):
     """K8 -> (dmc (N, 16) f32, dg (R, 512) f32, dpacked: 20 fp32 tensors),
     K4's results with the trunk recomputed from mean_cov.
 
-    On the card (k8_plan): K4's partition, each block's run of 64-row tiles
-    cut into chunks of TILES_PER_CHUNK = 4 tiles of every block, the most
-    whose records (559,104 bytes each) fit in what the first design's
-    per-block fp32 slice took (608,640 floats).  Per chunk, kernel A (K4's
-    body, recomputing the trunk into each block's slot; dmc, dg, the biases
-    and the mid head's gradients as before; each tile's weight-gradient
-    operands to the chunk's workspace) and kernel B (their wgmma
-    contraction into P fp32 partials); each counts one launch per chunk.
-    Scratch per call
-    (K8Plan.scratch_bytes): at the camera-on step's pass 2 (1,024 rays x
-    128 samples on 132 SMs: 128 blocks of 16 tiles, 4 chunks, P = 7)
-    286,261,248 bytes of workspace + 33,554,432 of slots + 1,378,304 of
-    compact slices + 15,712,256 of partials = 336,906,240 (the first
-    design: 311,623,680 of slices + 33,554,432 of slots = 345,178,112)."""
+    On the card, stash_backward with K8's kernel A recomputing the trunk
+    into each block's slot.  Scratch per call (StashPlan.scratch_bytes):
+    at the camera-on step's pass 2 (1,024 rays x 128 samples on 132 SMs:
+    128 blocks of 16 tiles, 4 chunks, P = 7) 286,261,248 bytes of
+    workspace + 33,554,432 of slots + 1,378,304 of compact slices +
+    15,712,256 of partials = 336,906,240 (the first design: 311,623,680
+    of slices + 33,554,432 of slots = 345,178,112)."""
     S = int(samples_per_ray)
     _check_recompute(packed, mean_cov, g_bands, d_out, f_out, S,
                      "field_backward_v4")
     if mean_cov.device.type == "cpu":
         return field_backward_v4_plain(packed, mean_cov, g_bands, d_out,
                                        f_out, S)
-    from rsn_torch.kernels.build import load_library
-
-    lib = load_library("field_train.cu")
-    plan = k8_plan(mean_cov.shape[0] // S, S, _sm_count(mean_cov.device))
-    sc = k8_scratch(plan, mean_cov.device)
-    partial = torch.empty((plan.slices, wg.PARTIAL_FLOATS), dtype=F32,
-                          device=mean_cov.device)
-    inputs = (packed, mean_cov, g_bands, d_out, f_out)
-    for c, chunk in enumerate(plan.chunks):
-        wg.contract(k8_kernel_a(lib, plan, chunk, inputs, sc), partial,
-                    accumulate=c > 0)
-    dmc, dg, small = sc.dmc, sc.dg, sc.small
-    del sc  # the sums below need none of K8's scratch
-    return dmc, dg, k8_grads(small, partial)
+    return stash_backward("field_backward_v4",
+                          (packed, mean_cov, g_bands, d_out, f_out), S)
 
 
 def field_backward_v3(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,

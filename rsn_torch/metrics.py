@@ -2,7 +2,7 @@
 the reference's stack, reflect_sampling_nerf_model.py:130-132).
 
 Images are (H, W, C) float tensors in [0, data_range], on any device.
-LPIPS is not ported yet (ROADMAP Queue 1 step 2).
+LPIPS is not ported yet (ROADMAP Queue 1: rsn/lpips.py).
 """
 from __future__ import annotations
 

@@ -264,3 +264,32 @@ def test_backward_experiments_raise_on_bad_inputs(setup):
         bwd_whole.field_backward_whole(p1, mc[:-1], g, d24[:-1], d24[:-1], S)
     with pytest.raises(ValueError, match="operands"):
         bwd_whole.field_backward_whole(p3, mc, g, d24, d24, S)
+
+
+def test_k18_k19_plain_take_a_given_bottleneck(setup, spill):
+    """The plain K18 (on given activations) and K19 fed a bottleneck: K12's
+    plain heads product on the spill's x (what chip_smoke.py feeds them,
+    from the card's K12) gives their own results exactly; a bottleneck
+    moved by one bf16 ulp where it is live changes dg, so the given one is
+    the one used."""
+    s = setup
+    p3 = ff.pack_params_v3(s["field"])
+    xacts = _bf16(spill[1])
+    x = xacts[:, tft.ACTS_COLS:].contiguous()
+    hs = tft._split_acts(xacts)
+    bneck = ff.field_forward(p3[:18], x)[:, ff.OUT_BOTTLENECK]
+    args = (p3, hs, x, t(s["g"]), _bf16(s["d_out"]), S, "full", True,
+            t(s["mc"]))
+    own = bwd_ablate.backward_from_acts(*args)
+    fed = bwd_ablate.backward_from_acts(*args, bneck)
+    assert all(torch.equal(a, b) for a, b in zip(own[:2], fed[:2]))
+    assert all(torch.equal(a, b) for a, b in zip(own[2], fed[2]))
+    k19 = bwd_noipe.run_noipe_plain(p3, xacts, t(s["g"]), _bf16(s["d_out"]),
+                                    S)
+    k19_fed = bwd_noipe.run_noipe_plain(p3, xacts, t(s["g"]),
+                                        _bf16(s["d_out"]), S, bneck)
+    assert torch.equal(k19[0], k19_fed[0])
+    assert all(torch.equal(a, b) for a, b in zip(k19[1], k19_fed[1]))
+    nudged = (bneck.float() * (1 + 2.0 ** -7)).to(torch.bfloat16)
+    assert not torch.equal(
+        bwd_ablate.backward_from_acts(*args, nudged)[1], own[1])

@@ -5,7 +5,8 @@ odd samples per ray, every flag pair of the
 training forward, K9 over many tiles per block, K7 / K8 at ragged
 shapes, K10-K13 at ragged shapes and over many tiles per block), the
 launch counters (one train step on each route, camera off and on, the
-field API), determinism, the alignment checks, small renders (the default
+field API), K4 == K8 and K5 == K4 on K3's spill over several chunks,
+determinism, the alignment checks, small renders (the default
 method and the proposal preset) on both devices, the recompute route's
 smaller peak memory, and the tools' experiments (K14-K16) against their
 plain versions at ragged shapes, with v3i == v3u and v3F == v3L bit for
@@ -233,11 +234,14 @@ def test_train_launch_counts_and_determinism(field):
     tft.field_backward_v5(p3, mc, g, acts, d_out, out, 64)
     tft.field_backward_v6_plain(p3, g, xacts, d_out, out, 64)
     torch.cuda.synchronize()
+    # one chunk per call (one ray of one tile per block): kernels A and B
+    # once each
     assert {k: ff.LAUNCHES[k] for k in ("field_forward_v6",
                                         "field_backward_v5",
-                                        "field_backward_v6")} == {
+                                        "field_backward_v6",
+                                        "field_backward_v4_wgrad")} == {
         "field_forward_v6": 2, "field_backward_v5": 1,
-        "field_backward_v6": 2}
+        "field_backward_v6": 2, "field_backward_v4_wgrad": 3}
     for a, b in zip(runs[0][1], runs[1][1]):  # no float atomics
         assert torch.equal(a, b)
 
@@ -361,27 +365,13 @@ def _same(a, b):
             and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
 
 
-# K8 against K4 on K3's spill, per output of (dmc, dg, the 20 gradients):
-# (name, index, tolerance of the tensor's max; 0: bit for bit).  The
-# per-row values and every sum the body still takes in its tile loop
-# (dmc, dg, the biases, the mid head) keep their bits; the weight
-# matrices are kernel B's sums, over the rows in another fp32 order.
-K8_VS_K4 = ((("dmc", 0, 0.0), ("dg", 1, 0.0))
-            + tuple((f"b{i}", 10 + i, 0.0) for i in range(8))
-            + (("b_hc", 19, 0.0), ("w_out", 20, 0.0), ("b_out", 21, 0.0))
-            + tuple((f"w{i}", 2 + i, 1e-4) for i in range(8))
-            + (("w_hc", 18, 1e-4),))
-
-
 def _k8_matches_k4(k8, k4):
+    """K8 equals K4 on K3's spill on dmc, dg and the 20 gradients, bit for
+    bit: one schedule, the same operands, the same sums."""
     flat = lambda res: [res[0], res[1], *res[2]]
-    for name, i, tol in K8_VS_K4:
-        got, ref = flat(k8)[i], flat(k4)[i]
-        assert got.shape == ref.shape, name
-        if tol == 0.0:
-            assert torch.equal(got, ref), name
-        else:
-            assert _rel_err(got, ref) <= tol, name
+    for i, (got, ref) in enumerate(zip(flat(k8), flat(k4))):
+        assert got.shape == ref.shape, i
+        assert torch.equal(got, ref), i
 
 
 # (301, 100) and (1030, 128) take K8 over several chunks on 132 SMs: a
@@ -391,11 +381,10 @@ def _k8_matches_k4(k8, k4):
                                  (33, 128), (301, 100), (1030, 128)])
 def test_recompute_kernels_match_plain_versions(field, R, S):
     """K7 and K1 at the train width equal K3's output bit for bit and
-    agree with their plain versions; K8 equals K4 on K3's spill as
-    K8_VS_K4 says (dmc, dg, the biases and the mid head bit for bit, the
-    weight matrices within 1e-4 of each max), agrees with the plain K4 on
-    that spill within ATOL and with its own plain version (which
-    recomputes the trunk) within K8_TOL, and gives the same bits twice."""
+    agree with their plain versions; K8 equals K4 on K3's spill bit for
+    bit (dmc, dg, all 20 gradients), agrees with the plain K4 on that
+    spill within ATOL and with its own plain version (which recomputes the
+    trunk) within K8_TOL, and gives the same bits twice."""
     mc, dirs = _inputs(R, S, seed=R + S)
     g = ff.mid_g_bands(field, dirs)
     p3 = ff.pack_params_v3f(field)
@@ -457,39 +446,85 @@ def _tiny_trainer(tmp_path, camera: bool, acts: bool):
     (False, True, {"field_forward_v6": 4, "field_backward_v5": 2,
                    "field_backward_v6": 2}),
     (False, False, {"field_forward_v4": 2, "field_forward_v3_train": 2,
-                    "k8 calls": 4}),
+                    "field_backward_v4": 4}),
     (True, True, {"field_forward_v6": 4, "field_backward_v5": 8}),
     (True, False, {"field_forward_v4": 2, "field_forward_v3_train": 2,
-                   "k8 calls": 8}),
+                   "field_backward_v4": 8}),
 ])
 def test_train_step_launches_per_route(field, tmp_path, monkeypatch, camera,
                                        acts, want):
     """The launches of one default-method train step on each route, with
-    the camera optimizer off and on (two backward passes); on the
-    recompute route K8's kernels A and B each launch once per chunk of
-    each K8 call's k8_plan."""
+    the camera optimizer off and on (two backward passes): `want` gives
+    the forwards' launches and the backward calls; kernel A of K4, K5 and
+    K8 launches once per chunk of each call's stash_plan, and kernel B
+    once per chunk of all three."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    real, chunks = tft.field_backward_v4, []
+    chunks = {k: [] for k in tft.STASH_KERNELS}
 
-    def k8(packed, mc, g, d_out, f_out, S):
-        chunks.append(len(tft.k8_plan(g.shape[0], S, sms).chunks))
-        return real(packed, mc, g, d_out, f_out, S)
+    def recording(name):
+        real = getattr(tft, name)
 
-    monkeypatch.setattr(tft, "field_backward_v4", k8)
+        def fn(*args):
+            g = args[1] if name == "field_backward_v6" else args[2]
+            chunks[name].append(len(tft.stash_plan(g.shape[0], args[-1],
+                                                   sms).chunks))
+            return real(*args)
+        return fn
+
+    for name in tft.STASH_KERNELS:
+        monkeypatch.setattr(tft, name, recording(name))
     tr = _tiny_trainer(tmp_path, camera, acts)
     ff.reset_launch_counts()
     tr.train_step()
     torch.cuda.synchronize()
     got = {k: v for k, v in ff.LAUNCHES.items() if v}
     want = dict(want)
-    calls = want.pop("k8 calls", 0)
-    assert len(chunks) == calls
-    if calls:
-        want["field_backward_v4"] = want["field_backward_v4_wgrad"] = \
-            sum(chunks)
+    for name in tft.STASH_KERNELS:
+        assert len(chunks[name]) == want.pop(name, 0), name
+        if chunks[name]:
+            want[name] = sum(chunks[name])
+    want["field_backward_v4_wgrad"] = sum(map(sum, chunks.values()))
     assert got == want
     if camera:
         assert torch.isfinite(tr.camera).all() and tr.camera.abs().max() > 0
+
+
+# (301, 100) and (1030, 128) take the spill route's backward over several
+# chunks on 132 SMs: a short last chunk, tile0 > 0, and a last block whose
+# run ends chunks early (its records zeroed)
+@pytest.mark.parametrize("R,S", [(1, 1), (5, 29), (33, 128), (301, 100),
+                                 (1030, 128)])
+def test_spill_backward_identities(field, R, S):
+    """K4 and K5 on K3's spill (K4 on the activations, K5 on them with x):
+    K4 equals K8 on dmc, dg and the 20 gradients, and K5 equals K4 on dg
+    and the 20 gradients, bit for bit (one schedule, the same operands);
+    each within ATOL of its plain version; K5 the same bits twice."""
+    mc, dirs = _inputs(R, S, seed=R * S)
+    g = ff.mid_g_bands(field, dirs)
+    p3 = ff.pack_params_v3f(field)
+    out, xacts = tft.field_forward_v6(p3, mc, g, S, False, True)
+    acts = xacts[:, :tft.ACTS_COLS].contiguous()
+    gen = torch.Generator().manual_seed(R + S)
+    d_out = torch.randn(R * S, tft.OUT_TRAIN, generator=gen)
+    d_out[:, 14:] = 0.0
+    d_out = d_out.to(torch.bfloat16).cuda()
+    k8 = tft.field_backward_v4(p3, mc, g, d_out, out, S)
+    k4 = tft.field_backward_v5(p3, mc, g, acts, d_out, out, S)
+    k5 = tft.field_backward_v6(p3, g, xacts, d_out, out, S)
+    k5b = tft.field_backward_v6(p3, g, xacts, d_out, out, S)
+    torch.cuda.synchronize()
+    _k8_matches_k4(k8, k4)
+    assert torch.equal(k5[0], k5b[0])
+    assert all(torch.equal(a, b) for a, b in zip(k5[1], k5b[1]))
+    assert torch.equal(k5[0], k4[1])
+    assert all(torch.equal(a, b) for a, b in zip(k5[1], k4[2]))
+    ref4 = tft.field_backward_v5_plain(p3, mc, g, acts, d_out, out, S)
+    ref5 = tft.field_backward_v6_plain(p3, g, xacts, d_out, out, S)
+    assert _rel_err(k4[0], ref4[0]) <= ATOL
+    for got, ref in ((k4[1:], ref4[1:]), (k5, ref5)):
+        assert _rel_err(got[0], ref[0]) <= ATOL
+        for a, b in zip(got[1], ref[1]):
+            assert a.shape == b.shape and _rel_err(a, b) <= ATOL
 
 
 def test_recompute_route_holds_less_memory(field, tmp_path):

@@ -184,3 +184,41 @@ def test_port_imports_no_jax():
     count, jax_in, flax_in, pil_in = res.stdout.split()
     assert int(count) >= 15
     assert (jax_in, flax_in, pil_in) == ("False", "False", "False")
+
+
+def _not_ported_calls():
+    """Each "not ported" error of the port, as a call and the rsn module
+    it must name."""
+    from rsn_torch import configs as tconfigs
+    from rsn_torch.cli import train as ttrain_cli
+    from rsn_torch.data import synthetic as tsynthetic
+
+    return {
+        "blender cameras": (lambda: tsynthetic.load_cameras(
+            "blender", "lego", "train"), "rsn/data/blender.py"),
+        "blender dataset": (lambda: tsynthetic.load_dataset(
+            "blender", "lego", "train"), "rsn/data/blender.py"),
+        "multi-device render": (lambda: ttrainer.render_image(
+            None, None, 0, None, mesh=object()), "rsn/parallel/mesh.py"),
+        "num_devices": (lambda: ttrainer._check_slice(
+            tconfigs.TrainerConfig(num_devices=2)), "rsn/parallel/mesh.py"),
+        "profile_dir": (lambda: ttrainer._check_slice(
+            tconfigs.TrainerConfig(profile_dir="p")),
+            "rsn/engine/trainer.py"),
+        "multi-host training": (lambda: ttrain_cli.main(
+            ["reflect-sampling-nerf", "--multihost"], device="cpu"),
+            "rsn/parallel/mesh.py"),
+    }
+
+
+@pytest.mark.parametrize("what", sorted(_not_ported_calls()))
+def test_not_ported_errors_name_the_rsn_module(what):
+    """The port's "not ported" errors point at ROADMAP Queue 1 by the rsn
+    module still to port, not by a step number that a renumbering of the
+    queue would break."""
+    call, module = _not_ported_calls()[what]
+    with pytest.raises(NotImplementedError) as info:
+        call()
+    msg = str(info.value)
+    assert "ROADMAP Queue 1" in msg and module in msg, msg
+    assert not re.search(r"step \d", msg), msg

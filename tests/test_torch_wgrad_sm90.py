@@ -1,14 +1,16 @@
-"""K8's redesign on the CPU (rsn_torch/kernels/wgrad_sm90.py and K8's
-schedule in rsn_torch/kernels/field_train.py): the workspace records
-round-trip exactly, zero rows included; the 18 output tiles and the
-layout constants are the ones rsn_torch/csrc/wgrad_sm90.cuh and
-field_train.cu use; K8's chunks walk K4's partition; and the plain
-version of K8's two phases (kernel A's stash, kernel B's contraction by
-slices, the partials summed) gives field_backward_v4_plain's dmc, dg,
-biases and mid-head gradients exactly and its weight matrices within
-1e-5 of each max, and agrees with rsn's field_backward_v4 in interpret
-mode.  The kernels themselves run only on a card (tests/test_torch_cuda.py,
-chip_smoke.py)."""
+"""Kernel A + kernel B on the CPU (rsn_torch/kernels/wgrad_sm90.py and the
+stash schedule of K4, K5 and K8 in rsn_torch/kernels/field_train.py): the
+workspace records round-trip exactly, zero rows included; the 18 output
+tiles and the layout constants are the ones rsn_torch/csrc/wgrad_sm90.cuh
+and field_train.cu use; the chunks walk K4's partition; and the plain
+version of each kernel's two phases (kernel A's stash, kernel B's
+contraction by slices, the partials summed) gives its one-phase plain
+version's dmc, dg, biases and mid-head gradients exactly and its weight
+matrices within 1e-5 of each max (K4's two phases equal K8's, and K5's
+equal K4's on dg and the 20 gradients, exactly), and agrees with rsn's
+field_backward_v4 / v5 / v6 in interpret mode.  The kernels themselves run
+only on a card (tests/test_torch_cuda.py, chip_smoke.py)."""
+import dataclasses
 import os
 import re
 
@@ -99,8 +101,11 @@ def test_chunks_walk_k4_partition(R, S, sms):
     """Every chunk's records, in workspace order, are K4's tiles (whole
     rays per block, ceil(R / sms) rays per block, 64-row tiles from each
     run's first row): each tile once, in the order its block walks it;
-    records past a run's end have no rows; chunks of 4 tiles."""
-    plan = tft.k8_plan(R, S, sms)
+    records past a run's end have no rows; chunks of 4 tiles; the spill
+    route's plan (K4, K5) is K8's without the recompute slots."""
+    plan = tft.stash_plan(R, S, sms)
+    spill = tft.stash_plan(R, S, sms, recompute=False)
+    assert spill == dataclasses.replace(plan, recompute=False)
     rpb = max(1, -(-R // sms))
     assert plan.rays_per_block == rpb and plan.blocks == -(-R // rpb)
     want = {}
@@ -119,9 +124,13 @@ def test_chunks_walk_k4_partition(R, S, sms):
                 got[b].append((row0, nv))
     assert plan.chunks[-1][1] == plan.tiles
     assert got == want
-    if (R, S) == (1024, 128):  # the camera-on step's pass 2
+    if (R, S) == (1024, 128):  # the camera-on step's pass 2; K5's
         assert plan.chunks == ((0, 4), (4, 8), (8, 12), (12, 16))
         assert plan.slices == 7 and plan.scratch_bytes() == 336906240
+        assert spill.scratch_bytes() == 303351808
+    if (R, S) == (512, 64):  # K4 at the default step's pass 4
+        assert plan.chunks == ((0, 4),) and plan.slices == 7
+        assert spill.scratch_bytes() == 303351808
 
 
 def _inputs(R, S, seed):
@@ -145,18 +154,42 @@ EXACT = list(range(8, 16)) + [17, 18, 19]   # b0..b7, b_hc, w_out, b_out
 WEIGHTS = list(range(8)) + [16]             # w0..w7, w_hc
 
 
+def _both_forms(kernel, packed, mc, g, d_out, out, S, sms):
+    """kernel's plain version and its two phases on the card's schedule,
+    each as (dmc or None, dg, the 20 gradients)."""
+    if kernel == "K8":
+        return (tft.field_backward_v4_plain(packed, mc, g, d_out, out, S),
+                tft.field_backward_v4_chunked_plain(packed, mc, g, d_out,
+                                                    out, S, sms))
+    if kernel == "K4":
+        _, acts = tft.field_forward_v6(packed, mc, g, S)
+        return (tft.field_backward_v5_plain(packed, mc, g, acts, d_out, out,
+                                            S),
+                tft.field_backward_v5_chunked_plain(packed, mc, g, acts,
+                                                    d_out, out, S, sms))
+    _, xacts = tft.field_forward_v6(packed, mc, g, S, spill_x=True)
+    ref = tft.field_backward_v6_plain(packed, g, xacts, d_out, out, S)
+    got = tft.field_backward_v6_chunked_plain(packed, g, xacts, d_out, out,
+                                              S, sms)
+    return (None,) + ref, (None,) + got
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5", "K8"])
 @pytest.mark.parametrize("R,S,sms", [(8, 8, 132), (3, 7, 132), (3, 200, 1),
                                      (40, 200, 36)])
-def test_two_phases_match_plain(R, S, sms):
-    """The plain two-phase K8 on the card's schedule (one chunk; ragged
-    tiles; three chunks; two chunks over two slices) equals the plain K8
-    on dmc, dg, the biases, w_out and b_out, bit for bit, and on w0..w7
-    and w_hc within W_TOL of each tensor's max."""
+def test_two_phases_match_plain(R, S, sms, kernel):
+    """The plain two-phase K4, K5 or K8 on the card's schedule (one chunk;
+    ragged tiles; three chunks; two chunks over two slices) equals its
+    plain version on dmc, dg, the biases, w_out and b_out, bit for bit,
+    and on w0..w7 and w_hc within W_TOL of each tensor's max; K4's two
+    phases equal K8's, and K5's equal K4's on dg and the 20 gradients, bit
+    for bit (the card's identities: one schedule, the same operands)."""
     args = _inputs(R, S, R + S)
-    plan = tft.k8_plan(R, S, sms)
-    ref = tft.field_backward_v4_plain(*args, S)
-    got = tft.field_backward_v4_chunked_plain(*args, S, sms)
-    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    plan = tft.stash_plan(R, S, sms)
+    ref, got = _both_forms(kernel, *args, S, sms)
+    if kernel != "K5":
+        assert torch.equal(got[0], ref[0])
+    assert torch.equal(got[1], ref[1])
     assert len(got[2]) == 20
     for i in EXACT:
         assert torch.equal(got[2][i], ref[2][i]), i
@@ -164,13 +197,28 @@ def test_two_phases_match_plain(R, S, sms):
         a, b = got[2][i], ref[2][i]
         assert a.shape == b.shape
         assert float((a - b).abs().max()) <= W_TOL * float(b.abs().max()), i
+    if kernel != "K8":
+        other = _both_forms("K8" if kernel == "K4" else "K4", *args, S,
+                            sms)[1]
+        if kernel == "K4":
+            assert torch.equal(got[0], other[0])
+        assert torch.equal(got[1], other[1])
+        assert all(torch.equal(a, b) for a, b in zip(got[2], other[2]))
     assert len(plan.chunks) >= (3 if (R, S) == (3, 200) else 1)
 
 
-def test_two_phases_match_rsn_field_backward_v4():
-    """The plain two-phase K8 against rsn's recompute backward in interpret
-    mode (R = 8, S = 8, 32-row tiles on the JAX side), at
-    tests/test_torch_train_kernels.py's tolerance of each tensor's max."""
+def _close_rsn(a, b, name):
+    b = np.asarray(b, np.float32)
+    scale = max(float(np.abs(b).max()), 1e-6)
+    assert float(np.abs(n(a) - b).max()) <= RSN_TOL * scale, name
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5", "K8"])
+def test_two_phases_match_rsn_field_backward_v4(kernel):
+    """The plain two-phase K8, K4 or K5 against rsn's field_backward_v4,
+    v5 or v6 in interpret mode (R = 8, S = 8, 32-row tiles on the JAX
+    side), at tests/test_torch_train_kernels.py's tolerance of each
+    tensor's max."""
     R, S = 8, 8
     tree = rsn_params(0)
     params, field = jax_params(tree), port_field(tree)
@@ -183,29 +231,47 @@ def test_two_phases_match_rsn_field_backward_v4():
     g = np.asarray(fp.mid_g_bands(params, jnp.asarray(dirs)))
     d_out = rng.normal(size=(R * S, fp.V3_OUT)).astype(np.float32)
     d_out[:, 14:20] = 0.0
-    out_j = fp.field_forward_v4(fp.pack_params_v4f(params), jnp.asarray(mc),
-                                jnp.asarray(g), S, tile=32, interpret=True)
     dj = jnp.asarray(d_out).astype(jnp.bfloat16)
-    dmc_j, dg_j, dpk_j = jft.field_backward_v4(
-        fp.pack_params_v3f(params), jnp.asarray(mc), jnp.asarray(g), dj,
-        out_j, S, tile=32, inner=2, interpret=True)
+    pj = fp.pack_params_v3f(params)
+    kw = dict(tile=32, inner=2, interpret=True)
     to_t = lambda a: torch.from_numpy(np.array(a.astype(jnp.float32))
                                       ).to(torch.bfloat16).contiguous()
-    got = tft.field_backward_v4_chunked_plain(
-        ff.pack_params_v3f(field), t(mc), t(g),
-        to_t(dj[:, :tft.OUT_TRAIN]), to_t(out_j[:, :tft.OUT_TRAIN]), S, 2)
-
-    def close(a, b, name):
-        b = np.asarray(b, np.float32)
-        scale = max(float(np.abs(b).max()), 1e-6)
-        assert float(np.abs(n(a) - b).max()) <= RSN_TOL * scale, name
-
-    close(got[0], dmc_j, "dmc")
-    close(got[0][:, 3:6], np.asarray(dmc_j)[:, 3:6], "dmc cov")
-    close(got[1], dg_j, "dg")
+    packed = ff.pack_params_v3f(field)
+    if kernel == "K8":
+        out_j = fp.field_forward_v4(fp.pack_params_v4f(params),
+                                    jnp.asarray(mc), jnp.asarray(g), S,
+                                    tile=32, interpret=True)
+        want = jft.field_backward_v4(pj, jnp.asarray(mc), jnp.asarray(g), dj,
+                                     out_j, S, **kw)
+        got = tft.field_backward_v4_chunked_plain(
+            packed, t(mc), t(g), to_t(dj[:, :tft.OUT_TRAIN]),
+            to_t(out_j[:, :tft.OUT_TRAIN]), S, 2)
+    else:
+        spill_x = kernel == "K5"
+        out_j, acts_j = fp.field_forward_v6(
+            fp.pack_params_v4f(params) if spill_x else pj, jnp.asarray(mc),
+            jnp.asarray(g), S, tile=32, want_normals=spill_x,
+            interpret=True, spill_x=spill_x)
+        dt, ot = to_t(dj[:, :tft.OUT_TRAIN]), to_t(out_j[:, :tft.OUT_TRAIN])
+        if spill_x:
+            want = (None,) + tuple(jft.field_backward_v6(
+                pj, jnp.asarray(g), acts_j, dj, out_j, S, **kw))
+            got = (None,) + tft.field_backward_v6_chunked_plain(
+                packed, t(g), to_t(acts_j), dt, ot, S, 2)
+        else:
+            want = jft.field_backward_v5(pj, jnp.asarray(mc), jnp.asarray(g),
+                                         acts_j, dj, out_j, S, **kw)
+            got = tft.field_backward_v5_chunked_plain(
+                packed, t(mc), t(g), to_t(acts_j), dt, ot, S, 2)
+    dmc_j, dg_j, dpk_j = want
+    if dmc_j is not None:
+        _close_rsn(got[0], dmc_j, "dmc")
+        _close_rsn(got[0][:, 3:6], np.asarray(dmc_j)[:, 3:6], "dmc cov")
+    _close_rsn(got[1], dg_j, "dg")
+    assert len(got[2]) == 20
     for i, (a, b) in enumerate(zip(got[2], dpk_j)):
         assert tuple(a.shape) == tuple(b.shape), i
-        close(a, b, f"dpacked[{i}]")
+        _close_rsn(a, b, f"dpacked[{i}]")
 
 
 @pytest.mark.parametrize("records,slices", [(1, 1), (5, 3), (9, 7)])
