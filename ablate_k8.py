@@ -30,12 +30,15 @@ VARIANTS = (("full", ()),
             ("no stash stores", ("RSN_ABLATE_NO_STASH",)))
 
 
-def build(out_dir: str):
+def build(out_dir: str, variants=VARIANTS, logs=None):
+    """field_train.cu once per (name, macros) of variants, one nvcc each in
+    parallel, into out_dir -> {name: the loaded library}; logs, if given,
+    receives each build's nvcc output (ptxas's registers and spills)."""
     from rsn_torch.kernels import build as b
 
     os.makedirs(out_dir, exist_ok=True)
     jobs = []
-    for i, (name, macros) in enumerate(VARIANTS):
+    for i, (name, macros) in enumerate(variants):
         lib = os.path.join(out_dir, f"field_train_{i}.so")
         cmd = [b.find_nvcc(), *b.NVCC_FLAGS, *(f"-D{m}" for m in macros),
                "-o", lib, os.path.join(b.CSRC_DIR, "field_train.cu")]
@@ -47,6 +50,8 @@ def build(out_dir: str):
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+        if logs is not None:
+            logs[name] = out
         libs[name] = ctypes.CDLL(lib)
         b._declare(libs[name], "field_train.cu")
     return libs

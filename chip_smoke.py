@@ -8,7 +8,9 @@ Phases, each announced on its own line:
                 power limit; TF32 off for fp32 matmuls and convolutions.
   2. build    — compiles rsn_torch/csrc/*.cu for sm_90a into
                 rsn_torch/_build/, one nvcc per source, all at once (the
-                first call of a checkout builds).
+                first call of a checkout builds), and beside them
+                field_train.cu with RSN_ABLATE_NO_SPILL (K3 without its
+                spill stores) for phase 6's timing.
   3. kernels  — K1 (field_forward_v3) and K2 (field_forward_density)
                 against their plain PyTorch versions on the card, on the
                 real inputs of one 16384-ray chunk of the first 800x800
@@ -25,14 +27,17 @@ Phases, each announced on its own line:
                 reflect-sampling-nerf config, compute_dtype bfloat16,
                 synthetic sphere at 800x800); the kernels' launch counts
                 of that run, then a 400x400 full (not product-only) render.
-  6. train kernels — K3 (field_forward_v6), K5 (field_backward_v6) and K4
-                (field_backward_v5) against their plain versions on the
-                real inputs of one full-width train step (1024 rays, step
-                50: the normal losses on), K3's density column against
-                K1's, K5 == K4 on the same spill (dg, all 20 gradients)
-                bit for bit, CUDA-event times (K5 at pass 2 and K4 at
-                pass 4 with their kernels A and B apart), each call's
-                scratch.
+  6. train kernels — the step's weight blob (one pack launch) against
+                its plain version, K3 (field_forward_v6), K5
+                (field_backward_v6) and K4 (field_backward_v5) against
+                their plain versions on the real inputs of one
+                full-width train step (1024 rays, step 50: the normal
+                losses on), K3 == K7 / K1 at the train width and K3's
+                density column == K1's, K5 == K4 on the same spill (dg,
+                all 20 gradients) bit for bit, CUDA-event times (K3's
+                spill alone: K3 beside the RSN_ABLATE_NO_SPILL build, in
+                turns; K5 at pass 2 and K4 at pass 4 with their kernels A
+                and B apart), each call's scratch.
   7. cpu/gpu step — one 64-ray train step with midpoint draws on the CPU
                 (plain versions) and on the card (kernels): losses and
                 every parameter gradient.
@@ -73,8 +78,9 @@ Phases, each announced on its own line:
                 first design's per-block slices); kernel B alone against
                 its plain contraction on the records kernel A leaves of
                 pass 2, and cuBLAS on the same operands (four calls);
-                CUDA-event times (K8, its kernels A and B alone, K13 as
-                the first design in the same call), K8's scratch per call
+                CUDA-event times (K7, K1 at the train width; K8, its
+                kernels A and B alone, K13 as the first design in the
+                same call), K8's scratch per call
                 beside the first design's; the peak device memory of one
                 full-width step on each route, camera off and on.
   13. cpu/gpu camera step — one 64-ray camera-on step on the CPU (plain
@@ -99,8 +105,10 @@ Phases, each announced on its own line:
                 camera-on inputs (passes 2 and 4); each against its plain
                 version; K10 == K7 and K1 at the train width, K13 == K8 on
                 dmc and dg, bit for bit, K13 the same twice and within 1e-4
-                of K8's weight gradients; CUDA-event times, K10 beside K7
-                and K1, K13 beside K8.
+                of K8's weight gradients; CUDA-event times, K10 (the
+                64-row wmma forward that K7 and K1 at the train width ran
+                before their Hopper design) beside K7 and K1, K13 beside
+                K8.
   The tools' forward experiments:
   17. K14-K16 — from zeroed launch counts, K14 (field_forward_v3u,
                 field_forward_v3i) and K15 (field_forward_v3L, and with
@@ -369,11 +377,16 @@ def main() -> int:
     from rsn_torch.kernels.build import build_library, load_library
 
     t0 = time.perf_counter()
-    paths, log = build_library()
-    for source in paths:
-        load_library(source)
+    no_spill = spill_ablation()  # K3 without its spill, for phase 6
+    try:
+        paths, log = build_library()
+        for source in paths:
+            load_library(source)
+    finally:
+        no_spill = no_spill()
     print(f"built {', '.join(os.path.relpath(p, REPO) for p in paths.values())}"
-          f" in {time.perf_counter() - t0:.2f} s (one nvcc per source, in "
+          f" and field_train.cu with RSN_ABLATE_NO_SPILL in "
+          f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in "
           f"parallel)")
     for line in log.splitlines():
         if re.search(r"^---|registers|spill", line):
@@ -494,7 +507,7 @@ def main() -> int:
                            "and K2 on none")
 
     # ---- 6-8. the training path ----
-    train_results = train_phases(config, field, device, card)
+    train_results = train_phases(config, field, device, card, no_spill)
     results.update(train_results["kernels"])
     launches.update(train_results["launches"])
 
@@ -552,7 +565,7 @@ def main() -> int:
 
 RENDER_KERNELS = ("field_forward_v3", "field_forward_density")
 TRAIN_KERNELS = ("field_forward_v6", "field_backward_v6",
-                 "field_backward_v5")
+                 "field_backward_v5", "train_blob")
 KERNEL_ROWS = (
     ("field_forward_v3", "field_forward.cu",
      "rsn/kernels/field_pallas.py:512"),
@@ -560,6 +573,7 @@ KERNEL_ROWS = (
      "rsn/kernels/field_pallas.py:626"),
     ("field_forward_v6", "field_train.cu",
      "rsn/kernels/field_pallas.py:794"),
+    ("train_blob", "field_train.cu", "rsn/kernels/field_pallas.py:794"),
     ("field_backward_v5", "field_train.cu",
      "rsn/kernels/field_train.py:516"),
     ("field_backward_v6", "field_train.cu",
@@ -691,18 +705,26 @@ def capture_train_inputs(trainer, step: int):
     """Run one train step at `step` and record every training kernel
     call's inputs: -> {"fwd": [...], "bwd5": [...], "bwd6": [...]} in
     call order (forward passes 1-4, then the backward of passes 4, 3
-    (K4) and 2, 1 (K5))."""
+    (K4) and 2, 1 (K5)), "blob": the forwards' weight blob (one for the
+    step) and "pack": the fp32 operands it was packed from (w0..w7,
+    w_hc, with their strides)."""
     import torch
 
     from rsn_torch.kernels import field_train as ft
 
-    calls = {"fwd": [], "bwd5": [], "bwd6": []}
-    real = (ft.field_forward_v6, ft.field_backward_v5, ft.field_backward_v6)
+    calls = {"fwd": [], "bwd5": [], "bwd6": [], "blobs": []}
+    real = (ft.field_forward_v6, ft.field_backward_v5, ft.field_backward_v6,
+            ft.train_blob)
 
-    def fwd(packed, mc, g, S, want_normals=False, spill_x=False):
+    def fwd(packed, mc, g, S, want_normals=False, spill_x=False, blob=None):
         calls["fwd"].append((tuple(packed), mc.clone(), g.clone(), S,
                              want_normals, spill_x))
-        return real[0](packed, mc, g, S, want_normals, spill_x)
+        calls["blobs"].append(blob)
+        return real[0](packed, mc, g, S, want_normals, spill_x, blob=blob)
+
+    def pack(ws, w_hc):  # clones keep the views' strides
+        calls["pack"] = [w.detach().clone() for w in list(ws) + [w_hc]]
+        return real[3](ws, w_hc)
 
     def bwd5(packed, mc, g, acts, d_out, f_out, S):
         calls["bwd5"].append((tuple(packed), mc.clone(), g.clone(),
@@ -714,20 +736,28 @@ def capture_train_inputs(trainer, step: int):
                               d_out.clone(), f_out.clone(), S))
         return real[2](packed, g, xacts, d_out, f_out, S)
 
-    ft.field_forward_v6, ft.field_backward_v5, ft.field_backward_v6 = (
-        fwd, bwd5, bwd6)
+    (ft.field_forward_v6, ft.field_backward_v5, ft.field_backward_v6,
+     ft.train_blob) = (fwd, bwd5, bwd6, pack)
     try:
         trainer.step = step
         trainer.train_step()
     finally:
-        (ft.field_forward_v6, ft.field_backward_v5,
-         ft.field_backward_v6) = real
+        (ft.field_forward_v6, ft.field_backward_v5, ft.field_backward_v6,
+         ft.train_blob) = real
     torch.cuda.synchronize()
     got = tuple(len(calls[k]) for k in ("fwd", "bwd5", "bwd6"))
     if got != (4, 2, 2):
         raise RuntimeError(f"expected 4 + 2 + 2 training kernel calls, "
                            f"got {got}")
+    calls["blob"] = one_blob(calls.pop("blobs"))
     return calls
+
+
+def one_blob(blobs):
+    """The weight blob that a step's forwards shared (one pack a step)."""
+    if blobs[0] is None or any(b is not blobs[0] for b in blobs):
+        raise RuntimeError("the step's forwards did not share one blob")
+    return blobs[0]
 
 
 def check_normals(p, out, ref, acts, ref_acts, packed, mc,
@@ -775,19 +805,30 @@ def check_normals(p, out, ref, acts, ref_acts, packed, mc,
         raise RuntimeError(f"{tag}'s normals disagree with the plain dgrad")
 
 
-def check_train_kernels(calls, card):
-    """Phase 6's comparisons and times -> per-kernel results."""
+def check_train_kernels(calls, card, no_spill):
+    """Phase 6's comparisons and times -> per-kernel results.  no_spill:
+    the spill ablation's build of field_train.cu (spill_ablation)."""
     import torch
 
     from rsn_torch.kernels import field_forward as ff
     from rsn_torch.kernels import field_train as ft
+    from rsn_torch.kernels.build import load_library
 
     results = {k: {"err": 0.0} for k in TRAIN_KERNELS}
     r = results["field_forward_v6"]
+    blob = calls["blob"]
+    check_train_blob(calls["pack"], blob, results["train_blob"], card)
     for p, (packed, mc, g, S, wn, sx) in enumerate(calls["fwd"], start=1):
-        out, acts = ft.field_forward_v6(packed, mc, g, S, wn, sx)
+        out, acts = ft.field_forward_v6(packed, mc, g, S, wn, sx, blob=blob)
         ref, ref_acts = ft.field_forward_v6_plain(packed, mc, g, S, wn, sx)
+        other = (ft.field_forward_v4 if wn else ft.field_forward_v3_train)(
+            packed, mc, g, S, blob=blob)
         torch.cuda.synchronize()
+        if not torch.equal(out, other):
+            raise RuntimeError(f"K3 pass {p} differs from K7 / K1 at the "
+                               f"train width")
+        print(f"  K3 pass {p} == {'K7' if wn else 'K1 at the train width'} "
+              f"on the same inputs, bit for bit")
         live = list(range(14)) + list(range(17, 20))
         err = compare(f"K3 pass {p} (S={S}, normals={wn}, spill_x={sx})",
                       out, ref, live)
@@ -843,12 +884,25 @@ def check_train_kernels(calls, card):
                 print(f"  K5 pass {p} == K4 on the same spill (dg, all 20 "
                       f"gradients), bit for bit")
 
-    # times and bounds: K3 on passes 2 and 4, K5 on pass 2, K4 on pass 4
+    # times and bounds: K3 on passes 2 and 4 (pass 2 also without its
+    # spill: the ablation's build, in turns), K5 on pass 2, K4 on pass 4
     w_bytes = nbytes(*calls["fwd"][0][0][:20])
+    packed, mc, g, S, wn, sx = calls["fwd"][1]
+    full = load_library("field_train.cu")
+    turns = [cuda_ms(lambda: ft.launch_field_forward_v6(
+        lib, packed, mc, g, S, wn, sx, blob))
+        for lib in (full, no_spill, no_spill, full)]
+    spill = (turns[0] + turns[3] - turns[1] - turns[2]) / 2
+    print(f"  K3 pass 2's spill alone ({mc.shape[0]} rows, {ft.XACTS_COLS} "
+          f"bf16 columns): {spill:.4f} ms = K3 {turns[0]:.4f} / "
+          f"{turns[3]:.4f} ms less K3 without its stores "
+          f"(RSN_ABLATE_NO_SPILL) {turns[1]:.4f} / {turns[2]:.4f} ms (in "
+          f"turns; median of 10; {card})", flush=True)
     for p in (2, 4):
         packed, mc, g, S, wn, sx = calls["fwd"][p - 1]
         n = mc.shape[0]
-        k = cuda_ms(lambda: ft.field_forward_v6(packed, mc, g, S, wn, sx))
+        k = cuda_ms(lambda: ft.field_forward_v6(packed, mc, g, S, wn, sx,
+                                                blob=blob))
         pl = cuda_ms(lambda: ft.field_forward_v6_plain(packed, mc, g, S,
                                                        wn, sx))
         flops = (FLOPS["field_forward_v6"] + (2 * DGRAD_MACS if wn else 0)) * n
@@ -896,6 +950,61 @@ def check_train_kernels(calls, card):
               f"what was allocated before it {peak} bytes", flush=True)
         results[name].update(ms=k, plain_ms=pl, bound_ms=b, bound_by=by)
     return results
+
+
+def spill_ablation():
+    """Start nvcc on field_train.cu with RSN_ABLATE_NO_SPILL (K3 without
+    its spill stores; nothing else changes) into rsn_torch/_build/ablate/,
+    beside the port's own build -> a function that waits for it and
+    returns the library."""
+    import ctypes
+
+    from rsn_torch.kernels import build as b
+
+    out = os.path.join(b.BUILD_DIR, "ablate")
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, "field_train_no_spill.so")
+    cmd = [b.find_nvcc(), *b.NVCC_FLAGS, "-DRSN_ABLATE_NO_SPILL", "-o", lib,
+           os.path.join(b.CSRC_DIR, "field_train.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+    def done():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the spill ablation:\n{text}")
+        handle = ctypes.CDLL(lib)
+        b._declare(handle, "field_train.cu")
+        return handle
+    return done
+
+
+def check_train_blob(pack, blob, result, card) -> None:
+    """The forwards' weight blob: the step's equals one pack launch on the
+    step's fp32 operands and the plain trunk_sm90.pack_train_blob on them,
+    bit for bit; its time beside the plain version's and its bound (the
+    operands read once, the blob written once)."""
+    import torch
+
+    from rsn_torch.kernels import field_train as ft
+    from rsn_torch.kernels import trunk_sm90 as ts
+
+    ws, w_hc = pack[:8], pack[8]
+    got = ft.train_blob(ws, w_hc)
+    ref = ts.pack_train_blob(ws, w_hc)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, blob) and torch.equal(got, ref)):
+        raise RuntimeError("the train blob differs from its plain version")
+    k = cuda_ms(lambda: ft.train_blob(ws, w_hc))
+    pl = cuda_ms(lambda: ts.pack_train_blob(ws, w_hc))
+    b, by = bound(0.0, nbytes(*pack) + nbytes(blob))
+    print(f"  the train blob ({nbytes(blob)} bytes, one launch from the "
+          f"step's fp32 operands, w1 contiguous: "
+          f"{pack[1].is_contiguous()}) == the step's == its plain "
+          f"version, bit for bit; kernel "
+          f"{k:.4f} ms, plain {pl:.4f} ms, bound {b:.4f} ms ({by}; median "
+          f"of 10; {card})", flush=True)
+    result.update(err=0.0, ms=k, plain_ms=pl, bound_ms=b, bound_by=by)
 
 
 def kernels_a_and_b(name: str, args):
@@ -1239,7 +1348,8 @@ def train_entry_point(card):
         run, launches = run_train_cli(
             card, "reflect-sampling-nerf", (),
             {"field_forward_v6": 4, "field_backward_v6": 2,
-             "field_backward_v5": 2}, tmp, evals=(20, TRAIN_STEPS))
+             "field_backward_v5": 2, "train_blob": 1}, tmp,
+            evals=(20, TRAIN_STEPS))
         print(f"  kernel B: {launches['field_backward_v4_wgrad']} launches "
               f"= the chunks of K5's and K4's calls")
         frames = os.path.join(tmp, "frames")
@@ -1253,7 +1363,7 @@ def train_entry_point(card):
     return launches
 
 
-def train_phases(config, field, device, card):
+def train_phases(config, field, device, card, no_spill):
     """Phases 6-8 -> {"kernels": per-kernel results, "launches": the
     training kernels' launches in the train CLI run}."""
     import torch
@@ -1268,7 +1378,7 @@ def train_phases(config, field, device, card):
         trainer.field.load_state_dict(field.state_dict())
         calls = capture_train_inputs(trainer, 50)
         del trainer
-    results = check_train_kernels(calls, card)
+    results = check_train_kernels(calls, card, no_spill)
     del calls
     torch.cuda.empty_cache()
 
@@ -1398,7 +1508,7 @@ def preset_phases(field, field_cpu, orbit, device, card):
             card, "reflect-sampling-nerf-proposal",
             ("--pipeline.model.use-pallas-proposal", "True"),
             {"field_forward_v6": 2, "field_backward_v6": 1,
-             "field_backward_v5": 1}, tmp,
+             "field_backward_v5": 1, "train_blob": 1}, tmp,
             ("loss_mid_fine", "interlevel_loss", "distortion_loss"))
         frames = os.path.join(tmp, "frames")
         text, stats, launches = run_render_cli(run, frames, "--num-frames",
@@ -1495,24 +1605,26 @@ def with_route(config, camera: bool, use_pallas_acts: bool):
 def capture_recompute_inputs(trainer, step: int):
     """Run one camera-on recompute-route train step at `step` and record
     the kernels' calls: -> {"fwd": {pass: (packed, mc, g, S, out)},
-    "bwd": {pass: (packed, mc, g, d_out, f_out, S)}} for passes 1-4, the
-    backward calls of the first of the step's two backward passes (each
-    matched to its pass by the forward output it differentiates)."""
+    "bwd": {pass: (packed, mc, g, d_out, f_out, S)}, "blob": the
+    forwards' weight blob} for passes 1-4, the backward calls of the first
+    of the step's two backward passes (each matched to its pass by the
+    forward output it differentiates)."""
     import torch
 
     from rsn_torch.kernels import field_train as ft
 
-    fwd, bwd = [], []
+    fwd, bwd, blobs = [], [], []
     real = (ft.field_forward_v4, ft.field_forward_v3_train,
             ft.field_backward_v4)
 
     # clones: the packed biases share the parameters' storage, which the
     # optimizer step then updates in place
     def recording(forward):
-        def fn(packed, mc, g, S):
-            out = forward(packed, mc, g, S)
+        def fn(packed, mc, g, S, blob=None):
+            out = forward(packed, mc, g, S, blob=blob)
             fwd.append((tuple(t.clone() for t in packed), mc.clone(),
                         g.clone(), S, out.clone()))
+            blobs.append(blob)
             return out
         return fn
 
@@ -1533,7 +1645,8 @@ def capture_recompute_inputs(trainer, step: int):
     if (len(fwd), len(bwd)) != (4, 8):
         raise RuntimeError(f"expected 4 forward and 8 K8 calls (two backward "
                            f"passes), got {len(fwd)} and {len(bwd)}")
-    calls = {"fwd": dict(enumerate(fwd, start=1)), "bwd": {}}
+    calls = {"fwd": dict(enumerate(fwd, start=1)), "bwd": {},
+             "blob": one_blob(blobs)}
     for args in bwd[:4]:
         p = next(q for q, f in calls["fwd"].items() if f[4].shape ==
                  args[4].shape and torch.equal(f[4], args[4]))
@@ -1569,7 +1682,7 @@ def check_recompute_kernels(calls, card):
         normals = p <= 2
         name = "field_forward_v4" if normals else "field_forward_v3_train"
         tag = "K7" if normals else "K1 train width"
-        got = getattr(ft, name)(packed, mc, g, S)
+        got = getattr(ft, name)(packed, mc, g, S, blob=calls["blob"])
         ref = ft.field_forward_v4_plain(packed, mc, g, S, normals)
         k3, acts = ft.field_forward_v6(packed, mc, g, S, normals)
         torch.cuda.synchronize()
@@ -1635,7 +1748,7 @@ def check_recompute_kernels(calls, card):
         n = mc.shape[0]
         fn = getattr(ft, name)
         normals = name == "field_forward_v4"
-        k = cuda_ms(lambda: fn(packed, mc, g, S))
+        k = cuda_ms(lambda: fn(packed, mc, g, S, blob=calls["blob"]))
         pl = cuda_ms(lambda: ft.field_forward_v4_plain(packed, mc, g, S,
                                                        normals))
         flops = (FLOPS["field_forward_v6"] + (2 * DGRAD_MACS if normals
@@ -1944,7 +2057,7 @@ def camera_phases(config, field, device, card):
         run, launches = run_train_cli(
             card, "reflect-sampling-nerf", CAMERA_FLAGS,
             {"field_forward_v4": 2, "field_forward_v3_train": 2,
-             "field_backward_v4": 8}, tmp)
+             "field_backward_v4": 8, "train_blob": 1}, tmp)
         state = ckpt_lib.load_checkpoint(os.path.join(
             run, "checkpoints", f"step-{TRAIN_STEPS:09d}.pt"))
         deltas = state["camera"]
@@ -2052,8 +2165,9 @@ def api_phase(field, render_mc, cam_calls, card):
     del k11, k12, dens
 
     # K10 on the camera-on step's pass 2, both flags
-    k7 = ft.field_forward_v4(fpacked, fmc, g, S)
-    k1 = ft.field_forward_v3_train(fpacked[:20], fmc, g, S)
+    blob = cam_calls["blob"]
+    k7 = ft.field_forward_v4(fpacked, fmc, g, S, blob=blob)
+    k1 = ft.field_forward_v3_train(fpacked[:20], fmc, g, S, blob=blob)
     torch.cuda.synchronize()
     if not (torch.equal(k10[True], k7) and torch.equal(k10[False], k1)):
         raise RuntimeError("K10 differs from K7 or K1 at the train width")
@@ -2116,14 +2230,16 @@ def api_phase(field, render_mc, cam_calls, card):
                                                          normals))}
         other = "K7" if normals else "K1 train width"
         ms[other] = cuda_ms(lambda: (ft.field_forward_v4 if normals else
-                                     ft.field_forward_v3_train)(pk, fmc, g, S))
+                                     ft.field_forward_v3_train)(
+                                         pk, fmc, g, S, blob=blob))
         pl = cuda_ms(lambda: ft.field_forward_v4_plain(pk, fmc, g, S,
                                                        normals))
         flops = (FLOPS["field_forward_v6"] + (2 * DGRAD_MACS if normals
                                               else 0)) * nf
         b, by = bound(flops, nbytes(fmc, g, *pk[20:]) + w_bytes
                       + nf * ft.OUT_TRAIN * 2)
-        print(f"  K10 pass 2 (normals={normals}): {nf} rows, kernel "
+        print(f"  K10 pass 2 (normals={normals}; the 64-row wmma forward "
+              f"that {other} ran before its Hopper design): {nf} rows, kernel "
               f"{ms['K10']:.4f} ms, {other} {ms[other]:.4f} ms, plain "
               f"{pl:.4f} ms, bound {b:.4f} ms ({by}; median of 10; {card})",
               flush=True)

@@ -4,11 +4,12 @@
 // experiments.cu: K14, K15; experiments_bwd.cu: K18, K19).  Every kernel
 // computes its IPE (K1's polynomial one, or K11's exact one) through
 // ipe_rows (K1 and K2: ipe_sincos, the same operations on every element).
-// Every kernel but K1 and K2 runs its trunk through trunk() /
-// trunk_rows() (wmma, 64-row tiles), and K3 its V3 tail through v3_tail;
-// K1 and K2 run the same sums on Hopper's wgmma in trunk_sm90.cuh, in the
-// same k order and with the same epilogue arithmetic, so K2's density
-// column and K3's column 12 equal K1's bit for bit.
+// Every kernel but K1, K2, K3 and K7 runs its trunk through trunk() /
+// trunk_rows() (wmma, 64-row tiles), and K10 its V3 tail through v3_tail;
+// K1, K2, K3 and K7 run the same sums on Hopper's wgmma (trunk_sm90.cuh,
+// train_sm90.cuh), in the same k order and with the same epilogue
+// arithmetic, so K2's density column and K3's column 12 equal K1's, and
+// K10's output K7's, bit for bit.
 //
 // The routines run on THREADS threads (threadIdx.x < THREADS) and meet at
 // block_sync(), named barrier 1 over THREADS threads: in a block of
@@ -369,9 +370,9 @@ __device__ bf16* trunk(const TrunkParams& p, const bf16* X, bf16* H0,
 // Density pre-activation of row threadIdx.x / 4: dot(h_row, w[:, 0]) + b.
 // Four threads per row sum interleaved quarters in a fixed order, then
 // combine with two xor shuffles; every thread of the row gets the value.
-// K3 (and the kernels on its code) call this; K1 and K2 (trunk_sm90.cuh,
-// density_sw) take the same operands in the same order, which makes the
-// density columns identical.
+// K10 calls this; K1, K2, K3 and K7 (trunk_sm90.cuh, density_sw) take the
+// same operands in the same order, which makes the density columns
+// identical.
 __device__ float density_row(const bf16* H, const bf16* __restrict__ w,
                              int wstride, float b) {
   const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
@@ -386,8 +387,8 @@ __device__ float density_row(const bf16* H, const bf16* __restrict__ w,
   return __fadd_rn(s, b);
 }
 
-// The V3 tail on the trunk output H of the block's rows (K3 and the train-
-// width K1; the render K1 runs the same arithmetic in trunk_sm90.cuh):
+// The V3 tail on the trunk output H of the block's rows (K10; K1, K3 and
+// K7 run the same arithmetic in trunk_sm90.cuh's v3_tail_wg):
 // heads + folded mid seed in one product, roughness attenuation against
 // the per-ray SH band partials g, the mid head, and the row of OUTC bf16
 // columns [mid_out | diff | tint | normals raw | density | rough raw |

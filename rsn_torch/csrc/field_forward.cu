@@ -203,10 +203,6 @@ __global__ void __launch_bounds__(THREADS, 2)
 constexpr int PROBE_SMEM =
     4 * sm90::W_CHUNK_BYTES + 4 * sm90::KB_BYTES + 1024 + 64;
 
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return p + ((1024u - (sm90::smem_u32(p) & 1023u)) & 1023u);
-}
-
 __global__ void __launch_bounds__(128, 1)
     mma_probe_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
                      const bf16* __restrict__ blob,

@@ -16,8 +16,9 @@
 //                       Without the normals the same kernel is K1 at the
 //                       train width (field_forward_v3 at its default
 //                       V3_OUT store, which writes the mid value for the
-//                       backward).  One body for the three forwards, so
-//                       their outputs are equal bit for bit.
+//                       backward).  One body for the three forwards
+//                       (train_sm90.cuh, on trunk_sm90.cuh's ring and
+//                       wgmma), so their outputs are equal bit for bit.
 //   field_backward_v5  (K4; rsn/kernels/field_train.py, body _bwd_half):
 //                       the backward from the spilled activations and the
 //                       forward's stored output: dmc (N, 16), dg (R, 512)
@@ -50,13 +51,14 @@
 // every 64-row tile reads and writes its block's slice once, about 38 KB
 // per row of traffic (K18: 57% of the backward).
 //
-// What the design does about it (a first, simple design):
-//   - The forward (K3) is K1's code: ipe_tile, trunk and v3_tail of
-//     field_common.cuh, with a layer hook that stores each layer's tile to
-//     the spill with 16-byte stores and, for the normals, keeps the ReLU
-//     masks as bits (64 rows x 256 x 8 layers = 16 KB of shared memory).
-//     The normals dgrad reuses the freed forward buffers: W^T is the same
-//     bf16 weight read as a col_major fragment, no transposed copy.
+// What the design does about it:
+//   - The forwards (K3, K7, K1 at the train width) are the render K1's
+//     Hopper design with the normals' dgrad as more chunks on its weight
+//     ring and the ReLU masks in registers: train_sm90.cuh says how.  Their
+//     weights come from a blob that one launch (rsn_pack_train_blob) packs
+//     from the fp32 operands per train step.  The old 64-row wmma forward
+//     (forward_train_tile below: trunk and v3_tail of field_common.cuh, the
+//     masks as bits in shared memory) stays as K10's body.
 //   - The backward (K4/K5) gives each block a run of whole rays, walked
 //     in 64-row tiles.  Per-ray band gradients dg are summed in the block
 //     (no one-hot matrix, no float atomics); in the first design the
@@ -108,9 +110,10 @@
 //     across sequential grid steps: one persistent block per SM, whose four
 //     producer warps write the next tile's IPE into one of two X slots
 //     while its eight consumer warps run the current tile from the other,
-//     handed over through named barriers.  The consumers run K7's code
-//     (forward_train_tile) and the producers K7's ipe_tile, so K10 equals K7
-//     and K1 at the train width bit for bit.  The normals' IPE backward
+//     handed over through named barriers.  The consumers run the first
+//     design's 64-row forward (forward_train_tile, wmma) and the producers
+//     its ipe_tile: every sum in the order of the Hopper K7's, so K10 equals
+//     K7 and K1 at the train width bit for bit.  The normals' IPE backward
 //     recomputes damp and u from mc, so only X is double-buffered (146 KB,
 //     one block per SM).
 //   - K13's whole-grid accumulators without float atomics: each block runs
@@ -130,11 +133,12 @@
 //     It halves the slice traffic per row.
 // Later work: the recompute and the dgrads on wgmma (trunk_sm90.cuh).
 #include "field_common.cuh"
+#include "train_sm90.cuh"
 #include "wgrad_sm90.cuh"
 
 namespace {
 
-constexpr int OUT_TRAIN = 24;      // K3 store width
+constexpr int OUT_TRAIN = sm90::TRAIN_COLS;  // the train-width row
 
 constexpr int OFF_WHC = OFF_B + LAYERS * WIDTH;
 constexpr int OFF_BHC = OFF_WHC + WIDTH * WIDTH;
@@ -147,12 +151,12 @@ static_assert(PACK_FLOATS == 608640, "packed-gradient layout");
 // column tile 0 (the 11 head columns) and tiles 8..15 (the mid seed)
 constexpr unsigned HC_TILES = 0xFF01u;
 
-// ---- K3 ---------------------------------------------------------------
+// ---- K10's 64-row forward ----------------------------------------------
 
 constexpr int OFF_MASKS = FWD_SMEM_BYTES;
 constexpr int MASK_BYTES = LAYERS * TM * MASK_WORDS * 4;
 constexpr int OFF_ROWOUT = OFF_MASKS + MASK_BYTES;
-constexpr int K3_SMEM_BYTES = OFF_ROWOUT + TM * OUT_TRAIN * 2;
+constexpr int FWD64_SMEM_BYTES = OFF_ROWOUT + TM * OUT_TRAIN * 2;
 static_assert(OFF_MASKS % 32 == 0 && OFF_ROWOUT % 32 == 0, "alignment");
 
 __device__ __forceinline__ bool mask_bit(const uint32_t* masks, int layer,
@@ -160,20 +164,17 @@ __device__ __forceinline__ bool mask_bit(const uint32_t* masks, int layer,
   return (masks[(layer * TM + r) * MASK_WORDS + (c >> 5)] >> (c & 31)) & 1u;
 }
 
-// ---- K3 / K7 / K1 at the train width -----------------------------------
-
-// The train-width forward of the 64-row tile at row0, whose IPE X already
-// holds (visible to every thread of the routines); SPILL: K3's activation
-// spill (acts), else none (K7, K10, and K1 at the train width without the
-// normals).  Reads X only in the trunk.
-template <bool NORMALS, bool SPILL, bool SPILL_X>
+// The train-width forward of the 64-row tile at row0 (the first design of
+// K3 / K7, now K10's body: trunk() and v3_tail on wmma), whose IPE X
+// already holds (visible to every thread of the routines).  Reads X only in
+// the trunk.
+template <bool NORMALS>
 __device__ void forward_train_tile(const float* __restrict__ mc,
                                    const float* __restrict__ g,
                                    const float* __restrict__ consts,
                                    const V3Params& p,
                                    const float* __restrict__ wd_row,
-                                   bf16* __restrict__ out,
-                                   bf16* __restrict__ acts, long long n,
+                                   bf16* __restrict__ out, long long n,
                                    int S, long long row0, const bf16* X) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* H0 = reinterpret_cast<bf16*>(smem + OFF_H0);
@@ -183,11 +184,7 @@ __device__ void forward_train_tile(const float* __restrict__ mc,
   bf16* rowout = reinterpret_cast<bf16*>(smem + OFF_ROWOUT);
   const int tid = threadIdx.x;
   const int nv = (int)min((long long)TM, n - row0);
-  constexpr int ld = SPILL_X ? XACTS_COLS : ACTS_COLS;
-  bf16* acts_tile = SPILL ? acts + row0 * ld : nullptr;
-
-  if (SPILL && SPILL_X) store_rows(acts_tile + ACTS_COLS, ld, X, LDX, ENC, nv);
-  SpillHook hook{acts_tile, ld, nv, NORMALS ? masks : nullptr};
+  SpillHook hook{nullptr, 0, nv, NORMALS ? masks : nullptr};
   bf16* H = trunk(p.trunk, X, H0, H1, stage, hook);
   v3_tail<OUT_TRAIN>(p, H, smem, g, row0, n, S, rowout);
 
@@ -255,61 +252,27 @@ __device__ void forward_train_tile(const float* __restrict__ mc,
              OUT_TRAIN, nv);
 }
 
-// The block's own tile: its IPE into X, then forward_train_tile.
+// K3 (SPILL), K7 and K1 at the train width (train_sm90.cuh).
 template <bool NORMALS, bool SPILL, bool SPILL_X>
-__device__ void field_forward_train_body(const float* __restrict__ mc,
-                                         const float* __restrict__ g,
-                                         const float* __restrict__ consts,
-                                         const V3Params& p,
-                                         const float* __restrict__ wd_row,
-                                         bf16* __restrict__ out,
-                                         bf16* __restrict__ acts,
-                                         long long n, int S) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* X = reinterpret_cast<bf16*>(smem + OFF_X);
-  const long long row0 = (long long)blockIdx.x * TM;
-  ipe_tile(mc, consts, row0, n, X);
-  block_sync();
-  forward_train_tile<NORMALS, SPILL, SPILL_X>(mc, g, consts, p, wd_row, out,
-                                              acts, n, S, row0, X);
-}
-
-template <bool NORMALS, bool SPILL_X>
-__global__ void __launch_bounds__(THREADS, 2)
-    field_forward_v6_kernel(const float* __restrict__ mc,
-                            const float* __restrict__ g,
-                            const float* __restrict__ consts, V3Params p,
-                            const float* __restrict__ wd_row,
-                            bf16* __restrict__ out, bf16* __restrict__ acts,
-                            long long n, int S) {
-  field_forward_train_body<NORMALS, true, SPILL_X>(mc, g, consts, p, wd_row,
-                                                   out, acts, n, S);
-}
-
-template <bool NORMALS>
-__global__ void __launch_bounds__(THREADS, 2)
-    field_forward_v4_kernel(const float* __restrict__ mc,
-                            const float* __restrict__ g,
-                            const float* __restrict__ consts, V3Params p,
-                            const float* __restrict__ wd_row,
-                            bf16* __restrict__ out, long long n, int S) {
-  field_forward_train_body<NORMALS, false, false>(mc, g, consts, p, wd_row,
-                                                  out, nullptr, n, S);
+__global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
+    field_train_kernel(const __grid_constant__ sm90::TrainParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  sm90::train_trunk<NORMALS, SPILL, SPILL_X>(p, smem_raw);
 }
 
 // ---- K10: K7 / K1 at the train width, the next tile's IPE ahead ---------
 
 // A persistent block (one per SM) walks the tiles blockIdx.x,
 // blockIdx.x + gridDim.x, ...  Its THREADS consumer threads run each tile
-// with K7's code (forward_train_tile) from one of two X slots, while
-// PRODUCERS producer threads fill the other slot with the next tile's IPE
-// (ipe_tile, the same routine and arithmetic as K7's).  Hand-off through
+// with the 64-row forward (forward_train_tile) from one of two X slots,
+// while PRODUCERS producer threads fill the other slot with the next tile's
+// IPE (ipe_tile, the same arithmetic as K7's ipe_wg).  Hand-off through
 // named barriers over all K10_THREADS threads: FULL(s) (producers arrive
 // after writing slot s, consumers wait) and EMPTY(s) (consumers arrive
 // after a tile, producers wait before refilling its slot two tiles on).
 constexpr int PRODUCERS = 128;
 constexpr int K10_THREADS = THREADS + PRODUCERS;
-constexpr int OFF_SLOTS = K3_SMEM_BYTES;
+constexpr int OFF_SLOTS = FWD64_SMEM_BYTES;
 constexpr int K10_SMEM_BYTES = OFF_SLOTS + 2 * X_BYTES;
 static_assert(OFF_SLOTS % 32 == 0 && X_BYTES % 32 == 0, "alignment");
 constexpr int BAR_FULL = 2, BAR_EMPTY = 4;  // + slot; 1 is block_sync()
@@ -349,9 +312,8 @@ __global__ void __launch_bounds__(K10_THREADS, 1)
   }
   for (long long j = 0; j < count; ++j) {
     bar_wait(BAR_FULL + (int)(j & 1));
-    forward_train_tile<NORMALS, false, false>(mc, g, consts, p, wd_row, out,
-                                              nullptr, n, S, row0(j),
-                                              slot(j));
+    forward_train_tile<NORMALS>(mc, g, consts, p, wd_row, out, n, S, row0(j),
+                                slot(j));
     block_sync();  // the next tile rewrites H0, H1, the masks and rowout
     if (j + 2 < count) bar_arrive(BAR_EMPTY + (int)(j & 1));
   }
@@ -732,32 +694,46 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-unsigned grid_for(long long n) { return (unsigned)((n + TM - 1) / TM); }
-
-template <bool NORMALS, bool SPILL_X>
-int launch_v6(const float* mc, const float* g, const float* consts,
-              const V3Params& p, const float* wd_row, bf16* out, bf16* acts,
-              long long n, int S, cudaStream_t stream) {
-  auto kernel = field_forward_v6_kernel<NORMALS, SPILL_X>;
+// A persistent grid of at most one block per SM over the 128-row tiles.
+template <bool NORMALS, bool SPILL, bool SPILL_X>
+int launch_train(const sm90::TrainParams& p, cudaStream_t stream) {
+  auto kernel = field_train_kernel<NORMALS, SPILL, SPILL_X>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K3_SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sm90::TRAIN_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid_for(n), THREADS, K3_SMEM_BYTES, stream>>>(
-      mc, g, consts, p, wd_row, out, acts, n, S);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (p.r.n + sm90::TILE_ROWS - 1) / sm90::TILE_ROWS;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  kernel<<<grid, sm90::BLOCK_THREADS, sm90::TRAIN_SMEM_BYTES, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <bool NORMALS>
-int launch_v4(const float* mc, const float* g, const float* consts,
-              const V3Params& p, const float* wd_row, bf16* out, long long n,
-              int S, cudaStream_t stream) {
-  auto kernel = field_forward_v4_kernel<NORMALS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K3_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid_for(n), THREADS, K3_SMEM_BYTES, stream>>>(
-      mc, g, consts, p, wd_row, out, n, S);
-  return (int)cudaGetLastError();
+// ptrs: the 20 packed operands [+ wd_row]; blob: the train blob.
+void fill_train(sm90::TrainParams* t, const void* mean_cov,
+                const void* g_bands, const void* ipe_consts,
+                const void* blob, const void* const* ptrs, void* out,
+                long long n, int samples_per_ray, int want_normals) {
+  *t = sm90::TrainParams{};
+  sm90::RenderParams& p = t->r;
+  p.mc = static_cast<const float*>(mean_cov);
+  p.consts = static_cast<const float*>(ipe_consts);
+  p.blob = static_cast<const unsigned char*>(blob);
+  for (int i = 0; i < LAYERS; ++i)
+    p.b[i] = static_cast<const float*>(ptrs[LAYERS + i]);
+  p.n = n;
+  p.out = static_cast<bf16*>(out);
+  p.g = static_cast<const float*>(g_bands);
+  p.S = samples_per_ray;
+  p.w_hc = static_cast<const bf16*>(ptrs[16]);
+  p.b_hc = static_cast<const float*>(ptrs[17]);
+  p.w_out = static_cast<const bf16*>(ptrs[18]);
+  p.b_out = static_cast<const float*>(ptrs[19]);
+  t->wd_row = want_normals ? static_cast<const float*>(ptrs[20]) : nullptr;
 }
 
 template <bool NORMALS>
@@ -798,55 +774,63 @@ int launch_backward(Kernel kernel, int smem_bytes, const V3Params& p,
 extern "C" {
 
 // ptrs: w0..w7, b0..b7, w_hc, b_hc, w_out, b_out [, wd_row (1, 256) f32
-// when want_normals] (device pointers).  out (N, 24) bf16, acts (N, 2048)
-// or (N, 2176) with spill_x.  Returns a cudaError_t code (0 = launched).
+// when want_normals] (device pointers; the kernel reads the weights from
+// blob, the biases, w_hc's column 0 and w_out from ptrs); blob:
+// rsn_pack_train_blob's.  out (N, 24) bf16, acts (N, 2048) or (N, 2176)
+// with spill_x.  Returns a cudaError_t code (0 = launched).
 int rsn_field_forward_v6(const void* mean_cov, const void* g_bands,
-                         const void* ipe_consts, const void* const* ptrs,
-                         void* out, void* acts, long long n,
-                         int samples_per_ray, int want_normals, int spill_x,
-                         void* stream) {
-  V3Params p;
-  fill_v3(&p, ptrs);
-  const float* mc = static_cast<const float*>(mean_cov);
-  const float* g = static_cast<const float*>(g_bands);
-  const float* consts = static_cast<const float*>(ipe_consts);
-  const float* wd_row =
-      want_normals ? static_cast<const float*>(ptrs[20]) : nullptr;
-  bf16* o = static_cast<bf16*>(out);
-  bf16* s = static_cast<bf16*>(acts);
+                         const void* ipe_consts, const void* blob,
+                         const void* const* ptrs, void* out, void* acts,
+                         long long n, int samples_per_ray, int want_normals,
+                         int spill_x, void* stream) {
+  sm90::TrainParams p;
+  fill_train(&p, mean_cov, g_bands, ipe_consts, blob, ptrs, out, n,
+             samples_per_ray, want_normals);
+  p.acts = static_cast<bf16*>(acts);
+  p.ld = spill_x ? XACTS_COLS : ACTS_COLS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (want_normals && spill_x)
-    return launch_v6<true, true>(mc, g, consts, p, wd_row, o, s, n,
-                                 samples_per_ray, st);
-  if (want_normals)
-    return launch_v6<true, false>(mc, g, consts, p, wd_row, o, s, n,
-                                  samples_per_ray, st);
-  if (spill_x)
-    return launch_v6<false, true>(mc, g, consts, p, wd_row, o, s, n,
-                                  samples_per_ray, st);
-  return launch_v6<false, false>(mc, g, consts, p, wd_row, o, s, n,
-                                 samples_per_ray, st);
+  if (want_normals && spill_x) return launch_train<true, true, true>(p, st);
+  if (want_normals) return launch_train<true, true, false>(p, st);
+  if (spill_x) return launch_train<false, true, true>(p, st);
+  return launch_train<false, true, false>(p, st);
 }
 
 // K7 (want_normals: ptrs carries wd_row as ptrs[20]) or K1 at the train
 // width: K3's out (N, 24) bf16 without the spill.
 int rsn_field_forward_v4(const void* mean_cov, const void* g_bands,
-                         const void* ipe_consts, const void* const* ptrs,
-                         void* out, long long n, int samples_per_ray,
-                         int want_normals, void* stream) {
-  V3Params p;
-  fill_v3(&p, ptrs);
-  const float* mc = static_cast<const float*>(mean_cov);
-  const float* g = static_cast<const float*>(g_bands);
-  const float* consts = static_cast<const float*>(ipe_consts);
-  bf16* o = static_cast<bf16*>(out);
+                         const void* ipe_consts, const void* blob,
+                         const void* const* ptrs, void* out, long long n,
+                         int samples_per_ray, int want_normals,
+                         void* stream) {
+  sm90::TrainParams p;
+  fill_train(&p, mean_cov, g_bands, ipe_consts, blob, ptrs, out, n,
+             samples_per_ray, want_normals);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (want_normals)
-    return launch_v4<true>(mc, g, consts, p,
-                           static_cast<const float*>(ptrs[20]), o, n,
-                           samples_per_ray, st);
-  return launch_v4<false>(mc, g, consts, p, nullptr, o, n, samples_per_ray,
-                          st);
+  if (want_normals) return launch_train<true, false, false>(p, st);
+  return launch_train<false, false, false>(p, st);
+}
+
+// The train blob of K3, K7 and K1 at the train width (2,146,304 bytes):
+// ptrs w0..w7, w_hc (fp32, or bf16 with bf16_in), strides their (row,
+// column) element strides, 18 values.  One launch.
+int rsn_pack_train_blob(const void* const* ptrs, const long long* strides,
+                        int bf16_in, void* blob, void* stream) {
+  sm90::PackArgs a;
+  for (int i = 0; i <= LAYERS; ++i) {
+    a.p[i] = ptrs[i];
+    a.s0[i] = strides[2 * i];
+    a.s1[i] = strides[2 * i + 1];
+  }
+  constexpr long long groups =
+      sm90::blob_bytes(sm90::FWD_CHUNKS + sm90::DGRAD_CHUNKS) / 16;
+  const unsigned grid = (unsigned)((groups + 255) / 256);
+  unsigned char* b = static_cast<unsigned char*>(blob);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16_in)
+    sm90::pack_train_blob_kernel<bf16><<<grid, 256, 0, st>>>(a, b);
+  else
+    sm90::pack_train_blob_kernel<float><<<grid, 256, 0, st>>>(a, b);
+  return (int)cudaGetLastError();
 }
 
 // K4's kernel A on one chunk: tiles [tile0, tile1) of every block's run

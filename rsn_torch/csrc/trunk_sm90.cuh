@@ -1,7 +1,10 @@
-// Hopper (sm_90a) building blocks of the render path's field kernels K1
-// (field_forward_v3) and K2 (field_forward_density) in field_forward.cu:
-// shared-memory layouts for wgmma's operands, the mbarrier / bulk-copy
-// ring that feeds the weights, and the wgmma instructions.
+// Hopper (sm_90a) building blocks of the field kernels on 128-row tiles: the
+// render path's K1 (field_forward_v3) and K2 (field_forward_density) in
+// field_forward.cu, and the train-width forwards K3 (field_forward_v6), K7
+// (field_forward_v4) and K1 at the train width (train_sm90.cuh, in
+// field_train.cu): shared-memory layouts for wgmma's operands, the
+// mbarrier / bulk-copy ring that feeds the weights, the wgmma instructions,
+// and the persistent block they share.
 //
 // Layout (every operand tile K-major, 128-byte swizzle): a tile of R rows
 // by 64 k-values (bf16) is R x 128 bytes; element (r, k) lies at byte
@@ -235,6 +238,41 @@ __device__ __forceinline__ void wgmma_n144(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// acc += A (64 x 16, smem, K-major, 128B swizzle) @ B (16 x 104, smem,
+// K-major, 128B swizzle); acc is the m64n104 fp32 fragment (the normals'
+// x share: the IPE's 99 live dimensions).
+__device__ __forceinline__ void wgmma_n104(float* d, uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %54, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51"
+      "}, %52, %53, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+      : "l"(da), "l"(db), "r"(1));
+}
 
 // Register i of an m64nN fp32 fragment of warpgroup thread t holds
 // (row, col) = (16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2),
@@ -298,15 +336,46 @@ static_assert(smem_bytes<true>() <= 232448, "K1 exceeds 227 KB");
 __host__ __device__ constexpr int layer_chunks(int layer) {
   return layer == 0 ? 2 : layer == SKIP_AT ? 6 : 4;
 }
+
+// The normals' dgrad chunks (the train-width forwards with the normals), a
+// tile's chunks FWD_CHUNKS.. of the ring: dinp = dpre @ W_i^T for layers 7
+// down to 0, each as 4 chunks of 64 of W_i's 256 output columns (k), k
+// ascending.  wgmma's K-major B operand of dpre @ W_i^T is W_i itself, rows
+// (its input dimensions) as N: chunk (i, k0) holds W_i[r0 : r0 + N, k0 :
+// k0 + 64] in the swizzled (N, 64) layout.  Layers 1-3 and 5-7: N = 256
+// (32 KB).  Layer 4: first its x share (rows 0..103: the IPE's 99 live
+// dimensions to a multiple of 8, 13 KB a chunk), then its h part (rows
+// 128..383); layer 0: the x share alone.  Dgrad chunk d: layer 7 (0-3), 6,
+// 5, 4's x share (12-15), 4's h part (16-19), 3, 2, 1, 0's x share
+// (32-35).
+constexpr int FWD_CHUNKS = TRUNK_CHUNKS + HEAD_CHUNKS;  // 36
+constexpr int DGRAD_CHUNKS = 36;
+constexpr int XS_N = 104;
+constexpr int XS_CHUNK_BYTES = XS_N * CHUNK_K * 2;      // 13 KB
+__host__ __device__ constexpr int dgrad_layer(int d) {
+  return d < 12 ? LAYERS - 1 - d / 4 : d < 20 ? SKIP_AT : 3 - (d - 20) / 4;
+}
+__host__ __device__ constexpr bool dgrad_x_share(int d) {
+  return (d >= 12 && d < 16) || d >= 32;
+}
+// the first row of W_i that dgrad chunk d holds
+__host__ __device__ constexpr int dgrad_row0(int d) {
+  return d >= 16 && d < 20 ? ENC : 0;
+}
+// chunk c of a tile (the trunk's, the heads', then the dgrad's): its bytes
 __host__ __device__ constexpr int chunk_bytes(int c) {
-  return c < TRUNK_CHUNKS ? W_CHUNK_BYTES : HEAD_CHUNK_BYTES;
+  return c < TRUNK_CHUNKS ? W_CHUNK_BYTES
+         : c < FWD_CHUNKS ? HEAD_CHUNK_BYTES
+         : dgrad_x_share(c - FWD_CHUNKS) ? XS_CHUNK_BYTES
+                                         : W_CHUNK_BYTES;
 }
-__host__ __device__ constexpr long long chunk_offset(int c) {
-  return c < TRUNK_CHUNKS
-             ? (long long)c * W_CHUNK_BYTES
-             : (long long)TRUNK_CHUNKS * W_CHUNK_BYTES +
-                   (long long)(c - TRUNK_CHUNKS) * HEAD_CHUNK_BYTES;
+__host__ __device__ constexpr long long blob_bytes(int chunks) {
+  long long b = 0;
+  for (int c = 0; c < chunks; ++c) b += chunk_bytes(c);
+  return b;
 }
+static_assert(blob_bytes(FWD_CHUNKS + DGRAD_CHUNKS) == 2146304,
+              "the train blob: 1,122,304 forward + 1,024,000 dgrad bytes");
 
 struct RenderParams {
   const float* mc;       // (n, 16) f32
@@ -339,22 +408,25 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, %1;" ::"r"(2 + wg), "n"(WG_THREADS) : "memory");
 }
 
-// The producer thread: every chunk of every tile of this block, in order.
+// The producer thread: the first `chunks` chunks of the blob (back to back)
+// for every tile of this block, in order.
 __device__ void produce(const unsigned char* __restrict__ blob,
                         unsigned char* ring, uint64_t* full, uint64_t* empty,
                         int chunks, int ntiles) {
   int st = 0;
   uint32_t ph = 0;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    long long off = 0;
     for (int c = 0; c < chunks; ++c) {
+      const int bytes = chunk_bytes(c);
       mbar_wait(&empty[st], ph ^ 1);
 #ifdef RSN_ABLATE_NO_LOAD  // ablate_render.py: the ring without its copies
       mbar_arrive(&full[st]);
 #else
-      mbar_expect_tx(&full[st], chunk_bytes(c));
-      bulk_load(ring + st * W_CHUNK_BYTES, blob + chunk_offset(c),
-                chunk_bytes(c), &full[st]);
+      mbar_expect_tx(&full[st], bytes);
+      bulk_load(ring + st * W_CHUNK_BYTES, blob + off, bytes, &full[st]);
 #endif
+      off += bytes;
       if (++st == STAGES) {
         st = 0;
         ph ^= 1;
@@ -399,8 +471,10 @@ __device__ __forceinline__ void mma_chunks(float* acc, RingPos& rp,
       if (k < ks) {
         if constexpr (N == 256)
           wgmma_n256(acc, desc_sw128(a + 32 * k), desc_sw128(b + 32 * k));
-        else
+        else if constexpr (N == HEAD_N)
           wgmma_n144(acc, desc_sw128(a + 32 * k), desc_sw128(b + 32 * k));
+        else
+          wgmma_n104(acc, desc_sw128(a + 32 * k), desc_sw128(b + 32 * k));
       }
     }
     wgmma_commit();
@@ -417,14 +491,25 @@ __device__ __forceinline__ void mma_chunks(float* acc, RingPos& rp,
   if (lane0) mbar_arrive(&rp.empty[prev]);
 }
 
+// Nothing to do after a layer (K1, K2).
+struct NoTrunkHook {
+  __device__ void value(int, __nv_bfloat162) {}
+  __device__ void layer(int) {}
+};
+
 // The trunk on a warpgroup's 64 rows: X (IPE, 2 k-blocks) -> H (4
 // k-blocks), 8 layers.  Every element's sum is k ascending in steps of 16
 // into one fp32 accumulator that starts at +0 (trunk()'s order; layer 0
 // and layer 4's x part take 7 k-steps, the 8th meets zero columns), then
-// relu_keep_nan(__fadd_rn(sum, bias)) rounded to bf16.  Starts after X is
-// visible to wgmma; ends with H visible to wgmma and to the warpgroup.
-__device__ void trunk_wg(const RenderParams& p, RingPos& rp,
-                         unsigned char* X, unsigned char* H, int wg, int t) {
+// relu_keep_nan(__fadd_rn(sum, bias)) rounded to bf16.  hook.value(i, v)
+// sees the bf16 pair stored from the thread's registers i, i + 1;
+// hook.layer(layer) runs once the layer's output in H is visible to the
+// warpgroup, before the next layer's products.  Starts after X is visible
+// to wgmma; ends with H visible to wgmma and to the warpgroup.
+template <typename Hook>
+__device__ __forceinline__ void trunk_wg(const RenderParams& p, RingPos& rp,
+                                         unsigned char* X, unsigned char* H,
+                                         int wg, int t, Hook& hook) {
   const uint32_t xa = smem_u32(X), ha = smem_u32(H);
   for (int layer = 0; layer < LAYERS; ++layer) {
     float acc[128];
@@ -457,10 +542,12 @@ __device__ void trunk_wg(const RenderParams& p, RingPos& rp,
             relu_keep_nan(__fadd_rn(acc[i], bb.x)),
             relu_keep_nan(__fadd_rn(acc[i + 1], bb.y)));
         *reinterpret_cast<__nv_bfloat162*>(H + swz(frag_row(t, i), col)) = v;
+        hook.value(i, v);
       }
     }
     fence_async_smem();
     wg_sync(wg);
+    hook.layer(layer);
   }
 }
 
@@ -539,15 +626,28 @@ __device__ __forceinline__ void ipe_wg(const float* __restrict__ mc,
       __floats2bfloat162_rn(hf ? m[2] : m[0], hf ? 0.f : m[1]);
 }
 
+// X's zero columns 100..127 (ipe_wg writes 0..99)
+__device__ __forceinline__ void zero_x_pad(unsigned char* X, int t) {
+  for (int e = t; e < WG_ROWS * (ENC - 100); e += WG_THREADS)
+    *reinterpret_cast<bf16*>(X + swz(e / (ENC - 100), 100 + e % (ENC - 100))) =
+        __float2bfloat16_rn(0.f);
+}
+
 // K1's end (v3_tail's arithmetic on 64 rows): the heads + mid-seed product
 // as one m64n144 wgmma over 4 ring chunks (w_hc's columns 0..15 and
 // 128..255), the roughness attenuation, hmid (into H's first two k-blocks,
 // once the product and the density have read H), the mid head and the
-// (n, 16) row.
-__device__ void v3_tail_wg(const RenderParams& p, RingPos& rp,
-                           unsigned char* H, const float* wcol,
-                           const float4* wout, float* tail, long long row0,
-                           int wg, int t) {
+// row of OUTC bf16 columns (v3_tail's: 16 at the render width, 24 at the
+// train width with the mid value in 17:20 and zero in 14:17) into
+// rows + r * OUTC for the warpgroup's rows r < n - row0.
+template <int OUTC>
+__device__ __forceinline__ void v3_tail_wg(const RenderParams& p,
+                                           RingPos& rp, unsigned char* H,
+                                           const float* wcol,
+                                           const float4* wout, float* tail,
+                                           long long row0, int wg, int t,
+                                           bf16* rows) {
+  static_assert(OUTC == 16 || OUTC == 24, "16 (render) or 24 (train) cols");
   float* HSm = tail;                          // 64 x 16 f32 head sums
   float* rowf = tail + WG_ROWS * HS_COLS;     // 64 x 8: atten(4), dens, mid(3)
   const int q = t & 3;
@@ -660,7 +760,7 @@ __device__ void v3_tail_wg(const RenderParams& p, RingPos& rp,
                             sigmoidf(__fadd_rn(s1, p.b_out[1])),
                             sigmoidf(__fadd_rn(s2, p.b_out[2]))};
       const float* hcr = HSm + t * HS_COLS;
-      alignas(16) bf16 v[16];
+      alignas(16) bf16 v[OUTC];
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         const float diff = sigmoidf(__fadd_rn(hcr[1 + i], p.b_hc[1 + i]));
@@ -672,22 +772,32 @@ __device__ void v3_tail_wg(const RenderParams& p, RingPos& rp,
       }
       v[12] = __float2bfloat16_rn(rowf[t * ROWF + 4]);
       v[13] = __float2bfloat16_rn(__fadd_rn(hcr[7], p.b_hc[7]));
-      v[14] = v[15] = __float2bfloat16_rn(0.f);
-      uint4* o = reinterpret_cast<uint4*>(p.out + row * 16);
-      o[0] = reinterpret_cast<const uint4*>(v)[0];
-      o[1] = reinterpret_cast<const uint4*>(v)[1];
+#pragma unroll
+      for (int i = 14; i < OUTC; ++i) v[i] = __float2bfloat16_rn(0.f);
+      if constexpr (OUTC == 24) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) v[17 + i] = __float2bfloat16_rn(mid[i]);
+      }
+      uint4* o = reinterpret_cast<uint4*>(rows + t * OUTC);
+#pragma unroll
+      for (int i = 0; i < OUTC / 8; ++i)
+        o[i] = reinterpret_cast<const uint4*>(v)[i];
     }
   }
 }
 
-// K1 (HEADS) or K2: the whole kernel body.  (The RSN_ABLATE_* macros leave
-// out one part each in ablate_render.py's timing builds; the port's build
-// never defines them.)
-template <bool HEADS>
-__device__ void render_trunk(const RenderParams& p, unsigned char* smem_raw) {
-  unsigned char* smem =
-      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + off_bars<HEADS>());
+// The persistent block of K1, K2 and the train-width forwards: the block's
+// f32 copies of the density column (w_hc's column 0 with HEADS, else wd's)
+// and of w_out's three live columns, the ring's barriers at bars_off; the
+// producer streams the blob's first `chunks` chunks for every tile; each
+// consumer warpgroup writes its 64 rows' IPE into X, then runs
+// tile_fn(rp, X, H, tail, wcol, wout, row0, wg, t) on them.
+template <bool HEADS, typename Tile>
+__device__ __forceinline__ void persistent_body(const RenderParams& p,
+                                                unsigned char* smem,
+                                                int bars_off, int chunks,
+                                                Tile& tile_fn) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + bars_off);
   uint64_t* empty = full + STAGES;
   float* wcol = reinterpret_cast<float*>(smem + OFF_WD);
   float4* wout = reinterpret_cast<float4*>(smem + OFF_WOUT);
@@ -711,8 +821,7 @@ __device__ void render_trunk(const RenderParams& p, unsigned char* smem_raw) {
   if (wgi == 0) {
     setmaxnreg_dec40();
     if (threadIdx.x == 0)
-      produce(p.blob, smem + OFF_RING, full, empty,
-              TRUNK_CHUNKS + (HEADS ? HEAD_CHUNKS : 0), ntiles);
+      produce(p.blob, smem + OFF_RING, full, empty, chunks, ntiles);
     return;
   }
   setmaxnreg_inc232();
@@ -727,9 +836,7 @@ __device__ void render_trunk(const RenderParams& p, unsigned char* smem_raw) {
     sk[i] = p.consts[8 * (t & 1) + i];
     vk[i] = p.consts[NFREQ + 8 * (t & 1) + i];
   }
-  for (int e = t; e < WG_ROWS * (ENC - 100); e += WG_THREADS)
-    *reinterpret_cast<bf16*>(X + swz(e / (ENC - 100), 100 + e % (ENC - 100))) =
-        __float2bfloat16_rn(0.f);
+  zero_x_pad(X, t);
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long row0 = (long long)tile * TILE_ROWS + wg * WG_ROWS;
     wg_sync(wg);  // the previous tile's tail is done with X, H, the scratch
@@ -738,12 +845,41 @@ __device__ void render_trunk(const RenderParams& p, unsigned char* smem_raw) {
 #endif
     fence_async_smem();
     wg_sync(wg);
-    trunk_wg(p, rp, X, H, wg, t);
-    if (HEADS)
-      v3_tail_wg(p, rp, H, wcol, wout, tail, row0, wg, t);
+    tile_fn(rp, X, H, tail, wcol, wout, row0, wg, t);
+  }
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// K1's (HEADS) or K2's tile: the trunk, then the V3 tail or the density.
+template <bool HEADS>
+struct RenderTile {
+  const RenderParams& p;
+  __device__ __forceinline__ void operator()(RingPos& rp, unsigned char* X,
+                                             unsigned char* H, float* tail,
+                                             const float* wcol,
+                                             const float4* wout,
+                                             long long row0, int wg, int t) {
+    NoTrunkHook hook;
+    trunk_wg(p, rp, X, H, wg, t, hook);
+    if constexpr (HEADS)
+      v3_tail_wg<16>(p, rp, H, wcol, wout, tail, row0, wg, t,
+                     p.out + row0 * 16);
     else
       density_tail(p, H, wcol, row0, t);
   }
+};
+
+// K1 (HEADS) or K2: the whole kernel body.  (The RSN_ABLATE_* macros leave
+// out one part each in ablate_render.py's timing builds; the port's build
+// never defines them.)
+template <bool HEADS>
+__device__ void render_trunk(const RenderParams& p, unsigned char* smem_raw) {
+  RenderTile<HEADS> tile{p};
+  persistent_body<HEADS>(p, align_1024(smem_raw), off_bars<HEADS>(),
+                         TRUNK_CHUNKS + (HEADS ? HEAD_CHUNKS : 0), tile);
 }
 
 }  // namespace sm90

@@ -27,7 +27,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("field_forward.cu", "field_train.cu", "proposal_forward.cu",
            "experiments.cu", "experiments_bwd.cu")
-HEADERS = ("field_common.cuh", "trunk_sm90.cuh", "wgrad_sm90.cuh")
+HEADERS = ("field_common.cuh", "trunk_sm90.cuh", "train_sm90.cuh",
+           "wgrad_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -104,6 +105,7 @@ def _signatures() -> Dict[str, Dict[str, list]]:
     cudaError_t code as an int)."""
     vp, ptrs = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
     ll, i32 = ctypes.c_longlong, ctypes.c_int
+    lls = ctypes.POINTER(ctypes.c_longlong)
     return {
         "field_forward.cu": {
             "rsn_field_forward_v3": [vp, vp, vp, vp, ptrs, vp, ll, i32, vp],
@@ -113,13 +115,15 @@ def _signatures() -> Dict[str, Dict[str, list]]:
             "rsn_mma_probe": [vp, vp, vp, vp, vp, vp],
         },
         "field_train.cu": {
-            "rsn_field_forward_v6": [vp, vp, vp, ptrs, vp, vp, ll, i32, i32,
-                                     i32, vp],
+            "rsn_field_forward_v6": [vp, vp, vp, vp, ptrs, vp, vp, ll, i32,
+                                     i32, i32, vp],
             "rsn_field_backward_v5": [vp, vp, vp, vp, vp, vp, ptrs, vp, vp,
                                       vp, vp, ll, i32, i32, i32, i32, vp],
             "rsn_field_backward_v6": [vp, vp, vp, vp, ptrs, vp, vp, vp, ll,
                                       i32, i32, i32, i32, vp],
-            "rsn_field_forward_v4": [vp, vp, vp, ptrs, vp, ll, i32, i32, vp],
+            "rsn_field_forward_v4": [vp, vp, vp, vp, ptrs, vp, ll, i32, i32,
+                                     vp],
+            "rsn_pack_train_blob": [ptrs, lls, i32, vp, vp],
             "rsn_field_backward_v4": [vp, vp, vp, vp, vp, ptrs, vp, vp, vp,
                                       vp, vp, ll, i32, i32, i32, i32, vp],
             "rsn_wgrad_sm90": [vp, vp, ll, i32, i32, vp],

@@ -104,7 +104,7 @@ LAUNCHES = {"field_forward_v3": 0, "field_forward_density": 0,
             "field_forward_v5": 0, "field_backward_v3": 0,
             "field_forward_v3u": 0, "field_forward_v3i": 0,
             "field_forward_v3L": 0, "field_forward_v3F": 0,
-            "field_backward_whole": 0, "run_noipe": 0}
+            "field_backward_whole": 0, "run_noipe": 0, "train_blob": 0}
 # K18's four modes (rsn_torch.experiments.bwd_ablate), one count each
 LAUNCHES.update({f"bwd_ablate_{m}": 0 for m in (
     "full_wgrad", "full", "no_ipe_bwd", "recompute")})

@@ -25,7 +25,9 @@ with the normals and without the spill, (N, 24) bf16.  Its sibling
 `field_forward_v3_train` is K1 at the train width (field_pallas.py::
 field_forward_v3 at its default V3_OUT store): K3 without the normals and
 without the spill.  The same kernel body as K3, so both equal K3's output
-bit for bit.
+bit for bit.  The three read their weights from a blob in the Hopper
+ring's chunk layout (train_blob: one pack launch, shared by a train
+step's calls).
 
 K8 `field_backward_v4` (replaces field_train.py::field_backward_v4): K4
 with the trunk activations recomputed in the kernel instead of read from
@@ -54,6 +56,7 @@ in field_forward.LAUNCHES.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import List, NamedTuple, Sequence, Tuple
@@ -153,8 +156,18 @@ def normals_dgrad_plain(packed, hs, mean_cov: torch.Tensor) -> torch.Tensor:
     bf16): dh = wd_row (packed[20]), dpre = bf16(dh * relu mask),
     dinp = dpre @ W^T through the 8 layers, then the IPE backward
     -> (N, 3) d density_preact / d mean."""
-    ws = packed[:8]
-    dh = packed[20].expand(mean_cov.shape[0], TRUNK_WIDTH)
+    return _normals_dgrad(packed[:8], packed[20], hs, mean_cov)
+
+
+def normals_blob_plain(blob: torch.Tensor, wd_row: torch.Tensor, hs,
+                       mean_cov: torch.Tensor) -> torch.Tensor:
+    """normals_dgrad_plain with the weights read from a train blob's dgrad
+    chunks in the kernels' order (trunk_sm90.dgrad_weights)."""
+    return _normals_dgrad(ts.dgrad_weights(blob), wd_row, hs, mean_cov)
+
+
+def _normals_dgrad(ws, wd_row, hs, mean_cov):
+    dh = wd_row.expand(mean_cov.shape[0], TRUNK_WIDTH)
     dx_extra = None
     for i in range(TRUNK_LAYERS - 1, -1, -1):
         dpre = (dh * (hs[i].float() > 0)).to(BF16)
@@ -512,11 +525,59 @@ def _unpack_slices(buf: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return _packed_views(buf.sum(dim=0))
 
 
+def train_blob(ws: Sequence[torch.Tensor], w_hc: torch.Tensor
+               ) -> torch.Tensor:
+    """The weight ring's blob of K3, K7 and K1 at the train width from
+    w0..w7 ((in, 256)) and w_hc ((256, 256)), fp32 (pack_params_v3f_f32's,
+    any strides) or bf16 -> (trunk_sm90.TRAIN_BLOB_ELEMS,) bf16: trunk_sm90.
+    pack_train_blob's layout, each value cast to bf16 as cast_packed casts
+    it.  On the card one launch (rsn_pack_train_blob, counted as
+    "train_blob"); a train step packs once and hands the blob to its
+    forwards."""
+    mats = list(ws) + [w_hc]
+    device = w_hc.device
+    if device.type == "cpu":
+        return ts.pack_train_blob(ws, w_hc)
+    if device.type != "cuda":
+        raise ValueError(f"train_blob: unsupported device {device}")
+    dtype = w_hc.dtype
+    for i, t in enumerate(mats):
+        rows = ff.V3_SHAPES[16 if i == TRUNK_LAYERS else i][0]
+        if tuple(t.shape) != (rows, TRUNK_WIDTH) or t.dtype != dtype \
+                or t.device != device or dtype not in (F32, BF16):
+            raise ValueError(f"train_blob: operand {i} {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_train.cu")
+    blob = torch.empty(ts.TRAIN_BLOB_ELEMS, dtype=BF16, device=device)
+    mats = [t.detach() for t in mats]
+    strides = (ctypes.c_longlong * (2 * len(mats)))(
+        *(s for t in mats for s in t.stride()))
+    with torch.cuda.device(device):
+        rc = lib.rsn_pack_train_blob(_ptr_array(mats), strides,
+                                     int(dtype == BF16), blob.data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, rc, "train_blob")
+    LAUNCHES["train_blob"] += 1
+    return blob
+
+
+def _train_blob_for(packed, blob) -> torch.Tensor:
+    """The forwards' blob: the caller's (checked), or one packed here from
+    the bf16 operands."""
+    if blob is None:
+        return train_blob(packed[:8], packed[16])
+    _check("blob", blob, (ts.TRAIN_BLOB_ELEMS,), BF16, packed[0].device)
+    return blob
+
+
 def field_forward_v6(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
                      samples_per_ray: int, want_normals: bool = False,
-                     spill_x: bool = False):
+                     spill_x: bool = False, blob: torch.Tensor = None):
     """K3: (N, 16) f32 mean_cov + (R, 512) f32 g_bands, N = R * S;
-    packed = pack_params_v3f [+ wd_row with want_normals]
+    packed = pack_params_v3f [+ wd_row with want_normals]; blob: train_blob
+    of packed's weights (packed here when None; the CPU needs none)
     -> (out (N, 24) bf16, acts (N, 2048 | 2176) bf16)."""
     device = mean_cov.device
     n = mean_cov.shape[0]
@@ -532,26 +593,38 @@ def field_forward_v6(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
         raise ValueError(f"field_forward_v6: unsupported device {device}")
     from rsn_torch.kernels.build import load_library
 
-    lib = load_library("field_train.cu")
+    return launch_field_forward_v6(load_library("field_train.cu"), packed,
+                                   mean_cov, g_bands, S, want_normals,
+                                   spill_x, _train_blob_for(packed, blob))
+
+
+def launch_field_forward_v6(lib, packed, mean_cov, g_bands, S: int,
+                            want_normals: bool, spill_x: bool, blob):
+    """K3 from `lib` (field_train.cu as load_library builds it, or a timing
+    build of it) on checked CUDA inputs and a train blob -> (out, acts).
+    Counts its launch."""
+    n, device = mean_cov.shape[0], mean_cov.device
     out = torch.empty((n, OUT_TRAIN), dtype=BF16, device=device)
     acts = torch.empty((n, XACTS_COLS if spill_x else ACTS_COLS),
                        dtype=BF16, device=device)
     with torch.cuda.device(device):
         rc = lib.rsn_field_forward_v6(
             mean_cov.data_ptr(), g_bands.data_ptr(),
-            _ipe_consts(device).data_ptr(), _ptr_array(packed),
-            out.data_ptr(), acts.data_ptr(), n, S, int(want_normals),
-            int(spill_x), torch.cuda.current_stream().cuda_stream)
+            _ipe_consts(device).data_ptr(), blob.data_ptr(),
+            _ptr_array(packed), out.data_ptr(), acts.data_ptr(), n, S,
+            int(want_normals), int(spill_x),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, rc, "field_forward_v6")
     LAUNCHES["field_forward_v6"] += 1
     return out, acts
 
 
 def _forward_no_spill(packed, mean_cov, g_bands, samples_per_ray,
-                      want_normals: bool, name: str,
-                      entry: str) -> torch.Tensor:
+                      want_normals: bool, name: str, entry: str,
+                      blob=None) -> torch.Tensor:
     """K7, K1 at the train width and K10: the same checks, plain version
-    and arguments; `entry` is the C function that launches `name`."""
+    and arguments; `entry` is the C function that launches `name`, which
+    (but K10's) reads its weights from a train blob."""
     device = mean_cov.device
     n = mean_cov.shape[0]
     S = int(samples_per_ray)
@@ -567,36 +640,41 @@ def _forward_no_spill(packed, mean_cov, g_bands, samples_per_ray,
     from rsn_torch.kernels.build import load_library
 
     lib = load_library("field_train.cu")
+    head = (mean_cov.data_ptr(), g_bands.data_ptr(),
+            _ipe_consts(device).data_ptr())
+    if name != "field_forward_v5":
+        # held until the launch, so that out cannot take its memory
+        blob = _train_blob_for(packed, blob)
+        head += (blob.data_ptr(),)
     out = torch.empty((n, OUT_TRAIN), dtype=BF16, device=device)
     with torch.cuda.device(device):
         rc = getattr(lib, entry)(
-            mean_cov.data_ptr(), g_bands.data_ptr(),
-            _ipe_consts(device).data_ptr(), _ptr_array(packed),
-            out.data_ptr(), n, S, int(want_normals),
-            torch.cuda.current_stream().cuda_stream)
+            *head, _ptr_array(packed), out.data_ptr(), n, S,
+            int(want_normals), torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, rc, name)
     LAUNCHES[name] += 1
     return out
 
 
 def field_forward_v4(packed_v4f, mean_cov: torch.Tensor,
-                     g_bands: torch.Tensor,
-                     samples_per_ray: int) -> torch.Tensor:
+                     g_bands: torch.Tensor, samples_per_ray: int,
+                     blob: torch.Tensor = None) -> torch.Tensor:
     """K7: packed_v4f = pack_params_v4f(...) -> (N, 24) bf16, K3's output
-    with the normals (V4_DPDM), no spill."""
+    with the normals (V4_DPDM), no spill; blob as field_forward_v6's."""
     return _forward_no_spill(packed_v4f, mean_cov, g_bands, samples_per_ray,
                              True, "field_forward_v4",
-                             "rsn_field_forward_v4")
+                             "rsn_field_forward_v4", blob)
 
 
 def field_forward_v3_train(packed, mean_cov: torch.Tensor,
-                           g_bands: torch.Tensor,
-                           samples_per_ray: int) -> torch.Tensor:
+                           g_bands: torch.Tensor, samples_per_ray: int,
+                           blob: torch.Tensor = None) -> torch.Tensor:
     """K1 at the train width: pack_params_v3f operands -> (N, 24) bf16,
-    K3's output without the normals (V4_DPDM zero), no spill."""
+    K3's output without the normals (V4_DPDM zero), no spill; blob as
+    field_forward_v6's."""
     return _forward_no_spill(packed, mean_cov, g_bands, samples_per_ray,
                              False, "field_forward_v3_train",
-                             "rsn_field_forward_v4")
+                             "rsn_field_forward_v4", blob)
 
 
 def field_forward_v5(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
@@ -903,8 +981,8 @@ class FusedFieldTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, samples_per_ray: int, want_normals: bool,
-                want_dmc: bool, save_acts: bool, wd_row, mean_cov, g_bands,
-                *packed_f32):
+                want_dmc: bool, save_acts: bool, blob, wd_row, mean_cov,
+                g_bands, *packed_f32):
         packed = ff.cast_packed(packed_f32)
         mean_cov = mean_cov.detach().contiguous()
         g_bands = g_bands.detach().float().contiguous()
@@ -913,11 +991,11 @@ class FusedFieldTrain(torch.autograd.Function):
         if save_acts:
             out, acts = field_forward_v6(ops, mean_cov, g_bands,
                                          samples_per_ray, want_normals,
-                                         spill_x=not want_dmc)
+                                         spill_x=not want_dmc, blob=blob)
             ctx.save_for_backward(mean_cov, g_bands, out, acts, *packed)
         else:
             fwd = field_forward_v4 if want_normals else field_forward_v3_train
-            out = fwd(ops, mean_cov, g_bands, samples_per_ray)
+            out = fwd(ops, mean_cov, g_bands, samples_per_ray, blob=blob)
             ctx.save_for_backward(mean_cov, g_bands, out, *packed)
         ctx.samples_per_ray = samples_per_ray
         ctx.want_dmc = want_dmc
@@ -939,20 +1017,23 @@ class FusedFieldTrain(torch.autograd.Function):
             dg, dpk = field_backward_v6(rest[1:], g_bands, rest[0], d_out,
                                         out, S)
             dmc = torch.zeros_like(mean_cov)  # dead by the caller's promise
-        return (None, None, None, None, None, dmc, dg) + tuple(dpk)
+        return (None, None, None, None, None, None, dmc, dg) + tuple(dpk)
 
 
 def fused_field_train(packed_f32, mean_cov: torch.Tensor,
                       g_bands: torch.Tensor, samples_per_ray: int,
                       want_normals: bool = False, want_dmc: bool = True,
                       wd_row: torch.Tensor = None,
-                      save_acts: bool = True) -> torch.Tensor:
+                      save_acts: bool = True,
+                      blob: torch.Tensor = None) -> torch.Tensor:
     """FusedFieldTrain.apply with rsn's argument order.  packed_f32 =
     pack_params_v3f_f32(field); wd_row = the density head's (1, 256)
     weight row, needed with want_normals; save_acts: the spill route (K3
-    with K4 / K5), else the recompute route (K7 / K1 with K8)."""
+    with K4 / K5), else the recompute route (K7 / K1 with K8); blob:
+    train_blob of packed_f32's weights, which a step's calls share
+    (packed per call on the card when None)."""
     if want_normals and wd_row is None:
         raise ValueError("want_normals needs the density head row wd_row")
     return FusedFieldTrain.apply(int(samples_per_ray), bool(want_normals),
-                                 bool(want_dmc), bool(save_acts), wd_row,
-                                 mean_cov, g_bands, *packed_f32)
+                                 bool(want_dmc), bool(save_acts), blob,
+                                 wd_row, mean_cov, g_bands, *packed_f32)

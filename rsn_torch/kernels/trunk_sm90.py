@@ -1,7 +1,8 @@
 """The weights of K1 (`field_forward_v3`) and K2 (`field_forward_density`)
 pre-packed for their Hopper kernels' weight ring
-(rsn_torch/csrc/trunk_sm90.cuh), the plain versions that read them back,
-and the wgmma / mma.sync probe.
+(rsn_torch/csrc/trunk_sm90.cuh), the train blob of K3, K7 and K1 at the
+train width (rsn_torch/csrc/train_sm90.cuh), the plain versions that read
+them back, and the wgmma / mma.sync probe.
 
 The kernels stream every layer's weights through shared memory as chunks
 of 64 k-rows, in the order they use them: layer 0 (2 chunks: the IPE's
@@ -18,6 +19,16 @@ The second chunk of layers 0 and 4 holds the IPE's rows 64..127, of
 which 99..127 are zero padding; the kernels multiply three of its four
 16-row k-steps (rows 112..127 meet the IPE's zero columns, and adding
 their zero products leaves every sum unchanged).
+
+The train blob is K1's blob followed by the normals' dgrad chunks
+(dgrad_schedule): dinp = dpre @ W_i^T for layers 7 down to 0, each as 4
+chunks of 64 of W_i's 256 output columns.  wgmma's K-major B operand of
+that product is W_i itself with its rows (input dimensions) as N, so a
+dgrad chunk is W_i[r0:r0 + N, k0:k0 + 64] swizzled like the others (no
+transposed copy).  Layer 4 takes its x share (rows 0..103: the IPE's 99
+live dimensions to a multiple of 8) and then its h part (rows 128..383)
+as two passes over the same dpre; layer 0 is the x share alone.  On the
+card one launch packs it from the fp32 operands (field_train.train_blob).
 """
 from __future__ import annotations
 
@@ -33,6 +44,7 @@ ENC_PAD = 128
 MID = 128
 HEAD_COLS = 16           # w_hc's head columns 0..15 (11 live)
 HEAD_N = HEAD_COLS + MID  # 144: the heads and the mid seed
+XS_N = 104                # the dgrad's x share: the IPE's 99 live dims
 
 
 def _layer_rows(layer: int) -> int:
@@ -136,6 +148,75 @@ def trunk_blob_plain(blob: torch.Tensor, bs: Sequence[torch.Tensor],
     if layer != TRUNK_LAYERS:
         raise ValueError(f"blob holds {layer} of {TRUNK_LAYERS} layers")
     return h
+
+
+def dgrad_schedule() -> List[Tuple[int, int, int, int]]:
+    """The normals' dgrad chunks in the kernels' order (train_sm90.cuh):
+    (layer, first row of W_layer, rows N, first output column k0)."""
+    out = []
+    for layer in range(TRUNK_LAYERS - 1, -1, -1):
+        parts = []
+        if layer in (0, SKIP_AT):
+            parts.append((0, XS_N))
+        if layer > 0:
+            parts.append((ENC_PAD if layer == SKIP_AT else 0, TRUNK_WIDTH))
+        for r0, n in parts:
+            out += [(layer, r0, n, k0)
+                    for k0 in range(0, TRUNK_WIDTH, CHUNK_K)]
+    return out
+
+
+# the train blob's bf16 values: K1's blob, then the dgrad chunks (2,146,304
+# bytes)
+FWD_BLOB_ELEMS = CHUNK_K * (len(trunk_schedule()) * TRUNK_WIDTH
+                            + TRUNK_WIDTH // CHUNK_K * HEAD_N)
+TRAIN_BLOB_ELEMS = FWD_BLOB_ELEMS + CHUNK_K * sum(
+    n for _, _, n, _ in dgrad_schedule())
+
+
+def dgrad_chunk(w: torch.Tensor, r0: int, n: int, k0: int) -> torch.Tensor:
+    """One dgrad chunk of W (in, 256): rows r0..r0 + n, output columns
+    k0..k0 + 64, in the B-operand layout -> (n * 64,)."""
+    return swizzle_chunk(w[r0:r0 + n, k0:k0 + CHUNK_K].t())
+
+
+@torch.no_grad()
+def pack_train_blob(ws: Sequence[torch.Tensor],
+                    w_hc: torch.Tensor) -> torch.Tensor:
+    """The train blob of w0..w7 ((in, 256)) and w_hc, fp32 or bf16 (cast to
+    bf16 as field_forward.cast_packed casts): pack_blob's chunks, then the
+    dgrad chunks -> 1-D bf16, contiguous (the plain version of the card's
+    pack launch)."""
+    ws = [w.to(BF16) for w in ws]
+    return torch.cat([pack_blob(ws, w_hc.to(BF16))] + [
+        dgrad_chunk(ws[layer], r0, n, k0)
+        for layer, r0, n, k0 in dgrad_schedule()]).contiguous()
+
+
+def train_blob_split(blob: torch.Tensor):
+    """A train blob -> (K1's blob, the dgrad chunks as (layer, r0, n, k0,
+    (n, 64) block) in the kernels' order)."""
+    off, chunks = FWD_BLOB_ELEMS, []
+    for layer, r0, n, k0 in dgrad_schedule():
+        block = unswizzle_chunk(blob[off:off + n * CHUNK_K], n).t()
+        chunks.append((layer, r0, n, k0, block))
+        off += n * CHUNK_K
+    if off != blob.numel():
+        raise ValueError(f"train blob of {blob.numel()} values, expected "
+                         f"{off}")
+    return blob[:FWD_BLOB_ELEMS], chunks
+
+
+def dgrad_weights(blob: torch.Tensor) -> List[torch.Tensor]:
+    """The trunk weights as the dgrad chunks hold them: each layer's (in,
+    256) matrix with its chunks put back in place as they arrive (rows
+    104..127 of the x share, which no chunk holds, zero)."""
+    ws = [torch.zeros(ENC_PAD if i == 0 else ENC_PAD + TRUNK_WIDTH
+                      if i == SKIP_AT else TRUNK_WIDTH, TRUNK_WIDTH,
+                      dtype=BF16) for i in range(TRUNK_LAYERS)]
+    for layer, r0, n, k0, block in train_blob_split(blob)[1]:
+        ws[layer][r0:r0 + n, k0:k0 + CHUNK_K] = block
+    return ws
 
 
 def mma_probe(a: torch.Tensor, w: torch.Tensor):

@@ -84,10 +84,12 @@ class KernelOperands:
 
 @dataclasses.dataclass(frozen=True)
 class TrainOperands:
-    """FusedFieldTrain's operands: the fp32 packing under autograd and the
-    density head row (the normals' seed)."""
+    """FusedFieldTrain's operands: the fp32 packing under autograd, the
+    density head row (the normals' seed) and, on the card, the forwards'
+    weight blob (one pack launch a step, shared by its passes)."""
     packed_f32: Tuple[torch.Tensor, ...]
     wd_row: torch.Tensor
+    blob: Optional[torch.Tensor]
 
 
 def _field_cfg(cfg: ModelConfig) -> FieldConfig:
@@ -123,7 +125,10 @@ def pack_kernel_operands(field: Field, cfg: ModelConfig,
 
 
 def pack_train_operands(field: Field) -> TrainOperands:
-    return TrainOperands(ff.pack_params_v3f_f32(field), ft.density_row(field))
+    packed = ff.pack_params_v3f_f32(field)
+    blob = (ft.train_blob(packed[:8], packed[16])
+            if packed[16].device.type == "cuda" else None)
+    return TrainOperands(packed, ft.density_row(field), blob)
 
 
 def apply_collider(ray_bundle: RayBundle, cfg: ModelConfig) -> RayBundle:
@@ -153,7 +158,8 @@ def _eval_field(field: Field, ray_samples: RaySamples, fcfg: FieldConfig,
             g = ff.mid_g_bands_f32(field, ray_dirs, fcfg.sh_l8_m7_2x)
             out = ft.fused_field_train(packed.packed_f32, mc, g, S,
                                        want_normals, want_dmc,
-                                       packed.wd_row, fcfg.save_acts)
+                                       packed.wd_row, fcfg.save_acts,
+                                       packed.blob)
         else:
             g = ff.mid_g_bands(field, ray_dirs, fcfg.sh_l8_m7_2x)
             out = ff.field_forward_v3(packed.v3f, mc, g, S)

@@ -2,7 +2,9 @@
 and K2's Hopper trunk rests on, shapes the smoke run does not
 reach (ragged last tiles, K1 / K2 over more tiles than one block per SM,
 odd samples per ray, every flag pair of the
-training forward, K9 over many tiles per block, K7 / K8 at ragged
+training forward, K3 / K7 / K1 at the train width on the Hopper ring
+against plain, each other and K10, bit for bit, and the pack launch of
+their weight blob, K9 over many tiles per block, K7 / K8 at ragged
 shapes, K10-K13 at ragged shapes and over many tiles per block), the
 launch counters (one train step on each route, camera off and on, the
 field API), K4 == K8 and K5 == K4 on K3's spill over several chunks,
@@ -456,8 +458,9 @@ def test_train_step_launches_per_route(field, tmp_path, monkeypatch, camera,
     """The launches of one default-method train step on each route, with
     the camera optimizer off and on (two backward passes): `want` gives
     the forwards' launches and the backward calls; kernel A of K4, K5 and
-    K8 launches once per chunk of each call's stash_plan, and kernel B
-    once per chunk of all three."""
+    K8 launches once per chunk of each call's stash_plan, kernel B once
+    per chunk of all three, and the forwards' weight blob is packed once
+    a step."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     chunks = {k: [] for k in tft.STASH_KERNELS}
 
@@ -484,6 +487,7 @@ def test_train_step_launches_per_route(field, tmp_path, monkeypatch, camera,
         if chunks[name]:
             want[name] = sum(chunks[name])
     want["field_backward_v4_wgrad"] = sum(map(sum, chunks.values()))
+    want["train_blob"] = 1
     assert got == want
     if camera:
         assert torch.isfinite(tr.camera).all() and tr.camera.abs().max() > 0
@@ -625,6 +629,76 @@ def test_k10_equals_k7_and_k1_train_width(field, R, S):
         ref = tft.field_forward_v4_plain(pk, mc, g, S, normals)
         assert float((got[:, cols].float() - ref[:, cols].float()).abs()
                      .max()) <= ATOL
+
+
+def test_train_blob_packs_on_the_card(field):
+    """One launch packs the forwards' train blob from the fp32 operands
+    (transposed views among them) or from the bf16 ones, equal to the
+    plain trunk_sm90.pack_train_blob bit for bit; each counts one
+    train_blob launch."""
+    p32 = ff.pack_params_v3f_f32(field)
+    p3 = ff.pack_params_v3f(field)
+    ff.reset_launch_counts()
+    a = tft.train_blob(p32[:8], p32[16])
+    b = tft.train_blob(p3[:8], p3[16])
+    torch.cuda.synchronize()
+    ref = ts.pack_train_blob([w.cpu() for w in p3[:8]], p3[16].cpu())
+    assert torch.equal(a.cpu(), ref) and torch.equal(b.cpu(), ref)
+    assert ff.LAUNCHES["train_blob"] == 2
+
+
+# 64 x 128 rows: 64 tiles of 128 rows; (301, 100) and (1030, 128): a
+# ragged last tile and more tiles than 132 blocks
+@pytest.mark.parametrize("R,S", [(64, 128), (301, 100), (1030, 128)])
+@pytest.mark.parametrize("normals,spill_x", [(False, False), (False, True),
+                                             (True, False), (True, True)])
+def test_train_forwards_on_the_ring(field, R, S, normals, spill_x):
+    """K3, and K7 (normals) or K1 at the train width, on trunk_sm90.cuh's
+    ring: within ATOL of the plain version (of each tensor's max; the
+    normals against the plain dgrad on K3's own activations); K3 == K7 /
+    K1 at the train width == K10 (the 64-row wmma forward, whose sums run
+    in the same order) bit for bit; the spill within one bf16 ulp of the
+    plain one on 99.9% of entries, its activations the same bits with and
+    without x, x's padding zero; K8 == K4 on it (dmc, dg, all 20
+    gradients)."""
+    mc, dirs = _inputs(R, S, seed=R + S)
+    g = ff.mid_g_bands(field, dirs)
+    p3 = ff.pack_params_v3f(field)
+    pk = tft.pack_params_v4f(p3, field) if normals else p3
+    blob = tft.train_blob(p3[:8], p3[16])
+    k3, acts = tft.field_forward_v6(pk, mc, g, S, normals, spill_x,
+                                    blob=blob)
+    _, bare = tft.field_forward_v6(pk, mc, g, S, normals, False, blob=blob)
+    fwd = tft.field_forward_v4 if normals else tft.field_forward_v3_train
+    k7 = fwd(pk, mc, g, S, blob=blob)
+    k10 = tft.field_forward_v5(pk, mc, g, S, normals)
+    torch.cuda.synchronize()
+    assert torch.equal(k3, k7) and torch.equal(k10, k7)
+    ref, ref_acts = tft.field_forward_v6_plain(pk, mc, g, S, normals,
+                                               spill_x)
+    cols = list(range(14)) + list(range(17, 20))
+    assert torch.isfinite(k3.float()).all()
+    assert _rel_err(k3[:, cols], ref[:, cols]) <= ATOL
+    assert torch.all(k3[:, 20:] == 0)
+    if normals:
+        chain = tft.normals_dgrad_plain(pk, tft._split_acts(acts), mc)
+        assert _rel_err(k3[:, 14:17], chain) <= ATOL
+    else:
+        assert torch.all(k3[:, 14:17] == 0)
+    assert acts.shape == ref_acts.shape
+    assert _bf16_ulp_share(acts, ref_acts) >= 0.999
+    assert torch.equal(acts[:, :tft.ACTS_COLS], bare)
+    if spill_x:
+        assert torch.all(acts[:, tft.ACTS_COLS + 99:] == 0)
+
+    gen = torch.Generator().manual_seed(R)
+    d_out = torch.randn(R * S, tft.OUT_TRAIN, generator=gen)
+    d_out[:, 14:] = 0.0
+    d_out = d_out.to(torch.bfloat16).cuda()
+    k8 = tft.field_backward_v4(p3, mc, g, d_out, k3, S)
+    k4 = tft.field_backward_v5(p3, mc, g, bare, d_out, k3, S)
+    torch.cuda.synchronize()
+    _k8_matches_k4(k8, k4)
 
 
 @pytest.mark.parametrize("R,S", [(1, 1), (3, 7), (5, 29), (33, 128),
