@@ -7,7 +7,7 @@ on one CUDA card.
 Builds rsn_torch/csrc/field_train.cu as the port builds it, with
 RSN_ABLATE_XS_REGS (the normals keep layer 4's x share in registers, not
 in shared memory) and with RSN_ABLATE_NO_SPILL (K3 without its spill
-stores), one nvcc each, in parallel, into rsn_torch/_build/ablate_k3/
+stores), one nvcc each, in parallel, into rsn_torch/_build/variants/
 (git-ignored); prints each build's spills of the train forwards (ptxas
 -v).  Then times K3 with the normals and the x spill and K7 at the default
 step's pass-2 shape (1,024 rays x 128 samples) and K1 at the train width
@@ -50,10 +50,10 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise RuntimeError("ablate_k3.py needs a CUDA card")
-    from ablate_k8 import build
     from chip_smoke import SEED
     from rsn_torch.kernels import field_forward as ff
     from rsn_torch.kernels import field_train as ft
+    from rsn_torch.kernels.build import finish_variants, start_variant
     from rsn_torch.models.field import Field
     from rsn_torch.utils.timing import time_kernel
 
@@ -61,9 +61,9 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[0]
-    logs = {}
-    libs = build(os.path.join(REPO, "rsn_torch", "_build", "ablate_k3"),
-                 VARIANTS, logs)
+    libs, logs = finish_variants({
+        name: start_variant("field_train.cu", macros, f"ablate_k3_{i}")
+        for i, (name, macros) in enumerate(VARIANTS)})
     for name, _ in VARIANTS:
         print(f"{name}: " + "; ".join(
             f"{tag} {line}" for tag, line in spills(logs[name]).items()))

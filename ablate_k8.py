@@ -8,7 +8,7 @@ Builds rsn_torch/csrc/field_train.cu once as the port builds it, once
 with RSN_ABLATE_NO_STASH_COPY (kernel A gathers its weight-gradient
 operands into its shared staging buffers but copies none to the
 workspace) and once with RSN_ABLATE_NO_STASH (neither), one nvcc each, in
-parallel, into rsn_torch/_build/ablate/ (git-ignored).  Then times kernel
+parallel, into rsn_torch/_build/variants/ (git-ignored).  Then times kernel
 A over every chunk of one K8 call (field_train.kernel_a per chunk of
 field_train.stash_plan, as field_backward_v4 launches it) of each build at
 the camera-on step's pass-2 and pass-4 shapes (1,024 rays x 128 samples,
@@ -19,7 +19,6 @@ name and power limit.
 """
 from __future__ import annotations
 
-import ctypes
 import os
 import subprocess
 import sys
@@ -28,33 +27,6 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 VARIANTS = (("full", ()),
             ("gathers, no copies", ("RSN_ABLATE_NO_STASH_COPY",)),
             ("no stash stores", ("RSN_ABLATE_NO_STASH",)))
-
-
-def build(out_dir: str, variants=VARIANTS, logs=None):
-    """field_train.cu once per (name, macros) of variants, one nvcc each in
-    parallel, into out_dir -> {name: the loaded library}; logs, if given,
-    receives each build's nvcc output (ptxas's registers and spills)."""
-    from rsn_torch.kernels import build as b
-
-    os.makedirs(out_dir, exist_ok=True)
-    jobs = []
-    for i, (name, macros) in enumerate(variants):
-        lib = os.path.join(out_dir, f"field_train_{i}.so")
-        cmd = [b.find_nvcc(), *b.NVCC_FLAGS, *(f"-D{m}" for m in macros),
-               "-o", lib, os.path.join(b.CSRC_DIR, "field_train.cu")]
-        jobs.append((name, lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    libs = {}
-    for name, lib, proc in jobs:
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        if logs is not None:
-            logs[name] = out
-        libs[name] = ctypes.CDLL(lib)
-        b._declare(libs[name], "field_train.cu")
-    return libs
 
 
 def main() -> int:
@@ -66,6 +38,7 @@ def main() -> int:
     from chip_smoke import SEED
     from rsn_torch.kernels import field_forward as ff
     from rsn_torch.kernels import field_train as ft
+    from rsn_torch.kernels.build import finish_variants, start_variant
     from rsn_torch.models.field import Field
     from rsn_torch.utils.timing import time_kernel
 
@@ -73,7 +46,9 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[0]
-    libs = build(os.path.join(REPO, "rsn_torch", "_build", "ablate"))
+    libs, _ = finish_variants({
+        name: start_variant("field_train.cu", macros, f"ablate_k8_{i}")
+        for i, (name, macros) in enumerate(VARIANTS)})
     dev = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     field = Field(torch.Generator().manual_seed(SEED)).to(dev).eval()

@@ -7,7 +7,7 @@ Builds rsn_torch/csrc/field_forward.cu once as the port builds it and once
 per RSN_ABLATE_* macro of trunk_sm90.cuh (each leaves one part out of the
 Hopper trunk: the weight copies, the per-layer bias + ReLU + bf16
 epilogue, the IPE, or all three), one nvcc per build, in parallel, into
-rsn_torch/_build/ablate/ (git-ignored).  Then times K1
+rsn_torch/_build/variants/ (git-ignored).  Then times K1
 (rsn_field_forward_v3) and K2 (rsn_field_forward_density) of every build
 on the orbit chunk's shape (16,384 rays x 128 samples = 2,097,152 rows;
 field weights from chip_smoke.SEED), CUDA events, median of 10, the full
@@ -16,7 +16,6 @@ result; only its time is read.  Prints the card's name and power limit.
 """
 from __future__ import annotations
 
-import ctypes
 import os
 import subprocess
 import sys
@@ -30,33 +29,6 @@ VARIANTS = (("full", ()),
                                "RSN_ABLATE_NO_IPE")))
 
 
-def build(out_dir: str):
-    from rsn_torch.kernels.build import CSRC_DIR, NVCC_FLAGS, find_nvcc
-
-    os.makedirs(out_dir, exist_ok=True)
-    nvcc, jobs = find_nvcc(), []
-    for i, (name, macros) in enumerate(VARIANTS):
-        lib = os.path.join(out_dir, f"field_forward_{i}.so")
-        cmd = [nvcc, *NVCC_FLAGS, *(f"-D{m}" for m in macros), "-o", lib,
-               os.path.join(CSRC_DIR, "field_forward.cu")]
-        jobs.append((name, lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    libs = {}
-    for name, lib, proc in jobs:
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        libs[name] = ctypes.CDLL(lib)
-        vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        ptrs = ctypes.POINTER(ctypes.c_void_p)
-        libs[name].rsn_field_forward_v3.argtypes = [vp, vp, vp, vp, ptrs, vp,
-                                                    ll, i32, vp]
-        libs[name].rsn_field_forward_density.argtypes = [vp, vp, vp, ptrs,
-                                                         vp, ll, vp]
-    return libs
-
-
 def main() -> int:
     sys.path.insert(0, REPO)
     import numpy as np
@@ -64,6 +36,7 @@ def main() -> int:
 
     from chip_smoke import SEED
     from rsn_torch.kernels import field_forward as ff
+    from rsn_torch.kernels.build import finish_variants, start_variant
     from rsn_torch.models.field import Field
     from rsn_torch.utils.timing import time_kernel
 
@@ -73,7 +46,9 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[0]
-    libs = build(os.path.join(REPO, "rsn_torch", "_build", "ablate"))
+    libs, _ = finish_variants({
+        name: start_variant("field_forward.cu", macros, f"ablate_{i}")
+        for i, (name, macros) in enumerate(VARIANTS)})
     R, S = 16384, 128
     n = R * S
     rng = np.random.default_rng(SEED)

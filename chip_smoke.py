@@ -10,7 +10,8 @@ Phases, each announced on its own line:
                 rsn_torch/_build/, one nvcc per source, all at once (the
                 first call of a checkout builds), and beside them
                 field_train.cu with RSN_ABLATE_NO_SPILL (K3 without its
-                spill stores) for phase 6's timing.
+                spill stores) for phase 6's timing and proposal_forward.cu
+                with RSN_K9_FIRST_DESIGN (K9's first design) for phase 9.
   3. kernels  — K1 (field_forward_v3) and K2 (field_forward_density)
                 against their plain PyTorch versions on the card, on the
                 real inputs of one 16384-ray chunk of the first 800x800
@@ -54,7 +55,14 @@ Phases, each announced on its own line:
   use_pallas_proposal set by its config flag):
   9. K9       — K9 (prop_forward) against its plain version on the card,
                 on the real pass-1 and pass-3 inputs of the middle chunk of
-                the first 800x800 preset orbit frame; CUDA-event times.
+                the first 800x800 preset orbit frame, and against its first
+                design (the RSN_K9_FIRST_DESIGN build) bit for bit;
+                CUDA-event times, the first design's in turns with K9's
+                (back to back);
+                the FP32, MUFU and other instructions per row of the tile
+                loop of K9's SASS (cuobjdump) and the floors they set (a
+                reading only: a SASS it cannot parse is printed, not
+                failed).
   10. cpu/gpu — one 32x32 preset frame on the CPU (plain versions) and on
                 the card (kernels); one 64-ray preset train step on both:
                 losses, and every gradient of field and proposal.
@@ -118,7 +126,10 @@ Phases, each announced on its own line:
                 against K1 on the same rows; K16 (cheap_sin) in its eight
                 modes on (2,097,152, 128) f32 rows of the tool's
                 distribution, each against its plain version; CUDA-event
-                times beside K1's, K16's beside one PyTorch call each.
+                times beside K1's; K16's and one PyTorch call's each
+                (most on an argument computed beforehand), one call per
+                event pair as every row's, then in turns back to back so
+                that host time hides under device time.
   The tools' backward experiments:
   18. K17-K19 — from zeroed launch counts, on the tools' rows (131,072
                 rows, 128 samples per ray, the field from seed 0, a seeded
@@ -242,6 +253,17 @@ def cuda_ms(fn, reps: int = 10) -> float:
     from rsn_torch.utils.timing import time_kernel
 
     return time_kernel(fn, reps=reps, warmup=1)
+
+
+def back_to_back_ms(fn, calls: int = 5) -> float:
+    """Device ms of one call of `fn` when `calls` run back to back between
+    two events (median of 10): each call's host time overlaps the device
+    work of the one before, so a kernel and a PyTorch call compare on the
+    device alone."""
+    def run():
+        for _ in range(calls):
+            fn()
+    return cuda_ms(run) / calls
 
 
 def bound(flops: float, nbytes: float, fp32_ops: float = 0.0):
@@ -374,19 +396,29 @@ def main() -> int:
 
     # ---- 2. build ----
     phase("phase 2: build")
-    from rsn_torch.kernels.build import build_library, load_library
+    from rsn_torch.kernels.build import (build_library, finish_variants,
+                                         load_library, start_variant)
 
     t0 = time.perf_counter()
-    no_spill = spill_ablation()  # K3 without its spill, for phase 6
+    # beside the port's build: K3 without its spill stores (phase 6) and
+    # K9's first design (phase 9)
+    waiting = {"no_spill": start_variant("field_train.cu",
+                                         ("RSN_ABLATE_NO_SPILL",),
+                                         "no_spill"),
+               "k9_first": start_variant("proposal_forward.cu",
+                                         ("RSN_K9_FIRST_DESIGN",),
+                                         "first_design")}
     try:
         paths, log = build_library()
         for source in paths:
             load_library(source)
     finally:
-        no_spill = no_spill()
+        variants, texts = finish_variants(waiting)  # waits for every nvcc
+    log += "".join(f"\n--- {name}\n{text}" for name, text in texts.items())
     print(f"built {', '.join(os.path.relpath(p, REPO) for p in paths.values())}"
-          f" and field_train.cu with RSN_ABLATE_NO_SPILL in "
-          f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in "
+          f", field_train.cu with RSN_ABLATE_NO_SPILL and "
+          f"proposal_forward.cu with RSN_K9_FIRST_DESIGN in "
+          f"{time.perf_counter() - t0:.2f} s (one nvcc per build, in "
           f"parallel)")
     for line in log.splitlines():
         if re.search(r"^---|registers|spill", line):
@@ -507,12 +539,14 @@ def main() -> int:
                            "and K2 on none")
 
     # ---- 6-8. the training path ----
-    train_results = train_phases(config, field, device, card, no_spill)
+    train_results = train_phases(config, field, device, card,
+                                 variants["no_spill"])
     results.update(train_results["kernels"])
     launches.update(train_results["launches"])
 
     # ---- 9-11. the proposal preset ----
-    preset_results = preset_phases(field, field_cpu, orbit, device, card)
+    preset_results = preset_phases(field, field_cpu, orbit, device, card,
+                                   variants["k9_first"])
     results.update(preset_results["kernels"])
     launches.update(preset_results["launches"])
 
@@ -807,7 +841,7 @@ def check_normals(p, out, ref, acts, ref_acts, packed, mc,
 
 def check_train_kernels(calls, card, no_spill):
     """Phase 6's comparisons and times -> per-kernel results.  no_spill:
-    the spill ablation's build of field_train.cu (spill_ablation)."""
+    the build of field_train.cu with RSN_ABLATE_NO_SPILL (phase 2)."""
     import torch
 
     from rsn_torch.kernels import field_forward as ff
@@ -950,33 +984,6 @@ def check_train_kernels(calls, card, no_spill):
               f"what was allocated before it {peak} bytes", flush=True)
         results[name].update(ms=k, plain_ms=pl, bound_ms=b, bound_by=by)
     return results
-
-
-def spill_ablation():
-    """Start nvcc on field_train.cu with RSN_ABLATE_NO_SPILL (K3 without
-    its spill stores; nothing else changes) into rsn_torch/_build/ablate/,
-    beside the port's own build -> a function that waits for it and
-    returns the library."""
-    import ctypes
-
-    from rsn_torch.kernels import build as b
-
-    out = os.path.join(b.BUILD_DIR, "ablate")
-    os.makedirs(out, exist_ok=True)
-    lib = os.path.join(out, "field_train_no_spill.so")
-    cmd = [b.find_nvcc(), *b.NVCC_FLAGS, "-DRSN_ABLATE_NO_SPILL", "-o", lib,
-           os.path.join(b.CSRC_DIR, "field_train.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-
-    def done():
-        text, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for the spill ablation:\n{text}")
-        handle = ctypes.CDLL(lib)
-        b._declare(handle, "field_train.cu")
-        return handle
-    return done
 
 
 def check_train_blob(pack, blob, result, card) -> None:
@@ -1432,16 +1439,19 @@ def capture_prop_inputs(field, proposal, cams, config, device):
     return calls
 
 
-def check_prop_kernel(calls, card):
-    """Phase 9's comparisons and times -> K9's results."""
+def check_prop_kernel(calls, card, first):
+    """Phase 9's comparisons and times -> K9's results.  first: the build
+    of proposal_forward.cu with RSN_K9_FIRST_DESIGN (phase 2)."""
     import torch
 
     from rsn_torch.kernels import proposal_forward as pf
+    from rsn_torch.kernels.build import load_library
 
     result = {"err": 0.0}
     for p, (packed, mc) in zip((1, 3), calls):
         got = pf.prop_forward(packed, mc)
         ref = pf.prop_forward_plain(packed, mc)
+        old = pf.launch_prop(first, packed, mc)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             raise RuntimeError("K9: non-finite kernel output")
@@ -1452,23 +1462,135 @@ def check_prop_kernel(calls, card):
               flush=True)
         if err > PROP_TOL * scale:
             raise RuntimeError("K9 disagrees with its plain version")
+        if not torch.equal(got.view(torch.int32), old.view(torch.int32)):
+            raise RuntimeError(f"K9 pass {p} differs from its first design")
+        print(f"  K9 pass {p} == its first design (RSN_K9_FIRST_DESIGN), "
+              f"bit for bit")
         result["err"] = max(result["err"], err)
+    new = load_library("proposal_forward.cu")
     for p, (packed, mc) in zip((1, 3), calls):
         n = mc.shape[0]
         k = cuda_ms(lambda: pf.prop_forward(packed, mc))
         pl = cuda_ms(lambda: pf.prop_forward_plain(packed, mc))
+        turns = [back_to_back_ms(lambda: pf.launch_prop(lib, packed, mc))
+                 for lib in (first, new, new, first)]
         b, by = bound(FLOPS["prop_forward"] * n,
                       n * PROP_ROW_BYTES + PROP_PARAM_BYTES,
                       PROP_FP32_OPS * n)
         print(f"  K9 pass {p}: {n} rows, kernel {k:.4f} ms, plain {pl:.4f} "
-              f"ms, bound {b:.4f} ms ({by}; median of 10; {card})",
+              f"ms, bound {b:.4f} ms ({by}; one wrapper call, median of "
+              f"10); in turns, the first design {turns[0]:.4f} / "
+              f"{turns[3]:.4f} ms, K9 {turns[1]:.4f} / {turns[2]:.4f} ms "
+              f"(5 launches back to back, median of 10; {card})",
               flush=True)
         if p == 1:
             result.update(ms=k, plain_ms=pl, bound_ms=b, bound_by=by)
+            try:  # a reading only: no check depends on the SASS's layout
+                k9_instruction_floor(n, card)
+            except (ValueError, OSError, subprocess.CalledProcessError) as e:
+                print(f"  K9's SASS not counted ({type(e).__name__}: {e})")
     return result
 
 
-def preset_phases(field, field_cpu, orbit, device, card):
+# SASS opcodes by the unit that runs them: FP32 arithmetic (the FMA pipes,
+# 128 lanes an SM), the SFU (MUFU, 16 lanes an SM), conversions
+K9_FP32_OPS = ("FFMA", "FMUL", "FADD", "FSEL", "FSETP", "FMNMX", "FSWZADD")
+K9_CONVERSIONS = ("F2I", "I2F", "I2FP", "F2F", "F2FP", "FRND")
+
+
+def k9_sass_counts(text: str):
+    """K9's SASS (cuobjdump) -> {region: Counter of opcodes}, per warp tile
+    of 16 rows on the fast path: "ipe" from the tile loop's head to its
+    first product (the IPE and the next tile's loads), "layers" the layer
+    loop's body times the 4 layers, "head" the rest of the tile loop.
+    sinf's slow path (the branch taken for |x| >= 105615, Payne-Hanek) is
+    left out: no phase of this data reaches it."""
+    import collections
+
+    ins = []
+    for line in text.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s*(.*?);", line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2).strip()))
+    slow, back = set(), []
+    for i, (a, t) in enumerate(ins):
+        m = re.search(r"BRA (0x[0-9a-f]+)", t)
+        if m and int(m.group(1), 16) < a:
+            back.append((int(m.group(1), 16), a))
+        m = re.match(r"FSETP\.\S+ (P\d), PT, \|R\d+\|, 105615", t)
+        if m:
+            for b, u in ins[i + 1:]:
+                jump = re.match(rf"@!{m.group(1)} BRA (0x[0-9a-f]+)", u)
+                if jump:
+                    end = int(jump.group(1), 16)
+                    slow.update(c for c, _ in ins if b < c < end)
+                    break
+    top, bottom = max(back, key=lambda r: r[1] - r[0])
+    hmma = [a for a, t in ins if top <= a <= bottom and "HMMA" in t]
+    inner = [r for r in back if r != (top, bottom) and top <= r[0]
+             and r[1] <= bottom and any(r[0] <= a <= r[1] for a in hmma)]
+    lo, hi = max(inner, key=lambda r: r[1] - r[0])
+    counts = {k: collections.Counter() for k in ("ipe", "layers", "head")}
+    for a, t in ins:
+        if not top <= a <= bottom or a in slow:
+            continue
+        op = re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0]
+        if lo <= a <= hi:
+            counts["layers"][op] += 4
+        elif a < min(hmma):
+            counts["ipe"][op] += 1
+        elif a > hi:
+            counts["head"][op] += 1
+    return counts
+
+
+def k9_instruction_floor(n: int, card: str) -> None:
+    """The floors that K9's own instructions set at n rows: its SASS
+    counted per row (k9_sass_counts: a warp instruction is 32 lanes' work,
+    a warp tile 16 rows), over the card's FP32 issue rate (SMs x 128
+    lanes), its SFU rate (SMs x 16) and its issue rate (SMs x 4 warp
+    instructions) at the clock of PEAK_FP32 (SMs x 128 lanes x 2 FLOP)."""
+    import collections
+
+    import torch
+
+    from rsn_torch.kernels.build import sass
+
+    counts = k9_sass_counts(sass("proposal_forward.cu"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = PEAK_FP32 / (132 * 128 * 2)
+    lanes_per_row = 32 / 16
+
+    def per_row(region, ops=None):
+        c = counts[region] if region else sum(counts.values(),
+                                               collections.Counter())
+        return lanes_per_row * sum(v for k, v in c.items()
+                                   if ops is None or k in ops)
+
+    ipe_fp32, ipe_mufu = per_row("ipe", K9_FP32_OPS), per_row("ipe",
+                                                               ("MUFU",))
+    ipe_conv, ipe_all = per_row("ipe", K9_CONVERSIONS), per_row("ipe")
+    all_fp32, all_ops = per_row(None, K9_FP32_OPS), per_row(None)
+    ms = {name: 1e3 * n * v / (sms * lanes * clock) for name, v, lanes in (
+        ("ipe_fp32", ipe_fp32, 128), ("ipe_mufu", ipe_mufu, 16),
+        ("ipe_issue", ipe_all, 128), ("fp32", all_fp32, 128),
+        ("issue", all_ops, 128))}
+    print(f"  K9's SASS per row (fast path; {n} rows, {sms} SMs at "
+          f"{clock / 1e9:.2f} GHz): the IPE region {ipe_all:.0f} "
+          f"instructions, {ipe_fp32:.0f} FP32, {ipe_mufu:.0f} MUFU, "
+          f"{ipe_conv:.0f} conversions -> its floor "
+          f"{max(ms['ipe_fp32'], ms['ipe_mufu']):.4f} ms (FP32 "
+          f"{ms['ipe_fp32']:.4f}, SFU {ms['ipe_mufu']:.4f}; its issue "
+          f"slots {ms['ipe_issue']:.4f}); the whole tile loop {all_ops:.0f} "
+          f"instructions, {all_fp32:.0f} FP32, "
+          f"{per_row(None, ('HMMA',)):.0f} HMMA -> FP32 {ms['fp32']:.4f} "
+          f"ms, issue {ms['issue']:.4f} ms ({card})", flush=True)
+    for region, c in counts.items():
+        print(f"    {region}: " + ", ".join(
+            f"{k} {lanes_per_row * v:.0f}" for k, v in c.most_common(12)))
+
+
+def preset_phases(field, field_cpu, orbit, device, card, k9_first):
     """Phases 9-11, the reflect-sampling-nerf-proposal preset with
     use_pallas_proposal -> {"kernels": K9's results, "launches": K9's
     launches in the render CLI run}."""
@@ -1487,7 +1609,7 @@ def preset_phases(field, field_cpu, orbit, device, card):
           "preset render's shapes")
     calls = capture_prop_inputs(field, prop, orbit.to(device), config,
                                 device)
-    result = check_prop_kernel(calls, card)
+    result = check_prop_kernel(calls, card, k9_first)
     del calls
     torch.cuda.empty_cache()
 
@@ -1524,9 +1646,9 @@ def preset_phases(field, field_cpu, orbit, device, card):
             raise RuntimeError("a preset frame must run K9 and K1 twice per "
                                "chunk (passes 1, 3 and 2, 4) and nothing "
                                "else")
-        print(f"  K9 and K1 each twice per chunk: {k9 // (2 * chunks)} "
-              f"renders of {chunks} chunks for 3 frames (re-renders "
-              f"included)")
+        print(f"  K9 and K1 each twice per chunk, {2 * chunks} launches "
+              f"each a frame: {k9 // (2 * chunks)} renders of {chunks} "
+              f"chunks for 3 frames (re-renders included)")
         check_orbit_frames(frames, stats, card)
 
         compare_proposal_settings(run, orbit.to(device), device, card)
@@ -2273,13 +2395,41 @@ K16_OPS = {"copy": 1, "exact": 2, "poly": 12, "exp": 3, "exp2": 3,
            "exp2_ldexp": 16, "poly_bf16": 26, "cos_poly": 14}
 
 
+# K16's yardsticks: the one PyTorch call of each mode; all but copy's take
+# their argument computed beforehand (t * 2 pi, -|t| / 2, -0.72134752 |t|),
+# one multiply and one abs less than the kernel does
+LIBRARY_CALLS = {"copy": "x * 2.0", "exact": "torch.sin, precomputed",
+                 "poly": "torch.sin, precomputed",
+                 "poly_bf16": "torch.sin, precomputed",
+                 "cos_poly": "torch.cos, precomputed",
+                 "exp": "torch.exp, precomputed",
+                 "exp2": "torch.exp2, precomputed",
+                 "exp2_ldexp": "torch.exp2, precomputed"}
+
+
+def library_calls(x):
+    """-> {mode: a function making LIBRARY_CALLS[mode]'s one call on x}."""
+    import math
+
+    import torch
+
+    arg = {"sin": x * (2.0 * math.pi), "exp": -0.5 * x.abs(),
+           "exp2": -0.72134752 * x.abs()}
+    return {"copy": lambda: x * 2.0,
+            "exact": lambda: torch.sin(arg["sin"]),
+            "poly": lambda: torch.sin(arg["sin"]),
+            "poly_bf16": lambda: torch.sin(arg["sin"]),
+            "cos_poly": lambda: torch.cos(arg["sin"]),
+            "exp": lambda: torch.exp(arg["exp"]),
+            "exp2": lambda: torch.exp2(arg["exp2"]),
+            "exp2_ldexp": lambda: torch.exp2(arg["exp2"])}
+
+
 def experiments_phase(field, render_mc, render_g, S, card):
     """Phase 17 -> {"kernels": K14-K16's results, "launches": their launches
     in the run of this slice's path (the experiments' kernels on the render
     chunk's rows and on the tool's input; no model or CLI path calls them,
     as in rsn)}."""
-    import math
-
     import torch
 
     from rsn_torch.experiments import cheap_sin, interleave, interleave2
@@ -2355,17 +2505,7 @@ def experiments_phase(field, render_mc, render_g, S, card):
         f"ms ({by}; median of 10; {card})", flush=True)
 
     # K16 on the tool's distribution
-    two_pi = 2.0 * math.pi
-    lib_args = {"sin": x * two_pi, "exp": -0.5 * x.abs(),
-                "exp2": -0.72134752 * x.abs()}
-    library = {"copy": lambda: x * 2.0,
-               "exact": lambda: torch.sin(lib_args["sin"]),
-               "poly": lambda: torch.sin(lib_args["sin"]),
-               "poly_bf16": lambda: torch.sin(lib_args["sin"]),
-               "cos_poly": lambda: torch.cos(lib_args["sin"]),
-               "exp": lambda: torch.exp(lib_args["exp"]),
-               "exp2": lambda: torch.exp2(lib_args["exp2"]),
-               "exp2_ldexp": lambda: torch.exp2(lib_args["exp2"])}
+    library = library_calls(x)
     for mode in cheap_sin.MODES:
         name = f"cheap_sin_{mode}"
         got = cheap_sin.run(mode, x)
@@ -2381,16 +2521,31 @@ def experiments_phase(field, render_mc, render_g, S, card):
         else:
             ok, limit = err <= K16_TOL, f"{K16_TOL}"
         del got, ref, diff
+        # the row's times, as every kernel's: one call per event pair (the
+        # wrapper's host time and the call's included)
         k = cuda_ms(lambda: cheap_sin.run(mode, x))
         pl = cuda_ms(lambda: cheap_sin.run_plain(mode, x))
         lib = cuda_ms(library[mode])
+        # on the device alone: the kernel and its call in turns (kernel,
+        # call, call, kernel, twice), 5 calls back to back, the medians of
+        # four
+        turns = [back_to_back_ms(fn) for fn in
+                 ((lambda: cheap_sin.run(mode, x)), library[mode],
+                  library[mode], (lambda: cheap_sin.run(mode, x))) * 2]
+        k_dev = statistics.median(turns[0::4] + turns[3::4])
+        lib_dev = statistics.median(turns[1::4] + turns[2::4])
         b16, by16 = bound(0.0, 2 * nbytes(x), K16_OPS[mode] * x.numel())
         results[name].update(err=err, ms=k, plain_ms=pl, bound_ms=b16,
                              bound_by=by16, library_ms=lib)
         print(f"  K16 {mode}: max |err| {err:.6g} (limit {limit}), kernel "
-              f"{k:.4f} ms, plain {pl:.4f} ms, one PyTorch call {lib:.4f} "
-              f"ms, bound {b16:.4f} ms ({by16}; {x.shape[0]} x 128 f32; "
-              f"median of 10; {card})", flush=True)
+              f"{k:.4f} ms, plain {pl:.4f} ms, one PyTorch call "
+              f"({LIBRARY_CALLS[mode]}) {lib:.4f} ms (one call each, median "
+              f"of 10); on the device, in turns, kernel {k_dev:.4f} ms, call "
+              f"{lib_dev:.4f} ms: the kernel "
+              f"{'at or under' if k_dev <= lib_dev else 'over'} it (5 calls "
+              f"back to back, median of 10, the median of four); bound "
+              f"{b16:.4f} ms ({by16}; {x.shape[0]} x 128 f32; {card})",
+              flush=True)
         if not ok:
             raise RuntimeError(f"K16 {mode} disagrees with its plain version")
     return {"kernels": results, "launches": launches}

@@ -43,12 +43,17 @@
 //   - No one-hot sample expansion (a row finds its ray as row / S), no
 //     128-lane IPE matrices, no padding of N: the ragged last tile is
 //     masked.
-//   - K16: a template over the mode, four elements per thread with 16-byte
-//     loads and stores; fp32 arithmetic through __fmul_rn / __fadd_rn (no
-//     contraction into fma), sinf / expf / exp2f with full range reduction
-//     (the build has no --use_fast_math), rintf for jnp.round; poly_bf16
-//     rounds every product and sum to bf16 on its own, as rsn's chain is
-//     written.
+//   - K16: a template over the mode; one 128-thread block per chunk of
+//     128 x (float4 a thread), streamed (.cs: 2 GiB pass through the 50
+//     MB L2 once), the last chunk masked.  The modes bound by the bytes
+//     keep four 16-byte loads in flight a thread before their math and
+//     their stores, and run there at PyTorch's own elementwise pass's
+//     rate; exact, bound by sinf's slow range reduction, takes one float4
+//     a thread (more warps in flight; time_k16.py).  fp32 arithmetic
+//     through __fmul_rn / __fadd_rn (no contraction into fma), sinf /
+//     expf / exp2f with full range reduction (the build has no
+//     --use_fast_math), rintf for jnp.round; poly_bf16 rounds every
+//     product and sum to bf16 on its own, as rsn's chain is written.
 // The trunk, both IPEs and the product routine live in field_common.cuh.
 #include "field_common.cuh"
 
@@ -332,19 +337,41 @@ __device__ __forceinline__ float cheap_sin(float t) {
   return round_bf16(__fmul_rn(p, ub));
 }
 
+constexpr int K16_THREADS = 128;
+
+// float4 in flight per thread: four for the modes bound by the bytes; one
+// for exact, whose sinf (the slow range reduction) gains more from the
+// warps that fewer live registers allow than from loads in flight
 template <int MODE>
-__global__ void __launch_bounds__(256)
+constexpr int K16_UNROLL = MODE == EXACT_SIN ? 1 : 4;
+
+// One block per chunk of 128 x K16_UNROLL float4: each thread issues its
+// 16-byte loads (lanes on neighbouring addresses) before its math and its
+// stores, streaming (ld.global.cs / st.global.cs: the pass touches every
+// byte once); the ragged last chunk is masked.
+template <int MODE>
+__global__ void __launch_bounds__(K16_THREADS)
     cheap_sin_kernel(const float4* __restrict__ x, float4* __restrict__ y,
                      long long n4) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n4; i += stride) {
-    float4 v = x[i];
-    v.x = cheap_sin<MODE>(v.x);
-    v.y = cheap_sin<MODE>(v.y);
-    v.z = cheap_sin<MODE>(v.z);
-    v.w = cheap_sin<MODE>(v.w);
-    y[i] = v;
+  constexpr int UNROLL = K16_UNROLL<MODE>;
+  const long long i0 =
+      (long long)blockIdx.x * (K16_THREADS * UNROLL) + threadIdx.x;
+  float4 v[UNROLL];
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const long long i = i0 + u * K16_THREADS;
+    if (i < n4) v[u] = __ldcs(x + i);
+  }
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const long long i = i0 + u * K16_THREADS;
+    if (i < n4) {
+      v[u].x = cheap_sin<MODE>(v[u].x);
+      v[u].y = cheap_sin<MODE>(v[u].y);
+      v[u].z = cheap_sin<MODE>(v[u].z);
+      v[u].w = cheap_sin<MODE>(v[u].w);
+      __stcs(y + i, v[u]);
+    }
   }
 }
 
@@ -352,9 +379,10 @@ template <int MODE>
 int launch_cheap_sin(const float* x, float* y, long long n,
                      cudaStream_t stream) {
   const long long n4 = n * 128 / 4;
-  const long long blocks = (n4 + 255) / 256;
-  cheap_sin_kernel<MODE><<<(unsigned)(blocks < 132 * 32 ? blocks : 132 * 32),
-                           256, 0, stream>>>(
+  constexpr int chunk = K16_THREADS * K16_UNROLL<MODE>;
+  const long long grid = (n4 + chunk - 1) / chunk;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cheap_sin_kernel<MODE><<<(unsigned)grid, K16_THREADS, 0, stream>>>(
       reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y), n4);
   return (int)cudaGetLastError();
 }

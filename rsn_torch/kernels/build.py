@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -98,6 +98,57 @@ def build_library() -> Tuple[Dict[str, str], str]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths, "\n".join(logs)
+
+
+def sass(source: str) -> str:
+    """cuobjdump -sass of the port's current library of `source` (built
+    first if it is missing)."""
+    paths, _ = build_library()
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", paths[source]],
+                          capture_output=True, text=True,
+                          check=True).stdout
+
+
+def start_variant(source: str, macros, tag: str, csrc: str = CSRC_DIR):
+    """Start nvcc on `source` of the directory `csrc` (the port's own
+    sources by default; another checkout's to compare with it) with
+    -D`macros` (a design kept for a check or an ablation, which the port's
+    own build never compiles) into rsn_torch/_build/variants/, beside
+    the port's build -> a function that waits for it and returns (the
+    loaded library, nvcc's output)."""
+    out_dir = os.path.join(BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, f"{os.path.splitext(source)[0]}-{tag}.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(f"-D{m}" for m in macros), "-o", lib,
+           os.path.join(csrc, source)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+    def done() -> Tuple[ctypes.CDLL, str]:
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {source} {macros}:\n{text}")
+        handle = ctypes.CDLL(lib)
+        _declare(handle, source)
+        return handle, text
+    return done
+
+
+def finish_variants(waiting: Dict[str, Callable[[], Tuple[ctypes.CDLL,
+                                                           str]]]):
+    """Wait for every build of {name: start_variant(...)} -> ({name: the
+    loaded library}, {name: nvcc's output}); raises once all have ended,
+    with every failure."""
+    libs, logs, failed = {}, {}, []
+    for name, done in waiting.items():
+        try:
+            libs[name], logs[name] = done()
+        except RuntimeError as e:
+            failed.append(f"{name}: {e}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs, logs
 
 
 def _signatures() -> Dict[str, Dict[str, list]]:

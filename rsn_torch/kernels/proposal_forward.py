@@ -19,6 +19,13 @@ The wrapper checks its inputs, runs the plain version for CPU tensors and
 launches the CUDA kernel (rsn_torch/csrc/proposal_forward.cu) for CUDA
 tensors; it never falls back from one to the other.  Its launches count
 in field_forward.LAUNCHES["prop_forward"].
+
+The kernel keeps a warp's rows in mma.sync m16n8k16 fragments from the IPE
+to the head.  a_fragment_map / c_fragment_map give the (row, column) that
+each (lane, register) holds, head_gather_map the order in which a lane
+gathers its quarter of a row for the head, and prop_ipe_factored the IPE
+as the kernel computes it, one exp per (row, d, k) shared by the sine and
+the cosine column, laid out through the A fragments.
 """
 from __future__ import annotations
 
@@ -92,6 +99,93 @@ def prop_ipe(mean_cov: torch.Tensor) -> torch.Tensor:
     return torch.cat([damp * torch.sin(pre), mean, zeros], dim=1)
 
 
+MMA_ROWS = 16                 # rows of an m16n8k16 tile
+K_STEPS = ENC_PAD // 16       # k-steps of 16 per product
+N_TILES = PROP_WIDTH // 8     # n-tiles of 8 columns per product
+
+
+def a_fragment_map() -> np.ndarray:
+    """(32 lanes, K_STEPS, 4 registers, 2 halves) -> (row, column) of the
+    16 x 64 bf16 operand of one m-tile that each half of each A register
+    holds (PTX's m16n8k16 .bf16 A layout: lane = 4 g + t; register r of
+    k-step ks holds row g + 8 (r % 2), columns 16 ks + 8 (r // 2) + 2 t +
+    {0, 1}, the lower column in the low half)."""
+    out = np.zeros((32, K_STEPS, 4, 2, 2), np.int64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for ks in range(K_STEPS):
+            for r in range(4):
+                for e in range(2):
+                    out[lane, ks, r, e] = (g + 8 * (r % 2),
+                                           16 * ks + 8 * (r // 2) + 2 * t + e)
+    return out
+
+
+def c_fragment_map() -> np.ndarray:
+    """(32 lanes, N_TILES, 4 values) -> (row, column) of the 16 x 64 fp32
+    sums of one m-tile (m16n8k16's C layout: value i of n-tile j holds
+    row g + 8 (i // 2), column 8 j + 2 t + i % 2)."""
+    out = np.zeros((32, N_TILES, 4, 2), np.int64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for j in range(N_TILES):
+            for i in range(4):
+                out[lane, j, i] = (g + 8 * (i // 2), 8 * j + 2 * t + i % 2)
+    return out
+
+
+def c_to_a(j: int, i: int) -> Tuple[int, int, int]:
+    """The kernel's epilogue: value i of C n-tile j becomes (k-step,
+    register, half) of the next product's A operand in the same lane."""
+    return j // 2, (j % 2) * 2 + i // 2, i % 2
+
+
+def head_gather_map() -> np.ndarray:
+    """(32 lanes, 2 row halves, 16 steps) -> (source lane, k-step, register,
+    half) of the A operand after the last layer: the head's fma chain of
+    lane t = q, columns q, q + 4, ..., q + 60 of row g + 8 h in that
+    order, step 2 m + p read from lane 4 g + 2 p + t // 2's register pair
+    m (k-step m // 2, register 2 (m % 2) + h), half t % 2."""
+    out = np.zeros((32, 2, 2 * N_TILES, 4), np.int64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for h in range(2):
+            for m in range(N_TILES):
+                for p in range(2):
+                    out[lane, h, 2 * m + p] = (4 * g + 2 * p + t // 2,
+                                               m // 2, 2 * (m % 2) + h, t % 2)
+    return out
+
+
+def prop_ipe_factored(mean_cov: torch.Tensor) -> torch.Tensor:
+    """prop_ipe as the kernel computes it: (N, 16) -> (N, 64) fp32.  Lane
+    t of a row's group holds the columns c = 16 ks + 8 r' + 2 t + e
+    (a_fragment_map), so c mod 8 = k = 2 t + e: it computes the damping
+    exp(-var / 2) once per (d, k) and multiplies it into the sine of the
+    phase (column d * 8 + k) and the sine of the phase + f32(pi / 2)
+    (column 24 + d * 8 + k); columns 48..50 take the mean, the rest zero."""
+    n = mean_cov.shape[0]
+    dev = mean_cov.device
+    mean, cov = mean_cov[:, 0:3], mean_cov[:, 3:6]
+    out = torch.zeros(n, ENC_PAD, dtype=mean_cov.dtype, device=dev)
+    amap = a_fragment_map()
+    for t in range(4):
+        own = slice(2 * t, 2 * t + 2)  # k = 2 t + e
+        pre = mean[:, :, None] * torch.as_tensor(PROP_SCALE[own], device=dev)
+        var = cov[:, :, None] * torch.as_tensor(PROP_VAR[own], device=dev)
+        damp = torch.exp(-0.5 * var)                   # (N, d, e), once
+        halves = (damp * torch.sin(pre), damp * torch.sin(pre + _HALF_PI))
+        # row g's registers (r = 0, 2) of lane t (g = 0): its columns
+        for col in amap[t, :, ::2, :, 1].reshape(-1).tolist():
+            if col < 6 * PROP_NUM_FREQS:
+                half, dk = divmod(col, 3 * PROP_NUM_FREQS)
+                d, k = divmod(dk, PROP_NUM_FREQS)
+                out[:, col] = halves[half][:, d, k - 2 * t]
+            elif col < PROP_IN_DIM:
+                out[:, col] = mean[:, col - 6 * PROP_NUM_FREQS]
+    return out
+
+
 def prop_forward_plain(packed, mean_cov: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K9 on the same packed operands -> (N,) f32."""
     ws, bs = packed[:PROP_LAYERS], packed[PROP_LAYERS:2 * PROP_LAYERS]
@@ -123,7 +217,17 @@ def prop_forward(packed, mean_cov: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"prop_forward: unsupported device {device}")
     from rsn_torch.kernels.build import load_library
 
-    lib = load_library("proposal_forward.cu")
+    out = launch_prop(load_library("proposal_forward.cu"), packed, mean_cov)
+    LAUNCHES["prop_forward"] += 1
+    return out
+
+
+def launch_prop(lib, packed, mean_cov: torch.Tensor) -> torch.Tensor:
+    """One launch of rsn_prop_forward from `lib` (the port's library, or a
+    build of the same source under another macro) on checked CUDA
+    operands -> (N,) f32.  Counts nothing: prop_forward does."""
+    device = mean_cov.device
+    n = mean_cov.shape[0]
     out = torch.empty(n, dtype=F32, device=device)
     with torch.cuda.device(device):
         rc = lib.rsn_prop_forward(
@@ -131,7 +235,6 @@ def prop_forward(packed, mean_cov: torch.Tensor) -> torch.Tensor:
             _ptr_array(packed), out.data_ptr(), n,
             torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, rc, "prop_forward")
-    LAUNCHES["prop_forward"] += 1
     return out
 
 

@@ -4,10 +4,12 @@ reach (ragged last tiles, K1 / K2 over more tiles than one block per SM,
 odd samples per ray, every flag pair of the
 training forward, K3 / K7 / K1 at the train width on the Hopper ring
 against plain, each other and K10, bit for bit, and the pack launch of
-their weight blob, K9 over many tiles per block, K7 / K8 at ragged
-shapes, K10-K13 at ragged shapes and over many tiles per block), the
-launch counters (one train step on each route, camera off and on, the
-field API), K4 == K8 and K5 == K4 on K3's spill over several chunks,
+their weight blob, K9 over ragged warp tiles, NaN rows and many tiles
+per warp, K7 / K8 at ragged shapes, K10-K13 at ragged shapes and over
+many tiles per block), K9 against its first design (the
+RSN_K9_FIRST_DESIGN build) bit for bit, the launch counters (one train
+step on each route, camera off and on, the field API), K4 == K8 and K5 ==
+K4 on K3's spill over several chunks,
 determinism, the alignment checks, small renders (the default
 method and the proposal preset) on both devices, the recompute route's
 smaller peak memory, and the tools' experiments (K14-K16) against their
@@ -291,21 +293,67 @@ def proposal(field):
     return ProposalField(torch.Generator().manual_seed(5)).cuda().eval()
 
 
-@pytest.mark.parametrize("R,S", [(1, 1), (3, 29), (5, 64), (3, 7),
-                                 (1000, 64)])
+# K9's row counts: one row, 15 / 63 / 65 / 1,000 / 131,089 (ragged 16-row
+# warp tiles), 64, and (1000, 64) for many tiles per warp of the
+# persistent grid
+PROP_SHAPES = [(1, 1), (3, 29), (5, 64), (3, 7), (1000, 64), (15, 1),
+               (7, 9), (1, 64), (5, 13), (8, 125), (131089, 1)]
+
+
+def _prop_rows(R: int, S: int):
+    """_inputs' rows with, from 24 rows on, a NaN mean, an infinite mean
+    (sin(inf) is NaN) and an infinite variance (damped to zero: finite)
+    in three rows."""
+    mc, _ = _inputs(R, S, seed=S)
+    if mc.shape[0] >= 24:
+        mc[5, 1] = float("nan")
+        mc[13, 0] = float("inf")
+        mc[21, 4] = float("inf")
+    return mc
+
+
+@pytest.fixture(scope="module")
+def k9_first_design(proposal):
+    from rsn_torch.kernels.build import start_variant
+
+    lib, _ = start_variant("proposal_forward.cu", ("RSN_K9_FIRST_DESIGN",),
+                           "first_design")()
+    return lib
+
+
+@pytest.mark.parametrize("R,S", PROP_SHAPES)
 def test_prop_kernel_matches_plain_version(proposal, R, S):
     """K9 against its plain version: ragged last tiles, one row, and
-    (1000, 64) for more tiles than blocks (the grid-stride loop); within
-    1e-2 of max |preact| (bf16 activations, fp32 sums in another order)."""
-    mc, _ = _inputs(R, S, seed=S)
+    (1000, 64) for more tiles than warps; within 1e-2 of max |preact|
+    (bf16 activations, fp32 sums in another order) on the finite rows,
+    NaN where the plain version has NaN (the ReLU keeps it)."""
+    mc = _prop_rows(R, S)
     packed = pf.pack_prop_params(proposal)
     got = pf.prop_forward(packed, mc)
     torch.cuda.synchronize()
     ref = pf.prop_forward_plain(packed, mc)
     assert got.shape == (R * S,) and got.dtype == torch.float32
-    assert torch.isfinite(got).all()
-    scale = float(ref.abs().max())
-    assert float((got - ref).abs().max()) <= 1e-2 * scale
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    assert int(nan.sum()) == (2 if R * S >= 24 else 0)
+    assert torch.isfinite(got[~nan]).all()
+    scale = float(ref[~nan].abs().max())
+    assert float((got - ref)[~nan].abs().max()) <= 1e-2 * scale
+
+
+@pytest.mark.parametrize("R,S", PROP_SHAPES)
+def test_prop_kernel_equals_its_first_design(proposal, k9_first_design, R,
+                                             S):
+    """The register-resident K9 against the RSN_K9_FIRST_DESIGN build of
+    the same source, bit for bit (NaN rows included)."""
+    mc = _prop_rows(R, S)
+    packed = pf.pack_prop_params(proposal)
+    ff.reset_launch_counts()
+    got = pf.prop_forward(packed, mc)
+    old = pf.launch_prop(k9_first_design, packed, mc)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), old.view(torch.int32))
+    assert ff.LAUNCHES["prop_forward"] == 1
 
 
 def test_prop_launch_counts_and_determinism(proposal):
@@ -805,7 +853,7 @@ def test_experiment_launch_counts(field):
 
 
 @pytest.mark.parametrize("mode", cheap_sin.MODES)
-@pytest.mark.parametrize("n", [1, 77, 4099])
+@pytest.mark.parametrize("n", [1, 77, 4099, 33333])
 def test_cheap_sin_matches_plain_version(field, mode, n):
     x = cheap_sin.tool_input(n, "cuda", seed=n)
     got = cheap_sin.run(mode, x)
