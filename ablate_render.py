@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Where K1's and K2's time goes, by ablation, on one CUDA card.
+"""Where K1's, K2's, K14's and K15's time goes, by ablation, on one CUDA
+card.
 
     python3 ablate_render.py
 
-Builds rsn_torch/csrc/field_forward.cu once as the port builds it and once
-per RSN_ABLATE_* macro of trunk_sm90.cuh (each leaves one part out of the
-Hopper trunk: the weight copies, the per-layer bias + ReLU + bf16
+Builds rsn_torch/csrc/field_forward.cu (K1, K2) and experiments.cu (K14,
+K15) once as the port builds them and once per RSN_ABLATE_* macro of
+trunk_sm90.cuh and unfolded_sm90.cuh (each leaves one part out of the
+Hopper trunk: the weight copies, the trunk's per-layer bias + ReLU + bf16
 epilogue, the IPE, or all three), one nvcc per build, in parallel, into
 rsn_torch/_build/variants/ (git-ignored).  Then times K1
-(rsn_field_forward_v3) and K2 (rsn_field_forward_density) of every build
-on the orbit chunk's shape (16,384 rays x 128 samples = 2,097,152 rows;
-field weights from chip_smoke.SEED), CUDA events, median of 10, the full
-build first and last.  A build with a part left out computes a wrong
-result; only its time is read.  Prints the card's name and power limit.
+(rsn_field_forward_v3), K2 (rsn_field_forward_density) and K14 / K15's
+four schedules (v3u, v3i, v3L, v3F) of every build on the orbit chunk's
+shape (16,384 rays x 128 samples = 2,097,152 rows; field weights from
+chip_smoke.SEED), CUDA events, median of 10, the full build first and
+last.  A build with a part left out computes a wrong result; only its
+time is read.  Prints the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ def main() -> int:
     import torch
 
     from chip_smoke import SEED
+    from rsn_torch.experiments import interleave
     from rsn_torch.kernels import field_forward as ff
     from rsn_torch.kernels.build import finish_variants, start_variant
     from rsn_torch.models.field import Field
@@ -46,9 +50,13 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[0]
-    libs, _ = finish_variants({
-        name: start_variant("field_forward.cu", macros, f"ablate_{i}")
+    waiting = {name: start_variant("field_forward.cu", macros, f"ablate_{i}")
+               for i, (name, macros) in enumerate(VARIANTS)}
+    waiting.update({
+        f"exp {name}": start_variant("experiments.cu", macros,
+                                     f"ablate_{i}")
         for i, (name, macros) in enumerate(VARIANTS)})
+    libs, _ = finish_variants(waiting)
     R, S = 16384, 128
     n = R * S
     rng = np.random.default_rng(SEED)
@@ -63,6 +71,7 @@ def main() -> int:
     field = Field(torch.Generator().manual_seed(SEED)).to(dev).eval()
     g = ff.mid_g_bands(field, dirs)
     p1, p2 = ff.pack_params_v3f(field), ff.pack_params_density(field)
+    p3 = ff.pack_params_v3(field)
     b1, b2 = ff._ring_blob(p1, heads=True), ff._ring_blob(p2, heads=False)
     a1, a2 = ff._ptr_array(p1), ff._ptr_array(p2)
     consts = ff._ipe_consts(dev)
@@ -84,12 +93,23 @@ def main() -> int:
         if rc:
             raise RuntimeError(f"K2 launch failed ({rc})")
 
+    def k14(lib, entry, flags):
+        interleave.launch_kernel(lib, entry, p3, mc, g, S, *flags)
+
     order = [name for name, _ in VARIANTS] + ["full"]
     for name in order:
         t2 = time_kernel(k2, libs[name], reps=10, warmup=1)
         t1 = time_kernel(k1, libs[name], reps=10, warmup=1)
         print(f"{name:18s} K2 {t2:.4f} ms  K1 {t1:.4f} ms  ({n} rows; median "
               f"of 10; {card})", flush=True)
+    for name in order:
+        lib = libs[f"exp {name}"]
+        times = "  ".join(
+            f"{v.replace('field_forward_', '')} "
+            f"{time_kernel(k14, lib, entry, flags, reps=10, warmup=1):.4f} ms"
+            for v, (entry, flags) in interleave.ENTRIES.items())
+        print(f"{name:18s} {times}  ({n} rows; median of 10; {card})",
+              flush=True)
     return 0
 
 

@@ -10,14 +10,18 @@ Phases, each announced on its own line:
                 rsn_torch/_build/, one nvcc per source, all at once (the
                 first call of a checkout builds), and beside them
                 field_train.cu with RSN_ABLATE_NO_SPILL (K3 without its
-                spill stores) for phase 6's timing and proposal_forward.cu
-                with RSN_K9_FIRST_DESIGN (K9's first design) for phase 9.
+                spill stores) for phase 6's timing, proposal_forward.cu
+                with RSN_K9_FIRST_DESIGN (K9's first design) for phase 9
+                and experiments.cu with RSN_K14_FIRST_DESIGN (K14's and
+                K15's first design) for phases 3 and 17; the registers and
+                spills of K14 / K15's four kernels (none may spill).
   3. kernels  — K1 (field_forward_v3) and K2 (field_forward_density)
                 against their plain PyTorch versions on the card, on the
                 real inputs of one 16384-ray chunk of the first 800x800
                 orbit frame (passes 1-4), plus K2's density column
                 against K1's, bit for bit, and CUDA-event times beside K14
-                v3u's (the old 64-row wmma design) in the same call; the
+                v3u's first design (the 64-row wmma design that K1 and K2
+                replaced) in the same call; the
                 wgmma / mma.sync probe (one 64 x 256 x 256 bf16 layer by
                 both instructions, fp32 sums bit for bit); K1's and K2's
                 registers and spills from the build.
@@ -121,10 +125,13 @@ Phases, each announced on its own line:
   17. K14-K16 — from zeroed launch counts, K14 (field_forward_v3u,
                 field_forward_v3i) and K15 (field_forward_v3L, and with
                 full field_forward_v3F) on phase 3's pass-2 render chunk
-                (2,097,152 rows), each against its plain version, v3i ==
-                v3u and v3F == v3L bit for bit, v3u and v3L on columns 0:14
-                against K1 on the same rows; K16 (cheap_sin) in its eight
-                modes on (2,097,152, 128) f32 rows of the tool's
+                (2,097,152 rows), each against its plain version and its
+                first design (the RSN_K14_FIRST_DESIGN build) bit for bit,
+                v3i == v3u and v3F == v3L bit for bit, v3u and v3L on
+                columns 0:14 against K1 on the same rows; CUDA-event times,
+                one call per event pair, then each variant back to back in
+                turns with its first design and K1; K16 (cheap_sin) in its
+                eight modes on (2,097,152, 128) f32 rows of the tool's
                 distribution, each against its plain version; CUDA-event
                 times beside K1's; K16's and one PyTorch call's each
                 (most on an argument computed beforehand), one call per
@@ -400,14 +407,17 @@ def main() -> int:
                                          load_library, start_variant)
 
     t0 = time.perf_counter()
-    # beside the port's build: K3 without its spill stores (phase 6) and
-    # K9's first design (phase 9)
+    # beside the port's build: K3 without its spill stores (phase 6), K9's
+    # first design (phase 9), K14's and K15's (phases 3 and 17)
     waiting = {"no_spill": start_variant("field_train.cu",
                                          ("RSN_ABLATE_NO_SPILL",),
                                          "no_spill"),
                "k9_first": start_variant("proposal_forward.cu",
                                          ("RSN_K9_FIRST_DESIGN",),
-                                         "first_design")}
+                                         "first_design"),
+               "k14_first": start_variant("experiments.cu",
+                                          ("RSN_K14_FIRST_DESIGN",),
+                                          "first_design")}
     try:
         paths, log = build_library()
         for source in paths:
@@ -416,14 +426,19 @@ def main() -> int:
         variants, texts = finish_variants(waiting)  # waits for every nvcc
     log += "".join(f"\n--- {name}\n{text}" for name, text in texts.items())
     print(f"built {', '.join(os.path.relpath(p, REPO) for p in paths.values())}"
-          f", field_train.cu with RSN_ABLATE_NO_SPILL and "
-          f"proposal_forward.cu with RSN_K9_FIRST_DESIGN in "
+          f", field_train.cu with RSN_ABLATE_NO_SPILL, "
+          f"proposal_forward.cu with RSN_K9_FIRST_DESIGN and experiments.cu "
+          f"with RSN_K14_FIRST_DESIGN in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per build, in "
           f"parallel)")
     for line in log.splitlines():
         if re.search(r"^---|registers|spill", line):
             print(f"  ptxas: {line.strip()}")
     sys.stdout.flush()
+    # K14 / K15's four schedules of unfolded_sm90.cuh: no spill
+    kernel_registers("experiments.cu", {
+        f"unfolded_kernelILi{i}E": f"K14 / K15 {v} (unfolded_kernel<{i}>)"
+        for i, v in enumerate(("v3u", "v3i", "v3L", "v3F"))}, no_spill=True)
 
     from rsn_torch.cli import render as render_cli
     from rsn_torch.data.cameras import rescale_cameras
@@ -486,19 +501,22 @@ def main() -> int:
                                                     bound_ms=b, bound_by=by)
     # pass 2's rows, for phases 16 and 17
     _, render_mc, render_g, render_s = calls["v3"][0]
-    # the old design's yardstick in the same call: K14 v3u (trunk() on
-    # 64-row tiles, wmma) on pass 2's rows
+    # the old design's yardstick in the same call: K14 v3u's first design
+    # (trunk() on 64-row tiles, wmma) on pass 2's rows
     from rsn_torch.experiments import interleave
 
     p3u = ff.pack_params_v3(field)
-    v3u = cuda_ms(lambda: interleave.field_forward_v3u(p3u, render_mc,
-                                                       render_g, render_s))
+    v3u = cuda_ms(lambda: interleave.launch_kernel(
+        variants["k14_first"], "rsn_field_forward_v3u", p3u, render_mc,
+        render_g, render_s))
     print(f"  K1 {results['field_forward_v3']['ms']:.4f} ms and K2 "
-          f"{results['field_forward_density']['ms']:.4f} ms beside K14 v3u "
-          f"{v3u:.4f} ms on pass 2's rows (the same call; median of 10; "
-          f"{card})", flush=True)
+          f"{results['field_forward_density']['ms']:.4f} ms beside K14 v3u's "
+          f"first design {v3u:.4f} ms on pass 2's rows (the same call; "
+          f"median of 10; {card})", flush=True)
     mma_probe(card)
-    render_kernel_registers()
+    kernel_registers("field_forward.cu", {
+        "field_render_kernelILb1E": "K1 (field_render_kernel<true>)",
+        "field_render_kernelILb0E": "K2 (field_render_kernel<false>)"})
     del p3u, calls
     torch.cuda.empty_cache()
 
@@ -565,7 +583,7 @@ def main() -> int:
 
     # ---- 17. the tools' forward experiments ----
     exp_results = experiments_phase(field, render_mc, render_g, render_s,
-                                    card)
+                                    card, variants["k14_first"])
     results.update(exp_results["kernels"])
     launches.update(exp_results["launches"])
 
@@ -678,23 +696,28 @@ def mma_probe(card) -> None:
             raise RuntimeError("the wgmma / mma.sync probe disagrees")
 
 
-def render_kernel_registers() -> None:
-    """K1's and K2's registers and spills from the build's ptxas output."""
+def kernel_registers(source: str, names, no_spill: bool = False) -> None:
+    """The registers and spills of `source`'s kernels {mangled name part:
+    label} from the build's ptxas output; with no_spill, raises if one
+    spills."""
     from rsn_torch.kernels.build import build_log
 
-    names = {"field_render_kernelILb1E": "K1 (field_render_kernel<true>)",
-             "field_render_kernelILb0E": "K2 (field_render_kernel<false>)"}
     seen, cur = {}, None
-    for line in build_log("field_forward.cu").splitlines():
+    for line in build_log(source).splitlines():
         if "Compiling entry function" in line:
             cur = next((v for k, v in names.items() if k in line), None)
         elif cur and ("spill" in line or "registers" in line):
             seen.setdefault(cur, []).append(line.split(":")[-1].strip())
     if not seen:
-        print("  K1 / K2 registers: no ptxas output (the library was built "
-              "before this run)")
+        print(f"  {', '.join(names.values())}: no ptxas output (the library "
+              f"was built before this run)")
     for name, lines in seen.items():
         print(f"  {name}: {'; '.join(lines)}")
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", " ".join(lines))
+        if no_spill and spill and (int(spill.group(1)) or
+                                   int(spill.group(2))):
+            raise RuntimeError(f"{name} spills registers")
     sys.stdout.flush()
 
 
@@ -2425,15 +2448,17 @@ def library_calls(x):
             "exp2_ldexp": lambda: torch.exp2(arg["exp2"])}
 
 
-def experiments_phase(field, render_mc, render_g, S, card):
+def experiments_phase(field, render_mc, render_g, S, card, first):
     """Phase 17 -> {"kernels": K14-K16's results, "launches": their launches
     in the run of this slice's path (the experiments' kernels on the render
     chunk's rows and on the tool's input; no model or CLI path calls them,
-    as in rsn)}."""
+    as in rsn)}.  first: the build of experiments.cu with
+    RSN_K14_FIRST_DESIGN (phase 2)."""
     import torch
 
     from rsn_torch.experiments import cheap_sin, interleave, interleave2
     from rsn_torch.kernels import field_forward as ff
+    from rsn_torch.kernels.build import load_library
 
     phase("phase 17: K14-K16 against plain versions at main-path shapes")
     p3 = ff.pack_params_v3(field)
@@ -2463,6 +2488,14 @@ def experiments_phase(field, render_mc, render_g, S, card):
     if not torch.equal(outs["field_forward_v3F"], outs["field_forward_v3L"]):
         raise RuntimeError("v3F differs from v3L")
     print(f"  v3i == v3u and v3F == v3L, bit for bit ({n} rows)")
+    for name, (entry, flags) in interleave.ENTRIES.items():
+        old = interleave.launch_kernel(first, entry, *args, *flags)
+        torch.cuda.synchronize()
+        if not torch.equal(old, outs[name]):
+            raise RuntimeError(f"{name} differs from its first design")
+        del old
+    print(f"  v3u, v3i, v3L, v3F == each one's first design "
+          f"(RSN_K14_FIRST_DESIGN), bit for bit ({n} rows)", flush=True)
     k1 = ff.field_forward_v3(ff.pack_params_v3f(field), render_mc, render_g,
                              S)
     plains = {"field_forward_v3u": interleave.field_forward_v3u_plain,
@@ -2502,7 +2535,27 @@ def experiments_phase(field, render_mc, render_g, S, card):
         + f" (K1 on the same rows, the same call); plain v3u "
         f"{results['field_forward_v3u']['plain_ms']:.4f} ms, plain v3L "
         f"{results['field_forward_v3L']['plain_ms']:.4f} ms; bound {b:.4f} "
-        f"ms ({by}; median of 10; {card})", flush=True)
+        f"ms ({by}; one call per event pair, median of 10; {card})",
+        flush=True)
+    # on the device alone: each variant in turns with its first design and
+    # K1 (first design, kernel, K1, K1, kernel, first design), 5 calls back
+    # to back
+    def k1():
+        ff.field_forward_v3(p1, render_mc, render_g, S)
+    for name, (entry, flags) in interleave.ENTRIES.items():
+        def new(entry=entry, flags=flags):
+            interleave.launch_kernel(load_library("experiments.cu"), entry,
+                                     *args, *flags)
+
+        def old(entry=entry, flags=flags):
+            interleave.launch_kernel(first, entry, *args, *flags)
+        t = [back_to_back_ms(f) for f in (old, new, k1, k1, new, old)]
+        print(f"  {name.replace('field_forward_', '')}: back to back in "
+              f"turns, the first design {t[0]:.4f} / {t[5]:.4f} ms, the "
+              f"kernel {t[1]:.4f} / {t[4]:.4f} ms, K1 {t[2]:.4f} / "
+              f"{t[3]:.4f} ms ({(t[0] + t[5]) / (t[1] + t[4]):.2f}x the "
+              f"first design's speed; 5 calls back to back, median of 10; "
+              f"{card})", flush=True)
 
     # K16 on the tool's distribution
     library = library_calls(x)

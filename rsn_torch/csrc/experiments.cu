@@ -9,9 +9,9 @@
 //       partials, mid head -> (N, 128) bf16: the V3_* columns 0:14, zero
 //       14:128.  v3i computes the same function as two row halves.
 //   field_forward_v3L (K15; tools/exp_interleave2.py, _kernel_v3L): the
-//       same with K1's polynomial IPE; the two halves take turns layer by
-//       layer through the trunk (v3L), and with `full` also through the
-//       heads, the mid seed and the mid head (v3F).
+//       same with K1's polynomial IPE; the two halves take turns on the
+//       tensor cores through the trunk (v3L), and with `full` also through
+//       the heads and the mid seed (v3F).
 //   run (K16; tools/exp_cheap_sin.py, make_kernel): one elementwise mode
 //       per launch, (N, 128) f32 -> (N, 128) f32.
 //
@@ -22,24 +22,26 @@
 // few tens of fp32 operations per element: device memory (0.64 ms at
 // 2,097,152 rows).
 //
-// What the design does about it (a first, simple design, on K1's):
-//   - A block of 256 threads owns 64 rows and keeps every intermediate in
-//     shared memory (K1's 93 KB layout, two blocks per SM); products run
-//     on the tensor cores through wmma 16x16x16 bf16 fragments with fp32
-//     sums, the weights read from L2 one k-step ahead.
-//   - v3u: the block's 8 warps run the whole tile (warp w: 32 columns).
-//   - v3i / v3L: the TPU tool's two halves become two 32-row sub-tiles of
-//     the block, each owned by a warp group of 4 warps (warp w: 64
-//     columns) that meets only at its own named barrier (bar.sync 2 + g,
-//     128), never at __syncthreads().  An element's product is the same
-//     wmma sum in the same k order whichever warp computes it, and every
-//     epilogue is per element, so v3i equals v3u bit for bit.
-//   - v3L: the two groups hand the tensor cores to each other: a group
-//     waits (bar.sync) before its products of a phase until the other has
-//     issued its own, and signals (bar.arrive, named barriers 4 and 5 over
-//     both groups) as soon as its products are issued, so one group's
-//     epilogue (bias, ReLU, bf16 cast) runs under the other's products.
-//     Only the schedule depends on `full`: v3F equals v3L bit for bit.
+// What the design does about it:
+//   - K14 / K15 run on K1's Hopper block (unfolded_sm90.cuh on
+//     trunk_sm90.cuh): a persistent grid, 128-row tiles, the weights
+//     streamed through a 3-stage ring of shared memory by cp.async.bulk
+//     from a blob packed once per operand tuple (rsn_torch/kernels/
+//     unfolded_sm90.py), the products on wgmma (m64n256 trunk and
+//     bottleneck, m64n16 head columns, m64n128 mid seed), the two 64-row
+//     consumer warpgroups in the roles of the tools' two halves.  The four
+//     variants differ only in the order in which the two consumers issue
+//     their products (unfolded_sm90.cuh): v3u in step, v3i out of step,
+//     v3L in turns chunk by chunk through the trunk, v3F through the tail
+//     too.  v3i equals v3u and v3F equals v3L bit for bit, and each equals
+//     its first design.
+//   - The first design (64-row tiles, two blocks an SM, every intermediate
+//     in shared memory, wmma 16x16x16 with the weights read from L2 one
+//     k-step ahead; the halves two 32-row warp groups meeting at their own
+//     named barriers, v3L's turns around whole layers' products) is kept
+//     under RSN_K14_FIRST_DESIGN, which only chip_smoke.py and the card
+//     tests build, to hold the new kernels equal to it bit for bit.  Both
+//     builds take the same arguments; the first design ignores the blob.
 //   - No one-hot sample expansion (a row finds its ray as row / S), no
 //     128-lane IPE matrices, no padding of N: the ragged last tile is
 //     masked.
@@ -54,10 +56,63 @@
 //     expf / exp2f with full range reduction (the build has no
 //     --use_fast_math), rintf for jnp.round; poly_bf16 rounds every
 //     product and sum to bf16 on its own, as rsn's chain is written.
-// The trunk, both IPEs and the product routine live in field_common.cuh.
+//     K16 is the same in both builds.
 #include "field_common.cuh"
 
+#ifndef RSN_K14_FIRST_DESIGN
+#include "unfolded_sm90.cuh"
+#endif
+
 namespace {
+
+#ifndef RSN_K14_FIRST_DESIGN
+
+// K14 / K15: sm90::unfolded_body on the schedule (unfolded_sm90.cuh).
+template <int SCHED>
+__global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
+    unfolded_kernel(const __grid_constant__ sm90::UnfoldedParams p) {
+  sm90::unfolded_body<SCHED>(p);
+}
+
+// On a persistent grid of at most one block per SM.  ptrs: the 22 operands
+// (the weights are read from blob; the biases, w_out from ptrs).
+template <int SCHED>
+int launch_unfolded(const void* mean_cov, const void* g_bands,
+                    const void* ipe_consts, const void* blob,
+                    const void* const* ptrs, void* out, long long n, int S,
+                    void* stream) {
+  sm90::UnfoldedParams p{};
+  p.r.mc = static_cast<const float*>(mean_cov);
+  p.r.consts = static_cast<const float*>(ipe_consts);
+  p.r.blob = static_cast<const unsigned char*>(blob);
+  for (int i = 0; i < LAYERS; ++i)
+    p.r.b[i] = static_cast<const float*>(ptrs[LAYERS + i]);
+  p.r.n = n;
+  p.r.out = static_cast<bf16*>(out);
+  p.r.g = static_cast<const float*>(g_bands);
+  p.r.S = S;
+  p.bh = static_cast<const float*>(ptrs[17]);
+  p.b_mid = static_cast<const float*>(ptrs[19]);
+  p.r.w_out = static_cast<const bf16*>(ptrs[20]);
+  p.r.b_out = static_cast<const float*>(ptrs[21]);
+  auto kernel = unfolded_kernel<SCHED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sm90::U_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (n + sm90::TILE_ROWS - 1) / sm90::TILE_ROWS;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  kernel<<<grid, sm90::BLOCK_THREADS, sm90::U_SMEM_BYTES,
+           static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+#else  // RSN_K14_FIRST_DESIGN: the first design, for the bit-for-bit check
 
 constexpr int OUT_COLS = 128;    // V3_OUT: columns 0:14 live, 14:128 zero
 constexpr int LDF = 20;          // f32 head columns 256..271, + 4
@@ -281,6 +336,28 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
+typedef void (*ForwardKernel)(const float*, const float*, const float*,
+                              V3UParams, bf16*, long long, int);
+
+int launch_forward(ForwardKernel kernel, const void* mean_cov,
+                   const void* g_bands, const void* ipe_consts,
+                   const void* const* ptrs, void* out, long long n, int S,
+                   void* stream) {
+  V3UParams p;
+  fill_v3u(&p, ptrs);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)((n + TM - 1) / TM), THREADS, FWD_SMEM_BYTES,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(mean_cov), static_cast<const float*>(g_bands),
+      static_cast<const float*>(ipe_consts), p, static_cast<bf16*>(out), n,
+      S);
+  return (int)cudaGetLastError();
+}
+
+#endif  // RSN_K14_FIRST_DESIGN
+
 // ---- K16 ------------------------------------------------------------------
 
 enum CheapSinMode {
@@ -387,58 +464,65 @@ int launch_cheap_sin(const float* x, float* y, long long n,
   return (int)cudaGetLastError();
 }
 
-typedef void (*ForwardKernel)(const float*, const float*, const float*,
-                              V3UParams, bf16*, long long, int);
-
-int launch_forward(ForwardKernel kernel, const void* mean_cov,
-                   const void* g_bands, const void* ipe_consts,
-                   const void* const* ptrs, void* out, long long n, int S,
-                   void* stream) {
-  V3UParams p;
-  fill_v3u(&p, ptrs);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)((n + TM - 1) / TM), THREADS, FWD_SMEM_BYTES,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(mean_cov), static_cast<const float*>(g_bands),
-      static_cast<const float*>(ipe_consts), p, static_cast<bf16*>(out), n,
-      S);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// K14, K15.  ptrs: w0..w7, b0..b7, wh, bh, w_emb, b_mid, w_out, b_out
-// (pack_params_v3, device pointers); out (N, 128) bf16.  Each returns a
-// cudaError_t code (0 = launched).
+// K14, K15.  blob: unfolded_sm90.pack_unfolded_blob of the operands; ptrs:
+// w0..w7, b0..b7, wh, bh, w_emb, b_mid, w_out, b_out (pack_params_v3,
+// device pointers); out (N, 128) bf16.  Each returns a cudaError_t code
+// (0 = launched).  The RSN_K14_FIRST_DESIGN build launches the first
+// design and ignores blob.
 int rsn_field_forward_v3u(const void* mean_cov, const void* g_bands,
-                          const void* ipe_consts, const void* const* ptrs,
-                          void* out, long long n, int samples_per_ray,
-                          void* stream) {
+                          const void* ipe_consts, const void* blob,
+                          const void* const* ptrs, void* out, long long n,
+                          int samples_per_ray, void* stream) {
+#ifndef RSN_K14_FIRST_DESIGN
+  return launch_unfolded<sm90::IN_STEP>(mean_cov, g_bands, ipe_consts, blob,
+                                        ptrs, out, n, samples_per_ray,
+                                        stream);
+#else
+  (void)blob;
   return launch_forward(field_forward_v3u_kernel, mean_cov, g_bands,
                         ipe_consts, ptrs, out, n, samples_per_ray, stream);
+#endif
 }
 
 int rsn_field_forward_v3i(const void* mean_cov, const void* g_bands,
-                          const void* ipe_consts, const void* const* ptrs,
-                          void* out, long long n, int samples_per_ray,
-                          void* stream) {
+                          const void* ipe_consts, const void* blob,
+                          const void* const* ptrs, void* out, long long n,
+                          int samples_per_ray, void* stream) {
+#ifndef RSN_K14_FIRST_DESIGN
+  return launch_unfolded<sm90::OUT_OF_STEP>(mean_cov, g_bands, ipe_consts,
+                                            blob, ptrs, out, n,
+                                            samples_per_ray, stream);
+#else
+  (void)blob;
   return launch_forward(field_forward_halves_kernel<true, 0>, mean_cov,
                         g_bands, ipe_consts, ptrs, out, n, samples_per_ray,
                         stream);
+#endif
 }
 
 int rsn_field_forward_v3L(const void* mean_cov, const void* g_bands,
-                          const void* ipe_consts, const void* const* ptrs,
-                          void* out, long long n, int samples_per_ray,
-                          int full, void* stream) {
+                          const void* ipe_consts, const void* blob,
+                          const void* const* ptrs, void* out, long long n,
+                          int samples_per_ray, int full, void* stream) {
+#ifndef RSN_K14_FIRST_DESIGN
+  return full ? launch_unfolded<sm90::TURNS_ALL>(mean_cov, g_bands,
+                                                 ipe_consts, blob, ptrs, out,
+                                                 n, samples_per_ray, stream)
+              : launch_unfolded<sm90::TURNS_TRUNK>(mean_cov, g_bands,
+                                                   ipe_consts, blob, ptrs,
+                                                   out, n, samples_per_ray,
+                                                   stream);
+#else
+  (void)blob;
   return launch_forward(full ? field_forward_halves_kernel<false, 2>
                              : field_forward_halves_kernel<false, 1>,
                         mean_cov, g_bands, ipe_consts, ptrs, out, n,
                         samples_per_ray, stream);
+#endif
 }
 
 // K16.  x, y (N, 128) f32; mode: 0 copy, 1 exact, 2 poly, 3 exp, 4 exp2,

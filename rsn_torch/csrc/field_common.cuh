@@ -4,19 +4,20 @@
 // experiments.cu: K14, K15; experiments_bwd.cu: K18, K19).  Every kernel
 // computes its IPE (K1's polynomial one, or K11's exact one) through
 // ipe_rows (K1 and K2: ipe_sincos, the same operations on every element).
-// Every kernel but K1, K2, K3 and K7 runs its trunk through trunk() /
-// trunk_rows() (wmma, 64-row tiles), and K10 its V3 tail through v3_tail;
-// K1, K2, K3 and K7 run the same sums on Hopper's wgmma (trunk_sm90.cuh,
-// train_sm90.cuh), in the same k order and with the same epilogue
-// arithmetic, so K2's density column and K3's column 12 equal K1's, and
-// K10's output K7's, bit for bit.
+// Every kernel but K1, K2, K3, K7, K14 and K15 runs its trunk through
+// trunk() / trunk_rows() (wmma, 64-row tiles), and K10 its V3 tail through
+// v3_tail; K1, K2, K3, K7, K14 and K15 run the same sums on Hopper's wgmma
+// (trunk_sm90.cuh, train_sm90.cuh, unfolded_sm90.cuh), in the same k order
+// and with the same epilogue arithmetic, so K2's density column and K3's
+// column 12 equal K1's, K10's output K7's, and K14's / K15's their first
+// design's, bit for bit.
 //
 // The routines run on THREADS threads (threadIdx.x < THREADS) and meet at
 // block_sync(), named barrier 1 over THREADS threads: in a block of
 // THREADS threads that is __syncthreads(), and K10's block adds producer
 // warps (threadIdx.x >= THREADS) that never take it.  The *_rows variants
 // run on a group of warps that owns a row sub-tile and meets at its own
-// barrier (K14's and K15's two warp groups).
+// barrier (the two warp groups of K14's and K15's first design).
 //
 // Each .cu includes this header and is compiled on its own (one nvcc per
 // source, run in parallel); everything here sits in an anonymous
@@ -182,7 +183,9 @@ __device__ __forceinline__ void ipe_sincos(float mean_d, float cov_d,
 // does not depend on which thread computes it.
 //   EXACT false (K1 and the kernels built on it): the wrapped phase and the
 //     polynomial sine, damp = exp2(-var / (2 ln 2)).
-//   EXACT true (K11, K14; rsn's _ipe_in_kernel): sinf of the fp32 phase
+//   EXACT true (K11, K14's first design; K14's Hopper kernel computes the
+//     same bits two threads a row, unfolded_sm90.cuh; rsn's
+//     _ipe_in_kernel): sinf of the fp32 phase
 //     2 pi f_k mean_d (+ f32(pi / 2) on the cos half, not a cos) and
 //     expf(-var / 2), with full range reduction (no fast-math intrinsics):
 //     phases reach 2 pi 2^16 |mean| ~ 8e5 at the top octave.
@@ -226,8 +229,8 @@ __device__ void ipe_tile(const float* __restrict__ mc,
   ipe_tile(mc, consts, row0, n, X, threadIdx.x, THREADS);
 }
 
-// No hand-off around a warp's products (every kernel but K15's, whose two
-// warp groups take turns on the tensor cores).
+// No hand-off around a warp's products (every kernel but K15's first
+// design, whose two warp groups take turns on the tensor cores).
 struct NoTurn {
   __device__ void begin() {}
   __device__ void end() {}
@@ -315,7 +318,8 @@ __device__ void dense_relu_rows(const bf16* A0, int lda0, int k0,
       });
 }
 
-// Nothing to do after a trunk layer (K11, K12, K14, K15).
+// Nothing to do after a trunk layer (K11, K12, the first design of K14 and
+// K15).
 struct NoLayerHook {
   __device__ void operator()(int, const bf16*) const {}
 };

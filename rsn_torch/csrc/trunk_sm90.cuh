@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the field kernels on 128-row tiles: the
 // render path's K1 (field_forward_v3) and K2 (field_forward_density) in
-// field_forward.cu, and the train-width forwards K3 (field_forward_v6), K7
+// field_forward.cu, the train-width forwards K3 (field_forward_v6), K7
 // (field_forward_v4) and K1 at the train width (train_sm90.cuh, in
-// field_train.cu): shared-memory layouts for wgmma's operands, the
+// field_train.cu), and the tools' K14 / K15 (unfolded_sm90.cuh, in
+// experiments.cu): shared-memory layouts for wgmma's operands, the
 // mbarrier / bulk-copy ring that feeds the weights, the wgmma instructions,
 // and the persistent block they share.
 //
@@ -67,16 +68,19 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
       : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
+// (the mbarrier at shared address a)
+__device__ __forceinline__ void mbar_arrive(uint32_t a) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(a)
                : "memory");
 }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  mbar_arrive(smem_u32(bar));
+}
 
-// spin until the phase of parity `parity` has completed; a phase that
-// never completes (a ring out of step) traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
+// spin until the phase of parity `parity` of the mbarrier at shared address
+// a has completed; a phase that never completes (a ring out of step) traps
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t a, uint32_t parity) {
   for (uint32_t spins = 0;; ++spins) {
     uint32_t done;
     asm volatile(
@@ -91,6 +95,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (done) return;
     if (spins == (1u << 24)) __trap();
   }
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait(smem_u32(bar), parity);
 }
 
 // `bytes` (a multiple of 16) from global src to shared dst, completion
@@ -274,6 +281,63 @@ __device__ __forceinline__ void wgmma_n104(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// acc += A (64 x 16, smem, K-major, 128B swizzle) @ B (16 x 128, smem,
+// K-major, 128B swizzle); acc is the m64n128 fp32 fragment (K14 / K15's mid
+// seed).
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// acc += A (64 x 16, smem, K-major, 128B swizzle) @ B (16 x 16, smem,
+// K-major, 128B swizzle); acc is the m64n16 fp32 fragment (K14 / K15's head
+// columns).
+__device__ __forceinline__ void wgmma_n16(float* d, uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // Register i of an m64nN fp32 fragment of warpgroup thread t holds
 // (row, col) = (16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2),
 //               8 (i / 4) + 2 (t % 4) + i % 2).
@@ -408,17 +472,19 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, %1;" ::"r"(2 + wg), "n"(WG_THREADS) : "memory");
 }
 
-// The producer thread: the first `chunks` chunks of the blob (back to back)
-// for every tile of this block, in order.
-__device__ void produce(const unsigned char* __restrict__ blob,
-                        unsigned char* ring, uint64_t* full, uint64_t* empty,
-                        int chunks, int ntiles) {
+// The producer thread: the first `chunks` chunks of the blob (back to back,
+// chunk c of bytes_of(c) bytes) for every tile of this block, in order.
+template <typename Bytes>
+__device__ void produce_chunks(const unsigned char* __restrict__ blob,
+                               unsigned char* ring, uint64_t* full,
+                               uint64_t* empty, int chunks, int ntiles,
+                               const Bytes& bytes_of) {
   int st = 0;
   uint32_t ph = 0;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     long long off = 0;
     for (int c = 0; c < chunks; ++c) {
-      const int bytes = chunk_bytes(c);
+      const int bytes = bytes_of(c);
       mbar_wait(&empty[st], ph ^ 1);
 #ifdef RSN_ABLATE_NO_LOAD  // ablate_render.py: the ring without its copies
       mbar_arrive(&full[st]);
@@ -433,6 +499,14 @@ __device__ void produce(const unsigned char* __restrict__ blob,
       }
     }
   }
+}
+
+// The blob of K1, K2 and the train-width forwards (chunk_bytes).
+__device__ void produce(const unsigned char* __restrict__ blob,
+                        unsigned char* ring, uint64_t* full, uint64_t* empty,
+                        int chunks, int ntiles) {
+  produce_chunks(blob, ring, full, empty, chunks, ntiles,
+                 [](int c) { return chunk_bytes(c); });
 }
 
 // A consumer warpgroup's place in the ring.
@@ -450,13 +524,22 @@ struct RingPos {
   }
 };
 
+// No hand-off of the tensor cores around a chunk's products (every kernel
+// but K15's turns, unfolded_sm90.cuh).
+struct NoChunkTurn {
+  __device__ void before() {}
+  __device__ void after() {}
+};
+
 // acc (an m64nN fragment, zeroed by the caller) += A @ the next `chunks`
 // ring stages; A's chunk j at a_base(j), with ksteps(j) k-steps of 16.
 // Each stage is released (one arrival per warp) once its products are done.
-template <int N, typename ABase, typename KSteps>
+// turn.before() runs before a chunk's products are issued, turn.after()
+// as soon as they are.
+template <int N, typename ABase, typename KSteps, typename Turn>
 __device__ __forceinline__ void mma_chunks(float* acc, RingPos& rp,
                                            int chunks, const ABase& a_base,
-                                           const KSteps& ksteps) {
+                                           const KSteps& ksteps, Turn& turn) {
   constexpr int R = N / 2;
   const bool lane0 = (threadIdx.x & 31) == 0;
   int prev = 0;
@@ -464,6 +547,7 @@ __device__ __forceinline__ void mma_chunks(float* acc, RingPos& rp,
     const uint32_t a = a_base(j);
     const uint32_t b = smem_u32(rp.ring + rp.st * W_CHUNK_BYTES);
     const int ks = ksteps(j);
+    turn.before();
     mbar_wait(&rp.full[rp.st], rp.ph);
     wgmma_fence();
 #pragma unroll
@@ -473,11 +557,18 @@ __device__ __forceinline__ void mma_chunks(float* acc, RingPos& rp,
           wgmma_n256(acc, desc_sw128(a + 32 * k), desc_sw128(b + 32 * k));
         else if constexpr (N == HEAD_N)
           wgmma_n144(acc, desc_sw128(a + 32 * k), desc_sw128(b + 32 * k));
-        else
+        else if constexpr (N == XS_N)
           wgmma_n104(acc, desc_sw128(a + 32 * k), desc_sw128(b + 32 * k));
+        else if constexpr (N == 128)
+          wgmma_n128(acc, desc_sw128(a + 32 * k), desc_sw128(b + 32 * k));
+        else {
+          static_assert(N == 16, "N: 256, 144, 104, 128 or 16");
+          wgmma_n16(acc, desc_sw128(a + 32 * k), desc_sw128(b + 32 * k));
+        }
       }
     }
     wgmma_commit();
+    turn.after();
     if (j > 0) {
       wgmma_wait<1>();
       fence_regs<R>(acc);
@@ -489,6 +580,14 @@ __device__ __forceinline__ void mma_chunks(float* acc, RingPos& rp,
   wgmma_wait<0>();
   fence_regs<R>(acc);
   if (lane0) mbar_arrive(&rp.empty[prev]);
+}
+
+template <int N, typename ABase, typename KSteps>
+__device__ __forceinline__ void mma_chunks(float* acc, RingPos& rp,
+                                           int chunks, const ABase& a_base,
+                                           const KSteps& ksteps) {
+  NoChunkTurn none;
+  mma_chunks<N>(acc, rp, chunks, a_base, ksteps, none);
 }
 
 // Nothing to do after a layer (K1, K2).
@@ -505,11 +604,13 @@ struct NoTrunkHook {
 // sees the bf16 pair stored from the thread's registers i, i + 1;
 // hook.layer(layer) runs once the layer's output in H is visible to the
 // warpgroup, before the next layer's products.  Starts after X is visible
-// to wgmma; ends with H visible to wgmma and to the warpgroup.
-template <typename Hook>
+// to wgmma; ends with H visible to wgmma and to the warpgroup.  turn: around
+// each chunk's products (mma_chunks).
+template <typename Hook, typename Turn>
 __device__ __forceinline__ void trunk_wg(const RenderParams& p, RingPos& rp,
                                          unsigned char* X, unsigned char* H,
-                                         int wg, int t, Hook& hook) {
+                                         int wg, int t, Hook& hook,
+                                         Turn& turn) {
   const uint32_t xa = smem_u32(X), ha = smem_u32(H);
   for (int layer = 0; layer < LAYERS; ++layer) {
     float acc[128];
@@ -524,7 +625,7 @@ __device__ __forceinline__ void trunk_wg(const RenderParams& p, RingPos& rp,
                      ? xa + j * KB_BYTES
                      : ha + (j - (layer == SKIP_AT ? 2 : 0)) * KB_BYTES;
         },
-        [&](int j) { return x_first && j == 1 ? 3 : 4; });
+        [&](int j) { return x_first && j == 1 ? 3 : 4; }, turn);
     wg_sync(wg);  // no product of this layer still reads H
 #ifdef RSN_ABLATE_NO_EPILOGUE  // ablate_render.py: H keeps the layer's input
     if (acc[0] == 12345.f) *reinterpret_cast<float*>(H) = acc[127];
@@ -549,6 +650,14 @@ __device__ __forceinline__ void trunk_wg(const RenderParams& p, RingPos& rp,
     wg_sync(wg);
     hook.layer(layer);
   }
+}
+
+template <typename Hook>
+__device__ __forceinline__ void trunk_wg(const RenderParams& p, RingPos& rp,
+                                         unsigned char* X, unsigned char* H,
+                                         int wg, int t, Hook& hook) {
+  NoChunkTurn none;
+  trunk_wg(p, rp, X, H, wg, t, hook, none);
 }
 
 // density_row's sum on the warpgroup's H: dot(h_r, w[:, 0]) + b for row

@@ -2,20 +2,25 @@
 
 field_forward_v3L (replaces exp_interleave2.py::field_forward_v3L) computes
 K14's function (rsn_torch.experiments.interleave) with K1's IPE, the
-wrapped phase and the polynomial sine (ipe_x), on two 32-row halves of a
-64-row tile, one warp group each.  The halves take turns on the tensor
-cores layer by layer through the trunk; with `full` (the tool's v3F) also
-through the heads, the mid seed and the mid head.  The schedule is all that
-`full` changes: the same bits either way.
+wrapped phase and the polynomial sine (ipe_x).  On the card it runs K14's
+Hopper block (rsn_torch/csrc/unfolded_sm90.cuh): the tool's two halves are
+the block's two 64-row consumer warpgroups, and they take turns on the
+tensor cores chunk by chunk through the trunk (each issues a chunk's
+products once the other has issued its own, and passes the turn as soon as
+they are issued, so one's epilogue runs under the other's products; the
+ring lets one run at most STAGES - 1 chunks ahead); with `full` (the
+tool's v3F) also through the heads and the mid seed.  The schedule is all
+that `full` changes: the same bits either way, and the same bits as the
+first design (experiments.cu under RSN_K14_FIRST_DESIGN).
 
 The wrapper runs the plain version (field_forward_v3L_plain) for CPU
-tensors and launches the CUDA kernel (rsn_torch/csrc/experiments.cu) for
-CUDA tensors.
+tensors and launches the CUDA kernel for CUDA tensors.
 
     python -m rsn_torch.experiments.interleave2 [N]
 
-times K1 (field_forward_v3), v3L and v3F on N rows (default 262,144, 128
-samples per ray) on the card.
+builds the first design beside the port and times K1 (field_forward_v3),
+v3L, v3F and their first design on N rows (default 262,144, 128 samples
+per ray) on the card.
 """
 from __future__ import annotations
 
@@ -23,8 +28,8 @@ import sys
 
 import torch
 
-from rsn_torch.experiments.interleave import (launch_forward, report,
-                                              tool_inputs,
+from rsn_torch.experiments.interleave import (first_design, launch_forward,
+                                              time_variants, tool_inputs,
                                               unfolded_forward_plain)
 from rsn_torch.kernels import field_forward as ff
 
@@ -50,23 +55,22 @@ def field_forward_v3L(packed_v3, mean_cov: torch.Tensor,
 
 
 def main(argv=None) -> int:
-    """K1, v3L and v3F on the tool's rows: ms (median of 10 CUDA-event
-    captures), TFLOP/s, and each one's distance from v3L on columns 0:14."""
-    from rsn_torch.utils.timing import time_kernel
-
+    """K1, v3L, v3F and their first design on the tool's rows: ms (median
+    of 10 CUDA-event captures), TFLOP/s, each one's distance from v3L on
+    columns 0:14, each variant against its first design."""
     argv = sys.argv[1:] if argv is None else argv
     n, S = (int(argv[0]) if argv else 262144), 128
     field, mc, g = tool_inputs(n, S)
     p3, p1 = ff.pack_params_v3(field), ff.pack_params_v3f(field)
+    first = first_design()
     print(torch.cuda.get_device_name(0), flush=True)
     ref = field_forward_v3L(p3, mc, g, S)
-    for name, fn, args in (
-            ("v3", ff.field_forward_v3, (p1, mc, g, S)),
-            ("v3L", field_forward_v3L, (p3, mc, g, S, False)),
-            ("v3F", field_forward_v3L, (p3, mc, g, S, True))):
-        out = fn(*args)
-        err = float((out[:, :14].float() - ref[:, :14].float()).abs().max())
-        report(name, time_kernel(fn, *args), n, err, "v3L")
+    time_variants((
+        ("v3", ff.field_forward_v3, (p1, mc, g, S), None),
+        ("v3L", field_forward_v3L, (p3, mc, g, S, False),
+         "field_forward_v3L"),
+        ("v3F", field_forward_v3L, (p3, mc, g, S, True),
+         "field_forward_v3F")), n, ref, "v3L", first)
     return 0
 
 

@@ -28,7 +28,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("field_forward.cu", "field_train.cu", "proposal_forward.cu",
            "experiments.cu", "experiments_bwd.cu")
 HEADERS = ("field_common.cuh", "trunk_sm90.cuh", "train_sm90.cuh",
-           "wgrad_sm90.cuh")
+           "wgrad_sm90.cuh", "unfolded_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -188,9 +188,11 @@ def _signatures() -> Dict[str, Dict[str, list]]:
             "rsn_prop_forward": [vp, vp, ptrs, vp, ll, vp],
         },
         "experiments.cu": {
-            "rsn_field_forward_v3u": [vp, vp, vp, ptrs, vp, ll, i32, vp],
-            "rsn_field_forward_v3i": [vp, vp, vp, ptrs, vp, ll, i32, vp],
-            "rsn_field_forward_v3L": [vp, vp, vp, ptrs, vp, ll, i32, i32,
+            "rsn_field_forward_v3u": [vp, vp, vp, vp, ptrs, vp, ll, i32,
+                                      vp],
+            "rsn_field_forward_v3i": [vp, vp, vp, vp, ptrs, vp, ll, i32,
+                                      vp],
+            "rsn_field_forward_v3L": [vp, vp, vp, vp, ptrs, vp, ll, i32, i32,
                                       vp],
             "rsn_cheap_sin": [vp, vp, ll, i32, vp],
         },

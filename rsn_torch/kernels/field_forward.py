@@ -180,24 +180,30 @@ def cast_packed(packed_f32) -> Tuple[torch.Tensor, ...]:
 
 
 class PackedOperands(tuple):
-    """A packed-operand tuple (pack_params_v3f, pack_params_density) that
-    keeps, from the first CUDA launch on, its weights pre-packed for K1's /
-    K2's weight ring (trunk_sm90.pack_blob), so a render packs them once and
-    not per chunk.  The blob is a copy: editing the tuple's weight tensors
-    in place afterwards leaves it stale."""
+    """A packed-operand tuple (pack_params_v3f, pack_params_density,
+    pack_params_v3) that keeps, from the first CUDA launch on, its weights
+    pre-packed for its kernels' weight ring, one blob per ring format
+    (ring_blob), so a render packs them once and not per chunk.  A blob is
+    a copy: editing the tuple's weight tensors in place afterwards leaves
+    it stale."""
 
-    blob = None
+
+def ring_blob(packed, fmt: str, pack) -> torch.Tensor:
+    """packed's weights in the ring format fmt, built by pack(packed): kept
+    under fmt on a PackedOperands, built anew for any other sequence."""
+    blobs = (vars(packed).setdefault("blobs", {})
+             if isinstance(packed, PackedOperands) else {})
+    if fmt not in blobs:
+        blobs[fmt] = pack(packed)
+    return blobs[fmt]
 
 
 def _ring_blob(packed, heads: bool) -> torch.Tensor:
-    """The ring's chunks of packed's trunk weights (and, for K1, of w_hc):
-    cached on a PackedOperands, built anew for any other sequence."""
-    blob = getattr(packed, "blob", None)
-    if blob is None:
-        blob = trunk_sm90.pack_blob(packed[:8], packed[16] if heads else None)
-        if isinstance(packed, PackedOperands):
-            packed.blob = blob
-    return blob
+    """K1's / K2's ring blob: the trunk's chunks (trunk_sm90.pack_blob),
+    and for K1 w_hc's."""
+    return ring_blob(packed, "trunk+w_hc" if heads else "trunk",
+                     lambda p: trunk_sm90.pack_blob(p[:8], p[16] if heads
+                                                    else None))
 
 
 @torch.no_grad()
@@ -249,10 +255,10 @@ def pack_params_v3(field: Field) -> Tuple[torch.Tensor, ...]:
     _, w_emb, b_mid = field.mid_weights()
     w_out = F.pad(_w_in_out(field.field_output_mid.net), (0, 125))
     b_out = F.pad(field.field_output_mid.net.bias.float(), (0, 125))
-    return pack_params(field) + (
+    return PackedOperands(pack_params(field) + (
         w_emb.float().to(BF16).contiguous(),
         b_mid.detach().float().reshape(1, -1).contiguous(),
-        w_out.to(BF16).contiguous(), b_out.reshape(1, -1).contiguous())
+        w_out.to(BF16).contiguous(), b_out.reshape(1, -1).contiguous()))
 
 
 def mid_g_bands_f32(field: Field, ray_dirs: torch.Tensor,

@@ -14,7 +14,8 @@ determinism, the alignment checks, small renders (the default
 method and the proposal preset) on both devices, the recompute route's
 smaller peak memory, and the tools' experiments (K14-K16) against their
 plain versions at ragged shapes, with v3i == v3u and v3F == v3L bit for
-bit, and the backward experiments (K17-K19): K17 against K8 and its plain
+bit and K14 / K15 against their first design (the RSN_K14_FIRST_DESIGN
+build) bit for bit, and the backward experiments (K17-K19): K17 against K8 and its plain
 version, K18's four modes and K19 against theirs, K19 == K18's full mode
 on K3's spill.
 
@@ -809,8 +810,8 @@ def test_field_api_launch_counts_and_route(field):
 
 # ---- the tools' experiments: K14 (v3u, v3i), K15 (v3L, v3F), K16 ----------
 
-@pytest.mark.parametrize("R,S", [(1, 1), (3, 7), (5, 29), (33, 128),
-                                 (130, 64)])
+@pytest.mark.parametrize("R,S", [(1, 1), (3, 7), (1, 16), (9, 16), (5, 29),
+                                 (33, 128), (130, 64)])
 def test_experiment_forwards_match_plain_versions(field, R, S):
     mc, dirs = _inputs(R, S, seed=7)
     g = ff.mid_g_bands(field, dirs)
@@ -829,6 +830,42 @@ def test_experiment_forwards_match_plain_versions(field, R, S):
         assert float((got.float() - ref.float()).abs().max()) <= ATOL
     k1 = ff.field_forward_v3(ff.pack_params_v3f(field), mc, g, S)
     assert float((L[:, :14].float() - k1[:, :14].float()).abs().max()) <= ATOL
+
+
+@pytest.fixture(scope="module")
+def k14_first_design(field):
+    from rsn_torch.kernels.build import start_variant
+
+    lib, _ = start_variant("experiments.cu", ("RSN_K14_FIRST_DESIGN",),
+                           "first_design")()
+    return lib
+
+
+# fewer rows than one 128-row tile, S = 16, ragged last tiles, and (1100,
+# 128): 1,100 tiles, more than one per SM
+@pytest.mark.parametrize("R,S", [(1, 1), (1, 16), (9, 16), (3, 7), (5, 29),
+                                 (130, 64), (1100, 128)])
+def test_experiment_forwards_equal_their_first_design(field, k14_first_design,
+                                                      R, S):
+    """K14's and K15's Hopper kernels (unfolded_sm90.cuh) against the
+    RSN_K14_FIRST_DESIGN build of the same source, bit for bit, each
+    variant one launch counted."""
+    mc, dirs = _inputs(R, S, seed=R + S)
+    g = ff.mid_g_bands(field, dirs)
+    p3 = ff.pack_params_v3(field)
+    for name, fn, flags in (
+            ("field_forward_v3u", interleave.field_forward_v3u, ()),
+            ("field_forward_v3i", interleave.field_forward_v3i, ()),
+            ("field_forward_v3L", interleave2.field_forward_v3L, (False,)),
+            ("field_forward_v3F", interleave2.field_forward_v3L, (True,))):
+        ff.reset_launch_counts()
+        got = fn(p3, mc, g, S, *flags)
+        entry, lib_flags = interleave.ENTRIES[name]
+        old = interleave.launch_kernel(k14_first_design, entry, p3, mc, g, S,
+                                       *lib_flags)
+        torch.cuda.synchronize()
+        assert torch.equal(got, old), name
+        assert {k: v for k, v in ff.LAUNCHES.items() if v} == {name: 1}
 
 
 def test_experiment_launch_counts(field):
