@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""Where K1's, K2's, K14's and K15's time goes, by ablation, on one CUDA
-card.
+"""Where K1's, K2's, K11's, K12's, K14's and K15's time goes, by ablation,
+on one CUDA card.
 
     python3 ablate_render.py
 
-Builds rsn_torch/csrc/field_forward.cu (K1, K2) and experiments.cu (K14,
-K15) once as the port builds them and once per RSN_ABLATE_* macro of
-trunk_sm90.cuh and unfolded_sm90.cuh (each leaves one part out of the
-Hopper trunk: the weight copies, the trunk's per-layer bias + ReLU + bf16
-epilogue, the IPE, or all three), one nvcc per build, in parallel, into
+Builds rsn_torch/csrc/field_forward.cu (K1, K2, K11, K12) and
+experiments.cu (K14, K15) once as the port builds them and once per
+RSN_ABLATE_* macro of trunk_sm90.cuh, unfolded_sm90.cuh and heads_sm90.cuh
+(each leaves one part out of the Hopper kernels: RSN_ABLATE_NO_LOAD the
+weight copies, RSN_ABLATE_NO_EPILOGUE the trunk's per-layer bias + ReLU +
+bf16 epilogue, RSN_ABLATE_NO_IPE the IPE (K12: its encoding's load),
+RSN_ABLATE_NO_STORE K11's and K12's 768-byte rows (field_forward.cu
+only), or all four), one nvcc per build, in parallel, into
 rsn_torch/_build/variants/ (git-ignored).  Then times K1
-(rsn_field_forward_v3), K2 (rsn_field_forward_density) and K14 / K15's
-four schedules (v3u, v3i, v3L, v3F) of every build on the orbit chunk's
-shape (16,384 rays x 128 samples = 2,097,152 rows; field weights from
-chip_smoke.SEED), CUDA events, median of 10, the full build first and
-last.  A build with a part left out computes a wrong result; only its
-time is read.  Prints the card's name and power limit.
+(rsn_field_forward_v3), K2 (rsn_field_forward_density), K11
+(rsn_field_forward_v2), K12 (rsn_field_forward, on the rows' exact IPE
+encoding) and K14 / K15's four schedules (v3u, v3i, v3L, v3F) of every
+build on the orbit chunk's shape (16,384 rays x 128 samples = 2,097,152
+rows; field weights from chip_smoke.SEED), CUDA events, median of 10, the
+full build first and last.  A build with a part left out computes a wrong
+result; only its time is read.  Prints the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -28,8 +32,11 @@ VARIANTS = (("full", ()),
             ("no weight copies", ("RSN_ABLATE_NO_LOAD",)),
             ("no epilogue", ("RSN_ABLATE_NO_EPILOGUE",)),
             ("no IPE", ("RSN_ABLATE_NO_IPE",)),
+            ("no store", ("RSN_ABLATE_NO_STORE",)),
             ("products only", ("RSN_ABLATE_NO_LOAD", "RSN_ABLATE_NO_EPILOGUE",
-                               "RSN_ABLATE_NO_IPE")))
+                               "RSN_ABLATE_NO_IPE", "RSN_ABLATE_NO_STORE")))
+# the macros experiments.cu reads (K14 / K15 have no RSN_ABLATE_NO_STORE)
+EXP_VARIANTS = tuple(v for v in VARIANTS if v[0] != "no store")
 
 
 def main() -> int:
@@ -55,7 +62,7 @@ def main() -> int:
     waiting.update({
         f"exp {name}": start_variant("experiments.cu", macros,
                                      f"ablate_{i}")
-        for i, (name, macros) in enumerate(VARIANTS)})
+        for i, (name, macros) in enumerate(EXP_VARIANTS)})
     libs, _ = finish_variants(waiting)
     R, S = 16384, 128
     n = R * S
@@ -72,6 +79,8 @@ def main() -> int:
     g = ff.mid_g_bands(field, dirs)
     p1, p2 = ff.pack_params_v3f(field), ff.pack_params_density(field)
     p3 = ff.pack_params_v3(field)
+    ph = ff.pack_params(field)
+    enc = ff.ipe_enc(mc)
     b1, b2 = ff._ring_blob(p1, heads=True), ff._ring_blob(p2, heads=False)
     a1, a2 = ff._ptr_array(p1), ff._ptr_array(p2)
     consts = ff._ipe_consts(dev)
@@ -100,8 +109,14 @@ def main() -> int:
     for name in order:
         t2 = time_kernel(k2, libs[name], reps=10, warmup=1)
         t1 = time_kernel(k1, libs[name], reps=10, warmup=1)
-        print(f"{name:18s} K2 {t2:.4f} ms  K1 {t1:.4f} ms  ({n} rows; median "
-              f"of 10; {card})", flush=True)
+        t11 = time_kernel(ff.launch_heads, libs[name], "field_forward_v2", ph,
+                          mc, reps=10, warmup=1)
+        t12 = time_kernel(ff.launch_heads, libs[name], "field_forward", ph,
+                          enc, reps=10, warmup=1)
+        print(f"{name:18s} K2 {t2:.4f} ms  K1 {t1:.4f} ms  K11 {t11:.4f} ms  "
+              f"K12 {t12:.4f} ms  ({n} rows; median of 10; {card})",
+              flush=True)
+    order = [name for name, _ in EXP_VARIANTS] + ["full"]
     for name in order:
         lib = libs[f"exp {name}"]
         times = "  ".join(

@@ -11,10 +11,12 @@ Phases, each announced on its own line:
                 first call of a checkout builds), and beside them
                 field_train.cu with RSN_ABLATE_NO_SPILL (K3 without its
                 spill stores) for phase 6's timing, proposal_forward.cu
-                with RSN_K9_FIRST_DESIGN (K9's first design) for phase 9
-                and experiments.cu with RSN_K14_FIRST_DESIGN (K14's and
-                K15's first design) for phases 3 and 17; the registers and
-                spills of K14 / K15's four kernels (none may spill).
+                with RSN_K9_FIRST_DESIGN (K9's first design) for phase 9,
+                experiments.cu with RSN_K14_FIRST_DESIGN (K14's and K15's
+                first design) for phases 3 and 17, and field_forward.cu
+                with RSN_K11_FIRST_DESIGN (K11's and K12's first design)
+                for phase 16; the registers and spills of K14 / K15's four
+                kernels and of K11's and K12's (none may spill).
   3. kernels  — K1 (field_forward_v3) and K2 (field_forward_density)
                 against their plain PyTorch versions on the card, on the
                 real inputs of one 16384-ray chunk of the first 800x800
@@ -115,9 +117,13 @@ Phases, each announced on its own line:
                 IPE encoding of the same rows, K10 (field_forward_v5) with
                 both flags and K13 (field_backward_v3) on phase 12's
                 camera-on inputs (passes 2 and 4); each against its plain
-                version; K10 == K7 and K1 at the train width, K13 == K8 on
-                dmc and dg, bit for bit, K13 the same twice and within 1e-4
-                of K8's weight gradients; CUDA-event times, K10 (the
+                version; K11 and K12 == their first design (the
+                RSN_K11_FIRST_DESIGN build) bit for bit on the 2,097,152
+                rows, their padding columns zero; K10 == K7 and K1 at the
+                train width, K13 == K8 on dmc and dg, bit for bit, K13 the
+                same twice and within 1e-4 of K8's weight gradients;
+                CUDA-event times, K11 and K12 one call per event pair and
+                back to back in turns with their first design, K10 (the
                 64-row wmma forward that K7 and K1 at the train width ran
                 before their Hopper design) beside K7 and K1, K13 beside
                 K8.
@@ -408,7 +414,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     # beside the port's build: K3 without its spill stores (phase 6), K9's
-    # first design (phase 9), K14's and K15's (phases 3 and 17)
+    # first design (phase 9), K14's and K15's (phases 3 and 17), K11's and
+    # K12's (phase 16)
     waiting = {"no_spill": start_variant("field_train.cu",
                                          ("RSN_ABLATE_NO_SPILL",),
                                          "no_spill"),
@@ -417,6 +424,9 @@ def main() -> int:
                                          "first_design"),
                "k14_first": start_variant("experiments.cu",
                                           ("RSN_K14_FIRST_DESIGN",),
+                                          "first_design"),
+               "k11_first": start_variant("field_forward.cu",
+                                          ("RSN_K11_FIRST_DESIGN",),
                                           "first_design")}
     try:
         paths, log = build_library()
@@ -427,8 +437,9 @@ def main() -> int:
     log += "".join(f"\n--- {name}\n{text}" for name, text in texts.items())
     print(f"built {', '.join(os.path.relpath(p, REPO) for p in paths.values())}"
           f", field_train.cu with RSN_ABLATE_NO_SPILL, "
-          f"proposal_forward.cu with RSN_K9_FIRST_DESIGN and experiments.cu "
-          f"with RSN_K14_FIRST_DESIGN in "
+          f"proposal_forward.cu with RSN_K9_FIRST_DESIGN, experiments.cu "
+          f"with RSN_K14_FIRST_DESIGN and field_forward.cu with "
+          f"RSN_K11_FIRST_DESIGN in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per build, in "
           f"parallel)")
     for line in log.splitlines():
@@ -439,6 +450,10 @@ def main() -> int:
     kernel_registers("experiments.cu", {
         f"unfolded_kernelILi{i}E": f"K14 / K15 {v} (unfolded_kernel<{i}>)"
         for i, v in enumerate(("v3u", "v3i", "v3L", "v3F"))}, no_spill=True)
+    # K11 / K12 (heads_sm90.cuh): no spill
+    kernel_registers("field_forward.cu", {
+        "heads_kernelILb1E": "K11 (heads_kernel<true>)",
+        "heads_kernelILb0E": "K12 (heads_kernel<false>)"}, no_spill=True)
 
     from rsn_torch.cli import render as render_cli
     from rsn_torch.data.cameras import rescale_cameras
@@ -577,7 +592,8 @@ def main() -> int:
     launches["field_backward_v4_wgrad"] += wgrad
 
     # ---- 16. the field API and the schedule variants ----
-    api_results = api_phase(field, render_mc, camera_results["calls"], card)
+    api_results = api_phase(field, render_mc, camera_results["calls"], card,
+                            variants["k11_first"])
     results.update(api_results["kernels"])
     launches.update(api_results["launches"])
 
@@ -2244,10 +2260,11 @@ API_KERNELS = ("field_forward_v2", "field_forward", "field_forward_v5",
                "field_backward_v3")
 
 
-def api_phase(field, render_mc, cam_calls, card):
+def api_phase(field, render_mc, cam_calls, card, first):
     """Phase 16 -> {"kernels": K10-K13's results, "launches": their
     launches in the run of this slice's path (the field's kernel route and
-    the kernel API; no CLI path calls them, as in rsn)}."""
+    the kernel API; no CLI path calls them, as in rsn)}.  first: the build
+    of field_forward.cu with RSN_K11_FIRST_DESIGN (phase 2)."""
     import torch
 
     from rsn_torch.kernels import field_forward as ff
@@ -2307,7 +2324,19 @@ def api_phase(field, render_mc, cam_calls, card):
           f"{ATOL})")
     if ed > ATOL:
         raise RuntimeError("K11's density disagrees with K2's")
-    del k11, k12, dens
+    del dens
+    if torch.any(k12[:, ff.N_HEAD_COLS:] != 0):
+        raise RuntimeError("K12's padding columns are not zero")
+    for tag, name, got, x in (("K11", "field_forward_v2", k11, render_mc),
+                              ("K12", "field_forward", k12, enc)):
+        old = ff.launch_heads(first, name, packed, x)
+        torch.cuda.synchronize()
+        if not torch.equal(old, got):
+            raise RuntimeError(f"{tag} differs from its first design")
+        del old
+    print(f"  K11, K12 == each one's first design (RSN_K11_FIRST_DESIGN), bit "
+          f"for bit ({n} rows); padding columns zero", flush=True)
+    del k11, k12, got
 
     # K10 on the camera-on step's pass 2, both flags
     blob = cam_calls["blob"]
@@ -2366,6 +2395,20 @@ def api_phase(field, render_mc, cam_calls, card):
               f"ms, bound {b:.4f} ms ({by}; median of 10; {card})",
               flush=True)
         results[name].update(ms=k, plain_ms=pl, bound_ms=b, bound_by=by)
+        # on the device alone, in turns with the first design (first
+        # design, kernel, kernel, first design), 5 calls back to back
+
+        def new(fn=fn, x=x):
+            fn(packed, x)
+
+        def old(name=name, x=x):
+            ff.launch_heads(first, name, packed, x)
+        t = [back_to_back_ms(f) for f in (old, new, new, old)]
+        print(f"  {tag}: back to back in turns, the first design {t[0]:.4f} "
+              f"/ {t[3]:.4f} ms, the kernel {t[1]:.4f} / {t[2]:.4f} ms "
+              f"({(t[0] + t[3]) / (t[1] + t[2]):.2f}x the first design's "
+              f"speed; 5 calls back to back, median of 10; {card})",
+              flush=True)
     del enc
     nf = fmc.shape[0]
     w_bytes = nbytes(*fpacked[:20])

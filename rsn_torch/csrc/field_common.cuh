@@ -4,13 +4,14 @@
 // experiments.cu: K14, K15; experiments_bwd.cu: K18, K19).  Every kernel
 // computes its IPE (K1's polynomial one, or K11's exact one) through
 // ipe_rows (K1 and K2: ipe_sincos, the same operations on every element).
-// Every kernel but K1, K2, K3, K7, K14 and K15 runs its trunk through
-// trunk() / trunk_rows() (wmma, 64-row tiles), and K10 its V3 tail through
-// v3_tail; K1, K2, K3, K7, K14 and K15 run the same sums on Hopper's wgmma
-// (trunk_sm90.cuh, train_sm90.cuh, unfolded_sm90.cuh), in the same k order
-// and with the same epilogue arithmetic, so K2's density column and K3's
-// column 12 equal K1's, K10's output K7's, and K14's / K15's their first
-// design's, bit for bit.
+// Every kernel but K1, K2, K3, K7, K11, K12, K14 and K15 runs its trunk
+// through trunk() / trunk_rows() (wmma, 64-row tiles), and K10 its V3 tail
+// through v3_tail; K1, K2, K3, K7, K11, K12, K14 and K15 run the same sums
+// on Hopper's wgmma (trunk_sm90.cuh, train_sm90.cuh, heads_sm90.cuh,
+// unfolded_sm90.cuh), in the same k order and with the same epilogue
+// arithmetic, so K2's density column and K3's column 12 equal K1's, K10's
+// output K7's, and K11's, K12's, K14's and K15's their first design's, bit
+// for bit.
 //
 // The routines run on THREADS threads (threadIdx.x < THREADS) and meet at
 // block_sync(), named barrier 1 over THREADS threads: in a block of
@@ -183,8 +184,8 @@ __device__ __forceinline__ void ipe_sincos(float mean_d, float cov_d,
 // does not depend on which thread computes it.
 //   EXACT false (K1 and the kernels built on it): the wrapped phase and the
 //     polynomial sine, damp = exp2(-var / (2 ln 2)).
-//   EXACT true (K11, K14's first design; K14's Hopper kernel computes the
-//     same bits two threads a row, unfolded_sm90.cuh; rsn's
+//   EXACT true (K11's and K14's first design; their Hopper kernels compute
+//     the same bits two threads a row, trunk_sm90.cuh's ipe_exact_wg; rsn's
 //     _ipe_in_kernel): sinf of the fp32 phase
 //     2 pi f_k mean_d (+ f32(pi / 2) on the cos half, not a cos) and
 //     expf(-var / 2), with full range reduction (no fast-math intrinsics):
@@ -318,8 +319,8 @@ __device__ void dense_relu_rows(const bf16* A0, int lda0, int k0,
       });
 }
 
-// Nothing to do after a trunk layer (K11, K12, the first design of K14 and
-// K15).
+// Nothing to do after a trunk layer (the first designs of K11, K12, K14
+// and K15).
 struct NoLayerHook {
   __device__ void operator()(int, const bf16*) const {}
 };

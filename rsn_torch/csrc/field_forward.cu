@@ -52,24 +52,31 @@
 //   - Where the time goes (ablations on the card, PERF.md): the products;
 //     then each layer's epilogue, which stops its warpgroup's tensor work.
 //
-// K11 and K12 (the field API), a first, simple design on trunk():
-//   - One block of 8 warps owns a tile of TM = 64 sample rows.  The IPE
-//     tile x and the activations ping-pong in shared memory (93 KB, two
-//     blocks per SM).  Products run through nvcuda::wmma 16x16x16 bf16
-//     fragments with fp32 accumulators, each weight fragment read from
-//     global memory (L2-resident) one k-step ahead of its use.
-//   - K11's IPE is not K1's: rsn's v2 front end takes jnp.sin of the fp32
-//     phase 2 pi f_k mean_d (+ f32(pi / 2) on the cos half, not a cos) and
-//     jnp.exp(-var / 2), not K1's wrapped polynomial (ipe_rows<true> in
-//     field_common.cuh, which K14 shares).  Its heads epilogue stages
-//     the (64, 384) bf16 output tile in the freed H0 + X buffers and stores
-//     whole rows with 16-byte stores.
+// K11 and K12 (the field API; sm90::heads_body in heads_sm90.cuh): K1's
+// block, ring and trunk, with a 40-chunk blob a tile (the trunk's 32, wh's
+// head columns as 4 chunks of m64n16, its bottleneck as 4 of m64n256);
+// K11's front end is the exact IPE (rsn's v2: jnp.sin of the fp32 phase
+// 2 pi f_k mean_d, + f32(pi / 2) on the cos half, and jnp.exp(-var / 2);
+// ipe_exact_wg, K14's), K12's the caller's encoding with all 8 k-steps of
+// its x part.  Each consumer writes its (64, 384) bf16 rows with streamed
+// 16-byte stores straight from its own tiles (Bn in H, the head columns,
+// the padding), no staging buffer.  Each equals its first design bit for
+// bit.  The first design (one block of 8 warps a 64-row tile, two blocks
+// an SM, nvcuda::wmma with every weight fragment read from L2 one k-step
+// ahead, the output tile staged in the freed H0 + X) is kept under
+// RSN_K11_FIRST_DESIGN, which only chip_smoke.py, the card tests and
+// ablate_render.py build; both builds take the same arguments, and the
+// first design ignores the blob.
+//
 // In every kernel a sample row finds its ray as row / S (the TPU kernel's
 // one-hot expansion matmul is dropped), the bias + ReLU epilogue rounds
 // activations to bf16 as the TPU kernel does, and heads, softplus,
 // sigmoid, attenuation and diff + tint * mid stay fp32.
 #include "field_common.cuh"
 #include "trunk_sm90.cuh"
+#ifndef RSN_K11_FIRST_DESIGN
+#include "heads_sm90.cuh"
+#endif
 
 namespace {
 
@@ -81,7 +88,57 @@ __global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
   sm90::render_trunk<HEADS>(p, smem_raw);
 }
 
+// At most one block per SM over n's 128-row tiles (K1, K2, K11, K12).
+int persistent_grid(long long n, unsigned* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long tiles = (n + sm90::TILE_ROWS - 1) / sm90::TILE_ROWS;
+  *grid = (unsigned)(tiles < sms ? tiles : sms);
+  return (int)err;
+}
+
 // ---- K11 / K12 ------------------------------------------------------------
+
+#ifndef RSN_K11_FIRST_DESIGN
+
+// K11 (IPE) and K12: the body is sm90::heads_body (heads_sm90.cuh).
+template <bool IPE>
+__global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
+    heads_kernel(const __grid_constant__ sm90::HeadsParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  sm90::heads_body<IPE>(p, smem_raw);
+}
+
+// On a persistent grid.  ptrs: w0..w7, b0..b7, wh, bh (the kernel reads
+// the weights from blob, the biases from ptrs).
+template <bool IPE>
+int launch_heads(const float* mc, const bf16* enc, const float* consts,
+                 const void* blob, const void* const* ptrs, bf16* out,
+                 long long n, cudaStream_t stream) {
+  sm90::HeadsParams p{};
+  p.r.mc = mc;
+  p.r.consts = consts;
+  p.r.blob = static_cast<const unsigned char*>(blob);
+  for (int i = 0; i < LAYERS; ++i)
+    p.r.b[i] = static_cast<const float*>(ptrs[LAYERS + i]);
+  p.r.n = n;
+  p.r.out = out;
+  p.enc = enc;
+  p.bh = static_cast<const float*>(ptrs[17]);
+  auto kernel = heads_kernel<IPE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sm90::H_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  unsigned grid = 0;
+  if (int rc = persistent_grid(n, &grid)) return rc;
+  kernel<<<grid, sm90::BLOCK_THREADS, sm90::H_SMEM_BYTES, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+#else  // RSN_K11_FIRST_DESIGN: the first design, for the bit-for-bit check
 
 constexpr int HEAD_TILES = 17;   // 16-column tiles holding the 267 live ones
 constexpr int LDO = HEAD_COLS + 8;  // bf16 output staging stride
@@ -193,6 +250,28 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
+unsigned grid_for(long long n) { return (unsigned)((n + TM - 1) / TM); }
+
+template <bool IPE>
+int launch_heads(const float* mc, const bf16* enc, const float* consts,
+                 const void* blob, const void* const* ptrs, bf16* out,
+                 long long n, cudaStream_t stream) {
+  (void)blob;
+  HeadsParams p;
+  fill_trunk(&p.trunk, ptrs);
+  p.wh = static_cast<const bf16*>(ptrs[16]);
+  p.bh = static_cast<const float*>(ptrs[17]);
+  auto kernel = field_heads_kernel<IPE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid_for(n), THREADS, FWD_SMEM_BYTES, stream>>>(mc, enc, consts,
+                                                           p, out, n);
+  return (int)cudaGetLastError();
+}
+
+#endif  // RSN_K11_FIRST_DESIGN
+
 // ---- the wgmma / mma.sync probe ---------------------------------------------
 // One 64 x 256 x 256 bf16 product with fp32 sums, by both of Hopper's
 // tensor-core instructions: wgmma m64n256k16 (A and B from shared memory in
@@ -266,25 +345,6 @@ __global__ void __launch_bounds__(128, 1)
   }
 }
 
-unsigned grid_for(long long n) { return (unsigned)((n + TM - 1) / TM); }
-
-template <bool IPE>
-int launch_heads(const float* mc, const bf16* enc, const float* consts,
-                 const void* const* ptrs, bf16* out, long long n,
-                 cudaStream_t stream) {
-  HeadsParams p;
-  fill_trunk(&p.trunk, ptrs);
-  p.wh = static_cast<const bf16*>(ptrs[16]);
-  p.bh = static_cast<const float*>(ptrs[17]);
-  auto kernel = field_heads_kernel<IPE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid_for(n), THREADS, FWD_SMEM_BYTES, stream>>>(mc, enc, consts,
-                                                           p, out, n);
-  return (int)cudaGetLastError();
-}
-
 // K1 / K2 on a persistent grid of at most one block per SM.
 template <bool HEADS>
 int launch_render(const sm90::RenderParams& p, cudaStream_t stream) {
@@ -293,13 +353,8 @@ int launch_render(const sm90::RenderParams& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (p.n + sm90::TILE_ROWS - 1) / sm90::TILE_ROWS;
-  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  unsigned grid = 0;
+  if (int rc = persistent_grid(p.n, &grid)) return rc;
   kernel<<<grid, sm90::BLOCK_THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -351,21 +406,24 @@ int rsn_field_forward_density(const void* mean_cov, const void* ipe_consts,
   return launch_render<false>(p, static_cast<cudaStream_t>(stream));
 }
 
-// K11.  ptrs: w0..w7, b0..b7, wh, bh (device pointers); out (N, 384) bf16.
+// K11.  blob: unfolded_sm90.pack_heads_blob of the operands; ptrs: w0..w7,
+// b0..b7, wh, bh (pack_params, device pointers); out (N, 384) bf16.  The
+// RSN_K11_FIRST_DESIGN build launches the first design and ignores blob.
 int rsn_field_forward_v2(const void* mean_cov, const void* ipe_consts,
-                         const void* const* ptrs, void* out, long long n,
-                         void* stream) {
+                         const void* blob, const void* const* ptrs, void* out,
+                         long long n, void* stream) {
   return launch_heads<true>(static_cast<const float*>(mean_cov), nullptr,
-                            static_cast<const float*>(ipe_consts), ptrs,
+                            static_cast<const float*>(ipe_consts), blob, ptrs,
                             static_cast<bf16*>(out), n,
                             static_cast<cudaStream_t>(stream));
 }
 
-// K12.  enc (N, 128) bf16; ptrs and out as for K11.
-int rsn_field_forward(const void* enc, const void* const* ptrs, void* out,
-                      long long n, void* stream) {
+// K12.  enc (N, 128) bf16; blob, ptrs and out as for K11.
+int rsn_field_forward(const void* enc, const void* blob,
+                      const void* const* ptrs, void* out, long long n,
+                      void* stream) {
   return launch_heads<false>(nullptr, static_cast<const bf16*>(enc), nullptr,
-                             ptrs, static_cast<bf16*>(out), n,
+                             blob, ptrs, static_cast<bf16*>(out), n,
                              static_cast<cudaStream_t>(stream));
 }
 

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the field kernels on 128-row tiles: the
-// render path's K1 (field_forward_v3) and K2 (field_forward_density) in
-// field_forward.cu, the train-width forwards K3 (field_forward_v6), K7
+// render path's K1 (field_forward_v3) and K2 (field_forward_density) and the
+// field API's K11 (field_forward_v2) and K12 (field_forward, heads_sm90.cuh)
+// in field_forward.cu, the train-width forwards K3 (field_forward_v6), K7
 // (field_forward_v4) and K1 at the train width (train_sm90.cuh, in
 // field_train.cu), and the tools' K14 / K15 (unfolded_sm90.cuh, in
 // experiments.cu): shared-memory layouts for wgmma's operands, the
@@ -441,6 +442,19 @@ __host__ __device__ constexpr long long blob_bytes(int chunks) {
 static_assert(blob_bytes(FWD_CHUNKS + DGRAD_CHUNKS) == 2146304,
               "the train blob: 1,122,304 forward + 1,024,000 dgrad bytes");
 
+// The unfolded heads' ring chunks (pack_params' wh: the K11 / K12 blob,
+// and the first HEADS_TILE_CHUNKS of K14 / K15's): the trunk's 32, then the
+// head columns wh[:, 256:272] (4 chunks of 64 x 16), then the bottleneck
+// wh[:, 0:256] (4 of 64 x 256); rsn_torch/kernels/unfolded_sm90.py packs
+// them.
+constexpr int HC_N = 16;                             // wh's head columns
+constexpr int HEADS_TILE_CHUNKS = TRUNK_CHUNKS + 8;  // 40
+__host__ __device__ constexpr int heads_chunk_bytes(int c) {
+  return c < TRUNK_CHUNKS ? W_CHUNK_BYTES
+         : c < TRUNK_CHUNKS + 4 ? HC_N * CHUNK_K * 2
+                                : W_CHUNK_BYTES;
+}
+
 struct RenderParams {
   const float* mc;       // (n, 16) f32
   const float* consts;   // IPE constants
@@ -598,15 +612,17 @@ struct NoTrunkHook {
 
 // The trunk on a warpgroup's 64 rows: X (IPE, 2 k-blocks) -> H (4
 // k-blocks), 8 layers.  Every element's sum is k ascending in steps of 16
-// into one fp32 accumulator that starts at +0 (trunk()'s order; layer 0
-// and layer 4's x part take 7 k-steps, the 8th meets zero columns), then
-// relu_keep_nan(__fadd_rn(sum, bias)) rounded to bf16.  hook.value(i, v)
+// into one fp32 accumulator that starts at +0 (trunk()'s order), then
+// relu_keep_nan(__fadd_rn(sum, bias)) rounded to bf16.  X_LAST_KSTEPS: the
+// k-steps of the x part's second chunk in layers 0 and 4; 3 where X's
+// columns 112..127 are zero (an IPE: the 8th k-step would add zero
+// products), 4 for an encoding the caller gives (K12).  hook.value(i, v)
 // sees the bf16 pair stored from the thread's registers i, i + 1;
 // hook.layer(layer) runs once the layer's output in H is visible to the
 // warpgroup, before the next layer's products.  Starts after X is visible
 // to wgmma; ends with H visible to wgmma and to the warpgroup.  turn: around
 // each chunk's products (mma_chunks).
-template <typename Hook, typename Turn>
+template <int X_LAST_KSTEPS = 3, typename Hook, typename Turn>
 __device__ __forceinline__ void trunk_wg(const RenderParams& p, RingPos& rp,
                                          unsigned char* X, unsigned char* H,
                                          int wg, int t, Hook& hook,
@@ -625,7 +641,7 @@ __device__ __forceinline__ void trunk_wg(const RenderParams& p, RingPos& rp,
                      ? xa + j * KB_BYTES
                      : ha + (j - (layer == SKIP_AT ? 2 : 0)) * KB_BYTES;
         },
-        [&](int j) { return x_first && j == 1 ? 3 : 4; }, turn);
+        [&](int j) { return x_first && j == 1 ? X_LAST_KSTEPS : 4; }, turn);
     wg_sync(wg);  // no product of this layer still reads H
 #ifdef RSN_ABLATE_NO_EPILOGUE  // ablate_render.py: H keeps the layer's input
     if (acc[0] == 12345.f) *reinterpret_cast<float*>(H) = acc[127];
@@ -658,6 +674,38 @@ __device__ __forceinline__ void trunk_wg(const RenderParams& p, RingPos& rp,
                                          int wg, int t, Hook& hook) {
   NoChunkTurn none;
   trunk_wg(p, rp, X, H, wg, t, hook, none);
+}
+
+// The unfolded heads' bottleneck on the warpgroup's trunk output H (K11,
+// K12, K14, K15): Bn = bf16(H @ wh[:, 0:256] + bh), 4 ring chunks of
+// m64n256 (the heads blob's last 4), written into H once no product reads
+// it any more.  Ends with Bn written by each thread, not yet visible to
+// the warpgroup or to wgmma.  turn: around each chunk's products.
+template <typename Turn>
+__device__ __forceinline__ void bottleneck_wg(RingPos& rp, unsigned char* H,
+                                              const float* __restrict__ bh,
+                                              int wg, int t, Turn& turn) {
+  const uint32_t ha = smem_u32(H);
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  fence_regs<128>(acc);
+  mma_chunks<256>(
+      acc, rp, 4, [&](int j) { return ha + j * KB_BYTES; },
+      [](int) { return 4; }, turn);
+  wg_sync(wg);  // no product still reads H
+#pragma unroll
+  for (int jj = 0; jj < 32; ++jj) {
+    const int col = 8 * jj + 2 * (t & 3);
+    const float2 bb = *reinterpret_cast<const float2*>(bh + col);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 4 * jj + 2 * h;
+      *reinterpret_cast<__nv_bfloat162*>(H + swz(frag_row(t, i), col)) =
+          __floats2bfloat162_rn(__fadd_rn(acc[i], bb.x),
+                                __fadd_rn(acc[i + 1], bb.y));
+    }
+  }
 }
 
 // density_row's sum on the warpgroup's H: dot(h_r, w[:, 0]) + b for row
@@ -729,6 +777,53 @@ __device__ __forceinline__ void ipe_wg(const float* __restrict__ mc,
           live ? __floats2bfloat162_rn(s0, s1) : __floats2bfloat162_rn(0.f, 0.f);
       *reinterpret_cast<__nv_bfloat162*>(X + swz(r, 48 + col)) =
           live ? __floats2bfloat162_rn(c0, c1) : __floats2bfloat162_rn(0.f, 0.f);
+    }
+  }
+  *reinterpret_cast<__nv_bfloat162*>(X + swz(r, 96 + 2 * hf)) =
+      __floats2bfloat162_rn(hf ? m[2] : m[0], hf ? 0.f : m[1]);
+}
+
+// The exact IPE of the warpgroup's 64 rows into X (ipe_rows<true>'s bits):
+// two threads per row, thread t the 24 (d, k) of its eight frequencies
+// [8 (t % 2), 8 (t % 2) + 8), each damping expf(-var / 2) once for its
+// sine and cosine column (sinf(pre), sinf(pre + f32(pi / 2))), full-range
+// sinf and expf; then the mean columns 96..98 and column 99.  sk, vk: the
+// thread's consts[k] and consts[NFREQ + k].  One d at a time (not
+// unrolled): sinf's slow path is long, and three of them side by side
+// spill.
+__device__ __forceinline__ void ipe_exact_wg(const float* __restrict__ mc,
+                                             long long row0, long long n,
+                                             unsigned char* X, int t,
+                                             const float* sk,
+                                             const float* vk) {
+  const int r = t >> 1, hf = t & 1;
+  const long long row = row0 + r;
+  const bool live = row < n;
+  float m[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) m[i] = live ? mc[row * IN_COLS + i] : 0.f;
+#pragma unroll 1
+  for (int d = 0; d < 3; ++d) {
+    const float mean = d == 0 ? m[0] : d == 1 ? m[1] : m[2];
+    const float cov = d == 0 ? m[3] : d == 1 ? m[4] : m[5];
+#pragma unroll
+    for (int kp = 0; kp < 4; ++kp) {
+      float s[2], c[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float pre = __fmul_rn(mean, sk[2 * kp + e]);
+        const float var = __fmul_rn(cov, vk[2 * kp + e]);
+        const float damp = expf(__fmul_rn(-0.5f, var));
+        s[e] = __fmul_rn(damp, sinf(pre));
+        c[e] = __fmul_rn(damp, sinf(__fadd_rn(pre, HALF_PI)));
+      }
+      const int col = 16 * d + 8 * hf + 2 * kp;
+      *reinterpret_cast<__nv_bfloat162*>(X + swz(r, col)) =
+          live ? __floats2bfloat162_rn(s[0], s[1])
+               : __floats2bfloat162_rn(0.f, 0.f);
+      *reinterpret_cast<__nv_bfloat162*>(X + swz(r, 48 + col)) =
+          live ? __floats2bfloat162_rn(c[0], c[1])
+               : __floats2bfloat162_rn(0.f, 0.f);
     }
   }
   *reinterpret_cast<__nv_bfloat162*>(X + swz(r, 96 + 2 * hf)) =

@@ -6,7 +6,8 @@
 // wgmma, one producer thread.
 //
 // The function (the tools' _half, column for column): the IPE (K11's exact
-// sine for v3u / v3i, K1's polynomial one, ipe_wg, for v3L / v3F), the
+// sine, ipe_exact_wg, for v3u / v3i, K1's polynomial one, ipe_wg, for v3L /
+// v3F; both in trunk_sm90.cuh), the
 // 8x256 trunk (trunk_wg), the unfolded heads Bn = bf16(H @ wh[:, 0:256] +
 // bh) and HC = H @ wh[:, 256:272] (its bias added where it is read), the
 // mid seed Bn @ w_emb + b_mid plus the four roughness-attenuated SH band
@@ -14,7 +15,8 @@
 // (rows, 128) bf16 row [V3_* columns 0:14 | 0].
 //
 // A tile's ring chunks, after the trunk's 32: the head columns (4 chunks
-// of 64 x 16, m64n16), the bottleneck (4 of 64 x 256, m64n256), the mid
+// of 64 x 16, m64n16), the bottleneck (4 of 64 x 256, m64n256) (these 40
+// are K11's and K12's blob: trunk_sm90.cuh's heads_chunk_bytes), the mid
 // seed (4 of 64 x 128, m64n128): 44 chunks, 1,253,376 bytes.  Each
 // element's sum runs k ascending in steps of 16 from +0, as the first
 // design's wmma sums do, and the epilogues are its arithmetic, so each
@@ -52,20 +54,18 @@ namespace {
 namespace sm90 {
 
 constexpr int U_OUT_COLS = 128;    // V3_OUT: columns 0:14 live, 14:128 zero
-constexpr int U_HC_N = 16;         // wh[:, 256:272]: the head columns
+constexpr int U_HC_N = HC_N;       // wh[:, 256:272]: the head columns
 constexpr int U_EMB_N = MID;       // w_emb: the mid seed
 constexpr int U_TAIL_CHUNKS = 12;
 constexpr int U_CHUNKS = TRUNK_CHUNKS + U_TAIL_CHUNKS;   // 44
 constexpr int TURN_LAG = STAGES - 1;
 constexpr int TURN_SLOTS = TURN_LAG + 1;
 
-// chunk c of a tile: the trunk's 32, the head columns' 4, the bottleneck's
-// 4, the mid seed's 4
+// chunk c of a tile: the heads' (the trunk's 32, the head columns' 4, the
+// bottleneck's 4: heads_chunk_bytes), then the mid seed's 4
 __host__ __device__ constexpr int u_chunk_bytes(int c) {
-  return c < TRUNK_CHUNKS       ? W_CHUNK_BYTES
-         : c < TRUNK_CHUNKS + 4 ? U_HC_N * CHUNK_K * 2
-         : c < TRUNK_CHUNKS + 8 ? W_CHUNK_BYTES
-                                : U_EMB_N * CHUNK_K * 2;
+  return c < HEADS_TILE_CHUNKS ? heads_chunk_bytes(c)
+                               : U_EMB_N * CHUNK_K * 2;
 }
 __host__ __device__ constexpr long long u_blob_bytes() {
   long long b = 0;
@@ -145,53 +145,6 @@ struct OutOfStepStart {
   }
 };
 
-// The exact IPE of the warpgroup's 64 rows into X (ipe_rows<true>'s bits):
-// two threads per row, thread t the 24 (d, k) of its eight frequencies
-// [8 (t % 2), 8 (t % 2) + 8), each damping expf(-var / 2) once for its
-// sine and cosine column (sinf(pre), sinf(pre + f32(pi / 2))), full-range
-// sinf and expf; then the mean columns 96..98 and column 99.  sk, vk: the
-// thread's consts[k] and consts[NFREQ + k].  One d at a time (not
-// unrolled): sinf's slow path is long, and three of them side by side
-// spill.
-__device__ __forceinline__ void ipe_exact_wg(const float* __restrict__ mc,
-                                             long long row0, long long n,
-                                             unsigned char* X, int t,
-                                             const float* sk,
-                                             const float* vk) {
-  const int r = t >> 1, hf = t & 1;
-  const long long row = row0 + r;
-  const bool live = row < n;
-  float m[6];
-#pragma unroll
-  for (int i = 0; i < 6; ++i) m[i] = live ? mc[row * IN_COLS + i] : 0.f;
-#pragma unroll 1
-  for (int d = 0; d < 3; ++d) {
-    const float mean = d == 0 ? m[0] : d == 1 ? m[1] : m[2];
-    const float cov = d == 0 ? m[3] : d == 1 ? m[4] : m[5];
-#pragma unroll
-    for (int kp = 0; kp < 4; ++kp) {
-      float s[2], c[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float pre = __fmul_rn(mean, sk[2 * kp + e]);
-        const float var = __fmul_rn(cov, vk[2 * kp + e]);
-        const float damp = expf(__fmul_rn(-0.5f, var));
-        s[e] = __fmul_rn(damp, sinf(pre));
-        c[e] = __fmul_rn(damp, sinf(__fadd_rn(pre, HALF_PI)));
-      }
-      const int col = 16 * d + 8 * hf + 2 * kp;
-      *reinterpret_cast<__nv_bfloat162*>(X + swz(r, col)) =
-          live ? __floats2bfloat162_rn(s[0], s[1])
-               : __floats2bfloat162_rn(0.f, 0.f);
-      *reinterpret_cast<__nv_bfloat162*>(X + swz(r, 48 + col)) =
-          live ? __floats2bfloat162_rn(c[0], c[1])
-               : __floats2bfloat162_rn(0.f, 0.f);
-    }
-  }
-  *reinterpret_cast<__nv_bfloat162*>(X + swz(r, 96 + 2 * hf)) =
-      __floats2bfloat162_rn(hf ? m[2] : m[0], hf ? 0.f : m[1]);
-}
-
 // The unfolded tail on the warpgroup's trunk output H (64 x 256 in the A
 // layout), rows row0.. of the output: the head columns HC = H @ wh[:,
 // 256:272] (4 chunks of m64n16) and the band attenuations from HC's
@@ -240,28 +193,9 @@ __device__ __forceinline__ void unfolded_tail_wg(const UnfoldedParams& up,
     }
   }
 
-  {  // the bottleneck, into H
-    float acc[128];
-#pragma unroll
-    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-    fence_regs<128>(acc);
-    mma_chunks<256>(acc, rp, 4, a_h, four, turn);
-    wg_sync(wg);  // no product still reads H
-#pragma unroll
-    for (int jj = 0; jj < 32; ++jj) {
-      const int col = 8 * jj + 2 * q;
-      const float2 bb = *reinterpret_cast<const float2*>(up.bh + col);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = 4 * jj + 2 * h;
-        *reinterpret_cast<__nv_bfloat162*>(H + swz(frag_row(t, i), col)) =
-            __floats2bfloat162_rn(__fadd_rn(acc[i], bb.x),
-                                  __fadd_rn(acc[i + 1], bb.y));
-      }
-    }
-    fence_async_smem();
-    wg_sync(wg);  // Bn is visible to wgmma, the attenuations to the group
-  }
+  bottleneck_wg(rp, H, up.bh, wg, t, turn);  // Bn into H
+  fence_async_smem();
+  wg_sync(wg);  // Bn is visible to wgmma, the attenuations to the group
 
   {  // hmid = bf16(relu(Bn @ w_emb + b_mid + sum_b atten_b g_b[ray])) into
      // H, for the thread's rows r0 and r0 + 8, one after the other

@@ -28,7 +28,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("field_forward.cu", "field_train.cu", "proposal_forward.cu",
            "experiments.cu", "experiments_bwd.cu")
 HEADERS = ("field_common.cuh", "trunk_sm90.cuh", "train_sm90.cuh",
-           "wgrad_sm90.cuh", "unfolded_sm90.cuh")
+           "wgrad_sm90.cuh", "unfolded_sm90.cuh", "heads_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -161,8 +161,8 @@ def _signatures() -> Dict[str, Dict[str, list]]:
         "field_forward.cu": {
             "rsn_field_forward_v3": [vp, vp, vp, vp, ptrs, vp, ll, i32, vp],
             "rsn_field_forward_density": [vp, vp, vp, ptrs, vp, ll, vp],
-            "rsn_field_forward_v2": [vp, vp, ptrs, vp, ll, vp],
-            "rsn_field_forward": [vp, ptrs, vp, ll, vp],
+            "rsn_field_forward_v2": [vp, vp, vp, ptrs, vp, ll, vp],
+            "rsn_field_forward": [vp, vp, ptrs, vp, ll, vp],
             "rsn_mma_probe": [vp, vp, vp, vp, vp, vp],
         },
         "field_train.cu": {

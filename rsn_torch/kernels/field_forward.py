@@ -27,6 +27,10 @@ and not differentiable).
 K12 `field_forward` (replaces field_pallas.py::field_forward): K11 from a
 precomputed (N, 128) bf16 encoding, no IPE.
 
+K11 and K12 run on K1's Hopper block with their weights streamed from a
+blob (unfolded_sm90.pack_heads_blob: the trunk, wh's head columns and its
+bottleneck) packed once per pack_params tuple (heads_blob).
+
 Each wrapper checks its inputs, runs the plain version for CPU tensors
 and launches the CUDA kernel (rsn_torch/csrc/field_forward.cu) for CUDA
 tensors; it never falls back from one to the other.  `LAUNCHES` counts
@@ -43,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from rsn_torch.core.encodings import _BAND_SLICES, IPE_OUT_DIM, sh_basis
-from rsn_torch.kernels import trunk_sm90
+from rsn_torch.kernels import trunk_sm90, unfolded_sm90
 from rsn_torch.models.field import SKIP_AT, TRUNK_LAYERS, TRUNK_WIDTH, Field
 
 BF16 = torch.bfloat16
@@ -181,11 +185,11 @@ def cast_packed(packed_f32) -> Tuple[torch.Tensor, ...]:
 
 class PackedOperands(tuple):
     """A packed-operand tuple (pack_params_v3f, pack_params_density,
-    pack_params_v3) that keeps, from the first CUDA launch on, its weights
-    pre-packed for its kernels' weight ring, one blob per ring format
-    (ring_blob), so a render packs them once and not per chunk.  A blob is
-    a copy: editing the tuple's weight tensors in place afterwards leaves
-    it stale."""
+    pack_params, pack_params_v3) that keeps, from the first CUDA launch on,
+    its weights pre-packed for its kernels' weight ring, one blob per ring
+    format (ring_blob), so a render packs them once and not per chunk.  A
+    blob is a copy: editing the tuple's weight tensors in place afterwards
+    leaves it stale."""
 
 
 def ring_blob(packed, fmt: str, pack) -> torch.Tensor:
@@ -204,6 +208,11 @@ def _ring_blob(packed, heads: bool) -> torch.Tensor:
     return ring_blob(packed, "trunk+w_hc" if heads else "trunk",
                      lambda p: trunk_sm90.pack_blob(p[:8], p[16] if heads
                                                     else None))
+
+
+def heads_blob(packed) -> torch.Tensor:
+    """K11's and K12's ring blob (unfolded_sm90.pack_heads_blob)."""
+    return ring_blob(packed, "heads", unfolded_sm90.pack_heads_blob)
 
 
 @torch.no_grad()
@@ -242,8 +251,9 @@ def pack_params(field: Field) -> Tuple[torch.Tensor, ...]:
     bh = torch.cat([h.net.bias.float() for h in heads])
     wh = F.pad(wh, (0, OUT_DIM - N_HEAD_COLS)).to(BF16).contiguous()
     bh = F.pad(bh, (0, OUT_DIM - N_HEAD_COLS)).reshape(1, -1).contiguous()
-    return (tuple(w.to(BF16).contiguous() for w in ws)
-            + tuple(b.detach().contiguous() for b in bs) + (wh, bh))
+    return PackedOperands(tuple(w.to(BF16).contiguous() for w in ws)
+                          + tuple(b.detach().contiguous() for b in bs)
+                          + (wh, bh))
 
 
 @torch.no_grad()
@@ -558,9 +568,9 @@ def field_forward_density(packed, mean_cov: torch.Tensor) -> torch.Tensor:
 
 
 def _check_heads(packed, x: torch.Tensor, label: str, cols: int, dtype,
-                 name: str) -> int:
-    """K11's and K12's checks: packed = pack_params(field), x (N, cols) ->
-    N; raises on a device that is neither the CPU nor CUDA."""
+                 name: str) -> None:
+    """K11's and K12's checks: packed = pack_params(field), x (N, cols);
+    raises on a device that is neither the CPU nor CUDA."""
     device = x.device
     n = x.shape[0]
     if n == 0:
@@ -569,27 +579,45 @@ def _check_heads(packed, x: torch.Tensor, label: str, cols: int, dtype,
     _check_packed(packed, V2_SHAPES, _DENSITY_DTYPES, device)
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {device}")
-    return n
+
+
+def launch_heads(lib, name: str, packed, x: torch.Tensor) -> torch.Tensor:
+    """One launch of K11 (name "field_forward_v2", x the (N, 16) f32
+    mean_cov) or K12 ("field_forward", x the (N, 128) bf16 encoding) from
+    lib, a build of field_forward.cu (the port's, or one kept for a check
+    or an ablation: RSN_K11_FIRST_DESIGN, RSN_ABLATE_*), on CUDA tensors
+    the wrappers have checked -> (N, 384) bf16; counts no launch."""
+    if name not in ("field_forward_v2", "field_forward"):
+        raise ValueError(f"launch_heads: unknown kernel {name!r}")
+    n, device = x.shape[0], x.device
+    out = torch.empty((n, OUT_DIM), dtype=BF16, device=device)
+    blob = heads_blob(packed)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if name == "field_forward_v2":
+            rc = lib.rsn_field_forward_v2(
+                x.data_ptr(), _ipe_consts(device).data_ptr(),
+                blob.data_ptr(), _ptr_array(packed), out.data_ptr(), n,
+                stream)
+        else:
+            rc = lib.rsn_field_forward(x.data_ptr(), blob.data_ptr(),
+                                       _ptr_array(packed), out.data_ptr(), n,
+                                       stream)
+    _raise_on_error(lib, rc, name)
+    return out
 
 
 def field_forward_v2(packed, mean_cov: torch.Tensor) -> torch.Tensor:
     """K11: packed = pack_params(field), (N, 16) f32 mean_cov
     [mean | cov_diag | 0] -> (N, 384) bf16 (OUT_* columns)."""
-    n = _check_heads(packed, mean_cov, "mean_cov", IN_COLS, F32,
-                     "field_forward_v2")
-    device = mean_cov.device
-    if device.type == "cpu":
+    _check_heads(packed, mean_cov, "mean_cov", IN_COLS, F32,
+                 "field_forward_v2")
+    if mean_cov.device.type == "cpu":
         return field_forward_v2_plain(packed, mean_cov)
     from rsn_torch.kernels.build import load_library
 
-    lib = load_library("field_forward.cu")
-    out = torch.empty((n, OUT_DIM), dtype=BF16, device=device)
-    with torch.cuda.device(device):
-        rc = lib.rsn_field_forward_v2(
-            mean_cov.data_ptr(), _ipe_consts(device).data_ptr(),
-            _ptr_array(packed), out.data_ptr(), n,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(lib, rc, "field_forward_v2")
+    out = launch_heads(load_library("field_forward.cu"), "field_forward_v2",
+                       packed, mean_cov)
     LAUNCHES["field_forward_v2"] += 1
     return out
 
@@ -597,18 +625,12 @@ def field_forward_v2(packed, mean_cov: torch.Tensor) -> torch.Tensor:
 def field_forward(packed, enc: torch.Tensor) -> torch.Tensor:
     """K12: packed = pack_params(field), (N, 128) bf16 IPE encoding (as
     ipe_enc gives it) -> (N, 384) bf16 (OUT_* columns)."""
-    n = _check_heads(packed, enc, "enc", ENC_PAD, BF16, "field_forward")
-    device = enc.device
-    if device.type == "cpu":
+    _check_heads(packed, enc, "enc", ENC_PAD, BF16, "field_forward")
+    if enc.device.type == "cpu":
         return field_forward_plain(packed, enc)
     from rsn_torch.kernels.build import load_library
 
-    lib = load_library("field_forward.cu")
-    out = torch.empty((n, OUT_DIM), dtype=BF16, device=device)
-    with torch.cuda.device(device):
-        rc = lib.rsn_field_forward(enc.data_ptr(), _ptr_array(packed),
-                                   out.data_ptr(), n,
-                                   torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(lib, rc, "field_forward")
+    out = launch_heads(load_library("field_forward.cu"), "field_forward",
+                       packed, enc)
     LAUNCHES["field_forward"] += 1
     return out

@@ -1,17 +1,21 @@
 """The weights of K14 (`field_forward_v3u` / `v3i`) and K15
 (`field_forward_v3L` / `v3F`) pre-packed for their Hopper kernels' weight
-ring (rsn_torch/csrc/unfolded_sm90.cuh), and the plan by which the two
-consumer warpgroups of those kernels take turns on the ring, with a plain
-simulation of it.
+ring (rsn_torch/csrc/unfolded_sm90.cuh), and of K11 (`field_forward_v2`)
+and K12 (`field_forward`) for theirs (rsn_torch/csrc/heads_sm90.cuh); the
+plan by which the two consumer warpgroups of K14 / K15 take turns on the
+ring, with a plain simulation of it.
 
 The blob is trunk_sm90.pack_blob's 32 trunk chunks, then the unfolded
 tail's 12 chunks of 64 k-rows each, in the order the kernels use them: the
 head columns wh[:, 256:272] (N = 16), the bottleneck wh[:, 0:256] (N =
 256), the mid seed w_emb (N = 128), each in wgmma's K-major, 128-byte
 swizzled B layout (trunk_sm90.swizzle_chunk).  The head columns 267..271
-and the rows 99..127 of the IPE's chunks are zero.  It is built once per
-packed tuple (pack_params_v3 returns a PackedOperands that keeps it under
-its own format: experiments.interleave.ring_blob), never per call.
+and the rows 99..127 of the IPE's chunks are zero.  K11's and K12's blob
+(pack_heads_blob) is its first 40 chunks, cut before the mid seed: the
+same packer on pack_params' 18 tensors.  Each is built once per packed
+tuple (pack_params_v3 and pack_params return a PackedOperands that keeps
+it under its own format: experiments.interleave.ring_blob,
+field_forward.heads_blob), never per call.
 
 The ring has STAGES stages, and each of a tile's 44 chunks is read by both
 consumers: a stage is refilled only once both have released it.  So a
@@ -48,39 +52,51 @@ HEAD_COL0, HEAD_NCOLS = 256, 16   # wh's head columns 256..271 (11 live)
 # the unfolded tail's parts in ring order: (name, N)
 TAIL_PARTS = (("head_cols", HEAD_NCOLS), ("bottleneck", TRUNK_WIDTH),
               ("mid_seed", MID))
+HEADS_PARTS = TAIL_PARTS[:2]   # K11 / K12: the tail cut before the mid seed
 TRUNK_CHUNKS = len(ts.trunk_schedule())
 TAIL_CHUNKS = len(TAIL_PARTS) * TRUNK_WIDTH // ts.CHUNK_K
 VARIANTS = ("v3u", "v3i", "v3L", "v3F")
 
 
-def tail_schedule() -> List[Tuple[str, int, int]]:
-    """The tail's chunks in the kernels' order: (part, N, first k-row)."""
-    return [(part, n, k0) for part, n in TAIL_PARTS
+def tail_schedule(parts=TAIL_PARTS) -> List[Tuple[str, int, int]]:
+    """The tail's chunks of `parts` in the kernels' order: (part, N, first
+    k-row)."""
+    return [(part, n, k0) for part, n in parts
             for k0 in range(0, TRUNK_WIDTH, ts.CHUNK_K)]
 
 
 @torch.no_grad()
-def pack_unfolded_blob(packed_v3) -> torch.Tensor:
-    """The ring's 44 chunks of pack_params_v3's 22 operands (the trunk's 32,
-    then the tail's 12) -> 1-D bf16, contiguous."""
-    wh, w_emb = packed_v3[16], packed_v3[18]
+def pack_unfolded_blob(packed_v3, parts=TAIL_PARTS) -> torch.Tensor:
+    """The ring's chunks of pack_params_v3's 22 operands (the trunk's 32,
+    then the tail's 12), or with parts=HEADS_PARTS of pack_params' 18 (the
+    trunk's 32, then 8) -> 1-D bf16, contiguous."""
+    wh = packed_v3[16]
     mats = {"head_cols": wh[:, HEAD_COL0:HEAD_COL0 + HEAD_NCOLS],
-            "bottleneck": wh[:, :TRUNK_WIDTH], "mid_seed": w_emb}
+            "bottleneck": wh[:, :TRUNK_WIDTH]}
+    if "mid_seed" in dict(parts):
+        mats["mid_seed"] = packed_v3[18]
     return torch.cat([ts.pack_blob(packed_v3[:8])] + [
         ts.swizzle_chunk(mats[part][k0:k0 + ts.CHUNK_K])
-        for part, _, k0 in tail_schedule()]).contiguous()
+        for part, _, k0 in tail_schedule(parts)]).contiguous()
 
 
-def unpack_unfolded_blob(blob: torch.Tensor):
+def pack_heads_blob(packed) -> torch.Tensor:
+    """K11's and K12's ring blob: pack_params' 18 operands as the first 40
+    chunks of the unfolded blob -> 1-D bf16, contiguous."""
+    return pack_unfolded_blob(packed, HEADS_PARTS)
+
+
+def unpack_unfolded_blob(blob: torch.Tensor, parts=TAIL_PARTS):
     """pack_unfolded_blob's inverse -> (w0..w7, {part: (256, N) bf16})."""
     trunk_elems = TRUNK_CHUNKS * ts.CHUNK_K * TRUNK_WIDTH
-    want = trunk_elems + ts.CHUNK_K * sum(n for _, n, _ in tail_schedule())
+    want = trunk_elems + ts.CHUNK_K * sum(n for _, n, _ in
+                                          tail_schedule(parts))
     if blob.numel() != want:
         raise ValueError(f"unfolded blob of {blob.numel()} values, expected "
                          f"{want}")
     ws, _ = ts.unpack_blob(blob[:trunk_elems])
     off, rows = trunk_elems, {}
-    for part, n, _ in tail_schedule():
+    for part, n, _ in tail_schedule(parts):
         rows.setdefault(part, []).append(
             ts.unswizzle_chunk(blob[off:off + n * ts.CHUNK_K], n))
         off += n * ts.CHUNK_K

@@ -7,7 +7,9 @@ against plain, each other and K10, bit for bit, and the pack launch of
 their weight blob, K9 over ragged warp tiles, NaN rows and many tiles
 per warp, K7 / K8 at ragged shapes, K10-K13 at ragged shapes and over
 many tiles per block), K9 against its first design (the
-RSN_K9_FIRST_DESIGN build) bit for bit, the launch counters (one train
+RSN_K9_FIRST_DESIGN build) and K11 / K12 against theirs (the
+RSN_K11_FIRST_DESIGN build, K12 also on an encoding with a non-zero tail)
+bit for bit, the launch counters (one train
 step on each route, camera off and on, the field API), K4 == K8 and K5 ==
 K4 on K3's spill over several chunks,
 determinism, the alignment checks, small renders (the default
@@ -806,6 +808,47 @@ def test_field_api_launch_counts_and_route(field):
                        k11[:, ff.OUT_BOTTLENECK])
     unit = route["pred_normals"].norm(dim=-1)
     assert float((unit - 1.0).abs().max()) <= 1e-5
+
+
+@pytest.fixture(scope="module")
+def k11_first_design(field):
+    from rsn_torch.kernels.build import start_variant
+
+    lib, _ = start_variant("field_forward.cu", ("RSN_K11_FIRST_DESIGN",),
+                           "first_design")()
+    return lib
+
+
+# one row, a tile less one row, one tile, one tile and one row, 16,383
+# rows, and 1,100 tiles (more than one per SM)
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 16383, 1100 * 128])
+def test_field_api_kernels_equal_their_first_design(field, k11_first_design,
+                                                    n):
+    """K11's and K12's Hopper kernels (heads_sm90.cuh) against the
+    RSN_K11_FIRST_DESIGN build of the same source, bit for bit: K12 on the
+    rows' encoding and on one with a finite non-zero tail in its columns
+    99..127 (K12 multiplies all 8 k-steps of its x part); the padding
+    columns zero; one launch counted a call."""
+    mc, _ = _inputs(n, 1, seed=n)
+    packed = ff.pack_params(field)
+    enc = ff.ipe_enc(mc)
+    tail = enc.clone()
+    gen = torch.Generator().manual_seed(n)
+    tail[:, ff.IPE_OUT_DIM:] = (torch.randn(
+        n, ff.ENC_PAD - ff.IPE_OUT_DIM, generator=gen) * 3).to(
+            torch.bfloat16).cuda()
+    assert torch.isfinite(tail.float()).all() and torch.any(
+        tail[:, ff.IPE_OUT_DIM:] != 0)
+    for name, fn, x in (("field_forward_v2", ff.field_forward_v2, mc),
+                        ("field_forward", ff.field_forward, enc),
+                        ("field_forward", ff.field_forward, tail)):
+        ff.reset_launch_counts()
+        got = fn(packed, x)
+        old = ff.launch_heads(k11_first_design, name, packed, x)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in ff.LAUNCHES.items() if v} == {name: 1}
+        assert torch.equal(got, old), name
+        assert torch.all(got[:, ff.N_HEAD_COLS:] == 0)
 
 
 # ---- the tools' experiments: K14 (v3u, v3i), K15 (v3L, v3F), K16 ----------

@@ -92,8 +92,9 @@ def test_blob_walk_equals_trunk_plain(seed, n):
 def test_schedule_matches_the_kernels():
     """trunk_schedule is the order trunk_sm90.cuh walks: layer_chunks (2, 4,
     4, 4, 6, 4, 4, 4; 32 chunks), 3 k-steps on the second chunk of layers 0
-    and 4 (the IPE's rows 64..127, of which 112..127 meet zero columns),
-    and the ring's chunk sizes."""
+    and 4 (the IPE's rows 64..127, of which 112..127 meet zero columns:
+    trunk_wg's default, which K1 and K2 take), and the ring's chunk
+    sizes."""
     sched = ts.trunk_schedule()
     per_layer = [sum(1 for s in sched if s[0] == i) for i in range(8)]
     assert per_layer == [2, 4, 4, 4, 6, 4, 4, 4]
@@ -102,7 +103,8 @@ def test_schedule_matches_the_kernels():
     assert "return layer == 0 ? 2 : layer == SKIP_AT ? 6 : 4;" in src
     assert re.search(r"TRUNK_CHUNKS = 32;", src)
     assert re.search(r"HEAD_CHUNKS = 4;", src)
-    assert re.search(r"x_first && j == 1 \? 3 : 4", src)
+    assert re.search(r"template <int X_LAST_KSTEPS = 3, typename Hook", src)
+    assert re.search(r"x_first && j == 1 \? X_LAST_KSTEPS : 4", src)
 
 
 def test_packed_operands_keep_their_blob():
