@@ -15,8 +15,11 @@ Phases, each announced on its own line:
                 experiments.cu with RSN_K14_FIRST_DESIGN (K14's and K15's
                 first design) for phases 3 and 17, and field_forward.cu
                 with RSN_K11_FIRST_DESIGN (K11's and K12's first design)
-                for phase 16; the registers and spills of K14 / K15's four
-                kernels and of K11's and K12's (none may spill).
+                for phase 16, experiments_bwd.cu with RSN_K18_FIRST_DESIGN
+                (K18 full + wgrad's and K19's first design) for phase 18;
+                the registers and spills of K14 / K15's four kernels and of
+                K11's and K12's (none may spill), of K18 / K19's kernel A
+                (read) and their kernel B (which may not spill).
   3. kernels  — K1 (field_forward_v3) and K2 (field_forward_density)
                 against their plain PyTorch versions on the card, on the
                 real inputs of one 16384-ray chunk of the first 800x800
@@ -155,10 +158,19 @@ Phases, each announced on its own line:
                 order of the fp32 sums) and, K17 and K18, against the
                 plain version that recomputes its trunk (K8_TOL); K19 ==
                 K18's full mode
-                on dg and the 22 weight gradients, bit for bit; K17
+                on dg and the 22 weight gradients, bit for bit; K18 full +
+                wgrad and K19 run kernel A and kernel B once per chunk
+                (their launches counted), dmc and dg == their first design
+                (the RSN_K18_FIRST_DESIGN build) bit for bit, the 22
+                gradients within K13_TOL of it; K17
                 against K8 on the tools' rows and on phase 12's pass-2 and
                 pass-4 rows: dmc bit for bit, dg and the weight gradients
-                within K13_TOL; CUDA-event times beside K8's and K4's.
+                within K13_TOL; CUDA-event times beside K8's and K4's; K18
+                full + wgrad and K19 one call each beside their first
+                design's, then back to back in turns with it, kernel A
+                and kernel B apart; kernel B alone on the last chunk
+                against its plain contraction and one torch.bmm / torch.mm
+                set on the unstashed operands.
   19. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -415,7 +427,7 @@ def main() -> int:
     t0 = time.perf_counter()
     # beside the port's build: K3 without its spill stores (phase 6), K9's
     # first design (phase 9), K14's and K15's (phases 3 and 17), K11's and
-    # K12's (phase 16)
+    # K12's (phase 16), K18 full + wgrad's and K19's (phase 18)
     waiting = {"no_spill": start_variant("field_train.cu",
                                          ("RSN_ABLATE_NO_SPILL",),
                                          "no_spill"),
@@ -427,6 +439,9 @@ def main() -> int:
                                           "first_design"),
                "k11_first": start_variant("field_forward.cu",
                                           ("RSN_K11_FIRST_DESIGN",),
+                                          "first_design"),
+               "k18_first": start_variant("experiments_bwd.cu",
+                                          ("RSN_K18_FIRST_DESIGN",),
                                           "first_design")}
     try:
         paths, log = build_library()
@@ -438,8 +453,9 @@ def main() -> int:
     print(f"built {', '.join(os.path.relpath(p, REPO) for p in paths.values())}"
           f", field_train.cu with RSN_ABLATE_NO_SPILL, "
           f"proposal_forward.cu with RSN_K9_FIRST_DESIGN, experiments.cu "
-          f"with RSN_K14_FIRST_DESIGN and field_forward.cu with "
-          f"RSN_K11_FIRST_DESIGN in "
+          f"with RSN_K14_FIRST_DESIGN, field_forward.cu with "
+          f"RSN_K11_FIRST_DESIGN and experiments_bwd.cu with "
+          f"RSN_K18_FIRST_DESIGN in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per build, in "
           f"parallel)")
     for line in log.splitlines():
@@ -454,6 +470,17 @@ def main() -> int:
     kernel_registers("field_forward.cu", {
         "heads_kernelILb1E": "K11 (heads_kernel<true>)",
         "heads_kernelILb0E": "K12 (heads_kernel<false>)"}, no_spill=True)
+    # K18 full + wgrad's and K19's kernel A (read), their kernel B (no
+    # spill)
+    kernel_registers("experiments_bwd.cu", {
+        "unfolded_backward_kernelILi0ELb1E":
+            "K18 full + wgrad kernel A (unfolded_backward_kernel<0, true>)",
+        "unfolded_backward_kernelILi4ELb1E":
+            "K19 kernel A (unfolded_backward_kernel<4, true>)"})
+    kernel_registers("experiments_bwd.cu", {
+        "wgrad_kernelINS0_8UnfoldedE": "their kernel B "
+                                       "(wgrad_kernel<Unfolded>)"},
+        no_spill=True)
 
     from rsn_torch.cli import render as render_cli
     from rsn_torch.data.cameras import rescale_cameras
@@ -604,7 +631,8 @@ def main() -> int:
     launches.update(exp_results["launches"])
 
     # ---- 18. the tools' backward experiments ----
-    bwd_results = backward_experiments_phase(camera_results["calls"], card)
+    bwd_results = backward_experiments_phase(camera_results["calls"], card,
+                                             variants["k18_first"])
     results.update(bwd_results["kernels"])
     launches.update(bwd_results["launches"])
 
@@ -675,7 +703,9 @@ KERNEL_ROWS = (
 ) + tuple((f"bwd_ablate_{m}", "experiments_bwd.cu",
            "tools/exp_bwd_ablate.py:191")
           for m in ("full_wgrad", "full", "no_ipe_bwd", "recompute")) + (
-    ("run_noipe", "experiments_bwd.cu", "tools/exp_bwd_noipe.py:171"),)
+    ("run_noipe", "experiments_bwd.cu", "tools/exp_bwd_noipe.py:171"),
+    ("bwd_unfolded_wgrad", "wgrad_sm90.cuh", "tools/exp_bwd_ablate.py:191"),
+)
 
 
 def mma_probe(card) -> None:
@@ -2664,6 +2694,10 @@ MID_FLIP_TAU = 2.0 ** -20
 FLIP_SHARE = 0.1
 U_DGRAD_MACS = 128 * 3 + 128 * 256 + 267 * 256 + DGRAD_MACS
 U_WGRAD_MACS = 128 * 3 + 256 * 128 + 256 * 267 + TRUNK_MACS
+# the unfolded kernel B's products per row: the trunk's weight gradients
+# (w0 and w4's x part on the IPE's 99 live columns), wh's 267 live columns,
+# w_emb
+U_KERNEL_B_MACS = IPE_DIM * 256 * 2 + 7 * 256 * 256 + 256 * 267 + 256 * 128
 BWD_EXP_FLOPS = {
     "bwd_ablate_full_wgrad": 2 * (TRUNK_MACS + U_TAIL_MACS + U_DGRAD_MACS
                                   + U_WGRAD_MACS),
@@ -2725,11 +2759,88 @@ def check_k17_against_k8(tag, args, k17=None):
     return k17
 
 
-def backward_experiments_phase(cam_calls, card):
+def unfolded_kernels_a_and_b(name: str, inputs, S: int):
+    """The CUDA-event times of one K18 full + wgrad or K19 call's (`name`
+    and `inputs` as for bwd_ablate.kernel_a) kernel A
+    launches alone and of its kernel B launches alone (on the records
+    kernel A left) -> (kernel A ms, kernel B ms, the plan, the scratch,
+    which holds the last chunk's records)."""
+    import torch
+
+    from rsn_torch.experiments import bwd_ablate
+    from rsn_torch.kernels import wgrad_sm90 as wg
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("experiments_bwd.cu")
+    d_out = inputs[-1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = bwd_ablate.stash_plan(d_out.shape[0] // S, S, sms,
+                                 name != "run_noipe")
+    sc = bwd_ablate.stash_scratch(plan, d_out.device)
+    partial = torch.empty((plan.slices, wg.U_PARTIAL_FLOATS),
+                          device=d_out.device)
+    ka = cuda_ms(lambda: [bwd_ablate.kernel_a(lib, name, plan, c, inputs, sc)
+                          for c in plan.chunks])
+    kb = cuda_ms(lambda: [
+        wg.contract(sc.stash[:plan.blocks * (t1 - t0)], partial, i > 0,
+                    wg.UNFOLDED)
+        for i, (t0, t1) in enumerate(plan.chunks)])
+    return ka, kb, plan, sc
+
+
+def library_unfolded_contraction(ws, want):
+    """The unfolded kernel B's function in PyTorch calls: a chunk's records
+    unpacked to row-major operands (not timed), then one torch.bmm over the
+    six 256 x 256 layers (w1-w3, w5-w7) and torch.mm for w0, w4, wh's 272
+    columns and w_emb, bf16 in, fp32 accumulate (fp32 out where this torch
+    takes out_dtype, else bf16 out) -> (the five calls' CUDA-event ms,
+    their largest error over each of `want`'s maxima, the output dtype)."""
+    import torch
+
+    from rsn_torch.kernels import wgrad_sm90 as wg
+
+    rows = ws.shape[0] * wg.REC_ROWS
+    feats = lambda off, f: wg._unswizzle(ws[:, off:off + f * wg.REC_ROWS],
+                                         f).reshape(rows, f).contiguous()
+    step = 256 * wg.REC_ROWS
+    x = feats(wg.X_OFF, 128)
+    hs = [feats(wg.ACT_OFF + i * step, 256) for i in range(8)]
+    dpre = [feats(wg.DPRE_OFF + i * step, 256) for i in range(8)]
+    dheads = feats(wg.U_DHEADS_OFF, wg.DHEADS_N)
+    bneck = feats(wg.U_BNECK_OFF, 256)
+    dmid = feats(wg.U_DMID_OFF, wg.MID_N)
+    six = (1, 2, 3, 5, 6, 7)
+    a6 = torch.stack([hs[i - 1] for i in six]).transpose(1, 2)
+    b6 = torch.stack([dpre[i] for i in six])
+    x4 = torch.cat([x, hs[3]], dim=1)
+    try:
+        torch.mm(x.t(), dpre[0], out_dtype=torch.float32)
+        kw, how = {"out_dtype": torch.float32}, "fp32 out"
+    except (TypeError, RuntimeError):
+        kw, how = {}, "bf16 out"
+
+    def five():
+        return (torch.bmm(a6, b6, **kw), torch.mm(x.t(), dpre[0], **kw),
+                torch.mm(x4.t(), dpre[4], **kw),
+                torch.mm(hs[7].t(), dheads, **kw),
+                torch.mm(bneck.t(), dmid, **kw))
+
+    w6, w0, w4, wh, wemb = five()
+    ms = cuda_ms(five)
+    ws_ = {0: w0, 4: w4}
+    ws_.update({i: w6[j] for j, i in enumerate(six)})
+    errs = [rel_err(ws_[i], want[i]) for i in range(8)]
+    errs.append(rel_err(wh, want[8][:, :wg.DHEADS_N]))
+    errs.append(rel_err(wemb, want[9]))
+    return ms, max(errs), how
+
+
+def backward_experiments_phase(cam_calls, card, first):
     """Phase 18 -> {"kernels": K17-K19's results, "launches": their
     launches in the run of this slice's path (the tools' backward
     experiments on the tools' rows; no model or CLI path calls them, as in
-    rsn)}."""
+    rsn)}.  first: the build of experiments_bwd.cu with
+    RSN_K18_FIRST_DESIGN (phase 2)."""
     import torch
 
     from rsn_torch.experiments import bwd_ablate, bwd_noipe, bwd_whole
@@ -2748,7 +2859,7 @@ def backward_experiments_phase(cam_calls, card):
     k17_args = (p1, mc, g, d24, f_out, S)
     names = (("field_backward_whole",)
              + tuple(bwd_ablate.label(*v) for v in bwd_ablate.VARIANTS)
-             + ("run_noipe",))
+             + ("run_noipe", "bwd_unfolded_wgrad"))
     ff.reset_launch_counts()
     k17 = bwd_whole.field_backward_whole(*k17_args)
     k18 = {bwd_ablate.label(*v): bwd_ablate.run(*v, p3, mc, g, d_out, S)
@@ -2762,6 +2873,18 @@ def backward_experiments_phase(cam_calls, card):
     if min(launches.values()) <= 0:
         raise RuntimeError("a kernel of the backward experiments never "
                            "launched")
+    # (wg below is each variant's use_wgrad flag)
+    from rsn_torch.kernels import wgrad_sm90 as wgm
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunks = len(bwd_ablate.stash_plan(g.shape[0], S, sms).chunks)
+    per_chunk = {"bwd_ablate_full_wgrad": chunks, "run_noipe": chunks,
+                 "bwd_unfolded_wgrad": 2 * chunks}
+    print(f"  K18 full + wgrad and K19: kernel A and kernel B once per chunk "
+          f"of each call ({chunks} chunks): {per_chunk}", flush=True)
+    if any(launches[k] != v for k, v in per_chunk.items()):
+        raise RuntimeError("K18 full + wgrad or K19 did not run kernel A and "
+                           "kernel B once per chunk")
     results = {k: {"err": 0.0} for k in names}
 
     def hold(tag, got, on_acts, plain, label, free=None):
@@ -2845,6 +2968,24 @@ def backward_experiments_phase(cam_calls, card):
           f"== without the weight gradients", flush=True)
     if not same:
         raise RuntimeError("K19 differs from K18's full mode")
+    # the two-phase design against its first design, the same rows
+    k18_in, k19_in = (p3, mc, g, d_out), (p3, g, xacts, d_out)
+    for tag, label, got, inputs in (
+            ("K18 full + wgrad", "bwd_ablate_full_wgrad", full, k18_in),
+            ("K19", "run_noipe", (None,) + k19, k19_in)):
+        old = bwd_ablate.first_design(first, label, inputs, S)
+        torch.cuda.synchronize()
+        same = (got[0] is None or torch.equal(got[0], old[0])) and \
+            torch.equal(got[1], old[1])
+        werr = max(rel_err(a, b) for a, b in zip(got[2], old[2]))
+        outs = "dg" if got[0] is None else "dmc and dg"
+        print(f"  {tag} (kernel A + kernel B) against its first design "
+              f"(RSN_K18_FIRST_DESIGN): {outs} "
+              f"{'==' if same else '!='} bit for bit; the 22 gradients "
+              f"within {werr:.6g} of each max (limit {K13_TOL})", flush=True)
+        if not same or werr > K13_TOL:
+            raise RuntimeError(f"{tag} disagrees with its first design")
+        del old
     del k18, k19, full, nowg
     torch.cuda.empty_cache()
 
@@ -2887,6 +3028,68 @@ def backward_experiments_phase(cam_calls, card):
     print(f"  K19: {n} rows, kernel {k:.4f} ms, K4 on K3's spill {k4:.4f} ms "
           f"(the same call), plain {pl:.4f} ms, bound {b:.4f} ms ({by}; "
           f"median of 10; {card})", flush=True)
+
+    # K18 full + wgrad and K19 beside their first design: one call each,
+    # back to back in turns (design, first, design, first), kernel A and
+    # kernel B apart; each call's scratch
+    for tag, label, fn, inputs in (
+            ("K18 full + wgrad", "bwd_ablate_full_wgrad",
+             lambda: bwd_ablate.run("full", True, p3, mc, g, d_out, S),
+             (p3, mc, g, d_out)),
+            ("K19", "run_noipe",
+             lambda: bwd_noipe.run_noipe(p3, xacts, g, d_out, S),
+             (p3, g, xacts, d_out))):
+        old = lambda: bwd_ablate.first_design(first, label, inputs, S)
+        one = (cuda_ms(fn), cuda_ms(old))
+        turns = [back_to_back_ms(f) for f in (fn, old, fn, old)]
+        ka, kb, plan, sc = unfolded_kernels_a_and_b(label, inputs, S)
+        del sc
+        print(f"  {tag}: {n} rows, one call {one[0]:.4f} ms against the "
+              f"first design's {one[1]:.4f} ms; back to back in turns "
+              f"{turns[0]:.4f} / {turns[2]:.4f} ms against {turns[1]:.4f} / "
+              f"{turns[3]:.4f} ms ({turns[1] / turns[0]:.2f}x); kernel A "
+              f"alone {ka:.4f} ms, kernel B alone {kb:.4f} ms over "
+              f"{len(plan.chunks)} chunks of {plan.blocks} blocks x up to "
+              f"{plan.chunks[0][1] - plan.chunks[0][0]} tiles, P = "
+              f"{plan.slices}; scratch {bwd_ablate.scratch_bytes(plan)} "
+              f"bytes (median of 10; {card})", flush=True)
+        torch.cuda.empty_cache()
+
+    # kernel B alone on the records K18's kernel A leaves of its last chunk,
+    # against its plain contraction, and PyTorch's calls on the same operands
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("experiments_bwd.cu")
+    plan = bwd_ablate.stash_plan(g.shape[0], S, sms)
+    sc = bwd_ablate.stash_scratch(plan, mc.device)
+    ws = [bwd_ablate.kernel_a(lib, "bwd_ablate_full_wgrad", plan, c,
+                              (p3, mc, g, d_out), sc)
+          for c in plan.chunks][-1]
+    got = torch.empty((plan.slices, wgm.U_PARTIAL_FLOATS), device=ws.device)
+    ref = torch.empty_like(got)
+    wgm.contract(ws, got, False, wgm.UNFOLDED)
+    wgm.contract_plain(ws, ref, False, wgm.UNFOLDED)
+    torch.cuda.synchronize()
+    err = max(rel_err(a, r) for a, r in zip(wgm.unfolded_weight_grads(got),
+                                            wgm.unfolded_weight_grads(ref)))
+    k = cuda_ms(lambda: wgm.contract(ws, got, False, wgm.UNFOLDED))
+    pl = cuda_ms(lambda: wgm.contract_plain(ws, ref, False, wgm.UNFOLDED))
+    lib_ms, lib_err, how = library_unfolded_contraction(
+        ws, wgm.unfolded_weight_grads(got))
+    b, by = bound(2 * U_KERNEL_B_MACS * ws.shape[0] * wgm.REC_ROWS,
+                  nbytes(ws, got))
+    print(f"  their kernel B on K18's last chunk ({ws.shape[0]} records, "
+          f"{ws.shape[0] * wgm.REC_ROWS} rows, P = {plan.slices}): within "
+          f"{err:.6g} of its plain fp32 contraction (limit {K13_TOL}); "
+          f"kernel {k:.4f} ms, plain {pl:.4f} ms, PyTorch {lib_ms:.4f} ms "
+          f"(5 calls, {how}; within {lib_err:.6g} of kernel B), bound "
+          f"{b:.4f} ms ({by}; median of 10; {card})", flush=True)
+    if err > K13_TOL:
+        raise RuntimeError("the unfolded kernel B disagrees with its plain "
+                           "version")
+    results["bwd_unfolded_wgrad"].update(err=err, ms=k, plain_ms=pl,
+                                         bound_ms=b, bound_by=by,
+                                         library_ms=lib_ms)
     return {"kernels": results, "launches": launches}
 
 

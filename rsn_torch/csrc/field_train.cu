@@ -910,8 +910,9 @@ int rsn_field_backward_v4(const void* mean_cov, const void* g_bands,
 // first chunk) or adds to.
 int rsn_wgrad_sm90(const void* stash, void* partial, long long records,
                    int slices, int accumulate, void* stream) {
-  return wgrad::launch_wgrad(stash, partial, records, slices, accumulate,
-                             static_cast<cudaStream_t>(stream));
+  return wgrad::launch_wgrad<wgrad::Folded>(
+      stash, partial, records, slices, accumulate,
+      static_cast<cudaStream_t>(stream));
 }
 
 // K17: K8 on 128-row tiles.  ws: ceil(rays / rays_per_block) slots of

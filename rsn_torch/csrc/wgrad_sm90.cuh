@@ -1,9 +1,13 @@
-// K8's weight gradients on Hopper (sm_90a): the workspace that K8's body
-// stashes each 64-row tile's wgrad operands into ("kernel A",
-// field_backward_body<..., STASH> in field_train.cu), and the contraction
-// of that workspace by wgmma ("kernel B", wgrad_kernel below).  Part of
-// K8 `field_backward_v4` (rsn/kernels/field_train.py:427), whose TPU
-// kernel keeps per-group accumulators and sums them afterwards.
+// The weight gradients on Hopper (sm_90a): the workspace that a backward
+// body stashes each 64-row tile's wgrad operands into ("kernel A"), and the
+// contraction of that workspace by wgmma ("kernel B", wgrad_kernel below).
+// Two record layouts share the code: K8's folded one (K8, K4, K5: kernel A
+// is field_backward_body<..., STASH> in field_train.cu; part of K8
+// `field_backward_v4`, rsn/kernels/field_train.py:427, whose TPU kernel
+// keeps per-group accumulators and sums them afterwards), and the unfolded
+// one of the tools' K18 / K19 (kernel A is unfolded_backward_body<..., true>
+// in experiments_bwd.cu; part of tools/exp_bwd_ablate.py:191 `run` and
+// tools/exp_bwd_noipe.py:171 `run_noipe`).
 //
 // The workspace: one record per 64-row tile of a chunk (tiles [t0, t1) of
 // every block's run, record b (t1 - t0) + (t - t0)), each operand stored
@@ -12,30 +16,42 @@
 // is trunk_sm90.cuh's K-major 128-byte swizzle (swz) with the sample rows as
 // k, so 64 features of an activation are wgmma's A operand (8 KB) and a
 // layer's 256 dpre columns its B operand (32 KB), each one contiguous piece
-// that a 1-D bulk copy brings in.  A record (8,736 bytes per row):
+// that a 1-D bulk copy brings in.  K8's record (Folded, 8,736 bytes per
+// row):
 //   X (128 features: the IPE tile, w0 and w4's x part) | hs0..hs7 (8 x 256)
 //   | dpre0..dpre7 (8 x 256) | d_hc (144: w_hc's head columns 0..15 and the
 //   mid seed's 128..255).
+// The unfolded record (Unfolded, 9,760 bytes per row): K8's first 17
+// operands, then
+//   | d_heads (272: the 256 dbottleneck columns and the 16 head cotangent
+//   columns, 11 live) | bottleneck (256) | dmid_pre (128).
 // Rows past the end of a block's rays are zero in every operand.
 //
-// Kernel B: dW_i += A_i^T dpre_i over the chunk's rows, for 18 output tiles
-// of 128 input features x all N (w0: 1 tile, w1-w3 and w5-w7: 2 each, w4
-// on [X, hs3]: 3, w_hc on hs7 against d_hc's 144 columns: 2), each over P
-// slices of the chunk's records (grid 18 x P).  A block: one producer
-// thread keeps a ring of STAGES 48 KB stages full (16 KB of A, a 32 KB or
-// 18 KB B) with cp.async.bulk and an mbarrier per stage; two consumer
-// warpgroups each own 64 of the tile's features as one m64n256 (m64n144)
-// fp32 accumulator, 4 k-steps of 16 rows per record.  The accumulator
-// starts at zero on a call's first chunk and at the slice's partial
-// otherwise, and ends in the slice's own (PARTIAL_FLOATS) fp32 partial:
-// one read and one write per chunk, no float atomics; the wrapper sums
-// the P partials in a fixed order, so the result is the same from run to
-// run.
+// Kernel B: dW_i += A_i^T dpre_i over the chunk's rows, for the layout's
+// output tiles of 128 input features x N, each over P slices of the
+// chunk's records (grid OUT_TILES x P).  Folded: 18 tiles (w0: 1, w1-w3 and
+// w5-w7: 2 each, w4 on [X, hs3]: 3, w_hc on hs7 against d_hc's 144
+// columns: 2).  Unfolded: 22, K8's 16 trunk tiles, then wh on hs7 against
+// d_heads in two products per 128-feature block -- its 256 dbottleneck
+// columns (n = 256) and its 16 head columns (n = 16): wgmma takes n <= 256,
+// and a stage's B slot holds 32 KB, so the 272 columns (34,816 bytes) are
+// cut where the 32 KB slot and K8's n = 256 product already are, and the
+// cheap n = 16 tile re-reads hs7 (two n = 136 halves would re-read it as
+// often and need a 136-wide product of their own) -- then w_emb on the
+// bottleneck against dmid_pre (n = 128).  A block: one producer thread
+// keeps a ring of STAGES 48 KB stages full (16 KB of A, a B of up to
+// 32 KB) with cp.async.bulk and an mbarrier per stage; two consumer
+// warpgroups each own 64 of the tile's features as one m64nN fp32
+// accumulator, 4 k-steps of 16 rows per record.  The accumulator starts at
+// zero on a call's first chunk and at the slice's partial otherwise, and
+// ends in the slice's own (PARTIAL_FLOATS) fp32 partial: one read and one
+// write per chunk, no float atomics; the wrapper sums the P partials in a
+// fixed order, so the result is the same from run to run.
 //
 // What bounds it: its bytes.  It reads each record once per output tile
 // that needs it (~1.5x the workspace, the second reads of dpre mostly from
 // L2, since a layer's tiles walk the same slice at the same time); its
-// products are ~560 K MACs per row.
+// products are ~560 K MACs per row (Folded; ~640 K Unfolded).
 #pragma once
 
 #include "trunk_sm90.cuh"
@@ -109,6 +125,28 @@ constexpr int SMEM_BYTES = STAGES * STAGE + 2 * STAGES * 8 + 1024;
 static_assert(SMEM_BYTES <= 232448, "kernel B exceeds 227 KB");
 static_assert(STAGE % 1024 == 0 && A_BYTES % 1024 == 0 &&
                   ACT_OFF % 1024 == 0 && DHC_OFF % 1024 == 0,
+              "swizzle atoms are 1024-byte aligned");
+
+// The unfolded record (K18 / K19): K8's X, hs and dpre, then d_heads
+// (dbottleneck | the head cotangents), the bottleneck and dmid_pre.
+constexpr int COT_N = 16;                          // the head columns
+constexpr int UNF_DHEADS_N = WIDTH + COT_N;        // 272
+constexpr int UNF_DHEADS_OFF = DHC_OFF;            // after dpre7
+constexpr int UNF_COT_OFF = UNF_DHEADS_OFF + WIDTH * FEAT_BYTES;
+constexpr int UNF_BNECK_OFF = UNF_DHEADS_OFF + UNF_DHEADS_N * FEAT_BYTES;
+constexpr int UNF_DMID_OFF = UNF_BNECK_OFF + WIDTH * FEAT_BYTES;
+constexpr int UNF_REC_BYTES = UNF_DMID_OFF + MID * FEAT_BYTES;
+static_assert(UNF_REC_BYTES == 624640, "9,760 bytes per row");
+constexpr int UNF_OUT_TILES = 22;
+// its partial: w0..w7, then wh's 256 dbottleneck columns (256 x 256), wh's
+// 16 head columns (256 x 16), w_emb (256 x 128)
+constexpr int UNF_WH_OFF = W_FLOATS;
+constexpr int UNF_WCOT_OFF = UNF_WH_OFF + WIDTH * WIDTH;
+constexpr int UNF_WEMB_OFF = UNF_WCOT_OFF + WIDTH * COT_N;
+constexpr int UNF_PARTIAL_FLOATS = UNF_WEMB_OFF + WIDTH * MID;
+static_assert(UNF_PARTIAL_FLOATS == 626688, "the unfolded partial");
+static_assert(UNF_COT_OFF % 1024 == 0 && UNF_BNECK_OFF % 1024 == 0 &&
+                  UNF_DMID_OFF % 1024 == 0,
               "swizzle atoms are 1024-byte aligned");
 
 // ---- kernel A's side: the stores ----------------------------------------
@@ -211,6 +249,16 @@ struct Stash {
       bulk_commit();
     }
   }
+  // the same, one copy of the two buffers' first `bytes` as one piece
+  // (the unfolded record's head cotangents, bottleneck and dmid_pre)
+  __device__ void copy_out(unsigned char* dst, int bytes) const {
+    if (threadIdx.x == 0) {
+#ifndef RSN_ABLATE_NO_STASH_COPY
+      bulk_store_evict_first(dst, buf, bytes);
+#endif
+      bulk_commit();
+    }
+  }
   // before the block exits: every copy complete
   __device__ void drain() const {
     if (threadIdx.x == 0) bulk_wait_all();
@@ -218,8 +266,9 @@ struct Stash {
 };
 
 // A record with no rows (a block whose run ends before the chunk's tiles).
+template <int BYTES = REC_BYTES>
 __device__ void zero_record(unsigned char* __restrict__ rec) {
-  for (int e = threadIdx.x; e < REC_BYTES / 16; e += THREADS)
+  for (int e = threadIdx.x; e < BYTES / 16; e += THREADS)
     reinterpret_cast<uint4*>(rec)[e] = make_uint4(0u, 0u, 0u, 0u);
 }
 
@@ -228,8 +277,8 @@ __device__ void zero_record(unsigned char* __restrict__ rec) {
 struct OutTile {
   int a_off;    // byte offset of its 128 A features in a record
   int b_off;    // of its B operand
-  int b_bytes;  // 32 KB (a trunk layer's dpre) or 18 KB (d_hc)
-  int n;        // 256 or 144
+  int b_bytes;  // N x 128 bytes: 32 KB (a trunk layer's dpre), 18 KB (d_hc)
+  int n;        // 256 or 144 (Folded); 256, 16 or 128 (Unfolded)
   int out_off;  // float offset of its first row in a partial
 };
 
@@ -266,7 +315,46 @@ __device__ OutTile out_tile(int t) {
   return o;
 }
 
+// The unfolded layout's tile t: K8's 16 trunk tiles, then wh on hs7's two
+// 128-feature blocks against d_heads' 256 dbottleneck columns, then against
+// its 16 head columns, then w_emb on the bottleneck's two against dmid_pre.
+__device__ OutTile unfolded_out_tile(int t) {
+  constexpr int TRUNK_TILES = 16;
+  if (t < TRUNK_TILES) return out_tile(t);
+  const int kind = (t - TRUNK_TILES) / 2, fb = (t - TRUNK_TILES) % 2;
+  const int hs7 = ACT_OFF + (LAYERS - 1) * ACT_BYTES + fb * A_BYTES;
+  OutTile o;
+  if (kind == 0) {
+    o = {hs7, UNF_DHEADS_OFF, ACT_BYTES, WIDTH,
+         UNF_WH_OFF + fb * TILE_FEATS * WIDTH};
+  } else if (kind == 1) {
+    o = {hs7, UNF_COT_OFF, COT_N * FEAT_BYTES, COT_N,
+         UNF_WCOT_OFF + fb * TILE_FEATS * COT_N};
+  } else {
+    o = {UNF_BNECK_OFF + fb * A_BYTES, UNF_DMID_OFF, MID * FEAT_BYTES, MID,
+         UNF_WEMB_OFF + fb * TILE_FEATS * MID};
+  }
+  return o;
+}
+
+// The two layouts, as kernel B's template argument.
+struct Folded {
+  static constexpr int REC_BYTES = wgrad::REC_BYTES;
+  static constexpr int OUT_TILES = wgrad::OUT_TILES;
+  static constexpr int PARTIAL_FLOATS = wgrad::PARTIAL_FLOATS;
+  static constexpr bool UNFOLDED = false;
+  __device__ static OutTile tile(int t) { return out_tile(t); }
+};
+struct Unfolded {
+  static constexpr int REC_BYTES = UNF_REC_BYTES;
+  static constexpr int OUT_TILES = UNF_OUT_TILES;
+  static constexpr int PARTIAL_FLOATS = UNF_PARTIAL_FLOATS;
+  static constexpr bool UNFOLDED = true;
+  __device__ static OutTile tile(int t) { return unfolded_out_tile(t); }
+};
+
 // The producer thread: the slice's records in order, A then B per stage.
+template <typename L>
 __device__ void produce_records(const unsigned char* __restrict__ ws,
                                 long long r0, long long r1, const OutTile& o,
                                 unsigned char* ring, uint64_t* full,
@@ -275,7 +363,7 @@ __device__ void produce_records(const unsigned char* __restrict__ ws,
   uint32_t ph = 0;
   for (long long r = r0; r < r1; ++r) {
     mbar_wait(&empty[st], ph ^ 1);
-    const unsigned char* rec = ws + r * REC_BYTES;
+    const unsigned char* rec = ws + r * L::REC_BYTES;
     unsigned char* s = ring + st * STAGE;
     mbar_expect_tx(&full[st], A_BYTES + o.b_bytes);
     bulk_load(s, rec + o.a_off, A_BYTES, &full[st]);
@@ -315,6 +403,10 @@ __device__ void consume_records(const unsigned char* ring, uint64_t* full,
     for (int k = 0; k < REC_ROWS / 16; ++k) {
       if constexpr (N == WIDTH)
         sm90::wgmma_n256(acc, desc_sw128(a + 32 * k), desc_sw128(b + 32 * k));
+      else if constexpr (N == MID)
+        sm90::wgmma_n128(acc, desc_sw128(a + 32 * k), desc_sw128(b + 32 * k));
+      else if constexpr (N == COT_N)
+        sm90::wgmma_n16(acc, desc_sw128(a + 32 * k), desc_sw128(b + 32 * k));
       else
         sm90::wgmma_n144(acc, desc_sw128(a + 32 * k), desc_sw128(b + 32 * k));
     }
@@ -346,7 +438,9 @@ __device__ void consume_records(const unsigned char* ring, uint64_t* full,
 }
 
 // Block (output tile blockIdx.x, slice blockIdx.y of gridDim.y) of a chunk
-// of `records` records at ws; partial: gridDim.y slices of PARTIAL_FLOATS.
+// of `records` records of layout L at ws; partial: gridDim.y slices of
+// L::PARTIAL_FLOATS.
+template <typename L>
 __global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
     wgrad_kernel(const unsigned char* __restrict__ ws,
                  float* __restrict__ partial, long long records,
@@ -356,7 +450,7 @@ __global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
       smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
   uint64_t* empty = full + STAGES;
-  const OutTile o = out_tile(blockIdx.x);
+  const OutTile o = L::tile(blockIdx.x);
   const long long r0 = records * blockIdx.y / gridDim.y;
   const long long r1 = records * (blockIdx.y + 1) / gridDim.y;
   if (threadIdx.x == 0) {
@@ -370,29 +464,40 @@ __global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
   const int wgi = threadIdx.x / sm90::WG_THREADS;
   if (wgi == 0) {
     sm90::setmaxnreg_dec40();
-    if (threadIdx.x == 0) produce_records(ws, r0, r1, o, ring, full, empty);
+    if (threadIdx.x == 0)
+      produce_records<L>(ws, r0, r1, o, ring, full, empty);
     return;
   }
   sm90::setmaxnreg_inc232();
   const int c = wgi - 1, t = threadIdx.x % sm90::WG_THREADS;
-  float* dst = partial + (long long)blockIdx.y * PARTIAL_FLOATS + o.out_off +
-               c * 64 * o.n;
-  if (o.n == WIDTH)
+  float* dst = partial + (long long)blockIdx.y * L::PARTIAL_FLOATS +
+               o.out_off + c * 64 * o.n;
+  if (o.n == WIDTH) {
     consume_records<WIDTH>(ring, full, empty, r1 - r0, dst, accumulate != 0,
                            c, t);
-  else
+  } else if constexpr (L::UNFOLDED) {
+    if (o.n == MID)
+      consume_records<MID>(ring, full, empty, r1 - r0, dst, accumulate != 0,
+                           c, t);
+    else
+      consume_records<COT_N>(ring, full, empty, r1 - r0, dst,
+                             accumulate != 0, c, t);
+  } else {
     consume_records<sm90::HEAD_N>(ring, full, empty, r1 - r0, dst,
                                   accumulate != 0, c, t);
+  }
 }
 
+template <typename L>
 int launch_wgrad(const void* ws, void* partial, long long records,
                  int slices, int accumulate, cudaStream_t stream) {
+  auto kernel = wgrad_kernel<L>;
   cudaError_t err = cudaFuncSetAttribute(
-      wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  wgrad_kernel<<<dim3(OUT_TILES, slices), sm90::BLOCK_THREADS, SMEM_BYTES,
-                 stream>>>(static_cast<const unsigned char*>(ws),
-                           static_cast<float*>(partial), records, accumulate);
+  kernel<<<dim3(L::OUT_TILES, slices), sm90::BLOCK_THREADS, SMEM_BYTES,
+           stream>>>(static_cast<const unsigned char*>(ws),
+                     static_cast<float*>(partial), records, accumulate);
   return (int)cudaGetLastError();
 }
 

@@ -23,8 +23,13 @@ It returns (dmc, dg, dpacked), dpacked the 22 gradients summed over the
 blocks in pack_params_v3's order and shapes, or None.  The roughness ->
 attenuation edge carries no gradient; the bias gradients sum the fp32
 cotangents, not the bf16 ones.  The wrapper runs the plain version
-(bwd_ablate_plain) for CPU tensors and launches the CUDA kernel
-(rsn_torch/csrc/experiments_bwd.cu) for CUDA tensors.
+(bwd_ablate_plain) for CPU tensors and launches the CUDA kernels
+(rsn_torch/csrc/experiments_bwd.cu) for CUDA tensors: the three modes
+without weight gradients one launch each; full + wgrad, as K8 runs, in
+chunks (stash_backward: per chunk kernel A, the body stashing each tile's
+weight-gradient operands in wgrad_sm90's UNFOLDED layout, then kernel B,
+their wgmma contraction).  bwd_ablate_chunked_plain is those two phases in
+plain PyTorch, for the tests.
 
     python -m rsn_torch.experiments.bwd_ablate
 
@@ -34,13 +39,15 @@ ray) on the card, with TFLOP/s of the tool's 3x count.
 from __future__ import annotations
 
 import sys
+from typing import NamedTuple, Tuple
 
 import torch
 
 from rsn_torch.experiments.interleave import unfolded_tail
 from rsn_torch.kernels import field_forward as ff
 from rsn_torch.kernels import field_train as ft
-from rsn_torch.models.field import SKIP_AT, TRUNK_LAYERS
+from rsn_torch.kernels import wgrad_sm90 as wg
+from rsn_torch.models.field import SKIP_AT, TRUNK_LAYERS, TRUNK_WIDTH
 
 BF16, F32 = torch.bfloat16, torch.float32
 D_OUT_COLS = 128  # the tools' V3_OUT cotangent width: columns 0:14 live
@@ -52,6 +59,13 @@ VARIANTS = tuple(MODE_CODES)
 PACK_FLOATS = sum(r * c for r, c in ff.V3U_SHAPES)  # 674432
 # the tools' per-row FLOP count (exp_bwd_ablate.py: 3x of 1.343e6)
 TOOL_FLOPS_PER_ROW = 1.343e6
+# kernel A's per-block fp32 slice (experiments_bwd.cu USlice<true>): b0..b7,
+# bh, b_mid, w_out's 3 live columns (128 x 3), b_out (3, padded to 4)
+SMALL_B, SMALL_BH = 0, TRUNK_LAYERS * TRUNK_WIDTH
+SMALL_BMID = SMALL_BH + ff.OUT_DIM
+SMALL_WOUT = SMALL_BMID + 128
+SMALL_BOUT = SMALL_WOUT + 128 * 3
+SMALL_FLOATS = SMALL_BOUT + 4  # 2948
 
 
 def label(mode: str, use_wgrad: bool) -> str:
@@ -66,12 +80,16 @@ def backward_from_acts(packed_v3, hs, x: torch.Tensor, g_bands: torch.Tensor,
                        d_out: torch.Tensor, samples_per_ray: int,
                        mode: str = "full", use_wgrad: bool = True,
                        mean_cov: torch.Tensor = None,
-                       bneck: torch.Tensor = None):
+                       bneck: torch.Tensor = None, ops: dict = None):
     """The tools' _half after the trunk recompute, from the 8 post-ReLU
     (N, 256) bf16 activations hs and the (N, 128) bf16 encoding x
     -> (dmc (N, 16) or None, dg (R, 512), dpacked (22) or None).
     mean_cov None: no IPE backward and no layer-0 dgrad (K19).  bneck: the
-    (N, 256) bf16 bottleneck to use (unfolded_tail), else rounded here."""
+    (N, 256) bf16 bottleneck to use (unfolded_tail), else rounded here.
+    ops: a dict that receives the weight gradients' bf16 operands as
+    kernel A stashes them ("dheads": d_heads' 272 columns, "bneck",
+    "dmid": dmid_pre, "dpre": dpre_0..dpre_7), with the weight
+    gradients."""
     ws = packed_v3[:8]
     wh, _, w_emb, _, w_out, _ = packed_v3[16:]
     n, S = x.shape[0], samples_per_ray
@@ -100,6 +118,9 @@ def backward_from_acts(packed_v3, hs, x: torch.Tensor, g_bands: torch.Tensor,
         dpk[21][0, 0:3] = dz3.sum(dim=0)
     dmid_pre = (dz_b @ w_out[:, 0:3].float().t()) * (mid_pre > 0)
     dmid_pre_b = dmid_pre.to(BF16).float()
+    if wgrad and ops is not None:
+        ops["bneck"], ops["dmid"] = bneck, dmid_pre.to(BF16)
+        ops["dpre"] = [None] * TRUNK_LAYERS
     if wgrad:
         dpk[18] = bneck.float().t() @ dmid_pre_b
         dpk[19] = dmid_pre.sum(dim=0, keepdim=True)
@@ -114,6 +135,8 @@ def backward_from_acts(packed_v3, hs, x: torch.Tensor, g_bands: torch.Tensor,
                          torch.zeros(n, ff.OUT_DIM - ff.N_HEAD_COLS,
                                      device=dev)], dim=1)
     d_heads_b = d_heads.to(BF16).float()
+    if wgrad and ops is not None:
+        ops["dheads"] = d_heads[:, :wg.DHEADS_N].to(BF16)
     if wgrad:
         dpk[16] = hs[-1].float().t() @ d_heads_b
         dpk[17] = d_heads.sum(dim=0, keepdim=True)
@@ -125,6 +148,8 @@ def backward_from_acts(packed_v3, hs, x: torch.Tensor, g_bands: torch.Tensor,
             inp = torch.cat([x, hs[i - 1]], dim=1)
         dpre_f = dh * (hs[i].float() > 0)
         dpre = dpre_f.to(BF16).float()
+        if wgrad and ops is not None:
+            ops["dpre"][i] = dpre_f.to(BF16)
         if wgrad:
             dpk[i] = inp.float().t() @ dpre
             dpk[8 + i] = dpre_f.sum(dim=0, keepdim=True)
@@ -159,6 +184,232 @@ def bwd_ablate_plain(packed_v3, mean_cov: torch.Tensor,
                               samples_per_ray, mode, use_wgrad, mean_cov)
 
 
+# ---- full + wgrad and K19 in two phases: the schedule, in plain PyTorch --
+
+def stash_plan(rays: int, samples_per_ray: int, sms: int,
+               recompute: bool = True) -> ft.StashPlan:
+    """The schedule of K18 full + wgrad (recompute) or K19 on a card of
+    `sms` SMs: K4's partition, chunks of UNFOLDED.tiles_per_chunk = 4 tiles
+    of every block, kernel B over UNFOLDED's 22 output tiles."""
+    return ft.stash_plan(rays, samples_per_ray, sms, recompute, wg.UNFOLDED)
+
+
+def stash_chunk_plain(plan: ft.StashPlan, chunk, x, hs, ops
+                      ) -> torch.Tensor:
+    """Plain kernel A's stash: the chunk's records from the rows' operands
+    (x, hs, and backward_from_acts's ops), rows past a run's end zero
+    -> (records, wg.U_REC_ELEMS) bf16."""
+    tile = ft.tile_rows
+    return torch.stack([
+        wg.pack_unfolded(tile(x, row0, nv), [tile(h, row0, nv) for h in hs],
+                         [tile(d, row0, nv) for d in ops["dpre"]],
+                         tile(ops["dheads"], row0, nv),
+                         tile(ops["bneck"], row0, nv),
+                         tile(ops["dmid"], row0, nv))
+        for _, _, row0, nv in plan.records(chunk)])
+
+
+def _with_weights(dpk, w) -> Tuple[torch.Tensor, ...]:
+    """The 22 gradients with w0..w7, wh and w_emb taken from w (10
+    tensors)."""
+    return (tuple(w[:8]) + tuple(dpk[8:16]) + (w[8], dpk[17], w[9])
+            + tuple(dpk[19:22]))
+
+
+def _two_phases_plain(packed_v3, hs, x, g_bands, d_out, S: int, mean_cov,
+                      sms: int):
+    """backward_from_acts's full + wgrad per-row values (dmc, dg, the
+    biases, w_out and b_out), its weight-gradient operands stashed per
+    chunk of the card's schedule in the UNFOLDED record layout, and plain
+    kernel B's contraction of each chunk (its slices, the P partials
+    summed as the wrappers sum them) -> (dmc or None, dg, the 22
+    gradients)."""
+    plan = stash_plan(d_out.shape[0] // S, S, sms, mean_cov is not None)
+    ops = {}
+    dmc, dg, dpk = backward_from_acts(packed_v3, hs, x, g_bands, d_out, S,
+                                      "full", True, mean_cov, ops=ops)
+    partial = torch.empty((plan.slices, wg.U_PARTIAL_FLOATS), dtype=F32)
+    for c, chunk in enumerate(plan.chunks):
+        wg.contract_plain(stash_chunk_plain(plan, chunk, x, hs, ops),
+                          partial, c > 0, wg.UNFOLDED)
+    return dmc, dg, _with_weights(dpk, wg.unfolded_weight_grads(partial))
+
+
+def bwd_ablate_chunked_plain(packed_v3, mean_cov: torch.Tensor,
+                             g_bands: torch.Tensor, d_out: torch.Tensor,
+                             samples_per_ray: int, sms: int):
+    """Plain K18 full + wgrad in its two phases on a card of `sms` SMs: the
+    IPE and the trunk recomputed from mean_cov, then _two_phases_plain
+    -> (dmc, dg, the 22 gradients)."""
+    x = ff.ipe_x(mean_cov)
+    hs = ft._trunk_acts(packed_v3[:8], packed_v3[8:16], x)
+    return _two_phases_plain(packed_v3, hs, x, g_bands, d_out,
+                             int(samples_per_ray), mean_cov, sms)
+
+
+# ---- on the card ------------------------------------------------------------
+
+class StashScratch(NamedTuple):
+    """One K18 full + wgrad or K19 call's outputs and scratch on the card."""
+    dmc: torch.Tensor    # K18: (N, 16) f32; K19: None
+    dg: torch.Tensor     # (R, 512) f32, zeroed
+    small: torch.Tensor  # (blocks, SMALL_FLOATS) f32 compact slices, zeroed
+    slots: torch.Tensor  # K18: (blocks, 64, ACTS_COLS) bf16 recompute slots
+    dxe: torch.Tensor    # K18: (blocks, 64, 128) f32 dx tiles
+    stash: torch.Tensor  # (blocks x the first chunk's tiles, U_REC_ELEMS)
+
+
+def stash_scratch(plan: ft.StashPlan, device) -> StashScratch:
+    """A call's StashScratch, its workspace sized for the largest chunk; dmc,
+    the recompute slots and the dx tiles only for K18's plan."""
+    per = plan.chunks[0][1] - plan.chunks[0][0]
+    n, k18 = plan.rays * plan.samples_per_ray, plan.recompute
+    tiles = (plan.blocks, ft.TILE_ROWS)
+    return StashScratch(
+        torch.empty((n, ff.IN_COLS), dtype=F32, device=device)
+        if k18 else None,
+        torch.zeros((plan.rays, 512), dtype=F32, device=device),
+        torch.zeros((plan.blocks, SMALL_FLOATS), dtype=F32, device=device),
+        torch.empty(tiles + (ft.ACTS_COLS,), dtype=BF16, device=device)
+        if k18 else None,
+        torch.empty(tiles + (ff.ENC_PAD,), dtype=F32, device=device)
+        if k18 else None,
+        torch.empty((plan.blocks * per, wg.U_REC_ELEMS), dtype=BF16,
+                    device=device))
+
+
+def scratch_bytes(plan: ft.StashPlan) -> int:
+    """stash_scratch's bytes: the plan's, plus K18's dx tiles."""
+    dxe = plan.blocks * ft.TILE_ROWS * ff.ENC_PAD * 4 if plan.recompute \
+        else 0
+    return plan.scratch_bytes() + dxe
+
+
+def kernel_a(lib, name: str, plan: ft.StashPlan, chunk, inputs,
+             sc: StashScratch) -> torch.Tensor:
+    """Kernel A of `name` ("bwd_ablate_full_wgrad": K18 full + wgrad on
+    inputs (packed_v3, mean_cov, g_bands, d_out); "run_noipe": K19 on
+    (packed_v3, g_bands, xacts, d_out); checked CUDA tensors) from `lib` (experiments_bwd.cu as
+    load_library builds it) on chunk (t0, t1) of `plan`, into `sc` -> the
+    chunk's workspace, a view of sc.stash.  Counts its launch."""
+    t0, t1 = chunk
+    ws = sc.stash[:plan.blocks * (t1 - t0)]
+    packed_v3, d_out = inputs[0], inputs[-1]
+    device = d_out.device
+    sched = (plan.rays, plan.samples_per_ray, plan.rays_per_block, t0, t1,
+             torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        if name == "run_noipe":
+            g_bands, xacts = inputs[1:3]
+            rc = lib.rsn_bwd_noipe_stash(
+                g_bands.data_ptr(), xacts.data_ptr(), d_out.data_ptr(),
+                ff._ptr_array(packed_v3), sc.dg.data_ptr(),
+                sc.small.data_ptr(), ws.data_ptr(), *sched)
+        else:
+            mean_cov, g_bands = inputs[1:3]
+            rc = lib.rsn_bwd_ablate_stash(
+                mean_cov.data_ptr(), g_bands.data_ptr(),
+                ff._ipe_consts(device).data_ptr(), d_out.data_ptr(),
+                ff._ptr_array(packed_v3), sc.dmc.data_ptr(),
+                sc.dg.data_ptr(), sc.small.data_ptr(), sc.slots.data_ptr(),
+                sc.dxe.data_ptr(), ws.data_ptr(), *sched)
+    ff._raise_on_error(lib, rc, name)
+    ff.LAUNCHES[name] += 1
+    return ws
+
+
+def stash_grads(small: torch.Tensor, partial: torch.Tensor
+                ) -> Tuple[torch.Tensor, ...]:
+    """The 22 gradients of a K18 full + wgrad or K19 call: the compact
+    slices summed over the blocks (torch.sum over dim 0) and the weight
+    matrices from the partials."""
+    tot = small.sum(dim=0)
+    biases = [tot[SMALL_B + i * TRUNK_WIDTH:SMALL_B + (i + 1) * TRUNK_WIDTH]
+              .view(1, TRUNK_WIDTH) for i in range(TRUNK_LAYERS)]
+    w_out = torch.zeros((128, 128), dtype=F32, device=small.device)
+    w_out[:, :3] = tot[SMALL_WOUT:SMALL_BOUT].view(128, 3)
+    b_out = torch.zeros((1, 128), dtype=F32, device=small.device)
+    b_out[0, :3] = tot[SMALL_BOUT:SMALL_BOUT + 3]
+    dpk = ([None] * 8 + biases
+           + [None, tot[SMALL_BH:SMALL_BMID].view(1, ff.OUT_DIM), None,
+              tot[SMALL_BMID:SMALL_WOUT].view(1, 128), w_out, b_out])
+    return _with_weights(dpk, wg.unfolded_weight_grads(partial))
+
+
+def stash_backward(name: str, inputs, samples_per_ray: int):
+    """K18 full + wgrad or K19 (`name` and the checked CUDA inputs as for
+    kernel_a) on the card -> (dmc or None, dg, the 22 gradients).
+
+    stash_plan's schedule: K4's partition, each block's run of 64-row
+    tiles cut into chunks of 4 tiles of every block, the most whose records
+    (624,640 bytes each) fit in what the first design's per-block fp32
+    slice took (674,432 floats).  Per chunk, kernel A (the body: dmc, dg,
+    the biases and the mid head's gradients as in the first design; each
+    tile's weight-gradient operands to the chunk's workspace) and kernel B
+    (their wgmma contraction into P fp32 partials); each counts one launch
+    per chunk, kernel A under `name`, kernel B under
+    wg.UNFOLDED.label.  The two share the schedule, so K19 equals K18 full
+    + wgrad on K3's spill (dg, the 22 gradients) bit for bit.  On the
+    tools' 131,072 rows (1,024 rays on 132 SMs: 128 blocks of 16 tiles, 4
+    chunks, P = 6) K18's scratch is 319,815,680 bytes of workspace +
+    33,554,432 of slots + 4,194,304 of dx tiles + 1,509,376 of compact
+    slices + 15,040,512 of partials = 374,114,304 (the first design:
+    345,309,184 of slices + 33,554,432 of slots)."""
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("experiments_bwd.cu")
+    d_out = inputs[-1]
+    device = d_out.device
+    plan = stash_plan(d_out.shape[0] // samples_per_ray, samples_per_ray,
+                      ft._sm_count(device), name != "run_noipe")
+    sc = stash_scratch(plan, device)
+    partial = torch.empty((plan.slices, wg.U_PARTIAL_FLOATS), dtype=F32,
+                          device=device)
+    for c, chunk in enumerate(plan.chunks):
+        wg.contract(kernel_a(lib, name, plan, chunk, inputs, sc), partial,
+                    c > 0, wg.UNFOLDED)
+    dmc, dg, small = sc.dmc, sc.dg, sc.small
+    del sc  # the sums below need none of the scratch
+    return dmc, dg, stash_grads(small, partial)
+
+
+def first_design(lib, name: str, inputs, samples_per_ray: int):
+    """K18 full + wgrad's or K19's first design (`name` and `inputs` as for
+    kernel_a), one launch from `lib`, the RSN_K18_FIRST_DESIGN build of
+    experiments_bwd.cu: every 64-row tile adds its weight-gradient products
+    into its block's fp32 slice of the 22 gradients -> (dmc or None, dg,
+    the 22 gradients).  Counts no launch."""
+    d_out = inputs[-1]
+    device, n = d_out.device, d_out.shape[0]
+    R, S = n // samples_per_ray, int(samples_per_ray)
+    rpb = ft._rays_per_block(R, device)
+    blocks = -(-R // rpb)
+    dg = torch.zeros((R, 512), dtype=F32, device=device)
+    buf = torch.zeros((blocks, PACK_FLOATS), dtype=F32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    dmc = None
+    with torch.cuda.device(device):
+        if name == "run_noipe":
+            g_bands, xacts = inputs[1:3]
+            rc = lib.rsn_bwd_noipe(
+                g_bands.data_ptr(), xacts.data_ptr(), d_out.data_ptr(),
+                ff._ptr_array(inputs[0]), dg.data_ptr(), buf.data_ptr(), R,
+                S, rpb, stream)
+        else:
+            mean_cov, g_bands = inputs[1:3]
+            dmc = torch.empty((n, ff.IN_COLS), dtype=F32, device=device)
+            ws = torch.empty((blocks, ft.TILE_ROWS, ft.ACTS_COLS),
+                             dtype=BF16, device=device)
+            rc = lib.rsn_bwd_ablate(
+                mean_cov.data_ptr(), g_bands.data_ptr(),
+                ff._ipe_consts(device).data_ptr(), d_out.data_ptr(),
+                ff._ptr_array(inputs[0]), dmc.data_ptr(), dg.data_ptr(),
+                buf.data_ptr(), ws.data_ptr(), R, S, rpb,
+                MODE_CODES["full", True], stream)
+    ff._raise_on_error(lib, rc, f"{name} (first design)")
+    return dmc, dg, unpack_slices(buf)
+
+
 def unpack_slices(buf: torch.Tensor):
     """(blocks, 674432) per-block gradients -> the 22 gradients summed over
     the blocks, as views in pack_params_v3's shapes."""
@@ -183,7 +434,8 @@ def check_backward_inputs(name: str, packed_v3, g_bands: torch.Tensor,
 def run(mode: str, use_wgrad: bool, packed_v3, mean_cov: torch.Tensor,
         g_bands: torch.Tensor, d_out: torch.Tensor, samples_per_ray: int):
     """K18 in one mode: -> (dmc (N, 16) f32, dg (R, 512) f32, the 22
-    weight gradients or None)."""
+    weight gradients or None).  On the card, full + wgrad runs as
+    stash_backward, the other modes as one launch."""
     name = label(mode, use_wgrad)
     S = int(samples_per_ray)
     R = check_backward_inputs(name, packed_v3, g_bands, d_out, S)
@@ -192,6 +444,8 @@ def run(mode: str, use_wgrad: bool, packed_v3, mean_cov: torch.Tensor,
     if device.type == "cpu":
         return bwd_ablate_plain(packed_v3, mean_cov, g_bands, d_out, S, mode,
                                 use_wgrad)
+    if use_wgrad:
+        return stash_backward(name, (packed_v3, mean_cov, g_bands, d_out), S)
     from rsn_torch.kernels.build import load_library
 
     lib = load_library("experiments_bwd.cu")
@@ -199,8 +453,6 @@ def run(mode: str, use_wgrad: bool, packed_v3, mean_cov: torch.Tensor,
     blocks = -(-R // rpb)
     dmc = torch.empty((n, ff.IN_COLS), dtype=F32, device=device)
     dg = torch.zeros((R, 512), dtype=F32, device=device)
-    buf = (torch.zeros((blocks, PACK_FLOATS), dtype=F32, device=device)
-           if use_wgrad else None)
     ws = torch.empty((blocks, ft.TILE_ROWS, ft.ACTS_COLS), dtype=BF16,
                      device=device)
     code = MODE_CODES[mode, bool(use_wgrad)]
@@ -208,12 +460,12 @@ def run(mode: str, use_wgrad: bool, packed_v3, mean_cov: torch.Tensor,
         rc = lib.rsn_bwd_ablate(
             mean_cov.data_ptr(), g_bands.data_ptr(),
             ff._ipe_consts(device).data_ptr(), d_out.data_ptr(),
-            ff._ptr_array(packed_v3), dmc.data_ptr(), dg.data_ptr(),
-            None if buf is None else buf.data_ptr(), ws.data_ptr(), R, S,
-            rpb, code, torch.cuda.current_stream().cuda_stream)
+            ff._ptr_array(packed_v3), dmc.data_ptr(), dg.data_ptr(), None,
+            ws.data_ptr(), R, S, rpb, code,
+            torch.cuda.current_stream().cuda_stream)
     ff._raise_on_error(lib, rc, name)
     ff.LAUNCHES[name] += 1
-    return dmc, dg, None if buf is None else unpack_slices(buf)
+    return dmc, dg, None
 
 
 def tool_cotangent(n: int, device, seed: int = 2) -> torch.Tensor:

@@ -12,8 +12,11 @@ activation; there is no IPE work, no dmc and no layer-0 dgrad.  On K3's
 spill of the same rows it equals K18's full mode bit for bit on the card.
 
 The wrapper runs the plain version (run_noipe_plain) for CPU tensors and
-launches the CUDA kernel (rsn_torch/csrc/experiments_bwd.cu) for CUDA
-tensors.
+launches the CUDA kernels (rsn_torch/csrc/experiments_bwd.cu) for CUDA
+tensors: as K18's full + wgrad, per chunk kernel A (the body, stashing
+each tile's weight-gradient operands) and kernel B (their wgmma
+contraction; bwd_ablate.stash_backward).  run_noipe_chunked_plain is the
+two phases in plain PyTorch, for the tests.
 
     python -m rsn_torch.experiments.bwd_noipe
 
@@ -27,13 +30,14 @@ import sys
 
 import torch
 
-from rsn_torch.experiments.bwd_ablate import (PACK_FLOATS, backward_from_acts,
+from rsn_torch.experiments import bwd_ablate
+from rsn_torch.experiments.bwd_ablate import (backward_from_acts,
                                               check_backward_inputs,
-                                              tool_cotangent, unpack_slices)
+                                              tool_cotangent)
 from rsn_torch.kernels import field_forward as ff
 from rsn_torch.kernels import field_train as ft
 
-BF16, F32 = torch.bfloat16, torch.float32
+BF16 = torch.bfloat16
 
 
 def run_noipe_plain(packed_v3, xacts: torch.Tensor, g_bands: torch.Tensor,
@@ -49,30 +53,31 @@ def run_noipe_plain(packed_v3, xacts: torch.Tensor, g_bands: torch.Tensor,
     return dg, dpk
 
 
+def run_noipe_chunked_plain(packed_v3, xacts: torch.Tensor,
+                            g_bands: torch.Tensor, d_out: torch.Tensor,
+                            samples_per_ray: int, sms: int):
+    """Plain K19 in its two phases on a card of `sms` SMs (K18 full +
+    wgrad's, x and the activations read from the spill) -> (dg, the 22
+    gradients)."""
+    _, dg, dpk = bwd_ablate._two_phases_plain(
+        packed_v3, ft._split_acts(xacts), xacts[:, ft.ACTS_COLS:], g_bands,
+        d_out, int(samples_per_ray), None, sms)
+    return dg, dpk
+
+
 def run_noipe(packed_v3, xacts: torch.Tensor, g_bands: torch.Tensor,
               d_out: torch.Tensor, samples_per_ray: int):
-    """K19 -> (dg (R, 512) f32, the 22 weight gradients)."""
+    """K19 -> (dg (R, 512) f32, the 22 weight gradients).  On the card,
+    bwd_ablate.stash_backward."""
     S = int(samples_per_ray)
-    R = check_backward_inputs("run_noipe", packed_v3, g_bands, d_out, S)
+    check_backward_inputs("run_noipe", packed_v3, g_bands, d_out, S)
     device, n = d_out.device, d_out.shape[0]
     ff._check("xacts", xacts, (n, ft.XACTS_COLS), BF16, device)
     if device.type == "cpu":
         return run_noipe_plain(packed_v3, xacts, g_bands, d_out, S)
-    from rsn_torch.kernels.build import load_library
-
-    lib = load_library("experiments_bwd.cu")
-    rpb = ft._rays_per_block(R, device)
-    blocks = -(-R // rpb)
-    dg = torch.zeros((R, 512), dtype=F32, device=device)
-    buf = torch.zeros((blocks, PACK_FLOATS), dtype=F32, device=device)
-    with torch.cuda.device(device):
-        rc = lib.rsn_bwd_noipe(
-            g_bands.data_ptr(), xacts.data_ptr(), d_out.data_ptr(),
-            ff._ptr_array(packed_v3), dg.data_ptr(), buf.data_ptr(), R, S,
-            rpb, torch.cuda.current_stream().cuda_stream)
-    ff._raise_on_error(lib, rc, "run_noipe")
-    ff.LAUNCHES["run_noipe"] += 1
-    return dg, unpack_slices(buf)
+    _, dg, dpk = bwd_ablate.stash_backward(
+        "run_noipe", (packed_v3, g_bands, xacts, d_out), S)
+    return dg, dpk
 
 
 def main(argv=None) -> int:

@@ -200,6 +200,11 @@ def _signatures() -> Dict[str, Dict[str, list]]:
             "rsn_bwd_ablate": [vp, vp, vp, vp, ptrs, vp, vp, vp, vp, ll, i32,
                                i32, i32, vp],
             "rsn_bwd_noipe": [vp, vp, vp, ptrs, vp, vp, ll, i32, i32, vp],
+            "rsn_bwd_ablate_stash": [vp, vp, vp, vp, ptrs, vp, vp, vp, vp,
+                                     vp, vp, ll, i32, i32, i32, i32, vp],
+            "rsn_bwd_noipe_stash": [vp, vp, vp, ptrs, vp, vp, vp, ll, i32,
+                                    i32, i32, i32, vp],
+            "rsn_wgrad_unfolded": [vp, vp, ll, i32, i32, vp],
         },
     }
 

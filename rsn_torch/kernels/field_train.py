@@ -94,7 +94,7 @@ SMALL_BOUT = SMALL_WOUT + 128 * 3
 SMALL_FLOATS = SMALL_BOUT + 4  # 2692
 # a chunk of kernel A: the most tiles of every block whose workspace records
 # fit in what the first design's per-block fp32 slice took (2,434,560 bytes)
-TILES_PER_CHUNK = PACK_FLOATS * 4 // wg.REC_BYTES  # 4
+TILES_PER_CHUNK = wg.FOLDED.tiles_per_chunk  # 4
 
 
 def density_row(field) -> torch.Tensor:
@@ -361,6 +361,8 @@ class StashPlan:
     chunks: Tuple[Tuple[int, int], ...]
     slices: int
     recompute: bool = True
+    # the records' layout: K8's (K4's, K5's), or the tools' K18 / K19's
+    layout: wg.Layout = wg.FOLDED
 
     def records(self, chunk) -> List[Tuple[int, int, int, int]]:
         """The chunk's records in workspace order: (block, tile, first row,
@@ -377,29 +379,41 @@ class StashPlan:
 
     def scratch_bytes(self) -> int:
         """A call's scratch on the card: the largest chunk's workspace, the
-        recompute slots (K8 only), the compact slices and the partials."""
+        recompute slots (K8, K18 only), the compact slices and the
+        partials."""
         t0, t1 = self.chunks[0]
         slots = self.blocks * TILE_ROWS * ACTS_COLS * 2 if self.recompute \
             else 0
-        return (self.blocks * (t1 - t0) * wg.REC_BYTES + slots
-                + self.blocks * SMALL_FLOATS * 4
-                + self.slices * wg.PARTIAL_FLOATS * 4)
+        return (self.blocks * (t1 - t0) * self.layout.rec_bytes + slots
+                + self.blocks * self.layout.small_floats * 4
+                + self.slices * self.layout.partial_floats * 4)
 
 
 def stash_plan(rays: int, samples_per_ray: int, sms: int,
-               recompute: bool = True) -> StashPlan:
+               recompute: bool = True,
+               layout: wg.Layout = wg.FOLDED) -> StashPlan:
     """The schedule of K8 (recompute) or of K4 and K5 on a card of `sms`
-    SMs (K4's rays per block at one block per SM; chunks of
-    TILES_PER_CHUNK tiles)."""
+    SMs (K4's rays per block at one block per SM; chunks of the layout's
+    tiles_per_chunk tiles, TILES_PER_CHUNK for K8's); with the UNFOLDED
+    layout, K18's (recompute) or K19's."""
     S = int(samples_per_ray)
     rpb = _per_block(rays, sms)
     tiles = -(-(rpb * S) // TILE_ROWS)
-    chunks = tuple((t0, min(tiles, t0 + TILES_PER_CHUNK))
-                   for t0 in range(0, tiles, TILES_PER_CHUNK))
+    per = layout.tiles_per_chunk
+    chunks = tuple((t0, min(tiles, t0 + per)) for t0 in range(0, tiles, per))
     blocks = -(-rays // rpb)
     return StashPlan(rays, S, rpb, blocks, tiles, chunks,
-                     wg.slices_for(sms, blocks * (chunks[0][1] - chunks[0][0])),
-                     bool(recompute))
+                     wg.slices_for(sms, blocks * (chunks[0][1] - chunks[0][0]),
+                                   layout),
+                     bool(recompute), layout)
+
+
+def tile_rows(a: torch.Tensor, row0: int, nv: int) -> torch.Tensor:
+    """Rows [row0, row0 + nv) of a (N, F) operand as a (64, F) bf16 tile,
+    rows nv.. zero (a record's tile)."""
+    out = torch.zeros((TILE_ROWS, a.shape[1]), dtype=BF16, device=a.device)
+    out[:nv] = a[row0:row0 + nv]
+    return out
 
 
 def stash_chunk_plain(plan: StashPlan, chunk, x, hs, ops) -> torch.Tensor:
@@ -407,17 +421,11 @@ def stash_chunk_plain(plan: StashPlan, chunk, x, hs, ops) -> torch.Tensor:
     (x, hs, and _backward_plain's ops), rows past a run's end zero
     -> (records, wg.REC_ELEMS) bf16."""
     dhc = ts.head_columns(ops["dhc"])  # the record's 144 columns of d_hc
-
-    def tile(a, row0, nv):
-        out = torch.zeros((TILE_ROWS, a.shape[1]), dtype=BF16,
-                          device=a.device)
-        out[:nv] = a[row0:row0 + nv]
-        return out
-
     return torch.stack([
-        wg.pack_record(tile(x, row0, nv), [tile(h, row0, nv) for h in hs],
-                       [tile(d, row0, nv) for d in ops["dpre"]],
-                       tile(dhc, row0, nv))
+        wg.pack_record(tile_rows(x, row0, nv),
+                       [tile_rows(h, row0, nv) for h in hs],
+                       [tile_rows(d, row0, nv) for d in ops["dpre"]],
+                       tile_rows(dhc, row0, nv))
         for _, _, row0, nv in plan.records(chunk)])
 
 

@@ -19,7 +19,9 @@ plain versions at ragged shapes, with v3i == v3u and v3F == v3L bit for
 bit and K14 / K15 against their first design (the RSN_K14_FIRST_DESIGN
 build) bit for bit, and the backward experiments (K17-K19): K17 against K8 and its plain
 version, K18's four modes and K19 against theirs, K19 == K18's full mode
-on K3's spill.
+on K3's spill, K18 full + wgrad and K19 (kernel A + kernel B per chunk)
+against their first design (the RSN_K18_FIRST_DESIGN build: dmc and dg
+bit for bit, the weight gradients within 1e-4).
 
 Needs a CUDA card and nvcc; skipped without them.  This file imports no
 jax, so it also runs on a machine without it:
@@ -1047,4 +1049,54 @@ def test_backward_experiment_launch_counts(field):
     assert {k: v for k, v in ff.LAUNCHES.items() if v} == {
         "field_backward_whole": 1, "bwd_ablate_full_wgrad": 1,
         "bwd_ablate_full": 1, "bwd_ablate_no_ipe_bwd": 1,
-        "bwd_ablate_recompute": 2, "run_noipe": 1}
+        "bwd_ablate_recompute": 2, "run_noipe": 1, "bwd_unfolded_wgrad": 2}
+
+
+@pytest.fixture(scope="module")
+def k18_first_design(field):
+    from rsn_torch.kernels.build import start_variant
+
+    lib, _ = start_variant("experiments_bwd.cu", ("RSN_K18_FIRST_DESIGN",),
+                           "first_design")()
+    return lib
+
+
+# one ray, a ragged last tile, and (300, 200): 3 rays a block, 10 tiles, 3
+# chunks
+@pytest.mark.parametrize("R,S", [(1, 1), (3, 7), (300, 200)])
+def test_k18_k19_equal_their_first_design(field, k18_first_design, R, S):
+    """K18 full + wgrad and K19 (kernel A + kernel B per chunk) against the
+    RSN_K18_FIRST_DESIGN build of the same source: dmc and dg bit for bit,
+    the 22 gradients within K13_TOL of each max (the same products summed
+    in another order); K19 == K18 on K3's spill; one launch of kernel A
+    and one of kernel B counted per chunk."""
+    mc, g, d_out = _bwd_inputs(field, R, S, 7 * R + S)
+    p3 = ff.pack_params_v3(field)
+    _, xacts = tft.field_forward_v6(ff.pack_params_v3f(field), mc, g, S,
+                                    spill_x=True)
+    chunks = len(bwd_ablate.stash_plan(
+        R, S, torch.cuda.get_device_properties(0).multi_processor_count)
+        .chunks)
+    assert chunks == (3 if R == 300 else 1)
+    ff.reset_launch_counts()
+    k18 = bwd_ablate.run("full", True, p3, mc, g, d_out, S)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES["bwd_ablate_full_wgrad"] == chunks
+    assert ff.LAUNCHES[wg.UNFOLDED.label] == chunks
+    k19 = bwd_noipe.run_noipe(p3, xacts, g, d_out, S)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES["run_noipe"] == chunks
+    assert ff.LAUNCHES[wg.UNFOLDED.label] == 2 * chunks
+    for got, label, inputs in (
+            (k18, "bwd_ablate_full_wgrad", (p3, mc, g, d_out)),
+            ((None,) + k19, "run_noipe", (p3, g, xacts, d_out))):
+        old = bwd_ablate.first_design(k18_first_design, label, inputs, S)
+        torch.cuda.synchronize()
+        if got[0] is not None:
+            assert torch.equal(got[0], old[0])
+        assert torch.equal(got[1], old[1])
+        assert len(got[2]) == 22
+        for a, b in zip(got[2], old[2]):
+            assert a.shape == b.shape and _rel_err(a, b) <= K13_TOL
+    assert torch.equal(k19[0], k18[1])
+    assert all(torch.equal(a, b) for a, b in zip(k19[1], k18[2]))
