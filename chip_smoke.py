@@ -16,10 +16,13 @@ Phases, each announced on its own line:
                 first design) for phases 3 and 17, and field_forward.cu
                 with RSN_K11_FIRST_DESIGN (K11's and K12's first design)
                 for phase 16, experiments_bwd.cu with RSN_K18_FIRST_DESIGN
-                (K18 full + wgrad's and K19's first design) for phase 18;
+                (K18 full + wgrad's and K19's first design) for phase 18,
+                field_train.cu with RSN_K13_FIRST_DESIGN (K13's and K17's
+                first design) for phases 12, 16 and 18;
                 the registers and spills of K14 / K15's four kernels and of
                 K11's and K12's (none may spill), of K18 / K19's kernel A
-                (read) and their kernel B (which may not spill).
+                (read) and their kernel B (which may not spill), of K8 /
+                K13's kernel A, K17's, K13's sum and their kernel B (read).
   3. kernels  — K1 (field_forward_v3) and K2 (field_forward_density)
                 against their plain PyTorch versions on the card, on the
                 real inputs of one 16384-ray chunk of the first 800x800
@@ -91,12 +94,13 @@ Phases, each announced on its own line:
                 full-width camera-on train step (step 50); K7 and K1's
                 outputs against K3's bit for bit; K8 the same twice and
                 equal to K4 on K3's spill (dmc, dg, all 20 gradients) bit
-                for bit, its weight matrices within K13_TOL of K13's (the
-                first design's per-block slices); kernel B alone against
+                for bit, its weight matrices within K13_TOL of K13's first
+                design's (the RSN_K13_FIRST_DESIGN build: per-block
+                slices); kernel B alone against
                 its plain contraction on the records kernel A leaves of
                 pass 2, and cuBLAS on the same operands (four calls);
                 CUDA-event times (K7, K1 at the train width; K8, its
-                kernels A and B alone, K13 as the first design in the
+                kernels A and B alone, K13's first design in the
                 same call), K8's scratch per call
                 beside the first design's; the peak device memory of one
                 full-width step on each route, camera off and on.
@@ -123,13 +127,20 @@ Phases, each announced on its own line:
                 version; K11 and K12 == their first design (the
                 RSN_K11_FIRST_DESIGN build) bit for bit on the 2,097,152
                 rows, their padding columns zero; K10 == K7 and K1 at the
-                train width, K13 == K8 on dmc and dg, bit for bit, K13 the
-                same twice and within 1e-4 of K8's weight gradients;
+                train width; K13 (K8's kernel A and kernel B once per
+                chunk, then its sum, each launch counted) == its first
+                design (the RSN_K13_FIRST_DESIGN build) and == K8 on dmc
+                and dg, bit for bit, its 20 gradients within 1e-4 of both
+                (the ulps from K8's printed), the same twice, its sum ==
+                its plain version bit for bit;
                 CUDA-event times, K11 and K12 one call per event pair and
                 back to back in turns with their first design, K10 (the
                 64-row wmma forward that K7 and K1 at the train width ran
-                before their Hopper design) beside K7 and K1, K13 beside
-                K8.
+                before their Hopper design) beside K7 and K1, K13 one call
+                beside its first design's and K8's, then back to back in
+                turns with its first design, kernel A, kernel B and the
+                sum apart, each design's scratch; kernel B alone on K13's
+                pass-4 chunk beside cuBLAS.
   The tools' forward experiments:
   17. K14-K16 — from zeroed launch counts, K14 (field_forward_v3u,
                 field_forward_v3i) and K15 (field_forward_v3L, and with
@@ -149,7 +160,8 @@ Phases, each announced on its own line:
   The tools' backward experiments:
   18. K17-K19 — from zeroed launch counts, on the tools' rows (131,072
                 rows, 128 samples per ray, the field from seed 0, a seeded
-                (N, 128) cotangent): K17 (field_backward_whole), K18
+                (N, 128) cotangent): K17 (field_backward_whole: its
+                128-row kernel A and kernel B once per chunk), K18
                 (bwd_ablate.run) in its four modes and K19 (run_noipe) on
                 K3's spill of the same rows; each against its plain
                 version fed the kernel's activations (ATOL of each
@@ -164,13 +176,17 @@ Phases, each announced on its own line:
                 (the RSN_K18_FIRST_DESIGN build) bit for bit, the 22
                 gradients within K13_TOL of it; K17
                 against K8 on the tools' rows and on phase 12's pass-2 and
-                pass-4 rows: dmc bit for bit, dg and the weight gradients
-                within K13_TOL; CUDA-event times beside K8's and K4's; K18
+                pass-4 rows: dmc and w0..w7, w_hc bit for bit, dg and the
+                other 11 gradients within K13_TOL, and against its first
+                design (RSN_K13_FIRST_DESIGN): dmc bit for bit, dg and the
+                20 gradients within K13_TOL; CUDA-event times beside K8's
+                and K4's; K17, K18
                 full + wgrad and K19 one call each beside their first
                 design's, then back to back in turns with it, kernel A
-                and kernel B apart; kernel B alone on the last chunk
-                against its plain contraction and one torch.bmm / torch.mm
-                set on the unstashed operands.
+                and kernel B apart, each call's scratch; kernel B alone on
+                the last chunk (K17's and K18's) against its plain
+                contraction and cuBLAS / one torch.bmm / torch.mm set on
+                the unstashed operands.
   19. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -182,6 +198,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -427,7 +444,8 @@ def main() -> int:
     t0 = time.perf_counter()
     # beside the port's build: K3 without its spill stores (phase 6), K9's
     # first design (phase 9), K14's and K15's (phases 3 and 17), K11's and
-    # K12's (phase 16), K18 full + wgrad's and K19's (phase 18)
+    # K12's (phase 16), K18 full + wgrad's and K19's (phase 18), K13's and
+    # K17's (phases 12, 16 and 18)
     waiting = {"no_spill": start_variant("field_train.cu",
                                          ("RSN_ABLATE_NO_SPILL",),
                                          "no_spill"),
@@ -442,6 +460,9 @@ def main() -> int:
                                           "first_design"),
                "k18_first": start_variant("experiments_bwd.cu",
                                           ("RSN_K18_FIRST_DESIGN",),
+                                          "first_design"),
+               "k13_first": start_variant("field_train.cu",
+                                          ("RSN_K13_FIRST_DESIGN",),
                                           "first_design")}
     try:
         paths, log = build_library()
@@ -454,8 +475,9 @@ def main() -> int:
           f", field_train.cu with RSN_ABLATE_NO_SPILL, "
           f"proposal_forward.cu with RSN_K9_FIRST_DESIGN, experiments.cu "
           f"with RSN_K14_FIRST_DESIGN, field_forward.cu with "
-          f"RSN_K11_FIRST_DESIGN and experiments_bwd.cu with "
-          f"RSN_K18_FIRST_DESIGN in "
+          f"RSN_K11_FIRST_DESIGN, experiments_bwd.cu with "
+          f"RSN_K18_FIRST_DESIGN and field_train.cu with "
+          f"RSN_K13_FIRST_DESIGN in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per build, in "
           f"parallel)")
     for line in log.splitlines():
@@ -481,6 +503,16 @@ def main() -> int:
         "wgrad_kernelINS0_8UnfoldedE": "their kernel B "
                                        "(wgrad_kernel<Unfolded>)"},
         no_spill=True)
+    # K13's kernel A (K8's) and sum, K17's kernel A, their kernel B (read)
+    kernel_registers("field_train.cu", {
+        "field_backward_v4_kernel": "K8 / K13 kernel A "
+                                    "(field_backward_v4_kernel)",
+        "field_backward_whole_kernel": "K17 kernel A "
+                                       "(field_backward_whole_kernel)",
+        "field_backward_v3_sum_kernel": "K13 sum "
+                                        "(field_backward_v3_sum_kernel)",
+        "wgrad_kernelINS0_6FoldedE": "their kernel B "
+                                     "(wgrad_kernel<Folded>)"})
 
     from rsn_torch.cli import render as render_cli
     from rsn_torch.data.cameras import rescale_cameras
@@ -611,7 +643,8 @@ def main() -> int:
     launches.update(preset_results["launches"])
 
     # ---- 12-15. pose refinement and the recompute route ----
-    camera_results = camera_phases(config, field, device, card)
+    camera_results = camera_phases(config, field, device, card,
+                                   variants["k13_first"])
     results.update(camera_results["kernels"])
     # kernel B runs on both routes: its launches in phases 8 and 14
     wgrad = launches["field_backward_v4_wgrad"]
@@ -620,7 +653,7 @@ def main() -> int:
 
     # ---- 16. the field API and the schedule variants ----
     api_results = api_phase(field, render_mc, camera_results["calls"], card,
-                            variants["k11_first"])
+                            variants["k11_first"], variants["k13_first"])
     results.update(api_results["kernels"])
     launches.update(api_results["launches"])
 
@@ -632,7 +665,8 @@ def main() -> int:
 
     # ---- 18. the tools' backward experiments ----
     bwd_results = backward_experiments_phase(camera_results["calls"], card,
-                                             variants["k18_first"])
+                                             variants["k18_first"],
+                                             variants["k13_first"])
     results.update(bwd_results["kernels"])
     launches.update(bwd_results["launches"])
 
@@ -692,6 +726,10 @@ KERNEL_ROWS = (
      "rsn/kernels/field_pallas.py:217"),
     ("field_backward_v3", "field_train.cu",
      "rsn/kernels/field_train.py:353"),
+    ("field_backward_v3_wgrad", "wgrad_sm90.cuh",
+     "rsn/kernels/field_train.py:353"),
+    ("field_backward_v3_sum", "field_train.cu",
+     "rsn/kernels/field_train.py:353"),
     ("field_forward_v3u", "experiments.cu", "tools/exp_interleave.py:161"),
     ("field_forward_v3i", "experiments.cu", "tools/exp_interleave.py:77"),
     ("field_forward_v3L", "experiments.cu", "tools/exp_interleave2.py:124"),
@@ -700,6 +738,8 @@ KERNEL_ROWS = (
           for m in ("copy", "exact", "poly", "exp", "exp2", "exp2_ldexp",
                     "poly_bf16", "cos_poly")) + (
     ("field_backward_whole", "field_train.cu", "tools/exp_bwd_whole.py:76"),
+    ("field_backward_whole_wgrad", "wgrad_sm90.cuh",
+     "tools/exp_bwd_whole.py:76"),
 ) + tuple((f"bwd_ablate_{m}", "experiments_bwd.cu",
            "tools/exp_bwd_ablate.py:191")
           for m in ("full_wgrad", "full", "no_ipe_bwd", "recompute")) + (
@@ -796,6 +836,14 @@ def cpu_gpu_render(config, fields, orbit, device, label: str,
           f"{diff.max():.6g} where they agree", flush=True)
     if share < 0.99 or diff.max() > 0.05:
         raise RuntimeError("CPU and GPU renders disagree")
+
+
+def ulps_of_max(got, ref) -> float:
+    """max |got - ref| in ulps of ref's largest magnitude (fp32: 2^-23 of
+    its binade)."""
+    m = float(ref.abs().max())
+    d = float((got.float() - ref.float()).abs().max())
+    return d / 2.0 ** (math.floor(math.log2(m)) - 23) if m > 0 else d
 
 
 def rel_err(got, ref) -> float:
@@ -1085,8 +1133,8 @@ def check_train_blob(pack, blob, result, card) -> None:
 
 def kernels_a_and_b(name: str, args):
     """The CUDA-event times of one call's kernel A launches alone and of
-    its kernel B launches alone (on the records kernel A left), for K4, K5
-    or K8 (`name`) on its wrapper's arguments `args` -> (kernel A ms,
+    its kernel B launches alone (on the records kernel A left), for K4, K5,
+    K8 or K13 (`name`) on its wrapper's arguments `args` -> (kernel A ms,
     kernel B ms, the call's StashPlan)."""
     import torch
 
@@ -1098,7 +1146,7 @@ def kernels_a_and_b(name: str, args):
     f_out, S = args[-2], args[-1]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = ft.stash_plan(f_out.shape[0] // S, S, sms,
-                         name == "field_backward_v4")
+                         name in ft.RECOMPUTE_KERNELS)
     sc = ft.stash_scratch(plan, f_out.device, ft.STASH_KERNELS[name])
     partial = torch.empty((plan.slices, wg.PARTIAL_FLOATS),
                           device=f_out.device)
@@ -1106,7 +1154,7 @@ def kernels_a_and_b(name: str, args):
                           for c in plan.chunks])
     kb = cuda_ms(lambda: [
         wg.contract(sc.stash[:plan.blocks * (t1 - t0)], partial,
-                    accumulate=i > 0)
+                    accumulate=i > 0, label=ft.WGRAD_LABELS.get(name))
         for i, (t0, t1) in enumerate(plan.chunks)])
     return ka, kb, plan
 
@@ -1775,8 +1823,9 @@ def compare_proposal_settings(run, cams, device, card):
 RECOMPUTE_KERNELS = ("field_forward_v4", "field_forward_v3_train",
                      "field_backward_v4", "field_backward_v4_wgrad")
 # the weight matrices w0..w7, w_hc of the 20 gradients: kernel B's sums
-# over the rows, held to K13's (the first design's per-block slices) within
-# K13_TOL; K8's other outputs are the body's own
+# over the rows, held to K13's first design's (per-block slices, the
+# RSN_K13_FIRST_DESIGN build) within K13_TOL; K8's other outputs are the
+# body's own
 K8_WEIGHTS = tuple(range(8)) + (16,)
 # kernel B's products per row: w0 and w4's x part on the IPE's 99 live
 # columns, w1-w3, w5-w7 and w4's hs3 part, w_hc's 144 live columns
@@ -1856,13 +1905,51 @@ def same_grads(a, b) -> bool:
 
 
 def weights_against_k13(k8, k13) -> float:
-    """The largest error of K8's weight matrices over each of K13's (the
-    first design's body, which sums the per-block slices)."""
+    """The largest error of K8's weight matrices over each of K13's first
+    design's (the first design's body, which sums the per-block
+    slices)."""
     return max(rel_err(k8[2][i], k13[2][i]) for i in K8_WEIGHTS)
 
 
-def check_recompute_kernels(calls, card):
-    """Phase 12's comparisons and times -> per-kernel results."""
+def kernel_b_on_a_chunk(records, label: str, card, tag: str):
+    """Kernel B (counted under `label`) alone on one chunk's `records` that
+    a kernel A left, against its plain contraction and cuBLAS on the same
+    operands -> its result row (err, ms, plain_ms, bound_ms, bound_by,
+    library_ms)."""
+    import torch
+
+    from rsn_torch.kernels import wgrad_sm90 as wg
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slices = wg.slices_for(sms, records.shape[0])
+    got = torch.empty((slices, wg.PARTIAL_FLOATS), device=records.device)
+    ref = torch.empty_like(got)
+    wg.contract(records, got, accumulate=False, label=label)
+    wg.contract_plain(records, ref, accumulate=False)
+    torch.cuda.synchronize()
+    err = max(rel_err(a, r) for a, r in zip(wg.weight_grads(got),
+                                            wg.weight_grads(ref)))
+    k = cuda_ms(lambda: wg.contract(records, got, accumulate=False,
+                                    label=label))
+    pl = cuda_ms(lambda: wg.contract_plain(records, ref, accumulate=False))
+    lib_ms, lib_err, how = cublas_contraction(records, wg.weight_grads(got))
+    b, by = bound(2 * WGRAD_MACS * records.shape[0] * wg.REC_ROWS,
+                  nbytes(records, got))
+    print(f"  kernel B on {tag} ({records.shape[0]} records, "
+          f"{records.shape[0] * wg.REC_ROWS} rows, P = {slices}): within "
+          f"{err:.6g} of its plain fp32 contraction (limit {K13_TOL}); "
+          f"kernel {k:.4f} ms, plain {pl:.4f} ms, cuBLAS {lib_ms:.4f} ms "
+          f"(4 calls, {how}; within {lib_err:.6g} of kernel B), bound "
+          f"{b:.4f} ms ({by}; median of 10; {card})", flush=True)
+    if err > K13_TOL:
+        raise RuntimeError("kernel B disagrees with its plain version")
+    return dict(err=err, ms=k, plain_ms=pl, bound_ms=b, bound_by=by,
+                library_ms=lib_ms)
+
+
+def check_recompute_kernels(calls, card, first13):
+    """Phase 12's comparisons and times -> per-kernel results.  first13:
+    the build of field_train.cu with RSN_K13_FIRST_DESIGN (phase 2)."""
     import torch
 
     from rsn_torch.kernels import field_train as ft
@@ -1891,7 +1978,8 @@ def check_recompute_kernels(calls, card):
         k8 = ft.field_backward_v4(bpacked, bmc, bg, d_out, f_out, bS)
         k8b = ft.field_backward_v4(bpacked, bmc, bg, d_out, f_out, bS)
         k4 = ft.field_backward_v5(bpacked, bmc, bg, acts, d_out, f_out, bS)
-        k13 = ft.field_backward_v3(bpacked, bmc, bg, d_out, f_out, bS)
+        k13 = ft.field_backward_v3_first_design(first13, bpacked, bmc, bg,
+                                                d_out, f_out, bS)
         torch.cuda.synchronize()
         if not same_grads(k8, k8b):
             raise RuntimeError(f"K8 pass {p} differs from itself")
@@ -1901,7 +1989,8 @@ def check_recompute_kernels(calls, card):
         del k13
         if werr > K13_TOL:
             raise RuntimeError(f"K8 pass {p}: weight gradients {werr:.6g} "
-                               f"from K13's (limit {K13_TOL})")
+                               f"from K13's first design's (limit "
+                               f"{K13_TOL})")
         plain = ft.field_backward_v4_plain(bpacked, bmc, bg, d_out, f_out, bS)
         on_spill = ft.field_backward_v5_plain(bpacked, bmc, bg, acts, d_out,
                                               f_out, bS)
@@ -1917,8 +2006,9 @@ def check_recompute_kernels(calls, card):
         flips = float((acts != plain_acts).float().mean())
         print(f"  K8 pass {p}: rows {bmc.shape[0]}, == itself and == K4 on "
               f"K3's spill (dmc, dg, all 20 gradients) bit for bit; w0..w7, "
-              f"w_hc within {werr:.6g} of K13's (the first design's slices; "
-              f"limit {K13_TOL}); max error over each tensor's max: "
+              f"w_hc within {werr:.6g} of K13's first design's (its "
+              f"per-block slices, RSN_K13_FIRST_DESIGN; limit {K13_TOL}); "
+              f"max error over each tensor's max: "
               + "; ".join(f"against the {k}: " + ", ".join(
                   f"{n} {v:.6g}" for n, v in e.items())
                   for k, e in errs.items())
@@ -1953,8 +2043,8 @@ def check_recompute_kernels(calls, card):
         results[name].update(ms=k, plain_ms=pl, bound_ms=b, bound_by=by)
     # K8 on passes 4 and 2: both kernels, kernel A's launches over the
     # call's chunks alone and kernel B's alone (on the records kernel A
-    # left), K13 (the first design's body, + its grid sum) and K4 on K3's
-    # spill in the same call; the scratch of each design
+    # left), K13's first design (the first design's body, + its grid sum)
+    # and K4 on K3's spill in the same call; the scratch of each design
     from rsn_torch.kernels import wgrad_sm90 as wg
 
     for p in (4, 2):
@@ -1963,7 +2053,8 @@ def check_recompute_kernels(calls, card):
         n = mc.shape[0]
         k = cuda_ms(lambda: ft.field_backward_v4(*args))
         ka, kb, plan = kernels_a_and_b("field_backward_v4", args)
-        k13 = cuda_ms(lambda: ft.field_backward_v3(*args))
+        k13 = cuda_ms(lambda: ft.field_backward_v3_first_design(first13,
+                                                                 *args))
         pl = cuda_ms(lambda: ft.field_backward_v4_plain(*args))
         outs = g.shape[0] * 512 * 4 + ft.PACK_FLOATS * 4 + n * 16 * 4
         b, by = bound(FLOPS["field_backward_v4"] * n,
@@ -1977,13 +2068,14 @@ def check_recompute_kernels(calls, card):
         print(f"  K8 pass {p}: {n} rows, kernel {k:.4f} ms (kernel A alone "
               f"{ka:.4f} ms, kernel B alone {kb:.4f} ms over "
               f"{len(plan.chunks)} chunks of {plan.blocks} blocks x up to "
-              f"{ft.TILES_PER_CHUNK} tiles, P = {plan.slices}); K13 (the "
-              f"first design's body) {k13:.4f} ms in the same call; plain "
+              f"{ft.TILES_PER_CHUNK} tiles, P = {plan.slices}); K13's first "
+              f"design {k13:.4f} ms in the same call; plain "
               f"{pl:.4f} ms, bound {b:.4f} ms ({by}); K4 on K3's spill "
               f"{k4:.4f} ms (median of 10; {card})", flush=True)
         peak = {}
         for tag, fn in (("K8", ft.field_backward_v4),
-                        ("K13", ft.field_backward_v3)):
+                        ("first", lambda *a: ft.field_backward_v3_first_design(
+                            first13, *a))):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -1993,8 +2085,9 @@ def check_recompute_kernels(calls, card):
             del res
         print(f"  K8 pass {p} scratch per call: {plan.scratch_bytes()} bytes "
               f"(the first design's: {first}); the peak of one call above "
-              f"what was allocated before it: K8 {peak['K8']} bytes, K13 "
-              f"(the first design's body) {peak['K13']} bytes", flush=True)
+              f"what was allocated before it: K8 {peak['K8']} bytes, K13's "
+              f"first design {peak['first']} bytes",
+              flush=True)
         results["field_backward_v4"].update(ms=k, plain_ms=pl, bound_ms=b,
                                             bound_by=by)
 
@@ -2009,29 +2102,8 @@ def check_recompute_kernels(calls, card):
     sc = ft.stash_scratch(plan, args[1].device)
     ws = [ft.kernel_a(lib, "field_backward_v4", plan, c, args[:5], sc)
           for c in plan.chunks][-1]
-    got = torch.empty((plan.slices, wg.PARTIAL_FLOATS), device=ws.device)
-    ref = torch.empty_like(got)
-    wg.contract(ws, got, accumulate=False)
-    wg.contract_plain(ws, ref, accumulate=False)
-    torch.cuda.synchronize()
-    err = max(rel_err(a, r) for a, r in zip(wg.weight_grads(got),
-                                            wg.weight_grads(ref)))
-    k = cuda_ms(lambda: wg.contract(ws, got, accumulate=False))
-    pl = cuda_ms(lambda: wg.contract_plain(ws, ref, accumulate=False))
-    lib_ms, lib_err, how = cublas_contraction(ws, wg.weight_grads(got))
-    b, by = bound(2 * WGRAD_MACS * ws.shape[0] * wg.REC_ROWS,
-                  nbytes(ws, got))
-    print(f"  kernel B on pass 2's last chunk ({ws.shape[0]} records, "
-          f"{ws.shape[0] * wg.REC_ROWS} rows, P = {plan.slices}): within "
-          f"{err:.6g} of its plain fp32 contraction (limit {K13_TOL}); "
-          f"kernel {k:.4f} ms, plain {pl:.4f} ms, cuBLAS {lib_ms:.4f} ms "
-          f"(4 calls, {how}; within {lib_err:.6g} of kernel B), bound "
-          f"{b:.4f} ms ({by}; median of 10; {card})", flush=True)
-    if err > K13_TOL:
-        raise RuntimeError("kernel B disagrees with its plain version")
-    results["field_backward_v4_wgrad"].update(err=err, ms=k, plain_ms=pl,
-                                              bound_ms=b, bound_by=by,
-                                              library_ms=lib_ms)
+    results["field_backward_v4_wgrad"].update(kernel_b_on_a_chunk(
+        ws, wg.FOLDED.label, card, "pass 2's last chunk"))
     return results
 
 
@@ -2196,10 +2268,11 @@ def pose_recovery(device, compute_dtype: str = "bfloat16",
     return float(np.mean(before)), float(np.mean(after)), trans
 
 
-def camera_phases(config, field, device, card):
+def camera_phases(config, field, device, card, first13):
     """Phases 12-15 -> {"kernels": K7's, K1 train width's and K8's results,
     "launches": their launches in the camera-on train CLI run, "calls":
-    phase 12's captured kernel inputs}."""
+    phase 12's captured kernel inputs}.  first13: the build of
+    field_train.cu with RSN_K13_FIRST_DESIGN (phase 2)."""
     import torch
 
     from rsn_torch.engine import checkpoints as ckpt_lib
@@ -2218,7 +2291,7 @@ def camera_phases(config, field, device, card):
                 trainer.camera.shape,
                 generator=torch.Generator().manual_seed(SEED)))
         calls = capture_recompute_inputs(trainer, 50)
-        results = check_recompute_kernels(calls, card)
+        results = check_recompute_kernels(calls, card, first13)
         torch.cuda.empty_cache()
         # one trainer per camera setting; the route switches in its config
         off = trainer_lib.Trainer(with_route(config, False, True),
@@ -2287,14 +2360,16 @@ def camera_phases(config, field, device, card):
 # ---- the field API (K11, K12) and the schedule variants (K10, K13) ---------
 
 API_KERNELS = ("field_forward_v2", "field_forward", "field_forward_v5",
-               "field_backward_v3")
+               "field_backward_v3", "field_backward_v3_wgrad",
+               "field_backward_v3_sum")
 
 
-def api_phase(field, render_mc, cam_calls, card, first):
+def api_phase(field, render_mc, cam_calls, card, first, first13):
     """Phase 16 -> {"kernels": K10-K13's results, "launches": their
     launches in the run of this slice's path (the field's kernel route and
     the kernel API; no CLI path calls them, as in rsn)}.  first: the build
-    of field_forward.cu with RSN_K11_FIRST_DESIGN (phase 2)."""
+    of field_forward.cu with RSN_K11_FIRST_DESIGN, first13: of
+    field_train.cu with RSN_K13_FIRST_DESIGN (phase 2)."""
     import torch
 
     from rsn_torch.kernels import field_forward as ff
@@ -2319,6 +2394,18 @@ def api_phase(field, render_mc, cam_calls, card, first):
           f"in rsn)")
     if min(launches.values()) <= 0:
         raise RuntimeError("a kernel of the field API never launched")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {p: ft.stash_plan(a[2].shape[0], a[5], sms)
+             for p, a in bwd.items()}
+    chunks = sum(len(pl.chunks) for pl in plans.values())
+    want = {"field_backward_v3": chunks, "field_backward_v3_wgrad": chunks,
+            "field_backward_v3_sum": len(bwd)}
+    print(f"  K13: kernel A and kernel B once per chunk of each call "
+          f"({chunks} chunks over passes 2 and 4), its sum once per call: "
+          f"{want}", flush=True)
+    if any(launches[k] != v for k, v in want.items()):
+        raise RuntimeError("K13 did not run kernel A and kernel B once per "
+                           "chunk and its sum once per call")
     results = {k: {"err": 0.0} for k in API_KERNELS}
     n = render_mc.shape[0]
 
@@ -2385,31 +2472,46 @@ def api_phase(field, render_mc, cam_calls, card, first):
         results["field_forward_v5"]["err"] = max(
             results["field_forward_v5"]["err"], err)
 
-    # K13 on K8's captured inputs of passes 2 and 4
+    # K13 on K8's captured inputs of passes 2 and 4: against its first
+    # design, K8, itself and its plain version; its sum against its plain
+    # version on the same slices and partials
     r13 = results["field_backward_v3"]
     for p, args in bwd.items():
         again = ft.field_backward_v3(*args)
+        old = ft.field_backward_v3_first_design(first13, *args)
         k8 = ft.field_backward_v4(*args)
         torch.cuda.synchronize()
         if not same_grads(k13[p], again):
             raise RuntimeError(f"K13 pass {p} differs from itself")
-        if not (torch.equal(k13[p][0], k8[0])
-                and torch.equal(k13[p][1], k8[1])):
-            raise RuntimeError(f"K13 pass {p}: dmc or dg differ from K8's")
-        werr = max(rel_err(a, b) for a, b in zip(k13[p][2], k8[2]))
+        for tag, ref in (("its first design", old), ("K8", k8)):
+            if not (torch.equal(k13[p][0], ref[0])
+                    and torch.equal(k13[p][1], ref[1])):
+                raise RuntimeError(f"K13 pass {p}: dmc or dg differ from "
+                                   f"{tag}'s")
+        werr = {tag: max(rel_err(a, b) for a, b in zip(k13[p][2], ref[2]))
+                for tag, ref in (("first", old), ("K8", k8))}
+        same8 = sum(torch.equal(a, b) for a, b in zip(k13[p][2], k8[2]))
+        ulps8 = max(ulps_of_max(a, b) for a, b in zip(k13[p][2], k8[2]))
         plain = ft.field_backward_v4_plain(*args)
         errs = {"dmc": rel_err(k13[p][0], plain[0]),
                 "dg": rel_err(k13[p][1], plain[1]),
                 "dpacked": max(rel_err(a, b)
                                for a, b in zip(k13[p][2], plain[2]))}
-        print(f"  K13 pass {p}: rows {args[1].shape[0]}, == itself, dmc and "
-              f"dg == K8's, bit for bit; weight gradients within {werr:.6g} "
-              f"of K8's (limit {K13_TOL}); against its plain version: "
-              + ", ".join(f"{k} {v:.6g}" for k, v in errs.items())
+        print(f"  K13 pass {p}: rows {args[1].shape[0]}, == itself; dmc and "
+              f"dg == its first design's (RSN_K13_FIRST_DESIGN) and == K8's, "
+              f"bit for bit; the 20 gradients within {werr['first']:.6g} of "
+              f"the first design's and {werr['K8']:.6g} of K8's (limit "
+              f"{K13_TOL}; {same8} of 20 == K8's bit for bit, the largest "
+              f"difference {ulps8:.2f} ulp of its tensor's largest value: "
+              f"the sums over the P partials and the block slices in another "
+              f"order); against its plain "
+              f"version: " + ", ".join(f"{k} {v:.6g}" for k, v in
+                                       errs.items())
               + f" (limit {K8_TOL})", flush=True)
-        if werr > K13_TOL or max(errs.values()) > K8_TOL:
+        if max(werr.values()) > K13_TOL or max(errs.values()) > K8_TOL:
             raise RuntimeError(f"K13 pass {p} disagrees")
         r13["err"] = max(r13["err"], max(errs.values()))
+        del old, again, k8
 
     # times and bounds
     w2 = nbytes(*packed)
@@ -2464,19 +2566,66 @@ def api_phase(field, render_mc, cam_calls, card, first):
         if normals:
             results["field_forward_v5"].update(ms=ms["K10"], plain_ms=pl,
                                                bound_ms=b, bound_by=by)
+    # K13 on passes 4 and 2: one call beside its first design's, then back
+    # to back in turns with it (new, first, new, first); kernel A, kernel B
+    # and the sum apart; each design's scratch
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_train.cu")
     for p in (4, 2):
         args = bwd[p]
         _, mc, g8, d_out, f_out, _ = args
-        k = cuda_ms(lambda: ft.field_backward_v3(*args))
+        new = lambda: ft.field_backward_v3(*args)
+        old = lambda: ft.field_backward_v3_first_design(first13, *args)
+        one = (cuda_ms(new), cuda_ms(old))
         k8 = cuda_ms(lambda: ft.field_backward_v4(*args))
         pl = cuda_ms(lambda: ft.field_backward_v4_plain(*args))
+        turns = [back_to_back_ms(f) for f in (new, old, new, old)]
+        ka, kb, plan = kernels_a_and_b("field_backward_v3", args)
+        _, _, small, partial = ft.stash_phases("field_backward_v3", args[:5],
+                                               args[5])
+        got = ft.k13_sum(small, partial)
+        want = torch.cat([x.reshape(-1) for x in
+                          ft.k13_sum_plain(small, partial)])
+        torch.cuda.synchronize()
+        serr = float((got - want).abs().max())
+        ks = cuda_ms(lambda: ft.k13_sum(small, partial))
+        ps = cuda_ms(lambda: ft.k13_sum_plain(small, partial))
+        sb, sby = bound(0, nbytes(small, partial, got))
         outs = g8.shape[0] * 512 * 4 + ft.PACK_FLOATS * 4 + mc.shape[0] * 16 * 4
         b, by = bound(FLOPS["field_backward_v4"] * mc.shape[0],
                       nbytes(mc, g8, d_out, f_out) + w_bytes + outs)
-        print(f"  K13 pass {p}: {mc.shape[0]} rows, kernel {k:.4f} ms, K8 "
-              f"{k8:.4f} ms, plain {pl:.4f} ms, bound {b:.4f} ms ({by}; "
-              f"median of 10; {card})", flush=True)
-        r13.update(ms=k, plain_ms=pl, bound_ms=b, bound_by=by)
+        first_scratch = plan.blocks * (ft.PACK_FLOATS * 4 + ft.TILE_ROWS
+                                       * ft.ACTS_COLS * 2)
+        print(f"  K13 pass {p}: {mc.shape[0]} rows, one call {one[0]:.4f} ms "
+              f"against the first design's {one[1]:.4f} ms; back to back in "
+              f"turns {turns[0]:.4f} / {turns[2]:.4f} ms against "
+              f"{turns[1]:.4f} / {turns[3]:.4f} ms "
+              f"({(turns[1] + turns[3]) / (turns[0] + turns[2]):.2f}x); "
+              f"kernel A alone {ka:.4f} ms, kernel B alone {kb:.4f} ms over "
+              f"{len(plan.chunks)} chunks of {plan.blocks} blocks x up to "
+              f"{ft.TILES_PER_CHUNK} tiles, P = {plan.slices}, the sum "
+              f"{ks:.4f} ms (plain {ps:.4f} ms, bound {sb:.4f} ms ({sby}), "
+              f"== its plain version within {serr:.6g}); K8 {k8:.4f} ms, "
+              f"plain {pl:.4f} ms, bound {b:.4f} ms ({by}); scratch per call "
+              f"{plan.scratch_bytes()} bytes (the first design's: "
+              f"{first_scratch}), both + {ft.PACK_FLOATS * 4} of the "
+              f"gradients (median of 10; {card})", flush=True)
+        if serr != 0.0:
+            raise RuntimeError("K13's sum differs from its plain version")
+        if p == 2:
+            r13.update(ms=one[0], plain_ms=pl, bound_ms=b, bound_by=by)
+            results["field_backward_v3_sum"].update(
+                err=serr, ms=ks, plain_ms=ps, bound_ms=sb, bound_by=sby)
+        else:  # kernel B on K13's chunk of pass 4 (512 records)
+            sc = ft.stash_scratch(plan, mc.device)
+            ws = [ft.kernel_a(lib, "field_backward_v3", plan, c, args[:5], sc)
+                  for c in plan.chunks][-1]
+            results["field_backward_v3_wgrad"].update(kernel_b_on_a_chunk(
+                ws, "field_backward_v3_wgrad", card, "K13 pass 4's chunk"))
+            del sc, ws
+        del small, partial, got, want
+        torch.cuda.empty_cache()
     return {"kernels": results, "launches": launches}
 
 
@@ -2734,10 +2883,13 @@ def flip_free_rays(packed_v3, h7, g, bneck, S: int):
     return ~near.any(dim=1)
 
 
-def check_k17_against_k8(tag, args, k17=None):
-    """K17 against K8 on the same rows: dmc bit for bit, dg and the weight
-    gradients within K13_TOL of each tensor's max (the sums over rows run
-    in another order) -> K17's result."""
+def check_k17_against_k8(tag, args, first13, k17=None):
+    """K17 against K8 on the same rows: dmc and the weight matrices w0..w7,
+    w_hc bit for bit (kernel B sums K8's records), dg and the other 11
+    gradients within K13_TOL of each tensor's max (kernel A's sums over
+    128 rows run in another order); and against its first design (the
+    build first13): dmc bit for bit, dg and the 20 gradients within
+    K13_TOL -> K17's result."""
     import torch
 
     from rsn_torch.experiments import bwd_whole
@@ -2746,17 +2898,62 @@ def check_k17_against_k8(tag, args, k17=None):
     k17 = bwd_whole.field_backward_whole(*args) if k17 is None else k17
     k8 = ft.field_backward_v4(*args)
     torch.cuda.synchronize()
+    rest = [i for i in range(20) if i not in K8_WEIGHTS]
     errs = {"dg": rel_err(k17[1], k8[1]),
-            "dpacked": max(rel_err(a, b) for a, b in zip(k17[2], k8[2]))}
-    same = torch.equal(k17[0], k8[0])
-    print(f"  K17 against K8, {tag} ({args[1].shape[0]} rows): dmc "
-          f"{'==' if same else '!='} K8's bit for bit; dg and the weight "
-          f"gradients within " + ", ".join(f"{k} {v:.6g}"
-                                           for k, v in errs.items())
-          + f" of K8's max (limit {K13_TOL})", flush=True)
-    if not same or max(errs.values()) > K13_TOL:
-        raise RuntimeError(f"K17 disagrees with K8 ({tag})")
+            "the other 11": max(rel_err(k17[2][i], k8[2][i]) for i in rest)}
+    same = torch.equal(k17[0], k8[0]) and all(
+        torch.equal(k17[2][i], k8[2][i]) for i in K8_WEIGHTS)
+    same_b = sum(torch.equal(k17[2][i], k8[2][i]) for i in rest)
+    del k8
+    old = bwd_whole.first_design(first13, *args)
+    torch.cuda.synchronize()
+    ferrs = {"dg": rel_err(k17[1], old[1]),
+             "dpacked": max(rel_err(a, b) for a, b in zip(k17[2], old[2]))}
+    fsame = torch.equal(k17[0], old[0])
+    fdg = torch.equal(k17[1], old[1])
+    del old
+    print(f"  K17, {tag} ({args[1].shape[0]} rows): dmc, w0..w7 and w_hc "
+          f"{'==' if same else '!='} K8's bit for bit ({same_b} of the other "
+          f"11 too); dg and the other 11 within " + ", ".join(
+              f"{k} {v:.6g}" for k, v in errs.items())
+          + f" of K8's max; against its first design (RSN_K13_FIRST_DESIGN) "
+          f"dmc {'==' if fsame else '!='} bit for bit, dg "
+          f"{'==' if fdg else '!='} bit for bit, within " + ", ".join(
+              f"{k} {v:.6g}" for k, v in ferrs.items())
+          + f" (limit {K13_TOL})", flush=True)
+    if not (same and fsame) or max(errs.values()) > K13_TOL \
+            or max(ferrs.values()) > K13_TOL:
+        raise RuntimeError(f"K17 disagrees with K8 or its first design "
+                           f"({tag})")
     return k17
+
+
+def whole_kernels_a_and_b(args):
+    """The CUDA-event times of one K17 call's (its wrapper's arguments
+    `args`) kernel A launches alone and of its kernel B launches alone (on
+    the records kernel A left) -> (kernel A ms, kernel B ms, the plan, the
+    scratch, which holds the last chunk's records)."""
+    import torch
+
+    from rsn_torch.experiments import bwd_whole
+    from rsn_torch.kernels import field_train as ft
+    from rsn_torch.kernels import wgrad_sm90 as wg
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_train.cu")
+    f_out, S = args[-2], args[-1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ft.stash_plan(f_out.shape[0] // S, S, sms)
+    sc = bwd_whole.whole_scratch(plan, f_out.device)
+    partial = torch.empty((plan.slices, wg.PARTIAL_FLOATS),
+                          device=f_out.device)
+    ka = cuda_ms(lambda: [bwd_whole.kernel_a(lib, plan, c, args[:-1], sc)
+                          for c in plan.chunks])
+    kb = cuda_ms(lambda: [
+        wg.contract(sc.stash[:plan.blocks * (t1 - t0)], partial,
+                    accumulate=i > 0, label=bwd_whole.WGRAD_LABEL)
+        for i, (t0, t1) in enumerate(plan.chunks)])
+    return ka, kb, plan, sc
 
 
 def unfolded_kernels_a_and_b(name: str, inputs, S: int):
@@ -2835,12 +3032,13 @@ def library_unfolded_contraction(ws, want):
     return ms, max(errs), how
 
 
-def backward_experiments_phase(cam_calls, card, first):
+def backward_experiments_phase(cam_calls, card, first, first13):
     """Phase 18 -> {"kernels": K17-K19's results, "launches": their
     launches in the run of this slice's path (the tools' backward
     experiments on the tools' rows; no model or CLI path calls them, as in
     rsn)}.  first: the build of experiments_bwd.cu with
-    RSN_K18_FIRST_DESIGN (phase 2)."""
+    RSN_K18_FIRST_DESIGN, first13: of field_train.cu with
+    RSN_K13_FIRST_DESIGN (phase 2)."""
     import torch
 
     from rsn_torch.experiments import bwd_ablate, bwd_noipe, bwd_whole
@@ -2857,7 +3055,7 @@ def backward_experiments_phase(cam_calls, card, first):
     f_out = ft.field_forward_v3_train(p1, mc, g, S)
     _, xacts = ft.field_forward_v6(p1, mc, g, S, spill_x=True)
     k17_args = (p1, mc, g, d24, f_out, S)
-    names = (("field_backward_whole",)
+    names = (("field_backward_whole", "field_backward_whole_wgrad")
              + tuple(bwd_ablate.label(*v) for v in bwd_ablate.VARIANTS)
              + ("run_noipe", "bwd_unfolded_wgrad"))
     ff.reset_launch_counts()
@@ -2878,13 +3076,17 @@ def backward_experiments_phase(cam_calls, card, first):
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     chunks = len(bwd_ablate.stash_plan(g.shape[0], S, sms).chunks)
+    chunks17 = len(ft.stash_plan(g.shape[0], S, sms).chunks)
     per_chunk = {"bwd_ablate_full_wgrad": chunks, "run_noipe": chunks,
-                 "bwd_unfolded_wgrad": 2 * chunks}
-    print(f"  K18 full + wgrad and K19: kernel A and kernel B once per chunk "
-          f"of each call ({chunks} chunks): {per_chunk}", flush=True)
+                 "bwd_unfolded_wgrad": 2 * chunks,
+                 "field_backward_whole": chunks17,
+                 "field_backward_whole_wgrad": chunks17}
+    print(f"  K17, K18 full + wgrad and K19: kernel A and kernel B once per "
+          f"chunk of each call ({chunks17} and {chunks} chunks): "
+          f"{per_chunk}", flush=True)
     if any(launches[k] != v for k, v in per_chunk.items()):
-        raise RuntimeError("K18 full + wgrad or K19 did not run kernel A and "
-                           "kernel B once per chunk")
+        raise RuntimeError("K17, K18 full + wgrad or K19 did not run kernel "
+                           "A and kernel B once per chunk")
     results = {k: {"err": 0.0} for k in names}
 
     def hold(tag, got, on_acts, plain, label, free=None):
@@ -2926,9 +3128,10 @@ def backward_experiments_phase(cam_calls, card, first):
     hold("K17", k17, ft.field_backward_v5_plain(p1, mc, g, xacts, d24, f_out,
                                                 S),
          ft.field_backward_v4_plain(*k17_args), "field_backward_whole")
-    check_k17_against_k8("the tools' rows", k17_args, k17)
+    check_k17_against_k8("the tools' rows", k17_args, first13, k17)
     for p in (2, 4):
-        check_k17_against_k8(f"phase 12's pass {p}", cam_calls["bwd"][p])
+        check_k17_against_k8(f"phase 12's pass {p}", cam_calls["bwd"][p],
+                             first13)
     del k17
     # K18's modes; K19 on K3's spill of the same rows.  The plain versions
     # on the kernels' activations take the kernels' bottleneck: K12's
@@ -2992,17 +3195,39 @@ def backward_experiments_phase(cam_calls, card, first):
     # times and bounds
     w1, w3 = nbytes(*p1), nbytes(*p3)
     dg_bytes = g.shape[0] * 512 * 4
+    # K17: one call beside its first design's, then back to back in turns
+    # with it (new, first, new, first); kernels A and B apart; each
+    # design's scratch; kernel B alone on the last chunk
     ms = {"K8": cuda_ms(lambda: ft.field_backward_v4(*k17_args))}
-    k = cuda_ms(lambda: bwd_whole.field_backward_whole(*k17_args))
+    new = lambda: bwd_whole.field_backward_whole(*k17_args)
+    old = lambda: bwd_whole.first_design(first13, *k17_args)
+    k, kold = cuda_ms(new), cuda_ms(old)
+    turns = [back_to_back_ms(f) for f in (new, old, new, old)]
     pl = cuda_ms(lambda: ft.field_backward_v4_plain(*k17_args))
     b, by = bound(FLOPS["field_backward_v4"] * n,
                   nbytes(mc, g, d24, f_out) + w1 + dg_bytes
                   + ft.PACK_FLOATS * 4 + n * 16 * 4)
     results["field_backward_whole"].update(ms=k, plain_ms=pl, bound_ms=b,
                                            bound_by=by)
-    print(f"  K17: {n} rows, kernel {k:.4f} ms, K8 {ms['K8']:.4f} ms (the "
-          f"same call), plain {pl:.4f} ms, bound {b:.4f} ms ({by}; median "
-          f"of 10; {card})", flush=True)
+    ka, kb, plan, sc = whole_kernels_a_and_b(k17_args)
+    print(f"  K17: {n} rows, one call {k:.4f} ms against the first design's "
+          f"{kold:.4f} ms; back to back in turns {turns[0]:.4f} / "
+          f"{turns[2]:.4f} ms against {turns[1]:.4f} / {turns[3]:.4f} ms "
+          f"({(turns[1] + turns[3]) / (turns[0] + turns[2]):.2f}x); kernel A "
+          f"alone {ka:.4f} ms, kernel B alone {kb:.4f} ms over "
+          f"{len(plan.chunks)} chunks of {plan.blocks} blocks x up to "
+          f"{plan.chunks[0][1] - plan.chunks[0][0]} tiles, P = "
+          f"{plan.slices}; K8 {ms['K8']:.4f} ms (the same call), plain "
+          f"{pl:.4f} ms, bound {b:.4f} ms ({by}); scratch per call "
+          f"{bwd_whole.scratch_bytes(plan)} bytes (the first design's: "
+          f"{bwd_whole.first_design_scratch_bytes(plan)}) (median of 10; "
+          f"{card})", flush=True)
+    t0, t1 = plan.chunks[-1]
+    results["field_backward_whole_wgrad"].update(kernel_b_on_a_chunk(
+        sc.stash[:plan.blocks * (t1 - t0)], bwd_whole.WGRAD_LABEL, card,
+        "K17's last chunk of the tools' rows"))
+    del sc
+    torch.cuda.empty_cache()
     for mode, wg in bwd_ablate.VARIANTS:
         label = bwd_ablate.label(mode, wg)
         k = cuda_ms(lambda: bwd_ablate.run(mode, wg, p3, mc, g, d_out, S))

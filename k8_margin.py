@@ -5,8 +5,10 @@ limit, on one CUDA card.
     python3 k8_margin.py
 
 K8, K4 and K5 take their weight matrices (w0..w7, w_hc) from kernel B.
-chip_smoke.py's phase 12 holds K8's to K13's (the first design's body,
-which sums per-block fp32 slices) within K13_TOL (1e-4) of each tensor's
+chip_smoke.py's phase 12 holds K8's to K13's first design (the
+RSN_K13_FIRST_DESIGN build of field_train.cu, built here beside the port's:
+K8's first-design body, which sums per-block fp32 slices) within K13_TOL
+(1e-4) of each tensor's
 max, on passes 2 and 4 of one camera-on step.  This script reads that
 error for K8 on passes 2 and 4, K5 on pass 2 and K4 on pass 4 (both on
 K3's spill of the pass's rows), over field seeds SEEDS and train steps
@@ -111,7 +113,7 @@ def main() -> int:
                             with_route)
     from rsn_torch.engine.trainer import Trainer
     from rsn_torch.kernels import field_train as ft
-    from rsn_torch.kernels.build import load_library
+    from rsn_torch.kernels.build import load_library, start_variant
     from rsn_torch.models.field import Field
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -120,7 +122,10 @@ def main() -> int:
                           timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    waiting = start_variant("field_train.cu", ("RSN_K13_FIRST_DESIGN",),
+                            "first_design")
     lib = load_library("field_train.cu")
+    first, _ = waiting()
     worst = {label: [0.0, float("inf"), float("inf"), 0.0, 0.0]
              for label, _, _ in READINGS}
     for seed in SEEDS:
@@ -136,8 +141,8 @@ def main() -> int:
                     generator=torch.Generator().manual_seed(seed)))
             for step in STEPS:
                 calls = capture_recompute_inputs(trainer, step)
-                k13 = {p: ft.field_backward_v3(*calls["bwd"][p])[2]
-                       for p in (2, 4)}
+                k13 = {p: ft.field_backward_v3_first_design(
+                    first, *calls["bwd"][p])[2] for p in (2, 4)}
                 for label, name, p in READINGS:
                     r = readings(lib, name, kernel_args(name,
                                                         calls["bwd"][p]),

@@ -35,18 +35,18 @@
 //                       tile's IPE computed while this tile's trunk runs.
 //   field_backward_v3  (K13; field_train.py, _bwd_kernel_impl(two_d=False)):
 //                       K8 with whole-grid weight-gradient accumulators:
-//                       the kernel returns the 20 gradients themselves.
+//                       the launches return the 20 gradients themselves
+//                       (K8's kernels A and B, then a sum kernel).
 //   field_backward_whole (K17; tools/exp_bwd_whole.py, field_backward_whole,
 //                       rsn's field_backward_v4(n_halves=1)): K8's
-//                       function on 128-row tiles, each weight gradient
-//                       contracted over all 128 rows between one load and
-//                       one store of the block's slice.
+//                       function on 128-row tiles (the tool's one
+//                       whole-tile chain).
 //
 // What bounds them on this card: about 2.2 MFLOP of bf16 products per
 // sample row each, against 4.3 KB (K3 spill) or 4.4 KB (K4/K5 reads) of
 // device memory per row: about 500 FLOP per byte, above the card's ~295,
-// so the tensor cores are the limit.  In the first design (K13, K17, and
-// K4, K5 and K8 before kernel B) the weight-gradient accumulators are not:
+// so the tensor cores are the limit.  In the first design (K4, K5, K8, K13
+// and K17 before kernel B) the weight-gradient accumulators are not:
 // they live in device memory (one fp32 slice of 2.4 MB per block), and
 // every 64-row tile reads and writes its block's slice once, about 38 KB
 // per row of traffic (K18: 57% of the backward).
@@ -103,9 +103,9 @@
 //     The three kernels share the partition and the chunks, so they take
 //     every per-row value and every sum in the same order: K4 equals K8,
 //     and K5 equals K4 on dg, on every one of the 20 gradients, bit for
-//     bit.  The weight matrices differ from the first design's (K13, K17)
-//     only by the order of their fp32 sums over the rows, and are the same
-//     from run to run.
+//     bit.  The weight matrices differ from the first design's (the
+//     RSN_K13_FIRST_DESIGN build's K13) only by the order of their fp32
+//     sums over the rows, and are the same from run to run.
 //   - K10 carries rsn's schedule over, not its two-slot VMEM buffer kept
 //     across sequential grid steps: one persistent block per SM, whose four
 //     producer warps write the next tile's IPE into one of two X slots
@@ -116,21 +116,33 @@
 //     K7 and K1 at the train width bit for bit.  The normals' IPE backward
 //     recomputes damp and u from mc, so only X is double-buffered (146 KB,
 //     one block per SM).
-//   - K13's whole-grid accumulators without float atomics: each block runs
-//     K8's body into its own slice; a cooperative launch keeps every block
-//     resident, so a grid-wide barrier on a counter can wait for all
-//     slices, and the blocks then sum the columns over the slices in block
-//     order.  dmc and dg equal K8's bit for bit (its partition); the
-//     weight gradients differ from K8's (torch.sum over the slices) only by
-//     the order of the fp32 sums, and are the same from run to run.
+//   - K13's whole-grid accumulators without float atomics: K8's kernels A
+//     and B on K8's chunks, then one launch (field_backward_v3_sum_kernel)
+//     that sums kernel B's P partials in slice order and the blocks'
+//     compact slices in block order into the 20 gradients, one thread per
+//     output float.  dmc and dg equal K8's bit for bit (the same launches);
+//     the weight and bias gradients differ from K8's (torch.sum over the
+//     partials and slices) only by the order of those fp32 sums.  The first
+//     design (RSN_K13_FIRST_DESIGN) ran K8's first-design body into
+//     per-block slices of all 20 gradients and summed them behind a
+//     grid-wide barrier of a cooperative launch.
 //   - K17 is K8's body with a template row tile of 128 (the tool's "one
 //     whole-tile chain"): its tile's D, INP and X take 170 KB of shared
 //     memory, so its fp32 dx tile (64 KB) lives in the block's global
 //     workspace beside its 128-row recompute slot; the recompute, the
 //     dgrads and their epilogues run on the two 64-row halves, so every
-//     per-row value (dmc, the activations) equals K8's bit for bit, and
-//     only the sums over rows (dg, the weight gradients) change order.
-//     It halves the slice traffic per row.
+//     per-row value (dmc, the activations, every stashed operand) equals
+//     K8's bit for bit.  Its kernel A stashes each half as the record of
+//     the matching 64-row tile of K8's plan, so kernel B sums K8's records
+//     in K8's order: w0..w7 and w_hc equal K8's bit for bit, and only the
+//     sums that kernel A takes over 128 rows (dg, b_hc, the mid head)
+//     change order.  Its 194,560 bytes of shared memory leave room for one
+//     32 KB staging buffer, not two: each stash point's four pieces (two
+//     operands of two halves) go out in turns, a bulk copy each, the next
+//     gather waiting until the copy has read the buffer.  The first design
+//     (RSN_K13_FIRST_DESIGN) summed the products into the block's fp32
+//     slice over all 128 rows, which halved K8's first-design slice
+//     traffic per row.
 // Later work: the recompute and the dgrads on wgmma (trunk_sm90.cuh).
 #include "field_common.cuh"
 #include "train_sm90.cuh"
@@ -350,6 +362,11 @@ static_assert(K4A_SMEM_BYTES <= 232448, "K4's kernel A must fit one SM");
 constexpr int WHOLE = 2 * TM;  // K17's row tile
 constexpr int K17_SMEM_BYTES = BwdSmem<WHOLE>::DXE;
 static_assert(K17_SMEM_BYTES <= 232448, "K17 must fit one SM");
+// K17's kernel A: its 194,560 bytes and two staging buffers (260,096) do
+// not fit, so it stages through one 32 KB buffer, a piece at a time
+constexpr int K17A_SMEM_BYTES = K17_SMEM_BYTES + wgrad::STAGING_BYTES;
+static_assert(K17A_SMEM_BYTES <= 232448, "K17's kernel A must fit one SM");
+static_assert(K17_SMEM_BYTES % 1024 == 0, "the staging buffer's alignment");
 
 struct BwdArgs {
   const float* mc;      // (N, 16) f32, K4 and K8
@@ -392,22 +409,27 @@ static_assert(GradSlice<true>::FLOATS == 2692, "K8's compact slice");
 // tile between one load and one store of the block's slice; the trunk
 // recompute, the dgrads and their epilogues run on the tile's 64-row
 // halves, each element computed as on a 64-row tile.  STASH (kernel A of
-// K4, K5 and K8): only the tiles [a.tile0, a.tile1) of the block's run,
-// and instead of
+// K4, K5, K8, K13 and K17): only the tiles [a.tile0, a.tile1) of the
+// block's run, and instead of
 // each weight-gradient product its two operand tiles go to the tile's
 // record of the chunk's workspace (wgrad_sm90.cuh), which kernel B
 // contracts; the biases and the mid head's gradients go to the block's
 // compact slice (GradSlice<true>), summed over the chunks' launches in
-// the same order as over one run.
+// the same order as over one run.  K17's 128-row tile stashes each of its
+// two 64-row halves as the record of that 64-row tile (so its records are
+// K8's); a chunk's a.tile0 is even, so no 128-row tile straddles two
+// chunks, and a half past the end of the run has no record of its own.
 template <bool WANT_DMC, bool RECOMPUTE, int ROWS = TM, bool STASH = false>
 __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
   static_assert(WANT_DMC || !RECOMPUTE, "K8 computes dmc");
   static_assert(ROWS == TM || RECOMPUTE, "128-row tiles: K17 only");
   static_assert(ROWS % TM == 0 && ROWS <= THREADS, "64-row halves");
-  static_assert(!STASH || ROWS == TM, "the stash takes 64-row tiles");
   typedef BwdSmem<ROWS> L;
   typedef GradSlice<STASH> G;
   constexpr int HALVES = ROWS / TM;
+  // K17's kernel A: one staging buffer (K17A_SMEM_BYTES), so each stash
+  // point's four pieces (the two operands of each half) go out in turns
+  constexpr bool SPLIT = STASH && HALVES == 2;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* D = reinterpret_cast<bf16*>(smem + L::D);
   bf16* INP = reinterpret_cast<bf16*>(smem + L::INP);
@@ -430,16 +452,31 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
       STASH ? min(rowB, rowA + (long long)a.tile1 * TM) : rowB;
   const long long chunk_tiles = a.tile1 - a.tile0;
   // kernel A: the staging buffers behind the body's layout (K4's with the
-  // dx tile, or K5's)
-  wgrad::Stash st{smem + (WANT_DMC ? K4_SMEM_BYTES : K5_SMEM_BYTES)};
+  // dx tile, or K5's; K17's one buffer behind its own)
+  wgrad::Stash st{smem + (ROWS == WHOLE ? K17_SMEM_BYTES
+                          : WANT_DMC    ? K4_SMEM_BYTES
+                                        : K5_SMEM_BYTES)};
+  // K17's kernel A: one piece of a stash point through the one buffer,
+  // once every thread's previous gathers may overwrite it; thread 0 copies
+  // it to dst (a half with rows only) after the barrier behind the gathers
+  auto turn = [&](auto gather, unsigned char* dst, int bytes, bool live) {
+    st.wait_free();
+    block_sync();
+    gather();
+    st.gathered();
+    block_sync();
+    if (live) st.copy_out(dst, bytes);
+  };
 
   for (long long row0 = STASH ? rowA + (long long)a.tile0 * TM : rowA;
        row0 < rowEnd; row0 += ROWS) {
     const int nv = (int)min((long long)ROWS, rowB - row0);
-    unsigned char* rec =
-        STASH ? a.stash + (blockIdx.x * chunk_tiles + (row0 - rowA) / TM -
-                           a.tile0) * wgrad::REC_BYTES
-              : nullptr;
+    // kernel A: the record of the tile's 64-row half h
+    auto record = [&](int h) {
+      return a.stash + (blockIdx.x * chunk_tiles + (row0 + h * TM - rowA) / TM -
+                        a.tile0) * wgrad::REC_BYTES;
+    };
+    unsigned char* rec = STASH ? record(0) : nullptr;
     bf16* slot =
         RECOMPUTE ? a.ws + (long long)blockIdx.x * ROWS * ld : nullptr;
     const bf16* acts = RECOMPUTE ? slot : a.acts + row0 * ld;
@@ -536,9 +573,23 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
     block_sync();
 
     // ---- heads + mid: dW_hc += hs7^T d_hc (kernel A: hs7 and d_hc's 144 live
-    // columns to the record, copied after the barrier below); dh7 = d_hc
-    // w_hc^T ----
-    if constexpr (STASH) {
+    // columns to the record, copied after the barrier below; K17: each
+    // half's, in turns, here); dh7 = d_hc w_hc^T ----
+    if constexpr (SPLIT) {
+      for (int h = 0; h < HALVES; ++h) {
+        const bf16* Dh = D + h * TM * LDH;
+        turn([&] { wgrad::stage_rows(st.buf, INP + h * TM * LDH, LDH,
+                                     WIDTH); },
+             record(h) + wgrad::ACT_OFF + (LAYERS - 1) * wgrad::ACT_BYTES,
+             wgrad::ACT_BYTES, nv > h * TM);
+        turn([&] {
+               wgrad::stage_rows(st.buf, Dh, LDH, 16);
+               wgrad::stage_rows(st.buf, Dh + MID, LDH, MID, 16);
+             },
+             record(h) + wgrad::DHC_OFF, sm90::HEAD_N * wgrad::FEAT_BYTES,
+             nv > h * TM);
+      }
+    } else if constexpr (STASH) {
       wgrad::stage_rows(st.buf, INP, LDH, WIDTH);
       wgrad::stage_rows(st.second(), D, LDH, 16);  // the heads, the mid seed
       wgrad::stage_rows(st.second(), D + MID, LDH, MID, 16);
@@ -552,7 +603,7 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
       FragC acc[4][2];
       dgrad_mma<2>(D + r0 * LDH, p.w_hc, 0, HC_TILES, acc);
       block_sync();
-      if constexpr (STASH)
+      if constexpr (STASH && !SPLIT)
         st.copy_out(rec + wgrad::ACT_OFF + (LAYERS - 1) * wgrad::ACT_BYTES,
                     wgrad::ACT_BYTES, rec + wgrad::DHC_OFF,
                     sm90::HEAD_N * wgrad::FEAT_BYTES);
@@ -574,12 +625,25 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
         block_sync();
       }
       // kernel A: X (layer 0) or hs_{i-1}, and dpre_i, to the record: copied
-      // after the next barrier
+      // after the next barrier (K17: each half's, in turns, here)
       const int off0 =
           i == 0 ? wgrad::X_OFF : wgrad::ACT_OFF + (i - 1) * wgrad::ACT_BYTES;
       const int bytes0 = (i == 0 ? ENC : WIDTH) * wgrad::FEAT_BYTES;
       const int off1 = wgrad::DPRE_OFF + i * wgrad::ACT_BYTES;
-      if constexpr (STASH) {
+      if constexpr (SPLIT) {
+        for (int h = 0; h < HALVES; ++h) {
+          turn([&] {
+                 if (i == 0)
+                   wgrad::stage_rows(st.buf, X + h * TM * LDX, LDX, ENC);
+                 else
+                   wgrad::stage_rows(st.buf, INP + h * TM * LDH, LDH, WIDTH);
+               },
+               record(h) + off0, bytes0, nv > h * TM);
+          turn([&] { wgrad::stage_rows(st.buf, D + h * TM * LDH, LDH,
+                                       WIDTH); },
+               record(h) + off1, wgrad::ACT_BYTES, nv > h * TM);
+        }
+      } else if constexpr (STASH) {
         if (i == 0)
           wgrad::stage_rows(st.buf, X, LDX, ENC);
         else
@@ -612,7 +676,7 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
           FragC acc[4][2];
           dgrad_mma<2>(D + r0 * LDH, W, c0, ALL_TILES, acc);
           block_sync();  // wgrad and dgrad reads of D are done
-          if constexpr (STASH)
+          if constexpr (STASH && !SPLIT)
             st.copy_out(rec + off0, bytes0, rec + off1, wgrad::ACT_BYTES);
           drain<2>(acc, c0, stage, [&](int rr, int c, float v) {
             const int r = r0 + rr, hc = c - c0;
@@ -627,7 +691,7 @@ __device__ void field_backward_body(const V3Params& p, const BwdArgs& a) {
       if constexpr (STASH)
         if (i == 1) st.wait_free();  // layer 0 gathers after this barrier
       block_sync();
-      if constexpr (STASH)
+      if constexpr (STASH && !SPLIT)
         if (i == 0)
           st.copy_out(rec + off0, bytes0, rec + off1, wgrad::ACT_BYTES);
     }
@@ -662,8 +726,71 @@ __global__ void __launch_bounds__(THREADS, 1)
   field_backward_body<true, true, TM, true>(p, a);
 }
 
+// K17's kernel A: K8's on 128-row tiles, each tile's halves stashed as the
+// records of K8's 64-row tiles
 __global__ void __launch_bounds__(THREADS, 1)
     field_backward_whole_kernel(V3Params p, BwdArgs a) {
+  field_backward_body<true, true, WHOLE, true>(p, a);
+}
+
+// K13's whole-grid sums, after K8's kernel A and kernel B on every chunk:
+// grads (PACK_FLOATS, the packed operands' shapes in order) from kernel B's
+// `slices` partials (w0..w7, then w_hc's 144 live columns), summed in slice
+// order, and the `blocks` compact slices of kernel A (GradSlice<true>: the
+// biases, w_out's and b_out's 3 live columns), summed in block order; w_hc's
+// columns 16..127 and w_out's and b_out's past 3 are zero.  One thread per
+// output float, a fixed order, no atomics, so the result is the same from
+// run to run.  Bound by its bytes: it reads each of the slices x 561,152
+// partial floats and blocks x 2,692 slice floats once and writes 608,640.
+constexpr int SUM_THREADS = 256;
+__global__ void __launch_bounds__(SUM_THREADS)
+    field_backward_v3_sum_kernel(const float* __restrict__ partial,
+                                 int slices, const float* __restrict__ small,
+                                 int blocks, float* __restrict__ grads) {
+  typedef GradSlice<true> G;
+  const int c = blockIdx.x * SUM_THREADS + threadIdx.x;
+  if (c >= PACK_FLOATS) return;
+  const float* src = nullptr;  // the column's first term; none: zero
+  int terms = 0;
+  long long stride = 0;
+  auto from_partial = [&](int off) {
+    src = partial + off;
+    terms = slices;
+    stride = wgrad::PARTIAL_FLOATS;
+  };
+  auto from_small = [&](int off) {
+    src = small + off;
+    terms = blocks;
+    stride = G::FLOATS;
+  };
+  if (c < OFF_B) {
+    from_partial(c);  // w0..w7: the partial's first W_FLOATS, in order
+  } else if (c < OFF_WHC) {
+    from_small(G::B + c - OFF_B);
+  } else if (c < OFF_BHC) {  // w_hc (256, 256): 16 head, 128 mid columns
+    const int r = (c - OFF_WHC) / WIDTH, k = (c - OFF_WHC) % WIDTH;
+    const int live = k < 16 ? k : k >= MID ? 16 + k - MID : -1;
+    if (live >= 0) from_partial(wgrad::W_FLOATS + r * sm90::HEAD_N + live);
+  } else if (c < OFF_WOUT) {
+    from_small(G::BHC + c - OFF_BHC);
+  } else if (c < OFF_BOUT) {  // w_out (128, 128): columns 0..2
+    const int r = (c - OFF_WOUT) / MID, k = (c - OFF_WOUT) % MID;
+    if (k < 3) from_small(G::WOUT + r * 3 + k);
+  } else if (c - OFF_BOUT < 3) {
+    from_small(G::BOUT + c - OFF_BOUT);
+  }
+  float s = 0.f;
+  for (int t = 0; t < terms; ++t) s = __fadd_rn(s, src[t * stride]);
+  grads[c] = s;
+}
+static_assert(wgrad::W_FLOATS == OFF_B, "the partial's w0..w7 are packed");
+
+#ifdef RSN_K13_FIRST_DESIGN
+// The first design of K17 and K13 (chip_smoke.py, the card tests), kept as
+// their yardstick: K8's body with the weight-gradient products summed into
+// the block's fp32 slice of all 20 gradients.  K17 on 128-row tiles:
+__global__ void __launch_bounds__(THREADS, 1)
+    field_backward_whole_first_kernel(V3Params p, BwdArgs a) {
   field_backward_body<true, true, WHOLE>(p, a);
 }
 
@@ -693,6 +820,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     grads[c] = s;
   }
 }
+#endif
 
 // A persistent grid of at most one block per SM over the 128-row tiles.
 template <bool NORMALS, bool SPILL, bool SPILL_X>
@@ -915,15 +1043,59 @@ int rsn_wgrad_sm90(const void* stash, void* partial, long long records,
       static_cast<cudaStream_t>(stream));
 }
 
-// K17: K8 on 128-row tiles.  ws: ceil(rays / rays_per_block) slots of
-// 128 x 2048 bf16 and dxe as many (128, 128) f32 tiles (both
-// uninitialised); dg zeroed, dpk as many zeroed slices of 608640 floats.
+// K17's kernel A on one chunk: K8's arguments (tile0 even), with ws
+// ceil(rays / rays_per_block) recompute slots of 128 x 2048 bf16 and dxe as
+// many (128, 128) f32 dx tiles (both uninitialised); its records are K8's
+// for the same chunk, and kernel B (rsn_wgrad_sm90) contracts them.
+int rsn_field_backward_whole_stash(const void* mean_cov, const void* g_bands,
+                                   const void* ipe_consts, const void* d_out,
+                                   const void* f_out, const void* const* ptrs,
+                                   void* dmc, void* dg, void* small, void* ws,
+                                   void* dxe, void* stash, long long rays,
+                                   int samples_per_ray, int rays_per_block,
+                                   int tile0, int tile1, void* stream) {
+  if (tile0 % 2) return (int)cudaErrorInvalidValue;  // a 128-row tile's
+                                                      // halves: one chunk
+  V3Params p;
+  fill_v3(&p, ptrs);
+  BwdArgs a{static_cast<const float*>(mean_cov),
+            static_cast<const float*>(g_bands),
+            static_cast<const float*>(ipe_consts), nullptr,
+            static_cast<const bf16*>(d_out), static_cast<const bf16*>(f_out),
+            static_cast<float*>(dmc), static_cast<float*>(dg),
+            static_cast<float*>(small), static_cast<bf16*>(ws), rays,
+            samples_per_ray, rays_per_block, static_cast<float*>(dxe),
+            static_cast<unsigned char*>(stash), tile0, tile1};
+  return launch_backward(field_backward_whole_kernel, K17A_SMEM_BYTES, p, a,
+                         stream);
+}
+
+// K13's sums after its chunks (K8's kernel A and kernel B): partial, the
+// `slices` fp32 partials of kernel B (wgrad::PARTIAL_FLOATS each); small,
+// the `blocks` compact slices of kernel A (2692 floats each); grads, the
+// 608640 floats of the 20 gradients (written).
+int rsn_field_backward_v3_sum(const void* partial, int slices,
+                              const void* small, int blocks, void* grads,
+                              void* stream) {
+  const unsigned grid = (PACK_FLOATS + SUM_THREADS - 1) / SUM_THREADS;
+  field_backward_v3_sum_kernel<<<grid, SUM_THREADS, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(partial), slices,
+      static_cast<const float*>(small), blocks, static_cast<float*>(grads));
+  return (int)cudaGetLastError();
+}
+
+// K17's first design, one launch (the RSN_K13_FIRST_DESIGN build; the
+// port's returns cudaErrorNotSupported: K17 runs in chunks,
+// rsn_field_backward_whole_stash then rsn_wgrad_sm90).  ws and dxe as for
+// the stash; dg zeroed, dpk as many zeroed slices of 608640 floats.
 int rsn_field_backward_whole(const void* mean_cov, const void* g_bands,
                              const void* ipe_consts, const void* d_out,
                              const void* f_out, const void* const* ptrs,
                              void* dmc, void* dg, void* dpk, void* ws,
                              void* dxe, long long rays, int samples_per_ray,
                              int rays_per_block, void* stream) {
+#ifdef RSN_K13_FIRST_DESIGN
   V3Params p;
   fill_v3(&p, ptrs);
   BwdArgs a{static_cast<const float*>(mean_cov),
@@ -933,8 +1105,14 @@ int rsn_field_backward_whole(const void* mean_cov, const void* g_bands,
             static_cast<float*>(dmc), static_cast<float*>(dg),
             static_cast<float*>(dpk), static_cast<bf16*>(ws), rays,
             samples_per_ray, rays_per_block, static_cast<float*>(dxe)};
-  return launch_backward(field_backward_whole_kernel, K17_SMEM_BYTES, p, a,
-                         stream);
+  return launch_backward(field_backward_whole_first_kernel, K17_SMEM_BYTES,
+                         p, a, stream);
+#else
+  (void)mean_cov, (void)g_bands, (void)ipe_consts, (void)d_out, (void)f_out;
+  (void)ptrs, (void)dmc, (void)dg, (void)dpk, (void)ws, (void)dxe;
+  (void)rays, (void)samples_per_ray, (void)rays_per_block, (void)stream;
+  return (int)cudaErrorNotSupported;
+#endif
 }
 
 // K10: K7 (want_normals: ptrs carries wd_row as ptrs[20]) or K1 at the
@@ -959,9 +1137,13 @@ int rsn_field_forward_v5(const void* mean_cov, const void* g_bands,
                           st);
 }
 
-// K13: K8's arguments, plus grads (608640 floats, written) and arrived (one
-// zeroed unsigned).  dpk is K8's zeroed per-block workspace; the grid must
-// fit the card at one block per SM (the cooperative launch checks it).
+// K13's first design, one cooperative launch (the RSN_K13_FIRST_DESIGN
+// build; the port's returns cudaErrorNotSupported: K13 runs K8's chunks,
+// then rsn_field_backward_v3_sum): K8's first-design arguments (dpk
+// ceil(rays / rays_per_block) zeroed slices of 608640 floats, ws as many
+// 64 x 2048 bf16 slots), plus grads (608640 floats, written) and arrived
+// (one zeroed unsigned).  The grid must fit the card at one block per SM
+// (the cooperative launch checks it).
 int rsn_field_backward_v3(const void* mean_cov, const void* g_bands,
                           const void* ipe_consts, const void* d_out,
                           const void* f_out, const void* const* ptrs,
@@ -969,6 +1151,13 @@ int rsn_field_backward_v3(const void* mean_cov, const void* g_bands,
                           void* grads, void* arrived, long long rays,
                           int samples_per_ray, int rays_per_block,
                           void* stream) {
+#ifndef RSN_K13_FIRST_DESIGN
+  (void)mean_cov, (void)g_bands, (void)ipe_consts, (void)d_out, (void)f_out;
+  (void)ptrs, (void)dmc, (void)dg, (void)dpk, (void)ws, (void)grads;
+  (void)arrived, (void)rays, (void)samples_per_ray, (void)rays_per_block;
+  (void)stream;
+  return (int)cudaErrorNotSupported;
+#else
   V3Params p;
   fill_v3(&p, ptrs);
   BwdArgs a{static_cast<const float*>(mean_cov),
@@ -992,6 +1181,7 @@ int rsn_field_backward_v3(const void* mean_cov, const void* g_bands,
       dim3(THREADS), args, K4_SMEM_BYTES, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+#endif
 }
 
 const char* rsn_cuda_error_string(int code) {

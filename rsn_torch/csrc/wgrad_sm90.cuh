@@ -1,10 +1,12 @@
 // The weight gradients on Hopper (sm_90a): the workspace that a backward
 // body stashes each 64-row tile's wgrad operands into ("kernel A"), and the
 // contraction of that workspace by wgmma ("kernel B", wgrad_kernel below).
-// Two record layouts share the code: K8's folded one (K8, K4, K5: kernel A
-// is field_backward_body<..., STASH> in field_train.cu; part of K8
-// `field_backward_v4`, rsn/kernels/field_train.py:427, whose TPU kernel
-// keeps per-group accumulators and sums them afterwards), and the unfolded
+// Two record layouts share the code: K8's folded one (K8, K4, K5, K13,
+// K17: kernel A is field_backward_body<..., STASH> in field_train.cu; part
+// of K8 `field_backward_v4`, rsn/kernels/field_train.py:427, whose TPU
+// kernel keeps per-group accumulators and sums them afterwards, of K13
+// `field_backward_v3`, :353, and of the tools' K17
+// `field_backward_whole`, tools/exp_bwd_whole.py:76), and the unfolded
 // one of the tools' K18 / K19 (kernel A is unfolded_backward_body<..., true>
 // in experiments_bwd.cu; part of tools/exp_bwd_ablate.py:191 `run` and
 // tools/exp_bwd_noipe.py:171 `run_noipe`).

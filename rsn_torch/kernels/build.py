@@ -183,6 +183,10 @@ def _signatures() -> Dict[str, Dict[str, list]]:
                                       vp, vp, vp, ll, i32, i32, vp],
             "rsn_field_backward_whole": [vp, vp, vp, vp, vp, ptrs, vp, vp,
                                          vp, vp, vp, ll, i32, i32, vp],
+            "rsn_field_backward_whole_stash": [vp, vp, vp, vp, vp, ptrs, vp,
+                                               vp, vp, vp, vp, vp, ll, i32,
+                                               i32, i32, i32, vp],
+            "rsn_field_backward_v3_sum": [vp, i32, vp, i32, vp, vp],
         },
         "proposal_forward.cu": {
             "rsn_prop_forward": [vp, vp, ptrs, vp, ll, vp],

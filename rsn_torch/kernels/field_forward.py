@@ -110,6 +110,11 @@ LAUNCHES = {"field_forward_v3": 0, "field_forward_density": 0,
             "field_forward_v3L": 0, "field_forward_v3F": 0,
             "field_backward_whole": 0, "run_noipe": 0, "train_blob": 0,
             "bwd_unfolded_wgrad": 0}
+# K13 (field_backward_v3) and K17 (field_backward_whole) count their kernel
+# A once per chunk under their own names, their kernel B (K8's) under these,
+# and K13 its sum launch
+LAUNCHES.update({"field_backward_v3_wgrad": 0, "field_backward_v3_sum": 0,
+                 "field_backward_whole_wgrad": 0})
 # K18's four modes (rsn_torch.experiments.bwd_ablate), one count each (full
 # + wgrad and K19 run_noipe: their kernel A, once per chunk; their kernel B
 # counts as bwd_unfolded_wgrad)

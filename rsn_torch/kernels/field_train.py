@@ -40,8 +40,9 @@ tile's IPE computed while this tile's trunk runs; the same (N, 24) bf16
 output bit for bit.
 
 K13 `field_backward_v3` (replaces field_train.py::field_backward_v3): K8
-with whole-grid weight-gradient accumulators: the kernel itself returns
-the 20 gradients (no sum over per-block slices outside it).
+with whole-grid weight-gradient accumulators: the launches themselves
+return the 20 gradients (no sum outside them).  On the card K8's kernels A
+and B per chunk, then one sum launch (k13_sum; plain: k13_sum_plain).
 
 K6 `FusedFieldTrain` (replaces field_train.py::fused_field_train, a
 custom VJP with no kernel of its own): the autograd Function that runs,
@@ -434,21 +435,29 @@ def _with_weights(dpk, w) -> Tuple[torch.Tensor, ...]:
     return tuple(w[:8]) + tuple(dpk[8:16]) + (w[8],) + tuple(dpk[17:20])
 
 
+def _plain_partials(plan: StashPlan, stash, x, hs, ops) -> torch.Tensor:
+    """Plain kernel B over the records `stash(plan, chunk, x, hs, ops)` of
+    each chunk of `plan` -> its (P, wg.PARTIAL_FLOATS) partials."""
+    partial = torch.empty((plan.slices, wg.PARTIAL_FLOATS), dtype=F32)
+    for c, chunk in enumerate(plan.chunks):
+        wg.contract_plain(stash(plan, chunk, x, hs, ops), partial,
+                          accumulate=c > 0)
+    return partial
+
+
 def _two_phases_plain(packed, g_bands, hs, x, d_out, f_out, S: int, mean_cov,
-                      sms: int, recompute: bool):
+                      sms: int, recompute: bool, stash=stash_chunk_plain):
     """The plain backward's per-row values (dmc, dg, the biases and the
     mid head's gradients), its weight-gradient operands stashed per chunk
-    of the card's schedule in kernel A's record layout, and plain kernel
-    B's contraction of each chunk (its slices, the P partials summed as
-    the wrappers sum them) -> (dmc or None, dg, the 20 gradients)."""
+    of the card's schedule in kernel A's record layout (by `stash`: K8's
+    64-row walk, or K17's 128-row one), and plain kernel B's contraction
+    of each chunk (its slices, the P partials summed as the wrappers sum
+    them) -> (dmc or None, dg, the 20 gradients)."""
     plan = stash_plan(d_out.shape[0] // S, S, sms, recompute)
     ops = {}
     dmc, dg, dpk = _backward_plain(packed[:N_PACKED], g_bands, hs, x, d_out,
                                    f_out, S, mean_cov, ops)
-    partial = torch.empty((plan.slices, wg.PARTIAL_FLOATS), dtype=F32)
-    for c, chunk in enumerate(plan.chunks):
-        wg.contract_plain(stash_chunk_plain(plan, chunk, x, hs, ops),
-                          partial, accumulate=c > 0)
+    partial = _plain_partials(plan, stash, x, hs, ops)
     return dmc, dg, _with_weights(dpk, wg.weight_grads(partial))
 
 
@@ -462,6 +471,108 @@ def field_backward_v4_chunked_plain(packed, mean_cov, g_bands, d_out, f_out,
                              _trunk_acts(packed[:8], packed[8:16], x), x,
                              d_out, f_out, int(samples_per_ray), mean_cov,
                              sms, True)
+
+
+def whole_chunk_plain(plan: StashPlan, chunk, x, hs, ops) -> torch.Tensor:
+    """Plain K17 kernel A's stash: each block's run walked in 128-row tiles
+    from the chunk's first tile (t0 even), each tile's two 64-row halves
+    emitted as the records of those 64-row tiles; a half with no rows, and
+    a record past the run's end, stays zero -> (records, wg.REC_ELEMS)
+    bf16, stash_chunk_plain's records."""
+    t0, t1 = chunk
+    assert t0 % 2 == 0, "a 128-row tile's halves lie in one chunk"
+    S, rpb, per = plan.samples_per_ray, plan.rays_per_block, t1 - t0
+    dhc = ts.head_columns(ops["dhc"])
+    out = torch.zeros((plan.blocks * per, wg.REC_ELEMS), dtype=BF16)
+    for b in range(plan.blocks):
+        row_a, row_b = b * rpb * S, min(plan.rays, (b + 1) * rpb) * S
+        end = min(row_b, row_a + t1 * TILE_ROWS)
+        for row0 in range(row_a + t0 * TILE_ROWS, end, 2 * TILE_ROWS):
+            nv = min(2 * TILE_ROWS, row_b - row0)
+            def whole(a):  # the 128-row tile, rows nv.. zero
+                return torch.cat([
+                    tile_rows(a, row0, min(nv, TILE_ROWS)),
+                    tile_rows(a, row0 + TILE_ROWS, max(0, nv - TILE_ROWS))])
+            tx, tdhc = whole(x), whole(dhc)
+            ths, tdpre = [whole(h) for h in hs], [whole(d) for d in
+                                                   ops["dpre"]]
+            for h in range(2):
+                if nv <= h * TILE_ROWS:
+                    continue
+                half = slice(h * TILE_ROWS, (h + 1) * TILE_ROWS)
+                t = (row0 + h * TILE_ROWS - row_a) // TILE_ROWS
+                out[b * per + t - t0] = wg.pack_record(
+                    tx[half], [a[half] for a in ths],
+                    [a[half] for a in tdpre], tdhc[half])
+    return out
+
+
+def field_backward_whole_chunked_plain(packed, mean_cov, g_bands, d_out,
+                                       f_out, samples_per_ray, sms: int):
+    """Plain K17 in its two phases on a card of `sms` SMs: K8's plan, the
+    records emitted by whole_chunk_plain, plain kernel B per chunk -> (dmc,
+    dg, the 20 gradients); K8's two phases' results."""
+    x = ff.ipe_x(mean_cov)
+    return _two_phases_plain(packed, g_bands,
+                             _trunk_acts(packed[:8], packed[8:16], x), x,
+                             d_out, f_out, int(samples_per_ray), mean_cov,
+                             sms, True, whole_chunk_plain)
+
+
+def compact_slices_plain(plan: StashPlan, packed, g_bands, hs, x, d_out,
+                         f_out, mean_cov) -> torch.Tensor:
+    """Plain kernel A's compact slices: per block of `plan`, the plain
+    backward of its rays' biases and mid-head gradients in GradSlice<true>'s
+    layout -> (blocks, SMALL_FLOATS) f32."""
+    S, rpb = plan.samples_per_ray, plan.rays_per_block
+    small = torch.zeros((plan.blocks, SMALL_FLOATS), dtype=F32)
+    for b in range(plan.blocks):
+        rays = slice(b * rpb, min(plan.rays, (b + 1) * rpb))
+        rows = slice(rays.start * S, rays.stop * S)
+        _, _, dpk = _backward_plain(
+            packed[:N_PACKED], g_bands[rays], [h[rows] for h in hs], x[rows],
+            d_out[rows], f_out[rows], S, mean_cov[rows])
+        small[b, :SMALL_WOUT] = torch.cat([d.reshape(-1)
+                                           for d in dpk[8:16] + dpk[17:18]])
+        small[b, SMALL_WOUT:SMALL_BOUT] = dpk[18][:, :3].reshape(-1)
+        small[b, SMALL_BOUT:SMALL_BOUT + 3] = dpk[19][0, :3]
+    return small
+
+
+def _sum_in_order(t: torch.Tensor) -> torch.Tensor:
+    """(K, M) -> (M,): 0 + t[0] + t[1] + ... in that order, each add an fp32
+    add (field_backward_v3_sum_kernel's order)."""
+    s = torch.zeros(t.shape[1:], dtype=t.dtype, device=t.device)
+    for row in t:
+        s = s + row
+    return s
+
+
+def k13_sum_plain(small: torch.Tensor, partial: torch.Tensor
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Plain K13 sum: the blocks' compact slices (blocks, SMALL_FLOATS)
+    summed in block order and kernel B's partials (P, wg.PARTIAL_FLOATS) in
+    slice order -> the 20 packed-operand gradients, laid out as
+    stash_grads lays them out."""
+    return _grads_from_totals(_sum_in_order(small), _sum_in_order(partial))
+
+
+def field_backward_v3_chunked_plain(packed, mean_cov, g_bands, d_out, f_out,
+                                    samples_per_ray, sms: int):
+    """Plain K13 on a card of `sms` SMs: K8's records and plain kernel B per
+    chunk, the blocks' compact slices, then k13_sum_plain -> (dmc, dg, the
+    20 gradients)."""
+    x = ff.ipe_x(mean_cov)
+    hs = _trunk_acts(packed[:8], packed[8:16], x)
+    S = int(samples_per_ray)
+    plan = stash_plan(d_out.shape[0] // S, S, sms)
+    ops = {}
+    dmc, dg, _ = _backward_plain(packed[:N_PACKED], g_bands, hs, x, d_out,
+                                 f_out, S, mean_cov, ops)
+    partial = _plain_partials(plan, stash_chunk_plain, x, hs, ops)
+    small = compact_slices_plain(plan, packed, g_bands, hs, x, d_out, f_out,
+                                 mean_cov)
+    return dmc, dg, k13_sum_plain(small, partial)
 
 
 def field_backward_v5_chunked_plain(packed, mean_cov, g_bands, acts, d_out,
@@ -524,13 +635,6 @@ def _packed_views(flat: torch.Tensor, shapes=PACKED_SHAPES
         out.append(flat[off:off + r * c].view(r, c))
         off += r * c
     return tuple(out)
-
-
-def _unpack_slices(buf: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """(blocks, PACK_FLOATS) per-block gradients -> the 20 packed-operand
-    gradients, summed over the blocks (rsn sums its per-group
-    accumulators with jnp.sum outside the kernel)."""
-    return _packed_views(buf.sum(dim=0))
 
 
 def train_blob(ws: Sequence[torch.Tensor], w_hc: torch.Tensor
@@ -772,28 +876,6 @@ def _check_recompute(packed, mean_cov, g_bands, d_out, f_out, S: int,
     return R
 
 
-def _recompute_operands(packed, mean_cov, g_bands, d_out, f_out, R: int):
-    """K13's outputs and scratch on the card -> (rays per block, dmc, dg,
-    per-block gradient slices, recompute workspace, the pointer arguments
-    of its C entry).  The caller holds every tensor until it has launched.
-    K4's partition; at one block per SM the grid fits K13's cooperative
-    launch."""
-    device = mean_cov.device
-    rpb = _rays_per_block(R, device)
-    blocks = -(-R // rpb)
-    dmc = torch.empty((mean_cov.shape[0], IN_COLS), dtype=F32, device=device)
-    dg = torch.zeros((R, 512), dtype=F32, device=device)
-    buf = torch.zeros((blocks, PACK_FLOATS), dtype=F32, device=device)
-    # one tile's recompute slot per block
-    ws = torch.empty((blocks, TILE_ROWS, ACTS_COLS), dtype=BF16,
-                     device=device)
-    args = (mean_cov.data_ptr(), g_bands.data_ptr(),
-            _ipe_consts(device).data_ptr(), d_out.data_ptr(),
-            f_out.data_ptr(), _ptr_array(packed), dmc.data_ptr(),
-            dg.data_ptr(), buf.data_ptr(), ws.data_ptr())
-    return rpb, dmc, dg, buf, ws, args
-
-
 class StashScratch(NamedTuple):
     """One K4, K5 or K8 call's outputs and scratch on the card."""
     dmc: torch.Tensor    # (N, 16) f32; K5: None
@@ -821,18 +903,22 @@ def stash_scratch(plan: StashPlan, device, want_dmc: bool = True
 
 
 # the kernels that run as kernel A + kernel B, and whether each computes dmc
+# (K13, field_backward_v3, runs K8's kernels under names of its own)
 STASH_KERNELS = {"field_backward_v4": True, "field_backward_v5": True,
-                 "field_backward_v6": False}
+                 "field_backward_v6": False, "field_backward_v3": True}
+RECOMPUTE_KERNELS = ("field_backward_v4", "field_backward_v3")
+# kernel B's launch count per kernel (K8's, K4's and K5's: FOLDED's label)
+WGRAD_LABELS = {"field_backward_v3": "field_backward_v3_wgrad"}
 
 
 def kernel_a(lib, name: str, plan: StashPlan, chunk, inputs,
              sc: StashScratch) -> torch.Tensor:
-    """Kernel A of `name` (K8 field_backward_v4, K4 field_backward_v5 or
-    K5 field_backward_v6) from `lib` (field_train.cu as load_library
-    builds it, or ablate_k8.py's builds of it) on chunk (t0, t1) of
-    `plan`, on checked inputs (the wrapper's arguments without
-    samples_per_ray), into `sc` -> the chunk's workspace, a view of
-    sc.stash.  Counts its launch."""
+    """Kernel A of `name` (K8 field_backward_v4, K4 field_backward_v5, K5
+    field_backward_v6, or K13 field_backward_v3, which launches K8's) from
+    `lib` (field_train.cu as load_library builds it, or ablate_k8.py's
+    builds of it) on chunk (t0, t1) of `plan`, on checked inputs (the
+    wrapper's arguments without samples_per_ray), into `sc` -> the chunk's
+    workspace, a view of sc.stash.  Counts its launch under `name`."""
     t0, t1 = chunk
     ws = sc.stash[:plan.blocks * (t1 - t0)]
     packed, d_out, f_out = inputs[0], inputs[-2], inputs[-1]
@@ -868,20 +954,47 @@ def kernel_a(lib, name: str, plan: StashPlan, chunk, inputs,
 
 def stash_grads(small: torch.Tensor, partial: torch.Tensor
                 ) -> Tuple[torch.Tensor, ...]:
-    """The 20 packed-operand gradients of a K4, K5 or K8 call: the compact
-    slices summed over the blocks (torch.sum over dim 0, as the first
-    design's slices: the same order per column) and the weight matrices
-    from the partials."""
-    tot = small.sum(dim=0)
+    """The 20 packed-operand gradients of a K4, K5, K8 or K17 call: the
+    compact slices summed over the blocks (torch.sum over dim 0, as the
+    first design's slices: the same order per column) and the weight
+    matrices from the partials (torch.sum over the P slices)."""
+    return _grads_from_totals(small.sum(dim=0), partial.sum(dim=0))
+
+
+def _grads_from_totals(tot: torch.Tensor, wtot: torch.Tensor
+                       ) -> Tuple[torch.Tensor, ...]:
+    """The compact slices' sum over the blocks (SMALL_FLOATS,) and the
+    partials' over the slices (wg.PARTIAL_FLOATS,) -> the 20 packed-operand
+    gradients (w_hc, w_out and b_out with zeros past their live
+    columns)."""
     biases = [tot[SMALL_B + i * TRUNK_WIDTH:SMALL_B + (i + 1) * TRUNK_WIDTH]
               .view(1, TRUNK_WIDTH) for i in range(TRUNK_LAYERS)]
-    w_out = torch.zeros((128, 128), dtype=F32, device=small.device)
+    w_out = torch.zeros((128, 128), dtype=F32, device=tot.device)
     w_out[:, :3] = tot[SMALL_WOUT:SMALL_BOUT].view(128, 3)
-    b_out = torch.zeros((1, 128), dtype=F32, device=small.device)
+    b_out = torch.zeros((1, 128), dtype=F32, device=tot.device)
     b_out[0, :3] = tot[SMALL_BOUT:SMALL_BOUT + 3]
     b_hc = tot[SMALL_BHC:SMALL_WOUT].view(1, TRUNK_WIDTH)
     dpk = [None] * 8 + biases + [None, b_hc, w_out, b_out]
-    return _with_weights(dpk, wg.weight_grads(partial))
+    return _with_weights(dpk, wg.weights_from_total(wtot))
+
+
+def stash_phases(name: str, inputs, samples_per_ray: int):
+    """stash_backward's launches, kernel A and kernel B per chunk ->
+    (dmc or None, dg, the compact slices, kernel B's partials)."""
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("field_train.cu")
+    f_out = inputs[-1]
+    plan = stash_plan(f_out.shape[0] // samples_per_ray, samples_per_ray,
+                      _sm_count(f_out.device), name in RECOMPUTE_KERNELS)
+    device = f_out.device
+    sc = stash_scratch(plan, device, STASH_KERNELS[name])
+    partial = torch.empty((plan.slices, wg.PARTIAL_FLOATS), dtype=F32,
+                          device=device)
+    for c, chunk in enumerate(plan.chunks):
+        wg.contract(kernel_a(lib, name, plan, chunk, inputs, sc), partial,
+                    accumulate=c > 0, label=WGRAD_LABELS.get(name))
+    return sc.dmc, sc.dg, sc.small, partial
 
 
 def stash_backward(name: str, inputs, samples_per_ray: int):
@@ -898,21 +1011,7 @@ def stash_backward(name: str, inputs, samples_per_ray: int):
     and kernel B (their wgmma contraction into P fp32 partials); each
     counts one launch per chunk.  The three kernels share the schedule, so
     K4 equals K8 and K5 equals K4 (dg, the 20 gradients) bit for bit."""
-    from rsn_torch.kernels.build import load_library
-
-    lib = load_library("field_train.cu")
-    f_out = inputs[-1]
-    plan = stash_plan(f_out.shape[0] // samples_per_ray, samples_per_ray,
-                      _sm_count(f_out.device), name == "field_backward_v4")
-    device = f_out.device
-    sc = stash_scratch(plan, device, STASH_KERNELS[name])
-    partial = torch.empty((plan.slices, wg.PARTIAL_FLOATS), dtype=F32,
-                          device=device)
-    for c, chunk in enumerate(plan.chunks):
-        wg.contract(kernel_a(lib, name, plan, chunk, inputs, sc), partial,
-                    accumulate=c > 0)
-    dmc, dg, small = sc.dmc, sc.dg, sc.small
-    del sc  # the sums below need none of the scratch
+    dmc, dg, small, partial = stash_phases(name, inputs, samples_per_ray)
     return dmc, dg, stash_grads(small, partial)
 
 
@@ -943,28 +1042,81 @@ def field_backward_v3(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
                       d_out: torch.Tensor, f_out: torch.Tensor,
                       samples_per_ray: int):
     """K13 -> (dmc (N, 16) f32, dg (R, 512) f32, dpacked: 20 fp32 tensors
-    in the packed operands' shapes, summed over the blocks in the kernel
-    in a fixed order).  dmc and dg equal K8's bit for bit."""
+    in the packed operands' shapes, summed over the grid by the launches in
+    a fixed order).  On the card, K8's kernel A and kernel B per chunk of
+    K8's plan (counted as field_backward_v3 and field_backward_v3_wgrad),
+    then k13_sum; dmc and dg equal K8's bit for bit, and so does its
+    scratch (StashPlan.scratch_bytes, plus the 2,434,560 bytes of the
+    gradients it returns)."""
     S = int(samples_per_ray)
-    R = _check_recompute(packed, mean_cov, g_bands, d_out, f_out, S,
-                         "field_backward_v3")
-    device = mean_cov.device
-    if device.type == "cpu":
+    _check_recompute(packed, mean_cov, g_bands, d_out, f_out, S,
+                     "field_backward_v3")
+    if mean_cov.device.type == "cpu":
         return field_backward_v4_plain(packed, mean_cov, g_bands, d_out,
                                        f_out, S)
+    dmc, dg, small, partial = stash_phases(
+        "field_backward_v3", (packed, mean_cov, g_bands, d_out, f_out), S)
+    return dmc, dg, _packed_views(k13_sum(small, partial))
+
+
+def k13_sum(small: torch.Tensor, partial: torch.Tensor) -> torch.Tensor:
+    """K13's sum launch: (blocks, SMALL_FLOATS) compact slices and (P,
+    wg.PARTIAL_FLOATS) partials, f32 tensors on one device -> the
+    (PACK_FLOATS,) packed gradients, k13_sum_plain's in one flat tensor,
+    bit for bit.  Counted as field_backward_v3_sum; CPU tensors take
+    k13_sum_plain."""
+    device = partial.device
+    _check("small", small, (small.shape[0], SMALL_FLOATS), F32, device)
+    _check("partial", partial, (partial.shape[0], wg.PARTIAL_FLOATS), F32,
+           device)
+    if device.type == "cpu":
+        return torch.cat([t.reshape(-1) for t in k13_sum_plain(small,
+                                                               partial)])
+    if device.type != "cuda":
+        raise ValueError(f"k13_sum: unsupported device {device}")
     from rsn_torch.kernels.build import load_library
 
     lib = load_library("field_train.cu")
-    rpb, dmc, dg, buf, ws, args = _recompute_operands(
-        packed, mean_cov, g_bands, d_out, f_out, R)
+    grads = torch.empty(PACK_FLOATS, dtype=F32, device=device)
+    with torch.cuda.device(device):
+        rc = lib.rsn_field_backward_v3_sum(
+            partial.data_ptr(), partial.shape[0], small.data_ptr(),
+            small.shape[0], grads.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, rc, "field_backward_v3_sum")
+    LAUNCHES["field_backward_v3_sum"] += 1
+    return grads
+
+
+def field_backward_v3_first_design(lib, packed, mean_cov, g_bands, d_out,
+                                   f_out, samples_per_ray: int):
+    """K13's first design on checked CUDA inputs, one cooperative launch
+    from `lib`, the RSN_K13_FIRST_DESIGN build of field_train.cu: K8's
+    first-design body into per-block fp32 slices of all 20 gradients,
+    summed in block order behind a grid-wide barrier -> (dmc, dg, the 20
+    gradients).  Its scratch: blocks x (PACK_FLOATS floats + a 64-row
+    recompute slot).  Counts no launch."""
+    device, n = mean_cov.device, mean_cov.shape[0]
+    S = int(samples_per_ray)
+    R = n // S
+    rpb = _rays_per_block(R, device)
+    blocks = -(-R // rpb)
+    dmc = torch.empty((n, IN_COLS), dtype=F32, device=device)
+    dg = torch.zeros((R, 512), dtype=F32, device=device)
+    buf = torch.zeros((blocks, PACK_FLOATS), dtype=F32, device=device)
+    slots = torch.empty((blocks, TILE_ROWS, ACTS_COLS), dtype=BF16,
+                        device=device)
     grads = torch.empty(PACK_FLOATS, dtype=F32, device=device)
     arrived = torch.zeros(1, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         rc = lib.rsn_field_backward_v3(
-            *args, grads.data_ptr(), arrived.data_ptr(), R, S, rpb,
+            mean_cov.data_ptr(), g_bands.data_ptr(),
+            _ipe_consts(device).data_ptr(), d_out.data_ptr(),
+            f_out.data_ptr(), _ptr_array(packed), dmc.data_ptr(),
+            dg.data_ptr(), buf.data_ptr(), slots.data_ptr(),
+            grads.data_ptr(), arrived.data_ptr(), R, S, rpb,
             torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(lib, rc, "field_backward_v3")
-    LAUNCHES["field_backward_v3"] += 1
+    _raise_on_error(lib, rc, "field_backward_v3 (first design)")
     return dmc, dg, _packed_views(grads)
 
 

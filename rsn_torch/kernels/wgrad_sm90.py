@@ -258,11 +258,12 @@ def contract_plain(ws: torch.Tensor, partial: torch.Tensor,
 
 
 def contract(ws: torch.Tensor, partial: torch.Tensor,
-             accumulate: bool, layout: Layout = FOLDED) -> None:
+             accumulate: bool, layout: Layout = FOLDED,
+             label: str = None) -> None:
     """Kernel B: ws (records, layout.rec_elems) bf16 records of a chunk ->
     partial (P, layout.partial_floats) fp32, overwritten (accumulate
     False) or added to, in place.  Launches on CUDA tensors (counted under
-    layout.label), the plain version on CPU ones."""
+    `label`, by default layout.label), the plain version on CPU ones."""
     records = ws.shape[0]
     _check("ws", ws, (records, layout.rec_elems), BF16, ws.device)
     if partial.dim() != 2 or partial.shape[1] != layout.partial_floats:
@@ -280,8 +281,9 @@ def contract(ws: torch.Tensor, partial: torch.Tensor,
         rc = getattr(lib, layout.entry)(
             ws.data_ptr(), partial.data_ptr(), records, partial.shape[0],
             int(accumulate), torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(lib, rc, layout.label)
-    LAUNCHES[layout.label] += 1
+    label = label or layout.label
+    _raise_on_error(lib, rc, label)
+    LAUNCHES[label] += 1
 
 
 def _trunk_grads(tot: torch.Tensor) -> List[torch.Tensor]:
@@ -296,11 +298,17 @@ def weight_grads(partial: torch.Tensor) -> List[torch.Tensor]:
     """FOLDED (P, PARTIAL_FLOATS) partials -> [dw0..dw7 (their packed
     shapes), dw_hc (256, 256)], summed over the P slices (one torch.sum: a
     fixed order for a given shape)."""
-    tot = partial.sum(dim=0)
+    return weights_from_total(partial.sum(dim=0))
+
+
+def weights_from_total(tot: torch.Tensor) -> List[torch.Tensor]:
+    """A FOLDED partial's (PARTIAL_FLOATS,) sum over the slices ->
+    weight_grads' tensors: w_hc's 144 columns spread to 256, zero
+    between."""
     out = _trunk_grads(tot)
     hc = tot[W_FLOATS:].view(TRUNK_WIDTH, HEAD_N)
     w_hc = torch.zeros(TRUNK_WIDTH, TRUNK_WIDTH, dtype=F32,
-                       device=partial.device)
+                       device=tot.device)
     w_hc[:, :HEAD_COLS] = hc[:, :HEAD_COLS]
     w_hc[:, TRUNK_WIDTH - (HEAD_N - HEAD_COLS):] = hc[:, HEAD_COLS:]
     out.append(w_hc)

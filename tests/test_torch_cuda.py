@@ -21,7 +21,11 @@ build) bit for bit, and the backward experiments (K17-K19): K17 against K8 and i
 version, K18's four modes and K19 against theirs, K19 == K18's full mode
 on K3's spill, K18 full + wgrad and K19 (kernel A + kernel B per chunk)
 against their first design (the RSN_K18_FIRST_DESIGN build: dmc and dg
-bit for bit, the weight gradients within 1e-4).
+bit for bit, the weight gradients within 1e-4), and K13 and K17 (K8's
+kernel A, or K17's 128-row one, and kernel B per chunk; K13's sum launch
+== its plain version bit for bit) against their first design (the
+RSN_K13_FIRST_DESIGN build: dmc bit for bit, K13's dg too, the rest
+within 1e-4), with K17's weight matrices == K8's bit for bit.
 
 Needs a CUDA card and nvcc; skipped without them.  This file imports no
 jax, so it also runs on a machine without it:
@@ -802,9 +806,11 @@ def test_field_api_launch_counts_and_route(field):
     ff.field_forward_v2_plain(packed, mc)
     tft.field_backward_v4_plain(p3, mc, g, out, out, 16)
     torch.cuda.synchronize()
+    # K13: K8's kernel A and kernel B once per chunk (one here), its sum
     assert {k: v for k, v in ff.LAUNCHES.items() if v} == {
         "field_forward_v2": 2, "field_forward": 1, "field_forward_v5": 1,
-        "field_backward_v3": 1}
+        "field_backward_v3": 1, "field_backward_v3_wgrad": 1,
+        "field_backward_v3_sum": 1}
     assert route["bottleneck"].shape == (4, 16, 256)
     assert torch.equal(route["bottleneck"].reshape(64, 256),
                        k11[:, ff.OUT_BOTTLENECK])
@@ -964,8 +970,9 @@ def _bwd_inputs(field, R, S, seed):
 @pytest.mark.parametrize("R,S", [(1, 1), (3, 7), (5, 29), (33, 128),
                                  (300, 64)])
 def test_k17_matches_k8_and_plain(field, R, S):
-    """K17 (128-row tiles): dmc equals K8's bit for bit, dg and each
-    weight gradient within K13_TOL of K8's (the sums over rows change
+    """K17 (128-row tiles): dmc and the weight matrices w0..w7, w_hc equal
+    K8's bit for bit (kernel B sums K8's records), dg and each other
+    gradient within K13_TOL of K8's (kernel A's sums over 128 rows change
     order); the same bits twice; against its plain version fed the
     kernel's activations (the plain K4 on K3's spill, = the recompute)
     within ATOL.  (The plain version that recomputes its own trunk is held
@@ -986,6 +993,8 @@ def test_k17_matches_k8_and_plain(field, R, S):
     assert _rel_err(a[1], k8[1]) <= K13_TOL
     for x, y in zip(a[2], k8[2]):
         assert x.shape == y.shape and _rel_err(x, y) <= K13_TOL
+    for i in list(range(8)) + [16]:
+        assert torch.equal(a[2][i], k8[2][i]), i
     ref = tft.field_backward_v5_plain(p3, mc, g, acts, d24, out, S)
     for x, y in zip(a[:2] + tuple(a[2]), ref[:2] + tuple(ref[2])):
         assert _rel_err(x, y) <= ATOL
@@ -1047,7 +1056,8 @@ def test_backward_experiment_launch_counts(field):
     bwd_ablate.bwd_ablate_plain(p3, mc, g, d_out, 16)
     torch.cuda.synchronize()
     assert {k: v for k, v in ff.LAUNCHES.items() if v} == {
-        "field_backward_whole": 1, "bwd_ablate_full_wgrad": 1,
+        "field_backward_whole": 1, "field_backward_whole_wgrad": 1,
+        "bwd_ablate_full_wgrad": 1,
         "bwd_ablate_full": 1, "bwd_ablate_no_ipe_bwd": 1,
         "bwd_ablate_recompute": 2, "run_noipe": 1, "bwd_unfolded_wgrad": 2}
 
@@ -1100,3 +1110,70 @@ def test_k18_k19_equal_their_first_design(field, k18_first_design, R, S):
             assert a.shape == b.shape and _rel_err(a, b) <= K13_TOL
     assert torch.equal(k19[0], k18[1])
     assert all(torch.equal(a, b) for a, b in zip(k19[1], k18[2]))
+
+
+@pytest.fixture(scope="module")
+def k13_first_design(field):
+    from rsn_torch.kernels.build import start_variant
+
+    lib, _ = start_variant("field_train.cu", ("RSN_K13_FIRST_DESIGN",),
+                           "first_design")()
+    return lib
+
+
+# one ray, a ragged tile, (300, 140): 3 rays a block, 7 tiles (odd: K17's
+# last 128-row tile has no second half) in 2 chunks, and (1030, 128): 16
+# tiles in 4 chunks, the last block's run 4 tiles short
+@pytest.mark.parametrize("R,S", [(1, 1), (3, 7), (300, 140), (1030, 128)])
+def test_k13_k17_equal_their_first_design(field, k13_first_design, R, S):
+    """K13 and K17 (kernel A and kernel B per chunk of K8's plan; K13 then
+    its sum) against the RSN_K13_FIRST_DESIGN build of the same source:
+    dmc bit for bit, K13's dg too, the other outputs within K13_TOL of each
+    max (the same products summed in another order); K17's w0..w7 and
+    w_hc == K8's bit for bit; each kernel counted once per chunk."""
+    mc, g, d_out = _bwd_inputs(field, R, S, 5 * R + S)
+    p3 = ff.pack_params_v3f(field)
+    out = tft.field_forward_v3_train(p3, mc, g, S)
+    d24 = d_out[:, :tft.OUT_TRAIN].contiguous()
+    args = (p3, mc, g, d24, out, S)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunks = len(tft.stash_plan(R, S, sms).chunks)
+    assert chunks == {300: 2, 1030: 4}.get(R, 1)
+    ff.reset_launch_counts()
+    k13 = tft.field_backward_v3(*args)
+    k17 = bwd_whole.field_backward_whole(*args)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ff.LAUNCHES.items() if v} == {
+        "field_backward_v3": chunks, "field_backward_v3_wgrad": chunks,
+        "field_backward_v3_sum": 1, "field_backward_whole": chunks,
+        "field_backward_whole_wgrad": chunks}
+    old13 = tft.field_backward_v3_first_design(k13_first_design, *args)
+    old17 = bwd_whole.first_design(k13_first_design, *args)
+    k8 = tft.field_backward_v4(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(k13[0], old13[0]) and torch.equal(k13[1], old13[1])
+    assert torch.equal(k17[0], old17[0])
+    assert _rel_err(k17[1], old17[1]) <= K13_TOL
+    for got, old in ((k13, old13), (k17, old17)):
+        assert len(got[2]) == 20
+        for a, b in zip(got[2], old[2]):
+            assert a.shape == b.shape and _rel_err(a, b) <= K13_TOL
+    for i in list(range(8)) + [16]:
+        assert torch.equal(k17[2][i], k8[2][i]), i
+
+
+@pytest.mark.parametrize("blocks,slices", [(1, 1), (37, 3), (129, 7)])
+def test_k13_sum_matches_its_plain_version(field, blocks, slices):
+    """K13's sum launch on seeded slices and partials equals its plain
+    version run on the same card tensors bit for bit (the same fp32 adds
+    in the same order), and counts one launch."""
+    gen = torch.Generator().manual_seed(blocks)
+    small = torch.randn(blocks, tft.SMALL_FLOATS, generator=gen).cuda()
+    partial = torch.randn(slices, wg.PARTIAL_FLOATS, generator=gen).cuda()
+    ff.reset_launch_counts()
+    got = tft.k13_sum(small, partial)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES["field_backward_v3_sum"] == 1
+    want = torch.cat([t.reshape(-1) for t in
+                      tft.k13_sum_plain(small, partial)])
+    assert torch.equal(got, want)
