@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
-"""What two choices of the train-width forwards (K3, K7) cost, by ablation,
-on one CUDA card.
+"""What three choices of the train-width forwards (K3, K7, K1 at the train
+width, K10) cost, by ablation, on one CUDA card.
 
     python3 ablate_k3.py
 
-Builds rsn_torch/csrc/field_train.cu as the port builds it, with
-RSN_ABLATE_XS_REGS (the normals keep layer 4's x share in registers, not
-in shared memory) and with RSN_ABLATE_NO_SPILL (K3 without its spill
-stores), one nvcc each, in parallel, into rsn_torch/_build/variants/
-(git-ignored); prints each build's spills of the train forwards (ptxas
--v).  Then times K3 with the normals and the x spill and K7 at the default
-step's pass-2 shape (1,024 rays x 128 samples) and K1 at the train width
-at pass 4's (512 x 64) (seeded rays, field weights from chip_smoke.SEED;
-CUDA events, median of 10), the builds in turns: full, registers, no
-spill, no spill, registers, full.  The no-spill build leaves the spill
-unwritten; only its time is read.  Prints the card's name and power limit.
+Builds rsn_torch/csrc/field_train.cu as the port builds it and with one
+macro each, one nvcc each, in parallel, into rsn_torch/_build/variants/
+(git-ignored):
+  RSN_ABLATE_XS_REGS  the normals keep layer 4's x share in registers,
+                      not in shared memory;
+  RSN_ABLATE_NO_SPILL K3 without its spill stores;
+  RSN_ABLATE_NO_IPE   no IPE: the consumers of K3, K7 and K1 at the train
+                      width skip theirs (the most that K10's schedule can
+                      hide), K10's IPE warps skip theirs and keep the
+                      hand-off.
+Prints each build's spills of the train forwards (ptxas -v).  Then times
+K3 with the normals and the x spill, K7 and K10 with the normals, K1 at
+the train width and K10 without them at the default step's pass-2 shape
+(1,024 rays x 128 samples), and K1 at the train width at pass 4's (512 x
+64) (seeded rays, field weights from chip_smoke.SEED; CUDA events around
+one call, median of 10), the builds in turns: full, registers, no spill,
+no IPE, no IPE, no spill, registers, full.  The no-spill and no-IPE
+builds compute other outputs; only their times are read.  Prints the
+card's name and power limit.
 """
 from __future__ import annotations
 
@@ -25,10 +33,15 @@ import sys
 REPO = os.path.dirname(os.path.abspath(__file__))
 VARIANTS = (("full", ()),
             ("x share in registers", ("RSN_ABLATE_XS_REGS",)),
-            ("no spill", ("RSN_ABLATE_NO_SPILL",)))
-# field_train_kernel<NORMALS, SPILL, SPILL_X>'s mangled template arguments
-FORWARDS = (("K3 (normals, x)", "ILb1ELb1ELb1E"), ("K7", "ILb1ELb0ELb0E"),
-            ("K1 train width", "ILb0ELb0ELb0E"))
+            ("no spill", ("RSN_ABLATE_NO_SPILL",)),
+            ("no IPE", ("RSN_ABLATE_NO_IPE",)))
+# the kernels' mangled names: field_train_kernel<NORMALS, SPILL, SPILL_X>,
+# field_forward_v5_kernel<NORMALS>
+FORWARDS = (("K3 (normals, x)", "field_train_kernelILb1ELb1ELb1E"),
+            ("K7", "field_train_kernelILb1ELb0ELb0E"),
+            ("K1 train width", "field_train_kernelILb0ELb0ELb0E"),
+            ("K10 (normals)", "field_forward_v5_kernelILb1E"),
+            ("K10", "field_forward_v5_kernelILb0E"))
 
 
 def spills(log: str):
@@ -36,8 +49,7 @@ def spills(log: str):
     out, cur = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            cur = next((tag for tag, key in FORWARDS
-                        if "field_train_kernel" + key in line), None)
+            cur = next((tag for tag, key in FORWARDS if key in line), None)
         elif cur and "spill" in line:
             out[cur] = line.split(":")[-1].strip()
             cur = None
@@ -83,25 +95,21 @@ def main() -> int:
             torch.randn(R, 3, generator=gen), dim=-1).to(dev)
         return mc.to(dev), ff.mid_g_bands(field, dirs), S
 
-    def forward_v4(lib, packed, mc, g, S, normals):
-        out = torch.empty((mc.shape[0], ft.OUT_TRAIN), dtype=torch.bfloat16,
-                          device=dev)
-        rc = lib.rsn_field_forward_v4(
-            mc.data_ptr(), g.data_ptr(), ff._ipe_consts(dev).data_ptr(),
-            blob.data_ptr(), ff._ptr_array(packed), out.data_ptr(),
-            mc.shape[0], S, int(normals),
-            torch.cuda.current_stream(dev).cuda_stream)
-        if rc:
-            raise RuntimeError(f"launch failed ({rc})")
+    def no_spill(entry, packed, inputs, normals):
+        return lambda lib: ft.launch_no_spill(lib, entry, packed, *inputs,
+                                              normals, blob)
 
     pass2, pass4 = inputs(1024, 128), inputs(512, 64)
+    k7, k10 = "rsn_field_forward_v4", "rsn_field_forward_v5"
     cases = (
         ("K3 (normals, x) pass 2", lambda lib: ft.launch_field_forward_v6(
             lib, p4, *pass2, True, True, blob)),
-        ("K7 pass 2", lambda lib: forward_v4(lib, p4, *pass2, True)),
-        ("K1 train width pass 4",
-         lambda lib: forward_v4(lib, p3, *pass4, False)))
-    order = [VARIANTS[i][0] for i in (0, 1, 2, 2, 1, 0)]
+        ("K7 pass 2", no_spill(k7, p4, pass2, True)),
+        ("K10 (normals) pass 2", no_spill(k10, p4, pass2, True)),
+        ("K1 train width pass 2", no_spill(k7, p3, pass2, False)),
+        ("K10 pass 2", no_spill(k10, p3, pass2, False)),
+        ("K1 train width pass 4", no_spill(k7, p3, pass4, False)))
+    order = [VARIANTS[i][0] for i in (0, 1, 2, 3, 3, 2, 1, 0)]
     for tag, fn in cases:
         ms = [(name, time_kernel(fn, libs[name])) for name in order]
         print(f"{tag}: " + ", ".join(f"{name} {t:.4f} ms" for name, t in ms)

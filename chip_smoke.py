@@ -17,12 +17,16 @@ Phases, each announced on its own line:
                 with RSN_K11_FIRST_DESIGN (K11's and K12's first design)
                 for phase 16, experiments_bwd.cu with RSN_K18_FIRST_DESIGN
                 (K18 full + wgrad's and K19's first design) for phase 18,
-                field_train.cu with RSN_K13_FIRST_DESIGN (K13's and K17's
-                first design) for phases 12, 16 and 18;
+                field_train.cu with RSN_K13_FIRST_DESIGN and
+                RSN_K10_FIRST_DESIGN (K13's, K17's and K10's first
+                designs, one nvcc) for phases 12, 16 and 18;
                 the registers and spills of K14 / K15's four kernels and of
                 K11's and K12's (none may spill), of K18 / K19's kernel A
                 (read) and their kernel B (which may not spill), of K8 /
-                K13's kernel A, K17's, K13's sum and their kernel B (read).
+                K13's kernel A, K17's, K13's sum and their kernel B (read),
+                of K10 beside K7 and K1 at the train width, with the
+                local-memory loads and stores (LDL / STL) in each one's
+                SASS (read).
   3. kernels  — K1 (field_forward_v3) and K2 (field_forward_density)
                 against their plain PyTorch versions on the card, on the
                 real inputs of one 16384-ray chunk of the first 800x800
@@ -122,21 +126,25 @@ Phases, each announced on its own line:
                 use_pallas=True, differentiable=False) on phase 3's pass-2
                 render chunk (2,097,152 rows), K12 (field_forward) on the
                 IPE encoding of the same rows, K10 (field_forward_v5) with
-                both flags and K13 (field_backward_v3) on phase 12's
+                both flags on phase 12's train blob and K13
+                (field_backward_v3) on phase 12's
                 camera-on inputs (passes 2 and 4); each against its plain
                 version; K11 and K12 == their first design (the
                 RSN_K11_FIRST_DESIGN build) bit for bit on the 2,097,152
                 rows, their padding columns zero; K10 == K7 and K1 at the
-                train width; K13 (K8's kernel A and kernel B once per
+                train width, == its first design (the RSN_K10_FIRST_DESIGN
+                build: the 64-row wmma forward) and K7 / K1 == that first
+                design, bit for bit; K13 (K8's kernel A and kernel B once per
                 chunk, then its sum, each launch counted) == its first
                 design (the RSN_K13_FIRST_DESIGN build) and == K8 on dmc
                 and dg, bit for bit, its 20 gradients within 1e-4 of both
                 (the ulps from K8's printed), the same twice, its sum ==
                 its plain version bit for bit;
                 CUDA-event times, K11 and K12 one call per event pair and
-                back to back in turns with their first design, K10 (the
-                64-row wmma forward that K7 and K1 at the train width ran
-                before their Hopper design) beside K7 and K1, K13 one call
+                back to back in turns with their first design, K10 with
+                both flags one call beside its first design, K7 / K1 and
+                the plain version, then back to back in turns with its
+                first design and with K7 / K1, K13 one call
                 beside its first design's and K8's, then back to back in
                 turns with its first design, kernel A, kernel B and the
                 sum apart, each design's scratch; kernel B alone on K13's
@@ -444,8 +452,8 @@ def main() -> int:
     t0 = time.perf_counter()
     # beside the port's build: K3 without its spill stores (phase 6), K9's
     # first design (phase 9), K14's and K15's (phases 3 and 17), K11's and
-    # K12's (phase 16), K18 full + wgrad's and K19's (phase 18), K13's and
-    # K17's (phases 12, 16 and 18)
+    # K12's (phase 16), K18 full + wgrad's and K19's (phase 18), K13's,
+    # K17's and K10's (phases 12, 16 and 18)
     waiting = {"no_spill": start_variant("field_train.cu",
                                          ("RSN_ABLATE_NO_SPILL",),
                                          "no_spill"),
@@ -462,7 +470,8 @@ def main() -> int:
                                           ("RSN_K18_FIRST_DESIGN",),
                                           "first_design"),
                "k13_first": start_variant("field_train.cu",
-                                          ("RSN_K13_FIRST_DESIGN",),
+                                          ("RSN_K13_FIRST_DESIGN",
+                                           "RSN_K10_FIRST_DESIGN"),
                                           "first_design")}
     try:
         paths, log = build_library()
@@ -477,7 +486,7 @@ def main() -> int:
           f"with RSN_K14_FIRST_DESIGN, field_forward.cu with "
           f"RSN_K11_FIRST_DESIGN, experiments_bwd.cu with "
           f"RSN_K18_FIRST_DESIGN and field_train.cu with "
-          f"RSN_K13_FIRST_DESIGN in "
+          f"RSN_K13_FIRST_DESIGN and RSN_K10_FIRST_DESIGN in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per build, in "
           f"parallel)")
     for line in log.splitlines():
@@ -513,6 +522,19 @@ def main() -> int:
                                         "(field_backward_v3_sum_kernel)",
         "wgrad_kernelINS0_6FoldedE": "their kernel B "
                                      "(wgrad_kernel<Folded>)"})
+    # K10 beside K7 and K1 at the train width (read): its IPE warps run at
+    # the producer warpgroup's 40 registers, its consumers at 232
+    k10_kernels = {
+        "field_forward_v5_kernelILb1E": "K10 normals "
+                                        "(field_forward_v5_kernel<true>)",
+        "field_forward_v5_kernelILb0E": "K10 (field_forward_v5_kernel<false>)",
+        "field_train_kernelILb1ELb0ELb0E": "K7 (field_train_kernel<true, "
+                                           "false, false>)",
+        "field_train_kernelILb0ELb0ELb0E": "K1 train width "
+                                           "(field_train_kernel<false, false, "
+                                           "false>)"}
+    kernel_registers("field_train.cu", k10_kernels)
+    local_memory_ops("field_train.cu", k10_kernels)
 
     from rsn_torch.cli import render as render_cli
     from rsn_torch.data.cameras import rescale_cameras
@@ -804,6 +826,44 @@ def kernel_registers(source: str, names, no_spill: bool = False) -> None:
         if no_spill and spill and (int(spill.group(1)) or
                                    int(spill.group(2))):
             raise RuntimeError(f"{name} spills registers")
+    sys.stdout.flush()
+
+
+def local_memory_ops(source: str, names) -> None:
+    """Prints the local-memory loads and stores (LDL, STL: register
+    spills) in the SASS (cuobjdump) of `source`'s kernels {mangled name
+    part: label}: in all, and in the producer warpgroup's branch, laid out
+    from its setmaxnreg.dec (USETMAXREG.DEALLOC) to the next EXIT, with
+    that span's MUFU.EX2 count (the IPE's exp2, where K10's IPE warps run
+    there at 40 registers)."""
+    from rsn_torch.kernels.build import sass
+
+    funcs, cur = {}, None
+    for line in sass(source).splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = next((v for k, v in names.items() if k in m.group(1)), None)
+            if cur:
+                funcs[cur] = []
+        elif cur:
+            ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?);", line)
+            if ins:
+                funcs[cur].append(ins.group(1))
+    for name, ins in funcs.items():
+        def count(ops, lo=0, hi=len(ins)):
+            return [sum(1 for i in ins[lo:hi] if re.search(rf"(^|\s){k}\b", i))
+                    for k in ops]
+        ldl, stl = count(("LDL", "STL"))
+        span = ""
+        dec = next((j for j, i in enumerate(ins)
+                    if "SETMAXREG" in i and "DEALLOC" in i), None)
+        if dec is not None:
+            end = next((j for j in range(dec, len(ins))
+                        if re.search(r"(^|\s)EXIT\b", ins[j])), len(ins))
+            pl, ps, ex2 = count(("LDL", "STL", r"MUFU\.EX2"), dec, end)
+            span = (f"; the producer warpgroup's branch ({end - dec} "
+                    f"instructions, {ex2} MUFU.EX2): {pl} LDL, {ps} STL")
+        print(f"  SASS {name}: {ldl} LDL, {stl} STL{span}")
     sys.stdout.flush()
 
 
@@ -2369,7 +2429,8 @@ def api_phase(field, render_mc, cam_calls, card, first, first13):
     launches in the run of this slice's path (the field's kernel route and
     the kernel API; no CLI path calls them, as in rsn)}.  first: the build
     of field_forward.cu with RSN_K11_FIRST_DESIGN, first13: of
-    field_train.cu with RSN_K13_FIRST_DESIGN (phase 2)."""
+    field_train.cu with RSN_K13_FIRST_DESIGN and RSN_K10_FIRST_DESIGN
+    (phase 2)."""
     import torch
 
     from rsn_torch.kernels import field_forward as ff
@@ -2378,14 +2439,16 @@ def api_phase(field, render_mc, cam_calls, card, first, first13):
     phase("phase 16: K10-K13 against plain versions at main-path shapes")
     fpacked, fmc, g, S, _ = cam_calls["fwd"][2]  # pass 2: with the normals
     bwd = {p: cam_calls["bwd"][p] for p in (2, 4)}
+    blob = cam_calls["blob"]  # the step's train blob, as K7 reads it
     ff.reset_launch_counts()
     route = field.get_field_outputs(render_mc[:, 0:3], render_mc[:, 3:6],
                                     use_pallas=True, differentiable=False)
     packed = ff.pack_params(field)
     enc = ff.ipe_enc(render_mc)
     k12 = ff.field_forward(packed, enc)
-    k10 = {True: ft.field_forward_v5(fpacked, fmc, g, S, True),
-           False: ft.field_forward_v5(fpacked[:20], fmc, g, S, False)}
+    k10 = {True: ft.field_forward_v5(fpacked, fmc, g, S, True, blob=blob),
+           False: ft.field_forward_v5(fpacked[:20], fmc, g, S, False,
+                                      blob=blob)}
     k13 = {p: ft.field_backward_v3(*args) for p, args in bwd.items()}
     torch.cuda.synchronize()
     launches = {k: ff.LAUNCHES[k] for k in API_KERNELS}
@@ -2455,15 +2518,28 @@ def api_phase(field, render_mc, cam_calls, card, first, first13):
           f"for bit ({n} rows); padding columns zero", flush=True)
     del k11, k12, got
 
-    # K10 on the camera-on step's pass 2, both flags
-    blob = cam_calls["blob"]
+    # K10 on the camera-on step's pass 2, both flags: against K7 / K1 at
+    # the train width and its first design (the RSN_K10_FIRST_DESIGN
+    # build), which also holds K7 / K1 to the 64-row forward's sum order
     k7 = ft.field_forward_v4(fpacked, fmc, g, S, blob=blob)
     k1 = ft.field_forward_v3_train(fpacked[:20], fmc, g, S, blob=blob)
+    old = {nm: ft.field_forward_v5_first_design(
+        first13, fpacked if nm else fpacked[:20], fmc, g, S, nm, blob)
+        for nm in (True, False)}
     torch.cuda.synchronize()
     if not (torch.equal(k10[True], k7) and torch.equal(k10[False], k1)):
         raise RuntimeError("K10 differs from K7 or K1 at the train width")
-    print(f"  K10 pass 2 ({fmc.shape[0]} rows): == K7 (normals) and == K1 at "
-          f"the train width, bit for bit")
+    if not (torch.equal(k10[True], old[True])
+            and torch.equal(k10[False], old[False])):
+        raise RuntimeError("K10 differs from its first design")
+    if not (torch.equal(k7, old[True]) and torch.equal(k1, old[False])):
+        raise RuntimeError("K7 or K1 at the train width differs from K10's "
+                           "first design")
+    print(f"  K10 pass 2 ({fmc.shape[0]} rows), both flags: == K7 (normals) "
+          f"and == K1 at the train width, == its first design "
+          f"(RSN_K10_FIRST_DESIGN: the 64-row wmma forward), and K7 / K1 == "
+          f"that first design, bit for bit")
+    del old
     for normals in (True, False):
         ref = ft.field_forward_v4_plain(fpacked if normals else fpacked[:20],
                                         fmc, g, S, normals)
@@ -2546,23 +2622,41 @@ def api_phase(field, render_mc, cam_calls, card, first, first13):
     w_bytes = nbytes(*fpacked[:20])
     for normals in (True, False):
         pk = fpacked if normals else fpacked[:20]
-        ms = {"K10": cuda_ms(lambda: ft.field_forward_v5(pk, fmc, g, S,
-                                                         normals))}
         other = "K7" if normals else "K1 train width"
-        ms[other] = cuda_ms(lambda: (ft.field_forward_v4 if normals else
-                                     ft.field_forward_v3_train)(
-                                         pk, fmc, g, S, blob=blob))
+        ring = ft.field_forward_v4 if normals else ft.field_forward_v3_train
+
+        def new(pk=pk, normals=normals):
+            ft.field_forward_v5(pk, fmc, g, S, normals, blob=blob)
+
+        def first(pk=pk, normals=normals):
+            ft.field_forward_v5_first_design(first13, pk, fmc, g, S, normals,
+                                             blob)
+
+        def same(pk=pk, ring=ring):
+            ring(pk, fmc, g, S, blob=blob)
+        ms = {"K10": cuda_ms(new), "first": cuda_ms(first),
+              other: cuda_ms(same)}
         pl = cuda_ms(lambda: ft.field_forward_v4_plain(pk, fmc, g, S,
                                                        normals))
         flops = (FLOPS["field_forward_v6"] + (2 * DGRAD_MACS if normals
                                               else 0)) * nf
         b, by = bound(flops, nbytes(fmc, g, *pk[20:]) + w_bytes
                       + nf * ft.OUT_TRAIN * 2)
-        print(f"  K10 pass 2 (normals={normals}; the 64-row wmma forward "
-              f"that {other} ran before its Hopper design): {nf} rows, kernel "
-              f"{ms['K10']:.4f} ms, {other} {ms[other]:.4f} ms, plain "
-              f"{pl:.4f} ms, bound {b:.4f} ms ({by}; median of 10; {card})",
-              flush=True)
+        print(f"  K10 pass 2 (normals={normals}): {nf} rows, kernel "
+              f"{ms['K10']:.4f} ms, its first design (the 64-row wmma "
+              f"forward) {ms['first']:.4f} ms, {other} {ms[other]:.4f} ms, "
+              f"plain {pl:.4f} ms, bound {b:.4f} ms ({by}; one wrapper call, "
+              f"median of 10; {card})", flush=True)
+        # on the device alone, in turns (5 calls back to back, median of 10)
+        t = [back_to_back_ms(f) for f in (new, first, new, first)]
+        u = [back_to_back_ms(f) for f in (new, same, new, same)]
+        print(f"  K10 (normals={normals}): back to back in turns, the kernel "
+              f"{t[0]:.4f} / {t[2]:.4f} ms, its first design {t[1]:.4f} / "
+              f"{t[3]:.4f} ms ({(t[1] + t[3]) / (t[0] + t[2]):.2f}x the first "
+              f"design's speed); the kernel {u[0]:.4f} / {u[2]:.4f} ms, "
+              f"{other} {u[1]:.4f} / {u[3]:.4f} ms (K10 at "
+              f"{(u[0] + u[2]) / (u[1] + u[3]):.3f}x {other}'s time; 5 calls "
+              f"back to back, median of 10; {card})", flush=True)
         if normals:
             results["field_forward_v5"].update(ms=ms["K10"], plain_ms=pl,
                                                bound_ms=b, bound_by=by)

@@ -32,7 +32,7 @@
 //                       block instead of read from a spill.
 //   field_forward_v5   (K10; field_pallas.py, _kernel_v5): K7 (with the
 //                       normals) or K1 at the train width, with the next
-//                       tile's IPE computed while this tile's trunk runs.
+//                       tile's IPE computed off the tensor cores' path.
 //   field_backward_v3  (K13; field_train.py, _bwd_kernel_impl(two_d=False)):
 //                       K8 with whole-grid weight-gradient accumulators:
 //                       the launches return the 20 gradients themselves
@@ -58,7 +58,7 @@
 //     weights come from a blob that one launch (rsn_pack_train_blob) packs
 //     from the fp32 operands per train step.  The old 64-row wmma forward
 //     (forward_train_tile below: trunk and v3_tail of field_common.cuh, the
-//     masks as bits in shared memory) stays as K10's body.
+//     masks as bits in shared memory) stays as K10's first design.
 //   - The backward (K4/K5) gives each block a run of whole rays, walked
 //     in 64-row tiles.  Per-ray band gradients dg are summed in the block
 //     (no one-hot matrix, no float atomics); in the first design the
@@ -107,15 +107,25 @@
 //     RSN_K13_FIRST_DESIGN build's K13) only by the order of their fp32
 //     sums over the rows, and are the same from run to run.
 //   - K10 carries rsn's schedule over, not its two-slot VMEM buffer kept
-//     across sequential grid steps: one persistent block per SM, whose four
-//     producer warps write the next tile's IPE into one of two X slots
-//     while its eight consumer warps run the current tile from the other,
-//     handed over through named barriers.  The consumers run the first
-//     design's 64-row forward (forward_train_tile, wmma) and the producers
-//     its ipe_tile: every sum in the order of the Hopper K7's, so K10 equals
-//     K7 and K1 at the train width bit for bit.  The normals' IPE backward
-//     recomputes damp and u from mc, so only X is double-buffered (146 KB,
-//     one block per SM).
+//     across sequential grid steps: it is K7 / K1 at the train width on the
+//     same ring and wgmma (train_trunk with AHEAD: the train blob, 128-row
+//     tiles, 2 consumer warpgroups), but its consumers compute no IPE.
+//     The producer warpgroup's warps 1-3, idle in K7 (one thread issues the
+//     ring's copies), write each tile's IPE into each consumer's X, handed
+//     over by two named barriers per consumer (X full, X empty;
+//     trunk_sm90.cuh's ipe_ahead; mbarriers measured slower).  The train layout leaves 5,072 of the
+//     232,448 bytes free, so X is filled in place, not in a second slot:
+//     without the normals X is free after layer 4's products (its last
+//     reader), so the next tile's IPE overlaps layers 5-7, the heads and
+//     the tail; with them X holds the x share from dgrad layer 4 to layer
+//     0, so the fill overlaps only the IPE backward and the row stores.
+//     Every value is ipe_wg's and every sum K7's, so K10 equals K7 and K1
+//     at the train width bit for bit.  Its first design
+//     (RSN_K10_FIRST_DESIGN, the yardstick that the ring keeps the 64-row
+//     forward's sum order): one persistent block per SM, four producer
+//     warps writing the next tile's IPE (ipe_tile) into one of two X slots
+//     while eight consumer warps ran forward_train_tile (wmma) on the
+//     other, handed over through named barriers (146 KB).
 //   - K13's whole-grid accumulators without float atomics: K8's kernels A
 //     and B on K8's chunks, then one launch (field_backward_v3_sum_kernel)
 //     that sums kernel B's P partials in slice order and the blocks'
@@ -163,7 +173,8 @@ static_assert(PACK_FLOATS == 608640, "packed-gradient layout");
 // column tile 0 (the 11 head columns) and tiles 8..15 (the mid seed)
 constexpr unsigned HC_TILES = 0xFF01u;
 
-// ---- K10's 64-row forward ----------------------------------------------
+#ifdef RSN_K10_FIRST_DESIGN
+// ---- K10's first design: the 64-row forward -----------------------------
 
 constexpr int OFF_MASKS = FWD_SMEM_BYTES;
 constexpr int MASK_BYTES = LAYERS * TM * MASK_WORDS * 4;
@@ -177,7 +188,7 @@ __device__ __forceinline__ bool mask_bit(const uint32_t* masks, int layer,
 }
 
 // The train-width forward of the 64-row tile at row0 (the first design of
-// K3 / K7, now K10's body: trunk() and v3_tail on wmma), whose IPE X
+// K3 / K7 and of K10: trunk() and v3_tail on wmma), whose IPE X
 // already holds (visible to every thread of the routines).  Reads X only in
 // the trunk.
 template <bool NORMALS>
@@ -264,15 +275,7 @@ __device__ void forward_train_tile(const float* __restrict__ mc,
              OUT_TRAIN, nv);
 }
 
-// K3 (SPILL), K7 and K1 at the train width (train_sm90.cuh).
-template <bool NORMALS, bool SPILL, bool SPILL_X>
-__global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
-    field_train_kernel(const __grid_constant__ sm90::TrainParams p) {
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  sm90::train_trunk<NORMALS, SPILL, SPILL_X>(p, smem_raw);
-}
-
-// ---- K10: K7 / K1 at the train width, the next tile's IPE ahead ---------
+// ---- K10's first design: the next tile's IPE in a second slot ----------
 
 // A persistent block (one per SM) walks the tiles blockIdx.x,
 // blockIdx.x + gridDim.x, ...  Its THREADS consumer threads run each tile
@@ -298,7 +301,7 @@ __device__ __forceinline__ void bar_arrive(int id) {
 
 template <bool NORMALS>
 __global__ void __launch_bounds__(K10_THREADS, 1)
-    field_forward_v5_kernel(const float* __restrict__ mc,
+    field_forward_v5_first_kernel(const float* __restrict__ mc,
                             const float* __restrict__ g,
                             const float* __restrict__ consts, V3Params p,
                             const float* __restrict__ wd_row,
@@ -329,6 +332,24 @@ __global__ void __launch_bounds__(K10_THREADS, 1)
     block_sync();  // the next tile rewrites H0, H1, the masks and rowout
     if (j + 2 < count) bar_arrive(BAR_EMPTY + (int)(j & 1));
   }
+}
+#endif  // RSN_K10_FIRST_DESIGN
+
+// K3 (SPILL), K7 and K1 at the train width (train_sm90.cuh).
+template <bool NORMALS, bool SPILL, bool SPILL_X>
+__global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
+    field_train_kernel(const __grid_constant__ sm90::TrainParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  sm90::train_trunk<NORMALS, SPILL, SPILL_X>(p, smem_raw);
+}
+
+// K10: K7 (NORMALS) or K1 at the train width, each tile's IPE from the
+// producer warpgroup's idle warps.
+template <bool NORMALS>
+__global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
+    field_forward_v5_kernel(const __grid_constant__ sm90::TrainParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  sm90::train_trunk<NORMALS, false, false, true>(p, smem_raw);
 }
 
 // ---- K4 / K5 / K8 / K17 -------------------------------------------------
@@ -823,12 +844,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 #endif
 
 // A persistent grid of at most one block per SM over the 128-row tiles.
-template <bool NORMALS, bool SPILL, bool SPILL_X>
-int launch_train(const sm90::TrainParams& p, cudaStream_t stream) {
-  auto kernel = field_train_kernel<NORMALS, SPILL, SPILL_X>;
+template <typename Kernel>
+int launch_ring(Kernel kernel, int smem_bytes, const sm90::TrainParams& p,
+                cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      sm90::TRAIN_SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
@@ -837,8 +857,14 @@ int launch_train(const sm90::TrainParams& p, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (p.r.n + sm90::TILE_ROWS - 1) / sm90::TILE_ROWS;
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
-  kernel<<<grid, sm90::BLOCK_THREADS, sm90::TRAIN_SMEM_BYTES, stream>>>(p);
+  kernel<<<grid, sm90::BLOCK_THREADS, smem_bytes, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <bool NORMALS, bool SPILL, bool SPILL_X>
+int launch_train(const sm90::TrainParams& p, cudaStream_t stream) {
+  return launch_ring(field_train_kernel<NORMALS, SPILL, SPILL_X>,
+                     sm90::TRAIN_SMEM_BYTES, p, stream);
 }
 
 // ptrs: the 20 packed operands [+ wd_row]; blob: the train blob.
@@ -864,11 +890,12 @@ void fill_train(sm90::TrainParams* t, const void* mean_cov,
   t->wd_row = want_normals ? static_cast<const float*>(ptrs[20]) : nullptr;
 }
 
+#ifdef RSN_K10_FIRST_DESIGN
 template <bool NORMALS>
 int launch_v5(const float* mc, const float* g, const float* consts,
               const V3Params& p, const float* wd_row, bf16* out, long long n,
               int S, cudaStream_t stream) {
-  auto kernel = field_forward_v5_kernel<NORMALS>;
+  auto kernel = field_forward_v5_first_kernel<NORMALS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K10_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -883,6 +910,7 @@ int launch_v5(const float* mc, const float* g, const float* consts,
                                                         wd_row, out, n, S);
   return (int)cudaGetLastError();
 }
+#endif
 
 template <typename Kernel>
 int launch_backward(Kernel kernel, int smem_bytes, const V3Params& p,
@@ -1116,12 +1144,27 @@ int rsn_field_backward_whole(const void* mean_cov, const void* g_bands,
 }
 
 // K10: K7 (want_normals: ptrs carries wd_row as ptrs[20]) or K1 at the
-// train width, on a persistent grid with the next tile's IPE computed
-// ahead; the same (N, 24) bf16 output, bit for bit.
+// train width, each tile's IPE computed by the producer warpgroup's idle
+// warps; K7's arguments (blob: rsn_pack_train_blob's) and the same (N, 24)
+// bf16 output, bit for bit.  The RSN_K10_FIRST_DESIGN build runs the
+// 64-row wmma forward with a second X slot instead (blob unused).
 int rsn_field_forward_v5(const void* mean_cov, const void* g_bands,
-                         const void* ipe_consts, const void* const* ptrs,
-                         void* out, long long n, int samples_per_ray,
-                         int want_normals, void* stream) {
+                         const void* ipe_consts, const void* blob,
+                         const void* const* ptrs, void* out, long long n,
+                         int samples_per_ray, int want_normals,
+                         void* stream) {
+#ifndef RSN_K10_FIRST_DESIGN
+  sm90::TrainParams t;
+  fill_train(&t, mean_cov, g_bands, ipe_consts, blob, ptrs, out, n,
+             samples_per_ray, want_normals);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (want_normals)
+    return launch_ring(field_forward_v5_kernel<true>,
+                       sm90::TRAIN_AHEAD_SMEM_BYTES, t, s);
+  return launch_ring(field_forward_v5_kernel<false>,
+                     sm90::TRAIN_AHEAD_SMEM_BYTES, t, s);
+#else
+  (void)blob;
   V3Params p;
   fill_v3(&p, ptrs);
   const float* mc = static_cast<const float*>(mean_cov);
@@ -1135,6 +1178,7 @@ int rsn_field_forward_v5(const void* mean_cov, const void* g_bands,
                            samples_per_ray, st);
   return launch_v5<false>(mc, g, consts, p, nullptr, o, n, samples_per_ray,
                           st);
+#endif
 }
 
 // K13's first design, one cooperative launch (the RSN_K13_FIRST_DESIGN

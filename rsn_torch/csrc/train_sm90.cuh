@@ -2,7 +2,9 @@
 // parts: K3 `field_forward_v6` (rsn/kernels/field_pallas.py:794), K7
 // `field_forward_v4` (field_pallas.py:691) and, as K7 without the normals,
 // K1 at the train width (field_pallas.py:512 at its V3_OUT store).  One
-// body, train_trunk below, so the three equal each other bit for bit.
+// body, train_trunk below, so the three equal each other bit for bit; K10
+// `field_forward_v5` (field_pallas.py:945) is the same body with each
+// tile's IPE written by the producer warpgroup's idle warps (AHEAD).
 //
 // What bounds them: their products (K1's trunk and heads, and with the
 // normals 8 more layers: about 2.2 M MACs a row against 4.4 KB of spill),
@@ -57,6 +59,13 @@ constexpr int OFF_XS_REST = OFF_ROWS + CONSUMERS * ROWS_WG_BYTES;
 constexpr int OFF_TRAIN_BARS = OFF_XS_REST + CONSUMERS * XS_WG_BYTES;
 constexpr int TRAIN_SMEM_BYTES = OFF_TRAIN_BARS + 2 * STAGES * 8 + 1024;
 static_assert(TRAIN_SMEM_BYTES <= 232448, "the train forward exceeds 227 KB");
+// K10 (the IPE ahead): the IPE constants behind the ring's barriers.  The
+// layout leaves 5,072 bytes free: room for these 128, not for a second X
+// (32 KB for the two consumers).
+constexpr int TRAIN_AHEAD_SMEM_BYTES = TRAIN_SMEM_BYTES + AHEAD_BYTES;
+static_assert(TRAIN_AHEAD_SMEM_BYTES <= 232448, "K10 exceeds 227 KB");
+static_assert(TRAIN_SMEM_BYTES + CONSUMERS * X_WG_BYTES > 232448,
+              "a second X slot would fit");
 constexpr int DX_LD = IPE_DIM + 2;              // dx's f32 row stride (odd)
 static_assert(WG_ROWS * DX_LD * 4 <= H_WG_BYTES, "dx must fit H");
 constexpr int XS_R = XS_N / 2;                  // the x share's registers
@@ -93,8 +102,9 @@ __device__ __forceinline__ void store_tile_rows(bf16* dst, long long ld,
 
 // trunk_wg's hook on the train path: with NORMALS each layer's ReLU mask
 // (m[i]: bit i % 32 of word i / 32 is register i's bf16 value > 0), with
-// SPILL each layer's output to the spill.
-template <bool NORMALS, bool SPILL>
+// SPILL each layer's output to the spill; with AHEAD and without NORMALS,
+// X released once layer SKIP_AT's products, its last readers, are done.
+template <bool NORMALS, bool SPILL, bool AHEAD = false>
 struct TrainHook {
   uint32_t m[LAYERS][4];
   uint32_t cur[4];
@@ -103,6 +113,7 @@ struct TrainHook {
   int nv;                // the warpgroup's rows below n
   const unsigned char* H;
   int t;
+  int rel;               // AHEAD: release_x's rel
   __device__ __forceinline__ void value(int i, __nv_bfloat162 v) {
     if constexpr (NORMALS) {
       const uint32_t bits = (__low2float(v) > 0.f ? 1u : 0u) |
@@ -111,6 +122,9 @@ struct TrainHook {
     }
   }
   __device__ __forceinline__ void layer(int layer) {
+    if constexpr (AHEAD && !NORMALS) {
+      if (layer == SKIP_AT) release_x(rel);
+    }
     if constexpr (NORMALS) {
 #pragma unroll
       for (int l = 0; l < LAYERS - 1; ++l)
@@ -194,15 +208,17 @@ __device__ __forceinline__ float* xs_slot(unsigned char* X, float* tail,
 // density head row through the 8 layers (dh = wd_row; dpre = bf16(dh *
 // mask); dinp = dpre @ W^T) and the IPE.  m: the forward's masks.  X, tail
 // and rest hold layer 4's x share; X's zero columns 100..127 are zero
-// again at the end.  Starts with the tail's reads of H possibly in flight;
-// ends with the rows complete and visible to the warpgroup.
+// again at the end, and with AHEAD X is released then, before the IPE
+// backward.  Starts with the tail's reads of H possibly in flight; ends
+// with the rows complete and visible to the warpgroup.
+template <bool AHEAD = false>
 __device__ __forceinline__ void normals_wg(const TrainParams& tp,
                                            RingPos& rp, unsigned char* X,
                                            unsigned char* H, float* tail,
                                            float* rest,
                                            const uint32_t (&m)[LAYERS][4],
                                            bf16* rows, long long row0,
-                                           int wg, int t) {
+                                           int wg, int t, int rel = -1) {
   wg_sync(wg);  // the tail's reads of H are done
   // dpre_7 = bf16(mask_7 ? wd_row : 0)
 #pragma unroll
@@ -264,6 +280,7 @@ __device__ __forceinline__ void normals_wg(const TrainParams& tp,
   }
   wg_sync(wg);
   zero_x_pad(X, t);
+  if constexpr (AHEAD) release_x(rel);
   // the IPE backward of the mean: dx damp cos(2 pi u) 2 pi f_k over both
   // halves, plus the identity columns 96..98; one (row, d) per thread
   for (int e = t; e < WG_ROWS * 3; e += WG_THREADS) {
@@ -291,7 +308,9 @@ __device__ __forceinline__ void normals_wg(const TrainParams& tp,
 // The train-width tile of K3 (SPILL), K7 (NORMALS) and K1 at the train
 // width: the spill of X, the trunk with TrainHook, the train-width tail
 // (into the staged rows with the normals, else to out) and the normals.
-template <bool NORMALS, bool SPILL, bool SPILL_X>
+// AHEAD (K10): X is released where its last reader is done (after layer
+// SKIP_AT, or with the normals once the x share has left it).
+template <bool NORMALS, bool SPILL, bool SPILL_X, bool AHEAD = false>
 struct TrainTile {
   const TrainParams& tp;
   bf16* staged;            // the block's staged rows (NORMALS)
@@ -308,16 +327,21 @@ struct TrainTile {
     if constexpr (SPILL_X)
       store_tile_rows<2>(acts + LAYERS * WIDTH, tp.ld, X, nv, t);
 #endif
-    TrainHook<NORMALS, SPILL> hook{{}, {0u, 0u, 0u, 0u}, acts, tp.ld, nv,
-                                   H, t};
+    // the release of X, but on the block's last tile
+    const int rel = AHEAD && row0 - wg * WG_ROWS +
+                                     (long long)gridDim.x * TILE_ROWS < p.n
+                        ? wg
+                        : -1;
+    TrainHook<NORMALS, SPILL, AHEAD> hook{
+        {}, {0u, 0u, 0u, 0u}, acts, tp.ld, nv, H, t, rel};
     trunk_wg(p, rp, X, H, wg, t, hook);
     bf16* rows = NORMALS ? staged + wg * (WG_ROWS * TRAIN_COLS)
                          : p.out + row0 * TRAIN_COLS;
     v3_tail_wg<TRAIN_COLS>(p, rp, H, wcol, wout, tail, row0, wg, t, rows);
     if constexpr (NORMALS) {
-      normals_wg(tp, rp, X, H, tail,
-                 reinterpret_cast<float*>(xs_rest + wg * XS_WG_BYTES),
-                 hook.m, rows, row0, wg, t);
+      normals_wg<AHEAD>(tp, rp, X, H, tail,
+                        reinterpret_cast<float*>(xs_rest + wg * XS_WG_BYTES),
+                        hook.m, rows, row0, wg, t, rel);
       // the staged rows below n, 16 bytes a thread and step
       for (int e = t; e < WG_ROWS * 3; e += WG_THREADS)
         if (e / 3 < nv)
@@ -327,15 +351,18 @@ struct TrainTile {
   }
 };
 
-// K3, K7 and K1 at the train width: the whole body.
-template <bool NORMALS, bool SPILL, bool SPILL_X>
+// K3, K7 and K1 at the train width: the whole body.  AHEAD: K10, the same
+// tile with its IPE written by the producer warpgroup's idle warps
+// (persistent_body's IPE_AHEAD; TRAIN_AHEAD_SMEM_BYTES).
+template <bool NORMALS, bool SPILL, bool SPILL_X, bool AHEAD = false>
 __device__ void train_trunk(const TrainParams& tp, unsigned char* smem_raw) {
   static_assert(SPILL || !SPILL_X, "x is spilled with the activations");
   unsigned char* smem = align_1024(smem_raw);
-  TrainTile<NORMALS, SPILL, SPILL_X> tile{
+  TrainTile<NORMALS, SPILL, SPILL_X, AHEAD> tile{
       tp, reinterpret_cast<bf16*>(smem + OFF_ROWS), smem + OFF_XS_REST};
-  persistent_body<true>(tp.r, smem, OFF_TRAIN_BARS,
-                        FWD_CHUNKS + (NORMALS ? DGRAD_CHUNKS : 0), tile);
+  persistent_body<true, AHEAD>(tp.r, smem, OFF_TRAIN_BARS,
+                               FWD_CHUNKS + (NORMALS ? DGRAD_CHUNKS : 0),
+                               tile);
 }
 
 // ---- the train blob, packed on the card --------------------------------

@@ -837,6 +837,124 @@ __device__ __forceinline__ void zero_x_pad(unsigned char* X, int t) {
         __float2bfloat16_rn(0.f);
 }
 
+// ---- the IPE ahead (K10): the producer warpgroup's idle warps ---------------
+//
+// With persistent_body's IPE_AHEAD the consumers compute no IPE.  Warps
+// 1..3 of the producer warpgroup (IPE_THREADS threads, at the producer's
+// 40 registers; warp 0's thread 0 issues the ring's copies) write each
+// tile's IPE into each consumer warpgroup's X while that warpgroup runs
+// the rest of the tile before.  Two signals per consumer warpgroup c hand
+// X over: "X full" (the IPE warps to c, each thread behind a
+// fence.proxy.async: wgmma reads X through the async proxy) and "X empty"
+// (c to the IPE warps once the tile's last reader of X is done, if the
+// block has a next tile: release_x).  Each is a named barrier of the IPE
+// warps and c (X_PAIR threads): the side that signals arrives
+// (bar.arrive), the side that waits syncs (bar.sync); mbarriers measured
+// slower (PERF.md).  The IPE warps read the IPE constants from a shared
+// copy behind the ring's barriers.
+constexpr int IPE_THREADS = WG_THREADS - 32;
+constexpr int X_PAIR = WG_THREADS + IPE_THREADS;  // 224
+constexpr int X_FULL_BAR = 4, X_EMPTY_BAR = 6;    // + c (wg_sync: 2, 3)
+constexpr int AHEAD_BYTES = 2 * NFREQ * 4;       // the IPE constants, 128
+
+// The shared copy of the IPE constants (consts[k], consts[NFREQ + k]).
+__device__ __forceinline__ float* ahead_consts(unsigned char* smem,
+                                               int bars_off) {
+  return reinterpret_cast<float*>(smem + bars_off + 2 * STAGES * 8);
+}
+
+// The signal "X full" (full) or "X empty" of consumer warpgroup c.
+__device__ __forceinline__ void x_signal(bool full, int c) {
+  asm volatile("bar.arrive %0, %1;" ::"r"((full ? X_FULL_BAR : X_EMPTY_BAR) +
+                                          c),
+               "n"(X_PAIR)
+               : "memory");
+}
+
+// The wait for it.
+__device__ __forceinline__ void x_wait(bool full, int c) {
+  asm volatile("bar.sync %0, %1;" ::"r"((full ? X_FULL_BAR : X_EMPTY_BAR) +
+                                        c),
+               "n"(X_PAIR)
+               : "memory");
+}
+
+// A consumer thread's release of its warpgroup's X after its last read of
+// X (and, where X held other data, its last write).  rel: the warpgroup,
+// or -1 on the block's last tile, whose X no IPE warp waits for.
+__device__ __forceinline__ void release_x(int rel) {
+  if (rel >= 0) x_signal(false, rel);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ipe_wg's bits for one consumer warpgroup's 64 rows from the IPE warps
+// (thread i of IPE_THREADS): a unit is (row r, d, half hf of the 16
+// frequencies), r = e % 64 so that the 8 threads of a quarter warp store
+// to 8 rows (the swizzle puts them on all 32 banks); its 8 sin and 8 cos
+// columns go out as one 16-byte store each; then the mean columns 96..98
+// and column 99, one row a thread.  consts: the shared copy.
+__device__ __forceinline__ void ipe_ahead_wg(const float* __restrict__ mc,
+                                             const float* consts,
+                                             long long row0, long long n,
+                                             unsigned char* X, int i) {
+#pragma unroll 1
+  for (int e = i; e < WG_ROWS * 6; e += IPE_THREADS) {
+    const int r = e % WG_ROWS, d = e / (2 * WG_ROWS), hf = (e / WG_ROWS) & 1;
+    const long long row = row0 + r;
+    uint32_t s[4] = {0u, 0u, 0u, 0u}, c[4] = {0u, 0u, 0u, 0u};
+    if (row < n) {
+      const float mean = mc[row * IN_COLS + d];
+      const float cov = mc[row * IN_COLS + 3 + d];
+#pragma unroll
+      for (int kp = 0; kp < 4; ++kp) {
+        const int k = 8 * hf + 2 * kp;
+        float s0, s1, c0, c1;
+        ipe_sincos(mean, cov, consts[k], consts[NFREQ + k], &s0, &c0);
+        ipe_sincos(mean, cov, consts[k + 1], consts[NFREQ + k + 1], &s1,
+                   &c1);
+        s[kp] = bf16x2_bits(s0, s1);
+        c[kp] = bf16x2_bits(c0, c1);
+      }
+    }
+    *reinterpret_cast<uint4*>(X + swz(r, 16 * d + 8 * hf)) =
+        make_uint4(s[0], s[1], s[2], s[3]);
+    *reinterpret_cast<uint4*>(X + swz(r, 48 + 16 * d + 8 * hf)) =
+        make_uint4(c[0], c[1], c[2], c[3]);
+  }
+  for (int r = i; r < WG_ROWS; r += IPE_THREADS) {
+    const long long row = row0 + r;
+    const bool live = row < n;
+    const float* m = mc + row * IN_COLS;
+    *reinterpret_cast<uint2*>(X + swz(r, 96)) =
+        live ? make_uint2(bf16x2_bits(m[0], m[1]), bf16x2_bits(m[2], 0.f))
+             : make_uint2(0u, 0u);
+  }
+}
+
+// The IPE warps' loop: for every tile of the block, each consumer
+// warpgroup's rows into its X as soon as that warpgroup has released it
+// (X is empty before the block's first tile).
+__device__ void ipe_ahead(const RenderParams& p, unsigned char* xs,
+                          const float* consts, int ntiles, int i) {
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+#pragma unroll 1
+    for (int c = 0; c < CONSUMERS; ++c) {
+      if (tile != (int)blockIdx.x) x_wait(false, c);
+#ifndef RSN_ABLATE_NO_IPE  // ablate_k3.py: the hand-off without the IPE
+      ipe_ahead_wg(p.mc, consts,
+                   (long long)tile * TILE_ROWS + c * WG_ROWS, p.n,
+                   xs + c * X_WG_BYTES, i);
+#endif
+      fence_async_smem();
+      x_signal(true, c);
+    }
+  }
+}
+
 // K1's end (v3_tail's arithmetic on 64 rows): the heads + mid-seed product
 // as one m64n144 wgmma over 4 ring chunks (w_hc's columns 0..15 and
 // 128..255), the roughness attenuation, hmid (into H's first two k-blocks,
@@ -995,8 +1113,11 @@ __device__ __forceinline__ void v3_tail_wg(const RenderParams& p,
 // and of w_out's three live columns, the ring's barriers at bars_off; the
 // producer streams the blob's first `chunks` chunks for every tile; each
 // consumer warpgroup writes its 64 rows' IPE into X, then runs
-// tile_fn(rp, X, H, tail, wcol, wout, row0, wg, t) on them.
-template <bool HEADS, typename Tile>
+// tile_fn(rp, X, H, tail, wcol, wout, row0, wg, t) on them.  IPE_AHEAD
+// (K10): the IPE warps write X instead (ipe_ahead; AHEAD_BYTES behind the
+// ring's barriers), and tile_fn releases each tile's X (release_x) but the
+// block's last.
+template <bool HEADS, bool IPE_AHEAD = false, typename Tile>
 __device__ __forceinline__ void persistent_body(const RenderParams& p,
                                                 unsigned char* smem,
                                                 int bars_off, int chunks,
@@ -1012,6 +1133,10 @@ __device__ __forceinline__ void persistent_body(const RenderParams& p,
                             __bfloat162float(p.w_out[k * MID + 1]),
                             __bfloat162float(p.w_out[k * MID + 2]), 0.f);
   }
+  float* consts = ahead_consts(smem, bars_off);
+  if constexpr (IPE_AHEAD) {
+    if (threadIdx.x < 2 * NFREQ) consts[threadIdx.x] = p.consts[threadIdx.x];
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -1026,6 +1151,8 @@ __device__ __forceinline__ void persistent_body(const RenderParams& p,
     setmaxnreg_dec40();
     if (threadIdx.x == 0)
       produce(p.blob, smem + OFF_RING, full, empty, chunks, ntiles);
+    else if (IPE_AHEAD && threadIdx.x >= 32)
+      ipe_ahead(p, smem + OFF_XS, consts, ntiles, threadIdx.x - 32);
     return;
   }
   setmaxnreg_inc232();
@@ -1034,6 +1161,17 @@ __device__ __forceinline__ void persistent_body(const RenderParams& p,
   unsigned char* H = smem + OFF_HS + wg * H_WG_BYTES;
   float* tail = reinterpret_cast<float*>(smem + OFF_TAIL + wg * TAIL_WG_BYTES);
   RingPos rp{smem + OFF_RING, full, empty, 0, 0u};
+  if constexpr (IPE_AHEAD) {
+    zero_x_pad(X, t);  // for good: the IPE warps write columns 0..99
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const long long row0 = (long long)tile * TILE_ROWS + wg * WG_ROWS;
+      fence_async_smem();  // the warpgroup's own writes of X's zero columns
+      wg_sync(wg);         // the previous tile's tail is done with H, scratch
+      x_wait(true, wg);
+      tile_fn(rp, X, H, tail, wcol, wout, row0, wg, t);
+    }
+    return;
+  }
   float sk[8], vk[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {

@@ -178,7 +178,8 @@ def _signatures() -> Dict[str, Dict[str, list]]:
             "rsn_field_backward_v4": [vp, vp, vp, vp, vp, ptrs, vp, vp, vp,
                                       vp, vp, ll, i32, i32, i32, i32, vp],
             "rsn_wgrad_sm90": [vp, vp, ll, i32, i32, vp],
-            "rsn_field_forward_v5": [vp, vp, vp, ptrs, vp, ll, i32, i32, vp],
+            "rsn_field_forward_v5": [vp, vp, vp, vp, ptrs, vp, ll, i32, i32,
+                                     vp],
             "rsn_field_backward_v3": [vp, vp, vp, vp, vp, ptrs, vp, vp, vp,
                                       vp, vp, vp, ll, i32, i32, vp],
             "rsn_field_backward_whole": [vp, vp, vp, vp, vp, ptrs, vp, vp,

@@ -35,9 +35,11 @@ a spill -> dmc, dg and the 20 gradients; K4's two kernels and schedule
 (stash_backward), so it equals K4 on K3's spill bit for bit.
 
 K10 `field_forward_v5` (replaces field_pallas.py::field_forward_v5): K7
-(want_normals) or K1 at the train width on another schedule, the next
-tile's IPE computed while this tile's trunk runs; the same (N, 24) bf16
-output bit for bit.
+(want_normals) or K1 at the train width on another schedule: the same
+ring, blob and tiles, each tile's IPE written by the producer warpgroup's
+idle warps instead of the consumers; the same (N, 24) bf16 output bit for
+bit.  Its first design (the 64-row wmma forward with a second X slot)
+stays under RSN_K10_FIRST_DESIGN (field_forward_v5_first_design).
 
 K13 `field_backward_v3` (replaces field_train.py::field_backward_v3): K8
 with whole-grid weight-gradient accumulators: the launches themselves
@@ -735,8 +737,8 @@ def _forward_no_spill(packed, mean_cov, g_bands, samples_per_ray,
                       want_normals: bool, name: str, entry: str,
                       blob=None) -> torch.Tensor:
     """K7, K1 at the train width and K10: the same checks, plain version
-    and arguments; `entry` is the C function that launches `name`, which
-    (but K10's) reads its weights from a train blob."""
+    and arguments; `entry` is the C function that launches `name` from a
+    train blob."""
     device = mean_cov.device
     n = mean_cov.shape[0]
     S = int(samples_per_ray)
@@ -751,20 +753,29 @@ def _forward_no_spill(packed, mean_cov, g_bands, samples_per_ray,
         raise ValueError(f"{name}: unsupported device {device}")
     from rsn_torch.kernels.build import load_library
 
-    lib = load_library("field_train.cu")
-    head = (mean_cov.data_ptr(), g_bands.data_ptr(),
-            _ipe_consts(device).data_ptr())
-    if name != "field_forward_v5":
-        # held until the launch, so that out cannot take its memory
-        blob = _train_blob_for(packed, blob)
-        head += (blob.data_ptr(),)
+    out = launch_no_spill(load_library("field_train.cu"), entry, packed,
+                          mean_cov, g_bands, S, want_normals,
+                          _train_blob_for(packed, blob), name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def launch_no_spill(lib, entry: str, packed, mean_cov, g_bands, S: int,
+                    want_normals: bool, blob, name: str = None
+                    ) -> torch.Tensor:
+    """`entry` (rsn_field_forward_v4: K7 / K1 at the train width;
+    rsn_field_forward_v5: K10) from `lib` (field_train.cu as load_library
+    builds it, or another build of it) on checked CUDA inputs and a train
+    blob -> (N, 24) bf16.  Counts no launch."""
+    n, device = mean_cov.shape[0], mean_cov.device
     out = torch.empty((n, OUT_TRAIN), dtype=BF16, device=device)
     with torch.cuda.device(device):
         rc = getattr(lib, entry)(
-            *head, _ptr_array(packed), out.data_ptr(), n, S,
-            int(want_normals), torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(lib, rc, name)
-    LAUNCHES[name] += 1
+            mean_cov.data_ptr(), g_bands.data_ptr(),
+            _ipe_consts(device).data_ptr(), blob.data_ptr(),
+            _ptr_array(packed), out.data_ptr(), n, S, int(want_normals),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, rc, name or entry)
     return out
 
 
@@ -790,15 +801,29 @@ def field_forward_v3_train(packed, mean_cov: torch.Tensor,
 
 
 def field_forward_v5(packed, mean_cov: torch.Tensor, g_bands: torch.Tensor,
-                     samples_per_ray: int,
-                     want_normals: bool = False) -> torch.Tensor:
+                     samples_per_ray: int, want_normals: bool = False,
+                     blob: torch.Tensor = None) -> torch.Tensor:
     """K10: K7's operands (pack_params_v4f) with want_normals, else K1's
     (pack_params_v3f) -> (N, 24) bf16, equal to field_forward_v4's or
-    field_forward_v3_train's output bit for bit; one persistent block per
-    SM computes the next tile's IPE while this tile's trunk runs."""
+    field_forward_v3_train's output bit for bit; blob as
+    field_forward_v6's.  Each tile's IPE is written by the producer
+    warpgroup's idle warps while the consumers run the tile before."""
     return _forward_no_spill(packed, mean_cov, g_bands, samples_per_ray,
                              want_normals, "field_forward_v5",
-                             "rsn_field_forward_v5")
+                             "rsn_field_forward_v5", blob)
+
+
+def field_forward_v5_first_design(lib, packed, mean_cov, g_bands,
+                                  samples_per_ray: int, want_normals: bool,
+                                  blob) -> torch.Tensor:
+    """K10's first design on checked CUDA inputs from `lib`, the
+    RSN_K10_FIRST_DESIGN build of field_train.cu: the 64-row wmma forward
+    that K7 ran before its Hopper design, four producer warps writing the
+    next tile's IPE into a second X slot (blob is not read) -> (N, 24)
+    bf16.  Counts no launch."""
+    return launch_no_spill(lib, "rsn_field_forward_v5", packed, mean_cov,
+                           g_bands, int(samples_per_ray), want_normals, blob,
+                           "field_forward_v5 (first design)")
 
 
 def _check_bwd(d_out, f_out, n, device):

@@ -3,10 +3,12 @@ and K2's Hopper trunk rests on, shapes the smoke run does not
 reach (ragged last tiles, K1 / K2 over more tiles than one block per SM,
 odd samples per ray, every flag pair of the
 training forward, K3 / K7 / K1 at the train width on the Hopper ring
-against plain, each other and K10, bit for bit, and the pack launch of
+against plain, each other, K10 and K10's first design (the
+RSN_K10_FIRST_DESIGN build), bit for bit, and the pack launch of
 their weight blob, K9 over ragged warp tiles, NaN rows and many tiles
 per warp, K7 / K8 at ragged shapes, K10-K13 at ragged shapes and over
-many tiles per block), K9 against its first design (the
+many tiles per block, K10 == its first design there), K9 against its
+first design (the
 RSN_K9_FIRST_DESIGN build) and K11 / K12 against theirs (the
 RSN_K11_FIRST_DESIGN build, K12 also on an encoding with a non-zero tail)
 bit for bit, the launch counters (one train
@@ -665,12 +667,28 @@ def test_field_api_kernels_match_plain_versions(field, n):
                      .abs().max()) <= ATOL
 
 
-@pytest.mark.parametrize("R,S", [(1, 1), (3, 7), (5, 29), (300, 64),
-                                 (1000, 64)])
+@pytest.fixture(scope="module")
+def train_first_design(field):
+    """field_train.cu with RSN_K13_FIRST_DESIGN and RSN_K10_FIRST_DESIGN:
+    K13's, K17's and K10's first designs, one nvcc (as chip_smoke.py
+    builds it)."""
+    from rsn_torch.kernels.build import start_variant
+
+    lib, _ = start_variant("field_train.cu", ("RSN_K13_FIRST_DESIGN",
+                                              "RSN_K10_FIRST_DESIGN"),
+                           "first_design")()
+    return lib
+
+
+K10_SHAPES = [(1, 1), (3, 7), (5, 29), (300, 64), (1000, 64)]
+
+
+@pytest.mark.parametrize("R,S", K10_SHAPES)
 def test_k10_equals_k7_and_k1_train_width(field, R, S):
     """K10 with the normals equals K7, without them K1 at the train width,
     bit for bit (one tile, ragged tiles, and more tiles than blocks: both
-    slots of every block), and agrees with the plain version."""
+    phases of every block's X barriers), and agrees with the plain
+    version."""
     mc, dirs = _inputs(R, S, seed=R * S)
     g = ff.mid_g_bands(field, dirs)
     p3 = ff.pack_params_v3f(field)
@@ -686,6 +704,35 @@ def test_k10_equals_k7_and_k1_train_width(field, R, S):
         ref = tft.field_forward_v4_plain(pk, mc, g, S, normals)
         assert float((got[:, cols].float() - ref[:, cols].float()).abs()
                      .max()) <= ATOL
+
+
+@pytest.mark.parametrize("normals", [True, False])
+@pytest.mark.parametrize("R,S", K10_SHAPES)
+def test_k10_equals_its_first_design(field, train_first_design, R, S,
+                                     normals):
+    """K10 (the ring, each tile's IPE from the producer warpgroup's idle
+    warps) against the RSN_K10_FIRST_DESIGN build's K10 (the 64-row wmma
+    forward, the IPE in a second X slot) bit for bit, at the shapes above:
+    one tile, ragged tiles, more tiles than blocks (1000 x 64: 500 tiles on
+    132 blocks, both parities of each X barrier); and K7 / K1 at the train
+    width equal that first design too.  One K10 launch is counted, none
+    for the first design."""
+    mc, dirs = _inputs(R, S, seed=3 * R + S)
+    g = ff.mid_g_bands(field, dirs)
+    p3 = ff.pack_params_v3f(field)
+    pk = tft.pack_params_v4f(p3, field) if normals else p3
+    blob = tft.train_blob(p3[:8], p3[16])
+    ff.reset_launch_counts()
+    new = tft.field_forward_v5(pk, mc, g, S, normals, blob=blob)
+    old = tft.field_forward_v5_first_design(train_first_design, pk, mc, g,
+                                            S, normals, blob)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ff.LAUNCHES.items() if v} == {
+        "field_forward_v5": 1}
+    fwd = tft.field_forward_v4 if normals else tft.field_forward_v3_train
+    ring = fwd(pk, mc, g, S, blob=blob)
+    torch.cuda.synchronize()
+    assert torch.equal(new, old) and torch.equal(ring, old)
 
 
 def test_train_blob_packs_on_the_card(field):
@@ -709,12 +756,14 @@ def test_train_blob_packs_on_the_card(field):
 @pytest.mark.parametrize("R,S", [(64, 128), (301, 100), (1030, 128)])
 @pytest.mark.parametrize("normals,spill_x", [(False, False), (False, True),
                                              (True, False), (True, True)])
-def test_train_forwards_on_the_ring(field, R, S, normals, spill_x):
+def test_train_forwards_on_the_ring(field, train_first_design, R, S,
+                                   normals, spill_x):
     """K3, and K7 (normals) or K1 at the train width, on trunk_sm90.cuh's
     ring: within ATOL of the plain version (of each tensor's max; the
     normals against the plain dgrad on K3's own activations); K3 == K7 /
-    K1 at the train width == K10 (the 64-row wmma forward, whose sums run
-    in the same order) bit for bit; the spill within one bf16 ulp of the
+    K1 at the train width == K10 == K10's first design (the
+    RSN_K10_FIRST_DESIGN build: the 64-row wmma forward, whose sums run in
+    the same order) bit for bit; the spill within one bf16 ulp of the
     plain one on 99.9% of entries, its activations the same bits with and
     without x, x's padding zero; K8 == K4 on it (dmc, dg, all 20
     gradients)."""
@@ -728,9 +777,12 @@ def test_train_forwards_on_the_ring(field, R, S, normals, spill_x):
     _, bare = tft.field_forward_v6(pk, mc, g, S, normals, False, blob=blob)
     fwd = tft.field_forward_v4 if normals else tft.field_forward_v3_train
     k7 = fwd(pk, mc, g, S, blob=blob)
-    k10 = tft.field_forward_v5(pk, mc, g, S, normals)
+    k10 = tft.field_forward_v5(pk, mc, g, S, normals, blob=blob)
+    first = tft.field_forward_v5_first_design(train_first_design, pk, mc, g,
+                                              S, normals, blob)
     torch.cuda.synchronize()
     assert torch.equal(k3, k7) and torch.equal(k10, k7)
+    assert torch.equal(first, k7)
     ref, ref_acts = tft.field_forward_v6_plain(pk, mc, g, S, normals,
                                                spill_x)
     cols = list(range(14)) + list(range(17, 20))
@@ -806,11 +858,12 @@ def test_field_api_launch_counts_and_route(field):
     ff.field_forward_v2_plain(packed, mc)
     tft.field_backward_v4_plain(p3, mc, g, out, out, 16)
     torch.cuda.synchronize()
-    # K13: K8's kernel A and kernel B once per chunk (one here), its sum
+    # K13: K8's kernel A and kernel B once per chunk (one here), its sum;
+    # K10 reads a train blob, packed here as K7's is when none is given
     assert {k: v for k, v in ff.LAUNCHES.items() if v} == {
         "field_forward_v2": 2, "field_forward": 1, "field_forward_v5": 1,
-        "field_backward_v3": 1, "field_backward_v3_wgrad": 1,
-        "field_backward_v3_sum": 1}
+        "train_blob": 1, "field_backward_v3": 1,
+        "field_backward_v3_wgrad": 1, "field_backward_v3_sum": 1}
     assert route["bottleneck"].shape == (4, 16, 256)
     assert torch.equal(route["bottleneck"].reshape(64, 256),
                        k11[:, ff.OUT_BOTTLENECK])
@@ -1112,20 +1165,11 @@ def test_k18_k19_equal_their_first_design(field, k18_first_design, R, S):
     assert all(torch.equal(a, b) for a, b in zip(k19[1], k18[2]))
 
 
-@pytest.fixture(scope="module")
-def k13_first_design(field):
-    from rsn_torch.kernels.build import start_variant
-
-    lib, _ = start_variant("field_train.cu", ("RSN_K13_FIRST_DESIGN",),
-                           "first_design")()
-    return lib
-
-
 # one ray, a ragged tile, (300, 140): 3 rays a block, 7 tiles (odd: K17's
 # last 128-row tile has no second half) in 2 chunks, and (1030, 128): 16
 # tiles in 4 chunks, the last block's run 4 tiles short
 @pytest.mark.parametrize("R,S", [(1, 1), (3, 7), (300, 140), (1030, 128)])
-def test_k13_k17_equal_their_first_design(field, k13_first_design, R, S):
+def test_k13_k17_equal_their_first_design(field, train_first_design, R, S):
     """K13 and K17 (kernel A and kernel B per chunk of K8's plan; K13 then
     its sum) against the RSN_K13_FIRST_DESIGN build of the same source:
     dmc bit for bit, K13's dg too, the other outputs within K13_TOL of each
@@ -1147,8 +1191,8 @@ def test_k13_k17_equal_their_first_design(field, k13_first_design, R, S):
         "field_backward_v3": chunks, "field_backward_v3_wgrad": chunks,
         "field_backward_v3_sum": 1, "field_backward_whole": chunks,
         "field_backward_whole_wgrad": chunks}
-    old13 = tft.field_backward_v3_first_design(k13_first_design, *args)
-    old17 = bwd_whole.first_design(k13_first_design, *args)
+    old13 = tft.field_backward_v3_first_design(train_first_design, *args)
+    old17 = bwd_whole.first_design(train_first_design, *args)
     k8 = tft.field_backward_v4(*args)
     torch.cuda.synchronize()
     assert torch.equal(k13[0], old13[0]) and torch.equal(k13[1], old13[1])

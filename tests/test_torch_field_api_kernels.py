@@ -12,6 +12,7 @@ kernels are held against these plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 import copy
 import functools
+import inspect
 
 import numpy as np
 import pytest
@@ -162,19 +163,26 @@ def _unit(v):
     return -v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-12)
 
 
-@pytest.mark.parametrize("normals", [False, True])
-def test_k10_plain_matches_field_forward_v5(setup, normals):
+# rsn's two orders of the next tile's IPE ("pre": before this tile's
+# trunk, "post": after it); the ids of the "pre" cases are the ones they
+# had before "post" was added
+@pytest.mark.parametrize("normals,order", [
+    pytest.param(False, "pre", id="False"),
+    pytest.param(True, "pre", id="True"),
+    pytest.param(False, "post", id="post-False"),
+    pytest.param(True, "post", id="post-True")])
+def test_k10_plain_matches_field_forward_v5(setup, normals, order):
     """K10's plain version against rsn's pipelined forward (grid 2: the
-    prologue and both slot parities) with v3f and v4f packing: columns
-    0:24, rsn's 24:128 zero; and it is the plain K7 / train-width K1, bit
-    for bit."""
+    prologue and both slot parities) with v3f and v4f packing, in either
+    order of its IPE: columns 0:24, rsn's 24:128 zero; and it is the plain
+    K7 / train-width K1, bit for bit."""
     s = setup
     mc, g = s["mc"][:N], s["g"]
     jpack = (fp.pack_params_v4f(s["params"]) if normals
              else fp.pack_params_v3f(s["params"]))
     ref = np.asarray(fp.field_forward_v5(
         jpack, jnp.asarray(mc), jnp.asarray(g), S, tile=TILE,
-        want_normals=normals, interpret=True), np.float32)
+        want_normals=normals, interpret=True, order=order), np.float32)
     assert np.all(ref[:, tft.OUT_TRAIN:] == 0)
     packed = _port_packed(s, normals)
     got = tft.field_forward_v5(packed, t(mc), t(g), S, normals)
@@ -193,6 +201,29 @@ def test_k10_plain_matches_field_forward_v5(setup, normals):
         assert np.all(n(got)[:, tft.V4_DPDM] == 0)
     assert torch.equal(got, tft.field_forward_v4_plain(packed, t(mc), t(g),
                                                        S, normals))
+
+
+@pytest.mark.parametrize("normals", [False, True])
+def test_k10_takes_a_train_blob_as_k7_does(setup, normals):
+    """field_forward_v5 takes blob= as field_forward_v4 /
+    field_forward_v3_train do (the same keyword, default None); on the CPU
+    it returns the plain output with the train blob and without it, bit
+    for bit, as K7 / the train-width K1 do."""
+    s = setup
+    mc, g = t(s["mc"][:N]), t(s["g"])
+    packed = _port_packed(s, normals)
+    blob = tft.train_blob(packed[:8], packed[16])
+    fwd = tft.field_forward_v4 if normals else tft.field_forward_v3_train
+    for f in (tft.field_forward_v5, fwd):
+        param = inspect.signature(f).parameters["blob"]
+        assert param.default is None
+    ff.reset_launch_counts()
+    plain = tft.field_forward_v4_plain(packed, mc, g, S, normals)
+    for got in (tft.field_forward_v5(packed, mc, g, S, normals),
+                tft.field_forward_v5(packed, mc, g, S, normals, blob=blob),
+                fwd(packed, mc, g, S, blob=blob)):
+        assert torch.equal(got, plain)
+    assert not any(ff.LAUNCHES.values())
 
 
 def test_k13_plain_matches_field_backward_v3(setup):
