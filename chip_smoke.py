@@ -16,13 +16,15 @@ Phases, each announced on its own line:
                 first design) for phases 3 and 17, and field_forward.cu
                 with RSN_K11_FIRST_DESIGN (K11's and K12's first design)
                 for phase 16, experiments_bwd.cu with RSN_K18_FIRST_DESIGN
-                (K18 full + wgrad's and K19's first design) for phase 18,
+                (the first design of K18's four modes and of K19) for
+                phase 18,
                 field_train.cu with RSN_K13_FIRST_DESIGN and
                 RSN_K10_FIRST_DESIGN (K13's, K17's and K10's first
                 designs, one nvcc) for phases 12, 16 and 18;
                 the registers and spills of K14 / K15's four kernels and of
                 K11's and K12's (none may spill), of K18 / K19's kernel A
-                (read) and their kernel B (which may not spill), of K8 /
+                (read) and their kernel B (which may not spill), of K18's
+                ring recompute, kernel F and body on its spill (read), of K8 /
                 K13's kernel A, K17's, K13's sum and their kernel B (read),
                 of K10 beside K7 and K1 at the train width, with the
                 local-memory loads and stores (LDL / STL) in each one's
@@ -182,7 +184,12 @@ Phases, each announced on its own line:
                 wgrad and K19 run kernel A and kernel B once per chunk
                 (their launches counted), dmc and dg == their first design
                 (the RSN_K18_FIRST_DESIGN build) bit for bit, the 22
-                gradients within K13_TOL of it; K17
+                gradients within K13_TOL of it; K18's modes without weight
+                gradients on the ring (recompute one launch of the unfolded
+                ring forward; full and no_ipe_bwd kernel F, the ring's
+                trunk writing K3's spill layout, then the body on that
+                spill; launches counted): dmc and dg == their first design
+                bit for bit, kernel F's spill == K3's bit for bit; K17
                 against K8 on the tools' rows and on phase 12's pass-2 and
                 pass-4 rows: dmc and w0..w7, w_hc bit for bit, dg and the
                 other 11 gradients within K13_TOL, and against its first
@@ -191,7 +198,10 @@ Phases, each announced on its own line:
                 and K4's; K17, K18
                 full + wgrad and K19 one call each beside their first
                 design's, then back to back in turns with it, kernel A
-                and kernel B apart, each call's scratch; kernel B alone on
+                and kernel B apart, each call's scratch; K18's three
+                modes without weight gradients likewise beside their first
+                design, kernel F and the body apart, each call's scratch;
+                kernel B alone on
                 the last chunk (K17's and K18's) against its plain
                 contraction and cuBLAS / one torch.bmm / torch.mm set on
                 the unstashed operands.
@@ -512,6 +522,17 @@ def main() -> int:
         "wgrad_kernelINS0_8UnfoldedE": "their kernel B "
                                        "(wgrad_kernel<Unfolded>)"},
         no_spill=True)
+    # K18's modes without weight gradients on the ring: recompute, kernel
+    # F, the body on kernel F's spill (read)
+    kernel_registers("experiments_bwd.cu", {
+        "recompute_kernel": "K18 recompute (recompute_kernel: "
+                            "unfolded_body<IN_STEP, false, true>)",
+        "spill_kernel": "K18 kernel F (spill_kernel)",
+        "unfolded_backward_kernelILi1ELb0ELb1E":
+            "K18 full body (unfolded_backward_kernel<1, false, true>)",
+        "unfolded_backward_kernelILi2ELb0ELb1E":
+            "K18 no_ipe_bwd body (unfolded_backward_kernel<2, false, "
+            "true>)"})
     # K13's kernel A (K8's) and sum, K17's kernel A, their kernel B (read)
     kernel_registers("field_train.cu", {
         "field_backward_v4_kernel": "K8 / K13 kernel A "
@@ -764,7 +785,8 @@ KERNEL_ROWS = (
      "tools/exp_bwd_whole.py:76"),
 ) + tuple((f"bwd_ablate_{m}", "experiments_bwd.cu",
            "tools/exp_bwd_ablate.py:191")
-          for m in ("full_wgrad", "full", "no_ipe_bwd", "recompute")) + (
+          for m in ("full_wgrad", "full", "no_ipe_bwd", "recompute",
+                    "spill")) + (
     ("run_noipe", "experiments_bwd.cu", "tools/exp_bwd_noipe.py:171"),
     ("bwd_unfolded_wgrad", "wgrad_sm90.cuh", "tools/exp_bwd_ablate.py:191"),
 )
@@ -2941,6 +2963,8 @@ U_WGRAD_MACS = 128 * 3 + 256 * 128 + 256 * 267 + TRUNK_MACS
 # (w0 and w4's x part on the IPE's 99 live columns), wh's 267 live columns,
 # w_emb
 U_KERNEL_B_MACS = IPE_DIM * 256 * 2 + 7 * 256 * 256 + 256 * 267 + 256 * 128
+# K18's modes without weight gradients: the forward recomputed on the ring
+RING_MODES = ("full", "no_ipe_bwd", "recompute")
 BWD_EXP_FLOPS = {
     "bwd_ablate_full_wgrad": 2 * (TRUNK_MACS + U_TAIL_MACS + U_DGRAD_MACS
                                   + U_WGRAD_MACS),
@@ -3151,7 +3175,7 @@ def backward_experiments_phase(cam_calls, card, first, first13):
     k17_args = (p1, mc, g, d24, f_out, S)
     names = (("field_backward_whole", "field_backward_whole_wgrad")
              + tuple(bwd_ablate.label(*v) for v in bwd_ablate.VARIANTS)
-             + ("run_noipe", "bwd_unfolded_wgrad"))
+             + (bwd_ablate.SPILL_LABEL, "run_noipe", "bwd_unfolded_wgrad"))
     ff.reset_launch_counts()
     k17 = bwd_whole.field_backward_whole(*k17_args)
     k18 = {bwd_ablate.label(*v): bwd_ablate.run(*v, p3, mc, g, d_out, S)
@@ -3181,6 +3205,15 @@ def backward_experiments_phase(cam_calls, card, first, first13):
     if any(launches[k] != v for k, v in per_chunk.items()):
         raise RuntimeError("K17, K18 full + wgrad or K19 did not run kernel "
                            "A and kernel B once per chunk")
+    ring = {bwd_ablate.label(m, False): 1 for m in RING_MODES}
+    ring[bwd_ablate.SPILL_LABEL] = 2
+    print(f"  K18's modes without weight gradients: recompute one launch of "
+          f"the ring forward, full and no_ipe_bwd kernel F (the ring's "
+          f"trunk with K3's spill) and the body on its spill, one each: "
+          f"{ring}", flush=True)
+    if any(launches[k] != v for k, v in ring.items()):
+        raise RuntimeError("K18's modes without weight gradients did not run "
+                           "kernel F and the body once each")
     results = {k: {"err": 0.0} for k in names}
 
     def hold(tag, got, on_acts, plain, label, free=None):
@@ -3283,7 +3316,42 @@ def backward_experiments_phase(cam_calls, card, first, first13):
         if not same or werr > K13_TOL:
             raise RuntimeError(f"{tag} disagrees with its first design")
         del old
+    # the modes without weight gradients (the ring's route) against their
+    # first design, which recomputes the IPE and the trunk per 64-row tile
+    for mode in RING_MODES:
+        label = bwd_ablate.label(mode, False)
+        got = k18[label]
+        old = bwd_ablate.first_design(first, label, k18_in, S)
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+        how = ("one launch of the ring forward" if mode == "recompute" else
+               "kernel F + the body on its spill")
+        differ = (int((got[0] != old[0]).sum()),
+                  int((got[1] != old[1]).sum()))
+        print(f"  K18 {mode} ({how}) against its first design "
+              f"(RSN_K18_FIRST_DESIGN): dmc and dg "
+              f"{'==' if same else '!='} bit for bit ({differ[0]} dmc and "
+              f"{differ[1]} dg values differ)", flush=True)
+        if not same:
+            raise RuntimeError(f"K18 {mode} differs from its first design")
+        del old
     del k18, k19, full, nowg
+    # kernel F: its spill == K3's spill_x of the same rows, bit for bit
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("experiments_bwd.cu")
+    spill = torch.empty_like(xacts)
+    bwd_ablate.spill_kernel(lib, p3, mc, spill)
+    torch.cuda.synchronize()
+    same = torch.equal(spill, xacts)
+    err = rel_err(spill, bwd_ablate.spill_plain(p3, mc))
+    print(f"  K18's kernel F: its spill {'==' if same else '!='} K3's "
+          f"(field_forward_v6, spill_x) bit for bit; within {err:.6g} of "
+          f"its plain version's max (limit {ATOL})", flush=True)
+    if not same or err > ATOL:
+        raise RuntimeError("K18's kernel F disagrees with K3's spill or its "
+                           "plain version")
+    results[bwd_ablate.SPILL_LABEL]["err"] = err
     torch.cuda.empty_cache()
 
     # times and bounds
@@ -3335,6 +3403,46 @@ def backward_experiments_phase(cam_calls, card, first, first13):
               f"{k:.4f} ms, plain {pl:.4f} ms, bound {b:.4f} ms ({by}; "
               f"median of 10; {card})", flush=True)
         torch.cuda.empty_cache()
+    kf = cuda_ms(lambda: bwd_ablate.spill_kernel(lib, p3, mc, spill))
+    pl = cuda_ms(lambda: bwd_ablate.spill_plain(p3, mc))
+    b, by = bound(2 * TRUNK_MACS * n, nbytes(mc, *p3[:16], spill))
+    results[bwd_ablate.SPILL_LABEL].update(ms=kf, plain_ms=pl, bound_ms=b,
+                                           bound_by=by)
+    print(f"  K18's kernel F: {n} rows, kernel {kf:.4f} ms, plain {pl:.4f} "
+          f"ms, bound {b:.4f} ms ({by}; median of 10; {card})", flush=True)
+    # the three modes beside their first design: one call each, back to
+    # back in turns (design, first, design, first), kernel F and the body
+    # apart, each call's scratch
+    R = g.shape[0]
+    first_scratch = bwd_ablate.first_design_scratch_bytes(R, mc.device)
+    for mode in RING_MODES:
+        label = bwd_ablate.label(mode, False)
+        fn = lambda: bwd_ablate.run(mode, False, p3, mc, g, d_out, S)
+        old = lambda: bwd_ablate.first_design(first, label, k18_in, S)
+        one = (cuda_ms(fn), cuda_ms(old))
+        turns = [back_to_back_ms(f) for f in (fn, old, fn, old)]
+        line = (f"  K18 {mode}: {n} rows, one call {one[0]:.4f} ms against "
+                f"the first design's {one[1]:.4f} ms; back to back in turns "
+                f"{turns[0]:.4f} / {turns[2]:.4f} ms against {turns[1]:.4f} "
+                f"/ {turns[3]:.4f} ms "
+                f"({(turns[1] + turns[3]) / (turns[0] + turns[2]):.2f}x)")
+        if mode == "recompute":
+            line += (f"; one launch; scratch 0 bytes (the first design's "
+                     f"{first_scratch} of recompute slots)")
+        else:
+            dmc_ = torch.empty((n, ff.IN_COLS), device=mc.device)
+            dg_ = torch.zeros((R, 512), device=mc.device)
+            body = cuda_ms(lambda: bwd_ablate.body_kernel(
+                lib, mode, p3, mc, g, spill, d_out, S, dmc_, dg_))
+            line += (f"; kernel F alone {kf:.4f} ms, the body alone "
+                     f"{body:.4f} ms; scratch "
+                     f"{bwd_ablate.spill_scratch_bytes(n)} bytes of "
+                     f"spill (the first design's {first_scratch} of "
+                     f"recompute slots)")
+            del dmc_, dg_
+        print(line + f" (median of 10; {card})", flush=True)
+        torch.cuda.empty_cache()
+    del spill
     out, acts = ft.field_forward_v6(p1, mc, g, S)
     k4 = cuda_ms(lambda: ft.field_backward_v5(p1, mc, g, acts, d24, out, S))
     del acts
@@ -3376,9 +3484,6 @@ def backward_experiments_phase(cam_calls, card, first, first13):
 
     # kernel B alone on the records K18's kernel A leaves of its last chunk,
     # against its plain contraction, and PyTorch's calls on the same operands
-    from rsn_torch.kernels.build import load_library
-
-    lib = load_library("experiments_bwd.cu")
     plan = bwd_ablate.stash_plan(g.shape[0], S, sms)
     sc = bwd_ablate.stash_scratch(plan, mc.device)
     ws = [bwd_ablate.kernel_a(lib, "bwd_ablate_full_wgrad", plan, c,

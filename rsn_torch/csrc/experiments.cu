@@ -67,11 +67,13 @@ namespace {
 
 #ifndef RSN_K14_FIRST_DESIGN
 
-// K14 / K15: sm90::unfolded_body on the schedule (unfolded_sm90.cuh).
+// K14 / K15: sm90::unfolded_body on the schedule (unfolded_sm90.cuh), K14's
+// with the exact IPE.
 template <int SCHED>
 __global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
     unfolded_kernel(const __grid_constant__ sm90::UnfoldedParams p) {
-  sm90::unfolded_body<SCHED>(p);
+  sm90::unfolded_body<SCHED, SCHED == sm90::IN_STEP ||
+                                 SCHED == sm90::OUT_OF_STEP>(p);
 }
 
 // On a persistent grid of at most one block per SM.  ptrs: the 22 operands

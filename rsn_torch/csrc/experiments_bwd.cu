@@ -32,11 +32,27 @@
 //
 // What the design does about it (K8's scheme, so that the modes differ
 // only in the math):
-//   - A block owns a run of whole rays and walks them in 64-row tiles (K4's
-//     partition; one block per SM).  K18 recomputes each tile's IPE and
-//     trunk with K3's code (ipe_tile, trunk) into its own 64 x 2048 bf16
-//     workspace slot, K19 reads its tile of the spill; from there both run
-//     one body, so K19 equals K18's full mode on K3's spill bit for bit.
+//   - The modes without weight gradients recompute the forward on the
+//     Hopper ring (trunk_sm90.cuh: 128-row tiles, two 64-row consumer
+//     warpgroups on wgmma, the weights streamed by cp.async.bulk from the
+//     blob of rsn_torch/kernels/unfolded_sm90.py's pack_unfolded_blob), and
+//     it reaches the backward body through K3's spill layout:
+//       recompute   one launch of unfolded_sm90.cuh's body in step with K1's
+//                   polynomial IPE (K15's), its tail writing the (N, 16)
+//                   f32 dmc row (unfolded_body<IN_STEP, false, true>);
+//       full, no_ipe_bwd   kernel F (spill_kernel: the ring's trunk alone
+//                   with K3's spill_x stores, the blob's first 32 chunks)
+//                   writes x and hs0..hs7 to an (N, 2176) bf16 workspace,
+//                   then the body reads them from there (SPILLED), as K19
+//                   reads K3's spill; the fp32 dx tile stays in shared
+//                   memory.
+//     K3's ring spill fed to the body gives K18 full's first design bit for
+//     bit (K19 == K18 full), so the three modes equal their first design.
+//   - A body block owns a run of whole rays and walks them in 64-row tiles
+//     (K4's partition; one block per SM).  The first design recomputes each
+//     tile's IPE and trunk with K3's first code (ipe_tile, trunk) into its
+//     own 64 x 2048 bf16 workspace slot; K19 and K18's port read their tile
+//     of a spill; from there all run one body.
 //   - The heads' forward (bottleneck and the 11 head columns), the mid seed
 //     and the mid head are recomputed per tile as K14 computes them (the
 //     tools' _half recomputes them; K8 reads them from the forward's
@@ -72,11 +88,15 @@
 //     with the stash K18's dx tile lives in a per-block global slot (32 KB
 //     a block, in L2), as K17's does: the same fp32 adds, so dmc and dg
 //     keep their bits; kernel A takes 205,824 bytes of shared memory.
-//     The first design stays under RSN_K18_FIRST_DESIGN (built only by
-//     chip_smoke.py and the card tests), the bit-for-bit yardstick of dmc
-//     and dg; the weight matrices differ from it only by the order of
-//     their fp32 sums over the rows.
+//     (Full + wgrad's kernel A still recomputes the IPE and the trunk with
+//     the first design's code.)
+//   - The first design of all four K18 modes and of K19 stays under
+//     RSN_K18_FIRST_DESIGN (built only by chip_smoke.py and the card
+//     tests), the bit-for-bit yardstick of dmc and dg; the weight matrices
+//     differ from it only by the order of their fp32 sums over the rows.
 #include "field_common.cuh"
+#include "train_sm90.cuh"
+#include "unfolded_sm90.cuh"
 #include "wgrad_sm90.cuh"
 
 namespace {
@@ -172,13 +192,17 @@ struct UArgs {
 // the chunk's workspace (wgrad_sm90.cuh's unfolded layout), which kernel B
 // contracts; the biases and the mid head's gradients go to the block's
 // compact slice (USlice<true>), K18's fp32 dx tile to its global slot.
-template <int MODE, bool STASH = false>
+// SPILLED (K19, and K18 full / no_ipe_bwd after kernel F): x and the trunk
+// activations from a.xacts (K3's spill_x layout), else recomputed into the
+// block's slot of a.ws (the first design).
+template <int MODE, bool STASH = false, bool SPILLED = MODE == NOIPE>
 __device__ void unfolded_backward_body(const V3UParams& p, const UArgs& a) {
   constexpr bool WGRAD = MODE == FULL_WGRAD || MODE == NOIPE;
-  constexpr bool SPILLED = MODE == NOIPE;
   constexpr bool DX = MODE == FULL_WGRAD || MODE == FULL ||
                       MODE == NO_IPE_BWD;
   static_assert(!STASH || WGRAD, "the stash holds weight-gradient operands");
+  static_assert(SPILLED || MODE != NOIPE, "K19 has no mean_cov");
+  static_assert(!SPILLED || MODE != RECOMPUTE, "recompute spills nothing");
   typedef USlice<STASH> G;
   constexpr int ld = SPILLED ? XACTS_COLS : ACTS_COLS;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -216,10 +240,10 @@ __device__ void unfolded_backward_body(const V3UParams& p, const UArgs& a) {
                            a.tile0) * wgrad::UNF_REC_BYTES
               : nullptr;
 
-    // ---- x and the trunk activations: K19's spill, or K18's recompute
-    // (K3's code) into the block's slot ----
+    // ---- x and the trunk activations: a spill, or the first design's
+    // recompute (K3's first code) into the block's slot ----
     const bf16* acts;
-    if (SPILLED) {
+    if constexpr (SPILLED) {
       acts = a.xacts + row0 * ld;
       load_rows(X, LDX, acts + ACTS_COLS, ld, ENC, nv);
     } else {
@@ -508,20 +532,20 @@ __device__ void unfolded_backward_body(const V3UParams& p, const UArgs& a) {
   }
 }
 
-template <int MODE, bool STASH>
+template <int MODE, bool STASH, bool SPILLED>
 __global__ void __launch_bounds__(THREADS, 1)
     unfolded_backward_kernel(V3UParams p, UArgs a) {
-  unfolded_backward_body<MODE, STASH>(p, a);
+  unfolded_backward_body<MODE, STASH, SPILLED>(p, a);
 }
 
-template <int MODE, bool STASH = false>
+template <int MODE, bool STASH = false, bool SPILLED = MODE == NOIPE>
 int launch_unfolded(const void* const* ptrs, const UArgs& a, void* stream) {
   constexpr int smem = STASH ? SMEM_STASH
                              : (MODE == FULL_WGRAD || MODE == FULL ||
                                 MODE == NO_IPE_BWD) ? SMEM_DX : SMEM_NO_DX;
   V3UParams p;
   fill_v3u(&p, ptrs);
-  auto kernel = unfolded_backward_kernel<MODE, STASH>;
+  auto kernel = unfolded_backward_kernel<MODE, STASH, SPILLED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -531,18 +555,77 @@ int launch_unfolded(const void* const* ptrs, const UArgs& a, void* stream) {
   return (int)cudaGetLastError();
 }
 
+#ifndef RSN_K18_FIRST_DESIGN
+
+// ---- the port's recompute on the ring (trunk_sm90.cuh) -------------------
+
+// K18 recompute: unfolded_sm90.cuh's body in step, K1's polynomial IPE, the
+// tail writing the (N, 16) f32 dmc rows.
+__global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
+    recompute_kernel(const __grid_constant__ sm90::UnfoldedParams p) {
+  sm90::unfolded_body<sm90::IN_STEP, false, true>(p);
+}
+
+// Kernel F's tile: the consumer's X to the spill's columns 2048:2176, then
+// the trunk with each layer's output to its 256 columns (TrainTile under
+// SPILL_X without the tail: K3's stores, K3's bits).
+struct SpillTile {
+  const sm90::RenderParams& p;
+  bf16* xacts;  // (n, XACTS_COLS)
+  __device__ __forceinline__ void operator()(sm90::RingPos& rp,
+                                             unsigned char* X,
+                                             unsigned char* H, float*,
+                                             const float*, const float4*,
+                                             long long row0, int wg, int t) {
+    const int nv = (int)min((long long)sm90::WG_ROWS, p.n - row0);
+    bf16* acts = xacts + row0 * XACTS_COLS;
+    sm90::store_tile_rows<2>(acts + ACTS_COLS, XACTS_COLS, X, nv, t);
+    sm90::TrainHook<false, true> hook{
+        {}, {0u, 0u, 0u, 0u}, acts, XACTS_COLS, nv, H, t, -1};
+    sm90::trunk_wg(p, rp, X, H, wg, t, hook);
+  }
+};
+
+// Kernel F: K1's persistent block on the ring without heads, the blob's
+// first TRUNK_CHUNKS chunks (the trunk's) for every tile.
+constexpr int SPILL_SMEM_BYTES = sm90::smem_bytes<false>();
+
+__global__ void __launch_bounds__(sm90::BLOCK_THREADS, 1)
+    spill_kernel(const __grid_constant__ sm90::RenderParams p, bf16* xacts) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  SpillTile tile{p, xacts};
+  sm90::persistent_body<false>(p, sm90::align_1024(smem_raw),
+                               sm90::off_bars<false>(), sm90::TRUNK_CHUNKS,
+                               tile);
+}
+
+// The persistent grid over n rows' 128-row tiles: at most one block per SM.
+int ring_grid(long long n, unsigned* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long tiles = (n + sm90::TILE_ROWS - 1) / sm90::TILE_ROWS;
+  *grid = (unsigned)(tiles < sms ? tiles : sms);
+  return (int)err;
+}
+
+#endif  // RSN_K18_FIRST_DESIGN
+
 }  // namespace
 
 extern "C" {
 
-// K18.  ptrs: pack_params_v3's 22 operands (device pointers); d_out (N,
-// 128) bf16; dmc (N, 16) f32 (written); dg (R, 512) f32, zeroed; ws
-// ceil(rays / rays_per_block) 64 x 2048 bf16 slots (uninitialised).  mode:
-// 1 full, 2 no_ipe_bwd, 3 recompute; 0 (full + wgrad) runs in chunks
-// (rsn_bwd_ablate_stash, then rsn_wgrad_unfolded) and returns
-// cudaErrorNotSupported here, except in the RSN_K18_FIRST_DESIGN build,
-// which launches the first design with dpk as many zeroed slices of 674432
-// floats.  Returns a cudaError_t code.
+// K18's first design, one launch (the RSN_K18_FIRST_DESIGN build; the
+// port's returns cudaErrorNotSupported: full + wgrad runs in chunks,
+// rsn_bwd_ablate_stash then rsn_wgrad_unfolded, the other modes on the
+// ring, rsn_bwd_ablate_recompute or rsn_bwd_ablate_spill then
+// rsn_bwd_ablate_body).  ptrs: pack_params_v3's 22 operands (device
+// pointers); d_out (N, 128) bf16; dmc (N, 16) f32 (written); dg (R, 512)
+// f32, zeroed; ws ceil(rays / rays_per_block) 64 x 2048 bf16 slots
+// (uninitialised).  mode: 0 full + wgrad (dpk as many zeroed slices of
+// 674432 floats), 1 full, 2 no_ipe_bwd, 3 recompute.  Returns a
+// cudaError_t code.
 int rsn_bwd_ablate(const void* mean_cov, const void* g_bands,
                    const void* ipe_consts, const void* d_out,
                    const void* const* ptrs, void* dmc, void* dg, void* dpk,
@@ -558,14 +641,121 @@ int rsn_bwd_ablate(const void* mean_cov, const void* g_bands,
   switch (mode) {
 #ifdef RSN_K18_FIRST_DESIGN
     case FULL_WGRAD: return launch_unfolded<FULL_WGRAD>(ptrs, a, stream);
-#else
-    case FULL_WGRAD: return (int)cudaErrorNotSupported;
-#endif
     case FULL: return launch_unfolded<FULL>(ptrs, a, stream);
     case NO_IPE_BWD: return launch_unfolded<NO_IPE_BWD>(ptrs, a, stream);
     case RECOMPUTE: return launch_unfolded<RECOMPUTE>(ptrs, a, stream);
+#else
+    case FULL_WGRAD:
+    case FULL:
+    case NO_IPE_BWD:
+    case RECOMPUTE: return (int)cudaErrorNotSupported;
+#endif
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// K18 recompute on the ring, one launch: blob unfolded_sm90.
+// pack_unfolded_blob of the operands; ptrs as for rsn_bwd_ablate (the
+// biases, w_out from there); dmc (N, 16) f32, written whole.  (The
+// RSN_K18_FIRST_DESIGN build returns cudaErrorNotSupported here and in the
+// two entries below.)
+int rsn_bwd_ablate_recompute(const void* mean_cov, const void* g_bands,
+                             const void* ipe_consts, const void* blob,
+                             const void* const* ptrs, void* dmc, long long n,
+                             int samples_per_ray, void* stream) {
+#ifdef RSN_K18_FIRST_DESIGN
+  (void)mean_cov, (void)g_bands, (void)ipe_consts, (void)blob, (void)ptrs;
+  (void)dmc, (void)n, (void)samples_per_ray, (void)stream;
+  return (int)cudaErrorNotSupported;
+#else
+  sm90::UnfoldedParams p{};
+  p.r.mc = static_cast<const float*>(mean_cov);
+  p.r.consts = static_cast<const float*>(ipe_consts);
+  p.r.blob = static_cast<const unsigned char*>(blob);
+  for (int i = 0; i < LAYERS; ++i)
+    p.r.b[i] = static_cast<const float*>(ptrs[LAYERS + i]);
+  p.r.n = n;
+  p.r.g = static_cast<const float*>(g_bands);
+  p.r.S = samples_per_ray;
+  p.bh = static_cast<const float*>(ptrs[17]);
+  p.b_mid = static_cast<const float*>(ptrs[19]);
+  p.r.w_out = static_cast<const bf16*>(ptrs[20]);
+  p.r.b_out = static_cast<const float*>(ptrs[21]);
+  p.dmc = static_cast<float*>(dmc);
+  cudaError_t err = cudaFuncSetAttribute(
+      recompute_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sm90::U_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  unsigned grid = 0;
+  const int rc = ring_grid(n, &grid);
+  if (rc != 0) return rc;
+  recompute_kernel<<<grid, sm90::BLOCK_THREADS, sm90::U_SMEM_BYTES,
+                     static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+#endif
+}
+
+// K18 full / no_ipe_bwd, kernel F: x and the 8 trunk activations of the N
+// rows, recomputed on the ring from mean_cov, to xacts (N, 2176) bf16
+// [acts | x] (K3's spill_x layout, written whole).  blob and ptrs as for
+// rsn_bwd_ablate_recompute (the blob's first 32 chunks, the trunk biases).
+int rsn_bwd_ablate_spill(const void* mean_cov, const void* ipe_consts,
+                         const void* blob, const void* const* ptrs,
+                         void* xacts, long long n, void* stream) {
+#ifdef RSN_K18_FIRST_DESIGN
+  (void)mean_cov, (void)ipe_consts, (void)blob, (void)ptrs, (void)xacts;
+  (void)n, (void)stream;
+  return (int)cudaErrorNotSupported;
+#else
+  sm90::RenderParams p{};
+  p.mc = static_cast<const float*>(mean_cov);
+  p.consts = static_cast<const float*>(ipe_consts);
+  p.blob = static_cast<const unsigned char*>(blob);
+  for (int i = 0; i < LAYERS; ++i)
+    p.b[i] = static_cast<const float*>(ptrs[LAYERS + i]);
+  p.n = n;
+  cudaError_t err = cudaFuncSetAttribute(
+      spill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SPILL_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  unsigned grid = 0;
+  const int rc = ring_grid(n, &grid);
+  if (rc != 0) return rc;
+  spill_kernel<<<grid, sm90::BLOCK_THREADS, SPILL_SMEM_BYTES,
+                 static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<bf16*>(xacts));
+  return (int)cudaGetLastError();
+#endif
+}
+
+// K18 full (mode 1) or no_ipe_bwd (mode 2), the body on kernel F's spill:
+// xacts as rsn_bwd_ablate_spill writes it; the other arguments as for
+// rsn_bwd_ablate (no ws).
+int rsn_bwd_ablate_body(const void* mean_cov, const void* g_bands,
+                        const void* ipe_consts, const void* xacts,
+                        const void* d_out, const void* const* ptrs, void* dmc,
+                        void* dg, long long rays, int samples_per_ray,
+                        int rays_per_block, int mode, void* stream) {
+#ifdef RSN_K18_FIRST_DESIGN
+  (void)mean_cov, (void)g_bands, (void)ipe_consts, (void)xacts, (void)d_out;
+  (void)ptrs, (void)dmc, (void)dg, (void)rays, (void)samples_per_ray;
+  (void)rays_per_block, (void)mode, (void)stream;
+  return (int)cudaErrorNotSupported;
+#else
+  const UArgs a{static_cast<const float*>(mean_cov),
+                static_cast<const float*>(g_bands),
+                static_cast<const float*>(ipe_consts),
+                static_cast<const bf16*>(xacts),
+                static_cast<const bf16*>(d_out), static_cast<float*>(dmc),
+                static_cast<float*>(dg), nullptr, nullptr, rays,
+                samples_per_ray, rays_per_block};
+  switch (mode) {
+    case FULL: return launch_unfolded<FULL, false, true>(ptrs, a, stream);
+    case NO_IPE_BWD:
+      return launch_unfolded<NO_IPE_BWD, false, true>(ptrs, a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#endif
 }
 
 // K19's first design, one launch (the RSN_K18_FIRST_DESIGN build; the

@@ -1108,8 +1108,9 @@ __device__ __forceinline__ void v3_tail_wg(const RenderParams& p,
   }
 }
 
-// The persistent block of K1, K2 and the train-width forwards: the block's
-// f32 copies of the density column (w_hc's column 0 with HEADS, else wd's)
+// The persistent block of K1, K2, the train-width forwards and K18's trunk
+// spill: the block's f32 copies of the density column (w_hc's column 0 with
+// HEADS, else wd's; none without HEADS and wd: a tile that reads neither)
 // and of w_out's three live columns, the ring's barriers at bars_off; the
 // producer streams the blob's first `chunks` chunks for every tile; each
 // consumer warpgroup writes its 64 rows' IPE into X, then runs
@@ -1126,7 +1127,8 @@ __device__ __forceinline__ void persistent_body(const RenderParams& p,
   uint64_t* empty = full + STAGES;
   float* wcol = reinterpret_cast<float*>(smem + OFF_WD);
   float4* wout = reinterpret_cast<float4*>(smem + OFF_WOUT);
-  for (int k = threadIdx.x; k < WIDTH; k += BLOCK_THREADS) {
+  for (int k = threadIdx.x; k < (HEADS || p.wd ? WIDTH : 0);
+       k += BLOCK_THREADS) {
     wcol[k] = __bfloat162float(HEADS ? p.w_hc[k * WIDTH] : p.wd[k * 8]);
     if (HEADS && k < MID)
       wout[k] = make_float4(__bfloat162float(p.w_out[k * MID]),

@@ -93,6 +93,7 @@ struct UnfoldedParams {
   const float* bh;     // (384,): [bottleneck | density | diff | tint |
                        // roughness | normals | 0]
   const float* b_mid;  // (128,)
+  float* dmc;          // DMC (K18 recompute): (n, 16) f32, in out's place
 };
 
 // The block's dynamic shared memory, aligned up to 1024 bytes: a constant
@@ -153,9 +154,11 @@ struct OutOfStepStart {
 // chunks of m64n128) + b_mid + the attenuated band partials -> hmid =
 // bf16(relu) into H's first 128 columns; the mid head and the row's 16
 // first columns (one thread a row, each sum k ascending); the (64, 128)
-// rows from the whole warpgroup, 16 bytes a thread.  turn: around each
-// chunk's products.
-template <typename Turn>
+// rows from the whole warpgroup, 16 bytes a thread.  DMC (K18's recompute
+// mode, experiments_bwd.cu): in place of the rows, the thread's (16,) f32
+// row of up.dmc, [mid[0] + the density pre-activation | 0], the first
+// design's arithmetic.  turn: around each chunk's products.
+template <bool DMC, typename Turn>
 __device__ __forceinline__ void unfolded_tail_wg(const UnfoldedParams& up,
                                                  RingPos& rp,
                                                  unsigned char* H,
@@ -271,24 +274,39 @@ __device__ __forceinline__ void unfolded_tail_wg(const UnfoldedParams& up,
                           sigmoidf(__fadd_rn(s1, p.b_out[1])),
                           sigmoidf(__fadd_rn(s2, p.b_out[2]))};
     const float* hcr = HSm + t * HS_COLS;
-    alignas(16) bf16 v[16];
+    if constexpr (DMC) {
+      const long long row = row0 + t;
+      if (row < p.n) {
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4* o = reinterpret_cast<float4*>(up.dmc + row * IN_COLS);
+        o[0] = make_float4(
+            __fadd_rn(mid[0], __fadd_rn(hcr[0], up.bh[OUT_DENSITY])), 0.f,
+            0.f, 0.f);
+        o[1] = o[2] = o[3] = z;
+      }
+    } else {
+      alignas(16) bf16 v[16];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float diff = sigmoidf(__fadd_rn(hcr[1 + i], up.bh[OUT_DIFF + i]));
-      const float tint = sigmoidf(__fadd_rn(hcr[4 + i], up.bh[OUT_TINT + i]));
-      v[i] = __float2bfloat16_rn(__fadd_rn(diff, __fmul_rn(tint, mid[i])));
-      v[3 + i] = __float2bfloat16_rn(diff);
-      v[6 + i] = __float2bfloat16_rn(tint);
-      v[9 + i] =
-          __float2bfloat16_rn(__fadd_rn(hcr[8 + i], up.bh[OUT_NORMALS + i]));
+      for (int i = 0; i < 3; ++i) {
+        const float diff =
+            sigmoidf(__fadd_rn(hcr[1 + i], up.bh[OUT_DIFF + i]));
+        const float tint =
+            sigmoidf(__fadd_rn(hcr[4 + i], up.bh[OUT_TINT + i]));
+        v[i] = __float2bfloat16_rn(__fadd_rn(diff, __fmul_rn(tint, mid[i])));
+        v[3 + i] = __float2bfloat16_rn(diff);
+        v[6 + i] = __float2bfloat16_rn(tint);
+        v[9 + i] = __float2bfloat16_rn(
+            __fadd_rn(hcr[8 + i], up.bh[OUT_NORMALS + i]));
+      }
+      v[12] = __float2bfloat16_rn(__fadd_rn(hcr[0], up.bh[OUT_DENSITY]));
+      v[13] = __float2bfloat16_rn(__fadd_rn(hcr[7], up.bh[OUT_ROUGH]));
+      v[14] = v[15] = __float2bfloat16_rn(0.f);
+      uint4* o = reinterpret_cast<uint4*>(ost + t * 16);
+      o[0] = reinterpret_cast<const uint4*>(v)[0];
+      o[1] = reinterpret_cast<const uint4*>(v)[1];
     }
-    v[12] = __float2bfloat16_rn(__fadd_rn(hcr[0], up.bh[OUT_DENSITY]));
-    v[13] = __float2bfloat16_rn(__fadd_rn(hcr[7], up.bh[OUT_ROUGH]));
-    v[14] = v[15] = __float2bfloat16_rn(0.f);
-    uint4* o = reinterpret_cast<uint4*>(ost + t * 16);
-    o[0] = reinterpret_cast<const uint4*>(v)[0];
-    o[1] = reinterpret_cast<const uint4*>(v)[1];
   }
+  if constexpr (DMC) return;  // the next tile's first wg_sync orders H
   wg_sync(wg);
 
   // the (64, 128) rows, 16 bytes per thread and step, zeros past column 16
@@ -304,9 +322,10 @@ __device__ __forceinline__ void unfolded_tail_wg(const UnfoldedParams& up,
   }
 }
 
-// The whole tile of one consumer: the IPE (wg_sync'd), the trunk with
-// trunk_turn around its chunks, the tail with tail_turn around its.
-template <bool EXACT, typename TrunkTurn, typename TailTurn>
+// The whole tile of one consumer: the IPE (wg_sync'd; EXACT: K11's exact
+// sine, else K1's polynomial one), the trunk with trunk_turn around its
+// chunks, the tail (DMC as for unfolded_tail_wg) with tail_turn around its.
+template <bool EXACT, bool DMC, typename TrunkTurn, typename TailTurn>
 __device__ __forceinline__ void unfolded_tile_wg(
     const UnfoldedParams& up, RingPos& rp, unsigned char* X,
     unsigned char* H, int tile, int wg, int t, TrunkTurn& trunk_turn,
@@ -331,14 +350,15 @@ __device__ __forceinline__ void unfolded_tile_wg(
   wg_sync(wg);
   NoTrunkHook hook;
   trunk_wg(up.r, rp, X, H, wg, t, hook, trunk_turn);
-  unfolded_tail_wg(up, rp, H, first_row(), wg, t, tail_turn);
+  unfolded_tail_wg<DMC>(up, rp, H, first_row(), wg, t, tail_turn);
 }
 
-// K14 / K15: the persistent block (one per SM at most) on the schedule,
-// in the kernel's dynamic shared memory (U_SMEM_BYTES).
-template <int SCHED>
+// K14 / K15 (and K18's recompute mode, DMC): the persistent block (one per
+// SM at most) on the schedule, in the kernel's dynamic shared memory
+// (U_SMEM_BYTES); EXACT: the exact IPE (K14), else the polynomial one (K15,
+// K18).
+template <int SCHED, bool EXACT, bool DMC = false>
 __device__ void unfolded_body(const UnfoldedParams& up) {
-  constexpr bool EXACT = SCHED == IN_STEP || SCHED == OUT_OF_STEP;
   unsigned char* smem = u_smem();
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + OFF_UBARS);
   uint64_t* empty = full + STAGES;
@@ -379,13 +399,13 @@ __device__ void unfolded_body(const UnfoldedParams& up) {
   ChunkTurns turns;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     if constexpr (SCHED == IN_STEP)
-      unfolded_tile_wg<EXACT>(up, rp, X, H, tile, wg, t, none, none);
+      unfolded_tile_wg<EXACT, DMC>(up, rp, X, H, tile, wg, t, none, none);
     else if constexpr (SCHED == OUT_OF_STEP)
-      unfolded_tile_wg<EXACT>(up, rp, X, H, tile, wg, t, start, start);
+      unfolded_tile_wg<EXACT, DMC>(up, rp, X, H, tile, wg, t, start, start);
     else if constexpr (SCHED == TURNS_TRUNK)
-      unfolded_tile_wg<EXACT>(up, rp, X, H, tile, wg, t, turns, none);
+      unfolded_tile_wg<EXACT, DMC>(up, rp, X, H, tile, wg, t, turns, none);
     else
-      unfolded_tile_wg<EXACT>(up, rp, X, H, tile, wg, t, turns, turns);
+      unfolded_tile_wg<EXACT, DMC>(up, rp, X, H, tile, wg, t, turns, turns);
   }
 }
 

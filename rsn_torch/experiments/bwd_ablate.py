@@ -22,19 +22,34 @@ order) in one of the tool's four modes:
 It returns (dmc, dg, dpacked), dpacked the 22 gradients summed over the
 blocks in pack_params_v3's order and shapes, or None.  The roughness ->
 attenuation edge carries no gradient; the bias gradients sum the fp32
-cotangents, not the bf16 ones.  The wrapper runs the plain version
-(bwd_ablate_plain) for CPU tensors and launches the CUDA kernels
-(rsn_torch/csrc/experiments_bwd.cu) for CUDA tensors: the three modes
-without weight gradients one launch each; full + wgrad, as K8 runs, in
-chunks (stash_backward: per chunk kernel A, the body stashing each tile's
+cotangents, not the bf16 ones.
+
+The wrapper launches the CUDA kernels (rsn_torch/csrc/experiments_bwd.cu)
+for CUDA tensors.  The three modes without weight gradients recompute the
+forward on the Hopper ring (unfolded_sm90.cuh on trunk_sm90.cuh, the
+unfolded blob of interleave.ring_blob) and hand it to the backward body
+through K3's spill layout (ring_backward): recompute is one launch of the
+unfolded ring forward writing the dmc rows; full and no_ipe_bwd are kernel
+F (the ring's trunk alone, x and the 8 activations to an (N, 2176) bf16
+workspace, counted as SPILL_LABEL) and the body reading that spill, as
+K19 reads K3's.  Full + wgrad runs, as K8 does, in chunks
+(stash_backward: per chunk kernel A, the body stashing each tile's
 weight-gradient operands in wgrad_sm90's UNFOLDED layout, then kernel B,
-their wgmma contraction).  bwd_ablate_chunked_plain is those two phases in
-plain PyTorch, for the tests.
+their wgmma contraction).  For CPU tensors the wrapper runs the plain
+version (bwd_ablate_plain) in every mode: the spill only moves where the
+activations wait, not their values.  spill_plain is kernel F's plain
+version (K3's spill_x layout); bwd_ablate_chunked_plain is full + wgrad's
+two phases in plain PyTorch, for the tests.  first_design launches any
+mode's first design from the RSN_K18_FIRST_DESIGN build (64-row wmma
+tiles recomputing the IPE and the trunk in each block), the bit-for-bit
+yardstick of dmc and dg.
 
     python -m rsn_torch.experiments.bwd_ablate
 
 times the four modes on the tool's rows (131,072 rows, 128 samples per
-ray) on the card, with TFLOP/s of the tool's 3x count.
+ray) on the card, with TFLOP/s of the tool's 3x count, then full's and
+no_ipe_bwd's whole call back to back in turns with runs of stash_plan's
+chunk of rays.
 """
 from __future__ import annotations
 
@@ -43,7 +58,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from rsn_torch.experiments.interleave import unfolded_tail
+from rsn_torch.experiments.interleave import ring_blob, unfolded_tail
 from rsn_torch.kernels import field_forward as ff
 from rsn_torch.kernels import field_train as ft
 from rsn_torch.kernels import wgrad_sm90 as wg
@@ -56,6 +71,8 @@ D_OUT_COLS = 128  # the tools' V3_OUT cotangent width: columns 0:14 live
 MODE_CODES = {("full", True): 0, ("full", False): 1, ("no_ipe_bwd", False): 2,
               ("recompute", False): 3}
 VARIANTS = tuple(MODE_CODES)
+# kernel F's launch count (full and no_ipe_bwd on the card)
+SPILL_LABEL = "bwd_ablate_spill"
 PACK_FLOATS = sum(r * c for r, c in ff.V3U_SHAPES)  # 674432
 # the tools' per-row FLOP count (exp_bwd_ablate.py: 3x of 1.343e6)
 TOOL_FLOPS_PER_ROW = 1.343e6
@@ -182,6 +199,16 @@ def bwd_ablate_plain(packed_v3, mean_cov: torch.Tensor,
     hs = ft._trunk_acts(packed_v3[:8], packed_v3[8:16], x)
     return backward_from_acts(packed_v3, hs, x, g_bands, d_out,
                               samples_per_ray, mode, use_wgrad, mean_cov)
+
+
+# ---- kernel F, plain ----------------------------------------------------
+
+def spill_plain(packed_v3, mean_cov: torch.Tensor) -> torch.Tensor:
+    """Plain kernel F: K1's IPE and the trunk from mean_cov -> (N, 2176)
+    bf16 [hs0..hs7 | x], K3's spill_x layout."""
+    x = ff.ipe_x(mean_cov)
+    return torch.cat(ft._trunk_acts(packed_v3[:8], packed_v3[8:16], x)
+                     + [x], dim=1)
 
 
 # ---- full + wgrad and K19 in two phases: the schedule, in plain PyTorch --
@@ -374,18 +401,22 @@ def stash_backward(name: str, inputs, samples_per_ray: int):
 
 
 def first_design(lib, name: str, inputs, samples_per_ray: int):
-    """K18 full + wgrad's or K19's first design (`name` and `inputs` as for
-    kernel_a), one launch from `lib`, the RSN_K18_FIRST_DESIGN build of
-    experiments_bwd.cu: every 64-row tile adds its weight-gradient products
-    into its block's fp32 slice of the 22 gradients -> (dmc or None, dg,
-    the 22 gradients).  Counts no launch."""
+    """The first design of K18 in any mode (`name` its label, inputs
+    (packed_v3, mean_cov, g_bands, d_out)) or of K19 ("run_noipe", inputs
+    as for kernel_a), one launch from `lib`, the RSN_K18_FIRST_DESIGN build
+    of experiments_bwd.cu: 64-row tiles, K18 recomputing each tile's IPE
+    and trunk into its block's slot; with the weight gradients every tile
+    adds its products into its block's fp32 slice of the 22 -> (dmc or
+    None, dg, the 22 gradients or None).  Counts no launch."""
     d_out = inputs[-1]
     device, n = d_out.device, d_out.shape[0]
     R, S = n // samples_per_ray, int(samples_per_ray)
     rpb = ft._rays_per_block(R, device)
     blocks = -(-R // rpb)
     dg = torch.zeros((R, 512), dtype=F32, device=device)
-    buf = torch.zeros((blocks, PACK_FLOATS), dtype=F32, device=device)
+    wgrad = name in ("run_noipe", label("full", True))
+    buf = torch.zeros((blocks, PACK_FLOATS), dtype=F32, device=device) \
+        if wgrad else None
     stream = torch.cuda.current_stream(device).cuda_stream
     dmc = None
     with torch.cuda.device(device):
@@ -400,14 +431,22 @@ def first_design(lib, name: str, inputs, samples_per_ray: int):
             dmc = torch.empty((n, ff.IN_COLS), dtype=F32, device=device)
             ws = torch.empty((blocks, ft.TILE_ROWS, ft.ACTS_COLS),
                              dtype=BF16, device=device)
+            code = {label(*v): c for v, c in MODE_CODES.items()}[name]
             rc = lib.rsn_bwd_ablate(
                 mean_cov.data_ptr(), g_bands.data_ptr(),
                 ff._ipe_consts(device).data_ptr(), d_out.data_ptr(),
                 ff._ptr_array(inputs[0]), dmc.data_ptr(), dg.data_ptr(),
-                buf.data_ptr(), ws.data_ptr(), R, S, rpb,
-                MODE_CODES["full", True], stream)
+                buf.data_ptr() if wgrad else None, ws.data_ptr(), R, S, rpb,
+                code, stream)
     ff._raise_on_error(lib, rc, f"{name} (first design)")
-    return dmc, dg, unpack_slices(buf)
+    return dmc, dg, unpack_slices(buf) if wgrad else None
+
+
+def first_design_scratch_bytes(rays: int, device) -> int:
+    """The first design's scratch in a mode without weight gradients: its
+    blocks' 64 x 2048 bf16 recompute slots."""
+    blocks = -(-rays // ft._rays_per_block(rays, device))
+    return blocks * ft.TILE_ROWS * ft.ACTS_COLS * 2
 
 
 def unpack_slices(buf: torch.Tensor):
@@ -431,14 +470,106 @@ def check_backward_inputs(name: str, packed_v3, g_bands: torch.Tensor,
     return R
 
 
+def recompute_kernel(lib, packed_v3, mean_cov: torch.Tensor,
+                     g_bands: torch.Tensor, samples_per_ray: int,
+                     dmc: torch.Tensor) -> None:
+    """The recompute mode's one launch from `lib`: the unfolded ring
+    forward in step, K1's polynomial IPE, its tail writing the (N, 16) f32
+    dmc rows into `dmc` (checked CUDA tensors).  Counts its launch."""
+    device, n = mean_cov.device, mean_cov.shape[0]
+    with torch.cuda.device(device):
+        rc = lib.rsn_bwd_ablate_recompute(
+            mean_cov.data_ptr(), g_bands.data_ptr(),
+            ff._ipe_consts(device).data_ptr(), ring_blob(packed_v3).data_ptr(),
+            ff._ptr_array(packed_v3), dmc.data_ptr(), n,
+            int(samples_per_ray), torch.cuda.current_stream().cuda_stream)
+    name = label("recompute", False)
+    ff._raise_on_error(lib, rc, name)
+    ff.LAUNCHES[name] += 1
+
+
+def spill_kernel(lib, packed_v3, mean_cov: torch.Tensor,
+                 xacts: torch.Tensor) -> None:
+    """Kernel F from `lib`: the IPE and the trunk of mean_cov's rows on the
+    ring (the unfolded blob's first 32 chunks), x and the 8 activations to
+    xacts (N, 2176) bf16 in K3's spill_x layout.  Counts its launch under
+    SPILL_LABEL."""
+    device = mean_cov.device
+    with torch.cuda.device(device):
+        rc = lib.rsn_bwd_ablate_spill(
+            mean_cov.data_ptr(), ff._ipe_consts(device).data_ptr(),
+            ring_blob(packed_v3).data_ptr(), ff._ptr_array(packed_v3),
+            xacts.data_ptr(), mean_cov.shape[0],
+            torch.cuda.current_stream().cuda_stream)
+    ff._raise_on_error(lib, rc, SPILL_LABEL)
+    ff.LAUNCHES[SPILL_LABEL] += 1
+
+
+def body_kernel(lib, mode: str, packed_v3, mean_cov: torch.Tensor,
+                g_bands: torch.Tensor, xacts: torch.Tensor,
+                d_out: torch.Tensor, samples_per_ray: int,
+                dmc: torch.Tensor, dg: torch.Tensor) -> None:
+    """The body of full or no_ipe_bwd from `lib` on kernel F's spill xacts
+    of the rows of mean_cov (K4's partition of their rays, one block an
+    SM), into dmc (N, 16) and the zeroed dg (R, 512).  Counts its launch
+    under the mode's label."""
+    device, S = d_out.device, int(samples_per_ray)
+    R = d_out.shape[0] // S
+    with torch.cuda.device(device):
+        rc = lib.rsn_bwd_ablate_body(
+            mean_cov.data_ptr(), g_bands.data_ptr(),
+            ff._ipe_consts(device).data_ptr(), xacts.data_ptr(),
+            d_out.data_ptr(), ff._ptr_array(packed_v3), dmc.data_ptr(),
+            dg.data_ptr(), R, S, ft._rays_per_block(R, device),
+            MODE_CODES[mode, False], torch.cuda.current_stream().cuda_stream)
+    name = label(mode, False)
+    ff._raise_on_error(lib, rc, name)
+    ff.LAUNCHES[name] += 1
+
+
+def spill_scratch_bytes(rows: int) -> int:
+    """ring_backward's scratch for full or no_ipe_bwd: the rows' (rows,
+    2176) bf16 spill."""
+    return rows * ft.XACTS_COLS * 2
+
+
+def ring_backward(mode: str, packed_v3, mean_cov: torch.Tensor,
+                  g_bands: torch.Tensor, d_out: torch.Tensor,
+                  samples_per_ray: int):
+    """K18 in a mode without weight gradients on the card (checked CUDA
+    inputs) -> (dmc, dg, None).  recompute: recompute_kernel, one launch.
+    full, no_ipe_bwd: kernel F, then the body on its spill, each one
+    launch over the whole call.  Their scratch is the spill, 4,352 bytes
+    a row: 570,425,344 bytes on the tools' 131,072 rows (the first
+    design's: 33,554,432 bytes of recompute slots).  The whole call was
+    faster than runs of 256 rays (stash_plan's chunks; 142,606,336 bytes
+    of spill) back to back in turns on an H100 (main(); PERF.md): neither
+    spill stays in the 50 MB L2."""
+    from rsn_torch.kernels.build import load_library
+
+    lib = load_library("experiments_bwd.cu")
+    device, n, S = d_out.device, d_out.shape[0], int(samples_per_ray)
+    dmc = torch.empty((n, ff.IN_COLS), dtype=F32, device=device)
+    dg = torch.zeros((n // S, 512), dtype=F32, device=device)
+    if mode == "recompute":
+        recompute_kernel(lib, packed_v3, mean_cov, g_bands, S, dmc)
+        return dmc, dg, None
+    xacts = torch.empty((n, ft.XACTS_COLS), dtype=BF16, device=device)
+    spill_kernel(lib, packed_v3, mean_cov, xacts)
+    body_kernel(lib, mode, packed_v3, mean_cov, g_bands, xacts, d_out, S,
+                dmc, dg)
+    return dmc, dg, None
+
+
 def run(mode: str, use_wgrad: bool, packed_v3, mean_cov: torch.Tensor,
         g_bands: torch.Tensor, d_out: torch.Tensor, samples_per_ray: int):
     """K18 in one mode: -> (dmc (N, 16) f32, dg (R, 512) f32, the 22
     weight gradients or None).  On the card, full + wgrad runs as
-    stash_backward, the other modes as one launch."""
+    stash_backward, the other modes as ring_backward; on the CPU,
+    bwd_ablate_plain."""
     name = label(mode, use_wgrad)
     S = int(samples_per_ray)
-    R = check_backward_inputs(name, packed_v3, g_bands, d_out, S)
+    check_backward_inputs(name, packed_v3, g_bands, d_out, S)
     device, n = d_out.device, d_out.shape[0]
     ff._check("mean_cov", mean_cov, (n, ff.IN_COLS), F32, device)
     if device.type == "cpu":
@@ -446,26 +577,7 @@ def run(mode: str, use_wgrad: bool, packed_v3, mean_cov: torch.Tensor,
                                 use_wgrad)
     if use_wgrad:
         return stash_backward(name, (packed_v3, mean_cov, g_bands, d_out), S)
-    from rsn_torch.kernels.build import load_library
-
-    lib = load_library("experiments_bwd.cu")
-    rpb = ft._rays_per_block(R, device)
-    blocks = -(-R // rpb)
-    dmc = torch.empty((n, ff.IN_COLS), dtype=F32, device=device)
-    dg = torch.zeros((R, 512), dtype=F32, device=device)
-    ws = torch.empty((blocks, ft.TILE_ROWS, ft.ACTS_COLS), dtype=BF16,
-                     device=device)
-    code = MODE_CODES[mode, bool(use_wgrad)]
-    with torch.cuda.device(device):
-        rc = lib.rsn_bwd_ablate(
-            mean_cov.data_ptr(), g_bands.data_ptr(),
-            ff._ipe_consts(device).data_ptr(), d_out.data_ptr(),
-            ff._ptr_array(packed_v3), dmc.data_ptr(), dg.data_ptr(), None,
-            ws.data_ptr(), R, S, rpb, code,
-            torch.cuda.current_stream().cuda_stream)
-    ff._raise_on_error(lib, rc, name)
-    ff.LAUNCHES[name] += 1
-    return dmc, dg, None
+    return ring_backward(mode, packed_v3, mean_cov, g_bands, d_out, S)
 
 
 def tool_cotangent(n: int, device, seed: int = 2) -> torch.Tensor:
@@ -478,8 +590,14 @@ def tool_cotangent(n: int, device, seed: int = 2) -> torch.Tensor:
 
 def main(argv=None) -> int:
     """The four modes on the tool's rows: ms (median of 10 CUDA-event
-    captures) and TFLOP/s of the tool's 3x count."""
+    captures) and TFLOP/s of the tool's 3x count.  Then full's and
+    no_ipe_bwd's whole call (ring_backward) back to back in turns (whole,
+    runs, whole, runs; 5 calls between two events, median of 10) with the
+    same work in runs of stash_plan's chunk of rays, each run's kernel F
+    and body a call of their own on one reused spill: the chunking that
+    ring_backward does not take."""
     from rsn_torch.experiments.interleave import tool_inputs
+    from rsn_torch.kernels.build import load_library
     from rsn_torch.utils.timing import time_kernel
 
     n, S = 131072, 128
@@ -492,6 +610,42 @@ def main(argv=None) -> int:
         tag = mode + ("+wgrad" if wg else "")
         print(f"{tag:20}: {ms:8.4f} ms ({3 * n * TOOL_FLOPS_PER_ROW / ms / 1e9:6.1f}"
               f" TFLOP/s of 3x)", flush=True)
+    lib = load_library("experiments_bwd.cu")
+    R = n // S
+    sms = torch.cuda.get_device_properties(mc.device).multi_processor_count
+    per = -(-R // len(stash_plan(R, S, sms).chunks))
+
+    def in_runs(mode):
+        dmc = torch.empty((n, ff.IN_COLS), dtype=F32, device=mc.device)
+        dg = torch.zeros((R, 512), dtype=F32, device=mc.device)
+        xacts = torch.empty((per * S, ft.XACTS_COLS), dtype=BF16,
+                            device=mc.device)
+        for r0 in range(0, R, per):
+            r1 = min(R, r0 + per)
+            rows, spill = slice(r0 * S, r1 * S), xacts[:(r1 - r0) * S]
+            spill_kernel(lib, p3, mc[rows], spill)
+            body_kernel(lib, mode, p3, mc[rows], g[r0:r1], spill,
+                        d_out[rows], S, dmc[rows], dg[r0:r1])
+        return dmc, dg
+
+    def five(fn):
+        for _ in range(5):
+            fn()
+
+    for mode in ("full", "no_ipe_bwd"):
+        whole = lambda: ring_backward(mode, p3, mc, g, d_out, S)
+        runs = lambda: in_runs(mode)
+        a, b = whole(), runs()
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise RuntimeError(f"{mode} in runs of {per} rays differs from "
+                               "the whole call")
+        del a, b
+        t = [time_kernel(five, f) / 5 for f in (whole, runs, whole, runs)]
+        print(f"{mode}: whole call ({spill_scratch_bytes(n)} bytes of "
+              f"spill) {t[0]:.4f} / {t[2]:.4f} ms back to back in turns "
+              f"with {-(-R // per)} runs of {per} rays "
+              f"({spill_scratch_bytes(per * S)} bytes; == bit for bit) "
+              f"{t[1]:.4f} / {t[3]:.4f} ms", flush=True)
     return 0
 
 

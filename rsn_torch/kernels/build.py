@@ -210,6 +210,11 @@ def _signatures() -> Dict[str, Dict[str, list]]:
             "rsn_bwd_noipe_stash": [vp, vp, vp, ptrs, vp, vp, vp, ll, i32,
                                     i32, i32, i32, vp],
             "rsn_wgrad_unfolded": [vp, vp, ll, i32, i32, vp],
+            "rsn_bwd_ablate_recompute": [vp, vp, vp, vp, ptrs, vp, ll, i32,
+                                         vp],
+            "rsn_bwd_ablate_spill": [vp, vp, vp, ptrs, vp, ll, vp],
+            "rsn_bwd_ablate_body": [vp, vp, vp, vp, vp, ptrs, vp, vp, ll,
+                                    i32, i32, i32, vp],
         },
     }
 

@@ -117,9 +117,10 @@ LAUNCHES.update({"field_backward_v3_wgrad": 0, "field_backward_v3_sum": 0,
                  "field_backward_whole_wgrad": 0})
 # K18's four modes (rsn_torch.experiments.bwd_ablate), one count each (full
 # + wgrad and K19 run_noipe: their kernel A, once per chunk; their kernel B
-# counts as bwd_unfolded_wgrad)
+# counts as bwd_unfolded_wgrad; full's and no_ipe_bwd's body, after kernel
+# F, which counts as bwd_ablate_spill)
 LAUNCHES.update({f"bwd_ablate_{m}": 0 for m in (
-    "full_wgrad", "full", "no_ipe_bwd", "recompute")})
+    "full_wgrad", "full", "no_ipe_bwd", "recompute", "spill")})
 # K16's modes (rsn_torch.experiments.cheap_sin), one count each
 CHEAP_SIN_MODES = ("copy", "exact", "poly", "exp", "exp2", "exp2_ldexp",
                    "poly_bf16", "cos_poly")

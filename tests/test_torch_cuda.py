@@ -23,7 +23,9 @@ build) bit for bit, and the backward experiments (K17-K19): K17 against K8 and i
 version, K18's four modes and K19 against theirs, K19 == K18's full mode
 on K3's spill, K18 full + wgrad and K19 (kernel A + kernel B per chunk)
 against their first design (the RSN_K18_FIRST_DESIGN build: dmc and dg
-bit for bit, the weight gradients within 1e-4), and K13 and K17 (K8's
+bit for bit, the weight gradients within 1e-4), K18's three modes without
+weight gradients on the ring (recompute; kernel F + the body on its
+spill) against the same build, dmc and dg bit for bit, and K13 and K17 (K8's
 kernel A, or K17's 128-row one, and kernel B per chunk; K13's sum launch
 == its plain version bit for bit) against their first design (the
 RSN_K13_FIRST_DESIGN build: dmc bit for bit, K13's dg too, the rest
@@ -1112,7 +1114,8 @@ def test_backward_experiment_launch_counts(field):
         "field_backward_whole": 1, "field_backward_whole_wgrad": 1,
         "bwd_ablate_full_wgrad": 1,
         "bwd_ablate_full": 1, "bwd_ablate_no_ipe_bwd": 1,
-        "bwd_ablate_recompute": 2, "run_noipe": 1, "bwd_unfolded_wgrad": 2}
+        "bwd_ablate_spill": 2, "bwd_ablate_recompute": 2, "run_noipe": 1,
+        "bwd_unfolded_wgrad": 2}
 
 
 @pytest.fixture(scope="module")
@@ -1122,6 +1125,45 @@ def k18_first_design(field):
     lib, _ = start_variant("experiments_bwd.cu", ("RSN_K18_FIRST_DESIGN",),
                            "first_design")()
     return lib
+
+
+# one ray, a ragged tile (nv < 64), (300, 200): 3 rays a body block, 10
+# tiles, and (1030, 128): 1,030 ring tiles on at most 132 blocks
+@pytest.mark.parametrize("R,S", [(1, 1), (3, 7), (300, 200), (1030, 128)])
+@pytest.mark.parametrize("mode", ("full", "no_ipe_bwd", "recompute"))
+def test_k18_ring_modes_equal_their_first_design(field, k18_first_design,
+                                                 mode, R, S):
+    """K18's modes without weight gradients on the ring (recompute: one
+    launch of the unfolded ring forward; full, no_ipe_bwd: kernel F, then
+    the body on its spill) against the RSN_K18_FIRST_DESIGN build of the
+    same source: dmc and dg bit for bit; the launches counted; kernel F's
+    spill == K3's spill_x bit for bit."""
+    from rsn_torch.kernels.build import load_library
+
+    mc, g, d_out = _bwd_inputs(field, R, S, 5 * R + S)
+    p3 = ff.pack_params_v3(field)
+    label = bwd_ablate.label(mode, False)
+    ff.reset_launch_counts()
+    got = bwd_ablate.run(mode, False, p3, mc, g, d_out, S)
+    torch.cuda.synchronize()
+    assert ff.LAUNCHES[label] == 1
+    assert ff.LAUNCHES[bwd_ablate.SPILL_LABEL] == int(mode != "recompute")
+    old = bwd_ablate.first_design(k18_first_design, label,
+                                  (p3, mc, g, d_out), S)
+    torch.cuda.synchronize()
+    assert got[2] is None and old[2] is None
+    assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+    if mode == "recompute":
+        assert torch.all(got[0][:, 1:] == 0) and torch.all(got[1] == 0)
+        return
+    xacts = torch.empty((R * S, tft.XACTS_COLS), dtype=torch.bfloat16,
+                        device=mc.device)
+    bwd_ablate.spill_kernel(load_library("experiments_bwd.cu"), p3, mc,
+                            xacts)
+    _, k3 = tft.field_forward_v6(ff.pack_params_v3f(field), mc, g, S,
+                                 spill_x=True)
+    torch.cuda.synchronize()
+    assert torch.equal(xacts, k3)
 
 
 # one ray, a ragged last tile, and (300, 200): 3 rays a block, 10 tiles, 3
