@@ -205,7 +205,30 @@ Phases, each announced on its own line:
                 the last chunk (K17's and K18's) against its plain
                 contraction and cuBLAS / one torch.bmm / torch.mm set on
                 the unstashed operands.
-  19. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
+  The user path around a trained scene:
+  19. user path — write_blender_scene writes the sphere as a Blender-format
+                scene at 800x800 (4 cameras a split) and the native PNG
+                decoder reads it (== the zlib decoder's pixels; ms per
+                PNG beside the zlib decoder's, host CPU); `python -m
+                rsn_torch.cli.train reflect-sampling-nerf` on it
+                (dataparser blender, bf16, USER_STEPS full-width steps;
+                its log lines printed, K3-K5 launched, losses finite);
+                `python -m rsn_torch.cli.eval --max-images 2` with
+                RSN_LPIPS_WEIGHTS set to a seeded LPIPS file that
+                export_torch_state_dict writes: eval.json's five keys
+                finite, K1 launched, image 0's card LPIPS within LPIPS_TOL
+                of the CPU LPIPS of the same two images, s per image and
+                LPIPS ms at 800x800; a bare `python -m
+                rsn_torch.cli.render --load-dir RUN --max-images 1` (split
+                mode: the three panels, K1 on all four passes); `--mode
+                interpolate --num-frames 4 --video --downscale-factor 4`
+                (K2 and K1 launched; a GIF the port's reader decodes to 4
+                frames within half a palette level of the PNG frames, or
+                an mp4 where ffmpeg is on the path); `python -m
+                rsn_torch.cli.convert` export -> import -> export: the two
+                .ckpt state dicts equal bit for bit, and equal to the
+                trained field.
+  20. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
 
 Any failed check raises: the script then exits non-zero and prints no
 result.  It imports neither jax nor PIL, nor anything of the JAX package.
@@ -234,6 +257,9 @@ ATOL = 2e-2         # bf16 output: two ulps near 1
 LIVE_V3 = list(range(14))
 RGB_SLACK = 1e-4    # fp32 rounding of 1 - accumulation, the unmasked fill
 TRAIN_STEPS = 60
+USER_STEPS = 10     # phase 19's train run on the Blender-format scene
+USER_CAMS = 4       # cameras per split of that scene
+LPIPS_TOL = 1e-4    # LPIPS on the card against the CPU (fp32, TF32 off)
 GRAD_TOL = 5e-2     # bf16 chains of 8 layers: share of each tensor's max
 LOSS_TOL = 2e-2     # relative, with an absolute floor of 1e-6 (zero losses)
 PROP_TOL = 1e-2     # K9: share of max |preact| (bf16 activations, fp32 sums
@@ -559,7 +585,7 @@ def main() -> int:
 
     from rsn_torch.cli import render as render_cli
     from rsn_torch.data.cameras import rescale_cameras
-    from rsn_torch.data.synthetic import load_cameras
+    from rsn_torch.data.blender import load_cameras
     from rsn_torch.engine import checkpoints as ckpt_lib
     from rsn_torch.engine.trainer import render_image
     from rsn_torch.kernels import field_forward as ff
@@ -713,8 +739,11 @@ def main() -> int:
     results.update(bwd_results["kernels"])
     launches.update(bwd_results["launches"])
 
-    # ---- 19. result ----
-    phase("phase 19: result")
+    # ---- 19. the user path around a trained scene ----
+    user_path_phase(card)
+
+    # ---- 20. result ----
+    phase("phase 20: result")
     kernels = []
     for name, source, line in KERNEL_ROWS:
         r = results[name]
@@ -725,8 +754,9 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            # one PyTorch call computes K16's modes; none a fused field
-            # or its backward
+            # one PyTorch call computes K16's modes, kernel B's
+            # contraction and K13's sum; none a fused field or its
+            # backward
             "library_ms": r.get("library_ms")})
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -734,6 +764,223 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def run_cli(main, argv):
+    """One CLI's main(argv) in this process, its output captured, from
+    zeroed launch counts -> (its output, the kernels' launches)."""
+    import torch
+
+    from rsn_torch.kernels import field_forward as ff
+
+    buf = io.StringIO()
+    ff.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"{main.__module__} exited {rc}")
+    return buf.getvalue(), dict(ff.LAUNCHES)
+
+
+def decode_times(paths, card) -> None:
+    """The native decoder's ms per 800x800 PNG (one thread, then the
+    batch on every core) beside the zlib decoder's; its pixels == the
+    zlib decoder's (RGB: v / 255 in float32 as the library computes it)."""
+    import numpy as np
+
+    from rsn_torch.data import native, png
+
+    h, w = native.probe_png(paths[0])
+    times = {}
+    for label, threads in (("one thread", 1), ("all cores", 0)):
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = native.decode_png_batch(paths, h, w, num_threads=threads)
+            runs.append((time.perf_counter() - t0) / len(paths))
+        times[label] = 1e3 * min(runs)
+    t0 = time.perf_counter()
+    pixels = [png.read_png(p)[1] for p in paths[:2]]
+    zlib_ms = 1e3 * (time.perf_counter() - t0) / 2
+    for got, px in zip(out, pixels):
+        want = px.astype(np.float32) * (np.float32(1) / np.float32(255))
+        if not np.array_equal(got, want):
+            raise RuntimeError("the native decoder differs from the zlib "
+                               "decoder")
+    print(f"  PNG decode, {len(paths)} RGB PNGs of {w}x{h}: native "
+          f"{times['one thread']:.4f} ms per PNG on one thread, "
+          f"{times['all cores']:.4f} ms per PNG over the batch on "
+          f"{os.cpu_count()} cores; the zlib decoder (numpy) "
+          f"{zlib_ms:.4f} ms per PNG; native == zlib decoder bit for bit "
+          f"(host CPU, best of 3; {card})", flush=True)
+
+
+def user_path_phase(card) -> None:
+    """Phase 19: write a Blender-format scene, then train, eval (with
+    LPIPS), render (split, interpolate with a video) and convert through
+    the CLIs a user calls, each from zeroed launch counts."""
+    import numpy as np
+    import torch
+
+    from rsn_torch import lpips as lpips_lib
+    from rsn_torch import metrics as metrics_lib
+    from rsn_torch.cli import convert as convert_cli
+    from rsn_torch.cli import eval as eval_cli
+    from rsn_torch.cli import render as render_cli
+    from rsn_torch.cli import train as train_cli
+    from rsn_torch.data.png import read_png
+    from rsn_torch.data.synthetic import write_blender_scene
+    from rsn_torch.engine import checkpoints as ckpt_lib
+    from rsn_torch.utils import gif
+
+    phase(f"phase 19: the user path on a Blender-format scene at "
+          f"{FRAME_RES}x{FRAME_RES}: train, eval with LPIPS, render, convert")
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = write_blender_scene(os.path.join(tmp, "scene"), USER_CAMS,
+                                    FRAME_RES, FRAME_RES)
+        decode_times(sorted(os.path.join(scene, split, f)
+                            for split in ("train", "val", "test")
+                            for f in os.listdir(os.path.join(scene, split))),
+                     card)
+
+        text, launches = run_cli(train_cli.main, [
+            "reflect-sampling-nerf", "--pipeline.datamanager.dataparser",
+            "blender", "--pipeline.datamanager.data", scene,
+            "--pipeline.model.compute-dtype", "bfloat16",
+            "--max-num-iterations", str(USER_STEPS), "--steps-per-log", "1",
+            "--seed", str(SEED), "--output-dir", os.path.join(tmp, "out")])
+        print("\n".join("  " + ln for ln in text.splitlines()))
+        run = re.search(r"run dir: (\S+)", text).group(1)
+        train = {k: launches[k] for k in TRAIN_KERNELS}
+        with open(os.path.join(run, "train_log.jsonl")) as fh:
+            log = [json.loads(line) for line in fh]
+        print(f"  train launches: {train}; {USER_STEPS} steps, "
+              f"rays_per_sec {log[-1]['rays_per_sec']:.1f} at the last line "
+              f"({card})")
+        if min(train.values()) <= 0:
+            raise RuntimeError("a kernel of the train path never launched")
+        if len(log) != USER_STEPS or not all(
+                np.isfinite(e["total_loss"]) for e in log):
+            raise RuntimeError("expected a finite log line per step")
+
+        # eval with a seeded LPIPS file; each LPIPS call's images recorded
+        weights = os.path.join(tmp, "lpips_vgg.pth")
+        torch.save(lpips_lib.export_torch_state_dict(lpips_lib.LPIPS(
+            torch.Generator().manual_seed(SEED))), weights)
+        seen = []
+        real_lpips = metrics_lib.lpips
+
+        def recording(pred, gt, net=None):
+            value = real_lpips(pred, gt, net)
+            seen.append((pred, gt, value))
+            return value
+
+        os.environ["RSN_LPIPS_WEIGHTS"] = weights
+        metrics_lib.lpips = recording
+        try:
+            text, launches = run_cli(eval_cli.main, [
+                "--load-dir", run, "--max-images", "2"])
+        finally:
+            metrics_lib.lpips = real_lpips
+            del os.environ["RSN_LPIPS_WEIGHTS"]
+        print("\n".join("  " + ln for ln in text.splitlines()))
+        with open(os.path.join(run, "eval.json")) as fh:
+            res = json.load(fh)
+        if sorted(res) != ["coarse_psnr", "fine_lpips", "fine_psnr",
+                           "fine_ssim", "psnr"] or not all(
+                               np.isfinite(v) for v in res.values()):
+            raise RuntimeError(f"eval.json: {res}")
+        k1, k2 = launches["field_forward_v3"], launches["field_forward_density"]
+        cpu = float(lpips_lib.load_torch_weights(weights)(
+            torch.as_tensor(seen[0][0]), torch.as_tensor(seen[0][1])))
+        per_image = [float(x) for x in re.findall(r": ([\d.]+) s \(",
+                                                  text)]
+        lp_ms = [float(x) for x in re.findall(r"LPIPS ([\d.]+) ms", text)]
+        print(f"  eval: K1 {k1} launches, K2 {k2} (a full render: K1 on "
+              f"all four passes); image 0's LPIPS on the card "
+              f"{seen[0][2]:.9g}, on the CPU {cpu:.9g} (|diff| "
+              f"{abs(seen[0][2] - cpu):.3g}, limit {LPIPS_TOL}); "
+              f"{per_image} s per image, LPIPS {lp_ms} ms at "
+              f"{FRAME_RES}x{FRAME_RES} (host clock ending in a device "
+              f"sync; {card})", flush=True)
+        if k1 <= 0 or k2 != 0 or len(seen) != 2:
+            raise RuntimeError("eval did not run K1 on every pass of "
+                               "two images")
+        if abs(seen[0][2] - cpu) > LPIPS_TOL:
+            raise RuntimeError("LPIPS on the card differs from the CPU's")
+
+        # a bare render call: split mode, the three panels
+        text, launches = run_cli(render_cli.main, [
+            "--load-dir", run, "--max-images", "1"])
+        print("\n".join("  " + ln for ln in text.splitlines()))
+        panels = os.path.join(run, "renders_test")
+        for name, width in (("img", 3), ("accumulation", 2), ("depth", 2)):
+            mode, px = read_png(os.path.join(panels, f"00000-{name}.png"))
+            if px.shape != (FRAME_RES, width * FRAME_RES, 3) or \
+                    px.min() == px.max():
+                raise RuntimeError(f"split panel {name}: wrong or constant")
+        print(f"  split: three panels; launches K1 "
+              f"{launches['field_forward_v3']}, K2 "
+              f"{launches['field_forward_density']} ({card})")
+        if launches["field_forward_v3"] <= 0 or \
+                launches["field_forward_density"] != 0:
+            raise RuntimeError("a split render runs K1 on all four passes")
+
+        # a generated path with its video
+        text, launches = run_cli(render_cli.main, [
+            "--load-dir", run, "--mode", "interpolate", "--num-frames", "4",
+            "--video", "--downscale-factor", "4"])
+        print("\n".join("  " + ln for ln in text.splitlines()))
+        out = os.path.join(run, "renders_interpolate")
+        side = FRAME_RES // 4
+        frames = [read_png(os.path.join(out, f"frame_{i:05d}.png"))[1]
+                  for i in range(4)]
+        video = re.search(r"wrote (\S+\.(?:gif|mp4))", text).group(1)
+        if video.endswith(".gif"):
+            decoded, _ = gif.read_gif(video)
+            if len(decoded) != 4:
+                raise RuntimeError("the GIF does not hold 4 frames")
+            for a, b in zip(decoded, frames):
+                err = np.abs(a.astype(np.float64) - b)
+                if a.shape != (side, side, 3) or (
+                        err > np.asarray(gif.STEP) / 2 + 1e-9).any():
+                    raise RuntimeError("a GIF frame is off its PNG frame")
+        elif os.path.getsize(video) == 0:
+            raise RuntimeError("empty mp4")
+        print(f"  interpolate: 4 frames of {side}x{side} and {video} "
+              f"({os.path.getsize(video)} bytes); launches K2 "
+              f"{launches['field_forward_density']}, K1 "
+              f"{launches['field_forward_v3']} ({card})")
+        if launches["field_forward_density"] <= 0 or \
+                launches["field_forward_v3"] <= 0:
+            raise RuntimeError("a generated path runs K2 and K1")
+
+        # convert: export -> import -> export
+        a, b = os.path.join(tmp, "a.ckpt"), os.path.join(tmp, "b.ckpt")
+        run2 = os.path.join(tmp, "imported")
+        for argv in (["--load-dir", run, "--to-torch", a],
+                     ["--torch-ckpt", a, "--output", run2, "--dataparser",
+                      "blender", "--data", scene],
+                     ["--load-dir", run2, "--to-torch", b]):
+            text, _ = run_cli(convert_cli.main, argv)
+            print("  " + text.strip())
+        sa = torch.load(a, weights_only=False)
+        sb = torch.load(b, weights_only=False)
+        trained = ckpt_lib.export_torch_state_dict(ckpt_lib.load_checkpoint(
+            ckpt_lib.latest_checkpoint(os.path.join(run, "checkpoints")))[
+                "field"])
+        same = (sa["step"] == sb["step"] == USER_STEPS
+                and list(sa["pipeline"]) == list(sb["pipeline"])
+                and all(torch.equal(v, sb["pipeline"][k])
+                        and np.array_equal(v.numpy(),
+                                           trained[k[len("_model."):]])
+                        for k, v in sa["pipeline"].items()))
+        print(f"  convert: export -> import -> export, "
+              f"{len(sa['pipeline'])} tensors equal bit for bit and equal "
+              f"to the trained field: {same}")
+        if not same:
+            raise RuntimeError("convert is not the identity")
 
 
 RENDER_KERNELS = ("field_forward_v3", "field_forward_density")
@@ -1526,25 +1773,16 @@ def run_render_cli(run, frames_dir, *flags):
     """The render CLI's orbit mode on `run`, from zeroed launch counts ->
     (its stdout, the per-frame (s, rays/s, mask fraction, bucket, rgb lo,
     rgb hi), the kernels' launches)."""
-    import torch
-
     from rsn_torch.cli import render as render_cli
-    from rsn_torch.kernels import field_forward as ff
 
-    buf = io.StringIO()
-    ff.reset_launch_counts()
-    with contextlib.redirect_stdout(buf):
-        rc = render_cli.main(["--load-dir", run, "--mode", "orbit",
-                              "--output-dir", frames_dir, *flags])
-    torch.cuda.synchronize()
-    launches = dict(ff.LAUNCHES)
-    if rc != 0:
-        raise RuntimeError(f"render CLI exited {rc}")
+    text, launches = run_cli(render_cli.main, [
+        "--load-dir", run, "--mode", "orbit", "--output-dir", frames_dir,
+        *flags])
     stats = [tuple(float(x) for x in m) for m in re.findall(
         r"rendered \d+/\d+: ([\d.]+) s, ([\d.]+) rays/s, mask fraction "
         r"([\d.]+), reflect bucket ([\d.]+), rgb range \[([-\d.e]+), "
-        r"([-\d.e]+)\]", buf.getvalue())]
-    return buf.getvalue(), stats, launches
+        r"([-\d.e]+)\]", text)]
+    return text, stats, launches
 
 
 def train_entry_point(card):
@@ -2707,6 +2945,12 @@ def api_phase(field, render_mc, cam_calls, card, first, first13):
         serr = float((got - want).abs().max())
         ks = cuda_ms(lambda: ft.k13_sum(small, partial))
         ps = cuda_ms(lambda: ft.k13_sum_plain(small, partial))
+        # the one PyTorch call: partial.sum(0) over the P partials (the
+        # kernel's partial totals are the plain version's in-order sum)
+        lib_sum = cuda_ms(lambda: partial.sum(0))
+        in_order = ft._sum_in_order(partial)
+        lerr = float((partial.sum(0) - in_order).abs().max())
+        lrel = lerr / max(float(in_order.abs().max()), 1e-30)
         sb, sby = bound(0, nbytes(small, partial, got))
         outs = g8.shape[0] * 512 * 4 + ft.PACK_FLOATS * 4 + mc.shape[0] * 16 * 4
         b, by = bound(FLOPS["field_backward_v4"] * mc.shape[0],
@@ -2722,7 +2966,10 @@ def api_phase(field, render_mc, cam_calls, card, first, first13):
               f"{len(plan.chunks)} chunks of {plan.blocks} blocks x up to "
               f"{ft.TILES_PER_CHUNK} tiles, P = {plan.slices}, the sum "
               f"{ks:.4f} ms (plain {ps:.4f} ms, bound {sb:.4f} ms ({sby}), "
-              f"== its plain version within {serr:.6g}); K8 {k8:.4f} ms, "
+              f"== its plain version within {serr:.6g}; partial.sum(0), the "
+              f"one PyTorch call, {lib_sum:.4f} ms over the {partial.shape[0]}"
+              f" x {partial.shape[1]} partials, within {lerr:.6g} ({lrel:.3g}"
+              f" of the largest total) of the in-order sum); K8 {k8:.4f} ms, "
               f"plain {pl:.4f} ms, bound {b:.4f} ms ({by}); scratch per call "
               f"{plan.scratch_bytes()} bytes (the first design's: "
               f"{first_scratch}), both + {ft.PACK_FLOATS * 4} of the "
@@ -2732,7 +2979,8 @@ def api_phase(field, render_mc, cam_calls, card, first, first13):
         if p == 2:
             r13.update(ms=one[0], plain_ms=pl, bound_ms=b, bound_by=by)
             results["field_backward_v3_sum"].update(
-                err=serr, ms=ks, plain_ms=ps, bound_ms=sb, bound_by=sby)
+                err=serr, ms=ks, plain_ms=ps, bound_ms=sb, bound_by=sby,
+                library_ms=lib_sum)
         else:  # kernel B on K13's chunk of pass 4 (512 records)
             sc = ft.stash_scratch(plan, mc.device)
             ws = [ft.kernel_a(lib, "field_backward_v3", plan, c, args[:5], sc)
@@ -2740,7 +2988,7 @@ def api_phase(field, render_mc, cam_calls, card, first, first13):
             results["field_backward_v3_wgrad"].update(kernel_b_on_a_chunk(
                 ws, "field_backward_v3_wgrad", card, "K13 pass 4's chunk"))
             del sc, ws
-        del small, partial, got, want
+        del small, partial, got, want, in_order
         torch.cuda.empty_cache()
     return {"kernels": results, "launches": launches}
 

@@ -56,7 +56,7 @@ def profile_frame(method: str, flags, device) -> None:
 
     from chip_smoke import FRAME_RES, SEED, smoke_config
     from rsn_torch.cli.render import orbit_cameras
-    from rsn_torch.data.synthetic import load_cameras
+    from rsn_torch.data.blender import load_cameras
     from rsn_torch.engine.trainer import preferred_eval_chunk, render_image
     from rsn_torch.kernels import field_forward as ff
     from rsn_torch.models.field import Field

@@ -1,32 +1,39 @@
-"""rsn_torch render — the port of rsn-render's orbit mode: render an orbit
-around the scene from a run dir to PNG frames.
+"""rsn_torch render — the port of rsn-render (the `ns-render`
+equivalent): render a run's eval cameras with the reference's panels, or
+a generated camera path, to PNGs (and a video).
 
-    python -m rsn_torch.cli.render --load-dir RUN --mode orbit \
-        --num-frames N [--max-images M] [--downscale-factor F] \
-        [--output-dir DIR]
+    python -m rsn_torch.cli.render --load-dir RUN [--split test] \
+        [--max-images N] [--output-dir DIR]          # split (default)
+    python -m rsn_torch.cli.render --load-dir RUN \
+        --mode orbit|interpolate|spiral|path [--num-frames N] \
+        [--camera-path FILE] [--downscale-factor F] [--video] [--fps 24]
 
-Renders on the CUDA card, and raises when torch sees none; a Python
-caller may ask for the CPU with main(argv, device="cpu").
-
-Ported: the orbit mode on runs whose dataparser is `synthetic`, and the
-eval panels (render_panels, the turbo colormaps) that the trainer's eval
-hook writes.  The split-panel mode, the path / interpolate / spiral modes
-and the other dataparsers come with rsn/cli/render.py and
-rsn/data/blender.py (ROADMAP Queue 1).
+split: each camera of the split, the three panels of the reference's eval
+images (img = gt | coarse | fine, accumulation, depth; rendered in full,
+K1 on all four passes).  orbit / interpolate / spiral / path: rgb frames
+of a generated path (product-only renders: K2 on passes 1 and 3, K1 on 2
+and 4); --video also writes them as an mp4 through ffmpeg where it is on
+the path, else as an animated GIF (rsn_torch.utils.gif).  Renders on the
+CUDA card, and raises when torch sees none; a Python caller may ask for
+the CPU with main(argv, device="cpu").
 """
 from __future__ import annotations
 
+import json
 import os
-import struct
+import shutil
+import subprocess
 import sys
+import tempfile
 import time
-import zlib
 
 import numpy as np
 import torch
 
 from rsn_torch.data.cameras import Cameras
+from rsn_torch.data.png import write_png
 from rsn_torch.data.synthetic import _look_at_pose
+from rsn_torch.utils import gif
 from rsn_torch.utils._turbo_table import TURBO
 
 _TURBO = np.asarray(TURBO, np.float64)  # matplotlib's lookup table
@@ -75,20 +82,31 @@ def render_panels(out: dict, gt: np.ndarray, near: float, far: float):
 
 def save_png(path: str, img: np.ndarray) -> None:
     """(H, W, 3) float in [0, 1] -> 8-bit RGB PNG (zlib + struct only)."""
-    rgb = (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
-    h, w = rgb.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           rgb.reshape(h, w * 3)], axis=1)  # filter 0
+    write_png(path, (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8))
 
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(chunk(b"IEND", b""))
+def save_video(path: str, frames, fps: int = 24) -> str:
+    """Frames (float (H, W, 3) in [0, 1]) -> an .mp4 through ffmpeg where
+    it is on the path, else an animated .gif (rsn_torch.utils.gif; the
+    .mp4 name becomes .gif, as rsn renames it).  -> the path written."""
+    imgs = [(np.clip(f, 0, 1) * 255).astype(np.uint8) for f in frames]
+    if path.endswith(".mp4") and shutil.which("ffmpeg"):
+        with tempfile.TemporaryDirectory() as td:
+            for i, im in enumerate(imgs):
+                write_png(os.path.join(td, f"{i:05d}.png"), im)
+            subprocess.run(
+                ["ffmpeg", "-y", "-framerate", str(fps), "-i",
+                 os.path.join(td, "%05d.png"), "-pix_fmt", "yuv420p",
+                 path], check=True, capture_output=True)
+        return path
+    if path.endswith(".mp4"):
+        path = path[:-4] + ".gif"
+    gif.write_gif(path, imgs, duration_ms=max(1, round(1000 / fps)))
+    return path
+
+
+def _full(v, n: int) -> torch.Tensor:
+    return torch.full((n,), float(v[0]), dtype=torch.float32)
 
 
 def orbit_cameras(reference_cameras: Cameras, num_frames: int = 60,
@@ -105,14 +123,203 @@ def orbit_cameras(reference_cameras: Cameras, num_frames: int = 60,
         eye *= radius / np.linalg.norm(eye)
         poses.append(_look_at_pose(eye))
     n = num_frames
-
-    def full(v):
-        return torch.full((n,), float(v[0]), dtype=torch.float32)
-
     ref = reference_cameras
     return Cameras(camera_to_worlds=torch.as_tensor(np.stack(poses)[:, :3, :4]),
-                   fx=full(ref.fx), fy=full(ref.fy), cx=full(ref.cx),
-                   cy=full(ref.cy), width=ref.width, height=ref.height)
+                   fx=_full(ref.fx, n), fy=_full(ref.fy, n),
+                   cx=_full(ref.cx, n), cy=_full(ref.cy, n),
+                   width=ref.width, height=ref.height)
+
+
+def _rot_to_quat(R: np.ndarray) -> np.ndarray:
+    """3x3 rotation -> unit quaternion (w, x, y, z)."""
+    t = np.trace(R)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2.0
+        return np.array([0.25 * s, (R[2, 1] - R[1, 2]) / s,
+                         (R[0, 2] - R[2, 0]) / s,
+                         (R[1, 0] - R[0, 1]) / s])
+    i = int(np.argmax(np.diag(R)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = np.sqrt(R[i, i] - R[j, j] - R[k, k] + 1.0) * 2.0
+    q = np.empty(4)
+    q[0] = (R[k, j] - R[j, k]) / s
+    q[1 + i] = 0.25 * s
+    q[1 + j] = (R[j, i] + R[i, j]) / s
+    q[1 + k] = (R[k, i] + R[i, k]) / s
+    return q
+
+
+def _quat_to_rot(q: np.ndarray) -> np.ndarray:
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ], np.float32)
+
+
+def _slerp(q0: np.ndarray, q1: np.ndarray, t: float) -> np.ndarray:
+    if np.dot(q0, q1) < 0:  # shortest arc
+        q1 = -q1
+    d = np.clip(np.dot(q0, q1), -1.0, 1.0)
+    if d > 0.9995:  # nearly parallel: lerp
+        q = q0 + t * (q1 - q0)
+        return q / np.linalg.norm(q)
+    theta = np.arccos(d)
+    return (np.sin((1 - t) * theta) * q0
+            + np.sin(t * theta) * q1) / np.sin(theta)
+
+
+def _numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def interpolate_cameras(reference_cameras: Cameras,
+                        steps_per_transition: int = 10,
+                        max_frames: int = 0) -> Cameras:
+    """ns-render `interpolate`: a path through the cameras' poses,
+    rotation slerp and translation / intrinsics lerp between consecutive
+    cameras, steps_per_transition frames a segment.  Keyframes are the
+    cameras themselves (projection model and distortion too; between
+    keyframes the distortion is the segment's start camera's).
+    max_frames > 0 subsamples the path evenly to that many frames, the
+    first and last kept."""
+    ref = reference_cameras
+    c2w = _numpy(ref.camera_to_worlds)
+    quats = [_rot_to_quat(m[:3, :3]) for m in c2w]
+    intr = np.stack([_numpy(ref.fx), _numpy(ref.fy), _numpy(ref.cx),
+                     _numpy(ref.cy)], axis=-1)
+    dist = None if ref.distortion is None else _numpy(ref.distortion)
+    poses, intrs, dists = [], [], []
+    for a in range(len(c2w) - 1):
+        for s in range(steps_per_transition):
+            t = s / steps_per_transition
+            m = np.eye(4, dtype=np.float32)[:3, :4].copy()
+            m[:3, :3] = _quat_to_rot(_slerp(quats[a], quats[a + 1], t))
+            m[:3, 3] = (1 - t) * c2w[a, :3, 3] + t * c2w[a + 1, :3, 3]
+            poses.append(m)
+            intrs.append((1 - t) * intr[a] + t * intr[a + 1])
+            if dist is not None:
+                dists.append(dist[a])
+    poses.append(c2w[-1, :3, :4])
+    intrs.append(intr[-1])
+    if dist is not None:
+        dists.append(dist[-1])
+    poses_np = np.stack(poses)
+    intrs = np.stack(intrs).astype(np.float32)
+    dists_np = None if dist is None else np.stack(dists)
+    n = len(poses_np)
+    if 0 < max_frames < n:
+        idx = np.unique(np.linspace(0, n - 1, max_frames).round()
+                        .astype(np.int64))
+        poses_np, intrs = poses_np[idx], intrs[idx]
+        dists_np = None if dists_np is None else dists_np[idx]
+    return Cameras(
+        camera_to_worlds=torch.from_numpy(np.ascontiguousarray(poses_np)),
+        fx=torch.from_numpy(intrs[:, 0].copy()),
+        fy=torch.from_numpy(intrs[:, 1].copy()),
+        cx=torch.from_numpy(intrs[:, 2].copy()),
+        cy=torch.from_numpy(intrs[:, 3].copy()),
+        width=ref.width, height=ref.height,
+        distortion=(None if dists_np is None
+                    else torch.from_numpy(np.ascontiguousarray(dists_np))),
+        camera_model=ref.camera_model)
+
+
+def spiral_cameras(reference_cameras: Cameras, num_frames: int = 60,
+                   radius_frac: float = 0.1, zrate: float = 0.5,
+                   rotations: int = 2) -> Cameras:
+    """ns-render `spiral`: the eye of the first camera offset in its
+    right / up plane (radius = radius_frac x its distance to the origin)
+    with a slow swing along its view axis, every frame aimed at the world
+    origin (the scene center after the loaders' pose normalisation); the
+    first camera's intrinsics, projection model and distortion on every
+    frame."""
+    ref = reference_cameras
+    base = _numpy(ref.camera_to_worlds)[0]
+    eye0 = base[:3, 3]
+    right, up = base[:3, 0], base[:3, 1]
+    radius = radius_frac * float(np.linalg.norm(eye0))
+    poses = []
+    for i in range(num_frames):
+        theta = 2.0 * np.pi * rotations * i / num_frames
+        eye = (eye0 + radius * np.cos(theta) * right
+               + radius * np.sin(theta) * up
+               + radius * zrate * np.sin(theta * 0.5) * base[:3, 2])
+        poses.append(_look_at_pose(eye.astype(np.float32)))
+    n = num_frames
+    return Cameras(
+        camera_to_worlds=torch.from_numpy(
+            np.ascontiguousarray(np.stack(poses)[:, :3, :4])),
+        fx=_full(ref.fx, n), fy=_full(ref.fy, n),
+        cx=_full(ref.cx, n), cy=_full(ref.cy, n),
+        width=ref.width, height=ref.height,
+        distortion=(None if ref.distortion is None
+                    else ref.distortion[0].cpu().expand(n, 6).clone()),
+        camera_model=ref.camera_model)
+
+
+def path_cameras(path_file: str, reference_cameras: Cameras) -> Cameras:
+    """Cameras from a camera-path JSON, in either schema:
+    - {"frames": [{"camera_to_world" | "transform_matrix": 3x4 or 4x4,
+      optional fl_x / fl_y / cx / cy / w / h}, ...]} with optional
+      top-level fx / fy / cx / cy / width / height (default: the first
+      reference camera's): rsn's viewer and `rsn-export cameras`;
+    - nerfstudio's `ns-render --camera-path-filename` format:
+      {"camera_path": [{"camera_to_world": 16 floats, "fov": vertical
+      degrees}, ...], "render_height": H, "render_width": W}."""
+    with open(path_file) as f:
+        doc = json.load(f)
+    ref = reference_cameras
+    if "camera_path" in doc and "frames" not in doc:
+        frames = doc["camera_path"]
+        c2w = np.asarray([f["camera_to_world"] for f in frames],
+                         np.float32).reshape(len(frames), 4, 4)[:, :3, :4]
+        n = c2w.shape[0]
+        H = int(doc.get("render_height", ref.height))
+        W = int(doc.get("render_width", ref.width))
+        fovs = np.asarray([float(f.get("fov", 50.0)) for f in frames],
+                          np.float32)
+        fy = torch.from_numpy(
+            (H / (2.0 * np.tan(np.radians(fovs) / 2.0))).astype(np.float32))
+        return Cameras(
+            camera_to_worlds=torch.from_numpy(np.ascontiguousarray(c2w)),
+            fx=fy, fy=fy.clone(),
+            cx=torch.full((n,), W / 2.0), cy=torch.full((n,), H / 2.0),
+            width=W, height=H)
+    frames = doc["frames"]
+    c2w = np.asarray([f.get("camera_to_world", f.get("transform_matrix"))
+                      for f in frames], np.float32)[:, :3, :4]
+
+    def intr(name, frame_key, default):
+        # per-frame transforms.json keys win over the top-level value;
+        # the first reference camera is the fallback
+        return torch.tensor([float(f.get(frame_key, doc.get(name, default)))
+                             for f in frames], dtype=torch.float32)
+
+    w0 = frames[0].get("w", doc.get("width", ref.width))
+    h0 = frames[0].get("h", doc.get("height", ref.height))
+    return Cameras(
+        camera_to_worlds=torch.from_numpy(np.ascontiguousarray(c2w)),
+        fx=intr("fx", "fl_x", ref.fx[0]), fy=intr("fy", "fl_y", ref.fy[0]),
+        cx=intr("cx", "cx", ref.cx[0]), cy=intr("cy", "cy", ref.cy[0]),
+        width=int(w0), height=int(h0))
+
+
+def _generated_cameras(ns, p, reference: Cameras) -> Cameras:
+    if ns.mode == "path":
+        if not ns.camera_path:
+            p.error("--mode path requires --camera-path")
+        return path_cameras(ns.camera_path, reference)
+    if ns.mode == "interpolate":
+        n_cams = reference.num_cameras
+        return interpolate_cameras(
+            reference,
+            steps_per_transition=max(1, ns.num_frames // max(1, n_cams - 1)),
+            max_frames=ns.num_frames)
+    if ns.mode == "spiral":
+        return spiral_cameras(reference, ns.num_frames)
+    return orbit_cameras(reference, ns.num_frames)
 
 
 def main(argv=None, device=None) -> int:
@@ -120,8 +327,8 @@ def main(argv=None, device=None) -> int:
     import argparse
 
     from rsn_torch.cli.run_io import entry_device, load_run_full
+    from rsn_torch.data.blender import load_cameras, load_dataset
     from rsn_torch.data.cameras import rescale_cameras
-    from rsn_torch.data.synthetic import load_cameras
     from rsn_torch.engine.trainer import preferred_eval_chunk, render_image
     from rsn_torch.models.model import final_rgb
 
@@ -130,40 +337,86 @@ def main(argv=None, device=None) -> int:
     p.add_argument("--output-dir", default=None)
     p.add_argument("--split", default="test")
     p.add_argument("--max-images", type=int, default=None)
-    p.add_argument("--mode", default="split", choices=("split", "orbit"),
-                   help="orbit: generated orbit rgb frames; split (eval "
-                        "cameras with gt panels) is not ported yet")
+    p.add_argument("--mode", default="split",
+                   choices=("split", "orbit", "path", "interpolate",
+                            "spiral"),
+                   help="split: eval cameras with gt panels; orbit: "
+                        "generated orbit rgb frames; path: rgb frames "
+                        "along --camera-path; interpolate: smooth path "
+                        "through the split's poses (ns-render "
+                        "interpolate); spiral: spiral about the first "
+                        "camera (ns-render spiral)")
     p.add_argument("--num-frames", type=int, default=60)
+    p.add_argument("--camera-path", default=None,
+                   help="camera-path JSON for --mode path")
+    p.add_argument("--video", action="store_true",
+                   help="also write the generated path's frames as a "
+                        "video (mp4 through ffmpeg when present, else an "
+                        "animated gif)")
+    p.add_argument("--fps", type=int, default=24)
     p.add_argument("--downscale-factor", type=float, default=1.0,
-                   help="render the orbit at 1/N resolution")
+                   help="render the generated camera paths (orbit/path/"
+                        "interpolate/spiral) at 1/N resolution "
+                        "(ns-render --downscale-factor); split-mode "
+                        "panels compare against gt at dataset "
+                        "resolution -- downscale those with "
+                        "--pipeline.datamanager.downscale-factor at "
+                        "train time instead")
     ns = p.parse_args(argv)
-    if ns.mode != "orbit":
-        raise NotImplementedError(
-            f"--mode {ns.mode}: ROADMAP Queue 1: rsn/cli/render.py (render "
-            "modes with dataset panels) is not ported yet; use --mode "
-            "orbit")
+    if ns.mode == "split" and ns.downscale_factor != 1.0:
+        p.error("--downscale-factor applies to generated camera paths; "
+                "split renders follow the dataset resolution "
+                "(use the datamanager downscale-factor)")
     device = entry_device(device)
 
     field, config, _, extras = load_run_full(ns.load_dir, device)
     dm = config.pipeline.datamanager
-    cams = orbit_cameras(load_cameras(dm.dataparser, dm.data or "",
-                                      ns.split), ns.num_frames)
-    cams = rescale_cameras(cams, ns.downscale_factor).to(device)
-    out_dir = ns.output_dir or os.path.join(ns.load_dir, "renders_orbit")
+    mcfg = config.pipeline.model
+    out_dir = ns.output_dir or os.path.join(
+        ns.load_dir,
+        f"renders_{ns.split if ns.mode == 'split' else ns.mode}")
     os.makedirs(out_dir, exist_ok=True)
     chunk = preferred_eval_chunk(config, device)
-    n = min(cams.num_cameras, ns.max_images or cams.num_cameras)
+    proposal = extras.get("proposal")
     memo = {}
+
+    if ns.mode == "split":
+        dataset = load_dataset(dm.dataparser, dm.data or "", ns.split,
+                               dm.downscale_factor, dm.scale_factor)
+        cams = dataset.cameras.to(device)
+        n = min(cams.num_cameras, ns.max_images or cams.num_cameras)
+        for i in range(n):
+            t0 = time.perf_counter()
+            out = render_image(field, cams, i, config, rays_per_chunk=chunk,
+                               reflect_memo=memo, proposal=proposal)
+            seconds = time.perf_counter() - t0
+            panels = render_panels(out, dataset.images[i],
+                                   mcfg.collider_near_plane,
+                                   mcfg.collider_far_plane)
+            for name, img in panels.items():
+                save_png(os.path.join(out_dir, f"{i:05d}-{name}.png"), img)
+            print(f"rendered {i + 1}/{n}: {seconds:.4f} s", flush=True)
+        print(f"wrote {out_dir}")
+        return 0
+
+    cams = _generated_cameras(ns, p, load_cameras(
+        dm.dataparser, dm.data or "", ns.split, dm.downscale_factor,
+        dm.scale_factor))
+    cams = rescale_cameras(cams, ns.downscale_factor).to(device)
+    n = min(cams.num_cameras, ns.max_images or cams.num_cameras)
+    frames = []
     for i in range(n):
         t0 = time.perf_counter()
         out = render_image(field, cams, i, config, rays_per_chunk=chunk,
                            product_only=True, reflect_memo=memo,
-                           proposal=extras.get("proposal"))
+                           proposal=proposal)
         seconds = time.perf_counter() - t0
         frame = final_rgb(out)
         if not np.isfinite(frame).all():
             raise RuntimeError(f"frame {i}: non-finite pixels")
         save_png(os.path.join(out_dir, f"frame_{i:05d}.png"), frame)
+        if ns.video:
+            frames.append(np.clip(frame, 0, 1))
         rays = cams.width * cams.height
         mask = float(out["mask"].mean()) if "mask" in out else 0.0
         bucket = next(iter(memo.values()), 1.0)  # one config, one chunk
@@ -171,6 +424,10 @@ def main(argv=None, device=None) -> int:
               f"{rays / seconds:.1f} rays/s, mask fraction {mask:.6f}, "
               f"reflect bucket {bucket}, rgb range [{frame.min():.9g}, "
               f"{frame.max():.9g}]", flush=True)
+    if frames:
+        video = save_video(os.path.join(out_dir, f"{ns.mode}.mp4"), frames,
+                           fps=ns.fps)
+        print(f"wrote {video}")
     print(f"wrote {out_dir}")
     return 0
 

@@ -1,11 +1,15 @@
 """The procedural synthetic scenes (port of rsn.data.synthetic): their
 camera rings, the numpy ground-truth renderers (the JAX package's own
-code, so the images equal rsn's bit for bit) and `load_dataset` for the
-`synthetic` dataparser.  Nothing is downloaded: a scene is rendered
-analytically from its cameras."""
+code, so the images equal rsn's bit for bit), the `synthetic`
+dataparser's data string, and `write_blender_scene`, a Blender-format
+scene tree for the blender dataparser's tests.  Nothing is downloaded: a
+scene is rendered analytically from its cameras.  The dataparser
+dispatch is rsn_torch.data.blender.load_dataset."""
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Dict
 
 import numpy as np
@@ -432,17 +436,6 @@ def parse_synthetic_spec(spec: str) -> Dict:
     return kw
 
 
-def load_cameras(dataparser: str, data: str, split: str) -> Cameras:
-    """The cameras of a run's dataset split.  Only the synthetic
-    dataparser is ported; blender / nerfstudio / instant-ngp come with
-    rsn/data/blender.py (ROADMAP Queue 1)."""
-    if dataparser != "synthetic":
-        raise NotImplementedError(
-            f"dataparser {dataparser!r}: ROADMAP Queue 1: "
-            "rsn/data/blender.py is not ported yet; only 'synthetic' is")
-    return make_synthetic_cameras(split=split, **parse_synthetic_spec(data))
-
-
 @dataclasses.dataclass
 class Dataset:
     """One split: images (N, H, W, 3) float32 numpy, cameras on the CPU."""
@@ -476,14 +469,33 @@ def make_synthetic_dataset(num_cameras: int = 12, H: int = 64, W: int = 64,
     return Dataset(images=np.stack(images), cameras=cams, split=split)
 
 
-def load_dataset(parser: str, data: str, split: str, downscale: int = 1,
-                 scale_factor: float = 1.0) -> Dataset:
-    """A split of the run's dataset.  Only the synthetic dataparser is
-    ported (data = `scene[:cams=N,res=R,extrap=hi|lo]`); blender,
-    nerfstudio and instant-ngp come with rsn/data/blender.py."""
-    if parser != "synthetic":
-        raise NotImplementedError(
-            f"dataparser {parser!r}: ROADMAP Queue 1: rsn/data/blender.py "
-            "is not ported yet; only 'synthetic' is")
-    return make_synthetic_dataset(split=split,
-                                  **parse_synthetic_spec(data))
+def write_blender_scene(out_dir: str, num_cameras: int = 6, H: int = 32,
+                        W: int = 32) -> str:
+    """Write a Blender-format scene tree (transforms_{train,val,test}.json
+    and 8-bit RGB PNGs of the sphere) as rsn.data.synthetic's
+    write_blender_scene writes it: the same poses and the same
+    `(img * 255).astype(uint8)` pixels, so both packages' loaders read
+    identical pixels."""
+    from rsn_torch.data.png import write_png
+
+    focal = 0.5 * W / np.tan(0.5 * CAMERA_ANGLE_X)
+    for split, phase in (("train", 0.0), ("val", 0.3), ("test", 0.6)):
+        frames = []
+        os.makedirs(os.path.join(out_dir, split), exist_ok=True)
+        for i in range(num_cameras):
+            theta = 2 * np.pi * i / num_cameras + phase
+            eye = np.array([4 * np.cos(theta), 4 * np.sin(theta), 1.5],
+                           np.float32)
+            eye *= 4.0 / np.linalg.norm(eye)
+            pose = _look_at_pose(eye)
+            img = _render_sphere(pose, H, W, focal)
+            rel = f"./{split}/r_{i}"
+            write_png(os.path.join(out_dir, rel.replace("./", "") + ".png"),
+                      (img * 255).astype(np.uint8))
+            frames.append({"file_path": rel,
+                           "transform_matrix": pose.tolist()})
+        with open(os.path.join(out_dir, f"transforms_{split}.json"),
+                  "w") as f:
+            json.dump({"camera_angle_x": CAMERA_ANGLE_X, "frames": frames},
+                      f)
+    return out_dir

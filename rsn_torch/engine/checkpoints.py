@@ -14,6 +14,11 @@ params pytree (numpy, (in, out) weights) to the port's Field state dict
 ((out, in) weights) and `params_to_rsn` maps it back;
 `proposal_from_rsn` / `proposal_to_rsn` do the same for the proposal
 field ({"trunk": [{"w", "b"}] * 4, "density": {"w", "b"}}).
+`convert_torch_state_dict` / `export_torch_state_dict` read and write the
+reference field's torch state dict (nerfstudio names: mlp_base.layers.N,
+mlp_mid.layers.0, field_output_*.net; port of
+rsn/engine/checkpoints.py:131-192) through the rsn pytree, so
+params_from_rsn / params_to_rsn stay the one carry.
 """
 from __future__ import annotations
 
@@ -172,3 +177,41 @@ def dump_config(run_dir: str, config) -> None:
     os.makedirs(run_dir, exist_ok=True)
     with open(os.path.join(run_dir, "config.json"), "w") as f:
         json.dump(to_dict(config), f, indent=2)
+
+
+def convert_torch_state_dict(state_dict: Dict[str, Any],
+                             prefix: str = "field.") -> Dict[str, torch.Tensor]:
+    """A reference-field torch state dict (tensors or numpy arrays; keys
+    `<prefix>mlp_base.layers.N.weight`, `<prefix>field_output_*.net.*`,
+    the prefix optional) -> the port's Field state dict, through rsn's
+    params pytree."""
+    def get(name: str) -> np.ndarray:
+        for k in (prefix + name, name):
+            if k in state_dict:
+                v = state_dict[k]
+                return np.asarray(v.detach().cpu().numpy()
+                                  if hasattr(v, "detach") else v, np.float32)
+        raise KeyError(f"missing torch key {prefix + name}")
+
+    tree: Dict[str, Any] = {"trunk": []}
+    for (name, i), module in _module_names():
+        layer = {"w": np.ascontiguousarray(get(module + ".weight").T),
+                 "b": get(module + ".bias")}
+        if i is not None:
+            tree["trunk"].append(layer)
+        else:
+            tree[name] = layer
+    return params_from_rsn(tree)
+
+
+def export_torch_state_dict(state_dict: Dict[str, torch.Tensor],
+                            prefix: str = "field.") -> Dict[str, np.ndarray]:
+    """The port's Field state dict -> the reference field's torch state
+    dict of numpy arrays (the inverse of convert_torch_state_dict)."""
+    tree = params_to_rsn(state_dict)
+    out: Dict[str, np.ndarray] = {}
+    for key, module in _module_names():
+        layer = _rsn_layer(tree, key)
+        out[f"{prefix}{module}.weight"] = np.asarray(layer["w"]).T
+        out[f"{prefix}{module}.bias"] = np.asarray(layer["b"])
+    return out

@@ -43,7 +43,7 @@ import torch
 from rsn_torch.configs import TrainerConfig, loss_coefficients_at_step
 from rsn_torch.core.rays import RayBundle
 from rsn_torch.data.cameras import Cameras, generate_image_rays, generate_rays
-from rsn_torch.data.synthetic import load_dataset
+from rsn_torch.data.blender import load_dataset
 from rsn_torch.engine import checkpoints as ckpt_lib
 from rsn_torch.engine.optimizers import build_field_optimizer, build_optimizer
 from rsn_torch.metrics import psnr, ssim

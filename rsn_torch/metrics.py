@@ -1,13 +1,23 @@
-"""Image metrics: PSNR and the gaussian-window SSIM (port of rsn/metrics.py;
-the reference's stack, reflect_sampling_nerf_model.py:130-132).
+"""Image metrics: PSNR, the gaussian-window SSIM and LPIPS (port of
+rsn/metrics.py; the reference's stack, reflect_sampling_nerf_model.py:
+130-132, 468-480).
 
 Images are (H, W, C) float tensors in [0, data_range], on any device.
-LPIPS is not ported yet (ROADMAP Queue 1: rsn/lpips.py).
+LPIPS needs VGG16 + lpips weights on disk (rsn_torch/lpips.py); without
+them `lpips` returns None and eval reports leave the key out.
 """
 from __future__ import annotations
 
+import os
+from typing import List, Optional
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from rsn_torch import lpips as lpips_lib
+
+REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def psnr(pred: torch.Tensor, gt: torch.Tensor,
@@ -54,3 +64,37 @@ def ssim(pred: torch.Tensor, gt: torch.Tensor, data_range: float = 1.0,
     num = (2 * mu_p * mu_g + c1) * (2 * cov + c2)
     den = (mu_p ** 2 + mu_g ** 2 + c1) * (var_p + var_g + c2)
     return torch.mean(num / den)
+
+
+def lpips_weight_candidates() -> List[str]:
+    """Where LPIPS weights are looked for, in order: $RSN_LPIPS_WEIGHTS,
+    ~/.cache/rsn/lpips_vgg.pth, <repo>/weights/lpips_vgg.pth (rsn's
+    places)."""
+    env = os.environ.get("RSN_LPIPS_WEIGHTS")
+    cands = [env] if env else []
+    cands += [os.path.expanduser("~/.cache/rsn/lpips_vgg.pth"),
+              os.path.join(REPO_DIR, "weights", "lpips_vgg.pth")]
+    return cands
+
+
+def load_lpips(device="cpu") -> Optional[lpips_lib.LPIPS]:
+    """LPIPS on `device` from the first candidate file that holds its
+    weights, or None.  rsn's second route (torchvision's downloaded VGG,
+    unweighted) is left out: it needs a download and a package the card's
+    machine lacks."""
+    for cand in lpips_weight_candidates():
+        net = lpips_lib.load_torch_weights(cand)
+        if net is not None:
+            return net.to(device)
+    return None
+
+
+def lpips(pred: np.ndarray, gt: np.ndarray,
+          net: Optional[lpips_lib.LPIPS] = None) -> Optional[float]:
+    """LPIPS(VGG16, normalize=True) of two (H, W, 3) images in [0, 1]
+    (reference model.py:132,471), on the device of `net` (default: the
+    weights load_lpips finds, on the CPU); None when there are none."""
+    net = net if net is not None else load_lpips()
+    if net is None:
+        return None
+    return float(net(torch.as_tensor(pred), torch.as_tensor(gt)))

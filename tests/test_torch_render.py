@@ -163,9 +163,9 @@ def test_render_cli_orbit_end_to_end(tmp_path, capsys):
     assert len(ranges) == 2
     for lo, hi in ranges:  # [0, 1] up to fp32 rounding of 1 - accumulation
         assert -1e-4 <= float(lo) <= float(hi) <= 1.0 + 1e-4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trender_cli.main(["--load-dir", str(run), "--mode", "split"],
-                         device="cpu")
+    with pytest.raises(SystemExit):  # split mode keeps the dataset's size
+        trender_cli.main(["--load-dir", str(run), "--mode", "split",
+                          "--downscale-factor", "2"], device="cpu")
 
 
 def test_port_imports_no_jax():
@@ -186,18 +186,27 @@ def test_port_imports_no_jax():
     assert (jax_in, flax_in, pil_in) == ("False", "False", "False")
 
 
+def _read_jpeg_frame():
+    """A nerfstudio capture's JPEG frame (its start of image marker)."""
+    import tempfile
+
+    from rsn_torch.data import blender as tblender
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "frame_00001.jpg")
+        with open(path, "wb") as f:
+            f.write(b"\xff\xd8\xff\xe0" + bytes(16))
+        tblender._load_image(path)
+
+
 def _not_ported_calls():
     """Each "not ported" error of the port, as a call and the rsn module
     it must name."""
     from rsn_torch import configs as tconfigs
     from rsn_torch.cli import train as ttrain_cli
-    from rsn_torch.data import synthetic as tsynthetic
 
     return {
-        "blender cameras": (lambda: tsynthetic.load_cameras(
-            "blender", "lego", "train"), "rsn/data/blender.py"),
-        "blender dataset": (lambda: tsynthetic.load_dataset(
-            "blender", "lego", "train"), "rsn/data/blender.py"),
+        "jpeg frame": (_read_jpeg_frame, "rsn/data/blender.py"),
         "multi-device render": (lambda: ttrainer.render_image(
             None, None, 0, None, mesh=object()), "rsn/parallel/mesh.py"),
         "num_devices": (lambda: ttrainer._check_slice(
