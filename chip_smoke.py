@@ -228,7 +228,27 @@ Phases, each announced on its own line:
                 rsn_torch.cli.convert` export -> import -> export: the two
                 .ckpt state dicts equal bit for bit, and equal to the
                 trained field.
-  20. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
+  20. export and viewer — on phase 19's trained run: one grid plane of
+                the density (256 x 256 points, fp32) on the card against
+                the CPU (QUERY_TOL); `python -m rsn_torch.cli.export mesh
+                --resolution 256` with the iso at a high quantile of the
+                density at random points (vertices and faces, unit
+                normals, colors in [0, 1]; the grid's seconds on the
+                card, the isosurface's on the host, the colors' and
+                normals' on the card); `export pointcloud --max-images 2`
+                and `export tsdf --max-images 2 --resolution 128` (K1 on
+                all four passes of every chunk of both images, K2 none;
+                s per image), `export cameras`, each read back through
+                read_ply or json; the viewer in process (`load_state`,
+                the warm-up's ms per quality level, a ThreadingHTTPServer
+                on 127.0.0.1 and a websocket client): one pose, three
+                binary frames with quality bytes 0, 1, 2 at 100, 200 and
+                400 pixels square (ms per level at the client), K2 and K1
+                launched; the q=2 frame and GET /render == the product
+                render at that pose, bit for bit; POST /export_path with
+                two poses, then `python -m rsn_torch.cli.render --mode
+                path` renders the file.
+  21. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
 
 Any failed check raises: the script then exits non-zero and prints no
 result.  It imports neither jax nor PIL, nor anything of the JAX package.
@@ -740,10 +760,13 @@ def main() -> int:
     launches.update(bwd_results["launches"])
 
     # ---- 19. the user path around a trained scene ----
-    user_path_phase(card)
+    # ---- 20. export and the viewer on phase 19's trained run ----
+    with tempfile.TemporaryDirectory() as user_tmp:
+        run = user_path_phase(card, user_tmp)
+        export_viewer_phase(run, card)
 
-    # ---- 20. result ----
-    phase("phase 20: result")
+    # ---- 21. result ----
+    phase("phase 21: result")
     kernels = []
     for name, source, line in KERNEL_ROWS:
         r = results[name]
@@ -816,10 +839,11 @@ def decode_times(paths, card) -> None:
           f"(host CPU, best of 3; {card})", flush=True)
 
 
-def user_path_phase(card) -> None:
-    """Phase 19: write a Blender-format scene, then train, eval (with
-    LPIPS), render (split, interpolate with a video) and convert through
-    the CLIs a user calls, each from zeroed launch counts."""
+def user_path_phase(card, tmp: str) -> str:
+    """Phase 19: write a Blender-format scene under `tmp`, then train,
+    eval (with LPIPS), render (split, interpolate with a video) and
+    convert through the CLIs a user calls, each from zeroed launch counts
+    -> the trained run's dir."""
     import numpy as np
     import torch
 
@@ -836,151 +860,413 @@ def user_path_phase(card) -> None:
 
     phase(f"phase 19: the user path on a Blender-format scene at "
           f"{FRAME_RES}x{FRAME_RES}: train, eval with LPIPS, render, convert")
-    with tempfile.TemporaryDirectory() as tmp:
-        scene = write_blender_scene(os.path.join(tmp, "scene"), USER_CAMS,
-                                    FRAME_RES, FRAME_RES)
-        decode_times(sorted(os.path.join(scene, split, f)
-                            for split in ("train", "val", "test")
-                            for f in os.listdir(os.path.join(scene, split))),
-                     card)
+    scene = write_blender_scene(os.path.join(tmp, "scene"), USER_CAMS,
+                                FRAME_RES, FRAME_RES)
+    decode_times(sorted(os.path.join(scene, split, f)
+                        for split in ("train", "val", "test")
+                        for f in os.listdir(os.path.join(scene, split))),
+                 card)
 
-        text, launches = run_cli(train_cli.main, [
-            "reflect-sampling-nerf", "--pipeline.datamanager.dataparser",
-            "blender", "--pipeline.datamanager.data", scene,
-            "--pipeline.model.compute-dtype", "bfloat16",
-            "--max-num-iterations", str(USER_STEPS), "--steps-per-log", "1",
-            "--seed", str(SEED), "--output-dir", os.path.join(tmp, "out")])
+    text, launches = run_cli(train_cli.main, [
+        "reflect-sampling-nerf", "--pipeline.datamanager.dataparser",
+        "blender", "--pipeline.datamanager.data", scene,
+        "--pipeline.model.compute-dtype", "bfloat16",
+        "--max-num-iterations", str(USER_STEPS), "--steps-per-log", "1",
+        "--seed", str(SEED), "--output-dir", os.path.join(tmp, "out")])
+    print("\n".join("  " + ln for ln in text.splitlines()))
+    run = re.search(r"run dir: (\S+)", text).group(1)
+    train = {k: launches[k] for k in TRAIN_KERNELS}
+    with open(os.path.join(run, "train_log.jsonl")) as fh:
+        log = [json.loads(line) for line in fh]
+    print(f"  train launches: {train}; {USER_STEPS} steps, "
+          f"rays_per_sec {log[-1]['rays_per_sec']:.1f} at the last line "
+          f"({card})")
+    if min(train.values()) <= 0:
+        raise RuntimeError("a kernel of the train path never launched")
+    if len(log) != USER_STEPS or not all(
+            np.isfinite(e["total_loss"]) for e in log):
+        raise RuntimeError("expected a finite log line per step")
+
+    # eval with a seeded LPIPS file; each LPIPS call's images recorded
+    weights = os.path.join(tmp, "lpips_vgg.pth")
+    torch.save(lpips_lib.export_torch_state_dict(lpips_lib.LPIPS(
+        torch.Generator().manual_seed(SEED))), weights)
+    seen = []
+    real_lpips = metrics_lib.lpips
+
+    def recording(pred, gt, net=None):
+        value = real_lpips(pred, gt, net)
+        seen.append((pred, gt, value))
+        return value
+
+    os.environ["RSN_LPIPS_WEIGHTS"] = weights
+    metrics_lib.lpips = recording
+    try:
+        text, launches = run_cli(eval_cli.main, [
+            "--load-dir", run, "--max-images", "2"])
+    finally:
+        metrics_lib.lpips = real_lpips
+        del os.environ["RSN_LPIPS_WEIGHTS"]
+    print("\n".join("  " + ln for ln in text.splitlines()))
+    with open(os.path.join(run, "eval.json")) as fh:
+        res = json.load(fh)
+    if sorted(res) != ["coarse_psnr", "fine_lpips", "fine_psnr",
+                       "fine_ssim", "psnr"] or not all(
+                           np.isfinite(v) for v in res.values()):
+        raise RuntimeError(f"eval.json: {res}")
+    k1, k2 = launches["field_forward_v3"], launches["field_forward_density"]
+    cpu = float(lpips_lib.load_torch_weights(weights)(
+        torch.as_tensor(seen[0][0]), torch.as_tensor(seen[0][1])))
+    per_image = [float(x) for x in re.findall(r": ([\d.]+) s \(",
+                                              text)]
+    lp_ms = [float(x) for x in re.findall(r"LPIPS ([\d.]+) ms", text)]
+    print(f"  eval: K1 {k1} launches, K2 {k2} (a full render: K1 on "
+          f"all four passes); image 0's LPIPS on the card "
+          f"{seen[0][2]:.9g}, on the CPU {cpu:.9g} (|diff| "
+          f"{abs(seen[0][2] - cpu):.3g}, limit {LPIPS_TOL}); "
+          f"{per_image} s per image, LPIPS {lp_ms} ms at "
+          f"{FRAME_RES}x{FRAME_RES} (host clock ending in a device "
+          f"sync; {card})", flush=True)
+    if k1 <= 0 or k2 != 0 or len(seen) != 2:
+        raise RuntimeError("eval did not run K1 on every pass of "
+                           "two images")
+    if abs(seen[0][2] - cpu) > LPIPS_TOL:
+        raise RuntimeError("LPIPS on the card differs from the CPU's")
+
+    # a bare render call: split mode, the three panels
+    text, launches = run_cli(render_cli.main, [
+        "--load-dir", run, "--max-images", "1"])
+    print("\n".join("  " + ln for ln in text.splitlines()))
+    panels = os.path.join(run, "renders_test")
+    for name, width in (("img", 3), ("accumulation", 2), ("depth", 2)):
+        mode, px = read_png(os.path.join(panels, f"00000-{name}.png"))
+        if px.shape != (FRAME_RES, width * FRAME_RES, 3) or \
+                px.min() == px.max():
+            raise RuntimeError(f"split panel {name}: wrong or constant")
+    print(f"  split: three panels; launches K1 "
+          f"{launches['field_forward_v3']}, K2 "
+          f"{launches['field_forward_density']} ({card})")
+    if launches["field_forward_v3"] <= 0 or \
+            launches["field_forward_density"] != 0:
+        raise RuntimeError("a split render runs K1 on all four passes")
+
+    # a generated path with its video
+    text, launches = run_cli(render_cli.main, [
+        "--load-dir", run, "--mode", "interpolate", "--num-frames", "4",
+        "--video", "--downscale-factor", "4"])
+    print("\n".join("  " + ln for ln in text.splitlines()))
+    out = os.path.join(run, "renders_interpolate")
+    side = FRAME_RES // 4
+    frames = [read_png(os.path.join(out, f"frame_{i:05d}.png"))[1]
+              for i in range(4)]
+    video = re.search(r"wrote (\S+\.(?:gif|mp4))", text).group(1)
+    if video.endswith(".gif"):
+        decoded, _ = gif.read_gif(video)
+        if len(decoded) != 4:
+            raise RuntimeError("the GIF does not hold 4 frames")
+        for a, b in zip(decoded, frames):
+            err = np.abs(a.astype(np.float64) - b)
+            if a.shape != (side, side, 3) or (
+                    err > np.asarray(gif.STEP) / 2 + 1e-9).any():
+                raise RuntimeError("a GIF frame is off its PNG frame")
+    elif os.path.getsize(video) == 0:
+        raise RuntimeError("empty mp4")
+    print(f"  interpolate: 4 frames of {side}x{side} and {video} "
+          f"({os.path.getsize(video)} bytes); launches K2 "
+          f"{launches['field_forward_density']}, K1 "
+          f"{launches['field_forward_v3']} ({card})")
+    if launches["field_forward_density"] <= 0 or \
+            launches["field_forward_v3"] <= 0:
+        raise RuntimeError("a generated path runs K2 and K1")
+
+    # convert: export -> import -> export
+    a, b = os.path.join(tmp, "a.ckpt"), os.path.join(tmp, "b.ckpt")
+    run2 = os.path.join(tmp, "imported")
+    for argv in (["--load-dir", run, "--to-torch", a],
+                 ["--torch-ckpt", a, "--output", run2, "--dataparser",
+                  "blender", "--data", scene],
+                 ["--load-dir", run2, "--to-torch", b]):
+        text, _ = run_cli(convert_cli.main, argv)
+        print("  " + text.strip())
+    sa = torch.load(a, weights_only=False)
+    sb = torch.load(b, weights_only=False)
+    trained = ckpt_lib.export_torch_state_dict(ckpt_lib.load_checkpoint(
+        ckpt_lib.latest_checkpoint(os.path.join(run, "checkpoints")))[
+            "field"])
+    same = (sa["step"] == sb["step"] == USER_STEPS
+            and list(sa["pipeline"]) == list(sb["pipeline"])
+            and all(torch.equal(v, sb["pipeline"][k])
+                    and np.array_equal(v.numpy(),
+                                       trained[k[len("_model."):]])
+                    for k, v in sa["pipeline"].items()))
+    print(f"  convert: export -> import -> export, "
+          f"{len(sa['pipeline'])} tensors equal bit for bit and equal "
+          f"to the trained field: {same}")
+    if not same:
+        raise RuntimeError("convert is not the identity")
+    return run
+
+
+MESH_RES = 256      # phase 20's export mesh (rsn's default resolution)
+MESH_QUANTILE = 0.999  # its iso: this quantile of the density at random
+                    # points; the 10-step field is noise at grid scale
+                    # (the point IPE's 2^16 octave), so a mid-range iso
+                    # would cut most of the 16.6 M cubes
+QUERY_TOL = 1e-5    # a grid plane on the card against the CPU, fp32
+                    # (tests/test_torch_export.py's query tolerance)
+VIEW_POSE = {"theta": 0.5, "phi": 0.3, "r": 1.0}
+
+
+@contextlib.contextmanager
+def counting_calls(module, name: str):
+    """Count the calls of module.name while the block runs -> [count]."""
+    count = [0]
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        count[0] += 1
+        return real(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield count
+    finally:
+        setattr(module, name, real)
+
+
+def seconds_of(pattern: str, text: str):
+    return [float(x) for x in re.findall(pattern, text)]
+
+
+def export_viewer_phase(run: str, card) -> None:
+    """Phase 20: the export CLI's four modes and a websocket viewer
+    session on phase 19's trained run, each from zeroed launch counts."""
+    import socket
+    import threading
+    from http.server import ThreadingHTTPServer
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from rsn_torch.cli import export as export_cli
+    from rsn_torch.cli import render as render_cli
+    from rsn_torch.cli import viewer as viewer_cli
+    from rsn_torch.cli.run_io import load_run_full
+    from rsn_torch.core.mesh import read_ply
+    from rsn_torch.data.cameras import Cameras
+    from rsn_torch.data.png import read_png
+    from rsn_torch.engine.trainer import preferred_eval_chunk, render_image
+    from rsn_torch.kernels import field_forward as ff
+    from rsn_torch.models import model as model_lib
+    from rsn_torch.models.model import final_rgb
+    from rsn_torch.utils import websocket as ws
+
+    phase(f"phase 20: export (mesh, pointcloud, tsdf, cameras) and a "
+          f"viewer session on phase 19's run at {FRAME_RES}x{FRAME_RES}")
+    field, config, _, _ = load_run_full(run, "cuda")
+    field_cpu, _, _, _ = load_run_full(run, "cpu")
+    dtype = export_cli.query_dtype(config)
+
+    # one grid plane on the card against the CPU, fp32
+    ax = torch.from_numpy(np.linspace(-1.5, 1.5, MESH_RES, dtype=np.float32))
+    i = MESH_RES // 2
+    gpu = export_cli.density_plane(field, ax.cuda(), i, torch.float32).cpu()
+    cpu = export_cli.density_plane(field_cpu, ax, i, torch.float32)
+    err = float((gpu - cpu).abs().max())
+    print(f"  grid plane {i} ({MESH_RES}x{MESH_RES} points, fp32): card "
+          f"against CPU max |err| {err:.6g} (limit {QUERY_TOL})")
+    if not err <= QUERY_TOL:
+        raise RuntimeError("the card's grid plane differs from the CPU's")
+
+    # mesh: the iso at a high quantile of the density at random points
+    pts = torch.rand(1 << 20, 3, generator=torch.Generator().manual_seed(
+        SEED)).cuda() * 3.0 - 1.5
+    dens = export_cli._chunked(lambda p: export_cli.query(field, p, dtype)[
+        "density"], pts)
+    iso = float(torch.quantile(dens[::4].float(), MESH_QUANTILE))
+    print(f"  density at 2^20 random points ({dtype}): min "
+          f"{float(dens.min()):.6g}, median {float(dens.median()):.6g}, max "
+          f"{float(dens.max()):.6g}; iso (quantile {MESH_QUANTILE}) "
+          f"{iso:.6g}")
+    ff.reset_launch_counts()
+    text, launches = run_cli(export_cli.main, [
+        "mesh", "--load-dir", run, "--resolution", str(MESH_RES),
+        "--density-threshold", repr(iso)])
+    print("\n".join("  " + ln for ln in text.splitlines()))
+    grid_s = seconds_of(r"grid \d+\^3 on \w+: ([\d.]+) s", text)
+    iso_s = seconds_of(r"isosurface on the host: ([\d.]+) s", text)
+    col_s = seconds_of(r"colors and normals on \w+: ([\d.]+) s", text)
+    v, f, c, n = read_ply(os.path.join(run, "exports", "mesh.ply"))
+    print(f"  mesh: {len(v)} vertices, {len(f)} faces; grid {grid_s} s "
+          f"(card), isosurface {iso_s} s (host), colors and normals "
+          f"{col_s} s (card); launches {sum(launches.values())} (the plain "
+          f"field, as rsn queries it; {card})", flush=True)
+    if not (len(v) > 0 and len(f) > 0 and len(grid_s) == len(iso_s)
+            == len(col_s) == 1):
+        raise RuntimeError("export mesh: an empty mesh or a missing time")
+    if np.abs(np.linalg.norm(n, axis=-1) - 1.0).max() > 1e-3 or \
+            c.min() < 0 or c.max() > 1 or not np.isfinite(v).all():
+        raise RuntimeError("export mesh: normals not unit or colors out of "
+                           "[0, 1]")
+
+    # pointcloud and tsdf: full renders of two images, K1 on all 4 passes
+    chunks = -(-FRAME_RES * FRAME_RES // CHUNK)
+    for mode, extra, pattern in (
+            ("pointcloud", [], r"backprojected \d+/\d+: ([\d.]+) s"),
+            ("tsdf", ["--resolution", "128"], r"rendered \d+/\d+: ([\d.]+) s")):
+        with counting_calls(model_lib, "get_outputs") as calls:
+            t0 = time.perf_counter()
+            text, launches = run_cli(export_cli.main, [
+                mode, "--load-dir", run, "--max-images", "2"] + extra)
+            wall = time.perf_counter() - t0
         print("\n".join("  " + ln for ln in text.splitlines()))
-        run = re.search(r"run dir: (\S+)", text).group(1)
-        train = {k: launches[k] for k in TRAIN_KERNELS}
-        with open(os.path.join(run, "train_log.jsonl")) as fh:
-            log = [json.loads(line) for line in fh]
-        print(f"  train launches: {train}; {USER_STEPS} steps, "
-              f"rays_per_sec {log[-1]['rays_per_sec']:.1f} at the last line "
-              f"({card})")
-        if min(train.values()) <= 0:
-            raise RuntimeError("a kernel of the train path never launched")
-        if len(log) != USER_STEPS or not all(
-                np.isfinite(e["total_loss"]) for e in log):
-            raise RuntimeError("expected a finite log line per step")
+        per_image = seconds_of(pattern, text)
+        v, f, c, n = read_ply(os.path.join(run, "exports", f"{mode}.ply"))
+        k1, k2 = (launches["field_forward_v3"],
+                  launches["field_forward_density"])
+        print(f"  {mode}: {len(v)} vertices, "
+              f"{0 if f is None else len(f)} faces; {per_image} s per image "
+              f"(render), {wall:.4f} s the whole call; K1 {k1} launches over "
+              f"{calls[0]} chunk renders ({chunks} chunks an image), K2 "
+              f"{k2} ({card})", flush=True)
+        if len(per_image) != 2 or len(v) == 0 or not np.isfinite(v).all():
+            raise RuntimeError(f"export {mode}: no output or no times")
+        if (k1 != 4 * calls[0] or k2 != 0 or calls[0] < 2 * chunks
+                or calls[0] % chunks):
+            raise RuntimeError(f"export {mode}: K1 must run on all four "
+                               "passes of every chunk of two images")
+        if c.min() < 0 or c.max() > 1 or (mode == "pointcloud" and np.abs(
+                np.linalg.norm(n, axis=-1) - 1.0).max() > 1e-3):
+            raise RuntimeError(f"export {mode}: colors or normals wrong")
+    text, _ = run_cli(export_cli.main, ["cameras", "--load-dir", run])
+    with open(os.path.join(run, "exports", "cameras.json")) as fh:
+        doc = json.load(fh)
+    if len(doc["frames"]) != USER_CAMS or doc["frames"][0]["w"] != FRAME_RES:
+        raise RuntimeError("export cameras: wrong document")
+    print(f"  cameras: {len(doc['frames'])} frames, "
+          f"{doc['frames'][0]['w']}x{doc['frames'][0]['h']}")
 
-        # eval with a seeded LPIPS file; each LPIPS call's images recorded
-        weights = os.path.join(tmp, "lpips_vgg.pth")
-        torch.save(lpips_lib.export_torch_state_dict(lpips_lib.LPIPS(
-            torch.Generator().manual_seed(SEED))), weights)
-        seen = []
-        real_lpips = metrics_lib.lpips
-
-        def recording(pred, gt, net=None):
-            value = real_lpips(pred, gt, net)
-            seen.append((pred, gt, value))
-            return value
-
-        os.environ["RSN_LPIPS_WEIGHTS"] = weights
-        metrics_lib.lpips = recording
+    # the viewer in process: _State, the server, a websocket client
+    viewer_cli.load_state(run, "cuda", downscale=2)
+    failures = []
+    print("  " + "\n  ".join(io_lines(
+        lambda: viewer_cli.warm_up(failures=failures))) + f" ({card})")
+    if failures:
+        raise RuntimeError("viewer: the warm-up render failed") \
+            from failures[0]
+    server = ThreadingHTTPServer(("127.0.0.1", 0), viewer_cli._Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        host, port = server.server_address
+        ff.reset_launch_counts()
+        sock = socket.create_connection((host, port), timeout=300)
         try:
-            text, launches = run_cli(eval_cli.main, [
-                "--load-dir", run, "--max-images", "2"])
+            ws.client_handshake(sock, f"{host}:{port}")
+            rf, wf = sock.makefile("rb"), sock.makefile("wb")
+            t0 = time.perf_counter()
+            sock.sendall(ws.encode_frame(json.dumps(dict(
+                type="pose", mode="rgb", **VIEW_POSE)).encode(), ws.OP_TEXT,
+                mask=True))
+            frames, ms = [], []
+            for _ in range(3):
+                op, payload = ws.read_message(rf, wf)
+                t1 = time.perf_counter()
+                ms.append(1e3 * (t1 - t0))
+                t0 = t1
+                frames.append(payload)
+            sock.sendall(ws.encode_frame(b"\x03\xe8", ws.OP_CLOSE, mask=True))
         finally:
-            metrics_lib.lpips = real_lpips
-            del os.environ["RSN_LPIPS_WEIGHTS"]
-        print("\n".join("  " + ln for ln in text.splitlines()))
-        with open(os.path.join(run, "eval.json")) as fh:
-            res = json.load(fh)
-        if sorted(res) != ["coarse_psnr", "fine_lpips", "fine_psnr",
-                           "fine_ssim", "psnr"] or not all(
-                               np.isfinite(v) for v in res.values()):
-            raise RuntimeError(f"eval.json: {res}")
-        k1, k2 = launches["field_forward_v3"], launches["field_forward_density"]
-        cpu = float(lpips_lib.load_torch_weights(weights)(
-            torch.as_tensor(seen[0][0]), torch.as_tensor(seen[0][1])))
-        per_image = [float(x) for x in re.findall(r": ([\d.]+) s \(",
-                                                  text)]
-        lp_ms = [float(x) for x in re.findall(r"LPIPS ([\d.]+) ms", text)]
-        print(f"  eval: K1 {k1} launches, K2 {k2} (a full render: K1 on "
-              f"all four passes); image 0's LPIPS on the card "
-              f"{seen[0][2]:.9g}, on the CPU {cpu:.9g} (|diff| "
-              f"{abs(seen[0][2] - cpu):.3g}, limit {LPIPS_TOL}); "
-              f"{per_image} s per image, LPIPS {lp_ms} ms at "
-              f"{FRAME_RES}x{FRAME_RES} (host clock ending in a device "
-              f"sync; {card})", flush=True)
-        if k1 <= 0 or k2 != 0 or len(seen) != 2:
-            raise RuntimeError("eval did not run K1 on every pass of "
-                               "two images")
-        if abs(seen[0][2] - cpu) > LPIPS_TOL:
-            raise RuntimeError("LPIPS on the card differs from the CPU's")
+            sock.close()
+        torch.cuda.synchronize()
+        session = dict(ff.LAUNCHES)
+        sides = []
+        for q, payload in enumerate(frames):
+            if payload[0] != q:
+                raise RuntimeError(f"viewer: frame {q} has quality byte "
+                                   f"{payload[0]}")
+            sides.append(png_bytes_pixels(payload[1:]).shape)
+        want = [(FRAME_RES // 2 // d, FRAME_RES // 2 // d, 3)
+                for d in viewer_cli._QUALITY_DIVISORS]
+        print(f"  viewer websocket: frames {sides} (quality bytes 0, 1, 2), "
+              f"{[round(x, 4) for x in ms]} ms per level from the pose (host "
+              f"clock, the client's receipt); launches K2 "
+              f"{session['field_forward_density']}, K1 "
+              f"{session['field_forward_v3']} ({card})", flush=True)
+        if sides != want:
+            raise RuntimeError(f"viewer: frame sizes {sides}, want {want}")
+        if session["field_forward_density"] <= 0 or \
+                session["field_forward_v3"] <= 0:
+            raise RuntimeError("viewer: K2 and K1 must both launch")
 
-        # a bare render call: split mode, the three panels
-        text, launches = run_cli(render_cli.main, [
-            "--load-dir", run, "--max-images", "1"])
-        print("\n".join("  " + ln for ln in text.splitlines()))
-        panels = os.path.join(run, "renders_test")
-        for name, width in (("img", 3), ("accumulation", 2), ("depth", 2)):
-            mode, px = read_png(os.path.join(panels, f"00000-{name}.png"))
-            if px.shape != (FRAME_RES, width * FRAME_RES, 3) or \
-                    px.min() == px.max():
-                raise RuntimeError(f"split panel {name}: wrong or constant")
-        print(f"  split: three panels; launches K1 "
-              f"{launches['field_forward_v3']}, K2 "
-              f"{launches['field_forward_density']} ({card})")
-        if launches["field_forward_v3"] <= 0 or \
-                launches["field_forward_density"] != 0:
-            raise RuntimeError("a split render runs K1 on all four passes")
+        # the q=2 frame == the product render at the same pose, bit for bit
+        pose = viewer_cli._pose_matrix(**VIEW_POSE)
+        ref = viewer_cli._State.cameras
+        cams = Cameras(torch.from_numpy(np.ascontiguousarray(
+            pose[None, :3, :4])), ref.fx[:1], ref.fy[:1], ref.cx[:1],
+            ref.cy[:1], width=ref.width, height=ref.height).to("cuda")
+        out = render_image(field, cams, 0, config,
+                           rays_per_chunk=preferred_eval_chunk(config,
+                                                               "cuda"),
+                           product_only=True,
+                           reflect_memo=viewer_cli._State.reflect_memo)
+        want_px = (np.clip(final_rgb(out), 0, 1) * 255).astype(np.uint8)
+        got_px = png_bytes_pixels(frames[2][1:])
+        with urllib.request.urlopen(
+                f"http://{host}:{port}/render?theta={VIEW_POSE['theta']}"
+                f"&phi={VIEW_POSE['phi']}&r={VIEW_POSE['r']}&q=2",
+                timeout=300) as rsp:
+            http_px = png_bytes_pixels(rsp.read())
+        print(f"  q=2 frame == the product render at the pose, bit for bit: "
+              f"{np.array_equal(got_px, want_px)}; GET /render == it: "
+              f"{np.array_equal(http_px, want_px)}; {len(np.unique(got_px))} "
+              f"distinct values")
+        if not (np.array_equal(got_px, want_px)
+                and np.array_equal(http_px, want_px)):
+            raise RuntimeError("viewer: a frame differs from the render")
 
-        # a generated path with its video
-        text, launches = run_cli(render_cli.main, [
-            "--load-dir", run, "--mode", "interpolate", "--num-frames", "4",
-            "--video", "--downscale-factor", "4"])
-        print("\n".join("  " + ln for ln in text.splitlines()))
-        out = os.path.join(run, "renders_interpolate")
-        side = FRAME_RES // 4
-        frames = [read_png(os.path.join(out, f"frame_{i:05d}.png"))[1]
-                  for i in range(4)]
-        video = re.search(r"wrote (\S+\.(?:gif|mp4))", text).group(1)
-        if video.endswith(".gif"):
-            decoded, _ = gif.read_gif(video)
-            if len(decoded) != 4:
-                raise RuntimeError("the GIF does not hold 4 frames")
-            for a, b in zip(decoded, frames):
-                err = np.abs(a.astype(np.float64) - b)
-                if a.shape != (side, side, 3) or (
-                        err > np.asarray(gif.STEP) / 2 + 1e-9).any():
-                    raise RuntimeError("a GIF frame is off its PNG frame")
-        elif os.path.getsize(video) == 0:
-            raise RuntimeError("empty mp4")
-        print(f"  interpolate: 4 frames of {side}x{side} and {video} "
-              f"({os.path.getsize(video)} bytes); launches K2 "
-              f"{launches['field_forward_density']}, K1 "
-              f"{launches['field_forward_v3']} ({card})")
-        if launches["field_forward_density"] <= 0 or \
-                launches["field_forward_v3"] <= 0:
-            raise RuntimeError("a generated path runs K2 and K1")
+        # POST /export_path, then the render CLI's --mode path on it
+        req = urllib.request.Request(
+            f"http://{host}:{port}/export_path", method="POST",
+            data=json.dumps([VIEW_POSE, dict(VIEW_POSE, theta=1.0)]).encode())
+        with urllib.request.urlopen(req, timeout=60) as rsp:
+            reply = json.loads(rsp.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+    out_dir = os.path.join(run, "renders_viewer_path")
+    text, launches = run_cli(render_cli.main, [
+        "--load-dir", run, "--mode", "path", "--camera-path", reply["path"],
+        "--output-dir", out_dir])
+    print("\n".join("  " + ln for ln in text.splitlines()))
+    frames = sorted(os.listdir(out_dir))
+    shapes = {read_png(os.path.join(out_dir, f))[1].shape for f in frames}
+    print(f"  viewer path {os.path.basename(reply['path'])}: "
+          f"{reply['num_frames']} poses -> render --mode path {frames} "
+          f"{shapes}; launches K2 {launches['field_forward_density']}, K1 "
+          f"{launches['field_forward_v3']}")
+    if reply["num_frames"] != 2 or len(frames) != 2 or shapes != {
+            (FRAME_RES // 2, FRAME_RES // 2, 3)}:
+        raise RuntimeError("viewer: the exported path did not render")
 
-        # convert: export -> import -> export
-        a, b = os.path.join(tmp, "a.ckpt"), os.path.join(tmp, "b.ckpt")
-        run2 = os.path.join(tmp, "imported")
-        for argv in (["--load-dir", run, "--to-torch", a],
-                     ["--torch-ckpt", a, "--output", run2, "--dataparser",
-                      "blender", "--data", scene],
-                     ["--load-dir", run2, "--to-torch", b]):
-            text, _ = run_cli(convert_cli.main, argv)
-            print("  " + text.strip())
-        sa = torch.load(a, weights_only=False)
-        sb = torch.load(b, weights_only=False)
-        trained = ckpt_lib.export_torch_state_dict(ckpt_lib.load_checkpoint(
-            ckpt_lib.latest_checkpoint(os.path.join(run, "checkpoints")))[
-                "field"])
-        same = (sa["step"] == sb["step"] == USER_STEPS
-                and list(sa["pipeline"]) == list(sb["pipeline"])
-                and all(torch.equal(v, sb["pipeline"][k])
-                        and np.array_equal(v.numpy(),
-                                           trained[k[len("_model."):]])
-                        for k, v in sa["pipeline"].items()))
-        print(f"  convert: export -> import -> export, "
-              f"{len(sa['pipeline'])} tensors equal bit for bit and equal "
-              f"to the trained field: {same}")
-        if not same:
-            raise RuntimeError("convert is not the identity")
+
+def io_lines(fn):
+    """fn()'s printed lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn()
+    return buf.getvalue().splitlines()
+
+
+def png_bytes_pixels(data: bytes):
+    """The pixels of a PNG in memory, through the port's read_png."""
+    from rsn_torch.data.png import read_png
+
+    with tempfile.NamedTemporaryFile(suffix=".png") as fh:
+        fh.write(data)
+        fh.flush()
+        return read_png(fh.name)[1]
 
 
 RENDER_KERNELS = ("field_forward_v3", "field_forward_density")

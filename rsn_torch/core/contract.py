@@ -1,5 +1,6 @@
-"""mip-NeRF-360 contraction of factored Gaussians (port of
-rsn.core.contract): `contract_blob` for the plain field path and
+"""mip-NeRF-360 contraction of Gaussians (port of rsn.core.contract):
+`contract` of a mean and a full covariance (the oracle), `contract_blob`
+of a factored Gaussian for the plain field path and
 `packed_contract_planes`, which builds the field kernels' (N, 16) input."""
 from __future__ import annotations
 
@@ -7,6 +8,32 @@ import torch
 
 from rsn_torch.core.rays import SQRT_PI, GaussianBlob, RaySamples
 from rsn_torch.core.render import safe_sqrt
+
+
+def contract(mean: torch.Tensor, cov: torch.Tensor):
+    """Gaussian (mean (..., 3), cov (..., 3, 3)) -> its contraction into
+    the radius-2 ball: c(x) = (2|x| - 1) / |x|^2 x outside the unit ball,
+    cov' = J cov J (J symmetric) with the diagonal ReLU-clamped
+    (reference field.py:98-119).  The outside branch's denominators are
+    clamped to >= 1 so the unselected branch stays finite."""
+    norm2 = (mean ** 2).sum(dim=-1, keepdim=True)
+    mask = norm2 > 1.0
+    safe_norm2 = norm2.clamp_min(1.0)
+    norm = torch.sqrt(safe_norm2)
+    mean_contract = torch.where(mask, (2.0 * norm - 1.0) / safe_norm2 * mean,
+                                mean)
+    norm_e = norm[..., None]
+    norm2_e = safe_norm2[..., None]
+    outer = mean[..., :, None] * mean[..., None, :] / norm2_e
+    eyes = torch.eye(3, dtype=mean.dtype, device=mean.device).expand(
+        outer.shape)
+    jacobian = torch.where(mask[..., None],
+                           ((2.0 * norm_e - 2.0) * (eyes - outer) + eyes)
+                           / norm2_e, eyes)
+    cov_contract = jacobian @ cov @ jacobian
+    diag = torch.diagonal(cov_contract, dim1=-2, dim2=-1)
+    return mean_contract, cov_contract + torch.diag_embed(
+        torch.relu(diag) - diag)
 
 
 def contract_blob(blob: GaussianBlob):

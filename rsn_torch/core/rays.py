@@ -84,6 +84,17 @@ class GaussianBlob:
     dir_variance: torch.Tensor    # (..., 1)
     radius_variance: torch.Tensor  # (..., 1)
 
+    def dense_cov(self) -> torch.Tensor:
+        """(..., 3, 3) covariance (an oracle: the compute path only ever
+        needs the contracted diagonal)."""
+        d = self.directions
+        eye = torch.eye(3, dtype=d.dtype, device=d.device)
+        dmag2 = (d ** 2).sum(dim=-1, keepdim=True).clamp_min(1e-10)
+        douter = d[..., :, None] * d[..., None, :]
+        nouter = eye - d[..., :, None] * (d / dmag2)[..., None, :]
+        return (self.dir_variance[..., None] * douter
+                + self.radius_variance[..., None] * nouter)
+
 
 def conical_frustum_to_factored(origins: torch.Tensor,
                                 directions: torch.Tensor,
@@ -101,6 +112,17 @@ def conical_frustum_to_factored(origins: torch.Tensor,
     return GaussianBlob(mean=means, directions=directions,
                         dir_variance=dir_variance,
                         radius_variance=radius_variance)
+
+
+def conical_frustum_to_gaussian(origins: torch.Tensor,
+                                directions: torch.Tensor,
+                                starts: torch.Tensor, ends: torch.Tensor,
+                                radius: torch.Tensor):
+    """mip-NeRF cone segment -> (mean (..., 3), dense cov (..., 3, 3));
+    the oracle of conical_frustum_to_factored."""
+    blob = conical_frustum_to_factored(origins, directions, starts, ends,
+                                       radius)
+    return blob.mean, blob.dense_cov()
 
 
 def get_gaussian_blob(ray_samples: RaySamples) -> GaussianBlob:

@@ -65,6 +65,18 @@ def render_depth_median(weights: torch.Tensor, starts: torch.Tensor,
                                       ends[..., 0])
 
 
+def render_depth_expected(weights: torch.Tensor, starts: torch.Tensor,
+                          ends: torch.Tensor, eps: float = 1e-10
+                          ) -> torch.Tensor:
+    """Expected depth sum(w t) / sum(w), clipped to the sampled range
+    (nerfstudio DepthRenderer "expected").  (R, S, 1) -> (R, 1)."""
+    steps = (starts + ends) / 2.0
+    depth = (weights * steps).sum(dim=-2) / (weights.sum(dim=-2) + eps)
+    lo = steps[..., 0, :].amin(dim=-1, keepdim=True)
+    hi = steps[..., -1, :].amax(dim=-1, keepdim=True)
+    return torch.minimum(torch.maximum(depth, lo), hi)
+
+
 def render_normals(normals: torch.Tensor,
                    weights: torch.Tensor) -> torch.Tensor:
     """(R, S, 3), (R, S, 1) -> (R, 3) weighted sum, no renormalisation."""

@@ -21,8 +21,9 @@ replicated, not fixed):
   to an integer); RGBA and LA premultiplied by alpha before and divided
   after; palette and 1-bit images resized by nearest neighbour, whatever
   filter is asked for.
-- `write_png` writes 8-bit gray, gray + alpha, RGB or RGBA (filter type 0
-  on every row).
+- `encode_png` encodes 8-bit gray, gray + alpha, RGB or RGBA (filter
+  type 0 on every row) to bytes in memory (the viewer's frames);
+  `write_png` writes those bytes to a file.
 
 JPEG and the other formats PIL reads are not decoded here: `read_png`
 raises NotImplementedError for them.
@@ -197,9 +198,10 @@ def _as_pil(img: np.ndarray, color: int, depth: int) -> Tuple[str, np.ndarray]:
 
 # ---- encode ----------------------------------------------------------------
 
-def write_png(path: str, pixels: np.ndarray) -> None:
+def encode_png(pixels: np.ndarray) -> bytes:
     """(H, W) gray, (H, W, 2) gray + alpha, (H, W, 3) RGB or (H, W, 4)
-    RGBA uint8 -> an 8-bit PNG (filter type 0 on every row, zlib level 6)."""
+    RGBA uint8 -> the bytes of an 8-bit PNG (filter type 0 on every row,
+    zlib level 6)."""
     px = np.ascontiguousarray(pixels, np.uint8)
     if px.ndim == 2:
         px = px[..., None]
@@ -212,12 +214,17 @@ def write_png(path: str, pixels: np.ndarray) -> None:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
+    return b"".join((
+        SIGNATURE,
+        chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)),
+        chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)),
+        chunk(b"IEND", b"")))
+
+
+def write_png(path: str, pixels: np.ndarray) -> None:
+    """encode_png's bytes of `pixels`, written to `path`."""
     with open(path, "wb") as f:
-        f.write(SIGNATURE)
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0,
-                                           0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(chunk(b"IEND", b""))
+        f.write(encode_png(pixels))
 
 
 # ---- Pillow's resize -------------------------------------------------------

@@ -26,7 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from rsn_torch.core.encodings import (_BAND_SLICES, IPE_OUT_DIM,
-                                      ISH_OUT_DIM, ipe_encode, sh_basis)
+                                      ISH_OUT_DIM, ipe_encode, ish_encode,
+                                      sh_basis)
 from rsn_torch.core.render import normalize
 
 TRUNK_WIDTH = 256
@@ -137,11 +138,19 @@ class Field(nn.Module):
             h = torch.relu(_apply(layer, h, dtype, out_dtype=act))
         return h
 
-    def get_density(self, mean: torch.Tensor, cov_diag: torch.Tensor,
+    def get_density(self, mean: torch.Tensor,
+                    cov_diag: Optional[torch.Tensor],
                     dtype: torch.dtype = torch.float32):
         """-> (density, embedding, density_preact);
-        density = softplus(linear(trunk(IPE)) + 0.5)."""
-        emb = self.trunk(ipe_encode(mean, cov_diag), dtype)
+        density = softplus(linear(trunk(IPE)) + 0.5); cov_diag None: the
+        point IPE (no attenuation)."""
+        return self.get_density_encoded(ipe_encode(mean, cov_diag), dtype)
+
+    def get_density_encoded(self, enc: torch.Tensor,
+                            dtype: torch.dtype = torch.float32):
+        """get_density on an IPE the caller computed (the export CLI's
+        point IPE) -> (density, embedding, density_preact)."""
+        emb = self.trunk(enc, dtype)
         preact = _apply(self.field_output_density.net, emb)
         return F.softplus(preact + DENSITY_BIAS), emb, preact
 
@@ -230,6 +239,26 @@ class Field(nn.Module):
         return torch.sigmoid(_apply(self.field_output_tint.net, emb))
 
     # ---- directional branch -------------------------------------------
+
+    def get_mid(self, directions: torch.Tensor, roughness: torch.Tensor,
+                embedding: torch.Tensor, use_bottleneck: bool = True,
+                sh_l8_m7_2x: bool = True,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Directional branch on per-sample directions:
+        sigmoid(mid(relu(linear([ISH || bottleneck])))) (rsn's get_mid;
+        the render path takes get_mid_factored)."""
+        enc = ish_encode(directions, roughness, sh_l8_m7_2x)
+        act = None if dtype == torch.float32 else dtype
+        if use_bottleneck:
+            embedding = _apply(self.field_output_bottleneck.net, embedding,
+                               dtype, out_dtype=act)
+        if act is not None:
+            enc = enc.to(act)
+            embedding = embedding.to(act)
+        h = torch.relu(_apply(self.mlp_mid.layers[0],
+                              torch.cat([enc, embedding], dim=-1), dtype,
+                              out_dtype=act))
+        return torch.sigmoid(_apply(self.field_output_mid.net, h))
 
     def mid_weights(self):
         """(w_enc (34, 128), w_emb (256, 128), b) of the mid-MLP's first

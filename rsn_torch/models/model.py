@@ -32,7 +32,8 @@ ray-level diff / tint / pred-normals / n.d, the reflected weights, the
 roughness into the directional encoding, the reflected rays' origins and
 directions, the PDF bins.
 
-Meshes are a later step of the port (ROADMAP.md).
+A device mesh (several cards, rsn/parallel/mesh.py) is a later step of
+the port (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 

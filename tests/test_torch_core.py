@@ -130,6 +130,24 @@ def test_render_depth_median_with_clamp(rng):
               jnp.asarray(en[..., 0])))
 
 
+def test_render_depth_expected_with_clamp(rng):
+    """rtol 1e-5 / atol 1e-6; the zero-weight ray's 0 / eps clamps to the
+    first midpoint, and a weight sum above 1 can push the mean past the
+    last one."""
+    R, S = 6, 10
+    w = _weights(rng, R, S)
+    w[3] *= 8.0
+    bins = np.sort(rng.uniform(2, 6, size=(R, S + 1)), axis=-1).astype(
+        np.float32)
+    st, en = bins[:, :-1, None], bins[:, 1:, None]
+    ref = jrender.render_depth_expected(jnp.asarray(w), jnp.asarray(st),
+                                        jnp.asarray(en))
+    got = trender.render_depth_expected(t(w), t(st), t(en))
+    assert got.shape == (R, 1)
+    close(got, ref)
+    np.testing.assert_allclose(n(got)[0, 0], (st[0, 0, 0] + en[0, 0, 0]) / 2)
+
+
 def test_normalize_and_safe_sqrt(rng):
     v = rng.normal(size=(7, 3)).astype(np.float32)
     v[0] = 0.0
@@ -158,6 +176,33 @@ def test_gaussian_blob_and_cov_diag(rng):
         t(np.sqrt(pa)))
     close(ft.mean, fj.mean)
     close(ft.radius_variance, fj.radius_variance, atol=1e-12)
+
+
+def test_conical_frustum_to_gaussian_dense_cov(rng):
+    """The dense-covariance oracle: mean atol 1e-6, covariance atol 1e-9
+    (its entries are ~1e-6 for these frusta)."""
+    R, S = 5, 7
+    o, d, pa = random_rays(rng, R)
+    d[0] *= 2.0  # a direction that is not unit length
+    st = np.sort(rng.uniform(2, 6, size=(R, S, 1)), axis=1).astype(
+        np.float32)
+    en = (st + rng.uniform(0.01, 0.3, size=(R, S, 1))).astype(np.float32)
+    rad = np.broadcast_to(np.sqrt(pa)[:, None], (R, S, 1)).astype(np.float32)
+    ob = np.broadcast_to(o[:, None], (R, S, 3)).astype(np.float32)
+    db = np.broadcast_to(d[:, None], (R, S, 3)).astype(np.float32)
+    mj, cj = jrays.conical_frustum_to_gaussian(*map(jnp.asarray,
+                                                    (ob, db, st, en, rad)))
+    mt, ct = trays.conical_frustum_to_gaussian(*map(t, (ob, db, st, en,
+                                                        rad)))
+    assert ct.shape == (R, S, 3, 3)
+    close(mt, mj)
+    close(ct, cj, atol=1e-9)
+    # its diagonal is the factored blob's cov diagonal
+    blob = trays.conical_frustum_to_factored(*map(t, (ob, db, st, en, rad)))
+    dv, rv, dd = blob.dir_variance, blob.radius_variance, blob.directions
+    dmag2 = (dd ** 2).sum(-1, keepdim=True)
+    close(torch.diagonal(ct, dim1=-2, dim2=-1),
+          n(dv * dd * dd + rv * (1.0 - dd * dd / dmag2)), atol=1e-12)
 
 
 # ---- spacing + sampling -------------------------------------------------
@@ -237,6 +282,37 @@ def test_contract_blob_and_packed_planes(rng):
     close(pt[:, :3], pj[:, :3])
     close(pt[:, 3:6], pj[:, 3:6], atol=1e-9)
     assert torch.all(pt[:, 6:] == 0)
+
+
+def test_contract_dense_cov(rng):
+    """The dense-covariance contraction: mean rtol 1e-5 / atol 1e-6,
+    covariance atol 1e-9 (entries ~1e-6); inside the unit ball the
+    identity; a negative diagonal entry is ReLU-clamped."""
+    R, S = 5, 8
+    o, d, pa = random_rays(rng, R)
+    o[0] *= 0.1  # samples inside the unit ball too
+    jb, tb = bundles(o, d, pa, 0.0, 8.0)
+    rj = jspacing.spaced_sample(jb, jspacing.identity_spacing(), S)
+    rt = tspacing.spaced_sample(tb, tspacing.identity_spacing(), S)
+    bj = jrays.get_gaussian_blob(rj)
+    bt = trays.get_gaussian_blob(rt)
+    mean, cov = n(bt.mean), n(bt.dense_cov())
+    close(cov, bj.dense_cov(), atol=1e-12)
+    cov[1, 2] -= 2.0 * np.eye(3, dtype=np.float32) * cov[1, 2].max()
+    mj, cj = jcontract.contract(jnp.asarray(mean), jnp.asarray(cov))
+    mt, ct = tcontract.contract(t(mean), t(cov))
+    assert ct.shape == (R, S, 3, 3)
+    close(mt, mj)
+    close(ct, cj, atol=1e-9)
+    inside = np.linalg.norm(mean, axis=-1) <= 1.0
+    assert inside.any() and (~inside).any()
+    np.testing.assert_array_equal(n(mt)[inside], mean[inside])
+    assert (np.diagonal(n(ct), axis1=-2, axis2=-1) >= 0).all()
+    # elsewhere its diagonal is contract_blob's
+    keep = np.ones((R, S), bool)
+    keep[1, 2] = False
+    close(np.diagonal(n(ct), axis1=-2, axis2=-1)[keep],
+          n(tcontract.contract_blob(bt)[1])[keep], atol=1e-9)
 
 
 # ---- encodings --------------------------------------------------------------

@@ -123,6 +123,40 @@ def test_mid_factored_low_and_inf_color_match(weights, inputs, dtype):
         atol=atol, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_get_mid_matches(weights, inputs, dtype):
+    """get_mid on per-sample directions, with and without the
+    bottleneck, both SH conventions (fp32 atol 1e-5, bf16 2e-2); on a
+    ray's shared direction it is get_mid_factored's directional branch."""
+    _, params, field = weights
+    rng, _, _ = inputs
+    jd, td, atol = DTYPES[dtype]
+    R, S = 6, 8
+    dirs = rng.normal(size=(R, S, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    rough = rng.uniform(0, 3, size=(R, S, 1)).astype(np.float32)
+    emb = rng.uniform(0, 1, size=(R, S, 256)).astype(np.float32)
+    for use_bottleneck in (True, False):
+        for quirk in (True, False):
+            cfg = jfield.FieldConfig(compute_dtype=jd, sh_l8_m7_2x=quirk)
+            ref = jfield.get_mid(params, jnp.asarray(dirs),
+                                 jnp.asarray(rough),
+                                 jnp.asarray(emb).astype(jd),
+                                 use_bottleneck, cfg)
+            got = field.get_mid(t(dirs), t(rough), t(emb).to(td),
+                                use_bottleneck, quirk, td)
+            assert got.shape == (R, S, 3)
+            np.testing.assert_allclose(n(got), np.asarray(ref, np.float32),
+                                       atol=atol, rtol=0,
+                                       err_msg=f"{use_bottleneck} {quirk}")
+    shared = np.broadcast_to(dirs[:, :1], (R, S, 3)).copy()
+    bott = field.field_output_bottleneck.net(t(emb)).detach()
+    np.testing.assert_allclose(
+        n(field.get_mid(t(shared), t(rough), t(emb), True)),
+        n(field.get_mid_factored(t(dirs[:, 0]), t(rough), bott)),
+        atol=1e-5, rtol=0)
+
+
 def test_reflection_and_heads(weights, inputs):
     _, params, field = weights
     rng, _, _ = inputs
