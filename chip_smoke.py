@@ -248,7 +248,25 @@ Phases, each announced on its own line:
                 render at that pose, bit for bit; POST /export_path with
                 two poses, then `python -m rsn_torch.cli.render --mode
                 path` renders the file.
-  21. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
+  21. JPEG frames — the committed fixtures of tests/golden/jpeg/ decoded
+                by the port's JPEG decoder to the mode, shape and sha256
+                of PIL's decode recorded in digests.json (ms per 800x800
+                frame beside the native PNG decoder's on phase 19's PNGs,
+                host CPU, one thread); a nerfstudio-format capture over
+                the five 800x800 JPEG frames with the synthetic cameras'
+                poses and intrinsics; `python -m rsn_torch.cli.train
+                reflect-sampling-nerf` on it three times (dataparser
+                nerfstudio, bf16, JPEG_STEPS full-width steps, --vis
+                tensorboard; the second with --profile-dir over
+                JPEG_PROFILE): finite log lines, K3-K5 launched, no tb
+                writer where tensorboardX is missing, one Chrome trace
+                holding JPEG_PROFILE's RAdam steps and CUDA kernel events
+                of the hand-written kernels; each run's host ms per step
+                and the host's us per launch before the runs and after
+                each (whether the window's cost outlasts it); `python -m
+                rsn_torch.cli.eval --max-images 1`: eval.json's five keys
+                finite, K1 launched.
+  22. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
 
 Any failed check raises: the script then exits non-zero and prints no
 result.  It imports neither jax nor PIL, nor anything of the JAX package.
@@ -761,12 +779,14 @@ def main() -> int:
 
     # ---- 19. the user path around a trained scene ----
     # ---- 20. export and the viewer on phase 19's trained run ----
+    # ---- 21. JPEG frames: the decoder and a capture of JPEGs ----
     with tempfile.TemporaryDirectory() as user_tmp:
         run = user_path_phase(card, user_tmp)
         export_viewer_phase(run, card)
+        jpeg_phase(card, user_tmp, os.path.join(user_tmp, "scene"))
 
-    # ---- 21. result ----
-    phase("phase 21: result")
+    # ---- 22. result ----
+    phase("phase 22: result")
     kernels = []
     for name, source, line in KERNEL_ROWS:
         r = results[name]
@@ -1249,6 +1269,288 @@ def export_viewer_phase(run: str, card) -> None:
     if reply["num_frames"] != 2 or len(frames) != 2 or shapes != {
             (FRAME_RES // 2, FRAME_RES // 2, 3)}:
         raise RuntimeError("viewer: the exported path did not render")
+
+
+JPEG_DIR = os.path.join(REPO, "tests", "golden", "jpeg")
+JPEG_STEPS = 10     # phase 21's train run on the JPEG capture
+JPEG_PROFILE = (3, 3)  # its profiler window: the start step, the steps
+RADAM_STEP = "Optimizer.step#RAdam.step"
+
+
+def hand_written_kernels() -> set:
+    """The name of every __global__ function under rsn_torch/csrc."""
+    src = os.path.join(REPO, "rsn_torch", "csrc")
+    names = set()
+    for fname in os.listdir(src):
+        with open(os.path.join(src, fname)) as fh:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                r"(\w+)\s*\(", fh.read()))
+    return names
+
+
+def jpeg_decode_check(card, png_dir: str):
+    """Every committed fixture decoded to PIL's recorded digest; ms per
+    800x800 JPEG frame beside the native PNG decoder's ms per PNG of
+    phase 19's scene (host CPU, one thread, best of 3) -> the frames."""
+    import hashlib
+
+    import numpy as np
+
+    from rsn_torch.data import native
+    from rsn_torch.data.jpeg import read_jpeg
+
+    with open(os.path.join(JPEG_DIR, "digests.json")) as fh:
+        recorded = json.load(fh)
+    for fname, want in sorted(recorded["files"].items()):
+        mode, arr = read_jpeg(os.path.join(JPEG_DIR, fname))
+        got = {"mode": mode, "shape": list(arr.shape),
+               "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
+        if got != want:
+            raise RuntimeError(f"{fname}: decoded to {got}, PIL's decode "
+                               f"is {want}")
+    frames = [os.path.join(JPEG_DIR, f) for f in sorted(recorded["files"])
+              if f.startswith("frame_")]
+    pngs = sorted(os.path.join(root, f)
+                  for root, _, files in os.walk(png_dir)
+                  for f in files if f.endswith(".png"))
+    h, w = native.probe_png(pngs[0])
+    jpeg_runs, png_runs = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for f in frames:
+            read_jpeg(f)
+        jpeg_runs.append((time.perf_counter() - t0) / len(frames))
+        t0 = time.perf_counter()
+        native.decode_png_batch(pngs, h, w, num_threads=1)
+        png_runs.append((time.perf_counter() - t0) / len(pngs))
+    print(f"  {len(recorded['files'])} JPEG fixtures == PIL "
+          f"{recorded['pil']} / libjpeg-turbo {recorded['libjpeg_turbo']}'s "
+          f"decode (mode, shape, sha256); {1e3 * min(jpeg_runs):.4f} ms per "
+          f"{FRAME_RES}x{FRAME_RES} JPEG frame (quality 90, 4:2:0, "
+          f"{len(frames)} frames), native PNG decoder "
+          f"{1e3 * min(png_runs):.4f} ms per {w}x{h} PNG ({len(pngs)} PNGs) "
+          f"(host CPU, one thread, best of 3; {card})", flush=True)
+    return frames
+
+
+def write_jpeg_capture(frames, out_dir: str) -> str:
+    """A nerfstudio-format capture: the frames under images/ and a
+    transforms.json with the synthetic train cameras' poses and
+    intrinsics (the frames are make_synthetic_dataset's images)."""
+    import shutil
+
+    import numpy as np
+
+    from rsn_torch.data.synthetic import make_synthetic_cameras
+
+    cams = make_synthetic_cameras(len(frames), FRAME_RES, FRAME_RES)
+    os.makedirs(os.path.join(out_dir, "images"))
+    meta = {"camera_model": "OPENCV", "w": FRAME_RES, "h": FRAME_RES,
+            "frames": []}
+    for i, path in enumerate(frames):
+        name = os.path.join("images", os.path.basename(path))
+        shutil.copyfile(path, os.path.join(out_dir, name))
+        pose = np.eye(4)
+        pose[:3, :4] = cams.camera_to_worlds[i].numpy()
+        meta["frames"].append({
+            "file_path": name, "transform_matrix": pose.tolist(),
+            "fl_x": float(cams.fx[i]), "fl_y": float(cams.fy[i]),
+            "cx": float(cams.cx[i]), "cy": float(cams.cy[i])})
+    with open(os.path.join(out_dir, "transforms.json"), "w") as fh:
+        json.dump(meta, fh)
+    return out_dir
+
+
+def check_trace(prof_dir: str, card) -> None:
+    """One Chrome trace over JPEG_PROFILE's steps: its RAdam steps, and
+    CUDA kernel events of the hand-written kernels (none: the window saw
+    no device work, and the phase raises)."""
+    start, num = JPEG_PROFILE
+    traces = sorted(os.listdir(prof_dir))
+    want = f"trace_step{start:06d}_to_step{start + num:06d}.json"
+    if traces != [want]:
+        raise RuntimeError(f"profile dir holds {traces}, not [{want}]")
+    with open(os.path.join(prof_dir, want)) as fh:
+        events = json.load(fh)["traceEvents"]
+    # the host's annotation; a CUDA trace repeats it on the device's
+    # timeline as "gpu_user_annotation"
+    radam = sum(e.get("name") == RADAM_STEP
+                and e.get("cat") == "user_annotation" for e in events)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = re.compile(r"\b(" + "|".join(sorted(hand_written_kernels()))
+                      + r")\b")
+    by_name, ours_us = {}, 0.0
+    for e in kernels:
+        m = ours.search(e.get("name", ""))
+        if m:
+            by_name[m.group(1)] = by_name.get(m.group(1), 0) + 1
+            ours_us += float(e.get("dur", 0.0))
+    all_us = sum(float(e.get("dur", 0.0)) for e in kernels)
+    print(f"  trace {want}: {radam} {RADAM_STEP} events, {len(kernels)} "
+          f"CUDA kernel events, {sum(by_name.values())} of them "
+          f"hand-written ({ours_us / max(all_us, 1e-9):.2%} of the kernel "
+          f"time): {dict(sorted(by_name.items()))} ({card})", flush=True)
+    if radam != num:
+        raise RuntimeError(f"the trace holds {radam} RAdam steps, not {num}")
+    if not by_name:
+        raise RuntimeError("the trace holds no kernel event of the "
+                           "hand-written kernels: the window saw no "
+                           "device work")
+
+
+def launch_us() -> float:
+    """The host's microseconds per launch of a one-element in-place add
+    on the card: the median of 5 loops of 20,000, each ending in a
+    sync."""
+    import statistics
+
+    import torch
+
+    x = torch.zeros(1, device="cuda")
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20000):
+            x.add_(1)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) / 20000 * 1e6)
+    return statistics.median(runs)
+
+
+def jpeg_train_run(card, scene: str, tmp: str, name: str, profiled: bool):
+    """`python -m rsn_torch.cli.train` for JPEG_STEPS bf16 steps on the
+    JPEG capture with --vis tensorboard, and with profiled the profiler
+    window over JPEG_PROFILE's steps (its trace checked); its launches of
+    the train kernels, finite losses, no tb writer without tensorboardX
+    -> (its run dir, host ms per step from the cumulative rays_per_sec)."""
+    import importlib.util
+
+    import numpy as np
+
+    start, num = JPEG_PROFILE
+    tag = name.replace(" ", "_")
+    prof_dir = os.path.join(tmp, f"jpeg_profile_{tag}")
+    argv = [
+        "reflect-sampling-nerf", "--pipeline.datamanager.dataparser",
+        "nerfstudio", "--pipeline.datamanager.data", scene,
+        # nerfstudio scales the camera ring into the unit ball; back to
+        # radius 4, where the sphere lies between the collider's planes
+        "--pipeline.datamanager.scale-factor", "4.0",
+        "--pipeline.model.compute-dtype", "bfloat16",
+        "--max-num-iterations", str(JPEG_STEPS), "--steps-per-log", "1",
+        "--seed", str(SEED), "--output-dir", os.path.join(tmp, f"jpeg_out_{tag}"),
+        "--vis", "tensorboard"]
+    if profiled:
+        argv += ["--profile-dir", prof_dir, "--profile-start-step",
+                 str(start), "--profile-num-steps", str(num)]
+    from rsn_torch.cli import train as train_cli
+
+    text, launches = run_cli(train_cli.main, argv)
+    print("\n".join(f"  [{name}] " + ln for ln in text.splitlines()))
+    run = re.search(r"run dir: (\S+)", text).group(1)
+    train = {k: launches[k] for k in TRAIN_KERNELS}
+    with open(os.path.join(run, "train_log.jsonl")) as fh:
+        log = [json.loads(line) for line in fh]
+    with open(os.path.join(run, "config.json")) as fh:
+        rays = json.load(fh)["pipeline"]["datamanager"][
+            "train_num_rays_per_batch"]
+    # rays_per_sec runs from the start of train(), after a device sync,
+    # and each log line follows one (steps_per_log 1)
+    ends = np.array([e["step"] * rays / e["rays_per_sec"] for e in log])
+    step_ms = 1e3 * np.diff(ends, prepend=0.0)
+    print(f"  [{name}] train launches: {train}; {JPEG_STEPS} steps, "
+          f"rays_per_sec {log[-1]['rays_per_sec']:.1f} at the last line "
+          f"({card})", flush=True)
+    if min(train.values()) <= 0:
+        raise RuntimeError("a kernel of the train path never launched")
+    if len(log) != JPEG_STEPS or not all(
+            np.isfinite(e["total_loss"]) for e in log):
+        raise RuntimeError("expected a finite log line per step")
+    has_tbx = importlib.util.find_spec("tensorboardX") is not None
+    opened = os.path.isdir(os.path.join(run, "tb"))
+    print(f"  [{name}] vis tensorboard: tensorboardX importable {has_tbx}, "
+          f"writer dir opened {opened}")
+    if opened != has_tbx:
+        raise RuntimeError("the tensorboard writer does not follow "
+                           "tensorboardX's presence")
+    if profiled:
+        check_trace(prof_dir, card)
+    elif os.path.exists(prof_dir):
+        raise RuntimeError("a run without --profile-dir wrote a trace")
+    return run, step_ms
+
+
+def jpeg_phase(card, tmp: str, png_dir: str) -> None:
+    """Phase 21: the JPEG decoder on this host, then a nerfstudio capture
+    of JPEG frames through the train CLI (vis tensorboard; without the
+    profiler window, with it, and without it again) and the eval CLI,
+    each from zeroed launch counts."""
+    import numpy as np
+    import torch
+
+    from rsn_torch import lpips as lpips_lib
+    from rsn_torch.cli import eval as eval_cli
+    from rsn_torch.data.blender import load_dataset
+
+    phase(f"phase 21: JPEG frames: the fixtures against PIL's digests, "
+          f"then train (tensorboard; without, with and again without the "
+          f"profiler window) and eval on a nerfstudio capture of "
+          f"{FRAME_RES}x{FRAME_RES} JPEGs")
+    frames = jpeg_decode_check(card, png_dir)
+    scene = write_jpeg_capture(frames, os.path.join(tmp, "jpeg_capture"))
+    t0 = time.perf_counter()
+    ds = load_dataset("nerfstudio", scene, "train")
+    load_s = time.perf_counter() - t0
+    print(f"  load_nerfstudio: {ds.images.shape[0]} train frames of "
+          f"{ds.images.shape[2]}x{ds.images.shape[1]} in {load_s:.4f} s "
+          f"(host clock)")
+
+    # the same run without the window, before and after it: whether the
+    # window's cost outlasts it (the steps after it against the same steps
+    # of a run that never traced)
+    # and the host's cost of one launch before the first trace and after
+    # each run (a CUPTI hook left attached would raise it)
+    runs, launch = {}, {"before the runs": launch_us()}
+    for name, profiled in (("plain", False), ("profiled", True),
+                           ("plain after", False)):
+        runs[name] = jpeg_train_run(card, scene, tmp, name, profiled)
+        launch[f"after {name}"] = launch_us()
+    for name, (_, step_ms) in runs.items():
+        print(f"  {name}: host ms per step "
+              f"{[round(float(t), 3) for t in step_ms]} ({card})")
+    print("  host us per launch of a one-element add_ (median of 5 x "
+          "20,000, ending in a sync): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in launch.items()) + f" ({card})")
+    start, num = JPEG_PROFILE
+    after = slice(start + num, JPEG_STEPS)
+    print("  steps {}-{} after the window, median ms per step: {}".format(
+        start + num + 1, JPEG_STEPS, ", ".join(
+            f"{name} {float(np.median(ms[after])):.3f}"
+            for name, (_, ms) in runs.items())), flush=True)
+    run = runs["profiled"][0]
+
+    weights = os.path.join(tmp, "jpeg_lpips_vgg.pth")
+    torch.save(lpips_lib.export_torch_state_dict(lpips_lib.LPIPS(
+        torch.Generator().manual_seed(SEED))), weights)
+    os.environ["RSN_LPIPS_WEIGHTS"] = weights
+    try:
+        text, launches = run_cli(eval_cli.main, [
+            "--load-dir", run, "--max-images", "1"])
+    finally:
+        del os.environ["RSN_LPIPS_WEIGHTS"]
+    print("\n".join("  " + ln for ln in text.splitlines()))
+    with open(os.path.join(run, "eval.json")) as fh:
+        res = json.load(fh)
+    print(f"  eval: {res}; K1 {launches['field_forward_v3']} launches "
+          f"({card})", flush=True)
+    if sorted(res) != ["coarse_psnr", "fine_lpips", "fine_psnr",
+                       "fine_ssim", "psnr"] or not all(
+                           np.isfinite(v) for v in res.values()):
+        raise RuntimeError(f"eval.json: {res}")
+    if launches["field_forward_v3"] <= 0:
+        raise RuntimeError("eval did not run K1")
 
 
 def io_lines(fn):

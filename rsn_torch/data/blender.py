@@ -9,9 +9,13 @@ Cameras on the CPU; the trainer and the CLIs move them to the device.
 Images: rsn decodes 8-bit non-interlaced PNGs at downscale 1 with its
 native library and every other frame with PIL.  The port takes the same
 routes: the same C++ library (rsn_torch.data.native), and for the PIL
-frames rsn_torch.data.png, which gives what PIL gives (palette indices,
-16-bit gray values, Pillow's bilinear shrink).  A JPEG frame raises
-NotImplementedError: the port has no JPEG decoder yet (ROADMAP Queue 1).
+frames rsn_torch.data.jpeg.read_image, which picks the decoder by the
+file's first bytes as Image.open does and gives what PIL gives: PNGs
+through rsn_torch.data.png (palette indices, 16-bit gray values), JPEGs
+through the native JPEG decoder (libjpeg-turbo's pixels), and Pillow's
+bilinear shrink for either.  The JPEG kinds that decoder leaves out (CMYK,
+arithmetic coding, lossless, 12-bit; ROADMAP Queue 1) raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from rsn_torch.data import native, png
+from rsn_torch.data.jpeg import read_image
 from rsn_torch.data.cameras import Cameras
 from rsn_torch.data.synthetic import (Dataset, make_synthetic_cameras,
                                       make_synthetic_dataset,
@@ -35,7 +40,7 @@ def _load_image(path: str, downscale: int = 1) -> np.ndarray:
     by 255 in float32, gray repeated to 3 channels, RGBA blended to white,
     the first 3 channels kept (a gray + alpha frame keeps its 2, as rsn's
     does)."""
-    mode, img = png.read_png(path)
+    mode, img = read_image(path)
     if downscale > 1:
         img = png.resize_bilinear(mode, img, (img.shape[1] // downscale,
                                               img.shape[0] // downscale))

@@ -1,17 +1,24 @@
-"""ctypes binding of the native PNG loader (loader.cpp, rsn's
-rsn/data/native/loader.cpp unchanged): `probe_png` and
-`decode_png_batch`, a pthread pool that decodes 8-bit non-interlaced
-gray / RGB / gray + alpha / RGBA PNGs and blends alpha to white in C.
+"""ctypes bindings of the native image decoders.
 
-g++ builds the library at first use, with rsn's flags, into
-rsn_torch/_build/ (git-ignored).  Its name carries a hash of the source,
-the flags and the host's CPU (the flags hold -march=native), so an edited
-source is rebuilt and a library built for another CPU is never loaded.
-A failed build raises with the compiler's output: the port has no PIL to
-fall back to.  A file the library cannot decode (palette, 16-bit,
-interlaced, another size) is not an error here: probe_png and
-decode_png_batch return None, and the loaders read it with
-rsn_torch.data.png, as rsn reads it with PIL.
+- loader.cpp (rsn's rsn/data/native/loader.cpp unchanged): `probe_png`
+  and `decode_png_batch`, a pthread pool that decodes 8-bit
+  non-interlaced gray / RGB / gray + alpha / RGBA PNGs and blends alpha
+  to white in C.  A file it cannot decode (palette, 16-bit, interlaced,
+  another size) is not an error here: probe_png and decode_png_batch
+  return None, and the loaders read it with rsn_torch.data.png, as rsn
+  reads it with PIL.
+- jpeg.cpp: `probe_jpeg` and `decode_jpeg`, the JPEG decoder that gives
+  PIL's pixels (libjpeg-turbo's integer IDCT, fancy upsampling and
+  colour tables; baseline, extended sequential and progressive Huffman,
+  gray or three components).  A kind of JPEG it leaves out raises
+  NotImplementedError naming ROADMAP Queue 1 and rsn/data/blender.py (rsn
+  reads it with PIL); a corrupt or truncated file raises ValueError.
+
+g++ builds each library at first use into rsn_torch/_build/
+(git-ignored).  Its name carries a hash of its source, the flags and the
+host's CPU (the flags hold -march=native), so an edited source is rebuilt
+and a library built for another CPU is never loaded.  A failed build
+raises with the compiler's output: the port has no PIL to fall back to.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_DIR, "loader.cpp")
+JPEG_SOURCE = os.path.join(_DIR, "jpeg.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
 # rsn/data/native/__init__.py's flags: with -march=native g++ contracts
 # the alpha blend into FMAs, and the port's images equal rsn's bit for bit
@@ -36,6 +44,7 @@ FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 LIBS = ("-lz", "-lpthread")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_jpeg_lib: Optional[ctypes.CDLL] = None
 
 
 def _cpu_identity() -> bytes:
@@ -48,23 +57,26 @@ def _cpu_identity() -> bytes:
     return b"\n".join(sorted({ln for ln in lines if ln.startswith(keep)}))
 
 
-def library_path() -> str:
-    h = hashlib.sha256(" ".join(FLAGS + LIBS).encode())
-    with open(SOURCE, "rb") as f:
+def library_path(source: Optional[str] = None, libs=LIBS) -> str:
+    source = source or SOURCE
+    h = hashlib.sha256(" ".join(FLAGS + tuple(libs)).encode())
+    with open(source, "rb") as f:
         h.update(f.read())
     h.update(_cpu_identity())
-    return os.path.join(BUILD_DIR, f"loader-{h.hexdigest()[:16]}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
 
 
-def _build(path: str) -> None:
+def _build(path: str, source: Optional[str] = None, libs=LIBS) -> None:
+    source = source or SOURCE
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: the native PNG loader "
-                           f"({SOURCE}) is built from source at first use")
+        raise RuntimeError("g++ not found: the native decoder "
+                           f"({source}) is built from source at first use")
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [cxx, *FLAGS, SOURCE, "-o", tmp, *LIBS]
+    cmd = [cxx, *FLAGS, source, "-o", tmp, *libs]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         os.unlink(tmp)
@@ -119,3 +131,87 @@ def decode_png_batch(paths: List[str], height: int, width: int,
         names, len(paths), height, width, int(blend_white),
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), num_threads)
     return out if rc == 0 else None
+
+
+# ---- JPEG (jpeg.cpp) -------------------------------------------------------
+
+# rsn_probe_jpeg / rsn_decode_jpeg return codes
+JPEG_UNSUPPORTED, JPEG_CORRUPT = 1, 2
+_JPEG_MODES = {1: "L", 3: "RGB"}
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+
+
+def get_jpeg_lib() -> ctypes.CDLL:
+    """The loaded JPEG library, built first if it is missing."""
+    global _jpeg_lib
+    with _lock:
+        if _jpeg_lib is None:
+            path = library_path(JPEG_SOURCE, ())
+            if not os.path.isfile(path):
+                _build(path, JPEG_SOURCE, ())
+            lib = ctypes.CDLL(path)
+            cint = ctypes.POINTER(ctypes.c_int)
+            lib.rsn_probe_jpeg.restype = ctypes.c_int
+            lib.rsn_probe_jpeg.argtypes = [_u8p, ctypes.c_int64, cint, cint,
+                                           cint, ctypes.c_char_p,
+                                           ctypes.c_int]
+            lib.rsn_decode_jpeg.restype = ctypes.c_int
+            lib.rsn_decode_jpeg.argtypes = [_u8p, ctypes.c_int64, _u8p,
+                                            ctypes.c_int64, ctypes.c_char_p,
+                                            ctypes.c_int]
+            _jpeg_lib = lib
+        return _jpeg_lib
+
+
+def _jpeg_error(path: str, rc: int, msg: bytes) -> Exception:
+    what = msg.decode(errors="replace")
+    if rc == JPEG_UNSUPPORTED:
+        return NotImplementedError(
+            f"{path}: a JPEG with {what}; ROADMAP Queue 1: the port's JPEG "
+            "decoder leaves this kind out, rsn/data/blender.py reads it "
+            "with PIL")
+    return ValueError(f"{path}: corrupt JPEG ({what})")
+
+
+def _probe(lib, path: str, data: np.ndarray) -> Tuple[str, Tuple[int, ...]]:
+    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    msg = ctypes.create_string_buffer(256)
+    rc = lib.rsn_probe_jpeg(data.ctypes.data_as(_u8p), data.size,
+                            ctypes.byref(h), ctypes.byref(w),
+                            ctypes.byref(c), msg, len(msg))
+    if rc != 0:
+        raise _jpeg_error(path, rc, msg.value)
+    shape = (h.value, w.value) + (() if c.value == 1 else (c.value,))
+    return _JPEG_MODES[c.value], shape
+
+
+def _file_bytes(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        return np.frombuffer(f.read(), np.uint8)
+
+
+def probe_jpeg(path: str) -> Tuple[str, Tuple[int, ...]]:
+    """-> (PIL's mode, the array's shape) from the markers up to the
+    frame header: ("L", (H, W)) or ("RGB", (H, W, 3))."""
+    return _probe(get_jpeg_lib(), path, _file_bytes(path))
+
+
+def decode_jpeg(path: str) -> Tuple[str, np.ndarray]:
+    """-> (PIL's mode, np.asarray(Image.open(path))): uint8 (H, W) for
+    "L", (H, W, 3) for "RGB".
+
+    Raises NotImplementedError for the kinds the decoder leaves out (CMYK,
+    arithmetic coding, lossless, hierarchical, 12-bit, other sampling
+    layouts; ROADMAP Queue 1) and ValueError for a corrupt or truncated
+    file."""
+    lib = get_jpeg_lib()
+    data = _file_bytes(path)
+    mode, shape = _probe(lib, path, data)
+    out = np.empty(shape, np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    rc = lib.rsn_decode_jpeg(data.ctypes.data_as(_u8p), data.size,
+                             out.ctypes.data_as(_u8p), out.size, msg,
+                             len(msg))
+    if rc != 0:
+        raise _jpeg_error(path, rc, msg.value)
+    return mode, out

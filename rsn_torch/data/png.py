@@ -25,8 +25,9 @@ replicated, not fixed):
   type 0 on every row) to bytes in memory (the viewer's frames);
   `write_png` writes those bytes to a file.
 
-JPEG and the other formats PIL reads are not decoded here: `read_png`
-raises NotImplementedError for them.
+`read_png` reads PNG only and raises NotImplementedError for any other
+file: rsn_torch.data.jpeg.read_image picks the decoder by a file's first
+bytes, as PIL's `Image.open` does.
 """
 from __future__ import annotations
 
@@ -129,16 +130,16 @@ def _samples(rows: np.ndarray, width: int, channels: int, depth: int
 def read_png(path: str) -> Tuple[str, np.ndarray]:
     """-> (PIL's mode, the array np.asarray gives of the image PIL opens).
 
-    Raises NotImplementedError for a file that is not a PNG (a JPEG
-    frame of a nerfstudio capture, say): those go through PIL in rsn."""
+    Raises NotImplementedError for a file that is not a PNG: the loaders
+    read frames through rsn_torch.data.jpeg.read_image, which sends a
+    JPEG to its own decoder."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(SIGNATURE):
-        kind = "a JPEG" if data[:3] == b"\xff\xd8\xff" else "not a PNG"
         raise NotImplementedError(
-            f"{path}: {kind} file; ROADMAP Queue 1: the port decodes PNG "
-            "only, rsn/data/blender.py reads other formats with PIL (a "
-            "baseline JPEG decoder in the native loader is still to come)")
+            f"{path}: not a PNG file; ROADMAP Queue 1: read_png decodes "
+            "PNG only (rsn_torch.data.jpeg.read_image picks the decoder by "
+            "content, as rsn/data/blender.py's Image.open does)")
     ihdr, idat = None, []
     for tag, body in _chunks(data):
         if tag == b"IHDR":

@@ -27,6 +27,14 @@ bucket after that step's controller decision; mask_fraction and
 reflect_overflow only with debug_telemetry.  A mesh of several devices is
 a later step of the port (ROADMAP.md).  steps_per_dispatch is read as 1:
 one step per loop iteration (a CUDA graph of several steps is later work).
+
+With profile_dir, rsn's profiler window: a torch.profiler trace (the CPU,
+and CUDA on a card) from the loop's arrival at profile_start_step for
+profile_num_steps steps, written as one Chrome trace JSON into
+profile_dir after a device sync; a window that train() ends early is
+written when it returns (rsn loses it).  With vis="tensorboard", rsn's
+tensorboardX writer in <run_dir>/tb gets every log line's scalars, and a
+missing tensorboardX opens nothing and raises nothing.
 """
 from __future__ import annotations
 
@@ -269,10 +277,6 @@ def _check_slice(config: TrainerConfig) -> None:
         raise NotImplementedError(
             f"num_devices={config.num_devices}: ROADMAP Queue 1: "
             "rsn/parallel/mesh.py (data-parallel mesh) is not ported")
-    if config.profile_dir:
-        raise NotImplementedError(
-            "profile_dir: ROADMAP Queue 1: rsn/engine/trainer.py (the "
-            "trainer's profiler window) is not ported")
 
 
 class Trainer:
@@ -340,6 +344,13 @@ class Trainer:
                                if config.steps_per_log > 0
                                else REFLECT_ADAPT_FALLBACK_CADENCE)
         self._log_file = open(os.path.join(run_dir, "train_log.jsonl"), "a")
+        self._tb = None
+        if config.vis == "tensorboard":
+            try:
+                from tensorboardX import SummaryWriter
+                self._tb = SummaryWriter(os.path.join(run_dir, "tb"))
+            except Exception:
+                pass
 
     # ---- one step ----
 
@@ -529,17 +540,47 @@ class Trainer:
     def _log(self, step: int, metrics: Dict[str, float]) -> None:
         self._log_file.write(json.dumps({"step": step, **metrics}) + "\n")
         self._log_file.flush()
+        if self._tb is not None:
+            for k, v in metrics.items():
+                self._tb.add_scalar(k, v, step)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _start_trace(self) -> torch.profiler.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+            # Kineto keeps CUPTI attached after the trace unless asked to
+            # tear it down, and attached it slows every later launch: the
+            # steps after the window and the rest of the process ran
+            # 15-25% slower on an H100 (chip_smoke.py phase 21).  Set
+            # before the trace starts, where torch.profiler sets it itself
+            # for CUDA graphs; a value the caller set stands.
+            os.environ.setdefault("TEARDOWN_CUPTI", "1")
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_trace(self, prof: torch.profiler.profile, start: int) -> None:
+        """Sync, stop, and write the trace (the trainer's step count at the
+        window's start and end in its name)."""
+        self._sync()
+        prof.stop()
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        path = os.path.join(self.config.profile_dir,
+                            f"trace_step{start:06d}_to_step{self.step:06d}"
+                            ".json")
+        prof.export_chrome_trace(path)
 
     def train(self, max_steps: Optional[int] = None) -> Dict[str, float]:
         """Train to max_steps (default max_num_iterations), with rsn's log
         lines: at each log step {"rays_per_sec" (from the start of this
         call), losses, total_loss, reflect_fraction (after the step's
         controller decision)[, mask_fraction, reflect_overflow with
-        debug_telemetry]}, then the eval hooks' lines at their cadences.
+        debug_telemetry]}, then the eval hooks' lines at their cadences;
+        the profiler window from the loop's arrival at profile_start_step.
         -> the last logged line's metrics."""
         cfg = self.config
         max_steps = max_steps or cfg.max_num_iterations
@@ -549,8 +590,15 @@ class Trainer:
         self._sync()
         t0, step0 = time.perf_counter(), self.step
         first = True
+        prof, prof_start = None, cfg.profile_start_step
         while self.step < max_steps:
+            if cfg.profile_dir and self.step == prof_start:
+                prof = self._start_trace()
             metrics = self.train_step()
+            if prof is not None and self.step >= (
+                    prof_start + cfg.profile_num_steps):
+                self._stop_trace(prof, prof_start)
+                prof = None
             adapt_now = (cfg.adaptive_reflect_fraction
                          and hit(self._adapt_cadence))
             log_now = hit(cfg.steps_per_log) or first
@@ -594,4 +642,6 @@ class Trainer:
                       flush=True)
             if hit(cfg.steps_per_save) or self.step == max_steps:
                 self.save()
+        if prof is not None:  # the window outlived the loop
+            self._stop_trace(prof, prof_start)
         return last

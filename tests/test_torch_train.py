@@ -437,7 +437,7 @@ def test_entry_points_need_the_card_unless_asked(tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     pytest.param(["--num-devices", "4"], "mesh", id="flags1-mesh"),
-    # the dataparsers are ported; a scene of JPEG frames is not yet
+    # the dataparsers and JPEG frames are ported; a CMYK JPEG frame is not
     pytest.param(["--pipeline.datamanager.dataparser", "blender",
                   "--data", "{jpeg_scene}"], "JPEG",
                  id="flags3-dataparser"),
@@ -445,7 +445,10 @@ def test_entry_points_need_the_card_unless_asked(tmp_path):
 def test_unported_train_options_raise(tmp_path, flags, match):
     scene = tmp_path / "jpeg_scene"
     scene.mkdir()
-    (scene / "r_0.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(16))
+    from PIL import Image
+
+    Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(scene / "r_0.jpg",
+                                                     "JPEG")
     (scene / "transforms_train.json").write_text(json.dumps(
         {"camera_angle_x": 0.69, "frames": [
             {"file_path": "./r_0.jpg",
