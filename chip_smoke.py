@@ -266,7 +266,32 @@ Phases, each announced on its own line:
                 each (whether the window's cost outlasts it); `python -m
                 rsn_torch.cli.eval --max-images 1`: eval.json's five keys
                 finite, K1 launched.
-  22. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
+  Several ranks (rsn_torch.parallel.mesh, one rank per device):
+  22. multi-device — at full width (the default method, bf16, 1024 rays a
+                rank, the sphere at 800x800, seed 3):
+                a. torch.distributed.is_nccl_available() (False fails);
+                `python -m rsn_torch.cli.train reflect-sampling-nerf
+                --multihost --coordinator-address 127.0.0.1:<port>
+                --num-processes 1 --process-id 0` (a one-rank NCCL group)
+                and the plain CLI, MESH_STEPS steps each at once: every
+                tensor of the final checkpoints equal bit for bit; then a
+                one-rank NCCL Trainer in this process: the gradients'
+                all-reduce (average_gradients) and one dist.all_reduce of
+                the same flat buffer in ms per step, CUDA events, beside
+                the step's ms.
+                b. two ranks on the one card (NCCL refuses two ranks on a
+                device, so gloo, CUDA tensors staged through the host):
+                one train step each from seed 3's weights, every rank's
+                kernel launches printed; their replicas equal bit for
+                bit, and within MESH_TOL of one process that computes
+                both ranks' gradients with their generators, averages
+                them and steps RAdam.
+                c. the same two ranks render orbit frame 0 at 800x800
+                sharded (product only: K2 on passes 1 and 3, K1 on 2 and
+                4; a warm-up render first), each rank's seconds and
+                launches; the whole frame on each rank == this process's
+                single-rank render, bit for bit.
+  23. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
 
 Any failed check raises: the script then exits non-zero and prints no
 result.  It imports neither jax nor PIL, nor anything of the JAX package.
@@ -316,6 +341,8 @@ DELTA_TOL = 1e-1    # pose-delta gradients, CPU against card: rsn's own bf16
                     # (tests/test_torch_camera_opt.py)
 CAMERA_FLAGS = ("--pipeline.datamanager.camera-optimizer", "SO3xR3",
                 "--pipeline.model.use-pallas-acts", "False")
+MESH_STEPS = 10     # phase 22's CLI runs, plain and one NCCL rank
+MESH_TOL = 1e-5     # two ranks' step against one process averaging both
 
 # The card's peaks (NVIDIA's data sheet, H100 SXM, dense): bf16 tensor
 # cores and HBM3.  A kernel's bound is the larger of its products over the
@@ -785,8 +812,12 @@ def main() -> int:
         export_viewer_phase(run, card)
         jpeg_phase(card, user_tmp, os.path.join(user_tmp, "scene"))
 
-    # ---- 22. result ----
-    phase("phase 22: result")
+    # ---- 22. several ranks ----
+    with tempfile.TemporaryDirectory() as mesh_tmp:
+        multi_device_phase(card, mesh_tmp)
+
+    # ---- 23. result ----
+    phase("phase 23: result")
     kernels = []
     for name, source, line in KERNEL_ROWS:
         r = results[name]
@@ -807,6 +838,246 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def multi_device_phase(card, tmp: str) -> None:
+    """Phase 22: a one-rank NCCL group through the train CLI against the
+    plain CLI, the all-reduce's ms per step, then two gloo ranks on the
+    card: one step against one process averaging, and the sharded
+    render against the single-rank one."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rsn_torch.cli import render as render_cli
+    from rsn_torch.data.blender import load_cameras
+    from rsn_torch.engine import checkpoints as ckpt_lib
+    from rsn_torch.engine.trainer import Trainer, rank_seed, render_image
+    from rsn_torch.models.field import Field
+    from rsn_torch.parallel import mesh as mesh_lib
+
+    phase(f"phase 22: multi-device: a one-rank NCCL group, two ranks on "
+          f"the card ({FRAME_RES}x{FRAME_RES}, full width)")
+    start = time.perf_counter()
+    nccl = dist.is_nccl_available()
+    print(f"  torch.distributed.is_nccl_available(): {nccl}", flush=True)
+    if not nccl:
+        raise RuntimeError("NCCL is not available in this torch build")
+    config = dataclasses.replace(smoke_config(), seed=SEED)
+
+    # a. one NCCL rank through the CLI, against the plain CLI
+    argv = [sys.executable, "-m", "rsn_torch.cli.train",
+            "reflect-sampling-nerf", "--data", f"sphere:res={FRAME_RES}",
+            "--pipeline.datamanager.dataparser", "synthetic",
+            "--pipeline.model.compute-dtype", "bfloat16",
+            "--max-num-iterations", str(MESH_STEPS), "--steps-per-log",
+            str(MESH_STEPS // 2), "--seed", str(SEED)]
+    group = ["--multihost", "--coordinator-address",
+             f"127.0.0.1:{mesh_lib.free_port()}", "--num-processes", "1",
+             "--process-id", "0"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    runs = {name: os.path.join(tmp, name) for name in ("plain", "nccl")}
+    procs = {name: subprocess.Popen(
+        argv + ["--output-dir", out] + (group if name == "nccl" else []),
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name, out in runs.items()}
+    states = {}
+    for name, proc in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        lines = out.strip().splitlines()
+        for line in [lines[0]] + lines[-2:]:
+            print(f"  {name}: {line}", flush=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the {name} train CLI exited "
+                               f"{proc.returncode}:\n{out[-4000:]}")
+        (ckpt,) = [os.path.join(r, f) for r, _, fs in os.walk(runs[name])
+                   for f in fs if f == f"step-{MESH_STEPS:09d}.pt"]
+        states[name] = dict(checkpoint_tensors(ckpt_lib.load_checkpoint(
+            ckpt)))
+    if states["nccl"].keys() != states["plain"].keys():
+        raise RuntimeError("the two checkpoints hold different tensors")
+    differ = [k for k, v in states["plain"].items()
+              if not torch.equal(v, states["nccl"][k])]
+    print(f"  one NCCL rank against the plain CLI after {MESH_STEPS} steps: "
+          f"{len(states['plain']) - len(differ)} of {len(states['plain'])} "
+          f"checkpoint tensors equal bit for bit (both runs "
+          f"{time.perf_counter() - start:.1f} s)", flush=True)
+    if differ:
+        raise RuntimeError(f"the one-rank NCCL run differs: {differ[:8]}")
+
+    # the all-reduce's ms per step, on a one-rank NCCL group here
+    mesh = mesh_lib.init_mesh(
+        "cuda", coordinator_address=f"127.0.0.1:{mesh_lib.free_port()}",
+        num_processes=1, process_id=0)
+    real = mesh_lib.average_gradients
+    events = []
+
+    def timed(m, params):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        real(m, params)
+        b.record()
+        events[-1].append((a, b))
+
+    mesh_lib.average_gradients = timed
+    try:
+        tr = Trainer(config, run_dir=os.path.join(tmp, "timed"), mesh=mesh)
+        for _ in range(12):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            events.append([])
+            a.record()
+            tr.train_step()
+            b.record()
+            events[-1].append((a, b))
+        torch.cuda.synchronize()
+        reduce_ms = [e[0][0].elapsed_time(e[0][1]) for e in events[2:]]
+        step_ms = [e[1][0].elapsed_time(e[1][1]) for e in events[2:]]
+        numel = sum(p.numel() for p in tr.live_params())
+        buf = torch.zeros(numel + len(tr.live_params()), device=mesh.device)
+        raw = cuda_ms(lambda: dist.all_reduce(buf))
+        print(f"  one NCCL rank, full-width step (median of steps 3-12): "
+              f"average_gradients {statistics.median(reduce_ms):.4f} ms "
+              f"(flatten, all_reduce of {buf.numel()} floats, / world, "
+              f"grads back; dist.all_reduce alone {raw:.4f} ms, median of "
+              f"10) beside the step's {statistics.median(step_ms):.4f} ms "
+              f"(CUDA events; a one-rank all-reduce is a copy; {card})",
+              flush=True)
+    finally:
+        mesh_lib.average_gradients = real
+        mesh_lib.close(mesh)
+    del tr
+    torch.cuda.empty_cache()
+
+    # b, c. two ranks on the one card
+    print("  two ranks on the one card: NCCL refuses two ranks on one "
+          "device (\"Duplicate GPU\"), so these ranks pass backend='gloo', "
+          "their CUDA tensors staged through the host", flush=True)
+    t0 = time.perf_counter()
+    ranks = mesh_lib.launch(card_rank, 2, (config, tmp), device="cuda:0",
+                            backend="gloo")
+    print(f"  launch of 2 ranks: {time.perf_counter() - t0:.1f} s "
+          f"(spawn, import, build the trainer, one step, two renders)")
+    for r, res in enumerate(ranks):
+        print(f"  rank {r}: step launches {res['step_launches']}; render "
+              f"launches {res['render_launches']}", flush=True)
+    for k in ("field_forward_v6", "field_backward_v6", "field_backward_v5",
+              "train_blob", "field_backward_v4_wgrad"):
+        if any(not res["step_launches"].get(k) for res in ranks):
+            raise RuntimeError(f"{k} did not launch on a rank's step")
+    if any(not res["render_launches"].get(k) for res in ranks
+           for k in ("field_forward_v3", "field_forward_density")):
+        raise RuntimeError("K1 or K2 did not launch on a rank's render")
+    same = all(torch.equal(v, ranks[1]["field"][k])
+               for k, v in ranks[0]["field"].items())
+    ref = Trainer(config, run_dir=os.path.join(tmp, "ref"))
+    grads = []
+    for r in range(2):
+        ref.generator.manual_seed(rank_seed(config.seed, r))
+        _, groups = ref.forward_backward()
+        grads.append([None if p.grad is None else p.grad.clone()
+                      for p in ref.live_params()])
+    for p, g0, g1 in zip(ref.live_params(), *grads):
+        # a gradient no rank's graph reached stays None, as on one rank
+        p.grad = None if g0 is None else (g0 + g1) / 2
+    for opt, sched in groups:
+        opt.step()
+        sched.step()
+    err = max(float((ranks[0]["field"][k].to(v.device) - v).abs().max())
+              for k, v in ref.field.state_dict().items())
+    print(f"  one step on two ranks: replicas equal bit for bit: {same}; "
+          f"max |param - one process averaging both ranks' gradients| "
+          f"{err:.3g} (limit {MESH_TOL})", flush=True)
+    if not same or err > MESH_TOL:
+        raise RuntimeError("the two ranks' step disagrees")
+    del ref
+    torch.cuda.empty_cache()
+
+    device = torch.device("cuda", 0)
+    field = Field(torch.Generator().manual_seed(SEED)).to(device).eval()
+    orbit = render_cli.orbit_cameras(load_cameras(
+        "synthetic", f"sphere:res={FRAME_RES}", "test"), 3).to(device)
+    single = render_image(field, orbit, 0, config, rays_per_chunk=CHUNK,
+                          product_only=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render_image(field, orbit, 0, config, rays_per_chunk=CHUNK,
+                 product_only=True)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        if set(res["render"]) != set(single) or any(
+                not np.array_equal(res["render"][k], v)
+                for k, v in single.items()):
+            raise RuntimeError(f"rank {r}'s sharded frame differs from the "
+                               "single-rank render")
+    print(f"  sharded {FRAME_RES}x{FRAME_RES} product frame == the "
+          f"single-rank render, bit for bit, on both ranks "
+          f"({', '.join(sorted(single))}); seconds per rank "
+          f"{[round(res['seconds'], 4) for res in ranks]}, of which the "
+          f"gather of the rows (gloo, through the host) "
+          f"{[round(res['gather_seconds'], 4) for res in ranks]}, beside "
+          f"the single rank's {single_s:.4f} s (host clock, after a "
+          f"warm-up render; {card})", flush=True)
+    print(f"  phase 22: {time.perf_counter() - start:.1f} s", flush=True)
+
+
+def card_rank(mesh, config, tmp: str):
+    """One of phase 22's two ranks on the card: one train step of the mesh
+    path from zeroed launch counts, then orbit frame 0 rendered sharded
+    (a warm-up, then the timed one) -> its launches, field, frame and
+    seconds."""
+    import torch
+
+    from rsn_torch.cli import render as render_cli
+    from rsn_torch.data.blender import load_cameras
+    from rsn_torch.engine.trainer import Trainer, render_image
+    from rsn_torch.kernels import field_forward as ff
+    from rsn_torch.models.field import Field
+    from rsn_torch.parallel import mesh as mesh_lib
+
+    tr = Trainer(config, run_dir=os.path.join(tmp, "ranks"), mesh=mesh)
+    ff.reset_launch_counts()
+    tr.train_step()
+    torch.cuda.synchronize()
+    step_launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+    state = {k: v.cpu() for k, v in tr.field.state_dict().items()}
+    del tr
+    field = Field(torch.Generator().manual_seed(SEED)).to(mesh.device).eval()
+    orbit = render_cli.orbit_cameras(load_cameras(
+        "synthetic", f"sphere:res={FRAME_RES}", "test"), 3).to(mesh.device)
+    kw = dict(rays_per_chunk=CHUNK, product_only=True, mesh=mesh)
+    render_image(field, orbit, 0, config, **kw)
+    ff.reset_launch_counts()
+    mesh_lib.barrier(mesh)
+    t0 = time.perf_counter()
+    out = render_image(field, orbit, 0, config, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # the gather alone: this rank's rows of the frame's columns
+    rows = torch.zeros((-(-orbit.width * orbit.height // 2),
+                        sum(v.shape[-1] for v in out.values())),
+                       device=mesh.device)
+    mesh_lib.barrier(mesh)
+    t0 = time.perf_counter()
+    mesh_lib.all_gather_rows(mesh, rows)
+    torch.cuda.synchronize()
+    return {"step_launches": step_launches, "field": state, "render": out,
+            "seconds": seconds, "gather_seconds": time.perf_counter() - t0,
+            "render_launches": {k: v for k, v in ff.LAUNCHES.items() if v}}
+
+
+def checkpoint_tensors(tree, prefix=""):
+    """Every tensor of a checkpoint, by its path."""
+    import torch
+
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from checkpoint_tensors(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from checkpoint_tensors(v, f"{prefix}/{i}")
+    elif isinstance(tree, torch.Tensor):
+        yield prefix, tree
 
 
 def run_cli(main, argv):

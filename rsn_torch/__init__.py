@@ -10,7 +10,9 @@ Ported so far: the render path (eval-mode 4-pass `get_outputs`,
 `render_image`, the orbit mode of the render CLI), the training path (the
 training forward, the 8 losses, the optimizers, the trainer with its eval
 hooks and the train CLI) for the default method, the proposal preset and
-mipnerf, with pose refinement; every field kernel of rsn/kernels/ and the
-forward experiments of rsn's tools/ (`rsn_torch.experiments`),
-hand-written CUDA for sm_90a (`rsn_torch/csrc/`).
+mipnerf, with pose refinement, on one device or data-parallel over
+several, one rank each (`rsn_torch.parallel`); every field kernel of
+rsn/kernels/ and the experiments of rsn's tools/
+(`rsn_torch.experiments`), hand-written CUDA for sm_90a
+(`rsn_torch/csrc/`).
 """

@@ -14,8 +14,10 @@ PSNR from mid_rgb_coarse, null in proposal mode (no coarse rgb head);
 `psnr` is the fine PSNR of final_rgb.  fine_lpips only where LPIPS
 weights are on disk (rsn_torch.metrics.load_lpips).  Runs on the CUDA
 card, and raises when torch sees none; a Python caller may ask for the
-CPU with main(argv, device="cpu").  A mesh of several devices is a later
-step of the port.
+CPU with main(argv, device="cpu").  A run whose num_devices is above 1 (or
+0, with several cards) renders over the mesh, as rsn's eval does: one
+spawned rank per device (rsn_torch.parallel.mesh.launch), each image
+sharded over the ranks, rank 0 writing eval.json and the lines.
 """
 from __future__ import annotations
 
@@ -35,12 +37,14 @@ from rsn_torch.data.synthetic import Dataset
 def evaluate(field, dataset: Dataset, config, device="cpu",
              max_images: Optional[int] = None, proposal=None,
              lpips_net=None,
-             log: Optional[Callable[[str], None]] = None
+             log: Optional[Callable[[str], None]] = None, mesh=None
              ) -> Dict[str, Optional[float]]:
     """Mean metrics over the split's first max_images images (all by
     default), rendered on `device`.  lpips_net: the LPIPS to score with
     (None: no fine_lpips).  log: called with one line per image (its
-    render and metric seconds, LPIPS ms)."""
+    render and metric seconds, LPIPS ms).  mesh: every rank calls this,
+    each image renders sharded over the ranks, and each rank scores the
+    whole image."""
     from rsn_torch.engine.trainer import preferred_eval_chunk, render_image
     from rsn_torch.models.model import final_rgb
 
@@ -56,7 +60,7 @@ def evaluate(field, dataset: Dataset, config, device="cpu",
     for i in range(n):
         t0 = time.perf_counter()
         out = render_image(field, cams, i, config, rays_per_chunk=chunk,
-                           reflect_memo=memo, proposal=proposal)
+                           mesh=mesh, reflect_memo=memo, proposal=proposal)
         gt = dataset.images[i]
         fine = np.clip(final_rgb(out), 0, 1)
         gt_t = torch.as_tensor(gt, device=device)
@@ -90,8 +94,8 @@ def main(argv=None, device=None) -> int:
     """The CLI; device: the caller's choice of device (default the card)."""
     import argparse
 
-    from rsn_torch.cli.run_io import entry_device, load_run_full
-    from rsn_torch.data.blender import load_dataset
+    from rsn_torch.cli.run_io import entry_device, load_config
+    from rsn_torch.parallel import mesh as mesh_lib
 
     p = argparse.ArgumentParser(description="evaluate a trained run "
                                             "(PyTorch port)")
@@ -102,13 +106,25 @@ def main(argv=None, device=None) -> int:
     p.add_argument("--split", default=None,
                    help="override eval split (val/test)")
     ns = p.parse_args(argv)
-    device = entry_device(device)
+    device = str(entry_device(device))
+    k = mesh_lib.local_ranks_for(load_config(ns.load_dir).num_devices, 1,
+                                 device)
+    if k > 1:
+        mesh_lib.launch(eval_rank, k, (ns,), device=device)
+    else:
+        eval_rank(None, ns, device)
+    return 0
 
+
+def eval_rank(mesh, ns, device=None) -> None:
+    """The eval of one rank of `mesh` (of the whole run without one);
+    rank 0 writes eval.json and prints the lines."""
+    from rsn_torch.cli.run_io import load_run_full
+    from rsn_torch.data.blender import load_dataset
+
+    device = mesh.device if mesh is not None else torch.device(device)
+    primary = mesh is None or mesh.is_primary
     field, config, _, extras = load_run_full(ns.load_dir, device)
-    if config.num_devices > 1:
-        raise NotImplementedError(
-            f"num_devices={config.num_devices}: ROADMAP Queue 1: "
-            "rsn/parallel/mesh.py (data-parallel mesh) is not ported")
     dm = config.pipeline.datamanager
     # ns-eval convention: the test split for every parser
     dataset = load_dataset(dm.dataparser, dm.data or "", ns.split or "test",
@@ -117,12 +133,14 @@ def main(argv=None, device=None) -> int:
                        max_images=ns.max_images,
                        proposal=extras.get("proposal"),
                        lpips_net=metrics_lib.load_lpips(device),
-                       log=lambda line: print(line, flush=True))
+                       log=(lambda line: print(line, flush=True))
+                       if primary else None, mesh=mesh)
+    if not primary:
+        return
     out_path = ns.output_path or os.path.join(ns.load_dir, "eval.json")
     with open(out_path, "w") as f:
         json.dump(results, f, indent=2)
     print(json.dumps(results), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

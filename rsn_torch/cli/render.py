@@ -15,7 +15,11 @@ of a generated path (product-only renders: K2 on passes 1 and 3, K1 on 2
 and 4); --video also writes them as an mp4 through ffmpeg where it is on
 the path, else as an animated GIF (rsn_torch.utils.gif).  Renders on the
 CUDA card, and raises when torch sees none; a Python caller may ask for
-the CPU with main(argv, device="cpu").
+the CPU with main(argv, device="cpu").  A run whose num_devices is above
+1 (or 0, with several cards) renders over the mesh, as rsn's does: one
+spawned rank per device (rsn_torch.parallel.mesh.launch), each image
+sharded over the ranks (render_image's mesh), rank 0 writing the PNGs,
+the video and the lines.
 """
 from __future__ import annotations
 
@@ -322,15 +326,8 @@ def _generated_cameras(ns, p, reference: Cameras) -> Cameras:
     return orbit_cameras(reference, ns.num_frames)
 
 
-def main(argv=None, device=None) -> int:
-    """The CLI; device: the caller's choice of device (default the card)."""
+def _parser():
     import argparse
-
-    from rsn_torch.cli.run_io import entry_device, load_run_full
-    from rsn_torch.data.blender import load_cameras, load_dataset
-    from rsn_torch.data.cameras import rescale_cameras
-    from rsn_torch.engine.trainer import preferred_eval_chunk, render_image
-    from rsn_torch.models.model import final_rgb
 
     p = argparse.ArgumentParser(description="render a run (PyTorch port)")
     p.add_argument("--load-dir", required=True)
@@ -362,13 +359,46 @@ def main(argv=None, device=None) -> int:
                         "resolution -- downscale those with "
                         "--pipeline.datamanager.downscale-factor at "
                         "train time instead")
+    return p
+
+
+def main(argv=None, device=None) -> int:
+    """The CLI; device: the caller's choice of device (default the card)."""
+    from rsn_torch.cli.run_io import entry_device, load_config
+    from rsn_torch.parallel import mesh as mesh_lib
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    p = _parser()
     ns = p.parse_args(argv)
     if ns.mode == "split" and ns.downscale_factor != 1.0:
         p.error("--downscale-factor applies to generated camera paths; "
                 "split renders follow the dataset resolution "
                 "(use the datamanager downscale-factor)")
-    device = entry_device(device)
+    if ns.mode == "path" and not ns.camera_path:
+        p.error("--mode path requires --camera-path")
+    device = str(entry_device(device))
+    k = mesh_lib.local_ranks_for(load_config(ns.load_dir).num_devices, 1,
+                                 device)
+    if k > 1:
+        mesh_lib.launch(render_rank, k, (argv,), device=device)
+    else:
+        render_rank(None, argv, device)
+    return 0
 
+
+def render_rank(mesh, argv, device=None) -> None:
+    """The render of one rank of `mesh` (of the whole run without one):
+    every image sharded over the ranks, rank 0's files and lines."""
+    from rsn_torch.cli.run_io import load_run_full
+    from rsn_torch.data.blender import load_cameras, load_dataset
+    from rsn_torch.data.cameras import rescale_cameras
+    from rsn_torch.engine.trainer import preferred_eval_chunk, render_image
+    from rsn_torch.models.model import final_rgb
+
+    p = _parser()
+    ns = p.parse_args(argv)
+    device = mesh.device if mesh is not None else torch.device(device)
+    primary = mesh is None or mesh.is_primary
     field, config, _, extras = load_run_full(ns.load_dir, device)
     dm = config.pipeline.datamanager
     mcfg = config.pipeline.model
@@ -388,16 +418,20 @@ def main(argv=None, device=None) -> int:
         for i in range(n):
             t0 = time.perf_counter()
             out = render_image(field, cams, i, config, rays_per_chunk=chunk,
-                               reflect_memo=memo, proposal=proposal)
+                               mesh=mesh, reflect_memo=memo,
+                               proposal=proposal)
             seconds = time.perf_counter() - t0
+            if not primary:
+                continue
             panels = render_panels(out, dataset.images[i],
                                    mcfg.collider_near_plane,
                                    mcfg.collider_far_plane)
             for name, img in panels.items():
                 save_png(os.path.join(out_dir, f"{i:05d}-{name}.png"), img)
             print(f"rendered {i + 1}/{n}: {seconds:.4f} s", flush=True)
-        print(f"wrote {out_dir}")
-        return 0
+        if primary:
+            print(f"wrote {out_dir}")
+        return
 
     cams = _generated_cameras(ns, p, load_cameras(
         dm.dataparser, dm.data or "", ns.split, dm.downscale_factor,
@@ -408,12 +442,14 @@ def main(argv=None, device=None) -> int:
     for i in range(n):
         t0 = time.perf_counter()
         out = render_image(field, cams, i, config, rays_per_chunk=chunk,
-                           product_only=True, reflect_memo=memo,
+                           product_only=True, mesh=mesh, reflect_memo=memo,
                            proposal=proposal)
         seconds = time.perf_counter() - t0
         frame = final_rgb(out)
         if not np.isfinite(frame).all():
             raise RuntimeError(f"frame {i}: non-finite pixels")
+        if not primary:
+            continue
         save_png(os.path.join(out_dir, f"frame_{i:05d}.png"), frame)
         if ns.video:
             frames.append(np.clip(frame, 0, 1))
@@ -428,8 +464,8 @@ def main(argv=None, device=None) -> int:
         video = save_video(os.path.join(out_dir, f"{ns.mode}.mp4"), frames,
                            fps=ns.fps)
         print(f"wrote {video}")
-    print(f"wrote {out_dir}")
-    return 0
+    if primary:
+        print(f"wrote {out_dir}")
 
 
 if __name__ == "__main__":

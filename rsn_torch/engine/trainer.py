@@ -24,9 +24,22 @@ fine PSNR and SSIM, the coarse PSNR (not with the proposal), the panels
 in eval_images/ (log line {"eval_image_<k>"}).  A log line of the loop
 counts rays_per_sec from the start of train() and carries the reflect
 bucket after that step's controller decision; mask_fraction and
-reflect_overflow only with debug_telemetry.  A mesh of several devices is
-a later step of the port (ROADMAP.md).  steps_per_dispatch is read as 1:
-one step per loop iteration (a CUDA graph of several steps is later work).
+reflect_overflow only with debug_telemetry.  steps_per_dispatch is read
+as 1: one step per loop iteration (a CUDA graph of several steps is later
+work).
+
+With a mesh (rsn_torch.parallel.mesh: one rank per device, a process
+each), rsn's data-parallel step: every rank holds a replica (rank 0's,
+broadcast after init and after restore), draws its own
+train_num_rays_per_batch rays from its own generator (rank_seed), and one
+all-reduce averages every live group's gradients (field, proposal, pose
+deltas) before the optimizers step, as rsn's pmean does; the metrics are
+averaged where the host reads them (log, adapt, debug_nans), so every
+rank's controller takes the same decision.  Rank 0 owns the run dir (its
+timestamp broadcast), config.json, train_log.jsonl, the tensorboard
+writer and the checkpoints, which hold every rank's generator state; each
+rank writes its own profiler trace.  The eval image renders sharded over
+the ranks (render_image's mesh).
 
 With profile_dir, rsn's profiler window: a torch.profiler trace (the CPU,
 and CUDA on a card) from the loop's arrival at profile_start_step for
@@ -59,6 +72,7 @@ from rsn_torch.models import camera_opt
 from rsn_torch.models import model as model_lib
 from rsn_torch.models.field import Field
 from rsn_torch.models.proposal import ProposalField
+from rsn_torch.parallel import mesh as mesh_lib
 
 # Adaptive eval compaction: renders start at the remembered bucket and
 # re-render at a larger one whenever a chunk drops a masked ray, so the
@@ -70,6 +84,16 @@ REFLECT_HEADROOM = 0.1
 # controller keeps running
 REFLECT_ADAPT_FALLBACK_CADENCE = 100
 CAMERA_REG_KEY = "camera_opt_regularizer"
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank `rank`'s train draws.  Rank 0 draws with the run's
+    seed, the single device's stream; rank r > 0 with (seed + r *
+    0x9E3779B9) mod 2**32, the 32-bit golden-ratio step: distinct for
+    every rank in the low 32 bits, all of a seed that the CPU's generator
+    keeps, and far from the run's other seeds (seed + 1, the eval draws;
+    seed + 2, the proposal's init)."""
+    return seed if rank == 0 else (seed + rank * 0x9E3779B9) % 2**32
 
 
 def preferred_eval_chunk(config: TrainerConfig, device) -> int:
@@ -97,17 +121,23 @@ def render_image(field: Field, cameras: Cameras, camera_index: int,
     depth (orbit / path renders): passes 1 and 3 run density-only.
     reflect_memo: a dict the caller keeps across renders; it remembers
     the compaction bucket per (model config, chunk size).  The result
-    also carries "mask", the rays that took the reflected passes."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device render: ROADMAP Queue 1: rsn/parallel/mesh.py "
-            "is not ported")
+    also carries "mask", the rays that took the reflected passes.
+
+    mesh: every rank of the mesh calls this, and each renders its share
+    in rsn's layout: a global chunk of rays_per_chunk * world rays, rank
+    r's share its r-th sub-slice, so rank r renders the single device's
+    chunks r, r + world, ...; the re-render and the next bucket follow
+    the max over the ranks of the overflow and of the worst chunk's mask
+    fraction, and every rank returns the whole image (rsn's
+    process_allgather), equal to the single device's bit for bit."""
     mcfg = config.pipeline.model
     chunk = rays_per_chunk or mcfg.eval_num_rays_per_chunk
     H, W = cameras.height, cameras.width
     origins, dirs, pixel_area = generate_image_rays(cameras, camera_index)
     total = H * W
     starts = range(0, total, chunk)
+    if mesh is not None:
+        starts = starts[mesh.rank::mesh.world]
 
     if product_only:
         keep = ("mid_rgb_fine", "mid_reflect_fine", "accumulation_fine",
@@ -139,8 +169,7 @@ def render_image(field: Field, cameras: Cameras, camera_index: int,
             if "mid_reflect_fine" in out:
                 masks.append(out["mask"])
                 overflows.append(out["reflect_overflow"])
-        overflow = bool(overflows) and bool(torch.stack(overflows).amax() > 0)
-        return parts, masks, overflow
+        return parts, masks, overflows
 
     adaptive = (mcfg.adaptive_eval_reflect_fraction and mcfg.use_reflection
                 and mcfg.eval_reflect_ray_fraction >= 1.0)
@@ -150,12 +179,23 @@ def render_image(field: Field, cameras: Cameras, camera_index: int,
     while True:
         mcfg_b = (mcfg if frac >= 1.0 else dataclasses.replace(
             mcfg, eval_reflect_ray_fraction=frac))
-        parts, masks, overflow = render_all(mcfg_b)
-        if not adaptive or not masks:
+        parts, masks, overflows = render_all(mcfg_b)
+        if not adaptive:
             break
-        worst = torch.stack([m.float().mean() for m in masks]).amax()
-        need = min(1.0, float(worst) + REFLECT_HEADROOM)
-        if frac < 1.0 and overflow:
+        # (any overflow, the worst chunk's mask fraction, any mask), over
+        # every rank of a mesh
+        zero = torch.zeros((), device=origins.device)
+        stats = torch.stack([
+            torch.stack(overflows).amax().float() if overflows else zero,
+            torch.stack([m.float().mean() for m in masks]).amax()
+            if masks else zero, zero + bool(masks)])
+        if mesh is not None:
+            stats = mesh_lib.all_reduce_max(mesh, stats)
+        overflow, worst, any_mask = stats.tolist()
+        if not any_mask:
+            break
+        need = min(1.0, worst + REFLECT_HEADROOM)
+        if frac < 1.0 and overflow > 0:
             # straight to the bucket the observed mask needs (one re-render)
             frac = next(b for b in REFLECT_FRACTION_BUCKETS
                         if b > frac and b >= need)
@@ -164,10 +204,46 @@ def render_image(field: Field, cameras: Cameras, camera_index: int,
                               if b >= need)
         break
 
+    if mesh is not None:
+        return _gather_image(mesh, parts, masks, total, chunk, H, W)
     result = {k: torch.cat(v).reshape(H, W, -1).float().cpu().numpy()
               for k, v in parts.items()}
     if masks:
         result["mask"] = torch.cat(masks).reshape(H, W, 1).cpu().numpy()
+    return result
+
+
+def _gather_image(mesh, parts: Dict[str, list], masks: list, total: int,
+                  chunk: int, H: int, W: int) -> Dict[str, np.ndarray]:
+    """Every rank's chunks (render_image's layout) -> the whole image on
+    every rank: one all_gather_rows of each rank's rows, every output (and
+    the mask) as float32 columns, put back in the single device's chunk
+    order.  Rank 0, which always holds chunk 0, names the columns."""
+    if mesh.is_primary:
+        schema = [(k, v[0].reshape(v[0].shape[0], -1).shape[1])
+                  for k, v in parts.items()]
+        if masks:
+            schema.append(("mask", 1))
+    schema = mesh_lib.broadcast_object(
+        mesh, schema if mesh.is_primary else None)
+    cols = parts | ({"mask": masks} if masks else {})
+    mine = [torch.cat(cols[k]).reshape(-1, c).float() for k, c in schema
+            if cols.get(k)]
+    width = sum(c for _, c in schema)
+    local = (torch.cat(mine, dim=1) if mine
+             else torch.zeros((0, width), device=mesh.device))
+    ranks = mesh_lib.all_gather_rows(mesh, local)
+    # rank r's rows are its chunks r, r + world, ... in order
+    sizes = [min(chunk, total - s) for s in range(0, total, chunk)]
+    pieces = [list(torch.split(rows, sizes[r::mesh.world]))
+              for r, rows in enumerate(ranks)]
+    image = torch.cat([pieces[i % mesh.world][i // mesh.world]
+                       for i in range(len(sizes))]).cpu()
+    result, off = {}, 0
+    for k, c in schema:
+        block = image[:, off:off + c].reshape(H, W, c)
+        result[k] = (block > 0).numpy() if k == "mask" else block.numpy()
+        off += c
     return result
 
 
@@ -271,25 +347,28 @@ def routed_backward(loss_dict: Dict[str, torch.Tensor], params,
     return total
 
 
-def _check_slice(config: TrainerConfig) -> None:
-    """Raise on what the training slice of the port leaves out."""
-    if config.num_devices > 1:
-        raise NotImplementedError(
-            f"num_devices={config.num_devices}: ROADMAP Queue 1: "
-            "rsn/parallel/mesh.py (data-parallel mesh) is not ported")
-
-
 class Trainer:
     """Run dir, config.json and train_log.jsonl; one training step per
     loop iteration; the adaptive reflect-fraction controller; the eval
     hooks; checkpoints every steps_per_save steps and at the end;
-    restore."""
+    restore.  mesh: this rank's mesh (rsn_torch.parallel.mesh), for a
+    group of any size; the trainer then runs on the mesh's device."""
 
     def __init__(self, config: TrainerConfig, run_dir: Optional[str] = None,
-                 device="cuda"):
-        _check_slice(config)
+                 device="cuda", mesh: Optional[mesh_lib.Mesh] = None):
+        if mesh is None and config.num_devices > 1:
+            raise ValueError(
+                f"num_devices={config.num_devices} outside a process group: "
+                "each rank builds its Trainer with its mesh, in processes "
+                "that rsn_torch.parallel.mesh.launch (or torchrun) starts; "
+                "the train CLI does it for --num-devices N and --multihost")
         self.config = config
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.rank = mesh.rank if mesh is not None else 0
+        self.num_devices = mesh.world if mesh is not None else 1
+        self.is_primary = self.rank == 0
+        self.device = mesh.device if mesh is not None else torch.device(
+            device)
         dm = config.pipeline.datamanager
         self.train_ds = load_dataset(dm.dataparser, dm.data or "", "train",
                                      dm.downscale_factor, dm.scale_factor)
@@ -301,13 +380,17 @@ class Trainer:
         except FileNotFoundError:
             self.eval_ds = self.train_ds
         if run_dir is None:
-            ts = time.strftime("%Y-%m-%d_%H%M%S", time.localtime())
+            t = time.time()
+            if mesh is not None:  # rank 0's clock names the run dir
+                t = mesh_lib.broadcast_object(mesh, t)
+            ts = time.strftime("%Y-%m-%d_%H%M%S", time.localtime(t))
             run_dir = os.path.join(config.output_dir, config.experiment_name,
                                    config.method_name, ts)
         self.run_dir = run_dir
         self.ckpt_dir = os.path.join(run_dir, "checkpoints")
         os.makedirs(self.ckpt_dir, exist_ok=True)
-        ckpt_lib.dump_config(run_dir, config)
+        if self.is_primary:
+            ckpt_lib.dump_config(run_dir, config)
 
         self.field = Field(torch.Generator().manual_seed(config.seed)).to(
             self.device)
@@ -332,7 +415,7 @@ class Trainer:
         self.eval_images = torch.as_tensor(self.eval_ds.images).to(self.device)
         self.eval_cameras = self.eval_ds.cameras.to(self.device)
         self.generator = torch.Generator(self.device).manual_seed(
-            config.seed)
+            rank_seed(config.seed, self.rank))
         self.eval_generator = torch.Generator(self.device).manual_seed(
             config.seed + 1)
         self._eval_image_cursor = 0
@@ -343,20 +426,55 @@ class Trainer:
         self._adapt_cadence = (config.steps_per_log
                                if config.steps_per_log > 0
                                else REFLECT_ADAPT_FALLBACK_CADENCE)
-        self._log_file = open(os.path.join(run_dir, "train_log.jsonl"), "a")
+        if mesh is not None:
+            self._broadcast_replicas()
+        self._log_file = (open(os.path.join(run_dir, "train_log.jsonl"), "a")
+                          if self.is_primary else None)
         self._tb = None
-        if config.vis == "tensorboard":
+        if config.vis == "tensorboard" and self.is_primary:
             try:
                 from tensorboardX import SummaryWriter
                 self._tb = SummaryWriter(os.path.join(run_dir, "tb"))
             except Exception:
                 pass
 
+    def _broadcast_replicas(self) -> None:
+        """Rank 0's field, proposal field and pose deltas on every rank."""
+        mesh_lib.broadcast_module(self.mesh, self.field)
+        if self.proposal is not None:
+            mesh_lib.broadcast_module(self.mesh, self.proposal)
+        if self.camera is not None:
+            mesh_lib.broadcast_(self.mesh, [self.camera])
+
     # ---- one step ----
+
+    def live_params(self) -> list:
+        """The trained tensors of every live group: the field's, the
+        proposal field's, the pose deltas."""
+        params = list(self.field.parameters())
+        if self.proposal is not None:
+            params += list(self.proposal.parameters())
+        if self.camera is not None:
+            params.append(self.camera)
+        return params
 
     def train_step(self) -> Dict[str, torch.Tensor]:
         """One optimizer step -> this step's losses and telemetry, as
-        device scalars (no host sync)."""
+        device scalars (no host sync).  With a mesh, one all-reduce
+        averages every live group's gradients over the ranks first."""
+        metrics, groups = self.forward_backward()
+        if self.mesh is not None:
+            mesh_lib.average_gradients(self.mesh, self.live_params())
+        for opt, sched in groups:
+            opt.step()
+            sched.step()
+        self.step += 1
+        return metrics
+
+    def forward_backward(self):
+        """This rank's batch from its generator: forward, losses, and the
+        backward into every live group's .grad -> (the step's losses and
+        telemetry, the live groups' (optimizer, schedule))."""
         cfg = self.config
         mcfg = cfg.pipeline.model
         if self._reflect_frac != mcfg.reflect_ray_fraction:
@@ -394,14 +512,10 @@ class Trainer:
         for opt, _ in groups:
             opt.zero_grad(set_to_none=True)
         total = routed_backward(loss_dict, params, cam)
-        for opt, sched in groups:
-            opt.step()
-            sched.step()
-        self.step += 1
         return dict({k: v.detach() for k, v in loss_dict.items()},
                     total_loss=total.detach(),
                     mask_fraction=outputs["mask"].float().mean(),
-                    reflect_overflow=outputs["reflect_overflow"])
+                    reflect_overflow=outputs["reflect_overflow"]), groups
 
     # ---- the adaptive reflect-fraction controller (rsn trainer) ----
 
@@ -432,33 +546,60 @@ class Trainer:
             self._reflect_down_votes = 0
 
     def _set_reflect_fraction(self, frac: float) -> None:
-        print(f"reflect compaction: fraction -> {frac:g}", flush=True)
+        if self.is_primary:
+            print(f"reflect compaction: fraction -> {frac:g}", flush=True)
         self._reflect_frac = frac
 
     # ---- checkpoints ----
 
     def save(self) -> str:
-        return ckpt_lib.save_checkpoint(
-            self.ckpt_dir, self.step, self.field, self.optimizer,
-            self.scheduler, {"reflect_fraction": self._reflect_frac,
-                             "reflect_down_votes": self._reflect_down_votes,
-                             "generator": self.generator.get_state(),
-                             "eval_generator":
-                                 self.eval_generator.get_state()},
-            proposal=self.proposal, proposal_optimizer=self.prop_optimizer,
-            proposal_scheduler=self.prop_scheduler, camera=self.camera,
-            camera_optimizer=self.cam_optimizer,
-            camera_scheduler=self.cam_scheduler)
+        """Write this step's checkpoint (rank 0; "generator" is its draws'
+        state, and with several ranks "rank_generators" holds every
+        rank's, gathered) -> its path.  Every rank of a mesh takes part
+        and leaves after the write."""
+        trainer = {"reflect_fraction": self._reflect_frac,
+                   "reflect_down_votes": self._reflect_down_votes,
+                   "generator": self.generator.get_state(),
+                   "eval_generator": self.eval_generator.get_state()}
+        if self.num_devices > 1:
+            trainer["rank_generators"] = mesh_lib.all_gather_object(
+                self.mesh, self.generator.get_state())
+        path = os.path.join(self.ckpt_dir, f"step-{self.step:09d}.pt")
+        if self.is_primary:
+            path = ckpt_lib.save_checkpoint(
+                self.ckpt_dir, self.step, self.field, self.optimizer,
+                self.scheduler, trainer, proposal=self.proposal,
+                proposal_optimizer=self.prop_optimizer,
+                proposal_scheduler=self.prop_scheduler, camera=self.camera,
+                camera_optimizer=self.cam_optimizer,
+                camera_scheduler=self.cam_scheduler)
+        if self.mesh is not None:
+            mesh_lib.barrier(self.mesh)
+        return path
+
+    def _read_checkpoint(self, load_dir: str):
+        """The latest checkpoint under load_dir, read by rank 0 and
+        broadcast: every rank restores rank 0's bytes."""
+        state = None
+        if self.is_primary:
+            path = ckpt_lib.latest_checkpoint(load_dir)
+            state = (ckpt_lib.load_checkpoint(path) if path is not None
+                     else FileNotFoundError(f"no checkpoints under "
+                                            f"{load_dir}"))
+        if self.mesh is not None:
+            state = mesh_lib.broadcast_object(self.mesh, state)
+        if isinstance(state, Exception):
+            raise state
+        return state
 
     def restore(self, load_dir: str) -> None:
         """Resume from the latest checkpoint under load_dir (a run's
         checkpoints directory): field, optimizer, schedule, step, the
         controller state, the proposal field and the camera deltas, each
-        with its optimizer and schedule."""
-        path = ckpt_lib.latest_checkpoint(load_dir)
-        if path is None:
-            raise FileNotFoundError(f"no checkpoints under {load_dir}")
-        state = ckpt_lib.load_checkpoint(path)
+        with its optimizer and schedule, and the draws: with several
+        ranks, each rank's own state (a rank the checkpoint has no state
+        for keeps its seed's)."""
+        state = self._read_checkpoint(load_dir)
         self.field.load_state_dict(state["field"])
         self.step = int(state["step"])
         if "optimizer" in state:
@@ -485,8 +626,9 @@ class Trainer:
         self._reflect_frac = max(float(trainer.get("reflect_fraction",
                                                    floor)), floor)
         self._reflect_down_votes = int(trainer.get("reflect_down_votes", 0))
-        if "generator" in trainer:
-            self.generator.set_state(trainer["generator"])
+        gens = trainer.get("rank_generators") or [trainer.get("generator")]
+        if self.rank < len(gens) and gens[self.rank] is not None:
+            self.generator.set_state(gens[self.rank])
         if "eval_generator" in trainer:
             self.eval_generator.set_state(trainer["eval_generator"])
 
@@ -513,6 +655,7 @@ class Trainer:
         out = render_image(self.field, self.eval_cameras, idx, self.config,
                            rays_per_chunk=preferred_eval_chunk(self.config,
                                                                self.device),
+                           mesh=self.mesh,
                            reflect_memo=self._eval_reflect_memo,
                            proposal=self.proposal)
         gt = self.eval_ds.images[idx]
@@ -527,6 +670,8 @@ class Trainer:
                                      device=self.device)
             m["coarse_psnr"] = float(psnr(coarse, gt_t))
         m["psnr"] = m["fine_psnr"]
+        if not self.is_primary:
+            return m
         img_dir = os.path.join(self.run_dir, "eval_images")
         os.makedirs(img_dir, exist_ok=True)
         panels = render_panels(out, gt, mcfg.collider_near_plane,
@@ -538,11 +683,35 @@ class Trainer:
     # ---- the loop ----
 
     def _log(self, step: int, metrics: Dict[str, float]) -> None:
+        if self._log_file is None:  # a rank other than 0
+            return
         self._log_file.write(json.dumps({"step": step, **metrics}) + "\n")
         self._log_file.flush()
         if self._tb is not None:
             for k, v in metrics.items():
                 self._tb.add_scalar(k, v, step)
+
+    def _host_metrics(self, metrics: Dict[str, torch.Tensor]
+                      ) -> Dict[str, float]:
+        """The step's metrics on the host, sorted as rsn's device_get of
+        the metrics pytree; with a mesh, their mean over the ranks (one
+        all-reduce), so every rank reads the same values."""
+        keys = sorted(metrics)
+        if self.mesh is None:
+            return {k: float(metrics[k]) for k in keys}
+        (mean,) = mesh_lib.all_reduce_mean(
+            self.mesh, [torch.stack([metrics[k].float() for k in keys])])
+        return dict(zip(keys, mean.tolist()))
+
+    def _print_line(self, values: Dict[str, float], rays_s: float) -> None:
+        if not self.is_primary:
+            return
+        losses = " ".join(f"{k}={values[k]:.6g}" for k in sorted(values)
+                          if k.startswith(("loss", "predicted", "orientation",
+                                           "interlevel", "distortion")))
+        print(f"step {self.step}: loss={values['total_loss']:.6g} {losses} "
+              f"mask fraction {values['mask_fraction']:.4f}, reflect bucket "
+              f"{self._reflect_frac:g}, {rays_s:.1f} rays/s", flush=True)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -569,15 +738,16 @@ class Trainer:
         self._sync()
         prof.stop()
         os.makedirs(self.config.profile_dir, exist_ok=True)
+        rank = f"_rank{self.rank}" if self.num_devices > 1 else ""
         path = os.path.join(self.config.profile_dir,
                             f"trace_step{start:06d}_to_step{self.step:06d}"
-                            ".json")
+                            f"{rank}.json")
         prof.export_chrome_trace(path)
 
     def train(self, max_steps: Optional[int] = None) -> Dict[str, float]:
         """Train to max_steps (default max_num_iterations), with rsn's log
         lines: at each log step {"rays_per_sec" (from the start of this
-        call), losses, total_loss, reflect_fraction (after the step's
+        call, the rays of every rank), losses, total_loss, reflect_fraction (after the step's
         controller decision)[, mask_fraction, reflect_overflow with
         debug_telemetry]}, then the eval hooks' lines at their cadences;
         the profiler window from the loop's arrival at profile_start_step.
@@ -603,8 +773,7 @@ class Trainer:
                          and hit(self._adapt_cadence))
             log_now = hit(cfg.steps_per_log) or first
             if cfg.debug_nans or adapt_now or log_now:
-                # sorted, as rsn's device_get of the metrics pytree
-                values = {k: float(metrics[k]) for k in sorted(metrics)}
+                values = self._host_metrics(metrics)
                 if cfg.debug_nans and not math.isfinite(values["total_loss"]):
                     raise FloatingPointError(
                         f"step {self.step}: non-finite loss {values}")
@@ -613,24 +782,14 @@ class Trainer:
             if log_now:
                 first = False
                 self._sync()
-                rays_s = ((self.step - step0) * num_rays
+                rays_s = ((self.step - step0) * num_rays * self.num_devices
                           / (time.perf_counter() - t0))
                 logged = dict(values, reflect_fraction=self._reflect_frac)
                 if not cfg.debug_telemetry:
                     logged.pop("mask_fraction")
                     logged.pop("reflect_overflow")
                 self._log(self.step, {"rays_per_sec": rays_s, **logged})
-                losses = " ".join(f"{k}={values[k]:.6g}"
-                                  for k in sorted(values)
-                                  if k.startswith(("loss", "predicted",
-                                                   "orientation",
-                                                   "interlevel",
-                                                   "distortion")))
-                print(f"step {self.step}: loss={values['total_loss']:.6g} "
-                      f"{losses} mask fraction "
-                      f"{values['mask_fraction']:.4f}, reflect bucket "
-                      f"{self._reflect_frac:g}, {rays_s:.1f} rays/s",
-                      flush=True)
+                self._print_line(values, rays_s)
                 last = logged
             if hit(cfg.steps_per_eval_batch):
                 self._log(self.step, self.eval_batch())
@@ -638,8 +797,9 @@ class Trainer:
                 m = self._eval_image(self.step)
                 self._log(self.step,
                           {f"eval_image_{k}": v for k, v in m.items()})
-                print(f"step {self.step}: eval image psnr={m['psnr']:.2f}",
-                      flush=True)
+                if self.is_primary:
+                    print(f"step {self.step}: eval image psnr="
+                          f"{m['psnr']:.2f}", flush=True)
             if hit(cfg.steps_per_save) or self.step == max_steps:
                 self.save()
         if prof is not None:  # the window outlived the loop

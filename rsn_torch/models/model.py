@@ -32,8 +32,9 @@ ray-level diff / tint / pred-normals / n.d, the reflected weights, the
 roughness into the directional encoding, the reflected rays' origins and
 directions, the PDF bins.
 
-A device mesh (several cards, rsn/parallel/mesh.py) is a later step of
-the port (ROADMAP.md Queue 1).
+One device's work: with several (rsn_torch.parallel.mesh), each rank
+runs these functions on its own rays, and the trainer averages the
+gradients.
 """
 from __future__ import annotations
 

@@ -210,7 +210,3 @@ def test_eval_cli_writes_the_five_keys(weights, tmp_path, monkeypatch,
     with open(os.path.join(prun, "eval.json")) as f:
         res = json.load(f)
     assert res["coarse_psnr"] is None and np.isfinite(res["fine_psnr"])
-
-    tckpt.dump_config(run, dataclasses.replace(cfg, num_devices=2))
-    with pytest.raises(NotImplementedError, match="rsn/parallel/mesh.py"):
-        teval.main(["--load-dir", run], device="cpu")

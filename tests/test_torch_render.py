@@ -204,18 +204,8 @@ def _read_cmyk_jpeg_frame():
 def _not_ported_calls():
     """Each "not ported" error of the port, as a call and the rsn module
     it must name."""
-    from rsn_torch import configs as tconfigs
-    from rsn_torch.cli import train as ttrain_cli
-
     return {
         "cmyk jpeg frame": (_read_cmyk_jpeg_frame, "rsn/data/blender.py"),
-        "multi-device render": (lambda: ttrainer.render_image(
-            None, None, 0, None, mesh=object()), "rsn/parallel/mesh.py"),
-        "num_devices": (lambda: ttrainer._check_slice(
-            tconfigs.TrainerConfig(num_devices=2)), "rsn/parallel/mesh.py"),
-        "multi-host training": (lambda: ttrain_cli.main(
-            ["reflect-sampling-nerf", "--multihost"], device="cpu"),
-            "rsn/parallel/mesh.py"),
     }
 
 

@@ -435,8 +435,35 @@ def test_entry_points_need_the_card_unless_asked(tmp_path):
         trender_cli.main(["--load-dir", str(tmp_path), "--mode", "orbit"])
 
 
+def test_train_cli_num_devices_trains_ranks(tmp_path, capfd):
+    """--num-devices 2 with the CPU asked for: two gloo ranks (spawned
+    processes), rank 0's run dir, log and checkpoint."""
+    argv = ["reflect-sampling-nerf", "--data", "sphere:res=8,cams=2",
+            "--pipeline.datamanager.dataparser", "synthetic",
+            "--pipeline.model.compute-dtype", "bfloat16",
+            "--pipeline.datamanager.train-num-rays-per-batch", "16",
+            "--pipeline.model.num-coarse-samples", "8",
+            "--pipeline.model.num-importance-samples", "8",
+            "--pipeline.model.num-reflect-coarse-samples", "8",
+            "--pipeline.model.num-reflect-importance-samples", "8",
+            "--max-num-iterations", "2", "--steps-per-log", "1",
+            "--num-devices", "2", "--output-dir", str(tmp_path)]
+    assert ttrain_cli.main(argv, device="cpu") == 0
+    out = capfd.readouterr().out
+    assert out.count("run dir:") == 1 and "(2 device(s): cpu)" in out
+    assert out.count("step 2:") == 1
+    (run,) = [os.path.join(r, d) for r, ds, _ in os.walk(tmp_path)
+              for d in ds if d == "checkpoints"]
+    run = os.path.dirname(run)
+    assert trun_io.load_config(run).num_devices == 2
+    with open(os.path.join(run, "train_log.jsonl")) as f:
+        assert [json.loads(line)["step"] for line in f] == [1, 2]
+    state = tckpt.load_checkpoint(os.path.join(
+        run, "checkpoints", "step-000000002.pt"))
+    assert len(state["trainer"]["rank_generators"]) == 2
+
+
 @pytest.mark.parametrize("flags,match", [
-    pytest.param(["--num-devices", "4"], "mesh", id="flags1-mesh"),
     # the dataparsers and JPEG frames are ported; a CMYK JPEG frame is not
     pytest.param(["--pipeline.datamanager.dataparser", "blender",
                   "--data", "{jpeg_scene}"], "JPEG",
