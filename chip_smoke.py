@@ -260,8 +260,10 @@ Phases, each announced on its own line:
                 tensorboard; the second with --profile-dir over
                 JPEG_PROFILE): finite log lines, K3-K5 launched, no tb
                 writer where tensorboardX is missing, one Chrome trace
-                holding JPEG_PROFILE's RAdam steps and CUDA kernel events
-                of the hand-written kernels; each run's host ms per step
+                holding JPEG_PROFILE's steps (a RAdam annotation for an
+                eager step, a Trainer.train_step#graph_replay one for a
+                replay) and CUDA kernel events of the hand-written
+                kernels; each run's host ms per step
                 and the host's us per launch before the runs and after
                 each (whether the window's cost outlasts it); `python -m
                 rsn_torch.cli.eval --max-images 1`: eval.json's five keys
@@ -291,7 +293,27 @@ Phases, each announced on its own line:
                 4; a warm-up render first), each rank's seconds and
                 launches; the whole frame on each rank == this process's
                 single-rank render, bit for bit.
-  23. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
+  23. graphed dispatch — the train loop's chunks on the card are replays
+                of a CUDA graph of one whole step (rsn_torch.engine.trainer):
+                on the default method, the preset (K9 on in the eval
+                batches) and the camera-on recompute route, each at full
+                width on the sphere at 800x800 from seed 3, train() over
+                DISPATCH_STEPS steps (log and controller every 10, an
+                eval batch every 20, past the warmup's step 50) against
+                as many eager train_step calls with the loop's controller
+                and eval batches: every parameter, the optimizers' state,
+                the generators' states, the logged losses and eval
+                batches bit for bit, the launches equal; each capture's
+                seconds and replays, the peak memory allocated each way,
+                ms per step graphed against eager in turns (host clock
+                and CUDA events), the launches per step the replays
+                report, the device's idle share each way over a
+                torch.profiler window.  On the default method: a bucket
+                forced at step 30 (a second capture) against the eager
+                steps, bit for bit; a save at step 30 restored into a new
+                Trainer and graphed to step 60 == the uninterrupted run,
+                every tensor bit for bit.
+  24. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
 
 Any failed check raises: the script then exits non-zero and prints no
 result.  It imports neither jax nor PIL, nor anything of the JAX package.
@@ -816,8 +838,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as mesh_tmp:
         multi_device_phase(card, mesh_tmp)
 
-    # ---- 23. result ----
-    phase("phase 23: result")
+    # ---- 23. the train loop's chunks as CUDA graph replays ----
+    with tempfile.TemporaryDirectory() as dispatch_tmp:
+        graphed_dispatch_phase(card, dispatch_tmp)
+
+    # ---- 24. result ----
+    phase("phase 24: result")
     kernels = []
     for name, source, line in KERNEL_ROWS:
         r = results[name]
@@ -1019,6 +1045,324 @@ def multi_device_phase(card, tmp: str) -> None:
           f"the single rank's {single_s:.4f} s (host clock, after a "
           f"warm-up render; {card})", flush=True)
     print(f"  phase 22: {time.perf_counter() - start:.1f} s", flush=True)
+
+
+DISPATCH_STEPS = 60    # phase 23's runs: log every 10 (the controller's
+                       # cadence too), an eval batch every 20, past the
+                       # warmup's step 50
+DISPATCH_TIMED = 20    # steps per timed turn (graphed, eager, eager,
+                       # graphed)
+DISPATCH_PROFILED = 5  # steps in each profiler window
+
+
+def dispatch_config(route: str):
+    """Phase 23's config of `route` (default, preset, camera): full width,
+    the sphere at FRAME_RES, seed SEED, DISPATCH_STEPS steps."""
+    if route == "preset":
+        config = smoke_config("reflect-sampling-nerf-proposal",
+                              use_pallas_proposal=True)
+    else:
+        config = smoke_config()
+    if route == "camera":
+        config = with_route(config, True, False)
+    return dataclasses.replace(
+        config, steps_per_log=10, steps_per_eval_batch=20,
+        steps_per_eval_image=0, steps_per_save=0,
+        max_num_iterations=DISPATCH_STEPS, seed=SEED)
+
+
+def trainer_tensors(tr) -> dict:
+    """Every tensor a trainer carries from step to step, on the host: the
+    live parameters, each optimizer's state, the train and eval draws'
+    generator states."""
+    out = {f"param {i}": p.detach().cpu()
+           for i, p in enumerate(tr.live_params())}
+    for name, opt in (("field", tr.optimizer), ("proposal", tr.prop_optimizer),
+                      ("camera", tr.cam_optimizer)):
+        if opt is not None:
+            for i, st in enumerate(opt.state.values()):
+                for k, v in st.items():
+                    out[f"{name} optimizer {i} {k}"] = v.detach().cpu()
+    out["generator"] = tr.generator.get_state()
+    out["eval generator"] = tr.eval_generator.get_state()
+    return out
+
+
+def differing(want: dict, got: dict) -> list:
+    """The keys whose tensors differ (in any bit, or in shape / dtype)."""
+    import torch
+
+    return [k for k in want if k not in got
+            or not torch.equal(want[k], got[k])] + sorted(set(got) - set(want))
+
+
+def eager_steps(tr, until: int, force=None):
+    """train_step from tr.step to `until` with the loop's host work: at
+    each log step (also the controller's) the metrics and the
+    controller's decision, at each eval-batch step the eval batch; force
+    (step, bucket) sets the bucket there -> {step: the logged metrics,
+    and the eval batch's}."""
+    cfg = tr.config
+    lines = {}
+    while tr.step < until:
+        if force and tr.step == force[0]:
+            tr._set_reflect_fraction(force[1])
+        m = tr.train_step()
+        if tr.step % cfg.steps_per_log == 0:
+            values = tr._host_metrics(m)
+            tr._maybe_adapt_reflect_fraction(values)
+            lines[tr.step] = values
+        if tr.step % cfg.steps_per_eval_batch == 0:
+            lines[tr.step] = dict(lines.get(tr.step, {}), **tr.eval_batch())
+    return lines
+
+
+def logged_losses(run_dir: str) -> dict:
+    """{step: the values of its train and eval-batch lines} of a run's
+    train_log.jsonl."""
+    out = {}
+    with open(os.path.join(run_dir, "train_log.jsonl")) as fh:
+        for e in map(json.loads, fh):
+            out.setdefault(e.pop("step"), {}).update(e)
+    return out
+
+
+def same_losses(eager: dict, graphed: dict) -> bool:
+    """The graphed run's log lines hold the eager steps' values (losses,
+    eval batches) bit for bit (json carries a float exactly), at the same
+    steps."""
+    return sorted(eager) == sorted(graphed) and all(
+        graphed[s][k] == v for s, vals in eager.items()
+        for k, v in vals.items() if k not in ("mask_fraction",
+                                              "reflect_overflow"))
+
+
+def device_idle_shares(windows, tmp: str) -> dict:
+    """Each (tag, fn) of `windows` in turn under one torch.profiler
+    session, each fn ending in a sync -> {tag: the share of its window,
+    from its start to the sync, in which no kernel, copy or fill ran on
+    the card (the union of their trace intervals)}.  One session: where
+    the process holds CUDA graphs, CUPTI's re-initialisation after a
+    session's teardown (TEARDOWN_CUPTI=1, which the trainer's profiler
+    window sets) has traced no device work in a later session."""
+    import torch
+
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for tag, fn in windows:
+            with torch.profiler.record_function(f"phase23 {tag}"):
+                fn()
+                torch.cuda.synchronize()
+    path = os.path.join(tmp, "phase23_windows.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    device = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+              for e in events if e.get("cat") in (
+                  "kernel", "gpu_memcpy", "gpu_memset")]
+    out = {}
+    for tag, _ in windows:
+        (win,) = [e for e in events if e.get("name") == f"phase23 {tag}"
+                  and e.get("cat") == "user_annotation"]
+        lo, hi = float(win["ts"]), float(win["ts"]) + float(win["dur"])
+        spans = sorted((max(lo, a), min(hi, b)) for a, b in device
+                       if b > lo and a < hi)
+        if not spans:
+            raise RuntimeError(f"the {tag} window traced no device work")
+        busy, end = 0.0, lo
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        out[tag] = 1.0 - busy / (hi - lo)
+    return out
+
+
+def timed_steps(tr, graphed: bool, steps: int):
+    """`steps` steps of tr, replays of its captured step or eager
+    train_step calls, from a sync to a sync -> (host ms per step, ms per
+    step between CUDA events at the ends)."""
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    if graphed:
+        tr._run_chunk(steps)
+    else:
+        for _ in range(steps):
+            tr.train_step()
+    end.record()
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3 / steps,
+            start.elapsed_time(end) / steps)
+
+
+def dispatch_route(route: str, card, tmp: str):
+    """Phase 23 on one route: DISPATCH_STEPS eager train_step calls (the
+    loop's controller and reads), then train() graphed, from the same
+    seed: every tensor and the logged losses bit for bit; the captures,
+    replays, peaks, launches per step, ms per step in turns -> (the
+    graphed trainer, its tensors after train())."""
+    import torch
+
+    from rsn_torch.engine.trainer import Trainer
+    from rsn_torch.kernels import field_forward as ff
+
+    config = dispatch_config(route)
+    torch.cuda.reset_peak_memory_stats()
+    eager = Trainer(config, run_dir=os.path.join(tmp, f"{route}_eager"))
+    ff.reset_launch_counts()
+    lines = eager_steps(eager, DISPATCH_STEPS)
+    torch.cuda.synchronize()
+    eager_launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+    eager_peak = torch.cuda.max_memory_allocated()
+    want = trainer_tensors(eager)
+    del eager
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    run = os.path.join(tmp, f"{route}_graphed")
+    tr = Trainer(config, run_dir=run)
+    ff.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        tr.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    graphed_launches = {k: v for k, v in ff.LAUNCHES.items() if v}
+    graphed_peak = torch.cuda.max_memory_allocated()
+    got = trainer_tensors(tr)
+    bad = differing(want, got)
+    losses = same_losses(lines, logged_losses(run))
+    print(f"  [{route}] train() graphed == {DISPATCH_STEPS} eager "
+          f"train_step calls: {len(want)} tensors (every parameter, the "
+          f"optimizers' state, the generators' states) bit for bit: "
+          f"{not bad}{'' if not bad else ' ' + str(bad[:8])}; the logged "
+          f"losses and eval batches at steps {sorted(lines)}: {losses}; "
+          f"reflect bucket "
+          f"{tr._reflect_frac:g}", flush=True)
+    if bad or not losses:
+        raise RuntimeError(f"{route}: the graphed steps differ from the "
+                           "eager ones")
+    if eager_launches != graphed_launches:
+        raise RuntimeError(f"{route}: the replays' launch counts "
+                           f"{graphed_launches} are not the eager steps' "
+                           f"{eager_launches}")
+    print(f"  [{route}] captured steps: " + "; ".join(
+        f"bucket {frac:g}: capture {c.seconds:.4f} s, {c.replays} replays, "
+        f"per step {c.launches}" for frac, c in tr.graphs.items())
+        + f"; train() {train_s:.3f} s for {DISPATCH_STEPS} steps (host "
+        f"clock, the captures and eval batches in it); launches in the run "
+        f"== the eager steps' ({sum(graphed_launches.values())}); peak "
+        f"memory allocated {graphed_peak / 2**30:.4f} GiB graphed, "
+        f"{eager_peak / 2**30:.4f} GiB eager (torch.cuda."
+        f"max_memory_allocated over the trainer's life; {card})",
+        flush=True)
+
+    # ms per step in turns on the graphed trainer (it keeps training);
+    # each captured step's launches per replay
+    turns = {"graphed": [], "eager": []}
+    for way in ("graphed", "eager", "eager", "graphed"):
+        ff.reset_launch_counts()
+        turns[way].append(timed_steps(tr, way == "graphed", DISPATCH_TIMED))
+        if way == "graphed":
+            per = {k: v / DISPATCH_TIMED for k, v in ff.LAUNCHES.items() if v}
+    print(f"  [{route}] ms per step, {DISPATCH_TIMED} steps a turn, turns "
+          f"graphed, eager, eager, graphed: host clock graphed "
+          f"{[round(h, 4) for h, _ in turns['graphed']]}, eager "
+          f"{[round(h, 4) for h, _ in turns['eager']]}; CUDA events graphed "
+          f"{[round(d, 4) for _, d in turns['graphed']]}, eager "
+          f"{[round(d, 4) for _, d in turns['eager']]}; launches per step "
+          f"the replays report {per} ({card})", flush=True)
+    return tr, got
+
+
+def graphed_dispatch_phase(card, tmp: str) -> None:
+    """Phase 23: the train loop's chunks as replays of a captured step
+    against eager steps, bit for bit, on the default method, the preset
+    and the camera-on recompute route; a bucket changed mid-run; a save
+    and restore into a new Trainer."""
+    import torch
+
+    from rsn_torch.engine.trainer import REFLECT_FRACTION_BUCKETS, Trainer
+
+    phase(f"phase 23: graphed dispatch: train() of {DISPATCH_STEPS} "
+          f"full-width steps as CUDA graph replays against eager steps "
+          f"(default, preset, camera-on recompute route; a bucket change; "
+          f"save and restore), sphere at {FRAME_RES}x{FRAME_RES}")
+    start = time.perf_counter()
+    trainers, uninterrupted = {}, None
+    for route in ("default", "preset", "camera"):
+        trainers[route], got = dispatch_route(route, card, tmp)
+        if route == "default":
+            uninterrupted = got
+    # every route's idle share each way, after every timed turn (a trace
+    # slows the launches after it)
+    idle = device_idle_shares([
+        (f"{route} {way}", lambda tr=tr, way=way: timed_steps(
+            tr, way == "graphed", DISPATCH_PROFILED))
+        for route, tr in trainers.items() for way in ("graphed", "eager")],
+        tmp)
+    print(f"  device idle share over {DISPATCH_PROFILED} steps each "
+          f"(torch.profiler, one session): " + "; ".join(
+              f"{tag} {v:.4f}" for tag, v in idle.items()) + f" ({card})",
+          flush=True)
+    del trainers
+    torch.cuda.empty_cache()
+
+    # a bucket forced at step 30: a second capture, the same bits
+    config = dispatch_config("default")
+    half = DISPATCH_STEPS // 2
+    eager = Trainer(config, run_dir=os.path.join(tmp, "bucket_eager"))
+    eager_steps(eager, half)
+    # a bucket between the floor and 1.0 that the run is not in
+    floor = config.pipeline.model.reflect_ray_fraction
+    bucket = max(b for b in REFLECT_FRACTION_BUCKETS
+                 if floor < b < 1.0 and b != eager._reflect_frac)
+    eager_steps(eager, DISPATCH_STEPS, force=(half, bucket))
+    want = trainer_tensors(eager)
+    del eager
+    tr = Trainer(config, run_dir=os.path.join(tmp, "bucket_graphed"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        tr.train(half)
+        tr._set_reflect_fraction(bucket)
+        tr.train(DISPATCH_STEPS)
+    bad = differing(want, trainer_tensors(tr))
+    print(f"  bucket forced to {bucket:g} at step {half}: captured buckets "
+          f"{sorted(tr.graphs)} ({[c.replays for c in tr.graphs.values()]} "
+          f"replays), == the eager steps bit for bit: {not bad}"
+          f"{'' if not bad else ' ' + str(bad[:8])}", flush=True)
+    if bad or bucket not in tr.graphs or len(tr.graphs) < 2:
+        raise RuntimeError("a bucket change broke the graphed steps")
+    del tr
+    torch.cuda.empty_cache()
+
+    # save at step 30, restore into a new Trainer, graph again to step 60
+    saving = dataclasses.replace(config, steps_per_save=half)
+    first = Trainer(saving, run_dir=os.path.join(tmp, "saved"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        first.train(half)
+    ckpts = os.path.join(tmp, "saved", "checkpoints")
+    del first
+    resumed = Trainer(config, run_dir=os.path.join(tmp, "resumed"))
+    resumed.restore(ckpts)
+    with contextlib.redirect_stdout(io.StringIO()):
+        resumed.train(DISPATCH_STEPS)
+    bad = differing(uninterrupted, trainer_tensors(resumed))
+    print(f"  saved at step {half} ({sorted(os.listdir(ckpts))}), restored "
+          f"into a new Trainer, graphed to step {resumed.step}: every "
+          f"tensor == the uninterrupted graphed run's, bit for bit: "
+          f"{not bad}{'' if not bad else ' ' + str(bad[:8])}", flush=True)
+    if bad or resumed.step != DISPATCH_STEPS or not resumed.graphs:
+        raise RuntimeError("the restored run does not continue the "
+                           "uninterrupted one")
+    del resumed
+    torch.cuda.empty_cache()
+    print(f"  phase 23: {time.perf_counter() - start:.1f} s", flush=True)
 
 
 def card_rank(mesh, config, tmp: str):
@@ -1634,9 +1978,13 @@ def write_jpeg_capture(frames, out_dir: str) -> str:
 
 
 def check_trace(prof_dir: str, card) -> None:
-    """One Chrome trace over JPEG_PROFILE's steps: its RAdam steps, and
-    CUDA kernel events of the hand-written kernels (none: the window saw
-    no device work, and the phase raises)."""
+    """One Chrome trace over JPEG_PROFILE's steps: a RAdam step for each
+    eager step and a REPLAY_SPAN for each replay of a captured step, one
+    or the other for each step, and CUDA kernel events of the hand-written
+    kernels (none: the window saw no device work, and the phase
+    raises)."""
+    from rsn_torch.engine.trainer import REPLAY_SPAN
+
     start, num = JPEG_PROFILE
     traces = sorted(os.listdir(prof_dir))
     want = f"trace_step{start:06d}_to_step{start + num:06d}.json"
@@ -1646,8 +1994,10 @@ def check_trace(prof_dir: str, card) -> None:
         events = json.load(fh)["traceEvents"]
     # the host's annotation; a CUDA trace repeats it on the device's
     # timeline as "gpu_user_annotation"
-    radam = sum(e.get("name") == RADAM_STEP
-                and e.get("cat") == "user_annotation" for e in events)
+    radam, replays = (sum(e.get("name") == name
+                          and e.get("cat") == "user_annotation"
+                          for e in events) for name in (RADAM_STEP,
+                                                        REPLAY_SPAN))
     kernels = [e for e in events if e.get("cat") == "kernel"]
     ours = re.compile(r"\b(" + "|".join(sorted(hand_written_kernels()))
                       + r")\b")
@@ -1658,12 +2008,14 @@ def check_trace(prof_dir: str, card) -> None:
             by_name[m.group(1)] = by_name.get(m.group(1), 0) + 1
             ours_us += float(e.get("dur", 0.0))
     all_us = sum(float(e.get("dur", 0.0)) for e in kernels)
-    print(f"  trace {want}: {radam} {RADAM_STEP} events, {len(kernels)} "
+    print(f"  trace {want}: {radam} {RADAM_STEP} events, {replays} "
+          f"{REPLAY_SPAN} events, {len(kernels)} "
           f"CUDA kernel events, {sum(by_name.values())} of them "
           f"hand-written ({ours_us / max(all_us, 1e-9):.2%} of the kernel "
           f"time): {dict(sorted(by_name.items()))} ({card})", flush=True)
-    if radam != num:
-        raise RuntimeError(f"the trace holds {radam} RAdam steps, not {num}")
+    if radam + replays != num:
+        raise RuntimeError(f"the trace holds {radam} RAdam steps and "
+                           f"{replays} replays, not {num} steps")
     if not by_name:
         raise RuntimeError("the trace holds no kernel event of the "
                            "hand-written kernels: the window saw no "
@@ -2427,7 +2779,9 @@ def run_train_cli(card, method: str, flags, per_step, tmp,
     calls of the backward kernels K4, K5 and K8 (STASH_KERNELS) per_step x
     TRAIN_STEPS, each kernel's kernel A launched once per chunk of each of
     its calls' stash_plan (whose chunks follow the reflect bucket; the
-    calls are recorded) and kernel B once per chunk of all of them; every
+    calls are recorded, a call made during a capture once per replay of
+    it) and kernel B once per chunk of all of them; the loop replays
+    captured steps; every
     logged loss finite, loss_mid_fine lower over the last 10 steps than
     over the first 10, the warmup's zeros before step 50, the final
     checkpoint; the means of the `report` losses are printed.  evals:
@@ -2467,19 +2821,29 @@ def run_train_cli(card, method: str, flags, per_step, tmp,
     ff.reset_launch_counts()
     for k in real:
         setattr(ft, k, recording(k))
-    try:
-        with contextlib.redirect_stdout(buf):
-            rc = train_cli.main(argv)
-    finally:
-        for k, fn in real.items():
-            setattr(ft, k, fn)
+    with recorded_captures(chunks) as captures:
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = train_cli.main(argv)
+        finally:
+            for k, fn in real.items():
+                setattr(ft, k, fn)
     torch.cuda.synchronize()
     launches = dict(ff.LAUNCHES)
     text = buf.getvalue().splitlines()
     print("\n".join(text[:3] + ["  ..."] + text[-3:]))
     if rc != 0:
         raise RuntimeError(f"train CLI exited {rc}")
+    print("  captured steps: " + "; ".join(
+        f"{c.replays} replays of a capture ({c.seconds:.3f} s)"
+        for c, _ in captures))
+    if not any(c.replays for c, _ in captures):
+        raise RuntimeError("the train CLI did not replay captured steps")
     want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in launches}
+    # a call made while a step was captured runs once per replay
+    for cap, calls in captures:
+        for k, c in calls.items():
+            chunks[k] += c * cap.replays
     for k, c in chunks.items():
         if len(c) != want[k]:
             raise RuntimeError(f"{len(c)} {k} calls, not {per_step.get(k, 0)}"
@@ -2548,6 +2912,34 @@ def run_train_cli(card, method: str, flags, per_step, tmp,
           f"{log[-1]['rays_per_sec']:.1f}; {card})", flush=True)
     mine = set(per_step) | {"field_backward_v4_wgrad"}
     return run, {k: v for k, v in launches.items() if k in mine}
+
+
+@contextlib.contextmanager
+def recorded_captures(calls):
+    """Within: every step the trainer captures, with the calls that the
+    capture made, taken out of `calls` ({kernel: [a value per call]}: a
+    capture runs nothing) -> [(its CapturedStep, {kernel: those values})];
+    each of those runs once per replay."""
+    from rsn_torch.engine import trainer as trainer_lib
+
+    real = trainer_lib.Trainer._capture
+    captures = []
+
+    def capture(self, frac):
+        mark = {k: len(v) for k, v in calls.items()}
+        captured = real(self, frac)
+        made = {}
+        for k, v in calls.items():
+            made[k] = v[mark[k]:]
+            del v[mark[k]:]
+        captures.append((captured, made))
+        return captured
+
+    trainer_lib.Trainer._capture = capture
+    try:
+        yield captures
+    finally:
+        trainer_lib.Trainer._capture = real
 
 
 def steady_rate(log, eval_steps, rays: int):

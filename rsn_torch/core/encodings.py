@@ -34,8 +34,11 @@ def _freqs_np(num: int, max_exp: float) -> np.ndarray:
     return (2.0 ** lin.astype(np.float64)).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=8)
 def _freqs(device=None, num: int = NUM_FREQUENCIES,
            max_exp: float = MAX_FREQ_EXP) -> torch.Tensor:
+    """_freqs_np on `device`, copied there once: a copy from the host
+    inside a captured step would be a host sync."""
     return torch.as_tensor(_freqs_np(num, max_exp), device=device)
 
 
@@ -76,7 +79,7 @@ def sh_basis(directions: torch.Tensor,
              sh_l8_m7_2x: bool = True) -> torch.Tensor:
     """Real SH levels {1, 2, 4, 8} on unit directions -> (..., 34), as
     monomial features x^a y^b z^c times the coefficient table."""
-    monomials, coeffs = _sh_tables(sh_l8_m7_2x)
+    monomials, _ = _sh_tables(sh_l8_m7_2x)
     d = directions.detach()
     x, y, z = d[..., 0], d[..., 1], d[..., 2]
     xp, yp, zp = [torch.ones_like(x)], [torch.ones_like(y)], [torch.ones_like(z)]
@@ -86,7 +89,13 @@ def sh_basis(directions: torch.Tensor,
         zp.append(zp[-1] * z)
     feats = torch.stack([xp[a] * yp[b] * zp[c] for a, b, c in monomials],
                         dim=-1)
-    return feats @ torch.as_tensor(coeffs, device=d.device)
+    return feats @ _sh_coeffs(sh_l8_m7_2x, d.device)
+
+
+@functools.lru_cache(maxsize=8)
+def _sh_coeffs(sh_l8_m7_2x: bool, device) -> torch.Tensor:
+    """The coefficient table on `device`, copied there once (as _freqs)."""
+    return torch.as_tensor(_sh_tables(sh_l8_m7_2x)[1], device=device)
 
 
 def _band_attenuation(roughness: torch.Tensor) -> torch.Tensor:

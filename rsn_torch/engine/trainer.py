@@ -24,9 +24,27 @@ fine PSNR and SSIM, the coarse PSNR (not with the proposal), the panels
 in eval_images/ (log line {"eval_image_<k>"}).  A log line of the loop
 counts rays_per_sec from the start of train() and carries the reflect
 bucket after that step's controller decision; mask_fraction and
-reflect_overflow only with debug_telemetry.  steps_per_dispatch is read
-as 1: one step per loop iteration (a CUDA graph of several steps is later
-work).
+reflect_overflow only with debug_telemetry.
+
+rsn's chunked dispatch: the loop runs chunks of steps, each cut at the
+next log, eval, save, adapt and profile boundary and capped at
+steps_per_dispatch (at 1 under debug_nans; _next_chunk), and reads the
+device only at a chunk's end, where the chunk ends on a log or adapt
+boundary or is the first.  So the log lines, and the controller's
+decisions, fall on rsn's steps on every device.  A step reads no Python
+value that depends on the step: a step counter on the device, which the
+step advances, gives the warmup's loss coefficients, the proposal's
+anneal exponent and, on a card, each optimizer's lr (float32, as rsn
+traces them; the optimizers capturable).  On a card, one rank or NCCL
+ranks, a chunk of n steps is n replays of a CUDA graph of one whole step
+(forward, backward, the gradients' all-reduce, the optimizers, the
+counter): one graph per reflect bucket (the compaction's K fixes the
+shapes, as rsn caches one program per bucket), captured when the bucket
+is first needed, after one eager step on a side stream, all in one
+memory pool, the train draws' generator registered with each.  A capture
+or replay that fails raises, naming the step and the bucket.  On the
+CPU, and on gloo ranks (their tensors staged through the host), a chunk
+is n eager steps.
 
 With a mesh (rsn_torch.parallel.mesh: one rank per device, a process
 each), rsn's data-parallel step: every rank holds a replica (rank 0's,
@@ -61,12 +79,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from rsn_torch.configs import TrainerConfig, loss_coefficients_at_step
+from rsn_torch.configs import (WARMUP_STEPS, WARMUP_ZEROED, TrainerConfig,
+                               loss_coefficients_at_step)
 from rsn_torch.core.rays import RayBundle
 from rsn_torch.data.cameras import Cameras, generate_image_rays, generate_rays
 from rsn_torch.data.blender import load_dataset
 from rsn_torch.engine import checkpoints as ckpt_lib
-from rsn_torch.engine.optimizers import build_field_optimizer, build_optimizer
+from rsn_torch.engine import optimizers as optim_lib
+from rsn_torch.kernels import field_forward as ff
 from rsn_torch.metrics import psnr, ssim
 from rsn_torch.models import camera_opt
 from rsn_torch.models import model as model_lib
@@ -84,6 +104,22 @@ REFLECT_HEADROOM = 0.1
 # controller keeps running
 REFLECT_ADAPT_FALLBACK_CADENCE = 100
 CAMERA_REG_KEY = "camera_opt_regularizer"
+# the profiler's annotation of each replay of a captured step (a replay
+# carries no Optimizer.step annotation of its own)
+REPLAY_SPAN = "Trainer.train_step#graph_replay"
+
+
+@dataclasses.dataclass
+class CapturedStep:
+    """One reflect bucket's captured train step: the CUDA graph, its
+    static metrics (the last replay's), the kernel launches of one step
+    (field_forward.LAUNCHES keys), the capture's seconds (host clock) and
+    the replays so far."""
+    graph: "torch.cuda.CUDAGraph"
+    metrics: Dict[str, torch.Tensor]
+    launches: Dict[str, int]
+    seconds: float
+    replays: int = 0
 
 
 def rank_seed(seed: int, rank: int) -> int:
@@ -314,6 +350,30 @@ def proposal_anneal(mcfg, step: int) -> Optional[float]:
     return float(f32((s * frac) / ((s - f32(1.0)) * frac + f32(1.0))))
 
 
+def loss_coefficients_traced(mcfg, step: torch.Tensor
+                             ) -> Dict[str, object]:
+    """loss_coefficients at the step counter `step` (a tensor), as rsn's
+    loss_coefficients_traced: each warmup term v * f32(step >=
+    WARMUP_STEPS) on the counter's device, the others their constant."""
+    on = (step >= WARMUP_STEPS).to(torch.float32)
+    return {k: v * on if k in WARMUP_ZEROED else v
+            for k, v in loss_coefficients(mcfg, WARMUP_STEPS).items()}
+
+
+def proposal_anneal_traced(mcfg, step: torch.Tensor
+                           ) -> Optional[torch.Tensor]:
+    """proposal_anneal at the step counter `step` (a tensor), float32 on
+    its device as rsn traces it; None when off.  The divisor is a tensor:
+    CUDA divides by a host scalar through its reciprocal."""
+    n = mcfg.proposal_weights_anneal_max_num_iters
+    if not (mcfg.use_proposal and n):
+        return None
+    frac = torch.clamp(step.to(torch.float32) / torch.full(
+        (), n, dtype=torch.float32, device=step.device), 0.0, 1.0)
+    s = mcfg.proposal_weights_anneal_slope
+    return (s * frac) / ((s - 1.0) * frac + 1.0)
+
+
 def camera_objective(loss_dict: Dict[str, torch.Tensor]) -> torch.Tensor:
     """What the pose deltas train on: the photometric losses and the pose
     regularizer (rsn's trainer).  The normal and orientation losses'
@@ -392,24 +452,29 @@ class Trainer:
         if self.is_primary:
             ckpt_lib.dump_config(run_dir, config)
 
+        # the step counter the step reads and advances; on a card the
+        # optimizers' lr follows it (their capturable form)
+        self._step_t = torch.zeros((), dtype=torch.int64, device=self.device)
+        counter = self._step_t if self.device.type == "cuda" else None
         self.field = Field(torch.Generator().manual_seed(config.seed)).to(
             self.device)
-        self.optimizer, self.scheduler = build_field_optimizer(
-            self.field, config.optimizers)
+        self.optimizer, self.scheduler = optim_lib.build_field_optimizer(
+            self.field, config.optimizers, counter)
         self.proposal = self.prop_optimizer = self.prop_scheduler = None
         if config.pipeline.model.use_proposal:
             self.proposal = ProposalField(
                 torch.Generator().manual_seed(config.seed + 2)).to(self.device)
-            self.prop_optimizer, self.prop_scheduler = build_optimizer(
-                self.proposal.parameters(),
-                config.optimizers["proposal_networks"])
+            self.prop_optimizer, self.prop_scheduler = (
+                optim_lib.build_optimizer(
+                    self.proposal.parameters(),
+                    config.optimizers["proposal_networks"], counter))
         self.camera = camera_opt.init_camera_opt_params(
             self.train_ds.cameras.num_cameras, dm.camera_optimizer,
             self.device)
         self.cam_optimizer = self.cam_scheduler = None
         if self.camera is not None:
-            self.cam_optimizer, self.cam_scheduler = build_optimizer(
-                [self.camera], config.optimizers["camera_opt"])
+            self.cam_optimizer, self.cam_scheduler = optim_lib.build_optimizer(
+                [self.camera], config.optimizers["camera_opt"], counter)
         self.images = torch.as_tensor(self.train_ds.images).to(self.device)
         self.cameras = self.train_ds.cameras.to(self.device)
         self.eval_images = torch.as_tensor(self.eval_ds.images).to(self.device)
@@ -426,6 +491,12 @@ class Trainer:
         self._adapt_cadence = (config.steps_per_log
                                if config.steps_per_log > 0
                                else REFLECT_ADAPT_FALLBACK_CADENCE)
+        # the captured steps, by reflect bucket (a card with one rank or
+        # NCCL ranks), and their shared memory pool
+        self._graphed = self.device.type == "cuda" and (
+            mesh is None or mesh.backend == "nccl")
+        self.graphs: Dict[float, CapturedStep] = {}
+        self._pool = None
         if mesh is not None:
             self._broadcast_replicas()
         self._log_file = (open(os.path.join(run_dir, "train_log.jsonl"), "a")
@@ -458,17 +529,37 @@ class Trainer:
             params.append(self.camera)
         return params
 
+    @property
+    def step(self) -> int:
+        """The steps taken.  Setting it sets the device's step counter
+        too, which the step's schedules read."""
+        return self._step
+
+    @step.setter
+    def step(self, value: int) -> None:
+        self._step = int(value)
+        self._step_t.fill_(self._step)
+
     def train_step(self) -> Dict[str, torch.Tensor]:
-        """One optimizer step -> this step's losses and telemetry, as
-        device scalars (no host sync).  With a mesh, one all-reduce
+        """One optimizer step, eager -> this step's losses and telemetry,
+        as device scalars (no host sync).  With a mesh, one all-reduce
         averages every live group's gradients over the ranks first."""
+        metrics = self._step_once()
+        self._step += 1
+        return metrics
+
+    def _step_once(self) -> Dict[str, torch.Tensor]:
+        """The step a graph captures: train_step without the host's step
+        count (the device's counter advances)."""
         metrics, groups = self.forward_backward()
         if self.mesh is not None:
             mesh_lib.average_gradients(self.mesh, self.live_params())
         for opt, sched in groups:
+            if isinstance(sched, optim_lib.CounterDecay):
+                sched.apply()
             opt.step()
             sched.step()
-        self.step += 1
+        self._step_t += 1
         return metrics
 
     def forward_backward(self):
@@ -494,11 +585,11 @@ class Trainer:
             self.field, bundle, mcfg, training=True,
             generator=self.generator, rays_live=cam is not None,
             proposal=self.proposal,
-            prop_anneal=proposal_anneal(mcfg, self.step))
+            prop_anneal=proposal_anneal_traced(mcfg, self._step_t))
         # the warmup (rsn's loss_coefficients_traced): the normal and
         # orientation losses are zero before WARMUP_STEPS
         loss_dict = model_lib.get_loss_dict(
-            outputs, gt, loss_coefficients(mcfg, self.step))
+            outputs, gt, loss_coefficients_traced(mcfg, self._step_t))
         if cam is not None:
             loss_dict[CAMERA_REG_KEY] = camera_opt.regularization_loss(
                 cam, dm.camera_opt_rot_penalty, dm.camera_opt_trans_penalty)
@@ -598,29 +689,27 @@ class Trainer:
         controller state, the proposal field and the camera deltas, each
         with its optimizer and schedule, and the draws: with several
         ranks, each rank's own state (a rank the checkpoint has no state
-        for keeps its seed's)."""
+        for keeps its seed's).  The modules and the pose deltas are
+        written in place; the optimizers' state is not, so the captured
+        steps are dropped and captured again."""
         state = self._read_checkpoint(load_dir)
+        self.graphs.clear()
+        self._pool = None
         self.field.load_state_dict(state["field"])
         self.step = int(state["step"])
-        if "optimizer" in state:
-            self.optimizer.load_state_dict(state["optimizer"])
-        if "scheduler" in state:
-            self.scheduler.load_state_dict(state["scheduler"])
+        optim_lib.load_state(self.optimizer, self.scheduler,
+                             state.get("optimizer"), state.get("scheduler"))
         if self.proposal is not None:
             self.proposal.load_state_dict(state["proposal"])
-            if "proposal_optimizer" in state:
-                self.prop_optimizer.load_state_dict(
-                    state["proposal_optimizer"])
-            if "proposal_scheduler" in state:
-                self.prop_scheduler.load_state_dict(
-                    state["proposal_scheduler"])
+            optim_lib.load_state(self.prop_optimizer, self.prop_scheduler,
+                                 state.get("proposal_optimizer"),
+                                 state.get("proposal_scheduler"))
         if self.camera is not None:
             with torch.no_grad():
                 self.camera.copy_(state["camera"])
-            if "camera_optimizer" in state:
-                self.cam_optimizer.load_state_dict(state["camera_optimizer"])
-            if "camera_scheduler" in state:
-                self.cam_scheduler.load_state_dict(state["camera_scheduler"])
+            optim_lib.load_state(self.cam_optimizer, self.cam_scheduler,
+                                 state.get("camera_optimizer"),
+                                 state.get("camera_scheduler"))
         trainer = state.get("trainer", {})
         floor = self.config.pipeline.model.reflect_ray_fraction
         self._reflect_frac = max(float(trainer.get("reflect_fraction",
@@ -744,14 +833,110 @@ class Trainer:
                             f"{rank}.json")
         prof.export_chrome_trace(path)
 
+    # ---- the dispatch (rsn's _next_chunk and multi-step program) ----
+
+    def _next_chunk(self, step: int, max_steps: int) -> int:
+        """Steps to run in the next chunk: the distance to the nearest
+        log, eval, save, adapt or profile boundary (or max_steps), capped
+        by steps_per_dispatch (by 1 under debug_nans)."""
+        cfg = self.config
+        cap = 1 if cfg.debug_nans else max(1, cfg.steps_per_dispatch)
+        cadences = [cfg.steps_per_log, cfg.steps_per_eval_batch,
+                    cfg.steps_per_eval_image, cfg.steps_per_save]
+        if cfg.adaptive_reflect_fraction:
+            cadences.append(self._adapt_cadence)
+        nxt = max_steps
+        for c in cadences:
+            if c > 0:
+                nxt = min(nxt, (step // c + 1) * c)
+        if cfg.profile_dir:
+            for boundary in (cfg.profile_start_step,
+                             cfg.profile_start_step + cfg.profile_num_steps):
+                if boundary > step:
+                    nxt = min(nxt, boundary)
+        return min(cap, nxt - step)
+
+    def _run_chunk(self, n: int) -> Dict[str, torch.Tensor]:
+        """n steps -> the last step's metrics (device scalars, no host
+        sync).  Graphed: n replays of the bucket's captured step (its
+        first use takes one eager step and the capture first), each
+        annotated REPLAY_SPAN for the profiler, each adding the step's
+        kernel launches to field_forward.LAUNCHES.  Otherwise n eager
+        train_step calls."""
+        if not self._graphed:
+            for _ in range(n):
+                metrics = self.train_step()
+            return metrics
+        frac = self._reflect_frac
+        captured = self.graphs.get(frac)
+        if captured is None:
+            metrics = self._warm_up()
+            n -= 1
+            captured = self.graphs[frac] = self._capture(frac)
+        for i in range(n):
+            try:
+                with torch.profiler.record_function(REPLAY_SPAN):
+                    captured.graph.replay()
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"replaying the train step of reflect bucket {frac:g} "
+                    f"failed at step {self._step + i + 1}: {e}") from e
+        if n:
+            self._step += n
+            captured.replays += n
+            for k, v in captured.launches.items():
+                ff.LAUNCHES[k] += n * v
+            metrics = captured.metrics
+        return metrics
+
+    def _warm_up(self) -> Dict[str, torch.Tensor]:
+        """One eager train step on a side stream, before a capture: the
+        kernels' first launches (builds, cached constants), the optimizer
+        state, the mesh's first all-reduce check."""
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            metrics = self.train_step()
+        main.wait_stream(side)
+        return metrics
+
+    def _capture(self, frac: float) -> "CapturedStep":
+        """Capture one step of reflect bucket `frac` into a CUDA graph in
+        the trainer's pool, the train draws' generator registered; the
+        capture runs nothing, so the launch counts it made are taken back
+        and kept as the step's."""
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        before = dict(ff.LAUNCHES)
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                metrics = self._step_once()
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"capturing the train step of reflect bucket {frac:g} at "
+                f"step {self._step} failed: {e}") from e
+        finally:
+            launches = {k: v - before[k] for k, v in ff.LAUNCHES.items()
+                        if v != before[k]}
+            ff.LAUNCHES.update(before)
+        if self._pool is None:
+            self._pool = graph.pool()
+        return CapturedStep(graph, metrics, launches,
+                            time.perf_counter() - t0)
+
+    # ---- the loop ----
+
     def train(self, max_steps: Optional[int] = None) -> Dict[str, float]:
-        """Train to max_steps (default max_num_iterations), with rsn's log
-        lines: at each log step {"rays_per_sec" (from the start of this
-        call, the rays of every rank), losses, total_loss, reflect_fraction (after the step's
-        controller decision)[, mask_fraction, reflect_overflow with
-        debug_telemetry]}, then the eval hooks' lines at their cadences;
-        the profiler window from the loop's arrival at profile_start_step.
-        -> the last logged line's metrics."""
+        """Train to max_steps (default max_num_iterations) in rsn's chunks,
+        with rsn's log lines: at each log step, and at the end of the
+        first chunk, {"rays_per_sec" (from the start of this call, the
+        rays of every rank), losses, total_loss, reflect_fraction (after
+        the step's controller decision)[, mask_fraction, reflect_overflow
+        with debug_telemetry]}, then the eval hooks' lines at their
+        cadences; the profiler window from the loop's arrival at
+        profile_start_step.  -> the last logged line's metrics."""
         cfg = self.config
         max_steps = max_steps or cfg.max_num_iterations
         num_rays = cfg.pipeline.datamanager.train_num_rays_per_batch
@@ -764,7 +949,7 @@ class Trainer:
         while self.step < max_steps:
             if cfg.profile_dir and self.step == prof_start:
                 prof = self._start_trace()
-            metrics = self.train_step()
+            metrics = self._run_chunk(self._next_chunk(self.step, max_steps))
             if prof is not None and self.step >= (
                     prof_start + cfg.profile_num_steps):
                 self._stop_trace(prof, prof_start)

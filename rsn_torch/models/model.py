@@ -39,7 +39,7 @@ gradients.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -272,7 +272,7 @@ def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
                 packed: Optional[KernelOperands] = None,
                 rays_live: bool = True,
                 proposal: Optional[ProposalField] = None,
-                prop_anneal: Optional[float] = None
+                prop_anneal: Union[float, torch.Tensor, None] = None
                 ) -> Dict[str, torch.Tensor]:
     """The 4-pass render; ray_bundle must already be collided.
 
@@ -301,7 +301,8 @@ def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
     carry the interlevel and distortion losses' inputs.  Without one, a
     use_proposal config runs the main field's coarse pass, as rsn does.
     prop_anneal: the exponent a of the sampling histogram w**a (w > 0),
-    mip-NeRF-360's weight anneal; None is off.  Only the histogram the
+    mip-NeRF-360's weight anneal, a float or a 0-dim tensor (the
+    trainer's, from its step counter); None is off.  Only the histogram the
     fine passes resample from is annealed."""
     fcfg = _field_cfg(cfg)
     if training:
@@ -318,7 +319,8 @@ def get_outputs(field: Field, ray_bundle: RayBundle, cfg: ModelConfig,
                             proposal, prop_anneal)
 
 
-def _anneal(w: torch.Tensor, a: Optional[float]) -> torch.Tensor:
+def _anneal(w: torch.Tensor, a: Union[float, torch.Tensor, None]
+            ) -> torch.Tensor:
     """The sampling histogram w**a; w == 0 stays 0 (0**0 would be 1)."""
     if a is None:
         return w
@@ -497,8 +499,10 @@ def _get_outputs(field, ray_bundle, cfg, fcfg, training, need_coarse_rgb,
                          stable=True).indices[:K]
         reflect_bundle = reflect_bundle.index(sel)
         sqradius, reflections = sqradius[sel], reflections[sel]
-        selected = torch.zeros(R, dtype=torch.bool, device=mask.device)
-        selected[sel] = True
+        # index_fill_: a fill, where selected[sel] = True copies a host
+        # scalar (no copy may run inside a captured train step)
+        selected = torch.zeros(R, dtype=torch.bool,
+                               device=mask.device).index_fill_(0, sel, True)
         mask_col = (mask & selected)[:, None]
         outputs["reflect_overflow"] = (mask & ~selected).float().mean()
     background_color = field.get_inf_color(reflections, sqradius,

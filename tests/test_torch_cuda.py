@@ -554,6 +554,45 @@ def test_train_step_launches_per_route(field, tmp_path, monkeypatch, camera,
         assert torch.isfinite(tr.camera).all() and tr.camera.abs().max() > 0
 
 
+@pytest.mark.parametrize("camera,acts", [(False, True), (True, False)])
+def test_graphed_chunks_equal_eager_steps(field, tmp_path, camera, acts):
+    """train() on the card replays a captured step per reflect bucket: its
+    parameters, optimizer state and generator state after 6 steps (chunks
+    of 2) equal 6 eager train_step calls with the loop's controller, bit
+    for bit, and the replays add the eager steps' launches."""
+    import dataclasses
+
+    def run(graphed: bool):
+        tr = _tiny_trainer(tmp_path / str(graphed), camera, acts)
+        tr.config = dataclasses.replace(tr.config, steps_per_log=2,
+                                        steps_per_save=0,
+                                        max_num_iterations=6)
+        tr._adapt_cadence = 2
+        ff.reset_launch_counts()
+        if graphed:
+            tr.train()
+            assert tr.graphs and sum(c.replays for c in
+                                     tr.graphs.values()) >= 4
+        else:
+            for _ in range(6):
+                m = tr.train_step()
+                if tr.step % 2 == 0:
+                    tr._maybe_adapt_reflect_fraction(tr._host_metrics(m))
+        torch.cuda.synchronize()
+        state = [p.detach().clone() for p in tr.live_params()]
+        for opt in (tr.optimizer, tr.cam_optimizer):
+            if opt is not None:
+                state += [v.detach().clone() for st in opt.state.values()
+                          for v in st.values()]
+        return (state, tr.generator.get_state(),
+                {k: v for k, v in ff.LAUNCHES.items() if v})
+
+    (a, ga, la), (b, gb, lb) = run(False), run(True)
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(ga, gb)
+    assert la == lb
+
+
 # (301, 100) and (1030, 128) take the spill route's backward over several
 # chunks on 132 SMs: a short last chunk, tile0 > 0, and a last block whose
 # run ends chunks early (its records zeroed)

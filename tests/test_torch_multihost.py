@@ -115,7 +115,9 @@ def test_two_processes_match_one_process_of_two_ranks(runs):
     assert "2 device(s)" in out0, out0[-2000:]
     assert "run dir:" not in out1 and "step " not in out1, out1[-2000:]
     with open(os.path.join(mh_run, "train_log.jsonl")) as f:
-        assert [json.loads(line)["step"] for line in f] == [1, STEPS]
+        # rsn's chunks: one chunk of STEPS steps (--steps-per-log STEPS),
+        # its line at its end
+        assert [json.loads(line)["step"] for line in f] == [STEPS]
     assert trun_io.load_config(nd_run).num_devices == 2
     got, want = (dict(_tensors(_final_checkpoint(r)))
                  for r in (mh_run, nd_run))
