@@ -252,7 +252,15 @@ Phases, each announced on its own line:
                 by the port's JPEG decoder to the mode, shape and sha256
                 of PIL's decode recorded in digests.json (ms per 800x800
                 frame beside the native PNG decoder's on phase 19's PNGs,
-                host CPU, one thread); a nerfstudio-format capture over
+                host CPU, one thread); the fixtures of
+                tests/golden/jpeg_kinds/ (Motion-JPEG, every sampling
+                layout, CMYK / YCCK, arithmetic, lossless, smoothed
+                progressive) to their digests the same way, then one
+                800x800 frame of each kind written by that folder's numpy
+                writer and decoded (ms per frame, host CPU, one thread,
+                best of 3, beside the baseline frame's; the lossless frame
+                equal to the writer's pixels, the CMYK one their inverse
+                within 3 on average); a nerfstudio-format capture over
                 the five 800x800 JPEG frames with the synthetic cameras'
                 poses and intrinsics; `python -m rsn_torch.cli.train
                 reflect-sampling-nerf` on it three times (dataparser
@@ -1887,6 +1895,7 @@ def export_viewer_phase(run: str, card) -> None:
 
 
 JPEG_DIR = os.path.join(REPO, "tests", "golden", "jpeg")
+JPEG_KINDS_DIR = os.path.join(REPO, "tests", "golden", "jpeg_kinds")
 JPEG_STEPS = 10     # phase 21's train run on the JPEG capture
 JPEG_PROFILE = (3, 3)  # its profiler window: the start step, the steps
 RADAM_STEP = "Optimizer.step#RAdam.step"
@@ -1946,7 +1955,72 @@ def jpeg_decode_check(card, png_dir: str):
           f"{len(frames)} frames), native PNG decoder "
           f"{1e3 * min(png_runs):.4f} ms per {w}x{h} PNG ({len(pngs)} PNGs) "
           f"(host CPU, one thread, best of 3; {card})", flush=True)
+    jpeg_kinds_check(card, 1e3 * min(jpeg_runs))
     return frames
+
+
+def jpeg_kinds_check(card, baseline_ms: float) -> None:
+    """Every committed jpeg_kinds fixture decoded to PIL's recorded digest;
+    one 800x800 frame of each kind that PIL reads but does not write,
+    written by the fixtures' numpy writer, decoded and timed (host CPU,
+    one thread, best of 3) beside the baseline JPEG frame's ms."""
+    import hashlib
+    import importlib.util
+
+    import numpy as np
+
+    from rsn_torch.data.jpeg import read_jpeg
+
+    spec = importlib.util.spec_from_file_location(
+        "jpeg_kinds_writer", os.path.join(JPEG_KINDS_DIR, "write_fixtures.py"))
+    writer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(writer)
+    with open(os.path.join(JPEG_KINDS_DIR, "digests.json")) as fh:
+        recorded = json.load(fh)
+    for fname, want in sorted(recorded["files"].items()):
+        mode, arr = read_jpeg(os.path.join(JPEG_KINDS_DIR, fname))
+        got = {"mode": mode, "shape": list(arr.shape),
+               "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
+        if got != want:
+            raise RuntimeError(f"jpeg_kinds/{fname}: decoded to {got}, PIL's "
+                               f"decode is {want}")
+    print(f"  {len(recorded['files'])} jpeg_kinds fixtures == PIL "
+          f"{recorded['pil']} / libjpeg-turbo {recorded['libjpeg_turbo']}'s "
+          f"decode (mode, shape, sha256)", flush=True)
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (ncomp, opts) in writer.TIMED_KINDS.items():
+            px = writer.frame_pixels(FRAME_RES, ncomp)
+            path = os.path.join(tmp, f"{name}.jpg")
+            t0 = time.perf_counter()
+            data = writer.write_jpeg(px, **opts)
+            write_s = time.perf_counter() - t0
+            with open(path, "wb") as fh:
+                fh.write(data)
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                mode, arr = read_jpeg(path)
+                runs.append(time.perf_counter() - t0)
+            want_shape = (FRAME_RES, FRAME_RES) + ((ncomp,) if ncomp > 1
+                                                   else ())
+            if mode != writer.MODES[ncomp] or arr.shape != want_shape:
+                raise RuntimeError(f"{name}: {mode} {arr.shape}")
+            if opts.get("coding") == "lossless" and not np.array_equal(
+                    arr, px):
+                raise RuntimeError(f"{name}: the lossless frame is not "
+                                   "the writer's pixels")
+            if name == "cmyk":
+                err = np.abs((255 - arr.astype(np.int64)) - px).mean()
+                if err > 3:
+                    raise RuntimeError(f"cmyk: mean error {err:.3f}")
+            times[name] = (1e3 * min(runs), len(data), write_s)
+    print(f"  ms per {FRAME_RES}x{FRAME_RES} frame by kind (host CPU, one "
+          f"thread, best of 3; baseline 4:2:0 quality 90 "
+          f"{baseline_ms:.4f}): " + ", ".join(
+              f"{k} {ms:.4f} ({size} bytes, written in {ws:.2f} s)"
+              for k, (ms, size, ws) in times.items()) + f" ({card})",
+          flush=True)
 
 
 def write_jpeg_capture(frames, out_dir: str) -> str:

@@ -12,10 +12,10 @@ routes: the same C++ library (rsn_torch.data.native), and for the PIL
 frames rsn_torch.data.jpeg.read_image, which picks the decoder by the
 file's first bytes as Image.open does and gives what PIL gives: PNGs
 through rsn_torch.data.png (palette indices, 16-bit gray values), JPEGs
-through the native JPEG decoder (libjpeg-turbo's pixels), and Pillow's
-bilinear shrink for either.  The JPEG kinds that decoder leaves out (CMYK,
-arithmetic coding, lossless, 12-bit; ROADMAP Queue 1) raise
-NotImplementedError.
+through the native JPEG decoder (libjpeg-turbo's pixels, CMYK included),
+and Pillow's bilinear shrink for either.  A JPEG PIL refuses raises
+ValueError, as rsn's PIL raises; a format other than PNG and JPEG raises
+NotImplementedError (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -39,7 +39,8 @@ def _load_image(path: str, downscale: int = 1) -> np.ndarray:
     `Image.resize((w // downscale, h // downscale), BILINEAR)`, divided
     by 255 in float32, gray repeated to 3 channels, RGBA blended to white,
     the first 3 channels kept (a gray + alpha frame keeps its 2, as rsn's
-    does)."""
+    does; a CMYK frame has C, M, Y blended over its K as rsn blends
+    them, K taken for alpha)."""
     mode, img = read_image(path)
     if downscale > 1:
         img = png.resize_bilinear(mode, img, (img.shape[1] // downscale,

@@ -7,7 +7,9 @@ rsn_torch.data.png.read_png, a JPEG to `read_jpeg`, and any other format
 raises NotImplementedError.  `read_jpeg` gives what
 `np.asarray(Image.open(path))` gives with PIL on libjpeg-turbo (the native
 decoder in rsn_torch.data.native, bit for bit): mode "L" as (H, W) uint8,
-"RGB" as (H, W, 3) uint8.  EXIF orientation is not applied, as PIL does
+"RGB" as (H, W, 3) uint8, "CMYK" as (H, W, 4) uint8 (PIL's inverted
+Adobe bytes), for every JPEG PIL opens and libjpeg decodes; one PIL
+refuses raises ValueError.  EXIF orientation is not applied, as PIL does
 not apply it on open.
 """
 from __future__ import annotations

@@ -8,11 +8,12 @@
   return None, and the loaders read it with rsn_torch.data.png, as rsn
   reads it with PIL.
 - jpeg.cpp: `probe_jpeg` and `decode_jpeg`, the JPEG decoder that gives
-  PIL's pixels (libjpeg-turbo's integer IDCT, fancy upsampling and
-  colour tables; baseline, extended sequential and progressive Huffman,
-  gray or three components).  A kind of JPEG it leaves out raises
-  NotImplementedError naming ROADMAP Queue 1 and rsn/data/blender.py (rsn
-  reads it with PIL); a corrupt or truncated file raises ValueError.
+  PIL's pixels (libjpeg-turbo's integer IDCT, block smoothing, fancy
+  upsampling and colour tables; sequential, progressive and lossless
+  frames, Huffman or arithmetic coded, gray, three components or CMYK /
+  YCCK).  A JPEG PIL or libjpeg refuses (a precision other than 8,
+  hierarchical frames, fractional sampling, ...) raises ValueError saying
+  so, as rsn raises on it; a corrupt or truncated file raises ValueError.
 
 g++ builds each library at first use into rsn_torch/_build/
 (git-ignored).  Its name carries a hash of its source, the flags and the
@@ -136,8 +137,8 @@ def decode_png_batch(paths: List[str], height: int, width: int,
 # ---- JPEG (jpeg.cpp) -------------------------------------------------------
 
 # rsn_probe_jpeg / rsn_decode_jpeg return codes
-JPEG_UNSUPPORTED, JPEG_CORRUPT = 1, 2
-_JPEG_MODES = {1: "L", 3: "RGB"}
+JPEG_REFUSED, JPEG_CORRUPT = 1, 2
+_JPEG_MODES = {1: "L", 3: "RGB", 4: "CMYK"}
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 
 
@@ -165,11 +166,10 @@ def get_jpeg_lib() -> ctypes.CDLL:
 
 def _jpeg_error(path: str, rc: int, msg: bytes) -> Exception:
     what = msg.decode(errors="replace")
-    if rc == JPEG_UNSUPPORTED:
-        return NotImplementedError(
-            f"{path}: a JPEG with {what}; ROADMAP Queue 1: the port's JPEG "
-            "decoder leaves this kind out, rsn/data/blender.py reads it "
-            "with PIL")
+    if rc == JPEG_REFUSED:
+        return ValueError(
+            f"{path}: a JPEG with {what}, which PIL refuses as well "
+            "(rsn/data/blender.py raises on it too)")
     return ValueError(f"{path}: corrupt JPEG ({what})")
 
 
@@ -192,18 +192,21 @@ def _file_bytes(path: str) -> np.ndarray:
 
 def probe_jpeg(path: str) -> Tuple[str, Tuple[int, ...]]:
     """-> (PIL's mode, the array's shape) from the markers up to the
-    frame header: ("L", (H, W)) or ("RGB", (H, W, 3))."""
+    frame header: ("L", (H, W)), ("RGB", (H, W, 3)) or ("CMYK",
+    (H, W, 4))."""
     return _probe(get_jpeg_lib(), path, _file_bytes(path))
 
 
 def decode_jpeg(path: str) -> Tuple[str, np.ndarray]:
     """-> (PIL's mode, np.asarray(Image.open(path))): uint8 (H, W) for
-    "L", (H, W, 3) for "RGB".
+    "L", (H, W, 3) for "RGB", (H, W, 4) for "CMYK" (PIL's inverted
+    "CMYK;I" bytes).
 
-    Raises NotImplementedError for the kinds the decoder leaves out (CMYK,
-    arithmetic coding, lossless, hierarchical, 12-bit, other sampling
-    layouts; ROADMAP Queue 1) and ValueError for a corrupt or truncated
-    file."""
+    Raises ValueError for a corrupt or truncated file and for the kinds
+    PIL or libjpeg refuses (a precision other than 8, hierarchical and
+    lossless arithmetic frames, fractional sampling, 2 components, a
+    progressive or lossless scan without its Huffman table, a lossless
+    frame in YCbCr or YCCK)."""
     lib = get_jpeg_lib()
     data = _file_bytes(path)
     mode, shape = _probe(lib, path, data)

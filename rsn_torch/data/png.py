@@ -351,7 +351,8 @@ def resize_bilinear(mode: str, arr: np.ndarray, size: Tuple[int, int]
         fx, kx = _coeffs(arr.shape[1], w)
         fy, ky = _coeffs(arr.shape[0], h)
         return _pass_16bpc(_pass_16bpc(arr, fx, kx, 1), fy, ky, 0)
-    if mode not in ("L", "RGB", "LA", "RGBA"):
+    # CMYK as Pillow resizes it: four bands, nothing premultiplied
+    if mode not in ("L", "RGB", "LA", "RGBA", "CMYK"):
         raise ValueError(f"resize of PIL mode {mode!r} is not ported")
     img = arr[..., None] if arr.ndim == 2 else arr
     if mode in ("LA", "RGBA"):

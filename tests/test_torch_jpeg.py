@@ -3,8 +3,9 @@ tests/golden/jpeg/write_fixtures.py written by PIL from its seed and read
 back bit for bit (sequential, progressive, restart markers, every
 subsampling PIL writes, gray, Adobe RGB, tiny and odd sizes); the
 committed fixtures against their recorded digests (PIL's and the port's);
-the loaders on a JPEG scene against rsn's; the kinds left out and the
-corrupt files."""
+the loaders on a JPEG scene against rsn's; the kinds the decoder once left
+out, the kinds PIL refuses and the corrupt files.  The kinds PIL does not
+write are tests/test_torch_jpeg_kinds.py's."""
 import importlib.util
 import io
 import json
@@ -30,6 +31,11 @@ fixtures = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(fixtures)
 with open(fixtures.DIGESTS) as _f:
     RECORDED = json.load(_f)
+_spec = importlib.util.spec_from_file_location(
+    "jpeg_kinds_fixtures", os.path.join(os.path.dirname(GOLDEN),
+                                        "jpeg_kinds", "write_fixtures.py"))
+kinds = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(kinds)
 
 
 def _pil(path):
@@ -134,31 +140,47 @@ def _cmyk_bytes():
     return b.getvalue()
 
 
+# the kinds the decoder once left out: real files of each (PIL's CMYK, the
+# numpy writer's arithmetic, lossless and 4:4:0 frames), which now decode,
+# and the two PIL refuses -> what the refusal's message names
 UNPORTED = {
-    "cmyk": (_cmyk_bytes, "4 components"),
-    "arithmetic_sof9": (lambda: _patched_sof(marker=0xC9), "SOF9"),
-    "lossless_sof3": (lambda: _patched_sof(marker=0xC3), "SOF3"),
+    "cmyk": (_cmyk_bytes, None),
+    "arithmetic_sof9": (lambda: kinds.case_bytes("arith_seq"), None),
+    "lossless_sof3": (lambda: kinds.case_bytes("lossless_p1"), None),
+    "sampling440": (lambda: kinds.case_bytes("sampling440"), None),
     "hierarchical_sof5": (lambda: _patched_sof(marker=0xC5), "SOF5"),
     "precision12": (lambda: _patched_sof(precision=12), "12-bit"),
-    "sampling440": (lambda: _patched_sof(sampling=0x12), "sampling"),
 }
 
 
 @pytest.mark.parametrize("kind", sorted(UNPORTED))
 def test_unported_kinds_raise_not_implemented(tmp_path, kind):
-    """Each kind the decoder leaves out raises NotImplementedError naming
-    ROADMAP Queue 1 and the rsn module that reads it with PIL, through
-    read_jpeg and through the loaders' _load_image."""
-    make, what = UNPORTED[kind]
+    """No kind raises NotImplementedError any more.  CMYK, arithmetic
+    coding, lossless frames and 4:4:0 decode to PIL's mode and array
+    through read_jpeg, and _load_image gives rsn's frame; a hierarchical
+    frame and a 12-bit one raise ValueError naming the file and PIL's
+    refusal, through read_jpeg and the loaders' _load_image, where PIL
+    raises."""
+    make, refused = UNPORTED[kind]
     path = str(tmp_path / f"{kind}.jpg")
     with open(path, "wb") as f:
         f.write(make())
+    if refused is None:
+        want_mode, want = _pil(path)
+        mode, got = tjpeg.read_jpeg(path)
+        assert (mode, got.shape) == (want_mode, want.shape)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(tblender._load_image(path),
+                                      jblender._load_image(path))
+        return
+    with pytest.raises(OSError):
+        np.asarray(Image.open(path))
     for read in (tjpeg.read_jpeg, tblender._load_image):
-        with pytest.raises(NotImplementedError) as info:
+        with pytest.raises(ValueError) as info:
             read(path)
         msg = str(info.value)
-        assert ("ROADMAP Queue 1" in msg and "rsn/data/blender.py" in msg
-                and what in msg and path in msg), msg
+        assert ("PIL refuses" in msg and refused in msg and path in msg
+                and "ROADMAP" not in msg), msg
 
 
 def test_truncated_and_corrupt_files_raise_value_error(tmp_path):

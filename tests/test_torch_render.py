@@ -186,9 +186,9 @@ def test_port_imports_no_jax():
     assert (jax_in, flax_in, pil_in) == ("False", "False", "False")
 
 
-def _read_cmyk_jpeg_frame():
-    """A nerfstudio capture's JPEG frame in CMYK, a kind the port's JPEG
-    decoder leaves out."""
+def _read_cmyk_tiff_frame():
+    """A nerfstudio capture's frame in CMYK TIFF, a format the port's
+    read_image leaves out (CMYK JPEG frames are decoded)."""
     import tempfile
 
     from PIL import Image
@@ -196,8 +196,8 @@ def _read_cmyk_jpeg_frame():
     from rsn_torch.data import blender as tblender
 
     with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "frame_00001.jpg")
-        Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(path, "JPEG")
+        path = os.path.join(d, "frame_00001.tiff")
+        Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(path, "TIFF")
         tblender._load_image(path)
 
 
@@ -205,7 +205,7 @@ def _not_ported_calls():
     """Each "not ported" error of the port, as a call and the rsn module
     it must name."""
     return {
-        "cmyk jpeg frame": (_read_cmyk_jpeg_frame, "rsn/data/blender.py"),
+        "cmyk tiff frame": (_read_cmyk_tiff_frame, "rsn/data/blender.py"),
     }
 
 

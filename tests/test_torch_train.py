@@ -466,7 +466,8 @@ def test_train_cli_num_devices_trains_ranks(tmp_path, capfd):
 
 
 @pytest.mark.parametrize("flags,match", [
-    # the dataparsers and JPEG frames are ported; a CMYK JPEG frame is not
+    # the dataparsers and JPEG frames (CMYK too) are ported; a TIFF frame
+    # is not ("neither a PNG nor a JPEG file")
     pytest.param(["--pipeline.datamanager.dataparser", "blender",
                   "--data", "{jpeg_scene}"], "JPEG",
                  id="flags3-dataparser"),
@@ -476,11 +477,11 @@ def test_unported_train_options_raise(tmp_path, flags, match):
     scene.mkdir()
     from PIL import Image
 
-    Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(scene / "r_0.jpg",
-                                                     "JPEG")
+    Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(scene / "r_0.tiff",
+                                                     "TIFF")
     (scene / "transforms_train.json").write_text(json.dumps(
         {"camera_angle_x": 0.69, "frames": [
-            {"file_path": "./r_0.jpg",
+            {"file_path": "./r_0.tiff",
              "transform_matrix": np.eye(4).tolist()}]}))
     argv = ["reflect-sampling-nerf", "--data", "sphere:res=8,cams=2",
             "--pipeline.datamanager.dataparser", "synthetic",
