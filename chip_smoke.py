@@ -321,7 +321,24 @@ Phases, each announced on its own line:
                 steps, bit for bit; a save at step 30 restored into a new
                 Trainer and graphed to step 60 == the uninterrupted run,
                 every tensor bit for bit.
-  24. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
+  24. TIFF frames — the committed fixtures of tests/golden/tiff/ decoded
+                through read_image to the mode, shape, dtype and sha256 of
+                PIL's decode recorded in digests.json; one 800x800 RGB
+                frame of each of that writer's TIMED_KINDS (no
+                compression, PackBits, LZW and Deflate with and without
+                predictor 2, JPEG YCbCr 4:2:0, 16-bit, planar, tiled)
+                decoded (the writer's samples back, JPEG within 3 on
+                average of its YCbCr's RGB), ms per frame (host CPU, one
+                thread, best of 3, warm) beside the native PNG decoder and
+                the baseline JPEG decoder on the same frame; phase 21's
+                five JPEG frames written as TIFFs (LZW, predictor 2,
+                8-bit RGB) under a nerfstudio capture, load_dataset ==
+                their pixels / 255; `python -m rsn_torch.cli.train` on it
+                (JPEG_STEPS bf16 steps, --vis tensorboard): finite log
+                lines, K3-K5 launched; `python -m rsn_torch.cli.eval
+                --max-images 1`: eval.json's five keys finite, K1
+                launched.
+  25. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
 
 Any failed check raises: the script then exits non-zero and prints no
 result.  It imports neither jax nor PIL, nor anything of the JAX package.
@@ -850,8 +867,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as dispatch_tmp:
         graphed_dispatch_phase(card, dispatch_tmp)
 
-    # ---- 24. result ----
-    phase("phase 24: result")
+    # ---- 24. TIFF frames: the decoder and a capture of TIFFs ----
+    with tempfile.TemporaryDirectory() as tiff_tmp:
+        tiff_phase(card, tiff_tmp)
+
+    # ---- 25. result ----
+    phase("phase 25: result")
     kernels = []
     for name, source, line in KERNEL_ROWS:
         r = results[name]
@@ -1965,16 +1986,13 @@ def jpeg_kinds_check(card, baseline_ms: float) -> None:
     written by the fixtures' numpy writer, decoded and timed (host CPU,
     one thread, best of 3) beside the baseline JPEG frame's ms."""
     import hashlib
-    import importlib.util
 
     import numpy as np
 
     from rsn_torch.data.jpeg import read_jpeg
 
-    spec = importlib.util.spec_from_file_location(
-        "jpeg_kinds_writer", os.path.join(JPEG_KINDS_DIR, "write_fixtures.py"))
-    writer = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(writer)
+    writer = load_writer("jpeg_kinds_writer",
+                         os.path.join(JPEG_KINDS_DIR, "write_fixtures.py"))
     with open(os.path.join(JPEG_KINDS_DIR, "digests.json")) as fh:
         recorded = json.load(fh)
     for fname, want in sorted(recorded["files"].items()):
@@ -2023,8 +2041,8 @@ def jpeg_kinds_check(card, baseline_ms: float) -> None:
           flush=True)
 
 
-def write_jpeg_capture(frames, out_dir: str) -> str:
-    """A nerfstudio-format capture: the frames under images/ and a
+def write_capture(frames, out_dir: str) -> str:
+    """A nerfstudio-format capture: the frame files under images/ and a
     transforms.json with the synthetic train cameras' poses and
     intrinsics (the frames are make_synthetic_dataset's images)."""
     import shutil
@@ -2116,9 +2134,11 @@ def launch_us() -> float:
     return statistics.median(runs)
 
 
-def jpeg_train_run(card, scene: str, tmp: str, name: str, profiled: bool):
-    """`python -m rsn_torch.cli.train` for JPEG_STEPS bf16 steps on the
-    JPEG capture with --vis tensorboard, and with profiled the profiler
+def capture_train_run(card, scene: str, tmp: str, name: str,
+                      profiled: bool):
+    """`python -m rsn_torch.cli.train` for JPEG_STEPS bf16 steps on a
+    nerfstudio capture (phase 21's JPEGs, phase 24's TIFFs) with --vis
+    tensorboard, and with profiled the profiler
     window over JPEG_PROFILE's steps (its trace checked); its launches of
     the train kernels, finite losses, no tb writer without tensorboardX
     -> (its run dir, host ms per step from the cumulative rays_per_sec)."""
@@ -2128,7 +2148,7 @@ def jpeg_train_run(card, scene: str, tmp: str, name: str, profiled: bool):
 
     start, num = JPEG_PROFILE
     tag = name.replace(" ", "_")
-    prof_dir = os.path.join(tmp, f"jpeg_profile_{tag}")
+    prof_dir = os.path.join(tmp, f"capture_profile_{tag}")
     argv = [
         "reflect-sampling-nerf", "--pipeline.datamanager.dataparser",
         "nerfstudio", "--pipeline.datamanager.data", scene,
@@ -2137,7 +2157,8 @@ def jpeg_train_run(card, scene: str, tmp: str, name: str, profiled: bool):
         "--pipeline.datamanager.scale-factor", "4.0",
         "--pipeline.model.compute-dtype", "bfloat16",
         "--max-num-iterations", str(JPEG_STEPS), "--steps-per-log", "1",
-        "--seed", str(SEED), "--output-dir", os.path.join(tmp, f"jpeg_out_{tag}"),
+        "--seed", str(SEED),
+        "--output-dir", os.path.join(tmp, f"capture_out_{tag}"),
         "--vis", "tensorboard"]
     if profiled:
         argv += ["--profile-dir", prof_dir, "--profile-start-step",
@@ -2185,10 +2206,7 @@ def jpeg_phase(card, tmp: str, png_dir: str) -> None:
     profiler window, with it, and without it again) and the eval CLI,
     each from zeroed launch counts."""
     import numpy as np
-    import torch
 
-    from rsn_torch import lpips as lpips_lib
-    from rsn_torch.cli import eval as eval_cli
     from rsn_torch.data.blender import load_dataset
 
     phase(f"phase 21: JPEG frames: the fixtures against PIL's digests, "
@@ -2196,7 +2214,7 @@ def jpeg_phase(card, tmp: str, png_dir: str) -> None:
           f"profiler window) and eval on a nerfstudio capture of "
           f"{FRAME_RES}x{FRAME_RES} JPEGs")
     frames = jpeg_decode_check(card, png_dir)
-    scene = write_jpeg_capture(frames, os.path.join(tmp, "jpeg_capture"))
+    scene = write_capture(frames, os.path.join(tmp, "jpeg_capture"))
     t0 = time.perf_counter()
     ds = load_dataset("nerfstudio", scene, "train")
     load_s = time.perf_counter() - t0
@@ -2212,7 +2230,7 @@ def jpeg_phase(card, tmp: str, png_dir: str) -> None:
     runs, launch = {}, {"before the runs": launch_us()}
     for name, profiled in (("plain", False), ("profiled", True),
                            ("plain after", False)):
-        runs[name] = jpeg_train_run(card, scene, tmp, name, profiled)
+        runs[name] = capture_train_run(card, scene, tmp, name, profiled)
         launch[f"after {name}"] = launch_us()
     for name, (_, step_ms) in runs.items():
         print(f"  {name}: host ms per step "
@@ -2226,9 +2244,19 @@ def jpeg_phase(card, tmp: str, png_dir: str) -> None:
         start + num + 1, JPEG_STEPS, ", ".join(
             f"{name} {float(np.median(ms[after])):.3f}"
             for name, (_, ms) in runs.items())), flush=True)
-    run = runs["profiled"][0]
+    eval_one_image(card, runs["profiled"][0], tmp)
 
-    weights = os.path.join(tmp, "jpeg_lpips_vgg.pth")
+
+def eval_one_image(card, run: str, tmp: str) -> None:
+    """`python -m rsn_torch.cli.eval --max-images 1` on a run (LPIPS with
+    seeded weights): eval.json's five keys finite, K1 launched."""
+    import numpy as np
+    import torch
+
+    from rsn_torch import lpips as lpips_lib
+    from rsn_torch.cli import eval as eval_cli
+
+    weights = os.path.join(tmp, "eval_lpips_vgg.pth")
     torch.save(lpips_lib.export_torch_state_dict(lpips_lib.LPIPS(
         torch.Generator().manual_seed(SEED))), weights)
     os.environ["RSN_LPIPS_WEIGHTS"] = weights
@@ -2248,6 +2276,141 @@ def jpeg_phase(card, tmp: str, png_dir: str) -> None:
         raise RuntimeError(f"eval.json: {res}")
     if launches["field_forward_v3"] <= 0:
         raise RuntimeError("eval did not run K1")
+
+
+TIFF_DIR = os.path.join(REPO, "tests", "golden", "tiff")
+
+
+def load_writer(name: str, path: str):
+    """A fixtures' numpy writer, loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def best_of_3_ms(fn) -> float:
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        runs.append(time.perf_counter() - t0)
+    return 1e3 * min(runs)
+
+
+def tiff_decode_check(card, tmp: str):
+    """Every committed fixture of tests/golden/tiff/ decoded through
+    read_image to PIL's recorded digest; one 800x800 frame of each timed
+    kind, written by that folder's numpy writer, decoded (ms per frame,
+    host CPU, one thread, best of 3, warm) beside the native PNG decoder
+    and the baseline JPEG decoder on the same frame."""
+    import numpy as np
+
+    from rsn_torch.data import native, png
+    from rsn_torch.data.jpeg import read_image, read_jpeg
+
+    writer = load_writer("tiff_writer",
+                         os.path.join(TIFF_DIR, "write_fixtures.py"))
+    jpeg_writer = load_writer("jpeg_kinds_writer", os.path.join(
+        JPEG_KINDS_DIR, "write_fixtures.py"))
+    with open(os.path.join(TIFF_DIR, "digests.json")) as fh:
+        recorded = json.load(fh)
+    for fname, want in sorted(recorded["files"].items()):
+        got = writer.digest(*read_image(os.path.join(TIFF_DIR, fname)))
+        if got != want:
+            raise RuntimeError(f"tiff/{fname}: decoded to {got}, PIL's "
+                               f"decode is {want}")
+    print(f"  {len(recorded['files'])} TIFF fixtures == PIL "
+          f"{recorded['pil']} / libtiff {recorded['libtiff']} / "
+          f"libjpeg-turbo {recorded['libjpeg_turbo']}'s decode (mode, "
+          f"shape, dtype, sha256) ({card})", flush=True)
+    times = {}
+    for name, (spp, bits, opts) in writer.TIMED_KINDS.items():
+        px = writer.frame_samples(FRAME_RES, spp, bits)
+        path = os.path.join(tmp, f"{name}.tif")
+        with open(path, "wb") as fh:
+            fh.write(writer.write_tiff(px, **opts))
+        mode, arr = read_image(path)
+        if mode != "RGB" or arr.shape != (FRAME_RES, FRAME_RES, 3):
+            raise RuntimeError(f"{name}: {mode} {arr.shape}")
+        if opts.get("compression") == 7:  # YCbCr converted: near px
+            y, cb, cr = (px.astype(np.float64)[..., c] for c in range(3))
+            rgb = np.stack([y + 1.402 * (cr - 128),
+                            y - 0.344136 * (cb - 128) - 0.714136 * (cr - 128),
+                            y + 1.772 * (cb - 128)], -1)
+            err = np.abs(arr - np.clip(rgb, 0, 255)).mean()
+            if err > 3:
+                raise RuntimeError(f"{name}: mean error {err:.3f}")
+        elif not np.array_equal(arr, px if bits == 8 else px >> 8):
+            raise RuntimeError(f"{name}: not the writer's samples")
+        times[name] = (best_of_3_ms(lambda: read_image(path)),
+                       os.path.getsize(path))
+    px = writer.frame_samples(FRAME_RES, 3)
+    png_path = os.path.join(tmp, "frame.png")
+    png.write_png(png_path, px)
+    jpeg_path = os.path.join(tmp, "frame.jpg")
+    with open(jpeg_path, "wb") as fh:
+        fh.write(jpeg_writer.write_jpeg(px, sampling=[(2, 2), (1, 1),
+                                                      (1, 1)], quality=90))
+    png_ms = best_of_3_ms(lambda: native.decode_png_batch(
+        [png_path], FRAME_RES, FRAME_RES, num_threads=1))
+    jpeg_ms = best_of_3_ms(lambda: read_jpeg(jpeg_path))
+    print(f"  ms per {FRAME_RES}x{FRAME_RES} RGB frame (host CPU, one "
+          f"thread, best of 3, warm): " + ", ".join(
+              f"TIFF {k} {ms:.4f} ({size} bytes)"
+              for k, (ms, size) in times.items())
+          + f"; native PNG decoder {png_ms:.4f}, baseline JPEG (4:2:0, "
+          f"quality 90) {jpeg_ms:.4f} ({card})", flush=True)
+    return writer
+
+
+def tiff_phase(card, tmp: str) -> None:
+    """Phase 24: the TIFF decoder on this host, then a nerfstudio capture
+    of five 800x800 TIFF frames (LZW, predictor 2, 8-bit RGB: phase 21's
+    JPEG frames' pixels) through the train CLI and the eval CLI, each from
+    zeroed launch counts."""
+    import numpy as np
+
+    from rsn_torch.data.blender import load_dataset
+    from rsn_torch.data.jpeg import read_jpeg
+
+    phase(f"phase 24: TIFF frames: the fixtures against PIL's digests, "
+          f"{FRAME_RES}x{FRAME_RES} frames of each kind timed, then train "
+          f"and eval on a nerfstudio capture of {FRAME_RES}x{FRAME_RES} "
+          f"TIFFs")
+    writer = tiff_decode_check(card, tmp)
+    with open(os.path.join(JPEG_DIR, "digests.json")) as fh:
+        jpegs = sorted(os.path.join(JPEG_DIR, f) for f in json.load(fh)[
+            "files"] if f.startswith("frame_"))
+    frames, pixels = [], []
+    os.makedirs(os.path.join(tmp, "tiff_frames"))
+    for path in jpegs:
+        _, px = read_jpeg(path)
+        out = os.path.join(tmp, "tiff_frames",
+                           os.path.basename(path)[:-4] + ".tif")
+        with open(out, "wb") as fh:
+            fh.write(writer.write_tiff(px, photometric=2, compression=5,
+                                       predictor=2, rows_per_strip=8))
+        frames.append(out)
+        pixels.append(px)
+    scene = write_capture(frames, os.path.join(tmp, "tiff_capture"))
+    t0 = time.perf_counter()
+    ds = load_dataset("nerfstudio", scene, "train")
+    load_s = time.perf_counter() - t0
+    want = np.stack(pixels).astype(np.float32) / 255.0
+    if not all(any(np.array_equal(img, w) for w in want)
+               for img in ds.images):
+        raise RuntimeError("the TIFF capture's train split does not load "
+                           "to its frames' pixels / 255")
+    print(f"  load_nerfstudio: {ds.images.shape[0]} TIFF frames of "
+          f"{ds.images.shape[2]}x{ds.images.shape[1]} in {load_s:.4f} s "
+          f"(host clock; each == its frame's pixels / 255) ({card})")
+    run, step_ms = capture_train_run(card, scene, tmp, "tiff", False)
+    print(f"  tiff: host ms per step {[round(float(t), 3) for t in step_ms]}"
+          f" ({card})", flush=True)
+    eval_one_image(card, run, tmp)
 
 
 def io_lines(fn):

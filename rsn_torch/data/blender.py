@@ -13,9 +13,11 @@ frames rsn_torch.data.jpeg.read_image, which picks the decoder by the
 file's first bytes as Image.open does and gives what PIL gives: PNGs
 through rsn_torch.data.png (palette indices, 16-bit gray values), JPEGs
 through the native JPEG decoder (libjpeg-turbo's pixels, CMYK included),
-and Pillow's bilinear shrink for either.  A JPEG PIL refuses raises
-ValueError, as rsn's PIL raises; a format other than PNG and JPEG raises
-NotImplementedError (ROADMAP Queue 1).
+TIFFs through rsn_torch.data.tiff (every mode PIL opens them as: 1, L,
+I;16, I;16B, I, F, LA, RGB, RGBA, P, PA, CMYK, LAB), and Pillow's
+bilinear shrink for each mode.  A file PIL refuses raises ValueError, as
+rsn's PIL raises; a format other than PNG, JPEG and TIFF, or a TIFF kind
+not ported yet, raises NotImplementedError (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -38,9 +40,10 @@ def _load_image(path: str, downscale: int = 1) -> np.ndarray:
     """One frame as rsn's PIL path reads it: resized by
     `Image.resize((w // downscale, h // downscale), BILINEAR)`, divided
     by 255 in float32, gray repeated to 3 channels, RGBA blended to white,
-    the first 3 channels kept (a gray + alpha frame keeps its 2, as rsn's
-    does; a CMYK frame has C, M, Y blended over its K as rsn blends
-    them, K taken for alpha)."""
+    the first 3 channels kept (a gray + alpha or palette + alpha frame
+    keeps its 2, as rsn's does; a CMYK frame has C, M, Y blended over its
+    K as rsn blends them, K taken for alpha; I;16, I and F values are
+    divided as they are, past 1 where they are past 255)."""
     mode, img = read_image(path)
     if downscale > 1:
         img = png.resize_bilinear(mode, img, (img.shape[1] // downscale,

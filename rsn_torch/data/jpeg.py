@@ -3,8 +3,11 @@ port of the `Image.open` calls in rsn/data/blender.py).
 
 rsn opens every frame with PIL, which tells the format by content, not by
 extension.  `read_image` does the same: a PNG goes to
-rsn_torch.data.png.read_png, a JPEG to `read_jpeg`, and any other format
-raises NotImplementedError.  `read_jpeg` gives what
+rsn_torch.data.png.read_png, a JPEG to `read_jpeg`, a TIFF to
+rsn_torch.data.tiff.read_tiff (PIL's mode and array for strips and tiles,
+both byte orders, BigTIFF, no compression, PackBits, LZW, Deflate and
+JPEG, predictors 2 and 3), and any other format raises
+NotImplementedError.  `read_jpeg` gives what
 `np.asarray(Image.open(path))` gives with PIL on libjpeg-turbo (the native
 decoder in rsn_torch.data.native, bit for bit): mode "L" as (H, W) uint8,
 "RGB" as (H, W, 3) uint8, "CMYK" as (H, W, 4) uint8 (PIL's inverted
@@ -18,7 +21,7 @@ from typing import Tuple
 
 import numpy as np
 
-from rsn_torch.data import native, png
+from rsn_torch.data import native, png, tiff
 
 JPEG_PREFIX = b"\xff\xd8\xff"  # PIL's JpegImagePlugin._accept
 
@@ -31,12 +34,14 @@ def read_image(path: str) -> Tuple[str, np.ndarray]:
     """Any frame rsn reads with PIL -> (PIL's mode, np.asarray's array),
     the decoder chosen by the file's first bytes as Image.open chooses."""
     with open(path, "rb") as f:
-        head = f.read(len(png.SIGNATURE))
+        head = f.read(max(len(png.SIGNATURE), len(tiff.PREFIXES[0])))
     if head.startswith(png.SIGNATURE):
         return png.read_png(path)
     if head.startswith(JPEG_PREFIX):
         return read_jpeg(path)
+    if tiff.is_tiff(head):
+        return tiff.read_tiff(path)
     raise NotImplementedError(
-        f"{path}: neither a PNG nor a JPEG file; ROADMAP Queue 1: the port "
-        "decodes PNG and JPEG frames, rsn/data/blender.py reads the other "
-        "formats with PIL")
+        f"{path}: not a PNG, JPEG or TIFF file; ROADMAP Queue 1: the port "
+        "decodes PNG, JPEG and TIFF frames, rsn/data/blender.py reads the "
+        "other formats with PIL")

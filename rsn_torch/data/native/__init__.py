@@ -14,6 +14,13 @@
   YCCK).  A JPEG PIL or libjpeg refuses (a precision other than 8,
   hierarchical frames, fractional sampling, ...) raises ValueError saying
   so, as rsn raises on it; a corrupt or truncated file raises ValueError.
+  `decode_tiff_jpeg` decodes one JPEG strip or tile of a TIFF as
+  libtiff's JPEG codec does (the JPEGTables tag's tables first, YCbCr
+  converted to RGB or no colour conversion at all).
+- tiff.cpp: `decode_tiff_chunk`, the codecs of a TIFF strip or tile as
+  libtiff decodes them (PackBits, LZW, Deflate, FillOrder 2, predictors
+  2 and 3, samples swapped to the host's byte order) for
+  rsn_torch.data.tiff; a strip it cannot decode raises ValueError.
 
 g++ builds each library at first use into rsn_torch/_build/
 (git-ignored).  Its name carries a hash of its source, the flags and the
@@ -28,6 +35,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 from typing import List, Optional, Tuple
@@ -37,6 +45,7 @@ import numpy as np
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_DIR, "loader.cpp")
 JPEG_SOURCE = os.path.join(_DIR, "jpeg.cpp")
+TIFF_SOURCE = os.path.join(_DIR, "tiff.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
 # rsn/data/native/__init__.py's flags: with -march=native g++ contracts
 # the alpha blend into FMAs, and the port's images equal rsn's bit for bit
@@ -46,6 +55,7 @@ LIBS = ("-lz", "-lpthread")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _jpeg_lib: Optional[ctypes.CDLL] = None
+_tiff_lib: Optional[ctypes.CDLL] = None
 
 
 def _cpu_identity() -> bytes:
@@ -160,6 +170,11 @@ def get_jpeg_lib() -> ctypes.CDLL:
             lib.rsn_decode_jpeg.argtypes = [_u8p, ctypes.c_int64, _u8p,
                                             ctypes.c_int64, ctypes.c_char_p,
                                             ctypes.c_int]
+            lib.rsn_decode_tiff_jpeg.restype = ctypes.c_int
+            lib.rsn_decode_tiff_jpeg.argtypes = [
+                _u8p, ctypes.c_int64, _u8p, ctypes.c_int64, _u8p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_char_p, ctypes.c_int]
             _jpeg_lib = lib
         return _jpeg_lib
 
@@ -218,3 +233,71 @@ def decode_jpeg(path: str) -> Tuple[str, np.ndarray]:
     if rc != 0:
         raise _jpeg_error(path, rc, msg.value)
     return mode, out
+
+
+def decode_tiff_jpeg(data: bytes, tables: bytes, width: int, height: int,
+                     comps: int, rgb: bool, path: str) -> np.ndarray:
+    """One JPEG strip or tile of a TIFF as libtiff's JPEG codec decodes it
+    for PIL: `tables` (the JPEGTables tag's stream, or b"") read first,
+    then the strip's stream; YCbCr to RGB when rgb (PIL sets
+    JPEGCOLORMODE_RGB), else the components as they are (libtiff's
+    JCS_UNKNOWN); a stream taller than `height` cut to it (the last
+    strip) -> (height, width * comps) uint8 rows."""
+    lib = get_jpeg_lib()
+    src = np.frombuffer(data, np.uint8)
+    tab = np.frombuffer(tables, np.uint8)
+    out = np.empty((height, width * comps), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    rc = lib.rsn_decode_tiff_jpeg(
+        tab.ctypes.data_as(_u8p), tab.size, src.ctypes.data_as(_u8p),
+        src.size, out.ctypes.data_as(_u8p), width, height, comps, int(rgb),
+        msg, len(msg))
+    if rc != 0:
+        raise ValueError(f"{path}: a JPEG strip or tile libtiff cannot "
+                         f"decode ({msg.value.decode(errors='replace')}); "
+                         "PIL raises on it too")
+    return out
+
+
+# ---- TIFF codecs (tiff.cpp) ---------------------------------------------------
+
+def get_tiff_lib() -> ctypes.CDLL:
+    """The loaded TIFF codec library, built first if it is missing."""
+    global _tiff_lib
+    with _lock:
+        if _tiff_lib is None:
+            path = library_path(TIFF_SOURCE, ("-lz",))
+            if not os.path.isfile(path):
+                _build(path, TIFF_SOURCE, ("-lz",))
+            lib = ctypes.CDLL(path)
+            lib.rsn_tiff_decode.restype = ctypes.c_int
+            lib.rsn_tiff_decode.argtypes = [
+                _u8p, ctypes.c_int64, ctypes.c_int, _u8p, ctypes.c_int64,
+                ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+            _tiff_lib = lib
+        return _tiff_lib
+
+
+def decode_tiff_chunk(data: bytes, codec: int, size: int, predictor: int,
+                      row_bytes: int, bps: int, stride: int,
+                      big_endian: bool, reverse: bool,
+                      path: str) -> np.ndarray:
+    """One compressed TIFF strip or tile -> its `size` bytes as libtiff
+    gives them: codec 1 PackBits, 2 LZW, 3 Deflate; FillOrder 2's
+    bits reversed first (reverse), predictor 2 or 3 undone per row of
+    `row_bytes`, 16 / 32-bit samples in the host's byte order."""
+    lib = get_tiff_lib()
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty(size, np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    swab = big_endian != (sys.byteorder == "big")
+    rc = lib.rsn_tiff_decode(
+        src.ctypes.data_as(_u8p), src.size, codec, out.ctypes.data_as(_u8p),
+        size, predictor, row_bytes, bps, stride, int(swab), int(reverse),
+        msg, len(msg))
+    if rc != 0:
+        raise ValueError(f"{path}: a TIFF strip or tile libtiff cannot "
+                         f"decode ({msg.value.decode(errors='replace')}); "
+                         "PIL raises on it too")
+    return out

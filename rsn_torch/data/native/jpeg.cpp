@@ -27,8 +27,9 @@
 //     decompress_smooth_data): a file whose scans leave low-frequency bits
 //     unsent has them estimated from the 5x5 neighbourhood of DC values
 //     (and its DC too when no AC bit came), with that code's edges;
-//   - the inverse DCT (jidctint.c, jpeg_idct_islow) and the post-IDCT
-//     range-limit table of jdmaster.c;
+//   - the inverse DCT as libjpeg-turbo's SIMD jsimd_idct_islow computes it
+//     on x86-64 (jidctint.c's algorithm in 16-bit lanes: dequantized
+//     coefficients and some sums wrap, each pass's outputs saturate);
 //   - lossless frames (jdlossls.c, jddiffct.c): predictors 1-7, the first
 //     row of a scan and of each restart interval from 2^(7-Pt) and its left
 //     neighbour, the first column from the sample above, the point
@@ -462,7 +463,10 @@ struct ArithReader {
 enum Upsample { kFullsize, kH2V1Fancy, kH1V2Fancy, kH2V2Fancy, kReplicate };
 
 // the colour space of default_decompress_parms
-enum Colour { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
+enum Colour { kGray, kYCbCr, kRGB, kCMYK, kYCCK, kRaw };
+// a colour space the caller sets (libtiff's JPEG codec sets it, whatever
+// the markers say): kKeep leaves jdapimin.c's choice
+enum ForceColour { kKeep = -1, kNoConversion = 0, kToRgb = 1 };
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
@@ -509,6 +513,8 @@ struct Decoder {
   uint8_t arith_ac_k[kArithTables];
   Component comp[kMaxComponents];
 
+  // a TIFF strip: libjpeg itself decodes 2 components as well
+  bool any_count = false;
   Decoder(const uint8_t* d, size_t len) : data(d), end(d + len), p(d) {
     for (int i = 0; i < kArithTables; i++) {  // jdmarker.c's defaults
       arith_dc_l[i] = 0;
@@ -664,7 +670,8 @@ struct Decoder {
     if (precision != 8)
       fail(kRefused, std::to_string(precision) + "-bit precision (PIL "
                      "opens 8-bit frames only)");
-    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+    if (ncomp < 1 || ncomp > kMaxComponents ||
+        (!any_count && ncomp == 2))
       fail(kRefused, std::to_string(ncomp) + " components (PIL opens 1, "
                      "3 or 4)");
     const std::string sof = "SOF" + std::to_string(m - 0xC0);
@@ -1333,149 +1340,88 @@ struct Decoder {
   }
 };
 
-// ---- the inverse DCT (jidctint.c, jpeg_idct_islow) ------------------------
+// ---- the inverse DCT (jidctint-sse2.asm / -avx2.asm, jsimd_idct_islow) ----
+//
+// libjpeg-turbo runs jpeg_idct_islow's algorithm in SIMD on x86-64, and
+// its 16-bit lanes change what happens out of range (jidctint.c's range
+// table would wrap instead):
+//   - each coefficient times its quantizer keeps its low 16 bits (pmullw);
+//   - a block whose rows 1-7 are all zero gives DC << 2 in 16 bits (psllw)
+//     down every column;
+//   - in0 + in4, in0 - in4 and the odd part's z3 = in7 + in3,
+//     z4 = in5 + in1 wrap in 16 bits (paddw / psubw); the products with the
+//     constants and their sums are 32-bit (pmaddwd / paddd), the constants
+//     paired as jidctint's comments pair them;
+//   - pass 1's outputs saturate to 16 bits (packssdw), pass 2's to 16 and
+//     then to 8 bits (packsswb) before the +128 (paddb).
+// In range this is jidctint.c's arithmetic term for term.
 
-constexpr int kConstBits = 13;
-constexpr int kPass1Bits = 2;
-constexpr int64_t FIX_0_298631336 = 2446;
-constexpr int64_t FIX_0_390180644 = 3196;
-constexpr int64_t FIX_0_541196100 = 4433;
-constexpr int64_t FIX_0_765366865 = 6270;
-constexpr int64_t FIX_0_899976223 = 7373;
-constexpr int64_t FIX_1_175875602 = 9633;
-constexpr int64_t FIX_1_501321110 = 12299;
-constexpr int64_t FIX_1_847759065 = 15137;
-constexpr int64_t FIX_1_961570560 = 16069;
-constexpr int64_t FIX_2_053119869 = 16819;
-constexpr int64_t FIX_2_562915447 = 20995;
-constexpr int64_t FIX_3_072711026 = 25172;
+constexpr int32_t kF029 = 2446, kF039 = 3196, kF054 = 4433, kF076 = 6270,
+                  kF089 = 7373, kF117 = 9633, kF150 = 12299, kF184 = 15137,
+                  kF196 = 16069, kF205 = 16819, kF256 = 20995, kF307 = 25172;
 
-inline int64_t descale(int64_t x, int n) {
-  return (x + (int64_t{1} << (n - 1))) >> n;
+inline int32_t wrap16(int32_t v) { return static_cast<int16_t>(v); }
+inline int32_t wrap32(int64_t v) {
+  return static_cast<int32_t>(static_cast<uint32_t>(v));
+}
+inline int32_t sat16(int32_t v) {
+  return v < -32768 ? -32768 : (v > 32767 ? 32767 : v);
 }
 
-// jdmaster.c's prepare_range_limit_table, from the post-IDCT start:
-// index (x & 1023) of the descaled IDCT output x
-struct RangeLimit {
-  uint8_t idct[1024];
-  RangeLimit() {
-    for (int i = 0; i < 1024; i++) {
-      if (i < 128) idct[i] = static_cast<uint8_t>(i + 128);
-      else if (i < 512) idct[i] = 255;
-      else if (i < 896) idct[i] = 0;
-      else idct[i] = static_cast<uint8_t>(i - 896);
-    }
-  }
-};
-const RangeLimit kRange;
+// One 1-D pass over 8 values v[0], v[step], ..., descaled by `shift` with
+// `bias` added first and saturated to 16 bits -> o[0], o[ostep], ...
+void idct_pass(const int32_t* v, int step, int32_t* o, int ostep, int shift,
+               int32_t bias) {
+  const int64_t in0 = v[0], in1 = v[step], in2 = v[2 * step],
+                in3 = v[3 * step], in4 = v[4 * step], in5 = v[5 * step],
+                in6 = v[6 * step], in7 = v[7 * step];
+  const int32_t tmp3 = wrap32(in2 * (kF054 + kF076) + in6 * kF054);
+  const int32_t tmp2 = wrap32(in2 * kF054 + in6 * (kF054 - kF184));
+  const int64_t tmp0 = int64_t{wrap16(static_cast<int32_t>(in0 + in4))} * 8192;
+  const int64_t tmp1 = int64_t{wrap16(static_cast<int32_t>(in0 - in4))} * 8192;
+  const int32_t t10 = wrap32(tmp0 + tmp3), t13 = wrap32(tmp0 - tmp3);
+  const int32_t t11 = wrap32(tmp1 + tmp2), t12 = wrap32(tmp1 - tmp2);
+  const int64_t z3 = wrap16(static_cast<int32_t>(in7 + in3));
+  const int64_t z4 = wrap16(static_cast<int32_t>(in5 + in1));
+  const int32_t z3p = wrap32(z3 * (kF117 - kF196) + z4 * kF117);
+  const int32_t z4p = wrap32(z3 * kF117 + z4 * (kF117 - kF039));
+  const int32_t o0 = wrap32(in7 * (kF029 - kF089) + in1 * -kF089 + z3p);
+  const int32_t o3 = wrap32(in7 * -kF089 + in1 * (kF150 - kF089) + z4p);
+  const int32_t o1 = wrap32(in5 * (kF205 - kF256) + in3 * -kF256 + z4p);
+  const int32_t o2 = wrap32(in5 * -kF256 + in3 * (kF307 - kF256) + z3p);
+  const int32_t out[8] = {wrap32(int64_t{t10} + o3), wrap32(int64_t{t11} + o2),
+                          wrap32(int64_t{t12} + o1), wrap32(int64_t{t13} + o0),
+                          wrap32(int64_t{t13} - o0), wrap32(int64_t{t12} - o1),
+                          wrap32(int64_t{t11} - o2), wrap32(int64_t{t10} - o3)};
+  for (int r = 0; r < 8; r++)
+    o[r * ostep] = sat16(wrap32(int64_t{out[r]} + bias) >> shift);
+}
 
 void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out,
                 int stride) {
-  int ws[64];
-  for (int col = 0; col < 8; col++) {
-    const int16_t* c = in + col;
-    const int16_t* qq = q + col;
-    int* w = ws + col;
-    if (c[8] == 0 && c[16] == 0 && c[24] == 0 && c[32] == 0 && c[40] == 0 &&
-        c[48] == 0 && c[56] == 0) {
-      int dc = static_cast<int>(static_cast<uint32_t>(c[0] * qq[0])
-                                << kPass1Bits);
-      for (int r = 0; r < 8; r++) w[r * 8] = dc;
-      continue;
-    }
-    int64_t z2 = c[16] * qq[16], z3 = c[48] * qq[48];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = c[0] * qq[0];
-    z3 = c[32] * qq[32];
-    int64_t tmp0 = (z2 + z3) * (int64_t{1} << kConstBits);
-    int64_t tmp1 = (z2 - z3) * (int64_t{1} << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = c[56] * qq[56];
-    tmp1 = c[40] * qq[40];
-    tmp2 = c[24] * qq[24];
-    tmp3 = c[8] * qq[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = kConstBits - kPass1Bits;
-    w[0] = static_cast<int>(descale(tmp10 + tmp3, sh));
-    w[56] = static_cast<int>(descale(tmp10 - tmp3, sh));
-    w[8] = static_cast<int>(descale(tmp11 + tmp2, sh));
-    w[48] = static_cast<int>(descale(tmp11 - tmp2, sh));
-    w[16] = static_cast<int>(descale(tmp12 + tmp1, sh));
-    w[40] = static_cast<int>(descale(tmp12 - tmp1, sh));
-    w[24] = static_cast<int>(descale(tmp13 + tmp0, sh));
-    w[32] = static_cast<int>(descale(tmp13 - tmp0, sh));
+  int32_t deq[64], ws[64];
+  bool ac_rows_zero = true;
+  for (int i = 0; i < 64; i++) {
+    deq[i] = wrap16(int32_t{in[i]} * q[i]);
+    if (i >= 8 && in[i] != 0) ac_rows_zero = false;
   }
-  const uint8_t* lim = kRange.idct;
-  for (int row = 0; row < 8; row++) {
-    const int* w = ws + row * 8;
-    uint8_t* o = out + static_cast<size_t>(row) * stride;
-    if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[4] == 0 && w[5] == 0 &&
-        w[6] == 0 && w[7] == 0) {
-      uint8_t dc = lim[static_cast<int>(descale(w[0], kPass1Bits + 3)) & 1023];
-      for (int i = 0; i < 8; i++) o[i] = dc;
-      continue;
+  if (ac_rows_zero) {
+    for (int col = 0; col < 8; col++) {
+      const int32_t dc = wrap16(deq[col] * 4);
+      for (int r = 0; r < 8; r++) ws[r * 8 + col] = dc;
     }
-    int64_t z2 = w[2], z3 = w[6];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    int64_t tmp0 = (int64_t{w[0]} + w[4]) * (int64_t{1} << kConstBits);
-    int64_t tmp1 = (int64_t{w[0]} - w[4]) * (int64_t{1} << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = kConstBits + kPass1Bits + 3;
-    o[0] = lim[static_cast<int>(descale(tmp10 + tmp3, sh)) & 1023];
-    o[7] = lim[static_cast<int>(descale(tmp10 - tmp3, sh)) & 1023];
-    o[1] = lim[static_cast<int>(descale(tmp11 + tmp2, sh)) & 1023];
-    o[6] = lim[static_cast<int>(descale(tmp11 - tmp2, sh)) & 1023];
-    o[2] = lim[static_cast<int>(descale(tmp12 + tmp1, sh)) & 1023];
-    o[5] = lim[static_cast<int>(descale(tmp12 - tmp1, sh)) & 1023];
-    o[3] = lim[static_cast<int>(descale(tmp13 + tmp0, sh)) & 1023];
-    o[4] = lim[static_cast<int>(descale(tmp13 - tmp0, sh)) & 1023];
+  } else {
+    for (int col = 0; col < 8; col++)
+      idct_pass(deq + col, 8, ws + col, 8, 11, 1 << 10);
+  }
+  for (int row = 0; row < 8; row++) {
+    int32_t o[8];
+    idct_pass(ws + row * 8, 1, o, 1, 18, 1 << 17);
+    uint8_t* dst = out + static_cast<size_t>(row) * stride;
+    for (int i = 0; i < 8; i++) {
+      const int32_t v = o[i] < -128 ? -128 : (o[i] > 127 ? 127 : o[i]);
+      dst[i] = static_cast<uint8_t>(v + 128);
+    }
   }
 }
 
@@ -1718,11 +1664,19 @@ struct Image {
   std::vector<uint8_t> pixels;
 };
 
-void decode(const uint8_t* data, size_t len, Image* img) {
+void decode(const uint8_t* data, size_t len, Image* img,
+            int force = kKeep) {
   Decoder d(data, len);
+  d.any_count = force != kKeep;
   d.run(false);
   if (!d.saw_sof) fail(kCorrupt, "no frame");
   if (d.scan_number == 0) fail(kCorrupt, "no scan");
+  if (force == kToRgb) {  // jpeg_color_space JCS_YCbCr, out JCS_RGB
+    if (d.ncomp != 3) fail(kCorrupt, "YCbCr data of other than 3 components");
+    d.colour = kYCbCr;
+  } else if (force == kNoConversion) {  // JCS_UNKNOWN: null_convert
+    d.colour = d.ncomp == 1 ? kGray : kRaw;
+  }
   d.allocate();
   if (!d.lossless) {
     const bool smooth = d.would_smooth();
@@ -1771,6 +1725,12 @@ void decode(const uint8_t* data, size_t len, Image* img) {
           o[4 * x + 1] = static_cast<uint8_t>(255 - r1[x]);
           o[4 * x + 2] = static_cast<uint8_t>(255 - r2[x]);
           o[4 * x + 3] = static_cast<uint8_t>(255 - r3[x]);
+        }
+        break;
+      case kRaw:  // the components as they are, interleaved
+        for (int c = 0; c < nc; c++) {
+          const uint8_t* r = rows.data() + static_cast<size_t>(c) * w;
+          for (int x = 0; x < w; x++) o[nc * x + c] = r[x];
         }
         break;
       case kYCCK:
@@ -1830,6 +1790,51 @@ int rsn_decode_jpeg(const uint8_t* data, int64_t len, uint8_t* out,
     if (static_cast<int64_t>(img.pixels.size()) != out_len)
       fail(kCorrupt, "output buffer of the wrong size");
     std::memcpy(out, img.pixels.data(), img.pixels.size());
+    return kOk;
+  } catch (const Failure& f) {
+    set_message(msg, msg_len, f.what);
+    return f.code;
+  } catch (const std::exception& e) {
+    set_message(msg, msg_len, e.what());
+    return kCorrupt;
+  }
+}
+
+// One JPEG strip or tile of a TIFF, as libtiff's JPEG codec decodes it
+// (tif_jpeg.c's JPEGPreDecode): the JPEGTables tag's abbreviated stream
+// (tables, tables_len; 0 for none) read first, then the strip's stream; a
+// stream of the strip's width and at least its height (a taller last
+// strip is cut); rgb: YCbCr to RGB (JPEGCOLORMODE_RGB), else the
+// components as they are (JCS_UNKNOWN).  out: height rows of width *
+// comps bytes.
+int rsn_decode_tiff_jpeg(const uint8_t* tables, int64_t tables_len,
+                         const uint8_t* data, int64_t len, uint8_t* out,
+                         int width, int height, int comps, int rgb,
+                         char* msg, int msg_len) {
+  try {
+    std::vector<uint8_t> stream;
+    if (tables_len >= 4) {  // its SOI and tables, without its EOI
+      int64_t end = tables_len;
+      if (tables[end - 2] == 0xFF && tables[end - 1] == 0xD9) end -= 2;
+      stream.assign(tables, tables + end);
+      if (len >= 2 && data[0] == 0xFF && data[1] == 0xD8) {
+        data += 2;
+        len -= 2;
+      }
+    }
+    stream.insert(stream.end(), data, data + len);
+    Image img;
+    decode(stream.data(), stream.size(), &img, rgb ? kToRgb : kNoConversion);
+    if (img.channels != comps)
+      fail(kCorrupt, "improper JPEG component count");
+    if (img.width != width || img.height < height)
+      fail(kCorrupt, "a JPEG of another size than the strip or tile (" +
+                         std::to_string(img.width) + "x" +
+                         std::to_string(img.height) + ", expected " +
+                         std::to_string(width) + "x" +
+                         std::to_string(height) + ")");
+    std::memcpy(out, img.pixels.data(),
+                static_cast<size_t>(height) * width * comps);
     return kOk;
   } catch (const Failure& f) {
     set_message(msg, msg_len, f.what);

@@ -17,10 +17,12 @@ replicated, not fixed):
 - `resize_bilinear` is Pillow's `Image.resize(size, BILINEAR)`: a
   triangle filter whose support widens by the scale factor on a shrink,
   coefficients in 22-bit fixed point, a horizontal pass then a vertical
-  one, each rounded to uint8 (16-bit gray: double coefficients, rounded
-  to an integer); RGBA and LA premultiplied by alpha before and divided
-  after; palette and 1-bit images resized by nearest neighbour, whatever
-  filter is asked for.
+  one, each rounded to uint8 (16-bit gray, either byte order: double
+  coefficients, rounded to an integer; "I": double sums rounded half
+  away from zero to int32; "F": double sums stored as float32); RGBA and
+  LA premultiplied by alpha before and divided after, CMYK, LAB (its a
+  and b offset by 128) and PA filtered band by band; palette and 1-bit images resized by
+  nearest neighbour, whatever filter is asked for.
 - `encode_png` encodes 8-bit gray, gray + alpha, RGB or RGBA (filter
   type 0 on every row) to bytes in memory (the viewer's frames);
   `write_png` writes those bytes to a file.
@@ -45,6 +47,7 @@ _MODES = {0: "L", 2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed point for 8-bit resampling
+_LAB_OFFSET = np.array([0, 0x80, 0x80], np.uint8)  # LAB's signed a and b
 
 
 # ---- decode ----------------------------------------------------------------
@@ -296,6 +299,22 @@ def _pass_16bpc(img: np.ndarray, first, kk, axis: int) -> np.ndarray:
     return np.floor(ss + 0.5).astype(np.uint16)
 
 
+def _pass_32bpc(img: np.ndarray, first, kk, axis: int) -> np.ndarray:
+    """One pass on "I" (int32) or "F" (float32) (H, W): double taps summed
+    in order from +0.0; "I" rounded half away from zero (ROUND_UP), "F"
+    stored as float32."""
+    n_in = img.shape[axis]
+    ss = np.zeros(np.take(img, first, axis=axis).shape, np.float64)
+    for k in range(kk.shape[1]):
+        idx = np.minimum(first + k, n_in - 1)
+        ss = ss + np.take(img, idx, axis=axis).astype(np.float64) * (
+            kk[:, k] if axis == 1 else kk[:, k][:, None])
+    if img.dtype.kind == "f":
+        return ss.astype(np.float32)
+    return np.where(ss >= 0, ss + 0.5, ss - 0.5).astype(np.int64).astype(
+        np.int32)
+
+
 def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     tmp = a.astype(np.int64) * b + 128
     return ((tmp >> 8) + tmp) >> 8
@@ -347,20 +366,37 @@ def resize_bilinear(mode: str, arr: np.ndarray, size: Tuple[int, int]
         raise ValueError("height and width must be > 0")
     if mode in ("1", "P"):
         return _nearest(arr, size)
-    if mode == "I;16":
+    if mode in ("I;16", "I;16B"):
+        # Pillow's 16-bit passes read "I;16B" in the host's byte order as
+        # well (on a little-endian host, its bytes swapped), and write the
+        # same way
         fx, kx = _coeffs(arr.shape[1], w)
         fy, ky = _coeffs(arr.shape[0], h)
-        return _pass_16bpc(_pass_16bpc(arr, fx, kx, 1), fy, ky, 0)
-    # CMYK as Pillow resizes it: four bands, nothing premultiplied
-    if mode not in ("L", "RGB", "LA", "RGBA", "CMYK"):
+        raw = np.ascontiguousarray(arr).view(np.dtype("=u2"))
+        out = _pass_16bpc(_pass_16bpc(raw, fx, kx, 1), fy, ky, 0)
+        return out.view(arr.dtype)
+    if mode in ("I", "F"):  # Pillow's 32-bit passes
+        fx, kx = _coeffs(arr.shape[1], w)
+        fy, ky = _coeffs(arr.shape[0], h)
+        native = arr.astype(arr.dtype.newbyteorder("="))
+        out = _pass_32bpc(_pass_32bpc(native, fx, kx, 1), fy, ky, 0)
+        return out.astype(arr.dtype)
+    # CMYK, LAB and PA as Pillow resizes them: every band filtered,
+    # nothing premultiplied (PA's palette indices too; LAB's signed a and
+    # b offset by 128 for it)
+    if mode not in ("L", "RGB", "LA", "RGBA", "CMYK", "LAB", "PA"):
         raise ValueError(f"resize of PIL mode {mode!r} is not ported")
     img = arr[..., None] if arr.ndim == 2 else arr
     if mode in ("LA", "RGBA"):
         img = _premultiply(img)
     fx, kx = _coeffs(img.shape[1], w)
     fy, ky = _coeffs(img.shape[0], h)
+    if mode == "LAB":  # a and b are signed: filtered offset by 128
+        img = img ^ _LAB_OFFSET
     img = _pass_8bpc(img, fx, kx, 1)
     img = _pass_8bpc(img, fy, ky, 0)
+    if mode == "LAB":
+        img = img ^ _LAB_OFFSET
     if mode in ("LA", "RGBA"):
         img = _unpremultiply(img)
     return img[..., 0] if arr.ndim == 2 else img

@@ -811,7 +811,8 @@ def _lossless_diffs(samples, psv, pt, first_rows):
 def write_jpeg(pixels: np.ndarray, *, sampling=None, coding="huffman",
                script=None, dht="optimal", jfif=None, adobe=None, ids=None,
                quality=75, restart=0, dac=None, predictor=1, pt=0,
-               precision=8, sof=None, tables=None) -> bytes:
+               precision=8, sof=None, tables=None,
+               coefficients=None) -> bytes:
     """The JPEG file of pixels (H, W, C) uint8.
 
     sampling: (h, v) per component (default all (1, 1)).
@@ -830,6 +831,9 @@ def write_jpeg(pixels: np.ndarray, *, sampling=None, coding="huffman",
     dac: {("dc", table): (L, U), ("ac", table): Kx} for a DAC segment.
     precision, sof: the SOF's precision and marker as written (for the
       files PIL refuses); tables: component -> (DC, AC) table numbers.
+    coefficients: a function (frame, component) -> the (blocks down,
+      blocks across, 64) quantised coefficients, natural order, written
+      in place of the pixels' DCT (the IDCT's out-of-range cases).
     """
     img = pixels if pixels.ndim == 3 else pixels[..., None]
     height, width, ncomp = img.shape
@@ -865,7 +869,8 @@ def write_jpeg(pixels: np.ndarray, *, sampling=None, coding="huffman",
         out += _segment(0xDB, b"".join(
             bytes([t]) + bytes(quants[t][ZIGZAG].astype(np.uint8).tolist())
             for t in range(2)))
-        coefs = [_coefficients(samples[c], frame, c, quants[int(c > 0)])
+        coefs = [coefficients(frame, c) if coefficients else
+                 _coefficients(samples[c], frame, c, quants[int(c > 0)])
                  for c in range(ncomp)]
     out += _segment(sof, struct.pack(">BHHB", precision, height, width,
                                      ncomp) + b"".join(
@@ -1081,6 +1086,27 @@ def _pixels(name: str, width: int, height: int, ncomp: int) -> np.ndarray:
 
 
 _Y420 = [(2, 2), (1, 1), (1, 1)]
+
+
+def large_coefficients(frame, c: int) -> np.ndarray:
+    """Seeded coefficients whose dequantised values (at quality 1) leave
+    16 bits and whose IDCT leaves [0, 255] far: libjpeg-turbo's SIMD IDCT
+    wraps and saturates in 16-bit lanes where jidctint.c's range table
+    wraps.  One block in four is DC only, a DC near the 11-bit limit."""
+    bw, bh = frame.padded[c]
+    rng = np.random.default_rng(7 + c)
+    coef = np.zeros((bh, bw, 64), np.int64)
+    coef[..., 0] = rng.integers(-250, 251, (bh, bw))
+    scale = rng.choice([1, 8, 25], (bh, bw, 1)) * 40
+    ac = rng.integers(-1, 2, (bh, bw, 63)) * rng.integers(0, 1 << 10,
+                                                            (bh, bw, 63))
+    ac = np.clip(ac * scale // 1000, -1023, 1023)
+    coef[..., 1:] = ac * (rng.random((bh, bw, 63)) < 0.3)
+    dc_only = rng.random((bh, bw)) < 0.25
+    coef[dc_only, 1:] = 0
+    coef[dc_only, 0] = rng.choice([-1000, 1000], int(dc_only.sum()))
+    return coef
+
 _PROG3 = simple_progression(3)
 # DC in two steps and AC of the luma only to Al 1: bits libjpeg estimates
 _PARTIAL = [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 63, 0, 1),
@@ -1163,6 +1189,12 @@ CASES = {
                                      "script": _PARTIAL}),
     "smooth_gray_2x2": (23, 40, 1, {"sampling": [(2, 2)],
                                     "script": [((0,), 0, 0, 0, 2)]}),
+    # the SIMD IDCT's 16-bit wraps and saturations (PIL on x86-64)
+    "idct_saturation_gray": (40, 32, 1, {
+        "quality": 1, "coefficients": large_coefficients}),
+    "idct_saturation_420": (48, 32, 3, {
+        "quality": 1, "sampling": _Y420,
+        "coefficients": large_coefficients}),
     "smooth_arith": (45, 37, 3, {"coding": "arithmetic", "sampling": _Y420,
                                  "script": _PARTIAL}),
 }

@@ -229,3 +229,58 @@ def test_loaders_on_a_mixed_kind_jpeg_scene_match_rsn(tmp_path, fmt,
         assert t.dtype == torch.float32
         np.testing.assert_array_equal(
             t.numpy(), np.asarray(getattr(jds.cameras, k)))
+
+
+# ---- the IDCT out of range ------------------------------------------------------
+
+def _islow_range_table(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """jidctint.c's jpeg_idct_islow on (blocks, 64) coefficients, natural
+    order, in 64-bit integers, mapped through jdmaster.c's range table
+    (index x & 1023): what the decoder gave before it followed the SIMD
+    IDCT -> (blocks, 8, 8) uint8."""
+    def one_pass(v, shift):
+        in0, in1, in2, in3, in4, in5, in6, in7 = v
+        z1 = (in2 + in6) * 4433
+        tmp2, tmp3 = z1 - in6 * 15137, z1 + in2 * 6270
+        tmp0, tmp1 = (in0 + in4) * 8192, (in0 - in4) * 8192
+        t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, \
+            tmp1 - tmp2
+        z5 = (in7 + in3 + in5 + in1) * 9633
+        z1, z2 = (in7 + in1) * -7373, (in5 + in3) * -20995
+        z3, z4 = (in7 + in3) * -16069 + z5, (in5 + in1) * -3196 + z5
+        o0 = in7 * 2446 + z1 + z3
+        o1 = in5 * 16819 + z2 + z4
+        o2 = in3 * 25172 + z2 + z3
+        o3 = in1 * 12299 + z1 + z4
+        out = [t10 + o3, t11 + o2, t12 + o1, t13 + o0, t13 - o0, t12 - o1,
+               t11 - o2, t10 - o3]
+        return np.stack([(x + (1 << (shift - 1))) >> shift for x in out])
+
+    deq = (coef * quant.reshape(1, 64)).reshape(-1, 8, 8).astype(np.int64)
+    ws = one_pass(deq.transpose(1, 0, 2), 11)          # (8 rows, n, 8 cols)
+    out = one_pass(ws.transpose(2, 1, 0), 18)           # (8 cols, n, 8 rows)
+    idx = out.transpose(1, 2, 0) & 1023                 # (n, rows, cols)
+    table = np.concatenate([np.arange(128, 256), np.full(384, 255),
+                            np.zeros(384), np.arange(0, 128)])
+    return table[idx].astype(np.uint8)
+
+
+def test_idct_saturation_fixture_leaves_the_range_table():
+    """idct_saturation_gray's coefficients push samples far out of range:
+    the range table's wrap (the decoder before it followed the SIMD IDCT)
+    differs from PIL on most pixels, and the port equals PIL."""
+    width, height, _, options = kinds.CASES["idct_saturation_gray"]
+    frame = kinds._Frame(width, height, [(1, 1)], 8)
+    coef = options["coefficients"](frame, 0)
+    bh, bw = coef.shape[:2]
+    old = _islow_range_table(coef.reshape(-1, 64),
+                             kinds.quant_table(options["quality"], False))
+    old = old.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(
+        bh * 8, bw * 8)[:height, :width]
+    path = os.path.join(GOLDEN, "idct_saturation_gray.jpg")
+    _, want = _pil(path)
+    assert (old != want).mean() > 0.5
+    # the model is the decoder's old one: in range the two agree
+    assert (old == want).sum() > 0
+    _, got = tjpeg.read_jpeg(path)
+    np.testing.assert_array_equal(got, want)

@@ -186,9 +186,9 @@ def test_port_imports_no_jax():
     assert (jax_in, flax_in, pil_in) == ("False", "False", "False")
 
 
-def _read_cmyk_tiff_frame():
-    """A nerfstudio capture's frame in CMYK TIFF, a format the port's
-    read_image leaves out (CMYK JPEG frames are decoded)."""
+def _read_webp_frame():
+    """A nerfstudio capture's frame in WebP, a format the port's
+    read_image leaves out (PNG, JPEG and TIFF frames are decoded)."""
     import tempfile
 
     from PIL import Image
@@ -196,8 +196,24 @@ def _read_cmyk_tiff_frame():
     from rsn_torch.data import blender as tblender
 
     with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "frame_00001.tiff")
-        Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(path, "TIFF")
+        path = os.path.join(d, "frame_00001.webp")
+        Image.new("RGB", (8, 8), (10, 20, 30)).save(path, "WEBP")
+        tblender._load_image(path)
+
+
+def _read_lzma_tiff_frame():
+    """A TIFF frame in LZMA, a TIFF kind the port's read_image leaves
+    out."""
+    import tempfile
+
+    from PIL import Image
+
+    from rsn_torch.data import blender as tblender
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "frame_00002.tif")
+        Image.new("RGB", (8, 8), (10, 20, 30)).save(path, "TIFF",
+                                                    compression="lzma")
         tblender._load_image(path)
 
 
@@ -205,7 +221,8 @@ def _not_ported_calls():
     """Each "not ported" error of the port, as a call and the rsn module
     it must name."""
     return {
-        "cmyk tiff frame": (_read_cmyk_tiff_frame, "rsn/data/blender.py"),
+        "webp frame": (_read_webp_frame, "rsn/data/blender.py"),
+        "lzma tiff frame": (_read_lzma_tiff_frame, "rsn/data/blender.py"),
     }
 
 

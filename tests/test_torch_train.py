@@ -466,10 +466,10 @@ def test_train_cli_num_devices_trains_ranks(tmp_path, capfd):
 
 
 @pytest.mark.parametrize("flags,match", [
-    # the dataparsers and JPEG frames (CMYK too) are ported; a TIFF frame
-    # is not ("neither a PNG nor a JPEG file")
+    # the dataparsers and PNG, JPEG and TIFF frames are ported; a WebP
+    # frame is not ("not a PNG, JPEG or TIFF file")
     pytest.param(["--pipeline.datamanager.dataparser", "blender",
-                  "--data", "{jpeg_scene}"], "JPEG",
+                  "--data", "{jpeg_scene}"], "PNG, JPEG or TIFF",
                  id="flags3-dataparser"),
 ])
 def test_unported_train_options_raise(tmp_path, flags, match):
@@ -477,11 +477,10 @@ def test_unported_train_options_raise(tmp_path, flags, match):
     scene.mkdir()
     from PIL import Image
 
-    Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(scene / "r_0.tiff",
-                                                     "TIFF")
+    Image.new("RGB", (8, 8), (10, 20, 30)).save(scene / "r_0.webp", "WEBP")
     (scene / "transforms_train.json").write_text(json.dumps(
         {"camera_angle_x": 0.69, "frames": [
-            {"file_path": "./r_0.tiff",
+            {"file_path": "./r_0.webp",
              "transform_matrix": np.eye(4).tolist()}]}))
     argv = ["reflect-sampling-nerf", "--data", "sphere:res=8,cams=2",
             "--pipeline.datamanager.dataparser", "synthetic",
