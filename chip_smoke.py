@@ -338,7 +338,20 @@ Phases, each announced on its own line:
                 lines, K3-K5 launched; `python -m rsn_torch.cli.eval
                 --max-images 1`: eval.json's five keys finite, K1
                 launched.
-  25. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
+  25. WebP frames — the committed fixtures of tests/golden/webp/ decoded
+                through read_image to PIL's recorded digest (the writer's
+                VP8L / VP8 / ALPH cases, PIL's encoder's files, the five
+                frames); the writer's 800x800 VP8L frame == its samples;
+                ms per 800x800 frame (host CPU, one thread, best of 3,
+                warm) of the committed lossy frame, the writer's lossless
+                frame and the lossy frame with the writer's ALPH chunk,
+                beside the native PNG decoder and the baseline JPEG
+                decoder on the same pixels; the five lossy frames (phase
+                21's JPEG frames' pixels at quality 90) under a nerfstudio
+                capture, load_dataset == their pixels / 255; `python -m
+                rsn_torch.cli.train` on it (JPEG_STEPS bf16 steps, graphed,
+                --vis tensorboard): finite log lines, K3-K5 launched.
+  26. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
 
 Any failed check raises: the script then exits non-zero and prints no
 result.  It imports neither jax nor PIL, nor anything of the JAX package.
@@ -871,8 +884,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tiff_tmp:
         tiff_phase(card, tiff_tmp)
 
-    # ---- 25. result ----
-    phase("phase 25: result")
+    # ---- 25. WebP frames: the decoder and a capture of WebPs ----
+    with tempfile.TemporaryDirectory() as webp_tmp:
+        webp_phase(card, webp_tmp)
+
+    # ---- 26. result ----
+    phase("phase 26: result")
     kernels = []
     for name, source, line in KERNEL_ROWS:
         r = results[name]
@@ -2411,6 +2428,130 @@ def tiff_phase(card, tmp: str) -> None:
     print(f"  tiff: host ms per step {[round(float(t), 3) for t in step_ms]}"
           f" ({card})", flush=True)
     eval_one_image(card, run, tmp)
+
+
+WEBP_DIR = os.path.join(REPO, "tests", "golden", "webp")
+
+
+def webp_decode_check(card, tmp: str):
+    """Every committed fixture of tests/golden/webp/ decoded through
+    read_image to PIL's recorded digest; the writer's 800x800 VP8L frame
+    == its samples; ms per 800x800 frame (host CPU, one thread, best of 3,
+    warm) of each kind beside the native PNG decoder and the baseline JPEG
+    decoder on the same pixels -> the writer."""
+    import numpy as np
+
+    from rsn_torch.data import native, png
+    from rsn_torch.data.jpeg import read_image, read_jpeg
+
+    writer = load_writer("webp_writer",
+                         os.path.join(WEBP_DIR, "write_fixtures.py"))
+    jpeg_writer = load_writer("jpeg_kinds_writer", os.path.join(
+        JPEG_KINDS_DIR, "write_fixtures.py"))
+    with open(os.path.join(WEBP_DIR, "digests.json")) as fh:
+        recorded = json.load(fh)
+    for fname, want in sorted(recorded["files"].items()):
+        got = writer.digest(*read_image(os.path.join(WEBP_DIR, fname)))
+        if got != want:
+            raise RuntimeError(f"webp/{fname}: decoded to {got}, PIL's "
+                               f"decode is {want}")
+    print(f"  {len(recorded['files'])} WebP fixtures == PIL "
+          f"{recorded['pil']} / libwebp {recorded['libwebp']}'s decode "
+          f"(mode, shape, dtype, sha256) ({card})", flush=True)
+    lossy = os.path.join(WEBP_DIR, "frame_00000.webp")
+    mode, px = read_image(lossy)
+    if mode != "RGB" or px.shape != (FRAME_RES, FRAME_RES, 3):
+        raise RuntimeError(f"frame_00000.webp: {mode} {px.shape}")
+    t0 = time.perf_counter()
+    data, samples = writer.timed_lossless(FRAME_RES)
+    write_s = time.perf_counter() - t0
+    lossless = os.path.join(tmp, "lossless.webp")
+    with open(lossless, "wb") as fh:
+        fh.write(data)
+    mode, arr = read_image(lossless)
+    if mode != "RGB" or not np.array_equal(arr, samples):
+        raise RuntimeError("the writer's 800x800 VP8L frame does not decode "
+                           "to its samples")
+    with open(lossy, "rb") as fh:
+        data, alpha = writer.timed_lossy_alpha(fh.read())
+    with_alpha = os.path.join(tmp, "lossy_alpha.webp")
+    with open(with_alpha, "wb") as fh:
+        fh.write(data)
+    mode, arr = read_image(with_alpha)
+    if (mode != "RGBA" or not np.array_equal(arr[..., :3], px)
+            or not np.array_equal(arr[..., 3], alpha)):
+        raise RuntimeError("the lossy frame with ALPH is not the lossy "
+                           "frame's pixels and the writer's alpha")
+    print(f"  the writer's {FRAME_RES}x{FRAME_RES} VP8L frame (subtract "
+          f"green, predictor, cross-colour, colour cache, LZ77; written in "
+          f"{write_s:.3f} s) == its samples; the lossy frame + ALPH == its "
+          f"pixels and alpha ({card})", flush=True)
+    times = {k: (best_of_3_ms(lambda p=p: read_image(p)), os.path.getsize(p))
+             for k, p in (("lossy q90", lossy), ("lossless", lossless),
+                          ("lossy + ALPH", with_alpha))}
+    png_path = os.path.join(tmp, "frame.png")
+    png.write_png(png_path, px)
+    jpeg_path = os.path.join(tmp, "frame.jpg")
+    with open(jpeg_path, "wb") as fh:
+        fh.write(jpeg_writer.write_jpeg(px, sampling=[(2, 2), (1, 1),
+                                                      (1, 1)], quality=90))
+    png_ms = best_of_3_ms(lambda: native.decode_png_batch(
+        [png_path], FRAME_RES, FRAME_RES, num_threads=1))
+    jpeg_ms = best_of_3_ms(lambda: read_jpeg(jpeg_path))
+    print(f"  ms per {FRAME_RES}x{FRAME_RES} frame (host CPU, one thread, "
+          f"best of 3, warm): " + ", ".join(
+              f"WebP {k} {ms:.4f} ({size} bytes)"
+              for k, (ms, size) in times.items())
+          + f"; native PNG decoder {png_ms:.4f}, baseline JPEG (4:2:0, "
+          f"quality 90) {jpeg_ms:.4f} on the lossy frame's pixels ({card})",
+          flush=True)
+    return writer
+
+
+def webp_phase(card, tmp: str) -> None:
+    """Phase 25: the WebP decoder on this host, then a nerfstudio capture
+    of the five committed 800x800 lossy WebP frames through load_dataset
+    and the train CLI (graphed steps), from zeroed launch counts."""
+    import shutil
+
+    import numpy as np
+
+    from rsn_torch.data.blender import load_dataset
+    from rsn_torch.data.jpeg import read_image
+
+    phase(f"phase 25: WebP frames: the fixtures against PIL's digests, "
+          f"{FRAME_RES}x{FRAME_RES} frames of each kind timed, then train "
+          f"on a nerfstudio capture of {FRAME_RES}x{FRAME_RES} WebPs")
+    writer = webp_decode_check(card, tmp)
+    with open(os.path.join(WEBP_DIR, "digests.json")) as fh:
+        recorded = json.load(fh)["files"]
+    frames, pixels = [], []
+    os.makedirs(os.path.join(tmp, "webp_frames"))
+    for name in writer.FRAMES:
+        src = os.path.join(WEBP_DIR, writer.fixture_name(name))
+        out = os.path.join(tmp, "webp_frames", writer.fixture_name(name))
+        shutil.copyfile(src, out)
+        mode, px = read_image(out)
+        if writer.digest(mode, px) != recorded[writer.fixture_name(name)]:
+            raise RuntimeError(f"{name}: not PIL's decode")
+        frames.append(out)
+        pixels.append(px)
+    scene = write_capture(frames, os.path.join(tmp, "webp_capture"))
+    t0 = time.perf_counter()
+    ds = load_dataset("nerfstudio", scene, "train")
+    load_s = time.perf_counter() - t0
+    want = np.stack(pixels).astype(np.float32) / 255.0
+    if not all(any(np.array_equal(img, w) for w in want)
+               for img in ds.images):
+        raise RuntimeError("the WebP capture's train split does not load "
+                           "to its frames' pixels / 255")
+    print(f"  load_nerfstudio: {ds.images.shape[0]} WebP frames of "
+          f"{ds.images.shape[2]}x{ds.images.shape[1]} in {load_s:.4f} s "
+          f"(host clock; each == its frame's pixels / 255, PIL's digests) "
+          f"({card})", flush=True)
+    _, step_ms = capture_train_run(card, scene, tmp, "webp", False)
+    print(f"  webp: host ms per step {[round(float(t), 3) for t in step_ms]}"
+          f" ({card})", flush=True)
 
 
 def io_lines(fn):

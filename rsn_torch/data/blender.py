@@ -14,10 +14,11 @@ file's first bytes as Image.open does and gives what PIL gives: PNGs
 through rsn_torch.data.png (palette indices, 16-bit gray values), JPEGs
 through the native JPEG decoder (libjpeg-turbo's pixels, CMYK included),
 TIFFs through rsn_torch.data.tiff (every mode PIL opens them as: 1, L,
-I;16, I;16B, I, F, LA, RGB, RGBA, P, PA, CMYK, LAB), and Pillow's
+I;16, I;16B, I, F, LA, RGB, RGBA, P, PA, CMYK, LAB), WebPs through
+rsn_torch.data.webp (RGB or RGBA, libwebp's pixels), and Pillow's
 bilinear shrink for each mode.  A file PIL refuses raises ValueError, as
-rsn's PIL raises; a format other than PNG, JPEG and TIFF, or a TIFF kind
-not ported yet, raises NotImplementedError (ROADMAP Queue 1).
+rsn's PIL raises; a format other than PNG, JPEG, TIFF and WebP, or a TIFF
+kind not ported yet, raises NotImplementedError (ROADMAP Queue 1).
 """
 from __future__ import annotations
 

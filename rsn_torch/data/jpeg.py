@@ -6,8 +6,10 @@ extension.  `read_image` does the same: a PNG goes to
 rsn_torch.data.png.read_png, a JPEG to `read_jpeg`, a TIFF to
 rsn_torch.data.tiff.read_tiff (PIL's mode and array for strips and tiles,
 both byte orders, BigTIFF, no compression, PackBits, LZW, Deflate and
-JPEG, predictors 2 and 3), and any other format raises
-NotImplementedError.  `read_jpeg` gives what
+JPEG, predictors 2 and 3), a WebP to rsn_torch.data.webp.read_webp (frame
+0 of any WebP PIL opens: lossless VP8L, lossy VP8 with or without its
+ALPH chunk, an animation's first frame on its canvas), and any other
+format raises NotImplementedError.  `read_jpeg` gives what
 `np.asarray(Image.open(path))` gives with PIL on libjpeg-turbo (the native
 decoder in rsn_torch.data.native, bit for bit): mode "L" as (H, W) uint8,
 "RGB" as (H, W, 3) uint8, "CMYK" as (H, W, 4) uint8 (PIL's inverted
@@ -21,7 +23,7 @@ from typing import Tuple
 
 import numpy as np
 
-from rsn_torch.data import native, png, tiff
+from rsn_torch.data import native, png, tiff, webp
 
 JPEG_PREFIX = b"\xff\xd8\xff"  # PIL's JpegImagePlugin._accept
 
@@ -34,14 +36,16 @@ def read_image(path: str) -> Tuple[str, np.ndarray]:
     """Any frame rsn reads with PIL -> (PIL's mode, np.asarray's array),
     the decoder chosen by the file's first bytes as Image.open chooses."""
     with open(path, "rb") as f:
-        head = f.read(max(len(png.SIGNATURE), len(tiff.PREFIXES[0])))
+        head = f.read(16)  # WebP's RIFF, WEBP and first chunk's tag
     if head.startswith(png.SIGNATURE):
         return png.read_png(path)
     if head.startswith(JPEG_PREFIX):
         return read_jpeg(path)
     if tiff.is_tiff(head):
         return tiff.read_tiff(path)
+    if webp.is_webp(head):
+        return webp.read_webp(path)
     raise NotImplementedError(
-        f"{path}: not a PNG, JPEG or TIFF file; ROADMAP Queue 1: the port "
-        "decodes PNG, JPEG and TIFF frames, rsn/data/blender.py reads the "
-        "other formats with PIL")
+        f"{path}: not a PNG, JPEG, TIFF or WebP file; ROADMAP Queue 1: the "
+        "port decodes PNG, JPEG, TIFF and WebP frames, rsn/data/blender.py "
+        "reads the other formats with PIL")

@@ -21,6 +21,10 @@
   libtiff decodes them (PackBits, LZW, Deflate, FillOrder 2, predictors
   2 and 3, samples swapped to the host's byte order) for
   rsn_torch.data.tiff; a strip it cannot decode raises ValueError.
+- webp.cpp: `decode_webp_vp8l` and `decode_webp_vp8`, a WebP frame's
+  bitstream as libwebp decodes it for PIL (VP8L; VP8 key frames with their
+  ALPH chunk, fancy upsampling and libwebp's YUV to RGB) for
+  rsn_torch.data.webp; a stream libwebp refuses raises ValueError.
 
 g++ builds each library at first use into rsn_torch/_build/
 (git-ignored).  Its name carries a hash of its source, the flags and the
@@ -46,6 +50,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_DIR, "loader.cpp")
 JPEG_SOURCE = os.path.join(_DIR, "jpeg.cpp")
 TIFF_SOURCE = os.path.join(_DIR, "tiff.cpp")
+WEBP_SOURCE = os.path.join(_DIR, "webp.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
 # rsn/data/native/__init__.py's flags: with -march=native g++ contracts
 # the alpha blend into FMAs, and the port's images equal rsn's bit for bit
@@ -56,6 +61,7 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _jpeg_lib: Optional[ctypes.CDLL] = None
 _tiff_lib: Optional[ctypes.CDLL] = None
+_webp_lib: Optional[ctypes.CDLL] = None
 
 
 def _cpu_identity() -> bytes:
@@ -301,3 +307,66 @@ def decode_tiff_chunk(data: bytes, codec: int, size: int, predictor: int,
                          f"decode ({msg.value.decode(errors='replace')}); "
                          "PIL raises on it too")
     return out
+
+
+# ---- WebP codecs (webp.cpp) ------------------------------------------------------
+
+def get_webp_lib() -> ctypes.CDLL:
+    """The loaded WebP codec library, built first if it is missing."""
+    global _webp_lib
+    with _lock:
+        if _webp_lib is None:
+            path = library_path(WEBP_SOURCE, ())
+            if not os.path.isfile(path):
+                _build(path, WEBP_SOURCE, ())
+            lib = ctypes.CDLL(path)
+            lib.rsn_webp_vp8l.restype = ctypes.c_int
+            lib.rsn_webp_vp8l.argtypes = [
+                _u8p, ctypes.c_int64, _u8p, ctypes.c_int64, ctypes.c_int,
+                ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+            lib.rsn_webp_vp8.restype = ctypes.c_int
+            lib.rsn_webp_vp8.argtypes = [
+                _u8p, ctypes.c_int64, _u8p, ctypes.c_int64, _u8p,
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
+                ctypes.c_int]
+            _webp_lib = lib
+        return _webp_lib
+
+
+def _webp_error(path: str, msg: bytes) -> ValueError:
+    return ValueError(f"{path}: a WebP frame libwebp cannot decode "
+                      f"({msg.decode(errors='replace')}); PIL raises on it "
+                      "too")
+
+
+def _rgba_view(out: np.ndarray):
+    if (out.ndim != 3 or out.shape[2] != 4 or out.dtype != np.uint8
+            or out.strides[1:] != (4, 1)):
+        raise ValueError("out must be (height, width, 4) uint8 rows")
+    return out.ctypes.data_as(_u8p), out.strides[0], out.shape[1], out.shape[0]
+
+
+def decode_webp_vp8l(stream: bytes, out: np.ndarray, path: str) -> None:
+    """A VP8L chunk's payload -> `out`, an (H, W, 4) uint8 view (rows may be
+    a wider canvas's) of the frame's size, as RGBA."""
+    src = np.frombuffer(stream, np.uint8)
+    ptr, stride, w, h = _rgba_view(out)
+    msg = ctypes.create_string_buffer(256)
+    if get_webp_lib().rsn_webp_vp8l(src.ctypes.data_as(_u8p), src.size, ptr,
+                                    stride, w, h, msg, len(msg)) != 0:
+        raise _webp_error(path, msg.value)
+
+
+def decode_webp_vp8(stream: bytes, alpha: Optional[bytes], out: np.ndarray,
+                    path: str) -> None:
+    """A VP8 key frame (its chunk's payload to the padded chunk's end) and
+    its ALPH chunk's payload (None: opaque) -> `out` as RGBA."""
+    src = np.frombuffer(stream, np.uint8)
+    a = np.frombuffer(alpha if alpha is not None else b"", np.uint8)
+    ptr, stride, w, h = _rgba_view(out)
+    msg = ctypes.create_string_buffer(256)
+    if get_webp_lib().rsn_webp_vp8(
+            src.ctypes.data_as(_u8p), src.size, a.ctypes.data_as(_u8p),
+            a.size if alpha is not None else -1, ptr, stride, w, h, msg,
+            len(msg)) != 0:
+        raise _webp_error(path, msg.value)

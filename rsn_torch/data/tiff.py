@@ -29,7 +29,9 @@ A TIFF PIL refuses (an unknown pixel mode, missing dimensions, a
 truncated strip, a decoder error) raises ValueError naming the file.  The
 kinds the port does not read yet raise NotImplementedError naming ROADMAP
 Queue 1 and rsn/data/blender.py: YCbCr without JPEG compression, CCITT,
-LZMA, ZSTD, old-style JPEG, WebP, SGILog, ThunderScan and old-style LZW.
+LZMA, ZSTD, old-style JPEG, SGILog, ThunderScan and old-style LZW.  WebP
+strips (compression 50001) raise ValueError: the libtiff that Pillow
+ships has no WebP codec, so PIL refuses them.
 """
 from __future__ import annotations
 
@@ -126,7 +128,7 @@ _CODECS = {32773: 1, 5: 2, 8: 3, 32946: 3}
 _NOT_PORTED = {
     2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
     32771: "CCITT RLEW", 6: "old-style JPEG", 34925: "LZMA", 50000: "ZSTD",
-    50001: "WebP", 34676: "SGILog", 34677: "SGILog24",
+    34676: "SGILog", 34677: "SGILog24",
     32809: "ThunderScan"}
 
 # tags
@@ -544,6 +546,9 @@ def _chunks(s: _Setup, path: str):
 
 
 def _load_libtiff(s: _Setup, data: bytes, path: str) -> np.ndarray:
+    if s.code == 50001:
+        raise _refused(path, "a TIFF of WebP strips or tiles (the libtiff "
+                       "Pillow ships has no WebP codec)")
     if s.code in _NOT_PORTED:
         raise _not_ported(path, f"{_NOT_PORTED[s.code]} compression")
     if s.photo == 6 and s.spp != 3:

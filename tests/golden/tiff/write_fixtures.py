@@ -19,7 +19,8 @@ the file holds them, with numpy, zlib and the standard library only
 CASES names each committed case: its seeded samples and its spec, which
 together cover every key of PIL's TiffImagePlugin.OPEN_INFO on the
 ported compressions.  REFUSED_CASES are the kinds the port does not read
-yet, and BAD_CASES files PIL refuses.  `python
+yet, and BAD_CASES files PIL refuses (WebP strips among them: Pillow's
+libtiff has no WebP codec).  `python
 tests/golden/tiff/write_fixtures.py` writes one file per case here and
 digests.json: the mode, shape, dtype and sha256 of
 `np.asarray(Image.open(f))`, with the PIL and libtiff versions that made
@@ -604,8 +605,7 @@ REFUSED_CASES = {
                           "old_lzw": True}),
     **{f"compression_{c}": (8, 6, 1, {"photometric": 1, "compression": c,
                                       "raw_payload": True})
-       for c in (2, 3, 4, 6, 32771, 32809, 34676, 34677, 34925, 50000,
-                 50001)},
+       for c in (2, 3, 4, 6, 32771, 32809, 34676, 34677, 34925, 50000)},
 }
 
 # files PIL refuses: name -> (width, height, samples, options)
@@ -633,6 +633,9 @@ BAD_CASES = {
     "unknown_compression": (8, 6, 1, {"photometric": 1,
                                       "compression": 12345,
                                       "raw_payload": True}),
+    # WebP strips (50001): the libtiff Pillow ships has no WebP codec
+    # ("WEBP compression support is not configured")
+    "webp_strip": (10, 8, 3, {"photometric": 2, "webp_strip": True}),
 }
 
 
@@ -668,7 +671,35 @@ def case_bytes(name: str) -> bytes:
     if opts.pop("old_lzw", False):  # old-style LZW: its first bytes 0, 1
         data = write_tiff(samples, **opts)
         return _old_lzw(data)
+    if opts.pop("webp_strip", False):
+        return _webp_strip(write_tiff(samples, **opts), samples)
     return write_tiff(samples, **opts)
+
+
+def _webp_strip(data: bytes, samples: np.ndarray) -> bytes:
+    """A one-strip uncompressed file (II) with its strip replaced by a
+    lossless WebP of the samples (tests/golden/webp/write_fixtures.py's
+    writer) and its compression set to 50001, WebP."""
+    path = os.path.join(os.path.dirname(HERE), "webp", "write_fixtures.py")
+    spec = importlib.util.spec_from_file_location("webp_writer", path)
+    ww = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ww)
+    rgba = np.concatenate([samples, np.full(samples.shape[:2] + (1,), 255,
+                                            np.uint8)], -1)
+    strip = ww.riff([ww.chunk(b"VP8L", ww.write_vp8l(rgba))])
+    out = bytearray(data)
+    (ifd,) = struct.unpack("<I", data[4:8])
+    (n,) = struct.unpack("<H", data[ifd:ifd + 2])
+    for i in range(n):
+        at = ifd + 2 + 12 * i
+        tag = struct.unpack("<H", data[at:at + 2])[0]
+        if tag == COMPRESSION:
+            struct.pack_into("<HHIHH", out, at, tag, SHORT, 1, 50001, 0)
+        elif tag == STRIP_OFFSETS:
+            struct.pack_into("<HHII", out, at, tag, LONG, 1, len(data))
+        elif tag == STRIP_COUNTS:
+            struct.pack_into("<HHII", out, at, tag, LONG, 1, len(strip))
+    return bytes(out) + strip
 
 
 def _old_lzw(data: bytes) -> bytes:

@@ -33,6 +33,17 @@ from rsn_torch.models import model as tmodel
 from torch_parity import (assert_grads, bundles, facing_rays, jax_params, n,
                           port_field, rsn_params, t)
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Tiny steps on one thread: beside the suite's other workers, a
+    thread pool per core makes each small op wait on the others (as in
+    tests/test_torch_trainer_obs.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 R = 16
 CAMS = 2
 STEP = 100  # past the warmup: the normal losses are on

@@ -41,6 +41,17 @@ from rsn_torch.models import proposal as tprop
 from torch_parity import (assert_grads as _assert_grads, bundles,
                           jax_params, n, port_field, rsn_params, t)
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Tiny steps on one thread: beside the suite's other workers, a
+    thread pool per core makes each small op wait on the others (as in
+    tests/test_torch_trainer_obs.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SPACINGS = {"identity": (jspacing.identity_spacing(),
                          tspacing.identity_spacing()),
             "reciprocal": (jspacing.reciprocal_spacing(0.25),

@@ -186,9 +186,9 @@ def test_port_imports_no_jax():
     assert (jax_in, flax_in, pil_in) == ("False", "False", "False")
 
 
-def _read_webp_frame():
-    """A nerfstudio capture's frame in WebP, a format the port's
-    read_image leaves out (PNG, JPEG and TIFF frames are decoded)."""
+def _read_bmp_frame():
+    """A nerfstudio capture's frame in BMP, a format the port's
+    read_image leaves out (PNG, JPEG, TIFF and WebP frames are decoded)."""
     import tempfile
 
     from PIL import Image
@@ -196,8 +196,8 @@ def _read_webp_frame():
     from rsn_torch.data import blender as tblender
 
     with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "frame_00001.webp")
-        Image.new("RGB", (8, 8), (10, 20, 30)).save(path, "WEBP")
+        path = os.path.join(d, "frame_00001.bmp")
+        Image.new("RGB", (8, 8), (10, 20, 30)).save(path, "BMP")
         tblender._load_image(path)
 
 
@@ -221,7 +221,7 @@ def _not_ported_calls():
     """Each "not ported" error of the port, as a call and the rsn module
     it must name."""
     return {
-        "webp frame": (_read_webp_frame, "rsn/data/blender.py"),
+        "bmp frame": (_read_bmp_frame, "rsn/data/blender.py"),
         "lzma tiff frame": (_read_lzma_tiff_frame, "rsn/data/blender.py"),
     }
 
@@ -237,3 +237,19 @@ def test_not_ported_errors_name_the_rsn_module(what):
     msg = str(info.value)
     assert "ROADMAP Queue 1" in msg and module in msg, msg
     assert not re.search(r"step \d", msg), msg
+
+
+def test_webp_frame_once_not_ported_now_loads(tmp_path):
+    """The WebP frame that stood for a format still to port loads as PIL
+    reads it (rsn_torch.data.webp)."""
+    from PIL import Image
+
+    from rsn_torch.data import blender as tblender
+
+    path = str(tmp_path / "frame_00001.webp")
+    Image.new("RGB", (8, 8), (10, 20, 30)).save(path, "WEBP")
+    with Image.open(path) as img:
+        want = np.asarray(img, np.float32) / 255.0
+    got = tblender._load_image(path)
+    assert got.dtype == np.float32 and got.shape == (8, 8, 3)
+    np.testing.assert_array_equal(got, want)

@@ -192,7 +192,7 @@ def test_pils_writer_read_back(tmp_path, compression):
 @pytest.mark.parametrize("name", sorted(fixtures.REFUSED_CASES))
 def test_refused_kind_raises_not_implemented(tmp_path, name):
     """The kinds not ported yet (YCbCr without JPEG, CCITT, LZMA, ZSTD,
-    old-style JPEG, WebP, SGILog, ThunderScan, old-style LZW) raise
+    old-style JPEG, SGILog, ThunderScan, old-style LZW) raise
     NotImplementedError naming ROADMAP Queue 1 and rsn/data/blender.py,
     through read_tiff and read_image."""
     path = str(tmp_path / f"{name}.tif")
@@ -209,8 +209,8 @@ def test_refused_kind_raises_not_implemented(tmp_path, name):
 def test_file_pil_refuses_raises_value_error(tmp_path, name):
     """A TIFF PIL refuses (an unknown pixel mode, no width, an unknown
     compression, a raw unpacker PIL lacks, a truncated strip of each
-    codec, a big-endian BigTIFF): the port raises ValueError naming the
-    file."""
+    codec, a big-endian BigTIFF, WebP strips): the port raises ValueError
+    naming the file."""
     path = str(tmp_path / f"{name}.tif")
     fixtures.write_case(name, path)
     with pytest.raises((OSError, ValueError, SyntaxError)):
@@ -258,16 +258,16 @@ def test_resize_bilinear_new_modes_match_pillow(mode):
 
 def test_read_image_dispatch_and_other_formats(tmp_path):
     """read_image sends a TIFF to read_tiff, whatever its name, and
-    refuses a format still to port (WebP) naming the queue."""
+    refuses a format still to port (BMP) naming the queue."""
     path = str(tmp_path / "frame.png")  # a TIFF under another name
     fixtures.write_case("strips_one_row_lzw", path)
     _same(tjpeg.read_image(path), _pil(path))
-    webp = str(tmp_path / "frame.webp")
-    Image.new("RGB", (8, 8), (10, 20, 30)).save(webp, "WEBP")
+    bmp = str(tmp_path / "frame.bmp")
+    Image.new("RGB", (8, 8), (10, 20, 30)).save(bmp, "BMP")
     with pytest.raises(NotImplementedError) as info:
-        tjpeg.read_image(webp)
+        tjpeg.read_image(bmp)
     msg = str(info.value)
-    assert "not a PNG, JPEG or TIFF" in msg and "ROADMAP Queue 1" in msg
+    assert "not a PNG, JPEG, TIFF or WebP" in msg and "ROADMAP Queue 1" in msg
     assert "rsn/data/blender.py" in msg
 
 

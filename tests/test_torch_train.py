@@ -43,6 +43,17 @@ from torch_parity import (assert_grads as _assert_grads, bundles,
                           facing_rays, jax_params, n, port_field,
                           rsn_params, t)
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Tiny steps on one thread: beside the suite's other workers, a
+    thread pool per core makes each small op wait on the others (as in
+    tests/test_torch_trainer_obs.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 R = 16
 
 
@@ -466,10 +477,10 @@ def test_train_cli_num_devices_trains_ranks(tmp_path, capfd):
 
 
 @pytest.mark.parametrize("flags,match", [
-    # the dataparsers and PNG, JPEG and TIFF frames are ported; a WebP
-    # frame is not ("not a PNG, JPEG or TIFF file")
+    # the dataparsers and PNG, JPEG, TIFF and WebP frames are ported; a
+    # BMP frame is not ("not a PNG, JPEG, TIFF or WebP file")
     pytest.param(["--pipeline.datamanager.dataparser", "blender",
-                  "--data", "{jpeg_scene}"], "PNG, JPEG or TIFF",
+                  "--data", "{jpeg_scene}"], "PNG, JPEG, TIFF or WebP",
                  id="flags3-dataparser"),
 ])
 def test_unported_train_options_raise(tmp_path, flags, match):
@@ -477,10 +488,10 @@ def test_unported_train_options_raise(tmp_path, flags, match):
     scene.mkdir()
     from PIL import Image
 
-    Image.new("RGB", (8, 8), (10, 20, 30)).save(scene / "r_0.webp", "WEBP")
+    Image.new("RGB", (8, 8), (10, 20, 30)).save(scene / "r_0.bmp", "BMP")
     (scene / "transforms_train.json").write_text(json.dumps(
         {"camera_angle_x": 0.69, "frames": [
-            {"file_path": "./r_0.webp",
+            {"file_path": "./r_0.bmp",
              "transform_matrix": np.eye(4).tolist()}]}))
     argv = ["reflect-sampling-nerf", "--data", "sphere:res=8,cams=2",
             "--pipeline.datamanager.dataparser", "synthetic",
