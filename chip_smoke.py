@@ -351,7 +351,22 @@ Phases, each announced on its own line:
                 capture, load_dataset == their pixels / 255; `python -m
                 rsn_torch.cli.train` on it (JPEG_STEPS bf16 steps, graphed,
                 --vis tensorboard): finite log lines, K3-K5 launched.
-  26. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
+  26. BMP, PPM, GIF and TGA frames — the committed fixtures of
+                tests/golden/{bmp,ppm,gif,tga}/ decoded through read_image
+                to PIL's recorded digest, and PIL's refusals refused
+                (ValueError); phase 21's first JPEG frame's pixels written
+                by those folders' numpy writers as an 800x800 BMP (24-bit
+                and RLE8 of its green band), PPM P6, 16-bit PGM, GIF (its
+                green band, mode L) and RLE TGA, each decoded back to its
+                pixels, ms per frame (host CPU, one thread, best of 3,
+                warm) beside the native PNG decoder and the baseline JPEG
+                decoder on the same pixels; phase 21's five frames as a
+                nerfstudio capture of a BMP, a PPM, a TGA, a GIF and an
+                RLE8 BMP, load_dataset == their pixels / 255; `python -m
+                rsn_torch.cli.train` on it (JPEG_STEPS bf16 steps,
+                graphed, --vis tensorboard): finite log lines, K3-K5 and
+                the blob launched, host ms per step.
+  27. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
 
 Any failed check raises: the script then exits non-zero and prints no
 result.  It imports neither jax nor PIL, nor anything of the JAX package.
@@ -888,8 +903,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as webp_tmp:
         webp_phase(card, webp_tmp)
 
-    # ---- 26. result ----
-    phase("phase 26: result")
+    # ---- 26. BMP, PPM, GIF and TGA frames ----
+    with tempfile.TemporaryDirectory() as raster_tmp:
+        raster_phase(card, raster_tmp)
+
+    # ---- 27. result ----
+    phase("phase 27: result")
     kernels = []
     for name, source, line in KERNEL_ROWS:
         r = results[name]
@@ -2552,6 +2571,142 @@ def webp_phase(card, tmp: str) -> None:
     _, step_ms = capture_train_run(card, scene, tmp, "webp", False)
     print(f"  webp: host ms per step {[round(float(t), 3) for t in step_ms]}"
           f" ({card})", flush=True)
+
+
+RASTER_DIRS = {k: os.path.join(REPO, "tests", "golden", k)
+               for k in ("bmp", "ppm", "gif", "tga")}
+
+
+def raster_decode_check(card, tmp: str, px):
+    """Every committed fixture of tests/golden/{bmp,ppm,gif,tga}/ decoded
+    through read_image to PIL's recorded digest, PIL's refusals refused;
+    the 800x800 pixels `px` as each timed kind, decoded back to its
+    pixels, ms per frame (host CPU, one thread, best of 3, warm) beside
+    the native PNG decoder and the baseline JPEG decoder on the same
+    pixels -> the four writers."""
+    import numpy as np
+
+    from rsn_torch.data import native, png
+    from rsn_torch.data.jpeg import read_image, read_jpeg
+
+    writers = {k: load_writer(f"{k}_writer", os.path.join(d,
+                                                          "write_fixtures.py"))
+               for k, d in RASTER_DIRS.items()}
+    for k, d in RASTER_DIRS.items():
+        with open(os.path.join(d, "digests.json")) as fh:
+            recorded = json.load(fh)
+        for fname, want in sorted(recorded["files"].items()):
+            got = writers[k].digest(*read_image(os.path.join(d, fname)))
+            if got != want:
+                raise RuntimeError(f"{k}/{fname}: decoded to {got}, PIL's "
+                                   f"decode is {want}")
+        for fname in sorted(recorded["refused"]):
+            try:
+                read_image(os.path.join(d, fname))
+            except ValueError:
+                continue
+            raise RuntimeError(f"{k}/{fname}: PIL refuses it "
+                               f"({recorded['refused'][fname]}), the port "
+                               "decodes it")
+        print(f"  {len(recorded['files'])} {k.upper()} fixtures == PIL "
+              f"{recorded['pil']}'s decode (mode, shape, dtype, sha256), "
+              f"{len(recorded['refused'])} it refuses refused ({card})",
+              flush=True)
+    gray = px[..., 1]
+    b, p, g, t = (writers[k] for k in ("bmp", "ppm", "gif", "tga"))
+    kinds = {  # name -> (file bytes, PIL's mode, the array it holds)
+        "BMP 24-bit": (b.write_24bit(px), "RGB", px),
+        "BMP RLE8": (b.write_rle8_gray(gray), "L", gray),
+        "PPM P6": (p.write_p6(px), "RGB", px),
+        "PGM 16-bit": (p.write_p5_16bit(gray.astype(np.uint16) * 257), "I",
+                       gray.astype(np.int32) * 257),
+        "GIF": (g.write_gray(gray), "L", gray),
+        "TGA RLE": (t.write_rle24(px), "RGB", px)}
+    times = {}
+    for name, (data, mode, want) in kinds.items():
+        path = os.path.join(tmp, name.replace(" ", "_"))
+        with open(path, "wb") as fh:
+            fh.write(data)
+        got_mode, got = read_image(path)
+        if got_mode != mode or not np.array_equal(got, want):
+            raise RuntimeError(f"{name}: not its pixels ({got_mode})")
+        times[name] = (best_of_3_ms(lambda p=path: read_image(p)), len(data))
+    png_path = os.path.join(tmp, "frame.png")
+    png.write_png(png_path, px)
+    jpeg_writer = load_writer("jpeg_kinds_writer", os.path.join(
+        JPEG_KINDS_DIR, "write_fixtures.py"))
+    jpeg_path = os.path.join(tmp, "frame.jpg")
+    with open(jpeg_path, "wb") as fh:
+        fh.write(jpeg_writer.write_jpeg(px, sampling=[(2, 2), (1, 1),
+                                                      (1, 1)], quality=90))
+    png_ms = best_of_3_ms(lambda: native.decode_png_batch(
+        [png_path], FRAME_RES, FRAME_RES, num_threads=1))
+    jpeg_ms = best_of_3_ms(lambda: read_jpeg(jpeg_path))
+    print(f"  ms per {FRAME_RES}x{FRAME_RES} frame (host CPU, one thread, "
+          f"best of 3, warm): " + ", ".join(
+              f"{k} {ms:.4f} ({size} bytes)" for k, (ms, size) in
+              times.items())
+          + f"; native PNG decoder {png_ms:.4f}, baseline JPEG (4:2:0, "
+          f"quality 90) {jpeg_ms:.4f} on the same pixels ({card})",
+          flush=True)
+    return writers
+
+
+def raster_phase(card, tmp: str) -> None:
+    """Phase 26: the BMP, PPM, GIF and TGA readers on this host, then a
+    nerfstudio capture of phase 21's five 800x800 frames as a BMP, a PPM,
+    a TGA, a GIF and an RLE8 BMP through load_dataset and the train CLI
+    (graphed steps), from zeroed launch counts."""
+    import numpy as np
+
+    from rsn_torch.data.blender import load_dataset
+    from rsn_torch.data.jpeg import read_image, read_jpeg
+
+    start = time.perf_counter()
+    phase(f"phase 26: BMP, PPM, GIF and TGA frames: the fixtures against "
+          f"PIL's digests, {FRAME_RES}x{FRAME_RES} frames of each kind "
+          f"timed, then train on a nerfstudio capture of all four formats")
+    with open(os.path.join(JPEG_DIR, "digests.json")) as fh:
+        jpegs = sorted(os.path.join(JPEG_DIR, f) for f in json.load(fh)[
+            "files"] if f.startswith("frame_"))
+    pixels = [read_jpeg(path)[1] for path in jpegs]
+    w = raster_decode_check(card, tmp, pixels[0])
+    kinds = [(".bmp", w["bmp"].write_24bit, False),
+             (".ppm", w["ppm"].write_p6, False),
+             (".tga", w["tga"].write_rle24, False),
+             (".gif", w["gif"].write_gray, True),
+             (".bmp", w["bmp"].write_rle8_gray, True)]
+    frames, want = [], []
+    os.makedirs(os.path.join(tmp, "raster_frames"))
+    for path, px, (ext, write, gray) in zip(jpegs, pixels, kinds):
+        out = os.path.join(tmp, "raster_frames",
+                           os.path.basename(path)[:-4] + ext)
+        with open(out, "wb") as fh:
+            fh.write(write(px[..., 1] if gray else px))
+        mode, arr = read_image(out)
+        if mode != ("L" if gray else "RGB"):
+            raise RuntimeError(f"{out}: mode {mode}")
+        rgb = np.repeat(arr[..., None], 3, -1) if gray else arr
+        want.append(rgb.astype(np.float32) / 255.0)
+        frames.append(out)
+    scene = write_capture(frames, os.path.join(tmp, "raster_capture"))
+    t0 = time.perf_counter()
+    ds = load_dataset("nerfstudio", scene, "train")
+    load_s = time.perf_counter() - t0
+    if not all(any(np.array_equal(img, x) for x in want)
+               for img in ds.images):
+        raise RuntimeError("the capture's train split does not load to its "
+                           "frames' pixels / 255")
+    print(f"  load_nerfstudio: the train split's {ds.images.shape[0]} of the "
+          f"five frames (BMP, PPM, TGA, GIF, RLE8 BMP) of "
+          f"{ds.images.shape[2]}x{ds.images.shape[1]} in {load_s:.4f} s "
+          f"(host clock; each == its frame's pixels / 255) ({card})",
+          flush=True)
+    _, step_ms = capture_train_run(card, scene, tmp, "raster", False)
+    print(f"  raster: host ms per step "
+          f"{[round(float(t), 3) for t in step_ms]} ({card})")
+    print(f"  phase 26: {time.perf_counter() - start:.1f} s ({card})",
+          flush=True)
 
 
 def io_lines(fn):

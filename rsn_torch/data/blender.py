@@ -15,10 +15,13 @@ through rsn_torch.data.png (palette indices, 16-bit gray values), JPEGs
 through the native JPEG decoder (libjpeg-turbo's pixels, CMYK included),
 TIFFs through rsn_torch.data.tiff (every mode PIL opens them as: 1, L,
 I;16, I;16B, I, F, LA, RGB, RGBA, P, PA, CMYK, LAB), WebPs through
-rsn_torch.data.webp (RGB or RGBA, libwebp's pixels), and Pillow's
-bilinear shrink for each mode.  A file PIL refuses raises ValueError, as
-rsn's PIL raises; a format other than PNG, JPEG, TIFF and WebP, or a TIFF
-kind not ported yet, raises NotImplementedError (ROADMAP Queue 1).
+rsn_torch.data.webp (RGB or RGBA, libwebp's pixels), BMP / DIB, GIF
+(frame 0's palette indices), the PPM family (1, L, I, F, RGB and PIL's
+P, RGBA, CMYK) and TGA (1, L, LA, P, RGB, RGBA) through
+rsn_torch.data.bmp, gif, ppm and tga, and Pillow's bilinear shrink for
+each mode.  A file PIL refuses raises ValueError, as rsn's PIL raises; a
+format none of these, or a TIFF kind not ported yet, raises
+NotImplementedError (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ def _load_image(path: str, downscale: int = 1) -> np.ndarray:
     the first 3 channels kept (a gray + alpha or palette + alpha frame
     keeps its 2, as rsn's does; a CMYK frame has C, M, Y blended over its
     K as rsn blends them, K taken for alpha; I;16, I and F values are
-    divided as they are, past 1 where they are past 255)."""
+    divided as they are, past 1 where they are past 255; a mode 1 frame's
+    bools are 0 and 1 before the division, so 1 / 255 at most)."""
     mode, img = read_image(path)
     if downscale > 1:
         img = png.resize_bilinear(mode, img, (img.shape[1] // downscale,

@@ -1,15 +1,18 @@
-"""JPEG frames, and the choice of decoder by a file's first bytes (the
-port of the `Image.open` calls in rsn/data/blender.py).
+"""JPEG frames, and the choice of decoder by a file's content (the port
+of the `Image.open` calls in rsn/data/blender.py).
 
 rsn opens every frame with PIL, which tells the format by content, not by
-extension.  `read_image` does the same: a PNG goes to
-rsn_torch.data.png.read_png, a JPEG to `read_jpeg`, a TIFF to
-rsn_torch.data.tiff.read_tiff (PIL's mode and array for strips and tiles,
-both byte orders, BigTIFF, no compression, PackBits, LZW, Deflate and
-JPEG, predictors 2 and 3), a WebP to rsn_torch.data.webp.read_webp (frame
-0 of any WebP PIL opens: lossless VP8L, lossy VP8 with or without its
-ALPH chunk, an animation's first frame on its canvas), and any other
-format raises NotImplementedError.  `read_jpeg` gives what
+extension.  `read_image` does the same: rsn_torch.data.formats walks
+Image.open's plugins in its order, and the frame goes to the port's
+reader of the plugin that takes it: a PNG to rsn_torch.data.png.read_png,
+a JPEG to `read_jpeg`, a TIFF to rsn_torch.data.tiff.read_tiff (PIL's
+mode and array for strips and tiles, both byte orders, BigTIFF, no
+compression, PackBits, LZW, Deflate and JPEG, predictors 2 and 3), a WebP
+to rsn_torch.data.webp.read_webp (frame 0 of any WebP PIL opens), a BMP
+or DIB to rsn_torch.data.bmp, a GIF (frame 0) to rsn_torch.data.gif, a
+PBM / PGM / PPM / PFM to rsn_torch.data.ppm and a TGA to
+rsn_torch.data.tga.  A file that an unported plugin may take, or that no
+plugin takes, raises NotImplementedError.  `read_jpeg` gives what
 `np.asarray(Image.open(path))` gives with PIL on libjpeg-turbo (the native
 decoder in rsn_torch.data.native, bit for bit): mode "L" as (H, W) uint8,
 "RGB" as (H, W, 3) uint8, "CMYK" as (H, W, 4) uint8 (PIL's inverted
@@ -23,9 +26,9 @@ from typing import Tuple
 
 import numpy as np
 
-from rsn_torch.data import native, png, tiff, webp
+from rsn_torch.data import formats, native, png, tiff, webp
 
-JPEG_PREFIX = b"\xff\xd8\xff"  # PIL's JpegImagePlugin._accept
+PORTED = "PNG, JPEG, TIFF, WebP, BMP, GIF, PPM and TGA"
 
 
 # -> (PIL's mode, the array np.asarray gives of the image PIL opens)
@@ -34,18 +37,17 @@ read_jpeg = native.decode_jpeg
 
 def read_image(path: str) -> Tuple[str, np.ndarray]:
     """Any frame rsn reads with PIL -> (PIL's mode, np.asarray's array),
-    the decoder chosen by the file's first bytes as Image.open chooses."""
+    the decoder chosen by the file's content as Image.open chooses."""
     with open(path, "rb") as f:
-        head = f.read(16)  # WebP's RIFF, WEBP and first chunk's tag
-    if head.startswith(png.SIGNATURE):
-        return png.read_png(path)
-    if head.startswith(JPEG_PREFIX):
-        return read_jpeg(path)
-    if tiff.is_tiff(head):
-        return tiff.read_tiff(path)
-    if webp.is_webp(head):
-        return webp.read_webp(path)
+        data = f.read()
+    found = formats.identify(data, path)
+    if found.image is not None:
+        return found.image.load()
+    if found.ported:
+        return {"PNG": png.read_png, "JPEG": read_jpeg, "TIFF": tiff.read_tiff,
+                "WEBP": webp.read_webp}[found.format](path)
+    what = (f"a file PIL's Image.open would try as {found.format} first"
+            if found.format else "not a file any of PIL's plugins opens")
     raise NotImplementedError(
-        f"{path}: not a PNG, JPEG, TIFF or WebP file; ROADMAP Queue 1: the "
-        "port decodes PNG, JPEG, TIFF and WebP frames, rsn/data/blender.py "
-        "reads the other formats with PIL")
+        f"{path}: {what}; ROADMAP Queue 1: the port decodes {PORTED} "
+        "frames, rsn/data/blender.py reads the other formats with PIL")

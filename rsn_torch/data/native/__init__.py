@@ -25,6 +25,11 @@
   bitstream as libwebp decodes it for PIL (VP8L; VP8 key frames with their
   ALPH chunk, fancy upsampling and libwebp's YUV to RGB) for
   rsn_torch.data.webp; a stream libwebp refuses raises ValueError.
+- raster.cpp: `decode_bmp_rle`, `decode_tga_rle`, `decode_gif_lzw` and
+  `decode_ppm_plain`, the host loops of rsn_torch.data's BMP, TGA, GIF
+  and PPM readers as PIL runs them (its Python BMP RLE and plain PPM
+  decoders, libImaging's TGA RLE and GIF LZW decoders); a stream PIL
+  refuses raises ValueError.
 
 g++ builds each library at first use into rsn_torch/_build/
 (git-ignored).  Its name carries a hash of its source, the flags and the
@@ -51,6 +56,7 @@ SOURCE = os.path.join(_DIR, "loader.cpp")
 JPEG_SOURCE = os.path.join(_DIR, "jpeg.cpp")
 TIFF_SOURCE = os.path.join(_DIR, "tiff.cpp")
 WEBP_SOURCE = os.path.join(_DIR, "webp.cpp")
+RASTER_SOURCE = os.path.join(_DIR, "raster.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
 # rsn/data/native/__init__.py's flags: with -march=native g++ contracts
 # the alpha blend into FMAs, and the port's images equal rsn's bit for bit
@@ -62,6 +68,7 @@ _lib: Optional[ctypes.CDLL] = None
 _jpeg_lib: Optional[ctypes.CDLL] = None
 _tiff_lib: Optional[ctypes.CDLL] = None
 _webp_lib: Optional[ctypes.CDLL] = None
+_raster_lib: Optional[ctypes.CDLL] = None
 
 
 def _cpu_identity() -> bytes:
@@ -370,3 +377,125 @@ def decode_webp_vp8(stream: bytes, alpha: Optional[bytes], out: np.ndarray,
             a.size if alpha is not None else -1, ptr, stride, w, h, msg,
             len(msg)) != 0:
         raise _webp_error(path, msg.value)
+
+
+# ---- BMP / TGA / GIF / PPM loops (raster.cpp) -----------------------------------
+
+_RASTER_ERRORS = {1: "image file is truncated", 2: "broken data stream",
+                  3: "buffer overrun", 4: "codec configuration error"}
+_i64p = ctypes.POINTER(ctypes.c_int64)
+
+
+def get_raster_lib() -> ctypes.CDLL:
+    """The loaded raster library, built first if it is missing."""
+    global _raster_lib
+    with _lock:
+        if _raster_lib is None:
+            path = library_path(RASTER_SOURCE, ())
+            if not os.path.isfile(path):
+                _build(path, RASTER_SOURCE, ())
+            lib = ctypes.CDLL(path)
+            i64, cint = ctypes.c_int64, ctypes.c_int
+            lib.rsn_bmp_rle.restype = cint
+            lib.rsn_bmp_rle.argtypes = [_u8p, i64, i64, cint, cint, cint, _u8p,
+                                        _i64p, ctypes.c_char_p, cint]
+            lib.rsn_tga_rle.restype = cint
+            lib.rsn_tga_rle.argtypes = [_u8p, i64, i64, cint, i64, cint, _u8p]
+            lib.rsn_gif_lzw.restype = cint
+            lib.rsn_gif_lzw.argtypes = [_u8p, i64, i64, cint, cint, _u8p, i64,
+                                        cint, cint, cint, cint]
+            lib.rsn_ppm_plain.restype = cint
+            lib.rsn_ppm_plain.argtypes = [_u8p, i64, i64, cint, i64, cint, i64,
+                                          _u8p, _i64p, ctypes.c_char_p, cint]
+            _raster_lib = lib
+        return _raster_lib
+
+
+def _source(data: bytes, offset: int) -> np.ndarray:
+    if offset < 0:
+        raise ValueError(f"offset {offset} before the data")
+    return np.frombuffer(data, np.uint8)
+
+
+def _raster_error(path: str, rc: int, what: str) -> ValueError:
+    return ValueError(f"{path}: {what} PIL cannot decode "
+                      f"({_RASTER_ERRORS.get(rc, rc)}); PIL raises on it too")
+
+
+def decode_bmp_rle(data: bytes, offset: int, width: int, height: int,
+                   rle4: bool, path: str) -> Tuple[np.ndarray, int]:
+    """BmpRleDecoder from `offset` -> (the first width * height pixel bytes
+    in file order, the length PIL's buffer reached)."""
+    src = _source(data, offset)
+    if width <= 0 or height <= 0:
+        raise ValueError("width and height must be > 0")
+    out = np.empty(width * height, np.uint8)
+    length = ctypes.c_int64()
+    msg = ctypes.create_string_buffer(256)
+    if get_raster_lib().rsn_bmp_rle(
+            src.ctypes.data_as(_u8p), src.size, offset, width, height,
+            int(rle4), out.ctypes.data_as(_u8p), ctypes.byref(length), msg,
+            len(msg)) != 0:
+        raise ValueError(f"{path}: a BMP RLE stream PIL cannot decode "
+                         f"({msg.value.decode(errors='replace')}); PIL "
+                         "raises on it too")
+    return out, length.value
+
+
+def decode_tga_rle(data: bytes, offset: int, depth: int, row_bytes: int,
+                   rows: int, path: str) -> np.ndarray:
+    """TgaRleDecode.c from `offset`, `depth` bytes a pixel -> (rows,
+    row_bytes) uint8 in decode order."""
+    src = _source(data, offset)
+    if row_bytes <= 0 or rows <= 0 or not 0 <= depth <= 4:
+        raise ValueError("row_bytes and rows must be > 0, depth 0 to 4")
+    out = np.zeros((rows, row_bytes), np.uint8)
+    rc = get_raster_lib().rsn_tga_rle(src.ctypes.data_as(_u8p), src.size,
+                                      offset, depth, row_bytes, rows,
+                                      out.ctypes.data_as(_u8p))
+    if rc != 0:
+        raise _raster_error(path, rc, "a TGA RLE stream")
+    return out
+
+
+def decode_gif_lzw(data: bytes, offset: int, bits: int, interlace: bool,
+                   image: np.ndarray, box: Tuple[int, int, int, int],
+                   path: str) -> None:
+    """GifDecode.c from `offset` (the frame's sub-blocks) into the box
+    (x0, y0, x1, y1) of `image`, an (H, W) uint8 C-contiguous array."""
+    src = _source(data, offset)
+    x0, y0, x1, y1 = box
+    if (image.ndim != 2 or image.dtype != np.uint8
+            or not image.flags.c_contiguous or not image.flags.writeable):
+        raise ValueError("image must be a writeable C-contiguous (H, W) "
+                         "uint8 array")
+    if not (0 <= x0 < x1 <= image.shape[1] and 0 <= y0 < y1 <= image.shape[0]):
+        raise ValueError(f"box {box} outside the image {image.shape}")
+    rc = get_raster_lib().rsn_gif_lzw(
+        src.ctypes.data_as(_u8p), src.size, offset, bits, int(interlace),
+        image.ctypes.data_as(_u8p), image.strides[0], x0, y0, x1 - x0,
+        y1 - y0)
+    if rc != 0:
+        raise _raster_error(path, rc, "a GIF frame")
+
+
+def decode_ppm_plain(data: bytes, offset: int, bitonal: bool, maxval: int,
+                     out_i32: bool, total: int, path: str) -> np.ndarray:
+    """PpmPlainDecoder from `offset` -> the bytes it makes (fewer than
+    `total` when the tokens end first): P1's 0xff / 0 bytes, or the
+    samples rescaled to 255 (uint8) or 65535 (little-endian int32)."""
+    src = _source(data, offset)
+    if total < 0 or (out_i32 and total % 4):
+        raise ValueError(f"total {total} is not a whole number of samples")
+    if not bitonal and maxval <= 0:
+        raise ValueError("maxval must be > 0")
+    out = np.zeros(total, np.uint8)
+    produced = ctypes.c_int64()
+    msg = ctypes.create_string_buffer(256)
+    if get_raster_lib().rsn_ppm_plain(
+            src.ctypes.data_as(_u8p), src.size, offset, int(bitonal), maxval,
+            int(out_i32), total, out.ctypes.data_as(_u8p),
+            ctypes.byref(produced), msg, len(msg)) != 0:
+        raise ValueError(f"{path}: {msg.value.decode(errors='replace')} "
+                         "(PIL raises on it too)")
+    return out[:produced.value]

@@ -41,6 +41,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from rsn_torch.data import native
+from rsn_torch.data.imagefile import (BITFLIP, CHANNELS, NO_UNPACKER,
+                                      RAW_BITS, blank, refused, unpack,
+                                      unpremultiply)
 
 II, MM = b"II", b"MM"
 # TiffImagePlugin.PREFIXES
@@ -147,7 +150,6 @@ _TYPES = {1: (1, None), 2: (1, None), 3: (2, "H"), 4: (4, "L"),
           5: (8, "L"), 6: (1, "b"), 7: (1, None), 8: (2, "h"),
           9: (4, "l"), 10: (8, "l"), 11: (4, "f"), 12: (8, "d"),
           13: (4, "L"), 16: (8, "Q"), 17: (8, "q"), 18: (8, "Q")}
-_MAX_PIXELS = 2 * 89478485  # Image.MAX_IMAGE_PIXELS * 2
 
 
 def is_tiff(head: bytes) -> bool:
@@ -160,11 +162,6 @@ def _not_ported(path: str, what: str) -> NotImplementedError:
         f"{path}: a TIFF with {what}; ROADMAP Queue 1: the port decodes "
         "TIFF frames without compression or with PackBits, LZW, Deflate "
         "or JPEG, rsn/data/blender.py reads the other kinds with PIL")
-
-
-def _refused(path: str, what: str) -> ValueError:
-    return ValueError(f"{path}: {what}, which PIL refuses as well "
-                      "(rsn/data/blender.py raises on it too)")
 
 
 # ---- the IFD -----------------------------------------------------------------------
@@ -180,11 +177,11 @@ def _read_ifd(data: bytes, path: str) -> Tuple[str, Dict[int, object]]:
         first = struct.unpack(order + ("Q" if bigtiff else "L"),
                               data[8:16] if bigtiff else data[4:8])[0]
     except struct.error:
-        raise _refused(path, "a truncated TIFF header") from None
+        raise refused(path, "a truncated TIFF header") from None
     if not first:
-        raise _refused(path, "a TIFF without an image")
+        raise refused(path, "a TIFF without an image")
     if first >= 2 ** 63:
-        raise _refused(path, "a TIFF whose IFD cannot be sought")
+        raise refused(path, "a TIFF whose IFD cannot be sought")
     tags: Dict[int, object] = {}
     pos = first
 
@@ -234,7 +231,7 @@ def _ints(value, what: str, path: str) -> Tuple[int, ...]:
     vals = value if isinstance(value, tuple) else (value,)
     if isinstance(value, (bytes, str)) or not all(
             isinstance(v, int) for v in vals):
-        raise _refused(path, f"a TIFF whose {what} is not integers")
+        raise refused(path, f"a TIFF whose {what} is not integers")
     return vals
 
 
@@ -248,10 +245,10 @@ class _Setup:
         self.tags = tags
         self.big_endian = order == ">"
         if WMP in tags:
-            raise _refused(path, "a Windows Media Photo file")
+            raise refused(path, "a Windows Media Photo file")
         code = tags.get(COMPRESSION, 1)
         if code not in COMPRESSION_INFO:
-            raise _refused(path, f"TIFF compression {code}")
+            raise refused(path, f"TIFF compression {code}")
         self.code = code
         self.compression = COMPRESSION_INFO[code]
         self.planar = tags.get(PLANAR, 1)
@@ -261,11 +258,11 @@ class _Setup:
         self.photo = photo
         fill = tags.get(FILL_ORDER, 1)
         if WIDTH not in tags or LENGTH not in tags:
-            raise _refused(path, "a TIFF without its dimensions")
+            raise refused(path, "a TIFF without its dimensions")
         self.width, self.height = tags[WIDTH], tags[LENGTH]
         if not isinstance(self.width, int) or not isinstance(self.height,
                                                              int):
-            raise _refused(path, "a TIFF with invalid dimensions")
+            raise refused(path, "a TIFF with invalid dimensions")
         fmt = tags.get(SAMPLE_FORMAT, (1,))
         if len(fmt) > 1 and max(fmt) == min(fmt) == 1:
             fmt = (1,)
@@ -282,18 +279,18 @@ class _Setup:
                        and photo in (2, 6) else 1)
         max_spp = max(len(k[4]) for k in OPEN_INFO)
         if not isinstance(spp, int) or spp > max_spp:
-            raise _refused(path, "a TIFF with an invalid samples per pixel")
+            raise refused(path, "a TIFF with an invalid samples per pixel")
         if spp < len(bits):
             bits = bits[:spp]
         elif spp > len(bits) and len(bits) == 1:
             bits = bits * spp
         if len(bits) != spp:
-            raise _refused(path, "a TIFF of an unknown data organization")
+            raise refused(path, "a TIFF of an unknown data organization")
         self.spp, self.bits, self.extra = spp, bits, extra
         prefix = MM if self.big_endian else II
         key = (prefix, photo, fmt, fill, bits, extra)
         if key not in OPEN_INFO:
-            raise _refused(path, f"a TIFF of an unknown pixel mode {key[1:]}")
+            raise refused(path, f"a TIFF of an unknown pixel mode {key[1:]}")
         self.mode, self.rawmode = OPEN_INFO[key]
         self.fill = fill
         self.libtiff = self.compression != "raw"
@@ -310,38 +307,14 @@ class _Setup:
         self.tiled = TILE_OFFSETS in tags and STRIP_OFFSETS not in tags
         if not self.libtiff and STRIP_OFFSETS not in tags and \
                 TILE_OFFSETS not in tags:
-            raise _refused(path, "a TIFF of an unknown data organization")
+            raise refused(path, "a TIFF of an unknown data organization")
         if self.mode in ("P", "PA") and not isinstance(
                 tags.get(320), tuple):
-            raise _refused(path, "a palette TIFF without a colour map")
+            raise refused(path, "a palette TIFF without a colour map")
 
 
-# ---- PIL's unpackers ---------------------------------------------------------------
+# ---- the planar-2 bands (PIL's unpackers: rsn_torch.data.imagefile) -----------------
 
-_BITFLIP = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
-                    np.uint8)
-# rawmode -> bits per pixel (Unpack.c); the band rawmodes of planar 2 are 8
-_RAW_BITS = {
-    "1": 1, "1;I": 1, "1;R": 1, "1;IR": 1,
-    "L;2": 2, "L;2I": 2, "L;2R": 2, "L;2IR": 2,
-    "L;4": 4, "L;4I": 4, "L;4R": 4, "L;4IR": 4,
-    "L": 8, "L;I": 8, "L;R": 8, "L;IR": 8,
-    "P;1": 1, "P;1R": 1, "P;2": 2, "P;2R": 2, "P;4": 4, "P;4R": 4,
-    "P": 8, "P;R": 8, "PX": 16, "PA": 16, "LA": 16,
-    "I;12": 12, "I;16": 16, "I;16N": 16, "I;16B": 16, "I;16R": 16,
-    "I;16S": 16, "I;16BS": 16, "I;32N": 32, "I;32S": 32, "I;32BS": 32,
-    "F;32F": 32, "F;32BF": 32, "F": 32, "I": 32,
-    "RGB": 24, "RGB;R": 24, "LAB": 24, "RGBX": 32, "RGBXX": 40,
-    "RGBXXX": 48, "RGBA": 32, "RGBa": 32, "RGBAX": 40, "RGBAXX": 48,
-    "RGBaX": 40, "RGBaXX": 48, "CMYK": 32, "CMYKX": 40, "CMYKXX": 48,
-}
-for _suffix in ("L", "B", "N"):
-    _RAW_BITS.update({f"RGB;16{_suffix}": 48, f"RGBA;16{_suffix}": 64,
-                      f"RGBX;16{_suffix}": 64, f"RGBa;16{_suffix}": 64,
-                      f"CMYK;16{_suffix}": 64})
-# the (mode, rawmode) pairs Unpack.c lacks among OPEN_INFO's
-_NO_UNPACKER = {("L", "L;IR"), ("P", "P;1R"), ("P", "P;2R"),
-                ("P", "P;4R")}
 # the band rawmodes of PIL's raw planar-2 tiles: (mode, rawmode[band]) ->
 # the band written
 _BAND = {("RGB", "R"): 0, ("RGB", "G"): 1, ("RGB", "B"): 2,
@@ -349,91 +322,10 @@ _BAND = {("RGB", "R"): 0, ("RGB", "G"): 1, ("RGB", "B"): 2,
          ("RGBA", "A"): 3, ("CMYK", "C"): 0, ("CMYK", "M"): 1,
          ("CMYK", "Y"): 2, ("CMYK", "K"): 3, ("LAB", "L"): 0,
          ("LAB", "A"): 1, ("LAB", "B"): 2}
-# the FillOrder 2 rawmodes -> their FillOrder 1 rawmode
-_REVERSED = {"1;R": "1", "1;IR": "1;I", "L;2R": "L;2", "L;2IR": "L;2I",
-             "L;4R": "L;4", "L;4IR": "L;4I", "L;R": "L", "L;IR": "L;I",
-             "P;1R": "P;1", "P;2R": "P;2", "P;4R": "P;4", "P;R": "P",
-             "RGB;R": "RGB", "I;16R": "I;16"}
 # the band unpackers that offset a signed band by 128
 _BAND_SIGNED = {("LAB", "A"), ("LAB", "B")}
 # the one-band images' rawmode[0] PIL has an unpacker for
 _BAND_ONE = {("1", "1"), ("L", "L"), ("P", "P"), ("F", "F"), ("I", "I")}
-_CHANNELS = {"1": 1, "L": 1, "P": 1, "I;16": 1, "I;16B": 1, "I": 1,
-             "F": 1, "LA": 2, "PA": 2, "RGB": 3, "LAB": 3, "RGBA": 4,
-             "CMYK": 4}
-_DTYPES = {"1": np.bool_, "I;16": np.dtype("<u2"), "I;16B": np.dtype(">u2"),
-           "I": np.dtype("<i4"), "F": np.dtype("<f4")}
-
-
-def _bits_of(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
-    """(h, bytes) rows of `depth`-bit samples, MSB first -> (h, width)."""
-    h = rows.shape[0]
-    bits = np.unpackbits(rows, axis=1)[:, :width * depth]
-    bits = bits.reshape(h, width, depth)
-    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint16)
-    return (bits * weights).sum(axis=-1, dtype=np.uint16)
-
-
-def _unpremultiply(rgb: np.ndarray, alpha: np.ndarray) -> np.ndarray:
-    """Unpack.c's unpackRGBa: c * 255 / a clipped, where 0 < a < 255;
-    every band 0 where a is 0."""
-    a = alpha.astype(np.int64)[..., None]
-    c = rgb.astype(np.int64)
-    div = np.minimum(c * 255 // np.maximum(a, 1), 255)
-    out = np.where(a == 255, c, div)
-    out = np.where(a == 0, 0, out)
-    return np.concatenate([out, a], -1).astype(np.uint8)
-
-
-def _unpack(mode: str, rawmode: str, rows: np.ndarray,
-            width: int) -> np.ndarray:
-    """PIL's unpacker (mode, rawmode) on (h, bytes) rows -> the (h, width)
-    or (h, width, bands) array np.asarray gives of those pixels."""
-    h = rows.shape[0]
-    if rawmode in _REVERSED:  # FillOrder 2: each byte's bits reversed
-        rows = _BITFLIP[rows]
-        rawmode = _REVERSED[rawmode]
-    if rawmode in ("1", "1;I"):  # PIL's bytes are 0 and 255
-        v = _bits_of(rows, width, 1).astype(np.uint8) * 255
-        return (255 - v if rawmode == "1;I" else v).view(np.bool_)
-    if rawmode.startswith(("L;2", "L;4")):
-        depth = int(rawmode[2])
-        v = (_bits_of(rows, width, depth) * (255 // ((1 << depth) - 1)))
-        v = v.astype(np.uint8)
-        return 255 - v if rawmode.endswith("I") else v
-    if rawmode.startswith(("P;1", "P;2", "P;4")):
-        return _bits_of(rows, width, int(rawmode[2])).astype(np.uint8)
-    if rawmode in ("L", "P", "L;I"):
-        v = rows[:, :width]
-        return 255 - v if rawmode == "L;I" else v.copy()
-    if rawmode == "I;12":
-        return _bits_of(rows, width, 12).astype("<u2")
-    if rawmode.startswith(("I;", "F;")) or rawmode in ("F", "I"):
-        src = {"F": "=f4", "I": "=i4", "I;16": "<u2", "I;16N": "=u2", "I;16B": ">u2", "I;16S": "<i2",
-               "I;16BS": ">i2", "I;32N": "=u4", "I;32S": "<i4",
-               "I;32BS": ">i4", "F;32F": "<f4", "F;32BF": ">f4"}[rawmode]
-        dt = np.dtype(src)
-        v = rows[:, :width * dt.itemsize].copy().view(dt)
-        if mode == "I":
-            return v.astype(np.int64).astype(np.uint32).view(
-                np.int32).astype("<i4") if dt.kind == "u" else v.astype("<i4")
-        return v.astype(_DTYPES[mode])
-    if ";16" in rawmode:  # 16-bit RGB(A) / CMYK: the high byte of each
-        base, end = rawmode.split(";16")
-        n = 4 if base != "RGB" else 3
-        pairs = rows[:, :width * n * 2].reshape(h, width, n, 2)
-        hi = pairs[..., 0 if end == "B" else 1]  # N: little-endian here
-        if base == "RGBa":
-            return _unpremultiply(hi[..., :3], hi[..., 3])
-        if base == "RGBX":
-            return hi[..., :3].copy()
-        return hi.copy()
-    n = _RAW_BITS[rawmode] // 8
-    px = rows[:, :width * n].reshape(h, width, n)
-    if rawmode.startswith("RGBa"):
-        return _unpremultiply(px[..., :3], px[..., 3])
-    keep = _CHANNELS[mode]
-    return px[..., 0].copy() if keep == 1 else px[..., :keep].copy()
 
 
 # ---- the raw path (ImageFile.load with PIL's raw decoder) ---------------------------
@@ -450,7 +342,7 @@ def _raw_tiles(s: _Setup, path: str) -> List[tuple]:
         offsets = _ints(tags[TILE_OFFSETS], "tile offsets", path)
         w, h = tags.get(TILE_WIDTH), tags.get(TILE_LENGTH)
         if not isinstance(w, int) or not isinstance(h, int):
-            raise _refused(path, "a TIFF with invalid tile dimensions")
+            raise refused(path, "a TIFF with invalid tile dimensions")
     if w == s.width and h == s.height and s.planar != 2:
         offsets = offsets[-1:]
     tiles = []
@@ -473,35 +365,35 @@ def _raw_tiles(s: _Setup, path: str) -> List[tuple]:
 
 
 def _load_raw(s: _Setup, data: bytes, path: str) -> np.ndarray:
-    out = _blank(s)
+    out = blank(s.mode, s.width, s.height, path)
     tiles = sorted(_raw_tiles(s, path), key=lambda t: t[4])
     for x0, y0, x1, y1, offset, rawmode, stride in tiles:
         if x0 < 0 or y0 < 0 or x1 > s.width or y1 > s.height or \
                 x1 <= x0 or y1 <= y0:
-            raise _refused(path, "a TIFF tile outside the image")
+            raise refused(path, "a TIFF tile outside the image")
         band = None
         if s.planar == 2 and (s.mode, rawmode) in _BAND_ONE:
-            bits = _RAW_BITS[rawmode]
+            bits = RAW_BITS[rawmode]
         elif s.planar == 2:
             band = _BAND.get((s.mode, rawmode))
             if band is None:
-                raise _refused(path, f"unknown raw mode {rawmode!r} for "
+                raise refused(path, f"unknown raw mode {rawmode!r} for "
                                f"mode {s.mode!r}")
             bits = 8
         else:
-            if (s.mode, rawmode) in _NO_UNPACKER:
-                raise _refused(path, f"unknown raw mode {rawmode!r} for "
+            if (s.mode, rawmode) in NO_UNPACKER:
+                raise refused(path, f"unknown raw mode {rawmode!r} for "
                                f"mode {s.mode!r}")
-            bits = _RAW_BITS[rawmode]
+            bits = RAW_BITS[rawmode]
         tw, th = x1 - x0, y1 - y0
         row_bytes = (tw * bits + 7) // 8
         pitch = stride or row_bytes
         if stride and stride < row_bytes:
-            raise _refused(path, "a TIFF tile of a bad stride")
+            raise refused(path, "a TIFF tile of a bad stride")
         need = pitch * (th - 1) + row_bytes
         chunk = data[offset:offset + need]
         if len(chunk) < need:
-            raise _refused(path, "a truncated TIFF (image file is "
+            raise refused(path, "a truncated TIFF (image file is "
                            "truncated)")
         buf = np.frombuffer(chunk + b"\x00" * (pitch * th - need), np.uint8)
         rows = buf.reshape(th, pitch)[:, :row_bytes]
@@ -514,17 +406,8 @@ def _load_raw(s: _Setup, data: bytes, path: str) -> np.ndarray:
             else:
                 out[y0:y1, x0:x1, band] = plane
             continue
-        out[y0:y1, x0:x1] = _unpack(s.mode, rawmode, rows, tw)
+        out[y0:y1, x0:x1] = unpack(s.mode, rawmode, rows, tw)
     return out
-
-
-def _blank(s: _Setup) -> np.ndarray:
-    ch = _CHANNELS[s.mode]
-    shape = (s.height, s.width) + ((ch,) if ch > 1 else ())
-    if s.width * s.height > _MAX_PIXELS:
-        raise ValueError(f"an image of {s.width * s.height} pixels: PIL "
-                         "refuses it as a decompression bomb")
-    return np.zeros(shape, _DTYPES.get(s.mode, np.uint8))
 
 
 # ---- the libtiff path --------------------------------------------------------------
@@ -536,23 +419,23 @@ def _chunks(s: _Setup, path: str):
         counts = _ints(tags.get(TILE_COUNTS, ()), "tile byte counts", path)
     else:
         if STRIP_OFFSETS not in tags:
-            raise _refused(path, "a TIFF without strip offsets")
+            raise refused(path, "a TIFF without strip offsets")
         offsets = _ints(tags[STRIP_OFFSETS], "strip offsets", path)
         counts = _ints(tags.get(STRIP_COUNTS, ()), "strip byte counts", path)
     if len(counts) != len(offsets):
-        raise _refused(path, "a TIFF whose byte counts do not match its "
+        raise refused(path, "a TIFF whose byte counts do not match its "
                        "offsets (libtiff cannot read it)")
     return offsets, counts
 
 
 def _load_libtiff(s: _Setup, data: bytes, path: str) -> np.ndarray:
     if s.code == 50001:
-        raise _refused(path, "a TIFF of WebP strips or tiles (the libtiff "
+        raise refused(path, "a TIFF of WebP strips or tiles (the libtiff "
                        "Pillow ships has no WebP codec)")
     if s.code in _NOT_PORTED:
         raise _not_ported(path, f"{_NOT_PORTED[s.code]} compression")
     if s.photo == 6 and s.spp != 3:
-        raise _refused(path, "a YCbCr JPEG TIFF of other than 3 samples")
+        raise refused(path, "a YCbCr JPEG TIFF of other than 3 samples")
     tags = s.tags
     # only libtiff's LZW and Deflate codecs set up a predictor; PackBits
     # and JPEG ignore the tag
@@ -561,10 +444,10 @@ def _load_libtiff(s: _Setup, data: bytes, path: str) -> np.ndarray:
     if predictor not in (1, 2, 3):
         predictor = 1
     if predictor == 2 and bps not in (8, 16, 32):
-        raise _refused(path, f"predictor 2 on {bps}-bit samples "
+        raise refused(path, f"predictor 2 on {bps}-bit samples "
                        "(libtiff refuses it)")
     if predictor == 3 and s.tags.get(SAMPLE_FORMAT, (1,))[0] != 3:
-        raise _refused(path, "predictor 3 on samples that are not floats "
+        raise refused(path, "predictor 3 on samples that are not floats "
                        "(libtiff refuses it)")
     if s.code == 5 and _old_lzw(s, data, path):
         raise _not_ported(path, "old-style LZW compression")
@@ -574,7 +457,7 @@ def _load_libtiff(s: _Setup, data: bytes, path: str) -> np.ndarray:
         cw, ch = tags.get(TILE_WIDTH), tags.get(TILE_LENGTH)
         if not isinstance(cw, int) or not isinstance(ch, int) or \
                 cw <= 0 or ch <= 0:
-            raise _refused(path, "a TIFF with invalid tile dimensions")
+            raise refused(path, "a TIFF with invalid tile dimensions")
         across, down = -(-s.width // cw), -(-s.height // ch)
     else:
         cw = s.width
@@ -585,14 +468,14 @@ def _load_libtiff(s: _Setup, data: bytes, path: str) -> np.ndarray:
         across, down = 1, -(-s.height // ch)
     offsets, counts = _chunks(s, path)
     if len(offsets) < across * down * planes:
-        raise _refused(path, "a TIFF with fewer strips or tiles than its "
+        raise refused(path, "a TIFF with fewer strips or tiles than its "
                        "image needs")
     row_bytes = (cw * spp_chunk * bps + 7) // 8
     jpeg = s.compression == "jpeg"
     rgb = jpeg and s.photo == 6
     if rgb:
         row_bytes = cw * 3
-    out = _blank(s)
+    out = blank(s.mode, s.width, s.height, path)
     mode, rawmode = s.mode, s.rawmode
     tables = tags.get(JPEG_TABLES, b"")
     if not isinstance(tables, bytes):
@@ -606,7 +489,7 @@ def _load_libtiff(s: _Setup, data: bytes, path: str) -> np.ndarray:
                 start, n = offsets[k], counts[k]
                 raw = data[start:start + n]
                 if len(raw) < n:  # TIFFFillStrip's "Read error on strip"
-                    raise _refused(path, "a truncated TIFF (strip or tile "
+                    raise refused(path, "a truncated TIFF (strip or tile "
                                    f"{k} ends past the file)")
                 if jpeg:
                     buf = native.decode_tiff_jpeg(
@@ -623,7 +506,7 @@ def _load_libtiff(s: _Setup, data: bytes, path: str) -> np.ndarray:
                 if s.planar == 2:
                     _put_band(out, s, plane, rows, x1 - x0, y0, x0, path)
                 else:
-                    out[y0:y1, x0:x1] = _unpack(mode, rawmode, rows,
+                    out[y0:y1, x0:x1] = unpack(mode, rawmode, rows,
                                                 x1 - x0)
     if s.planar == 2:
         out = _planar_finish(out, s, path)
@@ -638,7 +521,7 @@ def _old_lzw(s: _Setup, data: bytes, path: str) -> bool:
         return False
     head = data[offsets[0]:offsets[0] + 2]
     if s.fill == 2:
-        head = bytes(_BITFLIP[np.frombuffer(head, np.uint8)])
+        head = bytes(BITFLIP[np.frombuffer(head, np.uint8)])
     return len(head) == 2 and head[0] == 0 and head[1] & 1 == 1
 
 
@@ -647,17 +530,17 @@ def _put_band(out, s: _Setup, plane: int, rows, width: int, y0: int,
     """One plane of a planar-2 strip or tile into band `plane`: 8-bit
     samples as they are, 16-bit ones by their high byte."""
     bps = s.bits[0]
-    if s.spp == _CHANNELS[s.mode] and s.spp > 1:
+    if s.spp == CHANNELS[s.mode] and s.spp > 1:
         if bps == 8:
             band = rows[:, :width]
         elif bps == 16:
             band = rows[:, :2 * width].reshape(-1, width, 2)[..., 1]
         else:
-            raise _refused(path, f"{bps}-bit samples in planes")
+            raise refused(path, f"{bps}-bit samples in planes")
         out[y0:y0 + rows.shape[0], x0:x0 + width, plane] = band
         return
     if s.spp == 1:
-        out[y0:y0 + rows.shape[0], x0:x0 + width] = _unpack(
+        out[y0:y0 + rows.shape[0], x0:x0 + width] = unpack(
             s.mode, s.rawmode, rows, width)
         return
     raise _not_ported(path, "planar configuration 2 and samples beyond "
@@ -669,7 +552,7 @@ def _planar_finish(out: np.ndarray, s: _Setup, path: str) -> np.ndarray:
     unpremultiplied unless ExtraSamples says 2 (unassociated alpha) or
     999, LA / PA without their alpha, LAB's a and b offset by 128."""
     if s.mode == "RGBA" and s.extra in ((), (1,)):
-        return _unpremultiply(out[..., :3], out[..., 3])
+        return unpremultiply(out[..., :3], out[..., 3])
     if s.mode in ("LA", "PA"):
         out[..., 1] = 0
     elif s.mode == "LAB":

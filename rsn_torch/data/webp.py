@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from rsn_torch.data import native
+from rsn_torch.data.imagefile import refused
 
 # WebPImagePlugin._accept: RIFF, WEBP and one of these first chunks
 FIRST_CHUNKS = (b"VP8 ", b"VP8L", b"VP8X")
@@ -47,11 +48,6 @@ def is_webp(head: bytes) -> bool:
     """WebPImagePlugin._accept on a file's first 16 bytes."""
     return (head.startswith(b"RIFF") and head[8:12] == b"WEBP"
             and head[12:16] in FIRST_CHUNKS)
-
-
-def _refused(path: str, what: str) -> ValueError:
-    return ValueError(f"{path}: {what}, which PIL refuses as well "
-                      "(rsn/data/blender.py raises on it too)")
 
 
 def _le24(b: bytes, at: int) -> int:
@@ -190,13 +186,13 @@ class _Demux:
     def __init__(self, data: bytes, path: str):
         self.path = path
         if len(data) < 20:
-            raise _refused(path, "a truncated WebP")
+            raise refused(path, "a truncated WebP")
         riff_size = struct.unpack_from("<I", data, 4)[0]
         if riff_size < 8 or riff_size > _MAX_CHUNK_PAYLOAD:
-            raise _refused(path, "a WebP of a bad RIFF size")
+            raise refused(path, "a WebP of a bad RIFF size")
         self.riff_end = riff_size + 8
         if len(data) < self.riff_end:
-            raise _refused(path, "a truncated WebP (the RIFF size passes "
+            raise refused(path, "a truncated WebP (the RIFF size passes "
                            "the end of the file)")
         self.buf = data[:self.riff_end]
         self.start = 12
@@ -207,7 +203,7 @@ class _Demux:
         self.num_frames = 0
 
     def refused(self, what: str) -> ValueError:
-        return _refused(self.path, what)
+        return refused(self.path, what)
 
     def left(self) -> int:
         return self.riff_end - self.start

@@ -186,9 +186,10 @@ def test_port_imports_no_jax():
     assert (jax_in, flax_in, pil_in) == ("False", "False", "False")
 
 
-def _read_bmp_frame():
-    """A nerfstudio capture's frame in BMP, a format the port's
-    read_image leaves out (PNG, JPEG, TIFF and WebP frames are decoded)."""
+def _read_jpeg2000_frame():
+    """A nerfstudio capture's frame in JPEG 2000, a format the port's
+    read_image leaves out (PNG, JPEG, TIFF, WebP, BMP, GIF, PPM and TGA
+    frames are decoded)."""
     import tempfile
 
     from PIL import Image
@@ -196,8 +197,8 @@ def _read_bmp_frame():
     from rsn_torch.data import blender as tblender
 
     with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "frame_00001.bmp")
-        Image.new("RGB", (8, 8), (10, 20, 30)).save(path, "BMP")
+        path = os.path.join(d, "frame_00001.jp2")
+        Image.new("RGB", (8, 8), (10, 20, 30)).save(path, "JPEG2000")
         tblender._load_image(path)
 
 
@@ -221,7 +222,7 @@ def _not_ported_calls():
     """Each "not ported" error of the port, as a call and the rsn module
     it must name."""
     return {
-        "bmp frame": (_read_bmp_frame, "rsn/data/blender.py"),
+        "jpeg 2000 frame": (_read_jpeg2000_frame, "rsn/data/blender.py"),
         "lzma tiff frame": (_read_lzma_tiff_frame, "rsn/data/blender.py"),
     }
 
