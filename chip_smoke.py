@@ -366,7 +366,20 @@ Phases, each announced on its own line:
                 rsn_torch.cli.train` on it (JPEG_STEPS bf16 steps,
                 graphed, --vis tensorboard): finite log lines, K3-K5 and
                 the blob launched, host ms per step.
-  27. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
+  27. JPEG 2000 frames — the committed fixtures of tests/golden/jpeg2000/
+                (PIL's writer, OpenJPEG's encoder, struct rewraps) decoded
+                through read_image to PIL's recorded digest, and PIL's
+                refusals refused (ValueError); its five 800x800 frames
+                (RGB 5/3, RGB 9/7 at rate 20, RGB 9/7 in three layers,
+                RPCL, 256 tiles, L 5/3, I;16 5/3), ms per frame (host
+                CPU, one thread, best of 3, warm) beside the native PNG
+                decoder and the baseline JPEG decoder on the same pixels
+                (8-bit: the I;16 frame's high byte); the five as a
+                nerfstudio capture, load_dataset == their pixels / 255;
+                `python -m rsn_torch.cli.train` on it (JPEG_STEPS bf16
+                steps, graphed, --vis tensorboard): finite log lines,
+                K3-K5 and the blob launched, host ms per step.
+  28. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
 
 Any failed check raises: the script then exits non-zero and prints no
 result.  It imports neither jax nor PIL, nor anything of the JAX package.
@@ -907,8 +920,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as raster_tmp:
         raster_phase(card, raster_tmp)
 
-    # ---- 27. result ----
-    phase("phase 27: result")
+    # ---- 27. JPEG 2000 frames ----
+    with tempfile.TemporaryDirectory() as j2k_tmp:
+        jpeg2000_phase(card, j2k_tmp)
+
+    # ---- 28. result ----
+    phase("phase 28: result")
     kernels = []
     for name, source, line in KERNEL_ROWS:
         r = results[name]
@@ -2706,6 +2723,106 @@ def raster_phase(card, tmp: str) -> None:
     print(f"  raster: host ms per step "
           f"{[round(float(t), 3) for t in step_ms]} ({card})")
     print(f"  phase 26: {time.perf_counter() - start:.1f} s ({card})",
+          flush=True)
+
+
+JPEG2000_DIR = os.path.join(REPO, "tests", "golden", "jpeg2000")
+
+
+def jpeg2000_decode_check(card, tmp: str):
+    """Every committed fixture of tests/golden/jpeg2000/ decoded through
+    read_image to PIL's recorded digest, PIL's refusals refused; its five
+    800x800 frames timed (host CPU, one thread, best of 3, warm) beside
+    the native PNG decoder and the baseline JPEG decoder on the same
+    8-bit pixels -> [(frame path, its pixels / 255 as load_dataset gives
+    them)]."""
+    import numpy as np
+
+    from rsn_torch.data import native, png
+    from rsn_torch.data.jpeg import read_image, read_jpeg
+
+    writer = load_writer("jpeg2000_writer",
+                         os.path.join(JPEG2000_DIR, "write_fixtures.py"))
+    jpeg_writer = load_writer("jpeg_kinds_writer", os.path.join(
+        JPEG_KINDS_DIR, "write_fixtures.py"))
+    with open(os.path.join(JPEG2000_DIR, "digests.json")) as fh:
+        recorded = json.load(fh)
+    for fname, want in sorted(recorded["files"].items()):
+        got = writer.digest(*read_image(os.path.join(JPEG2000_DIR, fname)))
+        if got != want:
+            raise RuntimeError(f"jpeg2000/{fname}: decoded to {got}, PIL's "
+                               f"decode is {want}")
+    for fname in sorted(recorded["refused"]):
+        try:
+            read_image(os.path.join(JPEG2000_DIR, fname))
+        except ValueError:
+            continue
+        raise RuntimeError(f"jpeg2000/{fname}: PIL refuses it "
+                           f"({recorded['refused'][fname]}), the port "
+                           "decodes it")
+    print(f"  {len(recorded['files'])} JPEG 2000 fixtures == PIL "
+          f"{recorded['pil']}'s decode (mode, shape, dtype, sha256), "
+          f"{len(recorded['refused'])} it refuses refused ({card})",
+          flush=True)
+    frames = []
+    for name in writer.FRAMES:
+        path = os.path.join(JPEG2000_DIR, name)
+        mode, arr = read_image(path)
+        px8 = (arr >> 8).astype(np.uint8) if mode == "I;16" else arr
+        png_path = os.path.join(tmp, name + ".png")
+        png.write_png(png_path, px8)
+        jpeg_path = os.path.join(tmp, name + ".jpg")
+        with open(jpeg_path, "wb") as fh:
+            if px8.ndim == 2:
+                fh.write(jpeg_writer.write_jpeg(px8[..., None], quality=90))
+            else:
+                fh.write(jpeg_writer.write_jpeg(
+                    px8, sampling=[(2, 2), (1, 1), (1, 1)], quality=90))
+        ms = best_of_3_ms(lambda p=path: read_image(p))
+        png_ms = best_of_3_ms(lambda: native.decode_png_batch(
+            [png_path], FRAME_RES, FRAME_RES, num_threads=1))
+        jpeg_ms = best_of_3_ms(lambda: read_jpeg(jpeg_path))
+        print(f"  {name} ({mode}, {os.path.getsize(path)} bytes): "
+              f"{ms:.4f} ms per {FRAME_RES}x{FRAME_RES} frame (host CPU, "
+              f"one thread, best of 3, warm); native PNG decoder "
+              f"{png_ms:.4f}, baseline JPEG (quality 90) {jpeg_ms:.4f} on "
+              f"the same 8-bit pixels ({card})", flush=True)
+        rgb = arr.astype(np.float32) / 255.0
+        frames.append((path, np.repeat(rgb[..., None], 3, -1)
+                       if rgb.ndim == 2 else rgb))
+    return frames
+
+
+def jpeg2000_phase(card, tmp: str) -> None:
+    """Phase 27: the JPEG 2000 reader on this host, then a nerfstudio
+    capture of the five 800x800 JPEG 2000 frames through load_dataset and
+    the train CLI (graphed steps), from zeroed launch counts."""
+    import numpy as np
+
+    from rsn_torch.data.blender import load_dataset
+
+    start = time.perf_counter()
+    phase(f"phase 27: JPEG 2000 frames: the fixtures against PIL's digests, "
+          f"the five {FRAME_RES}x{FRAME_RES} frames timed, then train on a "
+          f"nerfstudio capture of them")
+    frames = jpeg2000_decode_check(card, tmp)
+    scene = write_capture([p for p, _ in frames],
+                          os.path.join(tmp, "jpeg2000_capture"))
+    t0 = time.perf_counter()
+    ds = load_dataset("nerfstudio", scene, "train")
+    load_s = time.perf_counter() - t0
+    if not all(any(np.array_equal(img, x) for _, x in frames)
+               for img in ds.images):
+        raise RuntimeError("the capture's train split does not load to its "
+                           "frames' pixels / 255")
+    print(f"  load_nerfstudio: the train split's {ds.images.shape[0]} of the "
+          f"five JPEG 2000 frames of {ds.images.shape[2]}x"
+          f"{ds.images.shape[1]} in {load_s:.4f} s (host clock; each == its "
+          f"frame's pixels / 255) ({card})", flush=True)
+    _, step_ms = capture_train_run(card, scene, tmp, "jpeg2000", False)
+    print(f"  jpeg2000: host ms per step "
+          f"{[round(float(t), 3) for t in step_ms]} ({card})")
+    print(f"  phase 27: {time.perf_counter() - start:.1f} s ({card})",
           flush=True)
 
 

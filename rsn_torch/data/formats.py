@@ -20,7 +20,7 @@ import re
 import struct
 from typing import Callable, Dict, Optional
 
-from rsn_torch.data import bmp, gif, png, ppm, tga, tiff, webp
+from rsn_torch.data import bmp, gif, jpeg2000, png, ppm, tga, tiff, webp
 from rsn_torch.data.imagefile import DECLINES, File
 
 FIRST_PASS = ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG")
@@ -66,8 +66,7 @@ ACCEPT: Dict[str, Callable[[bytes], bool]] = {
     "GBR": lambda p: len(p) >= 8 and _be32(p) >= 20 and _be32(p, 4) in (1, 2),
     "GRIB": lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1,
     "HDF5": lambda p: p.startswith(b"\x89HDF\r\n\x1a\n"),
-    "JPEG2000": lambda p: p.startswith(
-        (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a")),
+    "JPEG2000": jpeg2000.accept,
     "ICNS": lambda p: p.startswith(b"icns"),
     "ICO": lambda p: p.startswith(b"\0\0\1\0"),
     "MCIDAS": lambda p: p.startswith(b"\x00\x00\x00\x00\x00\x00\x00\x04"),
@@ -263,14 +262,16 @@ MAY_OPEN = {"IM": _im_may_open, "IMT": _imt_may_open,
 # the ported plugins PIL opens in two steps: _open (which may decline)
 OPENERS = {"BMP": lambda d, p: bmp.BmpImage(d, p),
            "DIB": lambda d, p: bmp.BmpImage(d, p, dib=True),
-           "GIF": gif.GifImage, "PPM": ppm.PpmImage, "TGA": tga.TgaImage}
+           "GIF": gif.GifImage, "PPM": ppm.PpmImage, "TGA": tga.TgaImage,
+           "JPEG2000": jpeg2000.Jpeg2000Image}
 # the ported plugins read whole once their _accept takes the prefix
 READERS = ("JPEG", "PNG", "TIFF", "WEBP")
 
 
 class Identified:
     """The walk's end: `format` (PIL's format name, or None when nothing
-    takes the file), `image` (an opened BMP / DIB / GIF / PPM / TGA) and
+    takes the file), `image` (an opened BMP / DIB / GIF / PPM / TGA /
+    JPEG 2000) and
     `ported` (False: an unported plugin may take it first)."""
 
     def __init__(self, fmt: Optional[str], image=None, ported: bool = True):

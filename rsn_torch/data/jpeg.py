@@ -10,8 +10,9 @@ mode and array for strips and tiles, both byte orders, BigTIFF, no
 compression, PackBits, LZW, Deflate and JPEG, predictors 2 and 3), a WebP
 to rsn_torch.data.webp.read_webp (frame 0 of any WebP PIL opens), a BMP
 or DIB to rsn_torch.data.bmp, a GIF (frame 0) to rsn_torch.data.gif, a
-PBM / PGM / PPM / PFM to rsn_torch.data.ppm and a TGA to
-rsn_torch.data.tga.  A file that an unported plugin may take, or that no
+PBM / PGM / PPM / PFM to rsn_torch.data.ppm, a TGA to rsn_torch.data.tga
+and a JPEG 2000 (a JP2 file or a raw codestream, decoded as OpenJPEG
+2.5.4 decodes it for PIL) to rsn_torch.data.jpeg2000.  A file that an unported plugin may take, or that no
 plugin takes, raises NotImplementedError.  `read_jpeg` gives what
 `np.asarray(Image.open(path))` gives with PIL on libjpeg-turbo (the native
 decoder in rsn_torch.data.native, bit for bit): mode "L" as (H, W) uint8,
@@ -28,7 +29,7 @@ import numpy as np
 
 from rsn_torch.data import formats, native, png, tiff, webp
 
-PORTED = "PNG, JPEG, TIFF, WebP, BMP, GIF, PPM and TGA"
+PORTED = "PNG, JPEG, TIFF, WebP, BMP, GIF, PPM, TGA and JPEG 2000"
 
 
 # -> (PIL's mode, the array np.asarray gives of the image PIL opens)

@@ -30,6 +30,12 @@
   and PPM readers as PIL runs them (its Python BMP RLE and plain PPM
   decoders, libImaging's TGA RLE and GIF LZW decoders); a stream PIL
   refuses raises ValueError.
+- jpeg2000.cpp: `decode_jpeg2000`, a JPEG 2000 codestream tile by tile
+  as OpenJPEG 2.5.4 decodes it for PIL (T2, EBCOT, both wavelets, RCT /
+  ICT, the level shift), for rsn_torch.data.jpeg2000; a stream OpenJPEG
+  refuses raises ValueError, a kind not ported NotImplementedError.  It
+  is built with JPEG2000_FLAGS: FLAGS with floating-point contraction
+  off, as OpenJPEG's float code runs for PIL without FMAs.
 
 g++ builds each library at first use into rsn_torch/_build/
 (git-ignored).  Its name carries a hash of its source, the flags and the
@@ -57,18 +63,21 @@ JPEG_SOURCE = os.path.join(_DIR, "jpeg.cpp")
 TIFF_SOURCE = os.path.join(_DIR, "tiff.cpp")
 WEBP_SOURCE = os.path.join(_DIR, "webp.cpp")
 RASTER_SOURCE = os.path.join(_DIR, "raster.cpp")
+JPEG2000_SOURCE = os.path.join(_DIR, "jpeg2000.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
 # rsn/data/native/__init__.py's flags: with -march=native g++ contracts
 # the alpha blend into FMAs, and the port's images equal rsn's bit for bit
 # only from the same code
 FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 LIBS = ("-lz", "-lpthread")
+JPEG2000_FLAGS = FLAGS + ("-ffp-contract=off",)
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _jpeg_lib: Optional[ctypes.CDLL] = None
 _tiff_lib: Optional[ctypes.CDLL] = None
 _webp_lib: Optional[ctypes.CDLL] = None
 _raster_lib: Optional[ctypes.CDLL] = None
+_jpeg2000_lib: Optional[ctypes.CDLL] = None
 
 
 def _cpu_identity() -> bytes:
@@ -81,9 +90,10 @@ def _cpu_identity() -> bytes:
     return b"\n".join(sorted({ln for ln in lines if ln.startswith(keep)}))
 
 
-def library_path(source: Optional[str] = None, libs=LIBS) -> str:
+def library_path(source: Optional[str] = None, libs=LIBS,
+                 flags=FLAGS) -> str:
     source = source or SOURCE
-    h = hashlib.sha256(" ".join(FLAGS + tuple(libs)).encode())
+    h = hashlib.sha256(" ".join(tuple(flags) + tuple(libs)).encode())
     with open(source, "rb") as f:
         h.update(f.read())
     h.update(_cpu_identity())
@@ -91,7 +101,8 @@ def library_path(source: Optional[str] = None, libs=LIBS) -> str:
     return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
 
 
-def _build(path: str, source: Optional[str] = None, libs=LIBS) -> None:
+def _build(path: str, source: Optional[str] = None, libs=LIBS,
+           flags=FLAGS) -> None:
     source = source or SOURCE
     cxx = shutil.which("g++")
     if cxx is None:
@@ -100,7 +111,7 @@ def _build(path: str, source: Optional[str] = None, libs=LIBS) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [cxx, *FLAGS, source, "-o", tmp, *libs]
+    cmd = [cxx, *flags, source, "-o", tmp, *libs]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         os.unlink(tmp)
@@ -499,3 +510,70 @@ def decode_ppm_plain(data: bytes, offset: int, bitonal: bool, maxval: int,
         raise ValueError(f"{path}: {msg.value.decode(errors='replace')} "
                          "(PIL raises on it too)")
     return out[:produced.value]
+
+
+# ---- JPEG 2000 codestreams (jpeg2000.cpp) ------------------------------------
+
+J2K_UNPORTED = 2  # rsn_j2k_decode's code for a kind not ported
+_i32p = ctypes.POINTER(ctypes.c_int32)
+
+
+def get_jpeg2000_lib() -> ctypes.CDLL:
+    """The loaded JPEG 2000 library, built first if it is missing."""
+    global _jpeg2000_lib
+    with _lock:
+        if _jpeg2000_lib is None:
+            path = library_path(JPEG2000_SOURCE, (), JPEG2000_FLAGS)
+            if not os.path.isfile(path):
+                _build(path, JPEG2000_SOURCE, (), JPEG2000_FLAGS)
+            lib = ctypes.CDLL(path)
+            i64, i32 = ctypes.c_int64, ctypes.c_int32
+            lib.rsn_j2k_decode.restype = ctypes.c_int
+            lib.rsn_j2k_decode.argtypes = [
+                _u8p, i64, _i32p, i64, _i32p, _i32p, i32, _i32p,
+                ctypes.c_char_p, ctypes.c_int]
+            _jpeg2000_lib = lib
+        return _jpeg2000_lib
+
+
+def decode_jpeg2000(data: bytes, offset: int, out: np.ndarray,
+                    dims: np.ndarray, order: np.ndarray,
+                    path: str) -> int:
+    """The codestream at data[offset:] (to the file's end, as OpenJPEG
+    reads it) -> each tile's components as int32 samples in `out` (tile
+    after tile in index order, each tile-component given its full size),
+    their decoded (width, height) in `dims` (tiles, components, 2), the
+    tiles in the order OpenJPEG decodes them in `order`; returns how many
+    were decoded.
+
+    Raises ValueError for a stream OpenJPEG refuses, NotImplementedError
+    for a kind the port does not decode."""
+    src = _source(data, offset)
+    if offset > src.size:
+        raise ValueError(f"offset {offset} past the data")
+    for name, a, nd in (("out", out, 1), ("dims", dims, 3),
+                        ("order", order, 1)):
+        if (a.dtype != np.int32 or a.ndim != nd or not a.flags.c_contiguous
+                or not a.flags.writeable):
+            raise ValueError(f"{name} must be a writeable C-contiguous "
+                             f"{nd}-D int32 array")
+    if dims.shape[0] != order.size or dims.shape[2] != 2:
+        raise ValueError(f"dims {dims.shape} must be (tiles, components, 2)"
+                         f" for {order.size} tiles")
+    decoded = ctypes.c_int32()
+    msg = ctypes.create_string_buffer(256)
+    rc = get_jpeg2000_lib().rsn_j2k_decode(
+        src[offset:].ctypes.data_as(_u8p), src.size - offset,
+        out.ctypes.data_as(_i32p), out.size, dims.ctypes.data_as(_i32p),
+        order.ctypes.data_as(_i32p), order.size, ctypes.byref(decoded), msg,
+        len(msg))
+    what = msg.value.decode(errors="replace")
+    if rc == J2K_UNPORTED:
+        raise NotImplementedError(
+            f"{path}: {what}; ROADMAP Queue 1: the port does not decode "
+            "this kind of JPEG 2000 yet, rsn/data/blender.py reads it with "
+            "PIL")
+    if rc != 0:
+        raise ValueError(f"{path}: a JPEG 2000 codestream OpenJPEG cannot "
+                         f"decode ({what}); PIL raises on it too")
+    return decoded.value

@@ -258,17 +258,17 @@ def test_resize_bilinear_new_modes_match_pillow(mode):
 
 def test_read_image_dispatch_and_other_formats(tmp_path):
     """read_image sends a TIFF to read_tiff, whatever its name, and
-    refuses a format still to port (JPEG 2000) naming the queue."""
+    refuses a format still to port (AVIF) naming the queue."""
     path = str(tmp_path / "frame.png")  # a TIFF under another name
     fixtures.write_case("strips_one_row_lzw", path)
     _same(tjpeg.read_image(path), _pil(path))
-    jp2 = str(tmp_path / "frame.jp2")
-    Image.new("RGB", (8, 8), (10, 20, 30)).save(jp2, "JPEG2000")
+    avif = str(tmp_path / "frame.avif")
+    Image.new("RGB", (8, 8), (10, 20, 30)).save(avif, "AVIF")
     with pytest.raises(NotImplementedError) as info:
-        tjpeg.read_image(jp2)
+        tjpeg.read_image(avif)
     msg = str(info.value)
-    assert "PNG, JPEG, TIFF, WebP, BMP, GIF, PPM and TGA" in msg
-    assert "JPEG2000" in msg and "ROADMAP Queue 1" in msg
+    assert "PNG, JPEG, TIFF, WebP, BMP, GIF, PPM, TGA and JPEG 2000" in msg
+    assert "AVIF" in msg and "ROADMAP Queue 1" in msg
     assert "rsn/data/blender.py" in msg
 
 
