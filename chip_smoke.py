@@ -379,7 +379,21 @@ Phases, each announced on its own line:
                 `python -m rsn_torch.cli.train` on it (JPEG_STEPS bf16
                 steps, graphed, --vis tensorboard): finite log lines,
                 K3-K5 and the blob launched, host ms per step.
-  28. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
+  28. AVIF frames — the committed fixtures of tests/golden/avif/ (PIL's
+                writer, struct rewraps, AV1 streams written by hand)
+                decoded through read_image to PIL's recorded digest, the
+                kinds not ported refused (NotImplementedError) and PIL's
+                refusals refused; its five 800x800 frames (the defaults,
+                speed 0 with loop restoration, quality 100 4:4:4, RGBA
+                with a disc of alpha, 4:0:0), ms per frame (host CPU, one
+                thread, best of 3, warm) beside the native PNG decoder and
+                the baseline JPEG decoder on the same pixels; the five as
+                a nerfstudio capture, load_dataset == their pixels / 255
+                (RGBA blended to white); `python -m rsn_torch.cli.train`
+                on it (JPEG_STEPS bf16 steps, graphed, --vis
+                tensorboard): finite log lines, K3-K5 and the blob
+                launched, host ms per step.
+  29. result  — the kernels' JSON line, then {"ok": true, "device": ...}.
 
 Any failed check raises: the script then exits non-zero and prints no
 result.  It imports neither jax nor PIL, nor anything of the JAX package.
@@ -924,8 +938,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as j2k_tmp:
         jpeg2000_phase(card, j2k_tmp)
 
-    # ---- 28. result ----
-    phase("phase 28: result")
+    # ---- 28. AVIF frames ----
+    with tempfile.TemporaryDirectory() as avif_tmp:
+        avif_phase(card, avif_tmp)
+
+    # ---- 29. result ----
+    phase("phase 29: result")
     kernels = []
     for name, source, line in KERNEL_ROWS:
         r = results[name]
@@ -2823,6 +2841,124 @@ def jpeg2000_phase(card, tmp: str) -> None:
     print(f"  jpeg2000: host ms per step "
           f"{[round(float(t), 3) for t in step_ms]} ({card})")
     print(f"  phase 27: {time.perf_counter() - start:.1f} s ({card})",
+          flush=True)
+
+
+AVIF_DIR = os.path.join(REPO, "tests", "golden", "avif")
+
+
+def avif_decode_check(card, tmp: str):
+    """Every committed fixture of tests/golden/avif/ decoded through
+    read_image to PIL's recorded digest, the kinds not ported refused
+    (NotImplementedError), PIL's refusals refused (ValueError, or no
+    plugin where libavif's parse declines the file); its five 800x800
+    frames timed (host CPU, one thread, best of 3, warm) beside the
+    native PNG decoder and the baseline JPEG decoder on the same pixels
+    -> [(frame path, its pixels / 255 as load_dataset gives them)]."""
+    import numpy as np
+
+    from rsn_torch.data import native, png
+    from rsn_torch.data.jpeg import read_image, read_jpeg
+
+    writer = load_writer("avif_writer",
+                         os.path.join(AVIF_DIR, "write_fixtures.py"))
+    jpeg_writer = load_writer("jpeg_kinds_writer", os.path.join(
+        JPEG_KINDS_DIR, "write_fixtures.py"))
+    with open(os.path.join(AVIF_DIR, "digests.json")) as fh:
+        recorded = json.load(fh)
+    decoded = unported = 0
+    for fname, want in sorted(recorded["files"].items()):
+        path = os.path.join(AVIF_DIR, fname)
+        if fname in writer.UNPORTED_CASES:
+            try:
+                read_image(path)
+            except NotImplementedError as e:
+                if "ROADMAP Queue 1" not in str(e):
+                    raise
+                unported += 1
+                continue
+            raise RuntimeError(f"avif/{fname}: a kind the port does not "
+                               "decode yet, decoded")
+        got = writer.digest(*read_image(path))
+        if got != want:
+            raise RuntimeError(f"avif/{fname}: decoded to {got}, PIL's "
+                               f"decode is {want}")
+        decoded += 1
+    for fname, err in sorted(recorded["refused"].items()):
+        declined = err.startswith("UnidentifiedImageError")
+        try:
+            read_image(os.path.join(AVIF_DIR, fname))
+        except NotImplementedError as e:
+            if declined and "not a file any" in str(e):
+                continue
+            raise
+        except ValueError:
+            if not declined:
+                continue
+            raise
+        raise RuntimeError(f"avif/{fname}: PIL refuses it ({err}), the "
+                           "port decodes it")
+    print(f"  {decoded} AVIF fixtures == PIL {recorded['pil']}'s decode "
+          f"(mode, shape, dtype, sha256), {unported} kinds not ported "
+          f"refused, {len(recorded['refused'])} PIL refuses refused "
+          f"({card})", flush=True)
+    frames = []
+    for name in writer.FRAMES:
+        path = os.path.join(AVIF_DIR, name)
+        mode, arr = read_image(path)
+        png_path = os.path.join(tmp, name + ".png")
+        png.write_png(png_path, arr)
+        jpeg_path = os.path.join(tmp, name + ".jpg")
+        with open(jpeg_path, "wb") as fh:
+            fh.write(jpeg_writer.write_jpeg(
+                np.ascontiguousarray(arr[..., :3]),
+                sampling=[(2, 2), (1, 1), (1, 1)], quality=90))
+        ms = best_of_3_ms(lambda p=path: read_image(p))
+        png_ms = best_of_3_ms(lambda: native.decode_png_batch(
+            [png_path], FRAME_RES, FRAME_RES, num_threads=1))
+        jpeg_ms = best_of_3_ms(lambda: read_jpeg(jpeg_path))
+        print(f"  {name} ({mode}, {os.path.getsize(path)} bytes): "
+              f"{ms:.4f} ms per {FRAME_RES}x{FRAME_RES} frame (host CPU, "
+              f"one thread, best of 3, warm); native PNG decoder "
+              f"{png_ms:.4f}, baseline JPEG (quality 90) {jpeg_ms:.4f} on "
+              f"the same pixels ({card})", flush=True)
+        rgb = arr.astype(np.float32) / 255.0
+        if rgb.shape[-1] == 4:  # blended to white, as load_dataset blends
+            rgb = rgb[..., :3] * rgb[..., 3:] + (1.0 - rgb[..., 3:])
+        frames.append((path, rgb))
+    return frames
+
+
+def avif_phase(card, tmp: str) -> None:
+    """Phase 28: the AVIF reader on this host, then a nerfstudio capture
+    of the five 800x800 AVIF frames through load_dataset and the train CLI
+    (graphed steps), from zeroed launch counts."""
+    import numpy as np
+
+    from rsn_torch.data.blender import load_dataset
+
+    start = time.perf_counter()
+    phase(f"phase 28: AVIF frames: the fixtures against PIL's digests, the "
+          f"five {FRAME_RES}x{FRAME_RES} frames timed, then train on a "
+          f"nerfstudio capture of them")
+    frames = avif_decode_check(card, tmp)
+    scene = write_capture([p for p, _ in frames],
+                          os.path.join(tmp, "avif_capture"))
+    t0 = time.perf_counter()
+    ds = load_dataset("nerfstudio", scene, "train")
+    load_s = time.perf_counter() - t0
+    if not all(any(np.array_equal(img, x) for _, x in frames)
+               for img in ds.images):
+        raise RuntimeError("the capture's train split does not load to its "
+                           "frames' pixels / 255")
+    print(f"  load_nerfstudio: the train split's {ds.images.shape[0]} of the "
+          f"five AVIF frames of {ds.images.shape[2]}x{ds.images.shape[1]} "
+          f"in {load_s:.4f} s (host clock; each == its frame's pixels / "
+          f"255, RGBA blended to white) ({card})", flush=True)
+    _, step_ms = capture_train_run(card, scene, tmp, "avif", False)
+    print(f"  avif: host ms per step "
+          f"{[round(float(t), 3) for t in step_ms]} ({card})")
+    print(f"  phase 28: {time.perf_counter() - start:.1f} s ({card})",
           flush=True)
 
 

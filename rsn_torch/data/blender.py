@@ -18,9 +18,11 @@ I;16, I;16B, I, F, LA, RGB, RGBA, P, PA, CMYK, LAB), WebPs through
 rsn_torch.data.webp (RGB or RGBA, libwebp's pixels), BMP / DIB, GIF
 (frame 0's palette indices), the PPM family (1, L, I, F, RGB and PIL's
 P, RGBA, CMYK) and TGA (1, L, LA, P, RGB, RGBA) through
-rsn_torch.data.bmp, gif, ppm and tga, and Pillow's bilinear shrink for
-each mode.  A file PIL refuses raises ValueError, as rsn's PIL raises; a
-format none of these, or a TIFF kind not ported yet, raises
+rsn_torch.data.bmp, gif, ppm and tga, JPEG 2000 through
+rsn_torch.data.jpeg2000, AVIF still images (RGB or RGBA) through
+rsn_torch.data.avif, and Pillow's bilinear shrink for each mode.  A
+file PIL refuses raises ValueError, as rsn's PIL raises; a format none of
+these, or a TIFF, JPEG 2000 or AVIF kind not ported yet, raises
 NotImplementedError (ROADMAP Queue 1).
 """
 from __future__ import annotations

@@ -20,7 +20,7 @@ import re
 import struct
 from typing import Callable, Dict, Optional
 
-from rsn_torch.data import bmp, gif, jpeg2000, png, ppm, tga, tiff, webp
+from rsn_torch.data import avif, bmp, gif, jpeg2000, png, ppm, tga, tiff, webp
 from rsn_torch.data.imagefile import DECLINES, File
 
 FIRST_PASS = ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG")
@@ -263,7 +263,7 @@ MAY_OPEN = {"IM": _im_may_open, "IMT": _imt_may_open,
 OPENERS = {"BMP": lambda d, p: bmp.BmpImage(d, p),
            "DIB": lambda d, p: bmp.BmpImage(d, p, dib=True),
            "GIF": gif.GifImage, "PPM": ppm.PpmImage, "TGA": tga.TgaImage,
-           "JPEG2000": jpeg2000.Jpeg2000Image}
+           "JPEG2000": jpeg2000.Jpeg2000Image, "AVIF": avif.AvifImage}
 # the ported plugins read whole once their _accept takes the prefix
 READERS = ("JPEG", "PNG", "TIFF", "WEBP")
 
@@ -271,7 +271,7 @@ READERS = ("JPEG", "PNG", "TIFF", "WEBP")
 class Identified:
     """The walk's end: `format` (PIL's format name, or None when nothing
     takes the file), `image` (an opened BMP / DIB / GIF / PPM / TGA /
-    JPEG 2000) and
+    JPEG 2000 / AVIF) and
     `ported` (False: an unported plugin may take it first)."""
 
     def __init__(self, fmt: Optional[str], image=None, ported: bool = True):

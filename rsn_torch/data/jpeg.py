@@ -10,10 +10,13 @@ mode and array for strips and tiles, both byte orders, BigTIFF, no
 compression, PackBits, LZW, Deflate and JPEG, predictors 2 and 3), a WebP
 to rsn_torch.data.webp.read_webp (frame 0 of any WebP PIL opens), a BMP
 or DIB to rsn_torch.data.bmp, a GIF (frame 0) to rsn_torch.data.gif, a
-PBM / PGM / PPM / PFM to rsn_torch.data.ppm, a TGA to rsn_torch.data.tga
-and a JPEG 2000 (a JP2 file or a raw codestream, decoded as OpenJPEG
-2.5.4 decodes it for PIL) to rsn_torch.data.jpeg2000.  A file that an unported plugin may take, or that no
-plugin takes, raises NotImplementedError.  `read_jpeg` gives what
+PBM / PGM / PPM / PFM to rsn_torch.data.ppm, a TGA to rsn_torch.data.tga,
+a JPEG 2000 (a JP2 file or a raw codestream, decoded as OpenJPEG
+2.5.4 decodes it for PIL) to rsn_torch.data.jpeg2000 and an AVIF still
+image (libavif 1.3.0's parse, AV1 key frames as dav1d 1.5.1 decodes
+them, libavif's YUV to RGB through libyuv) to rsn_torch.data.avif.  A
+file that an unported plugin may take, or that no plugin takes, raises
+NotImplementedError.  `read_jpeg` gives what
 `np.asarray(Image.open(path))` gives with PIL on libjpeg-turbo (the native
 decoder in rsn_torch.data.native, bit for bit): mode "L" as (H, W) uint8,
 "RGB" as (H, W, 3) uint8, "CMYK" as (H, W, 4) uint8 (PIL's inverted
@@ -29,7 +32,7 @@ import numpy as np
 
 from rsn_torch.data import formats, native, png, tiff, webp
 
-PORTED = "PNG, JPEG, TIFF, WebP, BMP, GIF, PPM, TGA and JPEG 2000"
+PORTED = "PNG, JPEG, TIFF, WebP, BMP, GIF, PPM, TGA, JPEG 2000 and AVIF"
 
 
 # -> (PIL's mode, the array np.asarray gives of the image PIL opens)

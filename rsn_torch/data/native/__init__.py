@@ -36,11 +36,19 @@
   refuses raises ValueError, a kind not ported NotImplementedError.  It
   is built with JPEG2000_FLAGS: FLAGS with floating-point contraction
   off, as OpenJPEG's float code runs for PIL without FMAs.
+- av1.cpp (with its tables, av1_tables.h): `probe_av1` and `decode_av1`,
+  an AV1 key frame as dav1d 1.5.1 decodes it for PIL's AVIF plugin (the
+  planes as uint8, a count of each coding tool the frame used), and
+  `avif_to_rgb`, libavif 1.3.0's YUV to RGB / RGBA for PIL (libyuv's
+  upsampling and fixed point, libavif's own limited-range and identity
+  paths, the un-premultiply), for rsn_torch.data.avif; a stream dav1d
+  refuses raises ValueError, a coding tool not ported NotImplementedError.
 
 g++ builds each library at first use into rsn_torch/_build/
-(git-ignored).  Its name carries a hash of its source, the flags and the
-host's CPU (the flags hold -march=native), so an edited source is rebuilt
-and a library built for another CPU is never loaded.  A failed build
+(git-ignored).  Its name carries a hash of its source (and the headers it
+includes), the flags and the host's CPU (the flags hold -march=native),
+so an edited source is rebuilt and a library built for another CPU is
+never loaded.  A failed build
 raises with the compiler's output: the port has no PIL to fall back to.
 """
 from __future__ import annotations
@@ -64,6 +72,8 @@ TIFF_SOURCE = os.path.join(_DIR, "tiff.cpp")
 WEBP_SOURCE = os.path.join(_DIR, "webp.cpp")
 RASTER_SOURCE = os.path.join(_DIR, "raster.cpp")
 JPEG2000_SOURCE = os.path.join(_DIR, "jpeg2000.cpp")
+AV1_SOURCE = os.path.join(_DIR, "av1.cpp")
+AV1_HEADERS = (os.path.join(_DIR, "av1_tables.h"),)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
 # rsn/data/native/__init__.py's flags: with -march=native g++ contracts
 # the alpha blend into FMAs, and the port's images equal rsn's bit for bit
@@ -78,6 +88,7 @@ _tiff_lib: Optional[ctypes.CDLL] = None
 _webp_lib: Optional[ctypes.CDLL] = None
 _raster_lib: Optional[ctypes.CDLL] = None
 _jpeg2000_lib: Optional[ctypes.CDLL] = None
+_av1_lib: Optional[ctypes.CDLL] = None
 
 
 def _cpu_identity() -> bytes:
@@ -91,11 +102,12 @@ def _cpu_identity() -> bytes:
 
 
 def library_path(source: Optional[str] = None, libs=LIBS,
-                 flags=FLAGS) -> str:
+                 flags=FLAGS, headers=()) -> str:
     source = source or SOURCE
     h = hashlib.sha256(" ".join(tuple(flags) + tuple(libs)).encode())
-    with open(source, "rb") as f:
-        h.update(f.read())
+    for name in (source,) + tuple(headers):
+        with open(name, "rb") as f:
+            h.update(f.read())
     h.update(_cpu_identity())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
@@ -577,3 +589,171 @@ def decode_jpeg2000(data: bytes, offset: int, out: np.ndarray,
         raise ValueError(f"{path}: a JPEG 2000 codestream OpenJPEG cannot "
                          f"decode ({what}); PIL raises on it too")
     return decoded.value
+
+
+# ---- AV1 frames and libavif's colour conversion (av1.cpp) ------------------
+
+# rsn_av1_* / rsn_avif_to_rgb codes; AV1_SHAPE: planes not the frame's
+AV1_INVALID, AV1_UNPORTED, AV1_SHAPE = 1, 2, 3
+PROBE_FIELDS = ("width", "height", "subsampling_x", "subsampling_y", "mono",
+                "bit_depth", "color_primaries", "transfer", "matrix",
+                "full_range")
+LAYOUTS = {"4:4:4": 0, "4:2:2": 1, "4:2:0": 2, "4:0:0": 3}
+
+
+def get_av1_lib() -> ctypes.CDLL:
+    """The loaded AV1 library, built first if it is missing."""
+    global _av1_lib
+    with _lock:
+        if _av1_lib is None:
+            path = library_path(AV1_SOURCE, (), FLAGS, AV1_HEADERS)
+            if not os.path.isfile(path):
+                _build(path, AV1_SOURCE, ())
+            lib = ctypes.CDLL(path)
+            i64, cint, u64p = ctypes.c_int64, ctypes.c_int, ctypes.POINTER(
+                ctypes.c_uint64)
+            lib.rsn_av1_count_names.restype = ctypes.c_char_p
+            lib.rsn_av1_count_names.argtypes = []
+            lib.rsn_av1_count_len.restype = cint
+            lib.rsn_av1_count_len.argtypes = []
+            lib.rsn_av1_probe.restype = cint
+            lib.rsn_av1_probe.argtypes = [_u8p, ctypes.c_size_t,
+                                          ctypes.POINTER(cint),
+                                          ctypes.c_char_p, cint]
+            lib.rsn_av1_decode.restype = cint
+            lib.rsn_av1_decode.argtypes = [
+                _u8p, ctypes.c_size_t, ctypes.POINTER(cint),
+                ctypes.POINTER(_u8p), ctypes.POINTER(i64),
+                ctypes.POINTER(cint), cint, u64p, ctypes.c_char_p, cint]
+            lib.rsn_avif_to_rgb.restype = cint
+            lib.rsn_avif_to_rgb.argtypes = [_u8p, i64, _u8p, i64, _u8p, i64,
+                                            _u8p, i64, cint, cint, cint, cint,
+                                            cint, cint, _u8p, i64, cint]
+            _av1_lib = lib
+        return _av1_lib
+
+
+def av1_count_names() -> Tuple[str, ...]:
+    """The names of the tool counts decode_av1 fills, in order."""
+    names = get_av1_lib().rsn_av1_count_names().decode()
+    return tuple(n for n in names.split(",") if n)
+
+
+def _av1_error(path: str, rc: int, msg: bytes) -> Exception:
+    what = msg.decode(errors="replace")
+    if rc == AV1_UNPORTED:
+        return NotImplementedError(
+            f"{path}: an AV1 frame with {what}; ROADMAP Queue 1: the port "
+            "does not decode this AVIF kind yet, rsn/data/blender.py reads "
+            "it with PIL")
+    return ValueError(f"{path}: an AV1 frame dav1d cannot decode ({what}); "
+                      "PIL raises on it too")
+
+
+def probe_av1(obus: bytes, path: str) -> dict:
+    """An AV1 item's OBUs -> its sequence and frame headers'
+    PROBE_FIELDS."""
+    src = np.frombuffer(obus, np.uint8)
+    info = (ctypes.c_int * len(PROBE_FIELDS))()
+    msg = ctypes.create_string_buffer(256)
+    rc = get_av1_lib().rsn_av1_probe(src.ctypes.data_as(_u8p), src.size,
+                                     info, msg, len(msg))
+    if rc != 0:
+        raise _av1_error(path, rc, msg.value)
+    return dict(zip(PROBE_FIELDS, info))
+
+
+def _plane(name: str, a: np.ndarray, shape: Optional[Tuple[int, int]],
+           writeable: bool) -> None:
+    if (a.dtype != np.uint8 or a.ndim != 2 or a.strides[1] != 1
+            or (writeable and not a.flags.writeable)):
+        raise ValueError(f"{name} must be a{' writeable' if writeable else ''}"
+                         " 2-D uint8 array with contiguous rows")
+    if shape is not None and a.shape != shape:
+        raise ValueError(f"{name} is {a.shape}, not {shape}")
+
+
+def decode_av1(obus: bytes, planes: List[np.ndarray], counts: np.ndarray,
+               path: str) -> dict:
+    """Decode an AV1 item's key frame into `planes` (Y, or Y, U, V: uint8,
+    sized as probe_av1 says: chroma ((h + sy) >> sy, (w + sx) >> sx)),
+    adding each tool's uses to `counts` (uint64, av1_count_names' order).
+    -> the probe's fields, from the headers the decode itself read.
+
+    Raises ValueError for a stream dav1d refuses or planes of another
+    count or shape than the frame's (checked in C before any write),
+    NotImplementedError for a tool the port does not decode."""
+    lib = get_av1_lib()
+    if (counts.dtype != np.uint64 or counts.ndim != 1
+            or counts.size != lib.rsn_av1_count_len()
+            or not counts.flags.c_contiguous or not counts.flags.writeable):
+        raise ValueError("counts must be a writeable C-contiguous uint64 "
+                         f"array of {lib.rsn_av1_count_len()} counts")
+    if len(planes) not in (1, 3):
+        raise ValueError(f"1 or 3 planes expected, {len(planes)} given")
+    for i, a in enumerate(planes):
+        _plane(f"plane {i}", a, None, True)
+    n = len(planes)
+    ptrs = (_u8p * n)(*(a.ctypes.data_as(_u8p) for a in planes))
+    strides = (ctypes.c_int64 * n)(*(a.strides[0] for a in planes))
+    dims = (ctypes.c_int * (2 * n))(*(d for a in planes for d in a.shape))
+    info = (ctypes.c_int * len(PROBE_FIELDS))()
+    msg = ctypes.create_string_buffer(256)
+    rc = lib.rsn_av1_decode(
+        np.frombuffer(obus, np.uint8).ctypes.data_as(_u8p), len(obus), info,
+        ptrs, strides, dims, n,
+        counts.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), msg,
+        len(msg))
+    if rc == AV1_SHAPE:
+        raise ValueError(msg.value.decode())
+    if rc != 0:
+        raise _av1_error(path, rc, msg.value)
+    return dict(zip(PROBE_FIELDS, info))
+
+
+def avif_to_rgb(planes: List[np.ndarray], alpha: Optional[np.ndarray],
+                layout: str, matrix: int, full_range: bool,
+                premultiplied: bool, out: np.ndarray, path: str) -> None:
+    """libavif's 8-bit YUV (`planes`: Y, or Y, U, V of `layout`) to RGB or,
+    with `alpha` (H, W), RGBA into `out` (H, W, 3 or 4) uint8.
+
+    Raises ValueError for a matrix libavif refuses, NotImplementedError
+    for one it converts with code the port does not follow."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r} not one of {tuple(LAYOUTS)}")
+    h, w = planes[0].shape[:2]
+    channels = 3 if alpha is None else 4
+    if (out.dtype != np.uint8 or out.shape != (h, w, channels)
+            or out.strides[1:] != (channels, 1) or not out.flags.writeable):
+        raise ValueError(f"out must be a writeable ({h}, {w}, {channels}) "
+                         "uint8 array with contiguous rows")
+    n = 1 if layout == "4:0:0" else 3
+    if len(planes) != n:
+        raise ValueError(f"{n} planes expected for {layout}")
+    sx, sy = {"4:4:4": (0, 0), "4:2:2": (1, 0), "4:2:0": (1, 1),
+              "4:0:0": (1, 1)}[layout]
+    for i, a in enumerate(planes):
+        shape = (h, w) if i == 0 else ((h + sy) >> sy, (w + sx) >> sx)
+        _plane(f"plane {i}", a, shape, False)
+    if alpha is not None:
+        _plane("alpha", alpha, (h, w), False)
+    y = planes[0]
+    u, v = (planes[1], planes[2]) if n == 3 else (y, y)
+    a = y if alpha is None else alpha
+    rc = get_av1_lib().rsn_avif_to_rgb(
+        y.ctypes.data_as(_u8p), y.strides[0], u.ctypes.data_as(_u8p),
+        u.strides[0], v.ctypes.data_as(_u8p), v.strides[0],
+        a.ctypes.data_as(_u8p), a.strides[0], w, h, LAYOUTS[layout], matrix,
+        int(full_range), int(premultiplied), out.ctypes.data_as(_u8p),
+        out.strides[0], channels)
+    if rc == AV1_INVALID:
+        raise ValueError(
+            f"{path}: an AVIF image of matrix coefficients {matrix} "
+            f"({layout}), which libavif cannot convert to RGB; PIL raises on "
+            "it too")
+    if rc != 0:
+        raise NotImplementedError(
+            f"{path}: an AVIF image of matrix coefficients {matrix} "
+            f"({layout}, {'full' if full_range else 'limited'} range), which "
+            "libavif converts with code the port does not follow yet; ROADMAP "
+            "Queue 1: rsn/data/blender.py reads it with PIL")

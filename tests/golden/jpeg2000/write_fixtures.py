@@ -40,6 +40,7 @@ import json
 import os
 import struct
 import sys
+import tempfile
 
 import numpy as np
 
@@ -164,7 +165,8 @@ def opj_encode(planes, dx=None, dy=None, prec=8, sgnd=False, space="srgb",
         i32[base + 12] = 1  # the tile (1-based)
     i32[P_NUMPOCS] = len(pocs)
     codec = lib.opj_create_compress(2 if jp2 else 0)
-    out = os.path.join(HERE, f".encode-{os.getpid()}")
+    # OpenJPEG's file stream writes outside the fixture folder
+    out = os.path.join(tempfile.gettempdir(), f"rsn-opj-encode-{os.getpid()}")
     stream = None
     try:
         if not lib.opj_setup_encoder(codec, buf, image):

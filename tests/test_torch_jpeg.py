@@ -216,7 +216,7 @@ def test_more_pixels_than_pils_limit_raise_before_decoding(tmp_path):
 
 
 def test_read_image_picks_the_decoder_by_content(tmp_path):
-    """A PNG named .jpg is read as a PNG; an AVIF raises
+    """A PNG named .jpg is read as a PNG; a QOI raises
     NotImplementedError naming ROADMAP Queue 1 and rsn/data/blender.py;
     read_png declines a JPEG without naming a decoder still to come."""
     px = fixtures.case_pixels("sub444")
@@ -224,10 +224,10 @@ def test_read_image_picks_the_decoder_by_content(tmp_path):
     Image.fromarray(px).save(png_path, "PNG")
     mode, got = tjpeg.read_image(png_path)
     assert mode == "RGB" and np.array_equal(got, px)
-    avif = str(tmp_path / "frame.avif")
-    Image.fromarray(px).save(avif, "AVIF")
+    qoi = str(tmp_path / "frame.qoi")
+    Image.fromarray(px).save(qoi, "QOI")
     with pytest.raises(NotImplementedError) as info:
-        tjpeg.read_image(avif)
+        tjpeg.read_image(qoi)
     assert ("ROADMAP Queue 1" in str(info.value)
             and "rsn/data/blender.py" in str(info.value))
     with pytest.raises(NotImplementedError, match="not a PNG") as info:

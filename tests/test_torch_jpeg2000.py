@@ -297,14 +297,14 @@ def test_bindings_check_arrays_before_c():
 
 
 def test_unported_format_names_the_queue(tmp_path):
-    """An AVIF, the next format of ROADMAP Queue 1, raises
+    """A QOI, the next format of ROADMAP Queue 1, raises
     NotImplementedError naming what the port decodes."""
-    path = str(tmp_path / "frame.avif")
-    Image.new("RGB", (8, 8), (10, 20, 30)).save(path, "AVIF")
+    path = str(tmp_path / "frame.qoi")
+    Image.new("RGB", (8, 8), (10, 20, 30)).save(path, "QOI")
     with pytest.raises(NotImplementedError) as info:
         read_image(path)
     msg = str(info.value)
-    assert "AVIF" in msg and PORTED in msg and "JPEG 2000" in PORTED
+    assert "QOI" in msg and PORTED in msg and "JPEG 2000" in PORTED
 
 
 def _frame_file(i, img):

@@ -186,10 +186,10 @@ def test_port_imports_no_jax():
     assert (jax_in, flax_in, pil_in) == ("False", "False", "False")
 
 
-def _read_avif_frame():
-    """A nerfstudio capture's frame in AVIF, a format the port's
-    read_image leaves out (PNG, JPEG, TIFF, WebP, BMP, GIF, PPM, TGA and
-    JPEG 2000 frames are decoded)."""
+def _read_qoi_frame():
+    """A nerfstudio capture's frame in QOI, a format the port's
+    read_image leaves out (PNG, JPEG, TIFF, WebP, BMP, GIF, PPM, TGA,
+    JPEG 2000 and AVIF frames are decoded)."""
     import tempfile
 
     from PIL import Image
@@ -197,8 +197,8 @@ def _read_avif_frame():
     from rsn_torch.data import blender as tblender
 
     with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "frame_00001.avif")
-        Image.new("RGB", (8, 8), (10, 20, 30)).save(path, "AVIF")
+        path = os.path.join(d, "frame_00001.qoi")
+        Image.new("RGB", (8, 8), (10, 20, 30)).save(path, "QOI")
         tblender._load_image(path)
 
 
@@ -222,7 +222,7 @@ def _not_ported_calls():
     """Each "not ported" error of the port, as a call and the rsn module
     it must name."""
     return {
-        "avif frame": (_read_avif_frame, "rsn/data/blender.py"),
+        "qoi frame": (_read_qoi_frame, "rsn/data/blender.py"),
         "lzma tiff frame": (_read_lzma_tiff_frame, "rsn/data/blender.py"),
     }
 

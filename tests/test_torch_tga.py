@@ -84,8 +84,8 @@ def _imt(path):
         f.write(b"width 4\nheight 2\npixel n8\n\x0c" + bytes(8))
 
 
-def _avif(path):
-    Image.new("RGB", (8, 8), (10, 20, 30)).save(path, "AVIF")
+def _qoi(path):
+    Image.new("RGB", (8, 8), (10, 20, 30)).save(path, "QOI")
 
 
 def _pcx(path):
@@ -100,7 +100,7 @@ def _cur_directory_of_a_bmp(path):
         f.write(b"\0\0\2\0\1\0" + entry + dib + bytes(24))
 
 
-@pytest.mark.parametrize("write", [_im, _spider, _pcd, _imt, _avif,
+@pytest.mark.parametrize("write", [_im, _spider, _pcd, _imt, _qoi,
                                    _pcx, _cur_directory_of_a_bmp])
 def test_unported_plugins_are_named(tmp_path, write):
     """A file an unported plugin takes (the accept-less IM, IMT, SPIDER

@@ -258,17 +258,18 @@ def test_resize_bilinear_new_modes_match_pillow(mode):
 
 def test_read_image_dispatch_and_other_formats(tmp_path):
     """read_image sends a TIFF to read_tiff, whatever its name, and
-    refuses a format still to port (AVIF) naming the queue."""
+    refuses a format still to port (QOI) naming the queue."""
     path = str(tmp_path / "frame.png")  # a TIFF under another name
     fixtures.write_case("strips_one_row_lzw", path)
     _same(tjpeg.read_image(path), _pil(path))
-    avif = str(tmp_path / "frame.avif")
-    Image.new("RGB", (8, 8), (10, 20, 30)).save(avif, "AVIF")
+    qoi = str(tmp_path / "frame.qoi")
+    Image.new("RGB", (8, 8), (10, 20, 30)).save(qoi, "QOI")
     with pytest.raises(NotImplementedError) as info:
-        tjpeg.read_image(avif)
+        tjpeg.read_image(qoi)
     msg = str(info.value)
-    assert "PNG, JPEG, TIFF, WebP, BMP, GIF, PPM, TGA and JPEG 2000" in msg
-    assert "AVIF" in msg and "ROADMAP Queue 1" in msg
+    assert ("PNG, JPEG, TIFF, WebP, BMP, GIF, PPM, TGA, JPEG 2000 and AVIF"
+            in msg)
+    assert "QOI" in msg and "ROADMAP Queue 1" in msg
     assert "rsn/data/blender.py" in msg
 
 

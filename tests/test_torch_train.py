@@ -477,23 +477,23 @@ def test_train_cli_num_devices_trains_ranks(tmp_path, capfd):
 
 
 @pytest.mark.parametrize("flags,match", [
-    # the dataparsers and PNG, JPEG, TIFF, WebP, BMP, GIF, PPM, TGA and
-    # JPEG 2000 frames are ported; an AVIF frame is not
+    # the dataparsers and PNG, JPEG, TIFF, WebP, BMP, GIF, PPM, TGA,
+    # JPEG 2000 and AVIF frames are ported; a QOI frame is not
     pytest.param(["--pipeline.datamanager.dataparser", "blender",
                   "--data", "{jpeg_scene}"],
-                 "PNG, JPEG, TIFF, WebP, BMP, GIF, PPM, TGA and JPEG 2000",
-                 id="flags3-dataparser"),
+                 "PNG, JPEG, TIFF, WebP, BMP, GIF, PPM, TGA, JPEG 2000 and "
+                 "AVIF", id="flags3-dataparser"),
 ])
 def test_unported_train_options_raise(tmp_path, flags, match):
     scene = tmp_path / "jpeg_scene"
     scene.mkdir()
     from PIL import Image
 
-    Image.new("RGB", (8, 8), (10, 20, 30)).save(scene / "r_0.avif",
-                                                "AVIF")
+    Image.new("RGB", (8, 8), (10, 20, 30)).save(scene / "r_0.qoi",
+                                                "QOI")
     (scene / "transforms_train.json").write_text(json.dumps(
         {"camera_angle_x": 0.69, "frames": [
-            {"file_path": "./r_0.avif",
+            {"file_path": "./r_0.qoi",
              "transform_matrix": np.eye(4).tolist()}]}))
     argv = ["reflect-sampling-nerf", "--data", "sphere:res=8,cams=2",
             "--pipeline.datamanager.dataparser", "synthetic",

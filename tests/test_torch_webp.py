@@ -289,7 +289,7 @@ def test_file_pil_refuses_raises_value_error(tmp_path, name):
 def test_read_image_dispatch_and_other_formats(tmp_path):
     """read_image sends a WebP to read_webp whatever its name; a RIFF /
     WEBP file whose first chunk is not VP8, VP8L or VP8X is not a WebP
-    for PIL, and it and an AVIF raise NotImplementedError naming the
+    for PIL, and it and a QOI raise NotImplementedError naming the
     queue."""
     src = os.path.join(GOLDEN, "pil_lossy_rgba.webp")
     with open(src, "rb") as f:
@@ -298,14 +298,14 @@ def test_read_image_dispatch_and_other_formats(tmp_path):
     _same(tjpeg.read_image(path), _pil(src))
     other = _write(tmp_path, "alph_first.webp",
                    data[:12] + b"ALPH" + data[16:])
-    avif = str(tmp_path / "frame.avif")
-    Image.new("RGB", (8, 8), (10, 20, 30)).save(avif, "AVIF")
-    for p in (other, avif):
+    qoi = str(tmp_path / "frame.qoi")
+    Image.new("RGB", (8, 8), (10, 20, 30)).save(qoi, "QOI")
+    for p in (other, qoi):
         with pytest.raises(NotImplementedError) as info:
             tjpeg.read_image(p)
         msg = str(info.value)
-        assert ("PNG, JPEG, TIFF, WebP, BMP, GIF, PPM, TGA and JPEG 2000"
-                in msg), msg
+        assert ("PNG, JPEG, TIFF, WebP, BMP, GIF, PPM, TGA, JPEG 2000 and "
+                "AVIF" in msg), msg
         assert "ROADMAP Queue 1" in msg and "rsn/data/blender.py" in msg
 
 

@@ -24,7 +24,7 @@ from rsn_torch.data import synthetic as tsynthetic
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 # the port's "not ported" errors name what it decodes
-PORTED = "PNG, JPEG, TIFF, WebP, BMP, GIF, PPM, TGA and JPEG 2000"
+PORTED = "PNG, JPEG, TIFF, WebP, BMP, GIF, PPM, TGA, JPEG 2000 and AVIF"
 
 
 class Golden:
